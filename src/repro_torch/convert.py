@@ -1,0 +1,32 @@
+"""Carry particle state between ``repro`` and ``repro_torch`` as numpy
+arrays. A particle system's "weights" are its state: both packages step
+the same state after the conversion.
+
+The ``repro`` side is given as numpy (``np.asarray`` on each leaf of its
+``ParticleSet``), so this module needs neither package's other side."""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.particles import ParticleSet, resolve_device
+
+
+def particles_from_numpy(x: np.ndarray, valid: np.ndarray,
+                         props: Dict[str, np.ndarray],
+                         device="cuda") -> ParticleSet:
+    """A :class:`ParticleSet` on ``device`` from numpy leaves (copied)."""
+    dev = resolve_device(device)
+    t = lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev)
+    return ParticleSet(x=t(x), props={k: t(v) for k, v in props.items()},
+                       valid=t(np.asarray(valid, bool)))
+
+
+def particles_to_numpy(ps: ParticleSet
+                       ) -> Tuple[np.ndarray, np.ndarray,
+                                  Dict[str, np.ndarray]]:
+    """(x, valid, props) as numpy arrays on the host."""
+    n = lambda a: a.detach().cpu().numpy()
+    return n(ps.x), n(ps.valid), {k: n(v) for k, v in ps.props.items()}

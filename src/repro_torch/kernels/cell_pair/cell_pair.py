@@ -1,0 +1,268 @@
+"""Cell-pair interaction engine (port of ``repro.kernels.cell_pair``; paper
+§2/§4.1).
+
+One engine serves every pairwise workload. PyTorch pre-gathers dense
+per-cell candidate tiles (:func:`gather_cell_tiles`), applying the
+per-neighbor-cell periodic box shift so the kernel's *direct* displacement
+equals the minimum image for any grid size; the hand-written CUDA kernel
+``csrc/cell_pair.cu`` sums a pair body over each (cc) x (K·cc) masked
+tile; per-slot sums are scattered back to particles (:func:`scatter_slots`).
+
+:func:`cell_pair` is the tile-level entry. For CUDA tensors it launches the
+kernel, or raises if the body or precision has no CUDA form; for CPU
+tensors it runs :func:`cell_pair_torch`, the plain PyTorch version of the
+same function (the Pallas ``_pair_kernel`` rule: self-pairs are excluded by
+``r2 > 1e-12``). :data:`LAUNCHES` counts kernel launches.
+
+The body protocol is that of ``repro_torch.core.interactions``. A body the
+kernel can run carries ``cuda_kind`` (the C++ functor it maps to) and
+``cuda_params``; this version has the LJ functor (``"lj"``), fp32.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import pathlib
+from typing import Dict, NamedTuple
+
+import torch
+
+from repro_torch.core.cell_list import CellList, neighborhood
+from repro_torch.core.interactions import (_mask0, cast_bf16, check_out_kind,
+                                           parse_precision)
+from repro_torch.core.particles import ParticleSet
+from repro_torch.kernels import _build
+
+SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "cell_pair.cu"
+
+#: Number of CUDA kernel launches made by :func:`cell_pair` in this process.
+LAUNCHES = 0
+
+
+class CellTiles(NamedTuple):
+    """Dense per-cell tiles: the engine's pre-gather product."""
+
+    rows: torch.Tensor       # (n_cells, cc) int32 particle index per slot
+    cell_x: torch.Tensor     # (n_cells, cc, dim) home-cell positions
+    nbr_x: torch.Tensor      # (n_cells, K*cc, dim) candidates, shift-applied
+    cell_mask: torch.Tensor  # (n_cells, cc) bool
+    nbr_mask: torch.Tensor   # (n_cells, K*cc) bool
+    props_i: Dict[str, torch.Tensor]
+    props_j: Dict[str, torch.Tensor]
+
+
+def gather_cell_tiles(ps: ParticleSet, cl: CellList,
+                      prop_names=()) -> CellTiles:
+    """Dense per-cell tiles from a CellList, candidates in the K order of
+    ``neighbor_offsets``. Periodic neighbor cells' positions are shifted by
+    the box offset of the image they were reached through, so the direct
+    displacement equals the periodic image displacement for any grid size.
+    (``repro``'s ``cells`` restriction arrives with split-phase overlap
+    stepping, ROADMAP A14.)"""
+    cap = ps.capacity
+    xm = ps.masked_x()
+    hood, shifts = neighborhood(cl)         # (n_cells, K), (n_cells, K, dim)
+    n_cells, K = hood.shape
+    cc = cl.cell_cap
+    rows = cl.cells[:n_cells]                       # (n_cells, cc)
+    cand = cl.cells[hood.long()].reshape(n_cells, K * cc)
+    safe_r = rows.clamp(max=cap - 1).long()
+    safe_c = cand.clamp(max=cap - 1).long()
+    nbr_x = (xm[safe_c].reshape(n_cells, K, cc, ps.dim)
+             + shifts[:, :, None, :]).reshape(n_cells, K * cc, ps.dim)
+    return CellTiles(
+        rows=rows, cell_x=xm[safe_r], nbr_x=nbr_x,
+        cell_mask=rows < cap, nbr_mask=cand < cap,
+        props_i={k: ps.props[k][safe_r] for k in prop_names},
+        props_j={k: ps.props[k][safe_c] for k in prop_names})
+
+
+def cell_pair_torch(cell_x, nbr_x, cell_mask, nbr_mask, props_i=None,
+                    props_j=None, *, body, out, r_cut: float,
+                    precision: str = "fp32", cell_batch: int = 256):
+    """Plain PyTorch version of the tile kernel, ``cell_batch`` cells at a
+    time (a whole 216k-particle tile set is gigabytes per temporary).
+
+    cell_x: (C, cc, dim); nbr_x: (C, Kcc, dim); masks (C, cc)/(C, Kcc);
+    props_i/props_j: {name: (C, cc[, dim]) / (C, Kcc[, dim])}. ``out`` maps
+    name -> "scalar" | "radial". Returns {name: (C, cc[, dim])} fp32
+    per-slot sums. ``ok = mi & mj & r2 < r_cut² & r2 > 1e-12``; masking is
+    a select, so FILL candidates never turn into NaN. ``precision`` as in
+    ``repro``'s Pallas kernel: bf16 body operands, fp32 geometry and sums."""
+    props_i = dict(props_i or {})
+    props_j = dict(props_j or {})
+    mode, sel = parse_precision(precision, out)
+    C, cc, dim = cell_x.shape
+    rc2 = r_cut * r_cut
+    out_spec = tuple(sorted(out.items()))
+    res = {name: torch.empty((C, cc, dim) if kind == "radial" else (C, cc),
+                             dtype=torch.float32, device=cell_x.device)
+           for name, kind in out_spec}
+    use_bf16 = {name: mode == "bf16x" and (sel is None or name in sel)
+                for name, _ in out_spec}
+    for b0 in range(0, C, cell_batch):
+        b = slice(b0, b0 + cell_batch)
+        xi, xj = cell_x[b], nbr_x[b]
+        mi, mj = cell_mask[b], nbr_mask[b]
+        wi = {k: a[b][:, :, None] for k, a in props_i.items()}
+        wj = {k: a[b][:, None, :] for k, a in props_j.items()}
+
+        def dx(d):
+            return xi[:, :, None, d] - xj[:, None, :, d]
+
+        r2 = dx(0) * dx(0)
+        for d in range(1, dim):
+            dd = dx(d)
+            r2 = r2 + dd * dd
+        ok = mi[:, :, None] & mj[:, None, :] & (r2 < rc2) & (r2 > 1e-12)
+
+        def eval_body(bf16: bool):
+            """(dx_fn, body values) under one operand precision."""
+            if bf16:
+                dxb = lambda d: dx(d).to(torch.bfloat16)
+                return dxb, body(dxb, r2.to(torch.bfloat16), ok,
+                                 cast_bf16(wi), cast_bf16(wj))
+            return dx, body(dx, r2, ok, wi, wj)
+
+        evals = {}
+        for name, _ in out_spec:
+            if use_bf16[name] not in evals:
+                evals[use_bf16[name]] = eval_body(use_bf16[name])
+        for name, kind in out_spec:
+            dx_k, vals = evals[use_bf16[name]]
+            v = _mask0(ok, check_out_kind(name, kind, vals[name]))
+            if kind == "radial":
+                for d in range(dim):
+                    res[name][b, :, d] = (v * dx_k(d)).sum(
+                        dim=2, dtype=torch.float32)
+            else:
+                res[name][b] = v.sum(dim=2, dtype=torch.float32)
+    return res
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(SOURCE)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.cell_pair_lj_f32_d3.argtypes = [p, p, p, p, p, i, i, i, f, f, f, p]
+    lib.cell_pair_lj_f32_d3.restype = i
+    return lib
+
+
+def _check_tiles(cell_x, nbr_x, cell_mask, nbr_mask):
+    C, cc, dim = cell_x.shape
+    kcc = nbr_x.shape[1]
+    for name, t, dtype, shape in (
+            ("cell_x", cell_x, torch.float32, (C, cc, dim)),
+            ("nbr_x", nbr_x, torch.float32, (C, kcc, dim)),
+            ("cell_mask", cell_mask, torch.bool, (C, cc)),
+            ("nbr_mask", nbr_mask, torch.bool, (C, kcc))):
+        if t.device != cell_x.device:
+            raise ValueError(f"{name} is on {t.device}, cell_x on "
+                             f"{cell_x.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, want "
+                             f"{shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not 0 < cc <= 1024:
+        raise ValueError(f"cell_cap {cc} must be in [1, 1024] (one thread "
+                         "per home slot)")
+
+
+def _cell_pair_cuda(cell_x, nbr_x, cell_mask, nbr_mask, props_i, props_j,
+                    *, body, out, r_cut, precision):
+    """Launch the CUDA kernel on PyTorch's current stream; no sync."""
+    global LAUNCHES
+    kind = getattr(body, "cuda_kind", None)
+    if kind is None:
+        raise NotImplementedError(
+            "this pair body has no CUDA functor (no cuda_kind); the CUDA "
+            "cell-pair kernel runs the LJ body only so far — use "
+            "backend='torch' for other bodies")
+    mode, _ = parse_precision(precision, out)
+    if mode != "fp32":
+        raise NotImplementedError(
+            f"precision {precision!r} is not in the CUDA cell-pair kernel "
+            "yet (fp32 only); use backend='torch'")
+    if kind != "lj":
+        raise NotImplementedError(f"unknown cuda_kind {kind!r}")
+    if dict(out) != {"f": "radial"} or props_i or props_j:
+        raise ValueError("the LJ functor has one radial output 'f' and no "
+                         f"props; got out={out!r}, props={sorted(props_i)}")
+    _check_tiles(cell_x, nbr_x, cell_mask, nbr_mask)
+    C, cc, dim = cell_x.shape
+    if dim != 3:
+        raise ValueError(f"the LJ functor is built for dim=3, got {dim}")
+    sigma, epsilon = body.cuda_params
+    f = torch.empty((C, cc, 3), dtype=torch.float32, device=cell_x.device)
+    lib = _lib()
+    with torch.cuda.device(cell_x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.cell_pair_lj_f32_d3(
+            cell_x.data_ptr(), nbr_x.data_ptr(), cell_mask.data_ptr(),
+            nbr_mask.data_ptr(), f.data_ptr(), C, cc, nbr_x.shape[1],
+            r_cut * r_cut, sigma * sigma, 24.0 * epsilon, stream)
+    _build.check(err, "cell_pair_lj_f32_d3")
+    LAUNCHES += 1
+    return {"f": f}
+
+
+def cell_pair(cell_x, nbr_x, cell_mask, nbr_mask, props_i=None,
+              props_j=None, *, body, out, r_cut: float,
+              precision: str = "fp32"):
+    """Tile-level engine entry (``repro``'s ``cell_pair_pallas``). CUDA
+    tensors launch the kernel (NotImplementedError for a body without a
+    CUDA functor or a bf16x precision — never a quiet fallback); CPU
+    tensors run :func:`cell_pair_torch`. Returns {name: (C, cc[, dim])}."""
+    if cell_x.is_cuda:
+        return _cell_pair_cuda(cell_x, nbr_x, cell_mask, nbr_mask,
+                               dict(props_i or {}), dict(props_j or {}),
+                               body=body, out=out, r_cut=r_cut,
+                               precision=precision)
+    return cell_pair_torch(cell_x, nbr_x, cell_mask, nbr_mask, props_i,
+                           props_j, body=body, out=out, r_cut=r_cut,
+                           precision=precision)
+
+
+#: Dump rows past ``cap`` that :func:`scatter_slots` spreads sentinel slots
+#: over. One dump row would take every sentinel's atomic add at a single
+#: address (about 368k of them at the 216k MD size, 0.69 ms on the H100).
+_DUMP_ROWS = 1024
+
+
+def scatter_slots(rows: torch.Tensor, val: torch.Tensor,
+                  cap: int) -> torch.Tensor:
+    """Slot→particle scatter-back: (n_cells, cc, ...) per-slot sums into a
+    (cap, ...) per-particle array. Sentinel rows (``cap``) land on dump
+    rows past ``cap`` that are dropped, spread over :data:`_DUMP_ROWS`
+    rows; a valid particle's sum is the same either way."""
+    flat_rows = rows.reshape(-1).long()
+    flat = val.reshape((flat_rows.shape[0],) + tuple(val.shape[2:]))
+    spread = cap + torch.arange(flat_rows.shape[0], device=flat.device) \
+        % _DUMP_ROWS
+    dest = torch.where(flat_rows < cap, flat_rows, spread)
+    buf = torch.zeros((cap + _DUMP_ROWS,) + tuple(flat.shape[1:]),
+                      dtype=flat.dtype, device=flat.device)
+    buf.index_add_(0, dest, flat)
+    return buf[:cap]
+
+
+def apply_kernel_cuda(ps: ParticleSet, cl: CellList, body, *, out,
+                      r_cut: float, prop_names=(), precision: str = "fp32"):
+    """End-to-end kernel path: gather → CUDA kernel → scatter (use
+    ``apply_pair_kernel(..., backend="cuda")``). Raises RuntimeError on
+    CPU tensors."""
+    if not ps.x.is_cuda:
+        raise RuntimeError(
+            f"backend='cuda' needs CUDA tensors; the particles are on "
+            f"{ps.device} (use backend='auto' or 'torch' on the CPU)")
+    t = gather_cell_tiles(ps, cl, prop_names)
+    res = cell_pair(t.cell_x, t.nbr_x, t.cell_mask, t.nbr_mask, t.props_i,
+                    t.props_j, body=body, out=out, r_cut=r_cut,
+                    precision=precision)
+    cap = ps.capacity
+    return {name: _mask0(ps.valid, scatter_slots(t.rows, v, cap))
+            for name, v in res.items()}

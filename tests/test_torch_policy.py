@@ -1,0 +1,76 @@
+"""Rules of the port: repro_torch and chip_smoke.py import neither jax nor
+repro; importing repro_torch needs no CUDA; asking for the card where there
+is none raises instead of falling back to the CPU."""
+import ast
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+REPRO = re.compile(r"\brepro\b(?!_torch)")
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_repro(path):
+    text = path.read_text()
+    assert "import jax" not in text and "from jax" not in text
+    for mod in _imported_modules(path):
+        assert not REPRO.search(mod), f"{path}: imports {mod}"
+        assert mod.split(".")[0] != "jax", f"{path}: imports {mod}"
+
+
+def test_port_imports_without_jax_or_cuda():
+    code = ("import sys, importlib, pkgutil, repro_torch\n"
+            "for m in pkgutil.walk_packages(repro_torch.__path__, "
+            "'repro_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro', 'triton')]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=ROOT, timeout=120)
+
+
+def test_cuda_requested_without_card_raises(monkeypatch):
+    from repro_torch.apps import md
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        md.init_particles(md.MDConfig(n_per_side=3), device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        md.run(md.MDConfig(n_per_side=3), 1)       # cfg.device = "cuda"
+
+
+def test_cuda_backend_on_cpu_tensors_raises():
+    from repro_torch.apps import md
+    from repro_torch.core import cell_list as CL
+    from repro_torch.core import interactions as I
+    cfg = md.MDConfig(n_per_side=4, device="cpu")
+    ps = md.init_particles(cfg)
+    cl = CL.build_cell_list(ps, **md._cl_kw(cfg))
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        I.apply_pair_kernel(ps, cl, md.lj_pair_body(0.1, 1.0),
+                            out={"f": "radial"}, r_cut=0.3, backend="cuda")
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        md.compute_forces(ps, md.MDConfig(n_per_side=4, device="cpu",
+                                          backend="cuda"))
+    with pytest.raises(ValueError, match="unknown backend"):
+        I.apply_pair_kernel(ps, cl, md.lj_pair_body(0.1, 1.0),
+                            out={"f": "radial"}, r_cut=0.3, backend="jnp")
