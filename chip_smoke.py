@@ -17,13 +17,33 @@ Phases, each of which raises (non-zero exit) on failure:
      ``device="cuda"``, ``backend="auto"`` — zero step flags (``md.run``
      raises otherwise), one kernel launch per force evaluation, finite
      positions and velocities, total-energy drift < 0.05; then the step
-     time (CUDA events) and particle-steps per second.
+     time (CUDA events) and particle-steps per second;
+  4. the M'4 P2M and M2P kernels against their plain PyTorch versions on
+     the bucket tiles of the one-card vortex-in-cell size (800 x 200 x 200
+     nodes, the paper's §4.4 box at half its resolution per axis; 3.2e7
+     particles), after one step so particles sit off the lattice:
+     max-abs relative error <= 1e-5, both timed with CUDA events; plus a
+     5-step (16, 8, 8) run through the kernels against the plain path;
+  5. the vortex main path: ``vortex.run`` for 10 steps at that size on
+     ``device="cuda"``, ``backend="auto"``, ``interp="cells"`` — exactly
+     2 P2M + 2 M2P launches per step plus 4 per re-provision redo, a
+     finite field and enstrophy, an advancing centroid; then ms/step,
+     particle-steps per second and a device-time breakdown of the step.
 
 It prints a ``{"kernels": [...]}`` line and, as its last line,
 ``{"ok": true, "device": {...}}``. It exits non-zero without a result when
 ``torch.cuda.is_available()`` is false, and fails at import when the
 ``repro_torch`` sources are not beside it.
+
+    python3 chip_smoke.py --vic-paper-size
+
+runs none of the phases above. It asks whether the paper's full §4.4 mesh
+(1600 x 400 x 400 nodes) fits one card: one ``vortex.run`` step there,
+then one JSON line with the peak allocated bytes and the card's total, and
+either the run's centroid and finiteness or the out-of-memory message (an
+out-of-memory error is the answer, so it is reported, not raised).
 """
+import argparse
 import json
 import pathlib
 import subprocess
@@ -49,6 +69,12 @@ STEPS = 100
 REL_TOL = 1e-5        # kernel vs plain, fp32: only the summation order differs
 DRIFT_TOL = 0.05      # tests/test_cell_pair.py energy-conservation bound
 SMALL_TOL = 1e-4      # 20-step trajectory, kernel path vs plain path
+# The one-card vortex-in-cell size: the paper's box (22 x 5.57 x 5.57) at
+# half its 1600 x 400 x 400 resolution per axis.
+VIC_SHAPE = (800, 200, 200)
+VIC_LENGTHS = (22.0, 5.57, 5.57)
+VIC_DT = 0.0125
+VIC_STEPS = 10
 
 
 def time_cuda(fn, iters: int, warmup: int = 2) -> float:
@@ -99,11 +125,249 @@ def pair_work(t, rc2: float, batch: int = 512):
     return int(tests), int(inside)
 
 
+def m4_pairs(x, valid, shape, lengths, batch: int = 1 << 22) -> int:
+    """Particle-node pairs with a nonzero M'4 weight that these positions
+    need: per valid particle, the product over axes of its stencil nodes
+    (of 4) inside the support."""
+    from repro_torch.core import interp as IP
+    total = torch.zeros((), dtype=torch.int64, device=x.device)
+    box = dict(box_lo=(0.0,) * 3, box_hi=tuple(lengths),
+               periodic=(True,) * 3)
+    for b0 in range(0, x.shape[0], batch):
+        xb, vb = x[b0:b0 + batch], valid[b0:b0 + batch]
+        _, frac = IP._base_and_frac(xb, shape, **box)
+        n = torch.ones(xb.shape[0], dtype=torch.int64, device=x.device)
+        for d in range(3):
+            nz = sum((IP.m4_prime(frac[:, d] - off) != 0).to(torch.int64)
+                     for off in (-1.0, 0.0, 1.0, 2.0))
+            n = n * nz
+        total += (n * vb).sum()
+    return int(total)
+
+
+def vic_kernel_checks(V, M4, K, cfg):
+    """Phase 4: B3 and B4 against their plain versions on the stage-2
+    tiles of one step from the projected ring (particles off the lattice).
+    Returns the two kernels' entries for the ``kernels`` line, without
+    the main path's launch counts."""
+    from repro_torch.core import remesh as RM
+    kw = dict(shape=cfg.shape, box_lo=(0.0, 0.0, 0.0), box_hi=cfg.lengths,
+              periodic=(True, True, True))
+    w, _ = V.vic_step(V.project_divfree(V.init_ring(cfg), cfg), cfg)
+    ps, _ = RM.seed_from_mesh(w, box_lo=kw["box_lo"], box_hi=kw["box_hi"],
+                              periodic=kw["periodic"], dim=3)
+    u = V.velocity_from_vorticity(w, cfg)
+    r = V.rhs_field(w, u, cfg)
+    b0 = M4.bucket_particles(ps.x, ps.valid, cb=cfg.interp_cb, **kw)
+    up, rp = M4.m2p_fused_bucketed(b0, (u, r), ps.valid, cb=cfg.interp_cb,
+                                   **kw)
+    L = torch.tensor(cfg.lengths, device=w.device)
+    x1 = torch.remainder(ps.x + cfg.dt * up, L)
+    wp1 = ps.props["w"] + cfg.dt * rp
+    b = M4.bucket_particles(x1, ps.valid, cb=cfg.interp_cb, **kw)
+    field = torch.cat([u, r], dim=-1).contiguous()
+    cell_val = wp1[b.safe.long()].contiguous()
+    del w, u, r, b0, up, rp, wp1
+    kk = dict(grid_cells=tuple(n // cfg.interp_cb for n in cfg.shape),
+              cb=cfg.interp_cb, box_lo=kw["box_lo"], box_hi=kw["box_hi"])
+    n_cells, cc, _ = b.cell_x.shape
+    valid = int(b.cell_mask.sum())
+    print(f"VIC tiles: {n_cells} cells x {cc} slots, {valid} particles, "
+          f"overflow {int(b.overflow)}")
+    pairs = m4_pairs(x1, ps.valid, cfg.shape, cfg.lengths)
+    # (name, Pallas kernel line, kernel, plain, inputs read whole, per-slot
+    # inputs of which only the valid slots are needed, channels)
+    cases = (
+        ("m4_p2m", 59,
+         lambda: K.p2m_cells(b.cell_x, cell_val, b.cell_mask, **kk),
+         lambda: K.p2m_cells_torch(b.cell_x, cell_val, b.cell_mask, **kk),
+         (b.cell_mask,), (b.cell_x, cell_val), cell_val.shape[-1]),
+        ("m4_m2p", 146,
+         lambda: K.m2p_cells(field, b.cell_x, b.cell_mask, **kk),
+         lambda: K.m2p_cells_torch(field, b.cell_x, b.cell_mask, **kk),
+         (field, b.cell_mask), (b.cell_x,), field.shape[-1]))
+    entries = []
+    for name, line, kern, plain, whole, per_slot, n_ch in cases:
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"{name}: kernel output is not finite")
+        max_abs = float((got - ref).abs().max())
+        rel = max_abs / (float(ref.abs().max()) + 1e-9)
+        print(f"{name}: out {tuple(got.shape)}, max abs err {max_abs:.3e}, "
+              f"rel {rel:.3e} (tol {REL_TOL:g})")
+        if not rel <= REL_TOL:
+            raise RuntimeError(f"{name} disagrees with plain: rel {rel:.3e}")
+        kernel_ms = time_cuda(kern, iters=5, warmup=1)
+        plain_ms = time_cuda(plain, iters=1, warmup=0)
+        # the mask and the dense inputs whole; a slot's position and value
+        # only where the mask is set (the empty tail of each tile is not
+        # read); the output written once
+        n_bytes = sum(a.numel() * a.element_size() for a in whole) \
+            + valid * sum(a[0, 0].numel() * a.element_size()
+                          for a in per_slot) \
+            + got.numel() * got.element_size()
+        # per pair: DIM - 1 weight products and C multiply-adds; per valid
+        # particle: 3 axes x 4 stencil weights at about 12 flops each
+        n_ops = pairs * (2 + 2 * n_ch) + valid * 3 * 4 * 12
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = n_ops / FP32_FLOP_PER_S * 1e3
+        print(f"{name}: {kernel_ms:.4f} ms kernel, {plain_ms:.3f} ms plain, "
+              f"{n_bytes / 1e6:.1f} MB, {pairs:.4e} pairs, {n_ops:.4e} "
+              f"flops, bound {max(bytes_ms, ops_ms):.4f} ms")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/m4_interp/csrc/m4_interp.cu",
+            "replaces": f"src/repro/kernels/m4_interp/m4_interp.py:{line}",
+            "max_abs_err": max_abs,
+            "max_rel_err": rel, "ms": kernel_ms, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None})
+        del got, ref
+    return entries, (b, cell_val, field, x1, ps.valid, kk)
+
+
+def vic_small_run(V):
+    """A 5-step (16, 8, 8) run through the kernels against the plain
+    path."""
+    import dataclasses
+    small = V.VortexConfig(shape=(16, 8, 8), lengths=(4.0, 2.0, 2.0),
+                           dt=0.02, device="cuda")
+    wk, _, zk = V.run(small, 5)
+    wp, _, zp = V.run(dataclasses.replace(small, backend="torch"), 5)
+    r = float((wk - wp).abs().max()) / (float(wp.abs().max()) + 1e-9)
+    print(f"VIC small run, kernel vs plain path, 5 steps: rel {r:.3e}, "
+          f"centroid {zk:.6f} vs {zp:.6f}")
+    if not r <= SMALL_TOL:
+        raise RuntimeError(f"VIC small run disagrees: rel {r:.3e}")
+
+
+def vic_main_path(V, M4, K, cfg, tiles):
+    """Phase 5: ``vortex.run`` for VIC_STEPS steps, its launch counts, its
+    checks, then its step time and device breakdown. Returns
+    ({kernel name: launches}, re-provision redos)."""
+    K.LAUNCHES["p2m"] = K.LAUNCHES["m2p"] = 0
+    V.REDOS = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w, z0, z1 = V.run(cfg, VIC_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    redos = V.REDOS
+    want = 2 * VIC_STEPS + 2 * redos
+    if launches != {"p2m": want, "m2p": want}:
+        raise RuntimeError(f"launches {launches} for {VIC_STEPS} steps and "
+                           f"{redos} redos; want {want} of each")
+    ens = float(V.enstrophy(w))
+    if not (bool(torch.isfinite(w).all()) and ens == ens
+            and abs(ens) != float("inf")):
+        raise RuntimeError("the vorticity field or enstrophy is not finite")
+    print(f"main path: vortex.run {VIC_STEPS} steps, {VIC_SHAPE} nodes, "
+          f"{run_s:.3f} s wall, centroid {z0:.6f} -> {z1:.6f}, enstrophy "
+          f"{ens:.6e}, {launches['p2m']} P2M + {launches['m2p']} M2P "
+          f"launches, {redos} reprovision redos, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not z1 > z0:
+        raise RuntimeError(f"the ring did not advance: {z0} -> {z1}")
+
+    n_nodes = 1
+    for n in cfg.shape:
+        n_nodes *= n
+    state = {"w": w, "cfg": cfg}
+
+    def one_step():
+        state["w"], state["cfg"] = V.step_reprovision(state["w"],
+                                                      state["cfg"])
+
+    one_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        one_step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 3 * 1e3
+    print(f"vic_step: {step_ms:.3f} ms/step (wall, 3 steps), "
+          f"{n_nodes / step_ms * 1e3:.4e} particle-steps/s")
+
+    # -- where the step's time goes: each stage alone, device time ---------
+    b, cell_val, field, x1, valid, kk = tiles
+    w, cfg = state["w"], state["cfg"]
+    kw = dict(shape=cfg.shape, box_lo=(0.0, 0.0, 0.0), box_hi=cfg.lengths,
+              periodic=(True, True, True))
+    tiles_out = K.m2p_cells(field, b.cell_x, b.cell_mask, **kk)
+    psi = V.PS.fft_poisson(-w, cfg.lengths)
+    u = V.curl(psi, V._hs(cfg))
+    stages = {   # (callable, calls per step)
+        "bucketing": (lambda: M4.bucket_particles(x1, valid, cb=cfg.interp_cb,
+                                                  **kw), 3),
+        "B3 p2m kernel": (lambda: K.p2m_cells(b.cell_x, cell_val,
+                                              b.cell_mask, **kk), 2),
+        "B4 m2p kernel": (lambda: K.m2p_cells(field, b.cell_x, b.cell_mask,
+                                              **kk), 2),
+        "FFT Poisson": (lambda: V.PS.fft_poisson(-w, cfg.lengths), 2),
+        "curl/RHS stencils": (lambda: V.rhs_field(w, V.curl(psi, V._hs(cfg)),
+                                                  cfg), 2),
+        "M2P scatter-back": (lambda: M4._scatter_back(tiles_out, b,
+                                                      valid.shape[0]), 2)}
+    stage_ms = {name: time_device(fn, iters=3) * n
+                for name, (fn, n) in stages.items()}
+    del u
+    busy_ms = time_device(lambda: V.vic_step(w, cfg), iters=3)
+    host_s = 0.0
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        V.vic_step(w, cfg)
+        host_s += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    print("vic_step device ms per step (no launch gaps): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in stage_ms.items())
+        + f", rest {busy_ms - sum(stage_ms.values()):.4f} (seed, RK2 "
+        f"updates, stacking, gathers); whole step {busy_ms:.4f} of "
+        f"{step_ms:.4f} wall, idle share {1 - busy_ms / step_ms:.3f}; host "
+        f"enqueue {host_s / 3 * 1e3:.4f} ms/step")
+    return {"m4_p2m": launches["p2m"], "m4_m2p": launches["m2p"]}, redos
+
+
+def vic_paper_size() -> None:
+    """One ``vortex.run`` step at the paper's full mesh; prints whether it
+    fit the card and its peak allocated memory."""
+    from repro_torch.apps import vortex as V
+    cfg = V.VortexConfig(shape=(1600, 400, 400), lengths=VIC_LENGTHS,
+                         dt=VIC_DT, device="cuda")
+    res = {"shape": list(cfg.shape), "steps": 1}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        w, z0, z1 = V.run(cfg, 1)
+        torch.cuda.synchronize()
+        res.update(ran=True, wall_s=time.perf_counter() - t0,
+                   centroid=[z0, z1], finite=bool(torch.isfinite(w).all()),
+                   redos=V.REDOS)
+        del w
+    except torch.cuda.OutOfMemoryError as e:
+        res.update(ran=False, out_of_memory=str(e).splitlines()[0])
+    res.update(peak_allocated_bytes=torch.cuda.max_memory_allocated(),
+               device_total_bytes=torch.cuda.mem_get_info()[1])
+    print(json.dumps(res))
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA "
+                                 "port on one GPU.")
+    ap.add_argument("--vic-paper-size", action="store_true",
+                    help="only ask whether the paper's full vortex-in-cell "
+                    "mesh fits one card")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    # the plain versions' batched products stay in full fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.apps import md
     from repro_torch.core import cell_list as CL
     from repro_torch.kernels import _build
@@ -117,6 +381,9 @@ def main() -> int:
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
+    if args.vic_paper_size:
+        vic_paper_size()
+        return 0
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"kernel build {time.perf_counter() - t0:.2f} s: "
@@ -238,16 +505,37 @@ def main() -> int:
         f"{1 - busy_ms / step_ms:.3f}; host enqueue "
         f"{host_s / 20 * 1e3:.4f} ms/step")
 
-    print(json.dumps({"kernels": [{
+    md_entry = {
         "name": "cell_pair_lj", "route": "cuda",
         "source": "src/repro_torch/kernels/cell_pair/csrc/cell_pair.cu",
         "replaces": "src/repro/kernels/cell_pair/cell_pair.py:106",
-        "launches": launches, "launches_per_step": 1,
+        "launches": launches, "launches_per_step": (launches - 1) / STEPS,
         "max_abs_err": max_abs, "max_rel_err": rel,
         "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None}]}))
+        "library_ms": None}
+    del state, ps, cl, t, f
+
+    # -- phases 4 and 5: vortex-in-cell --------------------------------------
+    from repro_torch.apps import vortex as V
+    from repro_torch.kernels.m4_interp import m4_interp as K
+    from repro_torch.kernels.m4_interp import ops as M4
+    vcfg = V.VortexConfig(shape=VIC_SHAPE, lengths=VIC_LENGTHS, dt=VIC_DT,
+                          device="cuda", backend="auto", interp="cells")
+    print(f"VIC: {VIC_SHAPE} nodes, lengths {VIC_LENGTHS}, dt {VIC_DT}, "
+          f"cb {vcfg.interp_cb}, cell_cap "
+          f"{M4.default_cell_cap(vcfg.interp_cb, 3)}")
+    m4_entries, tiles = vic_kernel_checks(V, M4, K, vcfg)
+    vic_small_run(V)
+    vic_launches, redos = vic_main_path(V, M4, K, vcfg, tiles)
+    for entry in m4_entries:
+        # every vic_step attempt, a redo included, launches each kernel twice
+        entry["launches"] = vic_launches[entry["name"]]
+        entry["launches_per_step"] = entry["launches"] / (VIC_STEPS + redos)
+        entry["redos"] = redos
+
+    print(json.dumps({"kernels": [md_entry] + m4_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

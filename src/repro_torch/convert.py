@@ -30,3 +30,10 @@ def particles_to_numpy(ps: ParticleSet
     """(x, valid, props) as numpy arrays on the host."""
     n = lambda a: a.detach().cpu().numpy()
     return n(ps.x), n(ps.valid), {k: n(v) for k, v in ps.props.items()}
+
+
+def field_from_numpy(a: np.ndarray, device="cuda") -> torch.Tensor:
+    """A mesh field (e.g. the vortex app's vorticity ``w``, shape
+    ``(nx, ny, nz, 3)``) on ``device`` from a numpy array (copied)."""
+    dev = resolve_device(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(dev)

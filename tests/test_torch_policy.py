@@ -8,6 +8,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -74,3 +75,33 @@ def test_cuda_backend_on_cpu_tensors_raises():
     with pytest.raises(ValueError, match="unknown backend"):
         I.apply_pair_kernel(ps, cl, md.lj_pair_body(0.1, 1.0),
                             out={"f": "radial"}, r_cut=0.3, backend="jnp")
+
+
+def test_vortex_cuda_requested_without_card_raises(monkeypatch):
+    from repro_torch.apps import vortex
+    from repro_torch import convert
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = vortex.VortexConfig(shape=(8, 8, 8), lengths=(2.0, 2.0, 2.0))
+    with pytest.raises(RuntimeError, match="cuda"):
+        vortex.run(cfg, 1)                         # cfg.device = "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        vortex.init_ring(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        convert.field_from_numpy(np.zeros((2, 2, 2, 3), np.float32))
+
+
+def test_m4_cuda_backend_on_cpu_tensors_raises():
+    from repro_torch.apps import vortex
+    from repro_torch.kernels.m4_interp import ops as M4
+    kw = dict(shape=(8, 8, 8), box_lo=(0.0,) * 3, box_hi=(1.0,) * 3,
+              periodic=(True,) * 3)
+    x = torch.rand(20, 3)
+    valid = torch.ones(20, dtype=torch.bool)
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        M4.p2m(x, torch.ones(20), valid, backend="cuda", **kw)
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        M4.m2p(torch.zeros(8, 8, 8, 3), x, valid, backend="cuda", **kw)
+    cfg = vortex.VortexConfig(shape=(8, 8, 8), lengths=(2.0, 2.0, 2.0),
+                              device="cpu", backend="cuda")
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        vortex.run(cfg, 1)
