@@ -30,6 +30,25 @@ Phases, each of which raises (non-zero exit) on failure:
      finite field and enstrophy, an advancing centroid; then ms/step,
      particle-steps per second and a device-time breakdown of the step.
 
+  6. B1's SPH functor against its plain version on the tiles of the card
+     SPH size (a 3-D dam break: 570,248 particles, dp 0.006, cell_cap
+     128; 10 steps after release) and on the small 2-D case's tiles
+     (after a 20-step run through the kernel against the plain path, <=
+     1e-4); B1's DEM functor on the tiles of the card DEM size (the
+     default avalanche scaled 2x per axis: 72,030 grains; 20 steps from
+     0.3·N(0, 1) velocities); a 10-step small avalanche through the
+     kernel against the plain path; all to <= 1e-5, timed with CUDA
+     events, with their bytes and flops bounds;
+  7. the SPH main path: ``sph.run`` for 50 steps at the card size —
+     exactly one SPH launch per step, zero step flags, a finite state,
+     simulated time > 0, the fluid's mean height falling; then ms/step,
+     particle-steps per second and the step's device breakdown;
+  8. the DEM main path: ``dem.run`` for 50 steps at the card size, then
+     50 ``make_cached_stepper`` steps — one DEM launch per step, zero
+     flags, a finite state, mean v_x > 0 down the incline, no grain
+     below z = -0.05, the contact list reused at least once; then ms/step
+     of both, grain-steps per second and the device breakdown.
+
 It prints a ``{"kernels": [...]}`` line and, as its last line,
 ``{"ok": true, "device": {...}}``. It exits non-zero without a result when
 ``torch.cuda.is_available()`` is false, and fails at import when the
@@ -42,14 +61,19 @@ runs none of the phases above. It asks whether the paper's full §4.4 mesh
 then one JSON line with the peak allocated bytes and the card's total, and
 either the run's centroid and finiteness or the out-of-memory message (an
 out-of-memory error is the answer, so it is reported, not raised).
+``python3 chip_smoke.py --dem-paper-size`` does the same for one
+``dem_step`` at the paper's grain count (the DEM defaults scaled 4.27x
+per axis: 699,600 grains).
 """
 import argparse
+import dataclasses
 import json
 import pathlib
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -75,6 +99,23 @@ VIC_SHAPE = (800, 200, 200)
 VIC_LENGTHS = (22.0, 5.57, 5.57)
 VIC_DT = 0.0125
 VIC_STEPS = 10
+# The card SPH size: a 3-D tank with a 0.4 x 0.6 x 0.3 column and three
+# wall layers at dp = 0.006 (570,248 particles, 76 x 32 x 19 cells; up to
+# 96 particles share a cell at t = 0 where the wall layers meet).
+SPH_CARD = dict(dim=3, dp=0.006, box=(1.6, 0.67, 0.4), fluid=(0.4, 0.6, 0.3),
+                cell_cap=128)
+SPH_SMALL = dict(dp=0.04, box=(1.0, 0.5), fluid=(0.25, 0.25))
+SPH_STEPS = 50
+# The card DEM size: the default avalanche scaled 2x per axis (72,030
+# grains, 120 x 42 x 45 cells). The paper's Fig. 11 run has 677k grains;
+# --dem-paper-size tries the defaults scaled 4.27x per axis (699,600).
+DEM_CARD = dict(box=(16.8, 6.0, 6.36), fill=(8.52, 6.12, 2.52))
+DEM_SMALL = dict(box=(2.0, 0.6, 1.0), fill=(0.8, 0.66, 0.5))
+DEM_STEPS = 50
+DEM_PAPER_SCALE = 4.27
+# flops per in-cutoff body evaluation, accumulation included (b1_bound)
+SPH_EVAL_FLOPS = {2: 50, 3: 55}
+DEM_EVAL_FLOPS = 27
 
 
 def time_cuda(fn, iters: int, warmup: int = 2) -> float:
@@ -123,6 +164,90 @@ def pair_work(t, rc2: float, batch: int = 512):
         ok = mi[:, :, None] & mj[:, None, :] & (r2 < rc2) & (r2 > 1e-12)
         inside += ok.sum()
     return int(tests), int(inside)
+
+
+def b1_bound(t, width: int, rc2: float, eval_flops: int, outs):
+    """(bytes, flops, candidate tests, in-cutoff evaluations, bound ms,
+    bound_by) of one B1 launch on tiles ``t``.
+    Bytes: both masks whole; a slot's position and its ``width`` packed
+    prop floats only where its mask is set (an empty slot need not be
+    read); every output written once. Flops: 8 per candidate test with
+    both slots valid (3 sub, 3 mul, 2 add) and ``eval_flops`` per
+    in-cutoff body evaluation, its accumulation included (sqrt, division
+    and powf counted as one each)."""
+    dim = t.cell_x.shape[-1]
+    n_slots = int(t.cell_mask.sum()) + int(t.nbr_mask.sum())
+    n_bytes = t.cell_mask.numel() + t.nbr_mask.numel() \
+        + 4 * (dim + width) * n_slots + sum(4 * o.numel() for o in outs)
+    tests, inside = pair_work(t, rc2)
+    n_ops = 8 * tests + eval_flops * inside
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / FP32_FLOP_PER_S * 1e3
+    return (n_bytes, n_ops, tests, inside, max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def b1_check(name, CP, t, body, out, r_cut, eval_flops, cell_batch,
+             iters):
+    """B1 with ``body``'s functor against ``cell_pair_torch`` on tiles
+    ``t``: every output within REL_TOL (max-abs error over the output's
+    max), then both timed with CUDA events (the plain version once more,
+    the kernel on props packed beforehand, as the main path hands them
+    over). Returns the entry for the ``kernels`` line without the main
+    path's launches."""
+    args = (t.cell_x, t.nbr_x, t.cell_mask, t.nbr_mask, t.props_i,
+            t.props_j)
+    kw = dict(body=body, out=out, r_cut=r_cut)
+    plain = lambda: CP.cell_pair_torch(*args, cell_batch=cell_batch, **kw)
+    got, ref = CP.cell_pair(*args, **kw), plain()
+    torch.cuda.synchronize()
+    errors = {}
+    for k in sorted(out):
+        if not bool(torch.isfinite(got[k]).all()):
+            raise RuntimeError(f"{name}: kernel output {k} is not finite")
+        max_abs = float((got[k] - ref[k]).abs().max())
+        errors[k] = (max_abs, max_abs / (float(ref[k].abs().max()) + 1e-9))
+    print(f"{name}: tiles {tuple(t.nbr_x.shape)}, " + ", ".join(
+        f"{k} max abs err {a:.3e} rel {r:.3e}" for k, (a, r) in
+        errors.items()) + f" (tol {REL_TOL:g})")
+    bad = {k: r for k, (_, r) in errors.items() if not r <= REL_TOL}
+    if bad:
+        raise RuntimeError(f"{name} disagrees with plain: {bad}")
+    plain_ms = time_cuda(plain, iters=1, warmup=0)
+    kind = body.cuda_kind
+    names = CP.KINDS[kind].props
+    pi = CP.pack_props(t.props_i, names) if names else None
+    pj = CP.pack_props(t.props_j, names) if names else None
+    kernel_ms = time_cuda(lambda: CP._launch(kind, body, t.cell_x, t.nbr_x,
+                                             t.cell_mask, t.nbr_mask, pi,
+                                             pj, r_cut), iters=iters)
+    width = CP.KINDS[kind].width(t.cell_x.shape[-1]) if names else 0
+    n_bytes, n_ops, tests, inside, bound_ms, bound_by = b1_bound(
+        t, width, r_cut * r_cut, eval_flops, list(got.values()))
+    print(f"{name}: {kernel_ms:.4f} ms kernel, {plain_ms:.3f} ms plain, "
+          f"{n_bytes / 1e6:.1f} MB, {tests:.4e} tests, {inside:.4e} in "
+          f"cutoff, {n_ops:.4e} flops, bound {bound_ms:.4f} ms "
+          f"({bound_by})")
+    return {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/cell_pair/csrc/cell_pair.cu",
+        "replaces": "src/repro/kernels/cell_pair/cell_pair.py:106",
+        "max_abs_err": max(a for a, _ in errors.values()),
+        "max_rel_err": max(r for _, r in errors.values()),
+        "errors": {k: {"max_abs": a, "rel": r}
+                   for k, (a, r) in errors.items()},
+        "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def small_run_check(name, pairs):
+    """Fail unless every (field, kernel path, plain path) agrees to
+    SMALL_TOL, max-abs error over the plain path's max."""
+    for field, a, b in pairs:
+        r = float((a - b).abs().max()) / (float(b.abs().max()) + 1e-9)
+        print(f"{name}, kernel vs plain path, {field}: rel {r:.3e}")
+        if not r <= SMALL_TOL:
+            raise RuntimeError(f"{name} {field} disagrees: rel {r:.3e}")
 
 
 def m4_pairs(x, valid, shape, lengths, batch: int = 1 << 22) -> int:
@@ -332,6 +457,339 @@ def vic_main_path(V, M4, K, cfg, tiles):
     return {"m4_p2m": launches["p2m"], "m4_m2p": launches["m2p"]}, redos
 
 
+def reset_b1_counts(CP) -> None:
+    """Every B1 launch count to 0 (the total and each functor's)."""
+    CP.LAUNCHES = 0
+    CP.LAUNCHES_BY_KIND.update(dict.fromkeys(CP.KINDS, 0))
+
+
+def check_b1_launches(CP, kind: str, want: int) -> None:
+    """Fail unless the B1 launches since the reset are ``want`` of the
+    ``kind`` functor and none of another."""
+    got = dict(CP.LAUNCHES_BY_KIND)
+    expect = dict.fromkeys(CP.KINDS, 0)
+    expect[kind] = want
+    if got != expect or CP.LAUNCHES != want:
+        raise RuntimeError(f"B1 launches {got} (total {CP.LAUNCHES}); want "
+                           f"{expect}")
+
+
+def stage_breakdown(name, stages, one_step, step_ms, n_host=5):
+    """Device ms of each (callable, calls per step) stage alone and of one
+    whole step, without launch gaps; prints them with the rest, the idle
+    share against ``step_ms`` and the host's enqueue time of one step."""
+    stage_ms = {k: time_device(fn, iters=3) * n
+                for k, (fn, n) in stages.items()}
+    busy_ms = time_device(one_step, iters=3)
+    host_s = 0.0
+    for _ in range(n_host):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step()
+        host_s += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    print(f"{name} device ms per step (no launch gaps): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in stage_ms.items())
+        + f", rest {busy_ms - sum(stage_ms.values()):.4f}; whole step "
+        f"{busy_ms:.4f} of {step_ms:.4f} wall, idle share "
+        f"{1 - busy_ms / step_ms:.3f}; host enqueue "
+        f"{host_s / n_host * 1e3:.4f} ms/step")
+
+
+def kernel_path_stages(CP, CL, ps, cl_kw, body, prop_names, r_cut):
+    """The pair pass of a step as the main path runs it, stage by stage:
+    {name: (callable, calls per step)}. Also prints the gather's parts,
+    and beside them the gather of the props as packed rows, which the
+    path does not take (``cell_pair.pack_props``)."""
+    cl = CL.build_cell_list(ps, **cl_kw)
+    kind = body.cuda_kind
+    t = CP.gather_cell_tiles(ps, cl, prop_names)
+    pack = lambda: (CP.pack_props(t.props_i, prop_names),
+                    CP.pack_props(t.props_j, prop_names))
+    pi, pj = pack()
+    res = CP._launch(kind, body, t.cell_x, t.nbr_x, t.cell_mask, t.nbr_mask,
+                     pi, pj, r_cut)
+    cap = ps.capacity
+    hood, shifts = CL.neighborhood(cl)
+    n_cells, K = hood.shape
+    cc = cl.cell_cap
+
+    def cand_index():
+        cand = cl.cells[hood.long()].reshape(n_cells, K * cc)
+        return cand < cap, cand.clamp(max=cap - 1).long()
+
+    _, safe_c = cand_index()
+    xm = ps.masked_x()
+    rows = torch.cat([ps.props[k].reshape(cap, -1) for k in prop_names], 1)
+    parts = {
+        "candidate index": cand_index,
+        "positions": lambda: (xm[safe_c].reshape(n_cells, K, cc, ps.dim)
+                              + shifts[:, :, None, :]),
+        "props one by one": lambda: [ps.props[k][safe_c]
+                                     for k in prop_names],
+        f"props as packed {4 * rows.shape[1]}-byte rows (not taken)":
+            lambda: rows[safe_c]}
+    print("gather parts, device ms: " + ", ".join(
+        f"{k} {time_device(fn, iters=3):.4f}" for k, fn in parts.items()))
+    del safe_c, xm, rows
+    return {
+        "cell list": (lambda: CL.build_cell_list(ps, **cl_kw), 1),
+        "gather": (lambda: CP.gather_cell_tiles(ps, cl, prop_names), 1),
+        "pack": (pack, 1),
+        "kernel": (lambda: CP._launch(kind, body, t.cell_x, t.nbr_x,
+                                      t.cell_mask, t.nbr_mask, pi, pj,
+                                      r_cut), 1),
+        "scatter": (lambda: [CP.scatter_slots(t.rows, v, cap)
+                             for v in res.values()], 1)}
+
+
+def sph_kernel_checks(S, CL, CP):
+    """Phase 6, SPH: B1-SPH against its plain version on the card size's
+    tiles (d3, after 10 steps from the dam's release) and on the small
+    2-D case's tiles (d2, after its 20-step kernel-vs-plain run)."""
+    cfg = S.SPHConfig(**SPH_CARD, device="cuda")
+    ps = S.init_dam_break(cfg)
+    for i in range(10):
+        ps, _, _ = S.sph_step(ps, cfg, euler=(i % cfg.verlet_reset == 0))
+    cl = CL.build_cell_list(ps, **S._cl_kw(cfg))
+    print(f"SPH: {int(ps.count())} particles, grid "
+          f"{S._cl_kw(cfg)['grid_shape']}, cell_cap {cfg.cell_cap}, fullest "
+          f"cell {int(cl.counts[:-1].max())}, h {cfg.h:.6f}, c_sound "
+          f"{cfg.c_sound:.4f}")
+    if int(cl.overflow) != 0:
+        raise RuntimeError(f"SPH cell overflow {int(cl.overflow)}")
+    t = CP.gather_cell_tiles(ps, cl, ("v", "rho"))
+    entry = b1_check("cell_pair_sph", CP, t, S.sph_pair_body(cfg),
+                     {"a": "radial", "drho": "scalar"}, cfg.r_cut,
+                     SPH_EVAL_FLOPS[3], cell_batch=64, iters=5)
+    del t, cl, ps
+    small = S.SPHConfig(**SPH_SMALL, device="cuda")
+    pk, tk = S.run(small, 20)
+    pp, tp = S.run(dataclasses.replace(small, backend="torch"), 20)
+    small_run_check("SPH 2-D small run", (
+        ("x", pk.x[pk.valid], pp.x[pp.valid]),
+        ("v", pk.props["v"][pk.valid], pp.props["v"][pp.valid]),
+        ("rho", pk.props["rho"][pk.valid], pp.props["rho"][pp.valid]),
+        ("t", torch.tensor([tk]), torch.tensor([tp]))))
+    t = CP.gather_cell_tiles(pk, CL.build_cell_list(pk, **S._cl_kw(small)),
+                             ("v", "rho"))
+    entry_d2 = b1_check("cell_pair_sph d2", CP, t, S.sph_pair_body(small),
+                        {"a": "radial", "drho": "scalar"}, small.r_cut,
+                        SPH_EVAL_FLOPS[2], cell_batch=64, iters=20)
+    entry["d2"] = {k: entry_d2[k] for k in (
+        "max_abs_err", "max_rel_err", "errors", "ms", "plain_ms",
+        "bound_ms", "bound_by")}
+    return entry
+
+
+def dem_kernel_check(D, CL, CP):
+    """Phase 6, DEM: B1-DEM against its plain version on the card size's
+    tiles (20 steps from 0.3·N(0, 1) velocities, so grains overlap), and
+    a 10-step small run through the kernel against the plain path."""
+    cfg = D.DEMConfig(**DEM_CARD, device="cuda")
+    ps = D.init_block(cfg)
+    rng = np.random.default_rng(4)
+    v = torch.from_numpy((0.3 * rng.normal(size=tuple(ps.props["v"].shape)))
+                         .astype(np.float32)).cuda()
+    ps = ps.with_prop("v", torch.where(ps.valid[:, None], v,
+                                       torch.zeros_like(v)))
+    for _ in range(20):
+        ps, _ = D.dem_step(ps, cfg)
+    cl = CL.build_cell_list(ps, **D._cl_kw(cfg))
+    print(f"DEM: {int(ps.count())} grains, grid "
+          f"{D._cl_kw(cfg)['grid_shape']}, cell_cap {cfg.cell_cap}, fullest "
+          f"cell {int(cl.counts[:-1].max())}")
+    if int(cl.overflow) != 0:
+        raise RuntimeError(f"DEM cell overflow {int(cl.overflow)}")
+    t = CP.gather_cell_tiles(ps, cl, ("v",))
+    entry = b1_check("cell_pair_dem", CP, t, D.dem_normal_body(cfg),
+                     {"f": "radial"}, cfg.r_cut, DEM_EVAL_FLOPS,
+                     cell_batch=512, iters=10)
+    del t, cl, ps
+    small = D.DEMConfig(**DEM_SMALL, device="cuda")
+    p0 = D.init_block(small)
+    rng = np.random.default_rng(1)
+    v = torch.from_numpy((0.3 * rng.normal(size=tuple(p0.props["v"].shape)))
+                         .astype(np.float32)).cuda()
+    p0 = p0.with_prop("v", torch.where(p0.valid[:, None], v,
+                                       torch.zeros_like(v)))
+    pk = pp = p0
+    plain = dataclasses.replace(small, backend="torch")
+    for _ in range(10):
+        pk, fk = D.dem_step(pk, small)
+        pp, fp = D.dem_step(pp, plain)
+        if int(fk.any()) or int(fp.any()):
+            raise RuntimeError("DEM small run: nonzero step flags")
+    small_run_check("DEM small run", (
+        ("x", pk.x[pk.valid], pp.x[pp.valid]),
+        ("v", pk.props["v"][pk.valid], pp.props["v"][pp.valid]),
+        ("w", pk.props["w"][pk.valid], pp.props["w"][pp.valid])))
+    return entry
+
+
+def sph_main_path(S, CL, CP):
+    """Phase 7: ``sph.run`` at the card size for SPH_STEPS steps (an Euler
+    step every ``verlet_reset``), its launches and checks, then ms/step
+    and the device breakdown. Returns the SPH launches."""
+    cfg = S.SPHConfig(**SPH_CARD, device="cuda")
+    ps0 = S.init_dam_break(cfg)
+    fluid0 = ps0.valid & (ps0.props["kind"] == S.FLUID)
+    z0 = float(ps0.x[fluid0][:, 2].mean())
+    del ps0, fluid0
+    reset_b1_counts(CP)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ps, t_sim = S.run(cfg, SPH_STEPS)      # raises on a nonzero step flag
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    check_b1_launches(CP, "sph", SPH_STEPS)
+    launches = CP.LAUNCHES_BY_KIND["sph"]
+    vm = ps.valid
+    fluid = vm & (ps.props["kind"] == S.FLUID)
+    if not all(bool(torch.isfinite(a[vm]).all()) for a in (
+            ps.x, ps.props["v"], ps.props["rho"])):
+        raise RuntimeError("SPH state is not finite")
+    z1 = float(ps.x[fluid][:, 2].mean())
+    print(f"main path: sph.run {SPH_STEPS} steps, {int(ps.count())} "
+          f"particles, {run_s:.3f} s wall, simulated {t_sim:.6e} s, fluid "
+          f"mean z {z0:.7f} -> {z1:.7f}, {launches} sph launches, peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not t_sim > 0.0:
+        raise RuntimeError(f"simulated time {t_sim} is not positive")
+    if not z1 < z0:
+        raise RuntimeError(f"the fluid did not settle: mean z {z0} -> {z1}")
+    state = {"ps": ps, "dt": [], "flag": []}
+
+    def one_step():
+        state["ps"], dt, flag = S.sph_step(state["ps"], cfg)
+        state["dt"].append(dt)
+        state["flag"].append(flag)
+
+    step_ms = time_cuda(one_step, iters=10)
+    dts = torch.stack(state["dt"])
+    if not (bool((dts > 0).all()) and int(torch.stack(state["flag"]).max())
+            == 0):
+        raise RuntimeError("a timed SPH step had dt <= 0 or a nonzero flag")
+    n = int(ps.count())
+    print(f"sph_step: {step_ms:.4f} ms/step, "
+          f"{n / step_ms * 1e3:.4e} particle-steps/s")
+    ps = state["ps"]
+    stages = kernel_path_stages(CP, CL, ps, S._cl_kw(cfg),
+                                S.sph_pair_body(cfg), ("v", "rho"),
+                                cfg.r_cut)
+    stage_breakdown("sph_step", stages, lambda: S.sph_step(ps, cfg),
+                    step_ms)
+    return launches
+
+
+def dem_main_path(D, CL, CP):
+    """Phase 8: ``dem.run`` at the card size for DEM_STEPS steps, then
+    DEM_STEPS ``make_cached_stepper`` steps from its state; launches and
+    checks, ms/step of both, and the device breakdown. Returns the DEM
+    launches of both runs."""
+    cfg = D.DEMConfig(**DEM_CARD, device="cuda")
+    reset_b1_counts(CP)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ps = D.run(cfg, DEM_STEPS)             # raises on a nonzero step flag
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    check_b1_launches(CP, "dem", DEM_STEPS)
+    launches = CP.LAUNCHES_BY_KIND["dem"]
+    reset_b1_counts(CP)
+    stepper = D.make_cached_stepper(cfg)
+    cache, worst, reused = None, None, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DEM_STEPS):
+        prev = None if cache is None else cache["ct_xb"]
+        ps, flags, cache = stepper(ps, cache)
+        reused += cache["ct_xb"] is prev
+        f = flags.any()
+        worst = f if worst is None else torch.maximum(worst, f)
+    torch.cuda.synchronize()
+    cached_s = time.perf_counter() - t0
+    check_b1_launches(CP, "dem", DEM_STEPS)
+    launches_cached = CP.LAUNCHES_BY_KIND["dem"]
+    vm = ps.valid
+    if int(worst) != 0:
+        raise RuntimeError(f"cached DEM steps flagged {int(worst)}")
+    if not all(bool(torch.isfinite(a[vm]).all()) for a in (
+            ps.x, ps.props["v"], ps.props["w"])):
+        raise RuntimeError("DEM state is not finite")
+    vx = float(ps.props["v"][vm][:, 0].mean())
+    zmin = float(ps.x[vm][:, 2].min())
+    print(f"main path: dem.run {DEM_STEPS} steps {run_s:.3f} s wall, then "
+          f"{DEM_STEPS} cached steps {cached_s:.3f} s wall "
+          f"({reused} reused the contact list), {int(ps.count())} grains, "
+          f"mean v_x {vx:.6e}, min z {zmin:.6f}, {launches} + "
+          f"{launches_cached} dem launches, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not vx > 0.0:
+        raise RuntimeError(f"mean v_x {vx} is not positive")
+    if not zmin > -0.05:
+        raise RuntimeError(f"a grain fell through the floor: z {zmin}")
+    if reused < 1:
+        raise RuntimeError("the cached stepper never reused its list")
+    state = {"ps": ps, "cache": cache}
+
+    def rebuild_step():
+        state["ps"], _ = D.dem_step(state["ps"], cfg)
+
+    def cached_step():
+        state["ps"], _, state["cache"] = stepper(state["ps"], state["cache"])
+
+    step_ms = time_cuda(rebuild_step, iters=10)
+    cached_ms = time_cuda(cached_step, iters=10)
+    n = int(ps.count())
+    print(f"dem_step: {step_ms:.4f} ms/step, {n / step_ms * 1e3:.4e} "
+          f"grain-steps/s; cached stepper: {cached_ms:.4f} ms/step, "
+          f"{n / cached_ms * 1e3:.4e} grain-steps/s")
+    ps = state["ps"]
+    cl = CL.build_cell_list(ps, **D._cl_kw(cfg))
+    nbr = CL.build_verlet(ps, cl, cfg.r_cut, cfg.k_full).nbr
+    stages = kernel_path_stages(CP, CL, ps, D._cl_kw(cfg),
+                                D.dem_normal_body(cfg), ("v",), cfg.r_cut)
+    stages["build_verlet"] = (lambda: CL.build_verlet(ps, cl, cfg.r_cut,
+                                                      cfg.k_full), 1)
+    stages["tangential_forces"] = (lambda: D.tangential_forces(ps, ps, nbr,
+                                                               cfg), 1)
+    stage_breakdown("dem_step", stages, lambda: D.dem_step(ps, cfg),
+                    step_ms)
+    return launches, launches_cached
+
+
+def dem_paper_size() -> None:
+    """One ``dem_step`` at the paper's grain count (the DEMConfig defaults
+    scaled DEM_PAPER_SCALE per axis); prints whether it fit the card and
+    its peak allocated memory."""
+    from repro_torch.apps import dem as D
+    base = D.DEMConfig()
+    cfg = D.DEMConfig(box=tuple(DEM_PAPER_SCALE * b for b in base.box),
+                      fill=tuple(DEM_PAPER_SCALE * f for f in base.fill),
+                      device="cuda")
+    ps = D.init_block(cfg)
+    gs = D._cl_kw(cfg)["grid_shape"]
+    res = {"grains": int(ps.count()), "grid": list(gs),
+           "cells": int(np.prod(gs)), "steps": 1}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        ps1, flags = D.dem_step(ps, cfg)
+        torch.cuda.synchronize()
+        res.update(ran=True, wall_s=time.perf_counter() - t0,
+                   flags=int(flags.any()),
+                   finite=bool(torch.isfinite(ps1.x[ps1.valid]).all()))
+        del ps1
+    except torch.cuda.OutOfMemoryError as e:
+        res.update(ran=False, out_of_memory=str(e).splitlines()[0])
+    res.update(peak_allocated_bytes=torch.cuda.max_memory_allocated(),
+               device_total_bytes=torch.cuda.mem_get_info()[1])
+    print(json.dumps(res))
+
+
 def vic_paper_size() -> None:
     """One ``vortex.run`` step at the paper's full mesh; prints whether it
     fit the card and its peak allocated memory."""
@@ -361,6 +819,9 @@ def main() -> int:
     ap.add_argument("--vic-paper-size", action="store_true",
                     help="only ask whether the paper's full vortex-in-cell "
                     "mesh fits one card")
+    ap.add_argument("--dem-paper-size", action="store_true",
+                    help="only ask whether one DEM step at the paper's "
+                    "grain count fits one card")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -384,6 +845,9 @@ def main() -> int:
     if args.vic_paper_size:
         vic_paper_size()
         return 0
+    if args.dem_paper_size:
+        dem_paper_size()
+        return 0
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"kernel build {time.perf_counter() - t0:.2f} s: "
@@ -403,60 +867,31 @@ def main() -> int:
     cl = CL.build_cell_list(ps, **md._cl_kw(cfg))
     t = CP.gather_cell_tiles(ps, cl)
     body = md.lj_pair_body(cfg.sigma, cfg.epsilon)
-    args = (t.cell_x, t.nbr_x, t.cell_mask, t.nbr_mask)
     kw = dict(body=body, out={"f": "radial"}, r_cut=cfg.r_cut)
-    kern = lambda: CP.cell_pair(*args, **kw)["f"]
-    plain = lambda: CP.cell_pair_torch(*args, cell_batch=512, **kw)["f"]
-    f_k, f_p = kern(), plain()
-    torch.cuda.synchronize()
-    if not bool(torch.isfinite(f_k).all()):
-        raise RuntimeError("kernel forces are not finite")
-    max_abs = float((f_k - f_p).abs().max())
-    rel = max_abs / (float(f_p.abs().max()) + 1e-9)
-    print(f"cell_pair_lj: tiles {tuple(t.nbr_x.shape)}, max abs err "
-          f"{max_abs:.3e}, rel {rel:.3e} (tol {REL_TOL:g})")
-    if not rel <= REL_TOL:
-        raise RuntimeError(f"kernel disagrees with plain: rel {rel:.3e}")
-    kernel_ms = time_cuda(kern, iters=50)
-    plain_ms = time_cuda(plain, iters=5, warmup=1)
-    n_bytes = sum(a.numel() * a.element_size() for a in args) \
-        + f_k.numel() * f_k.element_size()
-    n_tests, n_in = pair_work(t, cfg.r_cut ** 2)
-    # 8 flops per candidate test (3 sub, 3 mul, 2 add); 15 per in-cutoff LJ
-    # evaluation (body 9, radial accumulation 6)
-    n_ops = 8 * n_tests + 15 * n_in
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / FP32_FLOP_PER_S * 1e3
-    print(f"cell_pair_lj: {kernel_ms:.4f} ms kernel, {plain_ms:.3f} ms plain, "
-          f"{n_bytes / 1e6:.1f} MB, {n_tests:.4e} tests, {n_in:.4e} "
-          f"in cutoff, bound {max(bytes_ms, ops_ms):.4f} ms")
+    # 15 flops per in-cutoff LJ evaluation (body 9, accumulation 6)
+    md_entry = b1_check("cell_pair_lj", CP, t, body, {"f": "radial"},
+                        cfg.r_cut, eval_flops=15, cell_batch=512, iters=50)
 
     # small end-to-end reference: the kernel path against the plain path
     small = md.MDConfig(n_per_side=6, sigma=0.085, device="cuda")
     ps_k, _ = md.run(small, 20, thermal_v=0.4, seed=2)
     ps_p, _ = md.run(md.MDConfig(n_per_side=6, sigma=0.085, device="cuda",
                                  backend="torch"), 20, thermal_v=0.4, seed=2)
-    for name, a, b in (("x", ps_k.x, ps_p.x),
-                       ("v", ps_k.props["v"], ps_p.props["v"])):
-        a, b = a[ps_k.valid], b[ps_p.valid]
-        r = float((a - b).abs().max()) / (float(b.abs().max()) + 1e-9)
-        print(f"small run, kernel vs plain path, {name}: rel {r:.3e}")
-        if not r <= SMALL_TOL:
-            raise RuntimeError(f"small run {name} disagrees: rel {r:.3e}")
-    del t, args, f_k, f_p
+    small_run_check("MD small run", (
+        ("x", ps_k.x[ps_k.valid], ps_p.x[ps_p.valid]),
+        ("v", ps_k.props["v"][ps_k.valid], ps_p.props["v"][ps_p.valid])))
+    del t
 
     # -- phase 3: the main path ---------------------------------------------
-    CP.LAUNCHES = 0
+    reset_b1_counts(CP)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ps, log = md.run(cfg, STEPS, thermal_v=THERMAL_V, seed=0,
                      log_every=STEPS - 1)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = CP.LAUNCHES
-    if launches != STEPS + 1:      # initial forces + one per step
-        raise RuntimeError(f"{launches} kernel launches for {STEPS + 1} "
-                           "force evaluations")
+    check_b1_launches(CP, "lj", STEPS + 1)   # initial forces + 1 per step
+    launches = CP.LAUNCHES_BY_KIND["lj"]
     v = ps.props["v"][ps.valid]
     if not (bool(torch.isfinite(ps.x[ps.valid]).all())
             and bool(torch.isfinite(v).all())):
@@ -505,16 +940,8 @@ def main() -> int:
         f"{1 - busy_ms / step_ms:.3f}; host enqueue "
         f"{host_s / 20 * 1e3:.4f} ms/step")
 
-    md_entry = {
-        "name": "cell_pair_lj", "route": "cuda",
-        "source": "src/repro_torch/kernels/cell_pair/csrc/cell_pair.cu",
-        "replaces": "src/repro/kernels/cell_pair/cell_pair.py:106",
-        "launches": launches, "launches_per_step": (launches - 1) / STEPS,
-        "max_abs_err": max_abs, "max_rel_err": rel,
-        "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None}
+    md_entry.update(launches=launches,
+                    launches_per_step=(launches - 1) / STEPS)
     del state, ps, cl, t, f
 
     # -- phases 4 and 5: vortex-in-cell --------------------------------------
@@ -535,7 +962,25 @@ def main() -> int:
         entry["launches_per_step"] = entry["launches"] / (VIC_STEPS + redos)
         entry["redos"] = redos
 
-    print(json.dumps({"kernels": [md_entry] + m4_entries}))
+    del tiles
+    torch.cuda.empty_cache()
+
+    # -- phases 6-8: SPH dam break and DEM avalanche -------------------------
+    from repro_torch.apps import dem as D
+    from repro_torch.apps import sph as S
+    sph_entry = sph_kernel_checks(S, CL, CP)
+    dem_entry = dem_kernel_check(D, CL, CP)
+    torch.cuda.empty_cache()
+    sph_entry["launches"] = sph_main_path(S, CL, CP)
+    sph_entry["launches_per_step"] = sph_entry["launches"] / SPH_STEPS
+    torch.cuda.empty_cache()
+    n_run, n_cached = dem_main_path(D, CL, CP)
+    dem_entry.update(launches=n_run + n_cached, launches_run=n_run,
+                     launches_cached=n_cached,
+                     launches_per_step=(n_run + n_cached) / (2 * DEM_STEPS))
+
+    print(json.dumps({"kernels": [md_entry, sph_entry, dem_entry]
+                      + m4_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

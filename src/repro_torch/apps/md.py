@@ -60,7 +60,8 @@ class LJPairBody:
 
     @property
     def cuda_params(self):
-        return (self.sigma, self.epsilon)
+        """The LJ functor's fields: sigma², 24·epsilon."""
+        return (self.sigma * self.sigma, 24.0 * self.epsilon)
 
     def __call__(self, dx, r2, ok, wi, wj):
         r2s = torch.clamp(r2, min=1e-12)

@@ -6,7 +6,8 @@ cell stores a dense ``(cell_cap,)`` row of particle indices (sentinel =
 invalid particles. Built with one stable sort, on the particles' device.
 Exceeding ``cell_cap`` is detected (``overflow``), never clamped.
 
-``build_verlet`` and ``VerletList`` are not ported yet.
+:func:`build_verlet` builds fixed-degree Verlet (contact) lists from a
+cell list, in particle batches.
 """
 from __future__ import annotations
 
@@ -179,6 +180,77 @@ def neighborhood_cells(cl: CellList) -> torch.Tensor:
 def neighborhood_shifts(cl: CellList) -> torch.Tensor:
     """(n_cells, 3^dim, dim) neighbor box shifts (see :func:`neighborhood`)."""
     return neighborhood(cl)[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class VerletList:
+    """Fixed-degree neighbor matrix."""
+
+    nbr: torch.Tensor        # (cap, k_max) int32 neighbor indices (cap = none)
+    n_nbr: torch.Tensor      # (cap,) int32
+    overflow: torch.Tensor   # () int32 max excess over k_max
+    x_build: torch.Tensor    # positions at build time (for skin criterion)
+
+    @property
+    def k_max(self) -> int:
+        return self.nbr.shape[1]
+
+
+#: Particles per batch of :func:`build_verlet` (``repro``'s ``lax.map``
+#: batch size).
+_VERLET_BATCH = 4096
+
+
+def build_verlet(ps: ParticleSet, cl: CellList, r_verlet: float,
+                 k_max: int, half: bool = False) -> VerletList:
+    """Build (cap, k_max) neighbor lists within ``r_verlet`` from a cell
+    list, :data:`_VERLET_BATCH` particles at a time.
+
+    ``half=True`` builds the symmetric list (j > i only), the paper's
+    symmetric-interaction optimization (§4.1): each pair appears once.
+    Each row lists the first ``k_max`` hits in candidate order (the K
+    neighbor cells in ``neighbor_offsets`` order, slots in cell order);
+    ``n_nbr`` counts all hits, so ``overflow`` reports the excess.
+
+    Caveat (as in ``repro``): periodic images are resolved by minimum
+    image over the listed index, so a periodic grid axis needs >= 3 cells.
+    """
+    cap = ps.capacity
+    dev = ps.device
+    hood = neighborhood_cells(cl)                      # (n_cells, K)
+    K = hood.shape[1]
+    cc = cl.cell_cap
+    n_cells = cl.n_cells
+    xm = ps.masked_x()
+    rv2 = r_verlet * r_verlet
+    nbr = torch.empty((cap, k_max), dtype=torch.int32, device=dev)
+    n_nbr = torch.empty((cap,), dtype=torch.int32, device=dev)
+    for b0 in range(0, cap, _VERLET_BATCH):
+        i = torch.arange(b0, min(b0 + _VERLET_BATCH, cap), device=dev)
+        B = i.shape[0]
+        ci = cl.cell_id[i]     # in [0, n_cells]; n_cells = trash (invalid)
+        cand = cl.cells[hood[ci.clamp(max=n_cells - 1).long()].long()]
+        cand = torch.where((ci < n_cells)[:, None, None], cand,
+                           torch.full_like(cand, cap)).reshape(B, K * cc)
+        xj = torch.where((cand < cap)[..., None],
+                         xm[cand.clamp(max=cap - 1).long()],
+                         torch.full((), ParticleSet.FILL, device=dev))
+        d = _min_image(xm[i][:, None, :] - xj, cl)
+        r2 = (d * d).sum(-1)
+        ok = (r2 < rv2) & (cand != i[:, None]) & (cand < cap)
+        if half:
+            ok &= cand > i[:, None]
+        # stable selection of the first k_max hits; the rest go to a dump
+        # column past the end
+        rank = torch.cumsum(ok, dim=1) - 1
+        dest = torch.where(ok & (rank < k_max), rank,
+                           torch.full_like(rank, k_max))
+        out = torch.full((B, k_max + 1), cap, dtype=torch.int32, device=dev)
+        out.scatter_(1, dest, cand)
+        nbr[b0:b0 + B] = out[:, :k_max]
+        n_nbr[b0:b0 + B] = ok.sum(1)
+    overflow = torch.clamp(n_nbr.max() - k_max, min=0)
+    return VerletList(nbr=nbr, n_nbr=n_nbr, overflow=overflow, x_build=ps.x)
 
 
 def _min_image(dx: torch.Tensor, cl: CellList) -> torch.Tensor:

@@ -15,15 +15,17 @@ same function (the Pallas ``_pair_kernel`` rule: self-pairs are excluded by
 ``r2 > 1e-12``). :data:`LAUNCHES` counts kernel launches.
 
 The body protocol is that of ``repro_torch.core.interactions``. A body the
-kernel can run carries ``cuda_kind`` (the C++ functor it maps to) and
-``cuda_params``; this version has the LJ functor (``"lj"``), fp32.
+kernel can run carries ``cuda_kind`` (the C++ functor it maps to, one of
+:data:`KINDS`) and ``cuda_params`` (the functor's float fields, in its
+order). The kernel takes the props a functor reads as one packed fp32
+tensor per side, in the order :data:`KINDS` lists. fp32 only.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import pathlib
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -37,6 +39,34 @@ SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "cell_pair.cu"
 
 #: Number of CUDA kernel launches made by :func:`cell_pair` in this process.
 LAUNCHES = 0
+
+
+class Kind(NamedTuple):
+    """What one CUDA functor of ``csrc/cell_pair.cu`` computes."""
+
+    out: Dict[str, str]           # its outputs, name -> "radial" | "scalar"
+    props: Tuple[str, ...]        # the props it reads, in packed order
+    vector: Tuple[bool, ...]      # per prop: a (dim,) vector or a scalar
+    dims: Tuple[int, ...]         # the DIMs it is built for
+    n_params: int                 # its float params (``body.cuda_params``)
+
+    def width(self, dim: int) -> int:
+        """Floats per particle in the packed props."""
+        return sum(dim if vec else 1 for vec in self.vector)
+
+
+#: The CUDA functors: ``cuda_kind`` -> :class:`Kind`. Vector props pack
+#: as their components, scalar props as one float (SPH: v_0 .. v_{d-1},
+#: rho).
+KINDS = {
+    "lj": Kind({"f": "radial"}, (), (), (3,), 2),
+    "sph": Kind({"a": "radial", "drho": "scalar"}, ("v", "rho"),
+                (True, False), (2, 3), 11),
+    "dem": Kind({"f": "radial"}, ("v",), (True,), (3,), 4),
+}
+
+#: Launches per ``cuda_kind``; they add up to :data:`LAUNCHES`.
+LAUNCHES_BY_KIND = {kind: 0 for kind in KINDS}
 
 
 class CellTiles(NamedTuple):
@@ -75,6 +105,21 @@ def gather_cell_tiles(ps: ParticleSet, cl: CellList,
         cell_mask=rows < cap, nbr_mask=cand < cap,
         props_i={k: ps.props[k][safe_r] for k in prop_names},
         props_j={k: ps.props[k][safe_c] for k in prop_names})
+
+
+def pack_props(props: Dict[str, torch.Tensor], names) -> torch.Tensor:
+    """One contiguous fp32 ``(C, n, width)`` tile of the ``(C, n)`` scalar
+    and ``(C, n, dim)`` vector prop tiles ``names``, in that order. A
+    single vector prop that is already fp32 and contiguous is returned as
+    it is. (The props are gathered one by one and packed here, as tiles:
+    gathering packed 16-byte SPH rows per particle takes PyTorch's
+    ``vectorized_gather_kernel`` path, which is many times slower on the
+    H100; PERF.md §6.)"""
+    parts = [props[k] if props[k].dim() == 3 else props[k][..., None]
+             for k in names]
+    if len(parts) == 1:
+        return parts[0].to(torch.float32).contiguous()
+    return torch.cat([p.to(torch.float32) for p in parts], dim=-1)
 
 
 def cell_pair_torch(cell_x, nbr_x, cell_mask, nbr_mask, props_i=None,
@@ -144,8 +189,11 @@ def cell_pair_torch(cell_x, nbr_x, cell_mask, nbr_mask, props_i=None,
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.cell_pair_lj_f32_d3.argtypes = [p, p, p, p, p, i, i, i, f, f, f, p]
-    lib.cell_pair_lj_f32_d3.restype = i
+    for kind, spec in KINDS.items():
+        for dim in spec.dims:
+            fn = getattr(lib, f"cell_pair_{kind}_f32_d{dim}")
+            fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, p, p]
+            fn.restype = i
     return lib
 
 
@@ -172,42 +220,92 @@ def _check_tiles(cell_x, nbr_x, cell_mask, nbr_mask):
                          "per home slot)")
 
 
-def _cell_pair_cuda(cell_x, nbr_x, cell_mask, nbr_mask, props_i, props_j,
-                    *, body, out, r_cut, precision):
-    """Launch the CUDA kernel on PyTorch's current stream; no sync."""
-    global LAUNCHES
+def _check_packed(name, t, shape, device):
+    if t.device != device or t.dtype != torch.float32 \
+            or tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous float32 tensor of "
+                         f"shape {shape} on {device}; got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def _kind_of(body, out, precision) -> str:
+    """The body's CUDA functor, checked against ``out`` and ``precision``;
+    raises for anything the kernel does not run."""
     kind = getattr(body, "cuda_kind", None)
     if kind is None:
         raise NotImplementedError(
             "this pair body has no CUDA functor (no cuda_kind); the CUDA "
-            "cell-pair kernel runs the LJ body only so far — use "
+            f"cell-pair kernel runs the {sorted(KINDS)} bodies — use "
             "backend='torch' for other bodies")
     mode, _ = parse_precision(precision, out)
     if mode != "fp32":
         raise NotImplementedError(
             f"precision {precision!r} is not in the CUDA cell-pair kernel "
             "yet (fp32 only); use backend='torch'")
-    if kind != "lj":
+    if kind not in KINDS:
         raise NotImplementedError(f"unknown cuda_kind {kind!r}")
-    if dict(out) != {"f": "radial"} or props_i or props_j:
-        raise ValueError("the LJ functor has one radial output 'f' and no "
-                         f"props; got out={out!r}, props={sorted(props_i)}")
+    if dict(out) != KINDS[kind].out:
+        raise ValueError(f"the {kind} functor has outputs "
+                         f"{KINDS[kind].out}; got out={dict(out)!r}")
+    return kind
+
+
+def _launch(kind, body, cell_x, nbr_x, cell_mask, nbr_mask, packed_i,
+            packed_j, r_cut):
+    """Launch functor ``kind`` on PyTorch's current stream (no sync) with
+    the props already packed; returns {name: (C, cc[, dim])}."""
+    global LAUNCHES
+    spec = KINDS[kind]
     _check_tiles(cell_x, nbr_x, cell_mask, nbr_mask)
     C, cc, dim = cell_x.shape
-    if dim != 3:
-        raise ValueError(f"the LJ functor is built for dim=3, got {dim}")
-    sigma, epsilon = body.cuda_params
-    f = torch.empty((C, cc, 3), dtype=torch.float32, device=cell_x.device)
+    kcc = nbr_x.shape[1]
+    if dim not in spec.dims:
+        raise ValueError(f"the {kind} functor is built for dim in "
+                         f"{spec.dims}, got {dim}")
+    dev = cell_x.device
+    if spec.props:
+        width = spec.width(dim)
+        _check_packed("props_i", packed_i, (C, cc, width), dev)
+        _check_packed("props_j", packed_j, (C, kcc, width), dev)
+    params = tuple(float(v) for v in body.cuda_params)
+    if len(params) != spec.n_params:
+        raise ValueError(f"the {kind} functor takes {spec.n_params} params, "
+                         f"the body gives {len(params)}")
+    res = {name: torch.empty((C, cc, dim) if k == "radial" else (C, cc),
+                             dtype=torch.float32, device=dev)
+           for name, k in spec.out.items()}
+    radial = next((res[n] for n, k in spec.out.items() if k == "radial"),
+                  None)
+    scalar = next((res[n] for n, k in spec.out.items() if k == "scalar"),
+                  None)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    c_params = (ctypes.c_float * len(params))(*params)
+    entry = f"cell_pair_{kind}_f32_d{dim}"
     lib = _lib()
-    with torch.cuda.device(cell_x.device):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.cell_pair_lj_f32_d3(
+        err = getattr(lib, entry)(
             cell_x.data_ptr(), nbr_x.data_ptr(), cell_mask.data_ptr(),
-            nbr_mask.data_ptr(), f.data_ptr(), C, cc, nbr_x.shape[1],
-            r_cut * r_cut, sigma * sigma, 24.0 * epsilon, stream)
-    _build.check(err, "cell_pair_lj_f32_d3")
+            nbr_mask.data_ptr(), ptr(packed_i), ptr(packed_j), ptr(radial),
+            ptr(scalar), C, cc, kcc, r_cut * r_cut, c_params, stream)
+    _build.check(err, entry)
     LAUNCHES += 1
-    return {"f": f}
+    LAUNCHES_BY_KIND[kind] += 1
+    return res
+
+
+def _cell_pair_cuda(cell_x, nbr_x, cell_mask, nbr_mask, props_i, props_j,
+                    *, body, out, r_cut, precision):
+    """Pack the tile props in the functor's order and launch it."""
+    kind = _kind_of(body, out, precision)
+    names = KINDS[kind].props
+    if sorted(props_i) != sorted(names) or sorted(props_j) != sorted(names):
+        raise ValueError(f"the {kind} functor reads props {names}; got "
+                         f"{sorted(props_i)} / {sorted(props_j)}")
+    packed_i = pack_props(props_i, names) if names else None
+    packed_j = pack_props(props_j, names) if names else None
+    return _launch(kind, body, cell_x, nbr_x, cell_mask, nbr_mask, packed_i,
+                   packed_j, r_cut)
 
 
 def cell_pair(cell_x, nbr_x, cell_mask, nbr_mask, props_i=None,

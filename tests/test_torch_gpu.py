@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card
+(B1 with the LJ, SPH and DEM functors, B3, B4).
 Imports neither jax nor repro, so it runs on the GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -105,3 +106,103 @@ def test_cuda_cell_pair_matches_plain(card):
     ref = CP.cell_pair_torch(*args, **kw)["f"]
     torch.cuda.synchronize()
     assert rel(got, ref) <= TOL
+
+
+def _pair_tiles(dim, C, cc, K, box, seed):
+    """Random cell tiles (numpy draws) on the card: positions in a small
+    box so most pairs are inside the cutoff, velocities N(0, 1),
+    densities rho0 (1 + 0.02 N(0, 1)), about 20% of slots empty."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    f32 = lambda *s: rng.uniform(size=s).astype(np.float32)
+    return dict(
+        cell_x=t(box * f32(C, cc, dim)), nbr_x=t(box * f32(C, K * cc, dim)),
+        cell_mask=t(f32(C, cc) > 0.2), nbr_mask=t(f32(C, K * cc) > 0.2),
+        cell_v=t(rng.normal(size=(C, cc, dim)).astype(np.float32)),
+        nbr_v=t(rng.normal(size=(C, K * cc, dim)).astype(np.float32)),
+        cell_rho=t((1000.0 * (1 + 0.02 * rng.normal(size=(C, cc))))
+                   .astype(np.float32)),
+        nbr_rho=t((1000.0 * (1 + 0.02 * rng.normal(size=(C, K * cc))))
+                  .astype(np.float32)))
+
+
+@pytest.mark.parametrize("dim,C,cc", [(2, 6, 16), (3, 4, 16), (3, 3, 128)])
+def test_cuda_sph_functor_matches_plain(card, dim, C, cc):
+    """B1-SPH against cell_pair_torch on random tiles; cc=128 at dim 3 is
+    the card size's 110.6 KB of staged candidates (above the 48 KB
+    default)."""
+    from repro_torch.apps import sph
+    from repro_torch.kernels.cell_pair import cell_pair as CP
+    cfg = sph.SPHConfig(dim=dim, dp=0.05, box=(1.0, 0.5, 0.5)[:dim],
+                        fluid=(0.25,) * dim, device="cuda")
+    tl = _pair_tiles(dim, C, cc, 3 ** dim, 0.2, seed=10 + dim + cc)
+    args = (tl["cell_x"], tl["nbr_x"], tl["cell_mask"], tl["nbr_mask"],
+            {"v": tl["cell_v"], "rho": tl["cell_rho"]},
+            {"v": tl["nbr_v"], "rho": tl["nbr_rho"]})
+    kw = dict(body=sph.sph_pair_body(cfg),
+              out={"a": "radial", "drho": "scalar"}, r_cut=cfg.r_cut)
+    n0 = dict(CP.LAUNCHES_BY_KIND)
+    got = CP.cell_pair(*args, **kw)
+    assert CP.LAUNCHES_BY_KIND["sph"] == n0["sph"] + 1
+    ref = CP.cell_pair_torch(*args, **kw)
+    torch.cuda.synchronize()
+    for name in ("a", "drho"):
+        assert rel(got[name], ref[name]) <= TOL, name
+    with pytest.raises(NotImplementedError, match="fp32 only"):
+        CP.cell_pair(*args, precision="bf16x:drho", **kw)
+
+
+def test_cuda_dem_functor_matches_plain(card):
+    """B1-DEM against cell_pair_torch on random tiles of overlapping
+    grains (2R = 0.12 in a 0.3 box)."""
+    from repro_torch.apps import dem
+    from repro_torch.kernels.cell_pair import cell_pair as CP
+    cfg = dem.DEMConfig(device="cuda")
+    tl = _pair_tiles(3, 5, 24, 27, 0.3, seed=3)
+    args = (tl["cell_x"], tl["nbr_x"], tl["cell_mask"], tl["nbr_mask"],
+            {"v": tl["cell_v"]}, {"v": tl["nbr_v"]})
+    kw = dict(body=dem.dem_normal_body(cfg), out={"f": "radial"},
+              r_cut=cfg.r_cut)
+    n0 = dict(CP.LAUNCHES_BY_KIND)
+    got = CP.cell_pair(*args, **kw)["f"]
+    assert CP.LAUNCHES_BY_KIND["dem"] == n0["dem"] + 1
+    ref = CP.cell_pair_torch(*args, **kw)["f"]
+    torch.cuda.synchronize()
+    assert float(ref.abs().max()) > 1.0
+    assert rel(got, ref) <= TOL
+    with pytest.raises(NotImplementedError, match="fp32 only"):
+        CP.cell_pair(*args, precision="bf16x", **kw)
+
+
+def test_sph_and_dem_kernel_path_match_plain_path(card):
+    """A few steps of the small 2-D dam break and the small avalanche
+    through the kernels (backend auto) against the plain path, one launch
+    per step."""
+    from repro_torch.apps import dem, sph
+    from repro_torch.kernels.cell_pair import cell_pair as CP
+    cfg = sph.SPHConfig(dp=0.04, box=(1.0, 0.5), fluid=(0.25, 0.25),
+                        device="cuda")
+    n0 = CP.LAUNCHES_BY_KIND["sph"]
+    pk, tk = sph.run(cfg, 5)
+    assert CP.LAUNCHES_BY_KIND["sph"] == n0 + 5
+    pp, tp = sph.run(dataclasses.replace(cfg, backend="torch"), 5)
+    assert rel(pk.props["v"], pp.props["v"]) <= 1e-4
+    assert rel(pk.props["rho"], pp.props["rho"]) <= 1e-4
+    assert abs(tk - tp) <= 1e-5 * tp
+    dcfg = dem.DEMConfig(box=(2.0, 0.6, 1.0), fill=(0.8, 0.66, 0.5),
+                         device="cuda")
+    ps = dem.init_block(dcfg)
+    rng = np.random.default_rng(1)
+    v = torch.from_numpy(0.3 * rng.normal(size=tuple(ps.props["v"].shape))
+                         .astype(np.float32)).cuda()
+    ps = ps.with_prop("v", torch.where(ps.valid[:, None], v,
+                                       torch.zeros_like(v)))
+    pk, pp = ps, ps
+    n0 = CP.LAUNCHES_BY_KIND["dem"]
+    for _ in range(5):
+        pk, fk = dem.dem_step(pk, dcfg)
+        pp, fp = dem.dem_step(pp, dataclasses.replace(dcfg, backend="torch"))
+        assert int(fk.any()) == 0 and int(fp.any()) == 0
+    assert CP.LAUNCHES_BY_KIND["dem"] == n0 + 5
+    for name in ("v", "w"):
+        assert rel(pk.props[name], pp.props[name]) <= 1e-4, name

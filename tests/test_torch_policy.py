@@ -105,3 +105,42 @@ def test_m4_cuda_backend_on_cpu_tensors_raises():
                               device="cpu", backend="cuda")
     with pytest.raises(RuntimeError, match="CUDA tensors"):
         vortex.run(cfg, 1)
+
+
+def test_sph_dem_cuda_requested_without_card_raises(monkeypatch):
+    from repro_torch.apps import dem, sph
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scfg = sph.SPHConfig(dp=0.05, box=(1.0, 0.5), fluid=(0.25, 0.25))
+    dcfg = dem.DEMConfig(box=(2.0, 0.6, 1.0), fill=(0.8, 0.66, 0.5))
+    assert scfg.device == dcfg.device == "cuda"
+    for fn in (lambda: sph.init_dam_break(scfg), lambda: sph.run(scfg, 1),
+               lambda: dem.init_block(dcfg), lambda: dem.run(dcfg, 1)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            fn()
+
+
+def test_sph_dem_cuda_backend_on_cpu_tensors_raises():
+    from repro_torch.apps import dem, sph
+    scfg = sph.SPHConfig(dp=0.05, box=(1.0, 0.5), fluid=(0.25, 0.25),
+                         device="cpu", backend="cuda")
+    ps = sph.init_dam_break(scfg)
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        sph.compute_rates(ps, scfg)
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        sph.sph_step(ps, scfg)
+    dcfg = dem.DEMConfig(box=(2.0, 0.6, 1.0), fill=(0.8, 0.66, 0.5),
+                         device="cpu", backend="cuda")
+    ps = dem.init_block(dcfg)
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        dem.normal_forces(ps, dcfg, backend="cuda")
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        dem.dem_step(ps, dcfg)
+
+
+def test_new_modules_are_checked_for_imports():
+    """The slice's modules are among the files the import rule covers."""
+    rel_paths = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("apps/sph.py", "apps/dem.py", "kernels/sph_forces/ops.py",
+                "kernels/sph_forces/ref.py",
+                "kernels/sph_forces/sph_forces.py"):
+        assert f"src/repro_torch/{mod}" in rel_paths, mod
