@@ -10,9 +10,11 @@ Phases, each of which raises (non-zero exit) on failure:
      checkout (``nvcc``, at first use, into ``build/repro_torch/``);
   2. the cell-pair kernel against its plain PyTorch version on the tiles
      of the paper's MD state (216,000 particles, after 10 steps):
-     max-abs relative error <= 1e-5 in fp32, and both timed with CUDA
-     events; plus a small end-to-end run through the kernel against the
-     same run on the plain path;
+     max-abs relative error <= 1e-5 in fp32 and in bf16x (which must
+     differ from fp32; the relative gap is printed), both timed with CUDA events; plus small
+     end-to-end runs through the kernel against the same runs on the
+     plain path (fp32 and bf16x), and the bf16x path: ``md.run`` 20 steps
+     at 216,000 particles with ``precision="bf16x"``;
   3. the main path: ``md.run`` at 216,000 particles for 100 steps on
      ``device="cuda"``, ``backend="auto"`` — zero step flags (``md.run``
      raises otherwise), one kernel launch per force evaluation, finite
@@ -22,8 +24,10 @@ Phases, each of which raises (non-zero exit) on failure:
      the bucket tiles of the one-card vortex-in-cell size (800 x 200 x 200
      nodes, the paper's §4.4 box at half its resolution per axis; 3.2e7
      particles), after one step so particles sit off the lattice:
-     max-abs relative error <= 1e-5, both timed with CUDA events; plus a
-     5-step (16, 8, 8) run through the kernels against the plain path;
+     max-abs relative error <= 1e-5 (bf16x too, and unlike fp32),
+     both timed with CUDA events; plus 5-step (16, 8, 8) runs through the
+     kernels against the plain path (fp32, bf16x), and the bf16x path:
+     ``vortex.run`` 2 steps at that size with ``precision="bf16x"``;
   5. the vortex main path: ``vortex.run`` for 10 steps at that size on
      ``device="cuda"``, ``backend="auto"``, ``interp="cells"`` — exactly
      2 P2M + 2 M2P launches per step plus 4 per re-provision redo, a
@@ -38,7 +42,10 @@ Phases, each of which raises (non-zero exit) on failure:
      default avalanche scaled 2x per axis: 72,030 grains; 20 steps from
      0.3·N(0, 1) velocities); a 10-step small avalanche through the
      kernel against the plain path; all to <= 1e-5, timed with CUDA
-     events, with their bytes and flops bounds;
+     events, with their bytes and flops bounds; the same for the bf16x
+     forms (SPH ``bf16x`` and ``bf16x:drho``, DEM ``bf16x``; <= 1e-5 and
+     unlike fp32), and their paths: ``sph.run`` 10 steps in each SPH
+     mode and ``dem.run`` 10 steps in bf16x at the card sizes;
   7. the SPH main path: ``sph.run`` for 50 steps at the card size —
      exactly one SPH launch per step, zero step flags, a finite state,
      simulated time > 0, the fluid's mean height falling; then ms/step,
@@ -47,7 +54,15 @@ Phases, each of which raises (non-zero exit) on failure:
      50 ``make_cached_stepper`` steps — one DEM launch per step, zero
      flags, a finite state, mean v_x > 0 down the incline, no grain
      below z = -0.05, the contact list reused at least once; then ms/step
-     of both, grain-steps per second and the device breakdown.
+     of both, grain-steps per second and the device breakdown;
+  9. Gray-Scott (paper §4.3) at 256^3 nodes in a 5.0 box: the stencil
+     kernel against its plain version for one step (<= 1e-6, unequal
+     nodes counted) and 200 steps of ``stencil7.ops.step`` against
+     ``gray_scott.run`` (<= 1e-5); then the paper's 5000 steps through
+     ``ops.step`` at (F, k) = (0.030, 0.055) and (0.010, 0.070) — one
+     launch per step, finite fields, u <= 1.5, v >= -0.5, more pattern
+     energy in the first; ms per launch and per step, the plain step's
+     ms, node-updates per second, the bytes bound.
 
 It prints a ``{"kernels": [...]}`` line and, as its last line,
 ``{"ok": true, "device": {...}}``. It exits non-zero without a result when
@@ -79,6 +94,8 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.core.interactions import parse_precision  # noqa: E402
+
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate and fp32 outside the
 # tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -91,6 +108,13 @@ DT = 0.0005 / 6
 THERMAL_V = 0.3
 STEPS = 100
 REL_TOL = 1e-5        # kernel vs plain, fp32: only the summation order differs
+# kernel vs plain, bf16x: the same bf16 roundings, in the same order, on
+# both paths, so only the summation order differs, as in fp32. Far inside
+# the 4e-3 that one flipped bf16 rounding (unit roundoff 2^-8) in a pair
+# term could reach, and far below the bf16x-vs-fp32 gap printed beside
+# each check, which a kernel that skipped its roundings would approach.
+BF16_TOL = 1e-5
+BF16_SMALL_TOL = 1e-2  # small bf16x trajectory, kernel path vs plain path
 DRIFT_TOL = 0.05      # tests/test_cell_pair.py energy-conservation bound
 SMALL_TOL = 1e-4      # 20-step trajectory, kernel path vs plain path
 # The one-card vortex-in-cell size: the paper's box (22 x 5.57 x 5.57) at
@@ -99,6 +123,7 @@ VIC_SHAPE = (800, 200, 200)
 VIC_LENGTHS = (22.0, 5.57, 5.57)
 VIC_DT = 0.0125
 VIC_STEPS = 10
+VIC_BF16_STEPS = 2
 # The card SPH size: a 3-D tank with a 0.4 x 0.6 x 0.3 column and three
 # wall layers at dp = 0.006 (570,248 particles, 76 x 32 x 19 cells; up to
 # 96 particles share a cell at t = 0 where the wall layers meet).
@@ -106,6 +131,10 @@ SPH_CARD = dict(dim=3, dp=0.006, box=(1.6, 0.67, 0.4), fluid=(0.4, 0.6, 0.3),
                 cell_cap=128)
 SPH_SMALL = dict(dp=0.04, box=(1.0, 0.5), fluid=(0.25, 0.25))
 SPH_STEPS = 50
+SPH_BF16_MODES = ("bf16x", "bf16x:drho")
+SPH_BF16_STEPS = 10
+MD_BF16_STEPS = 20
+DEM_BF16_STEPS = 10
 # The card DEM size: the default avalanche scaled 2x per axis (72,030
 # grains, 120 x 42 x 45 cells). The paper's Fig. 11 run has 677k grains;
 # --dem-paper-size tries the defaults scaled 4.27x per axis (699,600).
@@ -113,6 +142,20 @@ DEM_CARD = dict(box=(16.8, 6.0, 6.36), fill=(8.52, 6.12, 2.52))
 DEM_SMALL = dict(box=(2.0, 0.6, 1.0), fill=(0.8, 0.66, 0.5))
 DEM_STEPS = 50
 DEM_PAPER_SCALE = 4.27
+# Gray-Scott at the paper's 256^3 nodes for 5000 steps (Table 4, Fig. 7).
+# The box is 5.0 per axis, not GSConfig's 2.5: at 2.5, Du dt inv_h2 =
+# 2e-5 x 1 x (256 / 2.5)^2 = 0.21 > 1/6 and explicit Euler blows up (the
+# checkerboard mode of u grows 1.52x a step); at 5.0 it is 0.052.
+GS_SHAPE = (256, 256, 256)
+GS_L = 5.0
+GS_DT = 1.0
+GS_STEPS = 5000
+GS_CHECK_STEPS = 200
+# repro's tests/test_system.py pair: Pearson's pattern-forming (F, k),
+# then a decaying one
+GS_PAIRS = ((0.030, 0.055), (0.010, 0.070))
+GS_ONE_TOL = 1e-6     # one step, kernel vs plain: the same roundings
+GS_RUN_TOL = 1e-5     # 200 steps, kernel path vs plain path
 # flops per in-cutoff body evaluation, accumulation included (b1_bound)
 SPH_EVAL_FLOPS = {2: 50, 3: 55}
 DEM_EVAL_FLOPS = 27
@@ -188,16 +231,19 @@ def b1_bound(t, width: int, rc2: float, eval_flops: int, outs):
 
 
 def b1_check(name, CP, t, body, out, r_cut, eval_flops, cell_batch,
-             iters):
-    """B1 with ``body``'s functor against ``cell_pair_torch`` on tiles
-    ``t``: every output within REL_TOL (max-abs error over the output's
-    max), then both timed with CUDA events (the plain version once more,
-    the kernel on props packed beforehand, as the main path hands them
-    over). Returns the entry for the ``kernels`` line without the main
-    path's launches."""
+             iters, precision="fp32", fp32_out=None):
+    """B1 with ``body``'s functor in ``precision`` against
+    ``cell_pair_torch`` on tiles ``t``: every output within REL_TOL (fp32)
+    or BF16_TOL (bf16x; max-abs error over the output's max), and under
+    bf16x every bf16 output unlike the fp32 kernel's ``fp32_out``; then
+    both timed with CUDA events (the plain version once more, the kernel
+    on props packed beforehand, as the main path hands them over).
+    Returns (the entry for the ``kernels`` line without the main path's
+    launches, the kernel's outputs)."""
     args = (t.cell_x, t.nbr_x, t.cell_mask, t.nbr_mask, t.props_i,
             t.props_j)
-    kw = dict(body=body, out=out, r_cut=r_cut)
+    kw = dict(body=body, out=out, r_cut=r_cut, precision=precision)
+    tol = REL_TOL if precision == "fp32" else BF16_TOL
     plain = lambda: CP.cell_pair_torch(*args, cell_batch=cell_batch, **kw)
     got, ref = CP.cell_pair(*args, **kw), plain()
     torch.cuda.synchronize()
@@ -209,18 +255,29 @@ def b1_check(name, CP, t, body, out, r_cut, eval_flops, cell_batch,
         errors[k] = (max_abs, max_abs / (float(ref[k].abs().max()) + 1e-9))
     print(f"{name}: tiles {tuple(t.nbr_x.shape)}, " + ", ".join(
         f"{k} max abs err {a:.3e} rel {r:.3e}" for k, (a, r) in
-        errors.items()) + f" (tol {REL_TOL:g})")
-    bad = {k: r for k, (_, r) in errors.items() if not r <= REL_TOL}
+        errors.items()) + f" (tol {tol:g})")
+    bad = {k: r for k, (_, r) in errors.items() if not r <= tol}
     if bad:
         raise RuntimeError(f"{name} disagrees with plain: {bad}")
+    kind, prec = CP._kind_of(body, out, precision)
+    if fp32_out is not None:
+        _, sel = parse_precision(precision, out)
+        gaps = {}
+        for k in sorted(out) if sel is None else sorted(sel):
+            diff = float((got[k] - fp32_out[k]).abs().max())
+            gaps[k] = diff / (float(fp32_out[k].abs().max()) + 1e-9)
+            print(f"{name}: {k} differs from the fp32 kernel's by {diff:.3e}"
+                  f", rel {gaps[k]:.3e}")
+            if not diff > 0.0:
+                raise RuntimeError(f"{name}: {k} equals the fp32 result; "
+                                   "bf16 was not used")
     plain_ms = time_cuda(plain, iters=1, warmup=0)
-    kind = body.cuda_kind
     names = CP.KINDS[kind].props
     pi = CP.pack_props(t.props_i, names) if names else None
     pj = CP.pack_props(t.props_j, names) if names else None
     kernel_ms = time_cuda(lambda: CP._launch(kind, body, t.cell_x, t.nbr_x,
                                              t.cell_mask, t.nbr_mask, pi,
-                                             pj, r_cut), iters=iters)
+                                             pj, r_cut, prec), iters=iters)
     width = CP.KINDS[kind].width(t.cell_x.shape[-1]) if names else 0
     n_bytes, n_ops, tests, inside, bound_ms, bound_by = b1_bound(
         t, width, r_cut * r_cut, eval_flops, list(got.values()))
@@ -236,17 +293,18 @@ def b1_check(name, CP, t, body, out, r_cut, eval_flops, cell_batch,
         "max_rel_err": max(r for _, r in errors.values()),
         "errors": {k: {"max_abs": a, "rel": r}
                    for k, (a, r) in errors.items()},
+        **({"fp32_gap_rel": gaps} if fp32_out is not None else {}),
         "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}, got
 
 
-def small_run_check(name, pairs):
+def small_run_check(name, pairs, tol=SMALL_TOL):
     """Fail unless every (field, kernel path, plain path) agrees to
-    SMALL_TOL, max-abs error over the plain path's max."""
+    ``tol``, max-abs error over the plain path's max."""
     for field, a, b in pairs:
         r = float((a - b).abs().max()) / (float(b.abs().max()) + 1e-9)
         print(f"{name}, kernel vs plain path, {field}: rel {r:.3e}")
-        if not r <= SMALL_TOL:
+        if not r <= tol:
             raise RuntimeError(f"{name} {field} disagrees: rel {r:.3e}")
 
 
@@ -272,9 +330,10 @@ def m4_pairs(x, valid, shape, lengths, batch: int = 1 << 22) -> int:
 
 def vic_kernel_checks(V, M4, K, cfg):
     """Phase 4: B3 and B4 against their plain versions on the stage-2
-    tiles of one step from the projected ring (particles off the lattice).
-    Returns the two kernels' entries for the ``kernels`` line, without
-    the main path's launch counts."""
+    tiles of one step from the projected ring (particles off the lattice),
+    in fp32 and in bf16x. Returns the four entries for the ``kernels``
+    line (m4_p2m, m4_p2m_bf16x, m4_m2p, m4_m2p_bf16x), without the main
+    paths' launch counts."""
     from repro_torch.core import remesh as RM
     kw = dict(shape=cfg.shape, box_lo=(0.0, 0.0, 0.0), box_hi=cfg.lengths,
               periodic=(True, True, True))
@@ -304,75 +363,135 @@ def vic_kernel_checks(V, M4, K, cfg):
     # inputs of which only the valid slots are needed, channels)
     cases = (
         ("m4_p2m", 59,
-         lambda: K.p2m_cells(b.cell_x, cell_val, b.cell_mask, **kk),
-         lambda: K.p2m_cells_torch(b.cell_x, cell_val, b.cell_mask, **kk),
+         lambda p: K.p2m_cells(b.cell_x, cell_val, b.cell_mask,
+                               precision=p, **kk),
+         lambda p: K.p2m_cells_torch(b.cell_x, cell_val, b.cell_mask,
+                                     precision=p, **kk),
          (b.cell_mask,), (b.cell_x, cell_val), cell_val.shape[-1]),
         ("m4_m2p", 146,
-         lambda: K.m2p_cells(field, b.cell_x, b.cell_mask, **kk),
-         lambda: K.m2p_cells_torch(field, b.cell_x, b.cell_mask, **kk),
+         lambda p: K.m2p_cells(field, b.cell_x, b.cell_mask, precision=p,
+                               **kk),
+         lambda p: K.m2p_cells_torch(field, b.cell_x, b.cell_mask,
+                                     precision=p, **kk),
          (field, b.cell_mask), (b.cell_x,), field.shape[-1]))
     entries = []
     for name, line, kern, plain, whole, per_slot, n_ch in cases:
-        got, ref = kern(), plain()
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(got).all()):
-            raise RuntimeError(f"{name}: kernel output is not finite")
-        max_abs = float((got - ref).abs().max())
-        rel = max_abs / (float(ref.abs().max()) + 1e-9)
-        print(f"{name}: out {tuple(got.shape)}, max abs err {max_abs:.3e}, "
-              f"rel {rel:.3e} (tol {REL_TOL:g})")
-        if not rel <= REL_TOL:
-            raise RuntimeError(f"{name} disagrees with plain: rel {rel:.3e}")
-        kernel_ms = time_cuda(kern, iters=5, warmup=1)
-        plain_ms = time_cuda(plain, iters=1, warmup=0)
-        # the mask and the dense inputs whole; a slot's position and value
-        # only where the mask is set (the empty tail of each tile is not
-        # read); the output written once
-        n_bytes = sum(a.numel() * a.element_size() for a in whole) \
-            + valid * sum(a[0, 0].numel() * a.element_size()
-                          for a in per_slot) \
-            + got.numel() * got.element_size()
-        # per pair: DIM - 1 weight products and C multiply-adds; per valid
-        # particle: 3 axes x 4 stencil weights at about 12 flops each
-        n_ops = pairs * (2 + 2 * n_ch) + valid * 3 * 4 * 12
-        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = n_ops / FP32_FLOP_PER_S * 1e3
-        print(f"{name}: {kernel_ms:.4f} ms kernel, {plain_ms:.3f} ms plain, "
-              f"{n_bytes / 1e6:.1f} MB, {pairs:.4e} pairs, {n_ops:.4e} "
-              f"flops, bound {max(bytes_ms, ops_ms):.4f} ms")
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/m4_interp/csrc/m4_interp.cu",
-            "replaces": f"src/repro/kernels/m4_interp/m4_interp.py:{line}",
-            "max_abs_err": max_abs,
-            "max_rel_err": rel, "ms": kernel_ms, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None})
-        del got, ref
+        f32_out = None
+        for prec in ("fp32", "bf16x"):
+            tol = REL_TOL if prec == "fp32" else BF16_TOL
+            label = name if prec == "fp32" else f"{name}_{prec}"
+            run_k = lambda: kern(prec)
+            run_p = lambda: plain(prec)
+            got, ref = run_k(), run_p()
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                raise RuntimeError(f"{label}: kernel output is not finite")
+            max_abs = float((got - ref).abs().max())
+            rel = max_abs / (float(ref.abs().max()) + 1e-9)
+            print(f"{label}: out {tuple(got.shape)}, max abs err "
+                  f"{max_abs:.3e}, rel {rel:.3e} (tol {tol:g})")
+            if not rel <= tol:
+                raise RuntimeError(f"{label} disagrees with plain: rel "
+                                   f"{rel:.3e}")
+            if f32_out is None:
+                f32_out = got
+            else:
+                diff = float((got - f32_out).abs().max())
+                gap = diff / (float(f32_out.abs().max()) + 1e-9)
+                print(f"{label}: differs from the fp32 kernel's by "
+                      f"{diff:.3e}, rel {gap:.3e}")
+                if not diff > 0.0:
+                    raise RuntimeError(f"{label} equals the fp32 result; "
+                                       "bf16 was not used")
+            del ref
+            kernel_ms = time_cuda(run_k, iters=5, warmup=1)
+            plain_ms = time_cuda(run_p, iters=1, warmup=0)
+            # the mask and the dense inputs whole; a slot's position and
+            # value only where the mask is set (the empty tail of each tile
+            # is not read); the output written once
+            n_bytes = sum(a.numel() * a.element_size() for a in whole) \
+                + valid * sum(a[0, 0].numel() * a.element_size()
+                              for a in per_slot) \
+                + got.numel() * got.element_size()
+            # per pair: DIM - 1 weight products and C multiply-adds; per
+            # valid particle: 3 axes x 4 stencil weights at about 12 flops
+            # each (bf16x adds two roundings per pair)
+            n_ops = pairs * (2 + 2 * n_ch + (2 if prec != "fp32" else 0)) \
+                + valid * 3 * 4 * 12
+            bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = n_ops / FP32_FLOP_PER_S * 1e3
+            print(f"{label}: {kernel_ms:.4f} ms kernel, {plain_ms:.3f} ms "
+                  f"plain, {n_bytes / 1e6:.1f} MB, {pairs:.4e} pairs, "
+                  f"{n_ops:.4e} flops, bound {max(bytes_ms, ops_ms):.4f} ms")
+            entries.append({
+                "name": label, "route": "cuda",
+                "source": "src/repro_torch/kernels/m4_interp/csrc/"
+                          "m4_interp.cu",
+                "replaces": f"src/repro/kernels/m4_interp/m4_interp.py:"
+                            f"{line}",
+                "max_abs_err": max_abs,
+                "max_rel_err": rel,
+                **({"fp32_gap_rel": gap} if prec != "fp32" else {}),
+                "ms": kernel_ms, "kernel_ms": kernel_ms,
+                "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": None})
+            del got
+        del f32_out
     return entries, (b, cell_val, field, x1, ps.valid, kk)
 
 
-def vic_small_run(V):
+def vic_small_run(V, precision="fp32"):
     """A 5-step (16, 8, 8) run through the kernels against the plain
-    path."""
-    import dataclasses
+    path, in ``precision``."""
     small = V.VortexConfig(shape=(16, 8, 8), lengths=(4.0, 2.0, 2.0),
-                           dt=0.02, device="cuda")
+                           dt=0.02, device="cuda", precision=precision)
+    tol = SMALL_TOL if precision == "fp32" else BF16_SMALL_TOL
     wk, _, zk = V.run(small, 5)
     wp, _, zp = V.run(dataclasses.replace(small, backend="torch"), 5)
     r = float((wk - wp).abs().max()) / (float(wp.abs().max()) + 1e-9)
-    print(f"VIC small run, kernel vs plain path, 5 steps: rel {r:.3e}, "
-          f"centroid {zk:.6f} vs {zp:.6f}")
-    if not r <= SMALL_TOL:
+    print(f"VIC small run ({precision}), kernel vs plain path, 5 steps: "
+          f"rel {r:.3e}, centroid {zk:.6f} vs {zp:.6f}")
+    if not r <= tol:
         raise RuntimeError(f"VIC small run disagrees: rel {r:.3e}")
+
+
+def vic_bf16x_path(V, K, cfg):
+    """The bf16x vortex path: ``vortex.run`` for VIC_BF16_STEPS steps at
+    the card size with ``precision="bf16x"`` — 2 + 2 bf16x launches per
+    step attempt and no fp32 one, a finite field, an advancing ring.
+    Returns ({kernel name: launches}, steps + redos)."""
+    cfg = dataclasses.replace(cfg, precision="bf16x")
+    K.LAUNCHES.update(dict.fromkeys(K.LAUNCHES, 0))
+    V.REDOS = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w, z0, z1 = V.run(cfg, VIC_BF16_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches, redos = dict(K.LAUNCHES), V.REDOS
+    want = 2 * (VIC_BF16_STEPS + redos)
+    if launches != {"p2m": 0, "m2p": 0, "p2m_bf16x": want,
+                    "m2p_bf16x": want}:
+        raise RuntimeError(f"bf16x launches {launches} for {VIC_BF16_STEPS} "
+                           f"steps and {redos} redos; want {want} of each "
+                           "bf16x kernel")
+    if not bool(torch.isfinite(w).all()):
+        raise RuntimeError("the bf16x vorticity field is not finite")
+    print(f"bf16x path: vortex.run {VIC_BF16_STEPS} steps, {run_s:.3f} s "
+          f"wall, centroid {z0:.6f} -> {z1:.6f}, {launches['p2m_bf16x']} "
+          f"P2M + {launches['m2p_bf16x']} M2P bf16x launches, {redos} redos")
+    if not z1 > z0:
+        raise RuntimeError(f"the bf16x ring did not advance: {z0} -> {z1}")
+    return ({"m4_p2m_bf16x": launches["p2m_bf16x"],
+             "m4_m2p_bf16x": launches["m2p_bf16x"]}, VIC_BF16_STEPS + redos)
 
 
 def vic_main_path(V, M4, K, cfg, tiles):
     """Phase 5: ``vortex.run`` for VIC_STEPS steps, its launch counts, its
     checks, then its step time and device breakdown. Returns
     ({kernel name: launches}, re-provision redos)."""
-    K.LAUNCHES["p2m"] = K.LAUNCHES["m2p"] = 0
+    K.LAUNCHES.update(dict.fromkeys(K.LAUNCHES, 0))
     V.REDOS = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -383,7 +502,8 @@ def vic_main_path(V, M4, K, cfg, tiles):
     launches = dict(K.LAUNCHES)
     redos = V.REDOS
     want = 2 * VIC_STEPS + 2 * redos
-    if launches != {"p2m": want, "m2p": want}:
+    if launches != {"p2m": want, "m2p": want, "p2m_bf16x": 0,
+                    "m2p_bf16x": 0}:
         raise RuntimeError(f"launches {launches} for {VIC_STEPS} steps and "
                            f"{redos} redos; want {want} of each")
     ens = float(V.enstrophy(w))
@@ -458,17 +578,19 @@ def vic_main_path(V, M4, K, cfg, tiles):
 
 
 def reset_b1_counts(CP) -> None:
-    """Every B1 launch count to 0 (the total and each functor's)."""
+    """Every B1 launch count to 0 (the total and each functor's in each
+    precision)."""
     CP.LAUNCHES = 0
-    CP.LAUNCHES_BY_KIND.update(dict.fromkeys(CP.KINDS, 0))
+    CP.LAUNCHES_BY_KIND.update(dict.fromkeys(CP.LAUNCHES_BY_KIND, 0))
 
 
-def check_b1_launches(CP, kind: str, want: int) -> None:
+def check_b1_launches(CP, key: str, want: int) -> None:
     """Fail unless the B1 launches since the reset are ``want`` of the
-    ``kind`` functor and none of another."""
+    ``key`` functor and precision (``cell_pair.launch_key``) and none of
+    another."""
     got = dict(CP.LAUNCHES_BY_KIND)
-    expect = dict.fromkeys(CP.KINDS, 0)
-    expect[kind] = want
+    expect = dict.fromkeys(CP.LAUNCHES_BY_KIND, 0)
+    expect[key] = want
     if got != expect or CP.LAUNCHES != want:
         raise RuntimeError(f"B1 launches {got} (total {CP.LAUNCHES}); want "
                            f"{expect}")
@@ -559,10 +681,20 @@ def sph_kernel_checks(S, CL, CP):
     if int(cl.overflow) != 0:
         raise RuntimeError(f"SPH cell overflow {int(cl.overflow)}")
     t = CP.gather_cell_tiles(ps, cl, ("v", "rho"))
-    entry = b1_check("cell_pair_sph", CP, t, S.sph_pair_body(cfg),
-                     {"a": "radial", "drho": "scalar"}, cfg.r_cut,
-                     SPH_EVAL_FLOPS[3], cell_batch=64, iters=5)
-    del t, cl, ps
+    out = {"a": "radial", "drho": "scalar"}
+    entry, f32_out = b1_check("cell_pair_sph", CP, t, S.sph_pair_body(cfg),
+                              out, cfg.r_cut, SPH_EVAL_FLOPS[3],
+                              cell_batch=64, iters=5)
+    entries16 = []
+    for prec in SPH_BF16_MODES:
+        # a mixed form evaluates the body twice per pair
+        e, _ = b1_check(
+            "cell_pair_sph_" + prec.replace(":", "_"), CP, t,
+            S.sph_pair_body(cfg), out, cfg.r_cut,
+            SPH_EVAL_FLOPS[3] * (2 if ":" in prec else 1), cell_batch=64,
+            iters=5, precision=prec, fp32_out=f32_out)
+        entries16.append(e)
+    del t, cl, ps, f32_out
     small = S.SPHConfig(**SPH_SMALL, device="cuda")
     pk, tk = S.run(small, 20)
     pp, tp = S.run(dataclasses.replace(small, backend="torch"), 20)
@@ -573,13 +705,50 @@ def sph_kernel_checks(S, CL, CP):
         ("t", torch.tensor([tk]), torch.tensor([tp]))))
     t = CP.gather_cell_tiles(pk, CL.build_cell_list(pk, **S._cl_kw(small)),
                              ("v", "rho"))
-    entry_d2 = b1_check("cell_pair_sph d2", CP, t, S.sph_pair_body(small),
-                        {"a": "radial", "drho": "scalar"}, small.r_cut,
-                        SPH_EVAL_FLOPS[2], cell_batch=64, iters=20)
+    entry_d2, _ = b1_check("cell_pair_sph d2", CP, t, S.sph_pair_body(small),
+                           out, small.r_cut, SPH_EVAL_FLOPS[2],
+                           cell_batch=64, iters=20)
     entry["d2"] = {k: entry_d2[k] for k in (
         "max_abs_err", "max_rel_err", "errors", "ms", "plain_ms",
         "bound_ms", "bound_by")}
-    return entry
+    for prec in SPH_BF16_MODES:
+        s16 = dataclasses.replace(small, precision=prec)
+        pk, tk = S.run(s16, 20)
+        pp, tp = S.run(dataclasses.replace(s16, backend="torch"), 20)
+        small_run_check(f"SPH 2-D small run {prec}", (
+            ("v", pk.props["v"][pk.valid], pp.props["v"][pp.valid]),
+            ("rho", pk.props["rho"][pk.valid], pp.props["rho"][pp.valid])),
+            tol=BF16_SMALL_TOL)
+    return entry, entries16
+
+
+def sph_bf16x_paths(S, CP, entries16):
+    """The bf16x SPH paths: ``sph.run`` for SPH_BF16_STEPS steps at the
+    card size in each SPH_BF16_MODES precision — one launch of that
+    precision's entry per step and none of another, zero flags, a finite
+    state. Sets each entry's launches."""
+    cfg0 = S.SPHConfig(**SPH_CARD, device="cuda")
+    for prec, entry in zip(SPH_BF16_MODES, entries16):
+        key = "sph_" + prec.replace(":", "_")
+        reset_b1_counts(CP)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ps, t_sim = S.run(dataclasses.replace(cfg0, precision=prec),
+                          SPH_BF16_STEPS)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        check_b1_launches(CP, key, SPH_BF16_STEPS)
+        entry["launches"] = CP.LAUNCHES_BY_KIND[key]
+        entry["launches_per_step"] = entry["launches"] / SPH_BF16_STEPS
+        vm = ps.valid
+        if not all(bool(torch.isfinite(a[vm]).all()) for a in (
+                ps.x, ps.props["v"], ps.props["rho"])):
+            raise RuntimeError(f"SPH state ({prec}) is not finite")
+        if not t_sim > 0.0:
+            raise RuntimeError(f"simulated time {t_sim} ({prec})")
+        print(f"bf16x path: sph.run {SPH_BF16_STEPS} steps precision "
+              f"{prec!r}, {run_s:.3f} s wall, simulated {t_sim:.6e} s, "
+              f"{entry['launches']} {key} launches")
 
 
 def dem_kernel_check(D, CL, CP):
@@ -602,10 +771,14 @@ def dem_kernel_check(D, CL, CP):
     if int(cl.overflow) != 0:
         raise RuntimeError(f"DEM cell overflow {int(cl.overflow)}")
     t = CP.gather_cell_tiles(ps, cl, ("v",))
-    entry = b1_check("cell_pair_dem", CP, t, D.dem_normal_body(cfg),
-                     {"f": "radial"}, cfg.r_cut, DEM_EVAL_FLOPS,
-                     cell_batch=512, iters=10)
-    del t, cl, ps
+    entry, f32_out = b1_check("cell_pair_dem", CP, t, D.dem_normal_body(cfg),
+                              {"f": "radial"}, cfg.r_cut, DEM_EVAL_FLOPS,
+                              cell_batch=512, iters=10)
+    entry16, _ = b1_check("cell_pair_dem_bf16x", CP, t,
+                          D.dem_normal_body(cfg), {"f": "radial"},
+                          cfg.r_cut, DEM_EVAL_FLOPS, cell_batch=512,
+                          iters=10, precision="bf16x", fp32_out=f32_out)
+    del t, cl, ps, f32_out
     small = D.DEMConfig(**DEM_SMALL, device="cuda")
     p0 = D.init_block(small)
     rng = np.random.default_rng(1)
@@ -624,7 +797,75 @@ def dem_kernel_check(D, CL, CP):
         ("x", pk.x[pk.valid], pp.x[pp.valid]),
         ("v", pk.props["v"][pk.valid], pp.props["v"][pp.valid]),
         ("w", pk.props["w"][pk.valid], pp.props["w"][pp.valid])))
-    return entry
+    s16 = dataclasses.replace(small, precision="bf16x")
+    pk = pp = p0
+    for _ in range(10):
+        pk, fk = D.dem_step(pk, s16)
+        pp, fp = D.dem_step(pp, dataclasses.replace(s16, backend="torch"))
+        if int(fk.any()) or int(fp.any()):
+            raise RuntimeError("DEM bf16x small run: nonzero step flags")
+    small_run_check("DEM small run bf16x", (
+        ("x", pk.x[pk.valid], pp.x[pp.valid]),
+        ("v", pk.props["v"][pk.valid], pp.props["v"][pp.valid])),
+        tol=BF16_SMALL_TOL)
+    return entry, entry16
+
+
+def dem_bf16x_path(D, CP, entry16):
+    """The bf16x DEM path: ``dem.run`` for DEM_BF16_STEPS steps at the card
+    size with ``precision="bf16x"`` — one dem_bf16x launch per step and no
+    other, zero flags (``run`` raises), a finite state."""
+    cfg = D.DEMConfig(**DEM_CARD, device="cuda", precision="bf16x")
+    reset_b1_counts(CP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ps = D.run(cfg, DEM_BF16_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    check_b1_launches(CP, "dem_bf16x", DEM_BF16_STEPS)
+    entry16["launches"] = CP.LAUNCHES_BY_KIND["dem_bf16x"]
+    entry16["launches_per_step"] = entry16["launches"] / DEM_BF16_STEPS
+    vm = ps.valid
+    if not all(bool(torch.isfinite(a[vm]).all()) for a in (
+            ps.x, ps.props["v"], ps.props["w"])):
+        raise RuntimeError("DEM bf16x state is not finite")
+    print(f"bf16x path: dem.run {DEM_BF16_STEPS} steps, {run_s:.3f} s wall, "
+          f"mean v_x {float(ps.props['v'][vm][:, 0].mean()):.6e}, "
+          f"{entry16['launches']} dem_bf16x launches")
+
+
+def md_bf16x_path(md, CP, cfg):
+    """The bf16x MD path: a 20-step small run through the kernel against
+    the plain path in bf16x, then ``md.run`` for MD_BF16_STEPS steps at the
+    card size with ``precision="bf16x"`` — one lj_bf16x launch per force
+    evaluation and no other, zero flags, finite state. Returns the
+    launches."""
+    small = md.MDConfig(n_per_side=6, sigma=0.085, device="cuda",
+                        precision="bf16x")
+    ps_k, _ = md.run(small, 20, thermal_v=0.4, seed=2)
+    ps_p, _ = md.run(dataclasses.replace(small, backend="torch"), 20,
+                     thermal_v=0.4, seed=2)
+    small_run_check("MD small run bf16x", (
+        ("x", ps_k.x[ps_k.valid], ps_p.x[ps_p.valid]),
+        ("v", ps_k.props["v"][ps_k.valid], ps_p.props["v"][ps_p.valid])),
+        tol=BF16_SMALL_TOL)
+    cfg = dataclasses.replace(cfg, precision="bf16x")
+    reset_b1_counts(CP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ps, log = md.run(cfg, MD_BF16_STEPS, thermal_v=THERMAL_V, seed=0,
+                     log_every=MD_BF16_STEPS - 1)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    check_b1_launches(CP, "lj_bf16x", MD_BF16_STEPS + 1)
+    launches = CP.LAUNCHES_BY_KIND["lj_bf16x"]
+    if not (bool(torch.isfinite(ps.x[ps.valid]).all())
+            and bool(torch.isfinite(ps.props["v"][ps.valid]).all())):
+        raise RuntimeError("bf16x positions or velocities are not finite")
+    e = [k + p for _, k, p in log]
+    print(f"bf16x path: md.run {MD_BF16_STEPS} steps, {run_s:.3f} s wall, "
+          f"E_tot {e[0]:.6e} -> {e[-1]:.6e}, {launches} lj_bf16x launches")
+    return launches
 
 
 def sph_main_path(S, CL, CP):
@@ -761,6 +1002,112 @@ def dem_main_path(D, CL, CP):
     return launches, launches_cached
 
 
+def gray_scott_phase():
+    """Phase 9: Gray-Scott at the paper's 256^3 nodes (GS_L per axis; see
+    the constant). B2 against its plain version for one step and for
+    GS_CHECK_STEPS steps of ``ops.step`` against ``gray_scott.run``; then
+    the paper's GS_STEPS steps through ``ops.step`` at the pattern-forming
+    and at the decaying (F, k) — one launch per step, finite and bounded
+    fields, more pattern energy in the first; times and the bound.
+    Returns the entry for the ``kernels`` line."""
+    from repro_torch.apps import gray_scott as GS
+    from repro_torch.kernels.stencil7 import ops as SOPS
+    from repro_torch.kernels.stencil7 import stencil7 as SK
+    from repro_torch.kernels.stencil7.ref import gray_scott_step_ref
+    cfg = GS.GSConfig(shape=GS_SHAPE, L=GS_L, dt=GS_DT, device="cuda")
+    inv_h2 = (cfg.shape[0] / cfg.L) ** 2
+    kw = dict(Du=cfg.Du, Dv=cfg.Dv, F=cfg.F, k=cfg.k, dt=cfg.dt,
+              inv_h2=inv_h2)
+    n_nodes = int(np.prod(cfg.shape))
+    print(f"Gray-Scott: {cfg.shape} nodes, L {cfg.L}, dt {cfg.dt}, "
+          f"Du dt inv_h2 {cfg.Du * cfg.dt * inv_h2:.4f} (explicit Euler "
+          f"needs <= 1/6)")
+
+    def compare(name, got, ref, tol):
+        worst = 0.0
+        for f, g, r in zip("uv", got, ref):
+            rel = float((g - r).abs().max()) / (float(r.abs().max()) + 1e-9)
+            unequal = int((g != r).sum())
+            print(f"{name}, {f}: rel {rel:.3e}, {unequal} unequal nodes "
+                  f"(tol {tol:g})")
+            if not rel <= tol:
+                raise RuntimeError(f"{name} {f} disagrees: rel {rel:.3e}")
+            worst = max(worst, float((g - r).abs().max()))
+        return worst
+
+    u0, v0 = GS.init_fields(cfg, seed=0)
+    max_abs = compare("stencil7 one step, kernel vs plain",
+                      SK.gray_scott_step(u0, v0, **kw),
+                      gray_scott_step_ref(u0, v0, **kw), GS_ONE_TOL)
+    uk, vk = u0, v0
+    for _ in range(GS_CHECK_STEPS):
+        uk, vk = SOPS.step(uk, vk, cfg)
+    up, vp = GS.run(cfg, GS_CHECK_STEPS)
+    compare(f"Gray-Scott {GS_CHECK_STEPS} steps, ops.step vs "
+            "gray_scott.run", (uk, vk), (up, vp), GS_RUN_TOL)
+    del uk, vk, up, vp
+    kernel_ms = time_cuda(lambda: SK.gray_scott_step(u0, v0, **kw),
+                          iters=100)
+    plain_ms = time_cuda(lambda: GS.gs_step(u0, v0, cfg), iters=10)
+    # u and v read once, u' and v' written once; ~31 flops a node
+    n_bytes = 4 * n_nodes * 4
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 31 * n_nodes / FP32_FLOP_PER_S * 1e3
+    print(f"stencil7: {kernel_ms:.4f} ms kernel, {plain_ms:.4f} ms plain "
+          f"gs_step, {n_bytes} B, bound {max(bytes_ms, ops_ms):.4f} ms "
+          f"({'bytes' if bytes_ms >= ops_ms else 'operations'}), "
+          f"{n_bytes / kernel_ms / 1e6:.1f} GB/s")
+
+    energy = {}
+    SK.LAUNCHES = 0
+    for F, k in GS_PAIRS:
+        c = dataclasses.replace(cfg, F=F, k=k)
+        u, v = GS.init_fields(c, seed=0)
+        n0 = SK.LAUNCHES
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(GS_STEPS):
+            u, v = SOPS.step(u, v, c)
+        end.record()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        step_ms = start.elapsed_time(end) / GS_STEPS
+        if SK.LAUNCHES - n0 != GS_STEPS:
+            raise RuntimeError(f"{SK.LAUNCHES - n0} stencil7 launches for "
+                               f"{GS_STEPS} steps")
+        if not (bool(torch.isfinite(u).all())
+                and bool(torch.isfinite(v).all())):
+            raise RuntimeError(f"Gray-Scott (F, k) = {(F, k)}: not finite")
+        umax, vmin = float(u.max()), float(v.min())
+        energy[F, k] = GS.pattern_energy(v)
+        print(f"main path: {GS_STEPS} ops.step steps at (F, k) = {(F, k)}: "
+              f"{wall_s:.3f} s wall, {step_ms:.4f} ms/step, "
+              f"{n_nodes / step_ms * 1e3:.4e} node-updates/s, u max "
+              f"{umax:.6f}, v min {vmin:.6f}, pattern energy "
+              f"{energy[F, k]:.6e}")
+        if not (umax <= 1.5 and vmin >= -0.5):
+            raise RuntimeError(f"Gray-Scott {(F, k)} left its bounds: u max "
+                               f"{umax}, v min {vmin}")
+    launches = SK.LAUNCHES
+    (pat, dead) = GS_PAIRS
+    if not energy[pat] > energy[dead]:
+        raise RuntimeError(f"pattern energy {energy[pat]} at {pat} is not "
+                           f"above {energy[dead]} at {dead}")
+    return {
+        "name": "stencil7", "route": "cuda",
+        "source": "src/repro_torch/kernels/stencil7/csrc/stencil7.cu",
+        "replaces": "src/repro/kernels/stencil7/stencil7.py:24",
+        "launches": launches, "launches_per_step": launches /
+        (len(GS_PAIRS) * GS_STEPS), "max_abs_err": max_abs,
+        "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None}
+
+
 def dem_paper_size() -> None:
     """One ``dem_step`` at the paper's grain count (the DEMConfig defaults
     scaled DEM_PAPER_SCALE per axis); prints whether it fit the card and
@@ -823,6 +1170,7 @@ def main() -> int:
                     help="only ask whether one DEM step at the paper's "
                     "grain count fits one card")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -869,8 +1217,14 @@ def main() -> int:
     body = md.lj_pair_body(cfg.sigma, cfg.epsilon)
     kw = dict(body=body, out={"f": "radial"}, r_cut=cfg.r_cut)
     # 15 flops per in-cutoff LJ evaluation (body 9, accumulation 6)
-    md_entry = b1_check("cell_pair_lj", CP, t, body, {"f": "radial"},
-                        cfg.r_cut, eval_flops=15, cell_batch=512, iters=50)
+    md_entry, f32_out = b1_check("cell_pair_lj", CP, t, body,
+                                 {"f": "radial"}, cfg.r_cut, eval_flops=15,
+                                 cell_batch=512, iters=50)
+    lj16_entry, _ = b1_check("cell_pair_lj_bf16x", CP, t, body,
+                             {"f": "radial"}, cfg.r_cut, eval_flops=15,
+                             cell_batch=512, iters=50, precision="bf16x",
+                             fp32_out=f32_out)
+    del f32_out
 
     # small end-to-end reference: the kernel path against the plain path
     small = md.MDConfig(n_per_side=6, sigma=0.085, device="cuda")
@@ -881,6 +1235,9 @@ def main() -> int:
         ("x", ps_k.x[ps_k.valid], ps_p.x[ps_p.valid]),
         ("v", ps_k.props["v"][ps_k.valid], ps_p.props["v"][ps_p.valid])))
     del t
+    lj16_entry["launches"] = md_bf16x_path(md, CP, cfg)
+    lj16_entry["launches_per_step"] = (lj16_entry["launches"] - 1) \
+        / MD_BF16_STEPS
 
     # -- phase 3: the main path ---------------------------------------------
     reset_b1_counts(CP)
@@ -953,14 +1310,21 @@ def main() -> int:
     print(f"VIC: {VIC_SHAPE} nodes, lengths {VIC_LENGTHS}, dt {VIC_DT}, "
           f"cb {vcfg.interp_cb}, cell_cap "
           f"{M4.default_cell_cap(vcfg.interp_cb, 3)}")
-    m4_entries, tiles = vic_kernel_checks(V, M4, K, vcfg)
+    m4_all, tiles = vic_kernel_checks(V, M4, K, vcfg)
     vic_small_run(V)
+    vic_small_run(V, "bf16x")
+    launches16, attempts16 = vic_bf16x_path(V, K, vcfg)
     vic_launches, redos = vic_main_path(V, M4, K, vcfg, tiles)
+    m4_entries = [e for e in m4_all if e["name"] in vic_launches]
+    m4_16_entries = [e for e in m4_all if e["name"] in launches16]
     for entry in m4_entries:
         # every vic_step attempt, a redo included, launches each kernel twice
         entry["launches"] = vic_launches[entry["name"]]
         entry["launches_per_step"] = entry["launches"] / (VIC_STEPS + redos)
         entry["redos"] = redos
+    for entry in m4_16_entries:
+        entry["launches"] = launches16[entry["name"]]
+        entry["launches_per_step"] = entry["launches"] / attempts16
 
     del tiles
     torch.cuda.empty_cache()
@@ -968,9 +1332,11 @@ def main() -> int:
     # -- phases 6-8: SPH dam break and DEM avalanche -------------------------
     from repro_torch.apps import dem as D
     from repro_torch.apps import sph as S
-    sph_entry = sph_kernel_checks(S, CL, CP)
-    dem_entry = dem_kernel_check(D, CL, CP)
+    sph_entry, sph16_entries = sph_kernel_checks(S, CL, CP)
+    dem_entry, dem16_entry = dem_kernel_check(D, CL, CP)
     torch.cuda.empty_cache()
+    sph_bf16x_paths(S, CP, sph16_entries)
+    dem_bf16x_path(D, CP, dem16_entry)
     sph_entry["launches"] = sph_main_path(S, CL, CP)
     sph_entry["launches_per_step"] = sph_entry["launches"] / SPH_STEPS
     torch.cuda.empty_cache()
@@ -979,8 +1345,13 @@ def main() -> int:
                      launches_cached=n_cached,
                      launches_per_step=(n_run + n_cached) / (2 * DEM_STEPS))
 
+    gs_entry = gray_scott_phase()
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, build "
+          "included")
+
     print(json.dumps({"kernels": [md_entry, sph_entry, dem_entry]
-                      + m4_entries}))
+                      + m4_entries + [gs_entry, lj16_entry] + sph16_entries
+                      + [dem16_entry] + m4_16_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

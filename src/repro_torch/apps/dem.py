@@ -111,8 +111,9 @@ class DEMNormalBody:
     spring + velocity damping, both radial — F_ij = mag · dx. Called, it
     is the plain PyTorch body; ``cuda_kind``/``cuda_params`` select the
     DEM functor of ``kernels/cell_pair/csrc/cell_pair.cu``, which repeats
-    these operations in this order (``repro``'s division by 2R is a
-    product with 1/(2R) here, so the two paths round alike)."""
+    these operations in this order (in fp32 ``repro``'s division by 2R
+    is a product with 1/(2R), so the two paths round alike; in bf16 the
+    constants are rounded first and 2R divides, as in ``repro``)."""
 
     cfg: DEMConfig
     cuda_kind = "dem"
@@ -128,15 +129,18 @@ class DEMNormalBody:
         cfg = self.cfg
         two_R = 2.0 * cfg.R
         m_eff = cfg.m / 2.0
+        w = lambda c: I.weak(c, r2)
         r = torch.sqrt(torch.clamp(r2, min=1e-12))
-        delta = two_R - r
-        hertz = torch.sqrt(torch.clamp(delta, min=0.0) * (1.0 / two_R))
+        delta = w(two_R) - r
+        hertz = torch.sqrt(I.div_scalar(torch.clamp(delta, min=0.0),
+                                        two_R))
         vr = (wi["v"][..., 0] - wj["v"][..., 0]) * dx(0)   # (v_i - v_j)·dx
         for d in range(1, 3):
             vr = vr + (wi["v"][..., d] - wj["v"][..., d]) * dx(d)
         # Fn = hertz·(kn·δ·n̂ − γn·m_eff·v_n), v_n = ((v_i−v_j)·n̂)n̂,
         # n̂ = dx/r  ⇒  purely radial with this magnitude:
-        mag = hertz * (cfg.kn * delta - cfg.gamma_n * m_eff * vr / r) / r
+        mag = hertz * (w(cfg.kn) * delta
+                       - w(cfg.gamma_n * m_eff) * vr / r) / r
         return {"f": I.Radial(torch.where(delta > 0.0, mag,
                                           torch.zeros_like(mag)))}
 

@@ -69,7 +69,8 @@ class LJPairBody:
         # reciprocal-then-multiply)
         inv = torch.full_like(r2s, self.sigma * self.sigma) / r2s
         inv3 = inv * inv * inv
-        mag = 24.0 * self.epsilon * (2.0 * inv3 * inv3 - inv3) / r2s
+        mag = I.weak(24.0 * self.epsilon, r2) \
+            * (2.0 * inv3 * inv3 - inv3) / r2s
         return {"f": I.Radial(mag)}
 
 

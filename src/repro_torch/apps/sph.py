@@ -12,8 +12,8 @@ integrator is the ``finish`` hook (:func:`physics`).
 :func:`init_dam_break` and :func:`run` put the state;
 ``SPHConfig.backend="auto"`` runs the pair pass through the CUDA
 cell-pair kernel's SPH functor on the card and through the plain PyTorch
-path on the CPU. ``precision="bf16x:drho"`` runs on the plain path only
-(the kernel is fp32).
+path on the CPU, in every precision (``"fp32"``, ``"bf16x"``,
+``"bf16x:drho"``).
 """
 from __future__ import annotations
 
@@ -90,11 +90,14 @@ def kernel_consts(cfg: SPHConfig):
 
 
 def eos(rho, cfg: SPHConfig):
-    """Tait pressure ``b_eos·((ρ/ρ0)^γ − 1)``. ρ/ρ0 is taken as
+    """Tait pressure ``b_eos·((ρ/ρ0)^γ − 1)``. In fp32 ρ/ρ0 is taken as
     ρ·(1/ρ0), which rounds alike on every device (PyTorch divides by a
     Python number as a true division on the CPU and as a product with the
-    reciprocal on the card); the CUDA functor does the same."""
-    return cfg.b_eos * (torch.pow(rho * (1.0 / cfg.rho0), cfg.gamma) - 1.0)
+    reciprocal on the card); in bf16 the constants are rounded first, as
+    in ``repro`` (:func:`~repro_torch.core.interactions.weak`). The CUDA
+    functor does the same."""
+    return I.weak(cfg.b_eos, rho) * (
+        torch.pow(I.div_scalar(rho, cfg.rho0), cfg.gamma) - 1.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,8 +107,10 @@ class SPHPairBody:
     (radial ``a``) and dρ/dt (scalar ``drho``). Called, it is the plain
     PyTorch body; ``cuda_kind``/``cuda_params`` select the SPH functor of
     ``kernels/cell_pair/csrc/cell_pair.cu``, which repeats these
-    operations in this order. Constants that ``repro`` divides by are
-    multiplied as reciprocals here, so the two paths round alike."""
+    operations in this order. In fp32, constants that ``repro`` divides
+    by are multiplied as reciprocals, so the two paths round alike; in
+    bf16 every constant is rounded to bf16 and divided by as ``repro``
+    does (:func:`~repro_torch.core.interactions.div_scalar`)."""
 
     cfg: SPHConfig
     cuda_kind = "sph"
@@ -115,36 +120,37 @@ class SPHPairBody:
         """The SPH functor's fields, in its order."""
         cfg = self.cfg
         h, alpha_d = kernel_consts(cfg)
-        return (h, 1.0 / h, alpha_d, -0.75 * alpha_d, 1.0 / cfg.rho0,
-                cfg.gamma, cfg.b_eos, cfg.eta2, -cfg.alpha * cfg.c_sound,
-                -cfg.mass, cfg.mass)
+        return (h, 1.0 / h, alpha_d, -0.75 * alpha_d, cfg.rho0,
+                1.0 / cfg.rho0, cfg.gamma, cfg.b_eos, cfg.eta2,
+                -cfg.alpha * cfg.c_sound, -cfg.mass, cfg.mass)
 
     def __call__(self, dx, r2, ok, wi, wj):
         cfg = self.cfg
         h, alpha_d = kernel_consts(cfg)
         m = cfg.mass
+        w = lambda c: I.weak(c, r2)
         r = torch.sqrt(torch.clamp(r2, min=1e-12))
-        q = r * (1.0 / h)
-        w1 = alpha_d * (-3.0 * q + 2.25 * q * q)
+        q = I.div_scalar(r, h)
+        w1 = w(alpha_d) * (-3.0 * q + 2.25 * q * q)
         s = 2.0 - q
-        w2 = (-0.75 * alpha_d) * (s * s)
+        w2 = w(-0.75 * alpha_d) * (s * s)
         dwdq = torch.where(q <= 1.0, w1, torch.where(
             q <= 2.0, w2, torch.zeros_like(w2)))
-        gw_over_r = dwdq / (h * r)                # gradW = gw_over_r · dx
+        gw_over_r = dwdq / (w(h) * r)             # gradW = gw_over_r · dx
         rho_i, rho_j = wi["rho"], wj["rho"]
         P_i, P_j = eos(rho_i, cfg), eos(rho_j, cfg)
         vr = (wi["v"][..., 0] - wj["v"][..., 0]) * dx(0)   # (v_i - v_j)·dx
         for d in range(1, cfg.dim):
             vr = vr + (wi["v"][..., d] - wj["v"][..., d]) * dx(d)
         # artificial viscosity (approaching pairs only)
-        mu = h * vr / (r2 + cfg.eta2)
+        mu = w(h) * vr / (r2 + w(cfg.eta2))
         rho_bar = 0.5 * (rho_i + rho_j)
-        visc = (-cfg.alpha * cfg.c_sound) * mu / rho_bar
+        visc = w(-cfg.alpha * cfg.c_sound) * mu / rho_bar
         pi_visc = torch.where(vr < 0.0, visc, torch.zeros_like(visc))
         coef = P_i / torch.clamp(rho_i * rho_i, min=1e-6) \
             + P_j / torch.clamp(rho_j * rho_j, min=1e-6) + pi_visc
-        return {"a": I.Radial(-m * coef * gw_over_r),
-                "drho": m * vr * gw_over_r}
+        return {"a": I.Radial(w(-m) * coef * gw_over_r),
+                "drho": w(m) * vr * gw_over_r}
 
 
 def sph_pair_body(cfg: SPHConfig) -> SPHPairBody:

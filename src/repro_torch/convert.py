@@ -37,3 +37,10 @@ def field_from_numpy(a: np.ndarray, device="cuda") -> torch.Tensor:
     ``(nx, ny, nz, 3)``) on ``device`` from a numpy array (copied)."""
     dev = resolve_device(device)
     return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+
+def fields_from_numpy(*arrays: np.ndarray, device="cuda"
+                      ) -> Tuple[torch.Tensor, ...]:
+    """Mesh fields (e.g. ``repro``'s Gray–Scott ``(u, v)``) on ``device``
+    from numpy arrays (copied), one tensor per array."""
+    return tuple(field_from_numpy(a, device=device) for a in arrays)

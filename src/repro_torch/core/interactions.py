@@ -71,6 +71,29 @@ def cast_bf16(w):
             for k, a in w.items()}
 
 
+def weak(value: float, like: torch.Tensor):
+    """A Python number as an operand of an op on ``like``, taken as JAX's
+    weak typing takes it in ``repro``'s bodies: unchanged beside an fp32
+    tensor, and beside a bf16 one a 0-d bf16 tensor on like's device, so
+    the number is rounded to bf16 before the op on the CPU and on the card
+    alike. (PyTorch alone keeps a Python scalar at fp32 in a bf16 op,
+    except in an add or subtract on the CPU.)"""
+    if like.dtype != torch.bfloat16:
+        return value
+    return torch.full((), value, dtype=like.dtype, device=like.device)
+
+
+def div_scalar(t: torch.Tensor, value: float):
+    """``t / value`` for a Python number, as the bodies take it. fp32: the
+    product with the reciprocal, which is what PyTorch's card kernel makes
+    of a division by a Python scalar, so the CPU and the card round alike.
+    bf16: the true division by the number rounded to bf16, as ``repro``
+    runs it (a 0-d tensor on t's device, so the card divides too)."""
+    if t.dtype != torch.bfloat16:
+        return t * (1.0 / value)
+    return t / weak(value, t)
+
+
 def parse_precision(precision: str, out):
     """Parse a pair-engine precision mode: ``"fp32"`` | ``"bf16x"`` (all
     outputs) or ``"bf16x:<name>[,<name>...]"`` (only the listed outputs

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from . import cell_list as CL
+from . import grid as G
 from . import interactions as I
 from .particles import ParticleSet, const_tensor
 
@@ -118,8 +119,8 @@ class StepCtx:
     particles (post-``advance``), ``combo`` local+ghost (== ``ps``
     serially), ``cl`` the cell list over ``combo``, ``pair`` the engine
     outputs, ``red`` the reductions, ``extras`` per-step inputs.
-    ``fields`` are the mesh fields and ``grid`` the mesh mappings (None
-    until ``core/grid.py`` is ported)."""
+    ``fields`` are the mesh fields and ``grid`` the mesh mappings
+    (ghost_get/ghost_put; serially the single-device pad and wrap)."""
 
     ps: ParticleSet
     combo: ParticleSet
@@ -128,7 +129,7 @@ class StepCtx:
     red: Reduce
     extras: Dict[str, Any]
     fields: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
-    grid: Any = None
+    grid: G.GridOps = G.GridOps()
 
 
 # --------------------------------------------------------------------------

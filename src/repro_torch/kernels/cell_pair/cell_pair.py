@@ -12,13 +12,15 @@ tile; per-slot sums are scattered back to particles (:func:`scatter_slots`).
 kernel, or raises if the body or precision has no CUDA form; for CPU
 tensors it runs :func:`cell_pair_torch`, the plain PyTorch version of the
 same function (the Pallas ``_pair_kernel`` rule: self-pairs are excluded by
-``r2 > 1e-12``). :data:`LAUNCHES` counts kernel launches.
+``r2 > 1e-12``). Both take ``precision`` ``"fp32"``, ``"bf16x"`` or
+``"bf16x:<names>"``. :data:`LAUNCHES` counts kernel launches.
 
 The body protocol is that of ``repro_torch.core.interactions``. A body the
 kernel can run carries ``cuda_kind`` (the C++ functor it maps to, one of
 :data:`KINDS`) and ``cuda_params`` (the functor's float fields, in its
 order). The kernel takes the props a functor reads as one packed fp32
-tensor per side, in the order :data:`KINDS` lists. fp32 only.
+tensor per side, in the order :data:`KINDS` lists; under ``bf16x`` it
+rounds them to bf16 where it uses them.
 """
 from __future__ import annotations
 
@@ -49,6 +51,7 @@ class Kind(NamedTuple):
     vector: Tuple[bool, ...]      # per prop: a (dim,) vector or a scalar
     dims: Tuple[int, ...]         # the DIMs it is built for
     n_params: int                 # its float params (``body.cuda_params``)
+    precs: Tuple[str, ...]        # its precisions, as in the C entry names
 
     def width(self, dim: int) -> int:
         """Floats per particle in the packed props."""
@@ -57,16 +60,27 @@ class Kind(NamedTuple):
 
 #: The CUDA functors: ``cuda_kind`` -> :class:`Kind`. Vector props pack
 #: as their components, scalar props as one float (SPH: v_0 .. v_{d-1},
-#: rho).
+#: rho). A precision names its C entry ``cell_pair_<kind>_<prec>_d<dim>``:
+#: ``f32``, ``bf16x``, and ``bf16x_<names>`` for ``"bf16x:<names>"``.
 KINDS = {
-    "lj": Kind({"f": "radial"}, (), (), (3,), 2),
+    "lj": Kind({"f": "radial"}, (), (), (3,), 2, ("f32", "bf16x")),
     "sph": Kind({"a": "radial", "drho": "scalar"}, ("v", "rho"),
-                (True, False), (2, 3), 11),
-    "dem": Kind({"f": "radial"}, ("v",), (True,), (3,), 4),
+                (True, False), (2, 3), 12,
+                ("f32", "bf16x", "bf16x_drho", "bf16x_a")),
+    "dem": Kind({"f": "radial"}, ("v",), (True,), (3,), 4, ("f32", "bf16x")),
 }
 
-#: Launches per ``cuda_kind``; they add up to :data:`LAUNCHES`.
-LAUNCHES_BY_KIND = {kind: 0 for kind in KINDS}
+
+def launch_key(kind: str, prec: str) -> str:
+    """The :data:`LAUNCHES_BY_KIND` key of a functor in one precision: the
+    kind for fp32 (``"sph"``), else ``<kind>_<prec>`` (``"sph_bf16x"``)."""
+    return kind if prec == "f32" else f"{kind}_{prec}"
+
+
+#: Launches per functor and precision (keys from :func:`launch_key`);
+#: they add up to :data:`LAUNCHES`.
+LAUNCHES_BY_KIND = {launch_key(kind, prec): 0
+                    for kind, spec in KINDS.items() for prec in spec.precs}
 
 
 class CellTiles(NamedTuple):
@@ -190,10 +204,11 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for kind, spec in KINDS.items():
-        for dim in spec.dims:
-            fn = getattr(lib, f"cell_pair_{kind}_f32_d{dim}")
-            fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, p, p]
-            fn.restype = i
+        for prec in spec.precs:
+            for dim in spec.dims:
+                fn = getattr(lib, f"cell_pair_{kind}_{prec}_d{dim}")
+                fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, p, p]
+                fn.restype = i
     return lib
 
 
@@ -228,31 +243,36 @@ def _check_packed(name, t, shape, device):
                          f"{tuple(t.shape)} on {t.device}")
 
 
-def _kind_of(body, out, precision) -> str:
-    """The body's CUDA functor, checked against ``out`` and ``precision``;
-    raises for anything the kernel does not run."""
+def _kind_of(body, out, precision) -> Tuple[str, str]:
+    """(functor, precision of its C entry) for the body, checked against
+    ``out`` and ``precision``; raises for anything the kernel does not
+    run."""
     kind = getattr(body, "cuda_kind", None)
     if kind is None:
         raise NotImplementedError(
             "this pair body has no CUDA functor (no cuda_kind); the CUDA "
             f"cell-pair kernel runs the {sorted(KINDS)} bodies — use "
             "backend='torch' for other bodies")
-    mode, _ = parse_precision(precision, out)
-    if mode != "fp32":
-        raise NotImplementedError(
-            f"precision {precision!r} is not in the CUDA cell-pair kernel "
-            "yet (fp32 only); use backend='torch'")
+    mode, sel = parse_precision(precision, out)
     if kind not in KINDS:
         raise NotImplementedError(f"unknown cuda_kind {kind!r}")
     if dict(out) != KINDS[kind].out:
         raise ValueError(f"the {kind} functor has outputs "
                          f"{KINDS[kind].out}; got out={dict(out)!r}")
-    return kind
+    prec = "f32" if mode == "fp32" \
+        else "_".join(["bf16x", *sorted(sel or ())])
+    if prec not in KINDS[kind].precs:
+        raise NotImplementedError(
+            f"precision {precision!r} has no {kind} entry in the CUDA "
+            f"cell-pair kernel (it has {KINDS[kind].precs}); use "
+            "backend='torch'")
+    return kind, prec
 
 
 def _launch(kind, body, cell_x, nbr_x, cell_mask, nbr_mask, packed_i,
-            packed_j, r_cut):
-    """Launch functor ``kind`` on PyTorch's current stream (no sync) with
+            packed_j, r_cut, prec="f32"):
+    """Launch functor ``kind`` in precision ``prec`` (one of its
+    :data:`KINDS` precisions) on PyTorch's current stream (no sync) with
     the props already packed; returns {name: (C, cc[, dim])}."""
     global LAUNCHES
     spec = KINDS[kind]
@@ -280,7 +300,7 @@ def _launch(kind, body, cell_x, nbr_x, cell_mask, nbr_mask, packed_i,
                   None)
     ptr = lambda t: None if t is None else t.data_ptr()
     c_params = (ctypes.c_float * len(params))(*params)
-    entry = f"cell_pair_{kind}_f32_d{dim}"
+    entry = f"cell_pair_{kind}_{prec}_d{dim}"
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -290,14 +310,14 @@ def _launch(kind, body, cell_x, nbr_x, cell_mask, nbr_mask, packed_i,
             ptr(scalar), C, cc, kcc, r_cut * r_cut, c_params, stream)
     _build.check(err, entry)
     LAUNCHES += 1
-    LAUNCHES_BY_KIND[kind] += 1
+    LAUNCHES_BY_KIND[launch_key(kind, prec)] += 1
     return res
 
 
 def _cell_pair_cuda(cell_x, nbr_x, cell_mask, nbr_mask, props_i, props_j,
                     *, body, out, r_cut, precision):
     """Pack the tile props in the functor's order and launch it."""
-    kind = _kind_of(body, out, precision)
+    kind, prec = _kind_of(body, out, precision)
     names = KINDS[kind].props
     if sorted(props_i) != sorted(names) or sorted(props_j) != sorted(names):
         raise ValueError(f"the {kind} functor reads props {names}; got "
@@ -305,7 +325,7 @@ def _cell_pair_cuda(cell_x, nbr_x, cell_mask, nbr_mask, props_i, props_j,
     packed_i = pack_props(props_i, names) if names else None
     packed_j = pack_props(props_j, names) if names else None
     return _launch(kind, body, cell_x, nbr_x, cell_mask, nbr_mask, packed_i,
-                   packed_j, r_cut)
+                   packed_j, r_cut, prec)
 
 
 def cell_pair(cell_x, nbr_x, cell_mask, nbr_mask, props_i=None,
@@ -313,8 +333,9 @@ def cell_pair(cell_x, nbr_x, cell_mask, nbr_mask, props_i=None,
               precision: str = "fp32"):
     """Tile-level engine entry (``repro``'s ``cell_pair_pallas``). CUDA
     tensors launch the kernel (NotImplementedError for a body without a
-    CUDA functor or a bf16x precision — never a quiet fallback); CPU
-    tensors run :func:`cell_pair_torch`. Returns {name: (C, cc[, dim])}."""
+    CUDA functor or a precision it has no entry for — never a quiet
+    fallback); CPU tensors run :func:`cell_pair_torch`. Returns
+    {name: (C, cc[, dim])}."""
     if cell_x.is_cuda:
         return _cell_pair_cuda(cell_x, nbr_x, cell_mask, nbr_mask,
                                dict(props_i or {}), dict(props_j or {}),

@@ -13,9 +13,29 @@
 // A radial output emits sum_j mag * dx_d per component, a scalar output
 // sum_j v. The kernel is templated on the body functor, on DIM, and on the
 // number of per-particle float props; a body declares how many radial and
-// scalar outputs it has. Each workload is one functor and one C entry per
-// DIM: LJ (MD, paper §4.1), SPH (§4.2) and the DEM normal contact (§4.5);
-// the SPH and DEM entries below carry their own notes.
+// scalar outputs it has. Each workload is one functor: LJ (MD, paper
+// §4.1), SPH (§4.2) and the DEM normal contact (§4.5); each has one C
+// entry per DIM and precision, `cell_pair_<kind>_<prec>_d<DIM>`. The SPH
+// and DEM entries below carry their own notes.
+//
+// Precisions (the Pallas kernel's `precision`, cell_pair.py:109-160):
+//   f32         every operation in fp32;
+//   bf16x       geometry (dx, r2, the ok mask) in fp32; the body sees bf16
+//               operands (dx, r2 and the props, each rounded to nearest)
+//               and rounds every operation's result to bf16, as PyTorch's
+//               bf16 elementwise ops do (compute in fp32, round the
+//               result); a radial output takes bf16(mag * dx_bf16); the
+//               per-slot sums are fp32;
+//   bf16x_<o>   (`bf16x:<o>`) the body under both precisions, output o
+//               taking the bf16 evaluation and the others the fp32 one
+//               (SPH: bf16x_drho, its documented mixed form, and bf16x_a).
+// Each functor is written once, templated on its operand type (F32 or
+// BF16 below), so the two precisions share every line of the physics.
+// The bf16x forms read the same fp32 tiles (rounding at use), so their
+// bytes bound is the fp32 form's. Measured on an H100 80GB HBM3 (700 W)
+// at the main paths' sizes: LJ 1.67 ms (1.33x fp32), SPH 38.8 ms (1.38x),
+// SPH bf16x_drho 34.9 ms (1.24x: nvcc drops each evaluation's unused
+// output), DEM 2.63 ms (1.01x).
 //
 // Design (a simple, correct first version):
 //   * one thread block per home cell, cc rounded up to a warp multiple
@@ -52,29 +72,108 @@
 // leave few warps to hide latency. Compacting the valid candidates at
 // staging and giving a block more home slots are the first remedies.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-// Lennard-Jones force body (src/repro/apps/md.py `lj_pair_body`):
+// Operand types of a body evaluation. r() rounds an fp32 value to the type
+// (ties to even, as PyTorch's float -> bfloat16 conversion); term() is a
+// radial output's per-pair term, mag * dx, in the type (fp32: left to the
+// accumulation, which nvcc may fuse into an FMA).
+struct F32 {
+  static constexpr bool kBF16 = false;
+  __device__ __forceinline__ static float r(float x) { return x; }
+  __device__ __forceinline__ static float term(float mag, float dx) {
+    return mag * dx;
+  }
+};
+
+struct BF16 {
+  static constexpr bool kBF16 = true;
+  __device__ __forceinline__ static float r(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+  __device__ __forceinline__ static float term(float mag, float dx) {
+    return r(__fmul_rn(mag, dx));
+  }
+};
+
+// A body's arithmetic as PyTorch runs it on tensors of operand type P: the
+// operation in fp32 with IEEE rounding (never contracted into an FMA), the
+// result rounded to P. Rounding here and not through cuda_bf16.h's
+// __nv_bfloat16 operators: on sm_90 those add in bf16 directly and can
+// round a tie otherwise than float-then-round. A param (a Python number
+// in the plain version) enters as P::r(param): rounded to bf16 first, as
+// JAX's weak typing rounds it in repro's bodies and as the plain version
+// does by making it a 0-d bf16 tensor (repro_torch/core/interactions.py
+// `weak`; tests/test_torch_gpu.py pins PyTorch's side of this).
+template <class P>
+struct Ops {
+  __device__ __forceinline__ static float mul(float a, float b) {
+    return P::r(__fmul_rn(a, b));
+  }
+  __device__ __forceinline__ static float div(float a, float b) {
+    return P::r(__fdiv_rn(a, b));
+  }
+  __device__ __forceinline__ static float add(float a, float b) {
+    return P::r(__fadd_rn(a, b));
+  }
+  __device__ __forceinline__ static float sub(float a, float b) {
+    return P::r(__fsub_rn(a, b));
+  }
+  __device__ __forceinline__ static float sqrt(float a) {
+    return P::r(__fsqrt_rn(a));
+  }
+  __device__ __forceinline__ static float max(float a, float b) {
+    return P::r(fmaxf(a, b));          // torch.clamp(a, min=b)
+  }
+  __device__ __forceinline__ static float pow(float a, float b) {
+    return P::r(powf(a, b));
+  }
+  // a / s for a param s (`div_scalar` in the plain version): fp32 takes
+  // the product with the reciprocal inv_s, as PyTorch's card kernel does
+  // for a Python divisor; bf16 the true division by s rounded, as repro.
+  __device__ __forceinline__ static float div_scalar(float a, float s,
+                                                     float inv_s) {
+    return P::kBF16 ? div(a, P::r(s)) : mul(a, inv_s);
+  }
+};
+
+// The body interface: operator()(dx, r2, wi, wj, radial, scalar) takes
+// the fp32 geometry and the fp32 props of one pair that passed the mask,
+// and writes radial[k * DIM + d] (the per-pair term of radial output k)
+// and scalar[k].
+
+// Lennard-Jones force body (src/repro/apps/md.py `lj_pair_body`; plain
+// version repro_torch/apps/md.py `LJPairBody`):
 //   r2s = max(r2, 1e-12); inv = sigma^2 / r2s;
-//   mag = 24 eps (2 inv^6 - inv^3) / r2s;  output "f" = Radial(mag).
-// params: sigma^2, 24 * epsilon.
+//   mag = 24 eps (2 inv^3 inv^3 - inv^3) / r2s;  output "f" = Radial(mag).
+// params: sigma^2 (a tensor filled with it: rounded to P), 24 * epsilon.
+template <class P>
 struct LJBody {
+  static constexpr int DIM = 3;
   static constexpr int N_RADIAL = 1;
   static constexpr int N_SCALAR = 0;
   float s2;     // sigma^2
   float eps24;  // 24 * epsilon
 
-  __device__ __forceinline__ void operator()(const float* /*dx*/, float r2,
+  static LJBody from(const float* p) { return LJBody{p[0], p[1]}; }
+
+  __device__ __forceinline__ void operator()(const float* dx, float r2,
                                              const float* /*wi*/,
                                              const float* /*wj*/,
                                              float* radial,
                                              float* /*scalar*/) const {
-    const float r2s = fmaxf(r2, 1e-12f);
-    const float inv = s2 / r2s;
-    const float inv3 = inv * inv * inv;
-    radial[0] = eps24 * (2.0f * inv3 * inv3 - inv3) / r2s;
+    using O = Ops<P>;
+    const float r2s = O::max(P::r(r2), 1e-12f);
+    const float inv = O::div(P::r(s2), r2s);
+    const float inv3 = O::mul(O::mul(inv, inv), inv);
+    const float mag = O::div(
+        O::mul(P::r(eps24), O::sub(O::mul(O::mul(2.0f, inv3), inv3), inv3)),
+        r2s);
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) radial[d] = P::term(mag, P::r(dx[d]));
   }
 };
 
@@ -83,59 +182,79 @@ struct LJBody {
 // gradient, Tait pressure, Monaghan viscosity on approaching pairs.
 // Props (NPROP = DIM + 1): v_0 .. v_{DIM-1}, rho. Outputs: radial "a",
 // scalar "drho". params, in this order: h, 1/h, alpha_d, -0.75 alpha_d,
-// 1/rho0, gamma, b_eos, eta2, -alpha c_sound, -m, m.
+// rho0, 1/rho0, gamma, b_eos, eta2, -alpha c_sound, -m, m.
 //
-// Every operation is the plain version's, in its order, with explicit
-// IEEE rounding (no FMA contraction): the Tait term b_eos((rho/rho0)^7 - 1)
-// cancels near rho0, so a last-ulp difference in the power would come
-// back about 40x larger. The power is powf, which is what torch.pow(t, g)
-// runs on the card for a float exponent other than 2, 3, -2, +-0.5, -1
-// (aten/src/ATen/native/cuda/PowKernel.cu: std::pow(float, float)); the
-// plain version takes rho/rho0 as rho * (1/rho0), so both round alike.
-// The q <= 1, q <= 2 and vr < 0 branches are selects: the body only runs
-// on pairs that passed the mask, and neither branch can form a NaN there.
-template <int DIM>
+// Every operation is the plain version's, in its order: the Tait term
+// b_eos((rho/rho0)^7 - 1) cancels near rho0, so a last-ulp difference in
+// the power would come back about 40x larger. The power is powf, which is
+// what torch.pow(t, g) runs on the card for a float exponent other than
+// 2, 3, -2, +-0.5, -1 (aten/src/ATen/native/cuda/PowKernel.cu: std::pow of
+// floats, for a bf16 tensor too, with the exponent cast to the tensor's
+// type); in fp32 the plain version takes rho/rho0 as rho * (1/rho0), so
+// both round alike. The q <= 1, q <= 2 and vr < 0 branches are selects: the body only
+// runs on pairs that passed the mask, and neither branch can form a NaN
+// there.
+template <class P, int DIM_>
 struct SPHBody {
+  static constexpr int DIM = DIM_;
   static constexpr int N_RADIAL = 1;
   static constexpr int N_SCALAR = 1;
-  float h, inv_h, alpha_d, c_w2, inv_rho0, gamma, b_eos, eta2, visc, neg_m,
-      m;
+  float h, inv_h, alpha_d, c_w2, rho0, inv_rho0, gamma, b_eos, eta2, visc,
+      neg_m, m;
 
-  __device__ __forceinline__ float eos(float rho) const {
-    return __fmul_rn(b_eos,
-                     __fsub_rn(powf(__fmul_rn(rho, inv_rho0), gamma), 1.0f));
+  static SPHBody from(const float* p) {
+    return SPHBody{p[0], p[1], p[2], p[3], p[4],  p[5],
+                   p[6], p[7], p[8], p[9], p[10], p[11]};
   }
 
-  __device__ __forceinline__ void operator()(const float* dx, float r2,
-                                             const float* wi,
-                                             const float* wj, float* radial,
+  __device__ __forceinline__ float eos(float rho) const {
+    using O = Ops<P>;
+    return O::mul(
+        P::r(b_eos),
+        O::sub(O::pow(O::div_scalar(rho, rho0, inv_rho0), P::r(gamma)), 1.0f));
+  }
+
+  __device__ __forceinline__ void operator()(const float* dx_in, float r2_in,
+                                             const float* wi_in,
+                                             const float* wj_in,
+                                             float* radial,
                                              float* scalar) const {
-    const float r = __fsqrt_rn(fmaxf(r2, 1e-12f));
-    const float q = __fmul_rn(r, inv_h);
-    const float w1 = __fmul_rn(
-        alpha_d,
-        __fadd_rn(__fmul_rn(-3.0f, q), __fmul_rn(__fmul_rn(2.25f, q), q)));
-    const float s = __fsub_rn(2.0f, q);
-    const float w2 = __fmul_rn(c_w2, __fmul_rn(s, s));
+    using O = Ops<P>;
+    float dx[DIM], wi[DIM + 1], wj[DIM + 1];
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) dx[d] = P::r(dx_in[d]);
+#pragma unroll
+    for (int k = 0; k <= DIM; ++k) {
+      wi[k] = P::r(wi_in[k]);
+      wj[k] = P::r(wj_in[k]);
+    }
+    const float r2 = P::r(r2_in);
+    const float r = O::sqrt(O::max(r2, 1e-12f));
+    const float q = O::div_scalar(r, h, inv_h);
+    const float w1 = O::mul(
+        P::r(alpha_d), O::add(O::mul(-3.0f, q), O::mul(O::mul(2.25f, q), q)));
+    const float s = O::sub(2.0f, q);
+    const float w2 = O::mul(P::r(c_w2), O::mul(s, s));
     const float dwdq = q <= 1.0f ? w1 : (q <= 2.0f ? w2 : 0.0f);
-    const float gw = __fdiv_rn(dwdq, __fmul_rn(h, r));   // gradW = gw * dx
+    const float gw = O::div(dwdq, O::mul(P::r(h), r));   // gradW = gw * dx
     const float rho_i = wi[DIM];
     const float rho_j = wj[DIM];
-    float vr = __fmul_rn(__fsub_rn(wi[0], wj[0]), dx[0]);  // (vi - vj).dx
+    float vr = O::mul(O::sub(wi[0], wj[0]), dx[0]);     // (vi - vj).dx
 #pragma unroll
     for (int d = 1; d < DIM; ++d)
-      vr = __fadd_rn(vr, __fmul_rn(__fsub_rn(wi[d], wj[d]), dx[d]));
-    const float mu = __fdiv_rn(__fmul_rn(h, vr), __fadd_rn(r2, eta2));
-    const float rho_bar = __fmul_rn(0.5f, __fadd_rn(rho_i, rho_j));
+      vr = O::add(vr, O::mul(O::sub(wi[d], wj[d]), dx[d]));
+    const float mu = O::div(O::mul(P::r(h), vr), O::add(r2, P::r(eta2)));
+    const float rho_bar = O::mul(0.5f, O::add(rho_i, rho_j));
     const float pi_visc =
-        vr < 0.0f ? __fdiv_rn(__fmul_rn(visc, mu), rho_bar) : 0.0f;
-    const float coef = __fadd_rn(
-        __fadd_rn(__fdiv_rn(eos(rho_i), fmaxf(__fmul_rn(rho_i, rho_i), 1e-6f)),
-                  __fdiv_rn(eos(rho_j),
-                            fmaxf(__fmul_rn(rho_j, rho_j), 1e-6f))),
+        vr < 0.0f ? O::div(O::mul(P::r(visc), mu), rho_bar) : 0.0f;
+    const float coef = O::add(
+        O::add(O::div(eos(rho_i), O::max(O::mul(rho_i, rho_i), 1e-6f)),
+               O::div(eos(rho_j), O::max(O::mul(rho_j, rho_j), 1e-6f))),
         pi_visc);
-    radial[0] = __fmul_rn(__fmul_rn(neg_m, coef), gw);
-    scalar[0] = __fmul_rn(__fmul_rn(m, vr), gw);
+    const float mag = O::mul(O::mul(P::r(neg_m), coef), gw);
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) radial[d] = P::term(mag, dx[d]);
+    scalar[0] = O::mul(O::mul(P::r(m), vr), gw);
   }
 };
 
@@ -146,28 +265,81 @@ struct SPHBody {
 //   mag = hertz (kn delta - gamma_n m_eff vr / r) / r;
 //   output "f" = Radial(delta > 0 ? mag : 0).
 // Props (NPROP = 3): v. params: 2R, 1/(2R), kn, gamma_n * m_eff. Rounded
-// as the plain version rounds, so delta > 0 decides every pair alike.
+// as the plain version rounds, so delta > 0 decides every pair alike; in
+// bf16 that is repro's rounding of 2R to bf16 (2R = 0.12 becomes
+// 0.1201...), which the overlap 2R - r, small beside 2R, feels strongly.
+template <class P>
 struct DEMNormalBody {
+  static constexpr int DIM = 3;
   static constexpr int N_RADIAL = 1;
   static constexpr int N_SCALAR = 0;
   float two_R, inv_two_R, kn, gn_meff;
 
+  static DEMNormalBody from(const float* p) {
+    return DEMNormalBody{p[0], p[1], p[2], p[3]};
+  }
+
+  __device__ __forceinline__ void operator()(const float* dx_in, float r2,
+                                             const float* wi_in,
+                                             const float* wj_in,
+                                             float* radial,
+                                             float* /*scalar*/) const {
+    using O = Ops<P>;
+    float dx[DIM], wi[DIM], wj[DIM];
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) {
+      dx[d] = P::r(dx_in[d]);
+      wi[d] = P::r(wi_in[d]);
+      wj[d] = P::r(wj_in[d]);
+    }
+    const float r = O::sqrt(O::max(P::r(r2), 1e-12f));
+    const float delta = O::sub(P::r(two_R), r);
+    const float hertz =
+        O::sqrt(O::div_scalar(O::max(delta, 0.0f), two_R, inv_two_R));
+    float vr = O::mul(O::sub(wi[0], wj[0]), dx[0]);
+#pragma unroll
+    for (int d = 1; d < DIM; ++d)
+      vr = O::add(vr, O::mul(O::sub(wi[d], wj[d]), dx[d]));
+    const float mag = O::div(
+        O::mul(hertz, O::sub(O::mul(P::r(kn), delta),
+                             O::div(O::mul(P::r(gn_meff), vr), r))),
+        r);
+    const float f = delta > 0.0f ? mag : 0.0f;
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) radial[d] = P::term(f, dx[d]);
+  }
+};
+
+// `bf16x:<names>`: the body evaluated under both precisions, each output
+// taking its own (B32 and B16 are one functor at F32 and at BF16).
+// RAD16 / SCA16: the radial / scalar outputs take the bf16 evaluation.
+template <class B32, class B16, bool RAD16, bool SCA16>
+struct MixedBody {
+  static constexpr int DIM = B32::DIM;
+  static constexpr int N_RADIAL = B32::N_RADIAL;
+  static constexpr int N_SCALAR = B32::N_SCALAR;
+  B32 f32;
+  B16 bf16;
+
+  static MixedBody from(const float* p) {
+    return MixedBody{B32::from(p), B16::from(p)};
+  }
+
   __device__ __forceinline__ void operator()(const float* dx, float r2,
                                              const float* wi,
                                              const float* wj, float* radial,
-                                             float* /*scalar*/) const {
-    const float r = __fsqrt_rn(fmaxf(r2, 1e-12f));
-    const float delta = __fsub_rn(two_R, r);
-    const float hertz = __fsqrt_rn(__fmul_rn(fmaxf(delta, 0.0f), inv_two_R));
-    float vr = __fmul_rn(__fsub_rn(wi[0], wj[0]), dx[0]);
+                                             float* scalar) const {
+    float rad16[N_RADIAL * DIM], sca16[N_SCALAR > 0 ? N_SCALAR : 1];
+    f32(dx, r2, wi, wj, radial, scalar);
+    bf16(dx, r2, wi, wj, rad16, sca16);
+    if (RAD16) {
 #pragma unroll
-    for (int d = 1; d < 3; ++d)
-      vr = __fadd_rn(vr, __fmul_rn(__fsub_rn(wi[d], wj[d]), dx[d]));
-    const float mag = __fdiv_rn(
-        __fmul_rn(hertz, __fsub_rn(__fmul_rn(kn, delta),
-                                   __fdiv_rn(__fmul_rn(gn_meff, vr), r))),
-        r);
-    radial[0] = delta > 0.0f ? mag : 0.0f;
+      for (int i = 0; i < N_RADIAL * DIM; ++i) radial[i] = rad16[i];
+    }
+    if (SCA16) {
+#pragma unroll
+      for (int i = 0; i < N_SCALAR; ++i) scalar[i] = sca16[i];
+    }
   }
 };
 
@@ -187,6 +359,7 @@ __global__ void cell_pair_kernel(
     float* __restrict__ out_radial,        // (N_RADIAL, C, cc, DIM)
     float* __restrict__ out_scalar,        // (N_SCALAR, C, cc)
     int C, int cc, int kcc, float rc2, Body body) {
+  static_assert(Body::DIM == DIM, "the body is built for another DIM");
   constexpr int S = DIM + 1 + NPROP;       // floats per staged candidate
   constexpr int NP = AtLeastOne<NPROP>::value;
   constexpr int NR = AtLeastOne<Body::N_RADIAL>::value;
@@ -243,13 +416,13 @@ __global__ void cell_pair_kernel(
           r2 = d == 0 ? sq : __fadd_rn(r2, sq);
         }
         if (!(r2 < rc2 && r2 > 1e-12f)) continue;
-        float rad[NR];
+        float rad[NR * DIM];
         float sca[NS];
         body(dx, r2, wi, cj + DIM + 1, rad, sca);
 #pragma unroll
         for (int k = 0; k < Body::N_RADIAL; ++k)
 #pragma unroll
-          for (int d = 0; d < DIM; ++d) acc_r[k][d] += rad[k] * dx[d];
+          for (int d = 0; d < DIM; ++d) acc_r[k][d] += rad[k * DIM + d];
 #pragma unroll
         for (int k = 0; k < Body::N_SCALAR; ++k) acc_s[k] += sca[k];
       }
@@ -267,11 +440,12 @@ __global__ void cell_pair_kernel(
     out_scalar[k * n_slots + slot] = acc_s[k];
 }
 
-template <class Body, int DIM, int NPROP>
+template <class Body, int NPROP>
 int launch(const void* cell_x, const void* nbr_x, const void* cell_mask,
            const void* nbr_mask, const void* props_i, const void* props_j,
            void* out_radial, void* out_scalar, int C, int cc, int kcc,
-           float rc2, Body body, void* stream) {
+           float rc2, const float* params, void* stream) {
+  constexpr int DIM = Body::DIM;
   constexpr int S = DIM + 1 + NPROP;
   const int threads = ((cc + 31) / 32) * 32;
   const size_t smem = static_cast<size_t>(kcc) * S * sizeof(float);
@@ -292,20 +466,19 @@ int launch(const void* cell_x, const void* nbr_x, const void* cell_mask,
         static_cast<const float*>(props_i),
         static_cast<const float*>(props_j),
         static_cast<float*>(out_radial), static_cast<float*>(out_scalar), C,
-        cc, kcc, rc2, body);
+        cc, kcc, rc2, Body::from(params));
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DIM>
-SPHBody<DIM> sph_body(const float* p) {
-  return SPHBody<DIM>{p[0], p[1], p[2], p[3], p[4], p[5],
-                      p[6], p[7], p[8], p[9], p[10]};
-}
+using SPH32 = SPHBody<F32, DIM>;
+template <int DIM>
+using SPH16 = SPHBody<BF16, DIM>;
 
 }  // namespace
 
-// C entries, one per (body, DIM), fp32. Every entry takes the same
+// C entries, one per (body, precision, DIM). Every entry takes the same
 // arguments: the tiles (cell_x, nbr_x, cell_mask, nbr_mask), the packed
 // props (C, cc, NPROP) / (C, kcc, NPROP) or null, the outputs
 // out_radial (C, cc, DIM) and out_scalar (C, cc) or null, the sizes, the
@@ -319,14 +492,17 @@ SPHBody<DIM> sph_body(const float* p) {
       float rc2, const float *params, void *stream
 #define CELL_PAIR_PASS                                                     \
   cell_x, nbr_x, cell_mask, nbr_mask, props_i, props_j, out_radial,        \
-      out_scalar, C, cc, kcc, rc2
+      out_scalar, C, cc, kcc, rc2, params, stream
 
 extern "C" {
 
-// LJ forces: DIM 3, no props, out_radial "f".
+// LJ forces: DIM 3, no props, out_radial "f"; fp32 and bf16x.
 int cell_pair_lj_f32_d3(CELL_PAIR_ARGS) {
-  return launch<LJBody, 3, 0>(CELL_PAIR_PASS, LJBody{params[0], params[1]},
-                              stream);
+  return launch<LJBody<F32>, 0>(CELL_PAIR_PASS);
+}
+
+int cell_pair_lj_bf16x_d3(CELL_PAIR_ARGS) {
+  return launch<LJBody<BF16>, 0>(CELL_PAIR_PASS);
 }
 
 // SPH rates, 2-D: NPROP 3 (v, rho), out_radial "a", out_scalar "drho".
@@ -336,8 +512,7 @@ int cell_pair_lj_f32_d3(CELL_PAIR_ARGS) {
 // tank, 642 particles, 14 x 7 cells, cc 64, K = 9) the bound is launch
 // latency; the entry exists for the 2-D dam break and its tests.
 int cell_pair_sph_f32_d2(CELL_PAIR_ARGS) {
-  return launch<SPHBody<2>, 2, 3>(CELL_PAIR_PASS, sph_body<2>(params),
-                                  stream);
+  return launch<SPH32<2>, 3>(CELL_PAIR_PASS);
 }
 
 // SPH rates, 3-D: NPROP 4 (v, rho), out_radial "a", out_scalar "drho".
@@ -366,8 +541,38 @@ int cell_pair_sph_f32_d2(CELL_PAIR_ARGS) {
 // the in-cutoff body (two powf, six IEEE divisions) diverges across the
 // lanes; 8 warps an SM hide little latency.
 int cell_pair_sph_f32_d3(CELL_PAIR_ARGS) {
-  return launch<SPHBody<3>, 3, 4>(CELL_PAIR_PASS, sph_body<3>(params),
-                                  stream);
+  return launch<SPH32<3>, 4>(CELL_PAIR_PASS);
+}
+
+// SPH under bf16x (both outputs from the bf16 evaluation), bf16x:drho
+// (drho bf16, a fp32) and bf16x:a (a bf16, drho fp32), 2-D and 3-D. The
+// mixed forms evaluate the body twice per pair.
+int cell_pair_sph_bf16x_d2(CELL_PAIR_ARGS) {
+  return launch<SPH16<2>, 3>(CELL_PAIR_PASS);
+}
+
+int cell_pair_sph_bf16x_d3(CELL_PAIR_ARGS) {
+  return launch<SPH16<3>, 4>(CELL_PAIR_PASS);
+}
+
+int cell_pair_sph_bf16x_drho_d2(CELL_PAIR_ARGS) {
+  return launch<MixedBody<SPH32<2>, SPH16<2>, false, true>, 3>(
+      CELL_PAIR_PASS);
+}
+
+int cell_pair_sph_bf16x_drho_d3(CELL_PAIR_ARGS) {
+  return launch<MixedBody<SPH32<3>, SPH16<3>, false, true>, 4>(
+      CELL_PAIR_PASS);
+}
+
+int cell_pair_sph_bf16x_a_d2(CELL_PAIR_ARGS) {
+  return launch<MixedBody<SPH32<2>, SPH16<2>, true, false>, 3>(
+      CELL_PAIR_PASS);
+}
+
+int cell_pair_sph_bf16x_a_d3(CELL_PAIR_ARGS) {
+  return launch<MixedBody<SPH32<3>, SPH16<3>, true, false>, 4>(
+      CELL_PAIR_PASS);
 }
 
 // DEM normal forces: DIM 3, NPROP 3 (v), out_radial "f".
@@ -384,10 +589,11 @@ int cell_pair_sph_f32_d3(CELL_PAIR_ARGS) {
 // 26x the bound: the 226,800 blocks, a fifth of them busy, each with one
 // warp, are short of warps and of work.
 int cell_pair_dem_f32_d3(CELL_PAIR_ARGS) {
-  return launch<DEMNormalBody, 3, 3>(
-      CELL_PAIR_PASS, DEMNormalBody{params[0], params[1], params[2],
-                                    params[3]},
-      stream);
+  return launch<DEMNormalBody<F32>, 3>(CELL_PAIR_PASS);
+}
+
+int cell_pair_dem_bf16x_d3(CELL_PAIR_ARGS) {
+  return launch<DEMNormalBody<BF16>, 3>(CELL_PAIR_PASS);
 }
 
 }  // extern "C"

@@ -4,7 +4,15 @@
 //
 // Replaces the Pallas TPU kernels in src/repro/kernels/m4_interp/
 // m4_interp.py: `_p2m_kernel` (launched by `p2m_cells`) and `_m2p_kernel`
-// (launched by `m2p_cells`). Both are periodic-only and fp32.
+// (launched by `m2p_cells`). Both are periodic-only, in two precisions:
+// fp32 (entries m4_p2m_f32, m4_m2p_f32) and bf16x (m4_p2m_bf16x,
+// m4_m2p_bf16x: the Pallas kernels' `precision="bf16x"`, `:86` and
+// `:170`). Under bf16x each weight and each value operand is rounded to
+// bf16 before its product, which is then exact in fp32; the sums stay
+// fp32, as the plain versions' bf16-rounded fp32 `bmm` computes them.
+// The operands stay fp32 in memory and are rounded where they are used,
+// so the bytes bound is fp32's; measured on an H100 80GB HBM3 (700 W) at
+// the VIC size below, P2M 158 ms (1.04x fp32) and M2P 65 ms (0.97x).
 //
 //   P2M  field[node] = sum over the 3^DIM neighbour buckets b, slots s:
 //          mask_s * prod_d M'4((node_d - x_sd - shift_bd) / h_d) * val_s
@@ -57,9 +65,17 @@
 // per offset; both re-read every bucket or field block 27 times through
 // L2. Its measured times are in PERF.md.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+// Round to the nearest bf16 (ties to even) and back: what PyTorch's
+// `.to(torch.bfloat16).to(torch.float32)` gives.
+template <bool BF16>
+__device__ __forceinline__ float operand(float x) {
+  return BF16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+}
 
 constexpr int MAX_CB = 8;
 
@@ -72,15 +88,19 @@ struct Geom {
   float L[3];
 };
 
+// M'4 weight, each operation rounded as the plain version's
+// (core/interp.py `m4_prime`) with no FMA contraction, so the two paths
+// form equal fp32 weights and, under bf16x, round them to equal bf16 ones.
 __device__ __forceinline__ float m4(float s) {
   s = fabsf(s);
   if (s < 1.0f) {
-    const float s2 = s * s;
-    return 1.0f - 2.5f * s2 + 1.5f * (s2 * s);
+    const float s2 = __fmul_rn(s, s);
+    return __fadd_rn(__fsub_rn(1.0f, __fmul_rn(2.5f, s2)),
+                     __fmul_rn(1.5f, __fmul_rn(s2, s)));
   }
   if (s < 2.0f) {
-    const float t = 2.0f - s;
-    return 0.5f * (t * t) * (1.0f - s);
+    const float t = __fsub_rn(2.0f, s);
+    return __fmul_rn(__fmul_rn(0.5f, __fmul_rn(t, t)), __fsub_rn(1.0f, s));
   }
   return 0.0f;
 }
@@ -107,7 +127,7 @@ __device__ __forceinline__ int wrap(int c, int g) {
   return r < 0 ? r + g : r;
 }
 
-template <int DIM, int C>
+template <int DIM, int C, bool BF16>
 __global__ void m4_p2m_kernel(const float* __restrict__ cell_x,   // (cells, cc, DIM)
                               const float* __restrict__ cell_val, // (cells, cc, C)
                               const bool* __restrict__ cell_mask, // (cells, cc)
@@ -150,7 +170,7 @@ __global__ void m4_p2m_kernel(const float* __restrict__ cell_x,   // (cells, cc,
     const size_t base = static_cast<size_t>(nb) * cc;
     __syncthreads();                   // the previous offset's readers
     for (int i = threadIdx.x; i < cc * C; i += blockDim.x)
-      s_val[i] = cell_val[base * C + i];
+      s_val[i] = operand<BF16>(cell_val[base * C + i]);
     for (int i = threadIdx.x; i < DIM * cb * cc; i += blockDim.x) {
       const int s = i % cc;
       const int k = (i / cc) % cb;
@@ -168,6 +188,7 @@ __global__ void m4_p2m_kernel(const float* __restrict__ cell_x,   // (cells, cc,
 #pragma unroll
       for (int d = 1; d < DIM; ++d) w *= s_w[(d * cb + node[d]) * ccp + s];
       if (w == 0.0f) continue;
+      w = operand<BF16>(w);
 #pragma unroll
       for (int c = 0; c < C; ++c) acc[c] += w * s_val[s * C + c];
     }
@@ -180,7 +201,7 @@ __global__ void m4_p2m_kernel(const float* __restrict__ cell_x,   // (cells, cc,
   for (int c = 0; c < C; ++c) out[flat * C + c] = acc[c];
 }
 
-template <int DIM, int C>
+template <int DIM, int C, bool BF16>
 __global__ void m4_m2p_kernel(const float* __restrict__ field,     // shape + (C,)
                               const float* __restrict__ cell_x,    // (cells, cc, DIM)
                               const bool* __restrict__ cell_mask,  // (cells, cc)
@@ -230,7 +251,7 @@ __global__ void m4_m2p_kernel(const float* __restrict__ field,     // shape + (C
       size_t flat = 0;
       for (int d = 0; d < DIM; ++d)
         flat = flat * g.n[d] + blk[d] * cb + k[d];
-      s_f[i] = field[flat * C + c];
+      s_f[i] = operand<BF16>(field[flat * C + c]);
     }
     __syncthreads();
     if (!mine) continue;
@@ -250,8 +271,9 @@ __global__ void m4_m2p_kernel(const float* __restrict__ field,     // shape + (C
           const float w01 = w0 * w[1][i1];
           if (w01 == 0.0f) continue;
           for (int i2 = 0; i2 < cb; ++i2) {
-            const float ww = w01 * w[DIM - 1][i2];
+            float ww = w01 * w[DIM - 1][i2];
             if (ww == 0.0f) continue;
+            ww = operand<BF16>(ww);
             const float* f = s_f + ((i0 * cb + i1) * cb + i2) * C;
 #pragma unroll
             for (int c = 0; c < C; ++c) acc[c] += ww * f[c];
@@ -263,8 +285,9 @@ __global__ void m4_m2p_kernel(const float* __restrict__ field,     // shape + (C
         const float w0 = w[0][i0];
         if (w0 == 0.0f) continue;
         for (int i1 = 0; i1 < cb; ++i1) {
-          const float ww = w0 * w[DIM - 1][i1];
+          float ww = w0 * w[DIM - 1][i1];
           if (ww == 0.0f) continue;
+          ww = operand<BF16>(ww);
           const float* f = s_f + (i0 * cb + i1) * C;
 #pragma unroll
           for (int c = 0; c < C; ++c) acc[c] += ww * f[c];
@@ -286,7 +309,7 @@ int set_smem(Kernel kern, size_t smem) {
       static_cast<int>(smem)));
 }
 
-template <int DIM, int C>
+template <int DIM, int C, bool BF16>
 int launch_p2m(const void* cell_x, const void* cell_val,
                const void* cell_mask, void* out, const Geom& g, int cc,
                int n_cells, cudaStream_t stream) {
@@ -295,7 +318,7 @@ int launch_p2m(const void* cell_x, const void* cell_val,
   const size_t smem =
       (static_cast<size_t>(cc) * C +
        static_cast<size_t>(DIM) * g.cb * (cc + 1)) * sizeof(float);
-  auto kern = m4_p2m_kernel<DIM, C>;
+  auto kern = m4_p2m_kernel<DIM, C, BF16>;
   const int e = set_smem(kern, smem);
   if (e != 0) return e;
   if (n_cells > 0)
@@ -305,7 +328,7 @@ int launch_p2m(const void* cell_x, const void* cell_val,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DIM, int C>
+template <int DIM, int C, bool BF16>
 int launch_m2p(const void* field, const void* cell_x, const void* cell_mask,
                void* out, const Geom& g, int cc, int n_cells,
                cudaStream_t stream) {
@@ -313,7 +336,7 @@ int launch_m2p(const void* field, const void* cell_x, const void* cell_mask,
   for (int d = 0; d < DIM; ++d) npatch *= g.cb;
   const int threads = ((cc + 31) / 32) * 32;
   const size_t smem = static_cast<size_t>(npatch) * C * sizeof(float);
-  auto kern = m4_m2p_kernel<DIM, C>;
+  auto kern = m4_m2p_kernel<DIM, C, BF16>;
   const int e = set_smem(kern, smem);
   if (e != 0) return e;
   if (n_cells > 0)
@@ -346,57 +369,90 @@ constexpr int kBadArgs = 1;  // cudaErrorInvalidValue
 
 }  // namespace
 
-#define M4_DISPATCH(FN, DIM_, C_, ...)                         \
+#define M4_DISPATCH(FN, B, DIM_, C_, ...)                      \
   switch ((DIM_) * 16 + (C_)) {                                \
-    case 2 * 16 + 1: return FN<2, 1>(__VA_ARGS__);             \
-    case 2 * 16 + 2: return FN<2, 2>(__VA_ARGS__);             \
-    case 2 * 16 + 3: return FN<2, 3>(__VA_ARGS__);             \
-    case 2 * 16 + 4: return FN<2, 4>(__VA_ARGS__);             \
-    case 2 * 16 + 5: return FN<2, 5>(__VA_ARGS__);             \
-    case 2 * 16 + 6: return FN<2, 6>(__VA_ARGS__);             \
-    case 2 * 16 + 7: return FN<2, 7>(__VA_ARGS__);             \
-    case 2 * 16 + 8: return FN<2, 8>(__VA_ARGS__);             \
-    case 3 * 16 + 1: return FN<3, 1>(__VA_ARGS__);             \
-    case 3 * 16 + 2: return FN<3, 2>(__VA_ARGS__);             \
-    case 3 * 16 + 3: return FN<3, 3>(__VA_ARGS__);             \
-    case 3 * 16 + 4: return FN<3, 4>(__VA_ARGS__);             \
-    case 3 * 16 + 5: return FN<3, 5>(__VA_ARGS__);             \
-    case 3 * 16 + 6: return FN<3, 6>(__VA_ARGS__);             \
-    case 3 * 16 + 7: return FN<3, 7>(__VA_ARGS__);             \
-    case 3 * 16 + 8: return FN<3, 8>(__VA_ARGS__);             \
+    case 2 * 16 + 1: return FN<2, 1, B>(__VA_ARGS__);          \
+    case 2 * 16 + 2: return FN<2, 2, B>(__VA_ARGS__);          \
+    case 2 * 16 + 3: return FN<2, 3, B>(__VA_ARGS__);          \
+    case 2 * 16 + 4: return FN<2, 4, B>(__VA_ARGS__);          \
+    case 2 * 16 + 5: return FN<2, 5, B>(__VA_ARGS__);          \
+    case 2 * 16 + 6: return FN<2, 6, B>(__VA_ARGS__);          \
+    case 2 * 16 + 7: return FN<2, 7, B>(__VA_ARGS__);          \
+    case 2 * 16 + 8: return FN<2, 8, B>(__VA_ARGS__);          \
+    case 3 * 16 + 1: return FN<3, 1, B>(__VA_ARGS__);          \
+    case 3 * 16 + 2: return FN<3, 2, B>(__VA_ARGS__);          \
+    case 3 * 16 + 3: return FN<3, 3, B>(__VA_ARGS__);          \
+    case 3 * 16 + 4: return FN<3, 4, B>(__VA_ARGS__);          \
+    case 3 * 16 + 5: return FN<3, 5, B>(__VA_ARGS__);          \
+    case 3 * 16 + 6: return FN<3, 6, B>(__VA_ARGS__);          \
+    case 3 * 16 + 7: return FN<3, 7, B>(__VA_ARGS__);          \
+    case 3 * 16 + 8: return FN<3, 8, B>(__VA_ARGS__);          \
     default: return kBadArgs;                                  \
   }
 
-extern "C" {
+// The four entries take the same arguments. The geometry: dim 2 or 3,
+// C 1..8 channels, cells per axis g0..g2, cb 2..8 nodes per cell per axis,
+// and lo, h, L per axis (float32 of the plain versions' doubles); cc the
+// bucket capacity; the stream. Each returns cudaGetLastError() after the
+// launch.
+#define M4_ARGS                                                        \
+  int dim, int n_ch, int g0, int g1, int g2, int cb, float lo0, float lo1, \
+      float lo2, float h0, float h1, float h2, float L0, float L1,        \
+      float L2, int cc, void *stream
 
-// P2M: cell_x (cells, cc, dim), cell_val (cells, cc, C), cell_mask
-// (cells, cc) -> out, the mesh (cb*grid..., C). dim 2 or 3, C 1..8,
-// cb 2..8, cb^dim <= 1024. Returns cudaGetLastError() after the launch.
-int m4_p2m_f32(const void* cell_x, const void* cell_val, const void* cell_mask,
-               void* out, int dim, int n_ch, int g0, int g1, int g2, int cb,
-               float lo0, float lo1, float lo2, float h0, float h1, float h2,
-               float L0, float L1, float L2, int cc, void* stream) {
+namespace {
+
+template <bool BF16>
+int p2m_entry(const void* cell_x, const void* cell_val, const void* cell_mask,
+              void* out, M4_ARGS) {
   if (cb < 2 || cb > MAX_CB || cc < 1) return kBadArgs;
   const Geom g = make_geom(dim, g0, g1, g2, cb, lo0, lo1, lo2, h0, h1, h2, L0,
                            L1, L2);
   const int n_cells = g.grid[0] * g.grid[1] * g.grid[2];
-  M4_DISPATCH(launch_p2m, dim, n_ch, cell_x, cell_val, cell_mask, out, g, cc,
-              n_cells, static_cast<cudaStream_t>(stream))
+  M4_DISPATCH(launch_p2m, BF16, dim, n_ch, cell_x, cell_val, cell_mask, out,
+              g, cc, n_cells, static_cast<cudaStream_t>(stream))
 }
 
-// Fused M2P: field (cb*grid..., C), cell_x (cells, cc, dim), cell_mask
-// (cells, cc) -> out (cells, cc, C); masked slots read 0. dim 2 or 3,
-// C 1..8, cb 2..8, cc <= 1024. Returns cudaGetLastError() after the launch.
-int m4_m2p_f32(const void* field, const void* cell_x, const void* cell_mask,
-               void* out, int dim, int n_ch, int g0, int g1, int g2, int cb,
-               float lo0, float lo1, float lo2, float h0, float h1, float h2,
-               float L0, float L1, float L2, int cc, void* stream) {
+template <bool BF16>
+int m2p_entry(const void* field, const void* cell_x, const void* cell_mask,
+              void* out, M4_ARGS) {
   if (cb < 2 || cb > MAX_CB || cc < 1 || cc > 1024) return kBadArgs;
   const Geom g = make_geom(dim, g0, g1, g2, cb, lo0, lo1, lo2, h0, h1, h2, L0,
                            L1, L2);
   const int n_cells = g.grid[0] * g.grid[1] * g.grid[2];
-  M4_DISPATCH(launch_m2p, dim, n_ch, field, cell_x, cell_mask, out, g, cc,
-              n_cells, static_cast<cudaStream_t>(stream))
+  M4_DISPATCH(launch_m2p, BF16, dim, n_ch, field, cell_x, cell_mask, out, g,
+              cc, n_cells, static_cast<cudaStream_t>(stream))
+}
+
+}  // namespace
+
+#define M4_PASS \
+  dim, n_ch, g0, g1, g2, cb, lo0, lo1, lo2, h0, h1, h2, L0, L1, L2, cc, stream
+
+extern "C" {
+
+// P2M: cell_x (cells, cc, dim), cell_val (cells, cc, C), cell_mask
+// (cells, cc) -> out, the mesh (cb*grid..., C); cb^dim <= 1024.
+int m4_p2m_f32(const void* cell_x, const void* cell_val, const void* cell_mask,
+               void* out, M4_ARGS) {
+  return p2m_entry<false>(cell_x, cell_val, cell_mask, out, M4_PASS);
+}
+
+int m4_p2m_bf16x(const void* cell_x, const void* cell_val,
+                 const void* cell_mask, void* out, M4_ARGS) {
+  return p2m_entry<true>(cell_x, cell_val, cell_mask, out, M4_PASS);
+}
+
+// Fused M2P: field (cb*grid..., C), cell_x (cells, cc, dim), cell_mask
+// (cells, cc) -> out (cells, cc, C); masked slots read 0; cc <= 1024.
+int m4_m2p_f32(const void* field, const void* cell_x, const void* cell_mask,
+               void* out, M4_ARGS) {
+  return m2p_entry<false>(field, cell_x, cell_mask, out, M4_PASS);
+}
+
+int m4_m2p_bf16x(const void* field, const void* cell_x, const void* cell_mask,
+                 void* out, M4_ARGS) {
+  return m2p_entry<true>(field, cell_x, cell_mask, out, M4_PASS);
 }
 
 }  // extern "C"

@@ -22,9 +22,10 @@ On CUDA tensors both launch the hand-written kernels of
 ``csrc/m4_interp.cu``; on CPU tensors they run the plain PyTorch versions
 :func:`p2m_cells_torch` / :func:`m2p_cells_torch`, which compute the same
 sums with tensor ops, a batch of cells at a time. The kernels are
-periodic-only and fp32; ``precision="bf16x"`` (bf16 weight and value
-operands, fp32 sums) exists in the plain versions only. :data:`LAUNCHES`
-counts kernel launches per kernel.
+periodic-only; both forms take ``precision="fp32"`` or ``"bf16x"`` (bf16
+weight and value operands, exact fp32 products, fp32 sums), each kernel
+with its own C entry. :data:`LAUNCHES` counts kernel launches per kernel
+and precision.
 """
 from __future__ import annotations
 
@@ -41,8 +42,13 @@ from repro_torch.kernels import _build
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "m4_interp.cu"
 
-#: CUDA kernel launches made in this process: {"p2m": n, "m2p": n}.
-LAUNCHES = {"p2m": 0, "m2p": 0}
+#: CUDA kernel launches made in this process, per kernel and precision:
+#: "p2m" and "m2p" (fp32), "p2m_bf16x" and "m2p_bf16x".
+LAUNCHES = {"p2m": 0, "m2p": 0, "p2m_bf16x": 0, "m2p_bf16x": 0}
+
+#: The C entry of each (kernel, precision).
+_ENTRIES = {(kind, prec): f"m4_{kind}_{'f32' if prec == 'fp32' else prec}"
+            for kind in ("p2m", "m2p") for prec in ("fp32", "bf16x")}
 
 #: Largest channel count, cells per axis and bucket capacity the CUDA
 #: kernels are built for.
@@ -232,18 +238,15 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     geom = [i] * 6 + [f] * 9             # dim, C, grid[3], cb; lo, h, L
-    lib.m4_p2m_f32.argtypes = [p, p, p, p, *geom, i, p]
-    lib.m4_p2m_f32.restype = i
-    lib.m4_m2p_f32.argtypes = [p, p, p, p, *geom, i, p]
-    lib.m4_m2p_f32.restype = i
+    for entry in _ENTRIES.values():
+        fn = getattr(lib, entry)
+        fn.argtypes = [p, p, p, p, *geom, i, p]
+        fn.restype = i
     return lib
 
 
 def _check_cuda_args(tensors, *, grid_cells, cb, n_ch, cc, precision):
-    if precision != "fp32":
-        raise NotImplementedError(
-            f"precision {precision!r} is not in the CUDA M'4 kernels yet "
-            "(fp32 only; bf16x is ROADMAP B3/B4); use backend='torch'")
+    _check_precision(precision)
     dev = tensors[0][1].device
     for name, t, dtype, shape in tensors:
         if t.device != dev:
@@ -290,15 +293,15 @@ def _p2m_cuda(cell_x, cell_val, cell_mask, *, grid_cells, cb, box_lo,
     shape = tuple(cb * g for g in grid_cells)
     out = torch.empty(shape + (n_ch,), dtype=torch.float32,
                       device=cell_x.device)
-    lib = _lib()
+    entry = _ENTRIES["p2m", precision]
     with torch.cuda.device(cell_x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.m4_p2m_f32(cell_x.data_ptr(), cell_val.data_ptr(),
-                             cell_mask.data_ptr(), out.data_ptr(),
-                             *_geom_args(grid_cells, cb, box_lo, box_hi,
-                                         n_ch), cc, stream)
-    _build.check(err, "m4_p2m_f32")
-    LAUNCHES["p2m"] += 1
+        err = getattr(_lib(), entry)(
+            cell_x.data_ptr(), cell_val.data_ptr(),
+            cell_mask.data_ptr(), out.data_ptr(),
+            *_geom_args(grid_cells, cb, box_lo, box_hi, n_ch), cc, stream)
+    _build.check(err, entry)
+    LAUNCHES["p2m" if precision == "fp32" else "p2m_bf16x"] += 1
     return out
 
 
@@ -316,23 +319,23 @@ def _m2p_cuda(field, cell_x, cell_mask, *, grid_cells, cb, box_lo, box_hi,
                      precision=precision)
     out = torch.empty((n_cells, cc, n_ch), dtype=torch.float32,
                       device=cell_x.device)
-    lib = _lib()
+    entry = _ENTRIES["m2p", precision]
     with torch.cuda.device(cell_x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.m4_m2p_f32(field.data_ptr(), cell_x.data_ptr(),
-                             cell_mask.data_ptr(), out.data_ptr(),
-                             *_geom_args(grid_cells, cb, box_lo, box_hi,
-                                         n_ch), cc, stream)
-    _build.check(err, "m4_m2p_f32")
-    LAUNCHES["m2p"] += 1
+        err = getattr(_lib(), entry)(
+            field.data_ptr(), cell_x.data_ptr(),
+            cell_mask.data_ptr(), out.data_ptr(),
+            *_geom_args(grid_cells, cb, box_lo, box_hi, n_ch), cc, stream)
+    _build.check(err, entry)
+    LAUNCHES["m2p" if precision == "fp32" else "m2p_bf16x"] += 1
     return out
 
 
 def p2m_cells(cell_x, cell_val, cell_mask, *, grid_cells, cb: int, box_lo,
               box_hi, precision: str = "fp32") -> torch.Tensor:
     """Conflict-free P2M over pre-bucketed particle tiles (``repro``'s
-    ``p2m_cells``). CUDA tensors launch the kernel (NotImplementedError for
-    ``bf16x``, never a quiet fallback); CPU tensors run
+    ``p2m_cells``). CUDA tensors launch the kernel of ``precision`` (or
+    raise, never a quiet fallback); CPU tensors run
     :func:`p2m_cells_torch`. Returns the field ``shape + (C,)``."""
     grid_cells = tuple(int(g) for g in grid_cells)
     if cell_x.is_cuda:

@@ -185,7 +185,8 @@ def test_bf16x_plain_matches_jax_bf16x():
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_on_card():
     """The CUDA kernel against cell_pair_torch on md_case's tiles, on the
-    card; and a body without a CUDA functor raises there."""
+    card, in fp32 and in bf16x; and a body without a CUDA functor raises
+    there."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the GPU machine)")
     cfg, _, tt = _md_tiles()
@@ -201,6 +202,12 @@ def test_cuda_kernel_matches_plain_on_card():
     assert rel(got, ref) <= 1e-5
     with pytest.raises(NotImplementedError):
         TCP.cell_pair(*args, body=_gauss_torch, out=LJ_OUT, r_cut=cfg.r_cut)
-    with pytest.raises(NotImplementedError):
-        TCP.cell_pair(*args, body=body, out=LJ_OUT, r_cut=cfg.r_cut,
-                      precision="bf16x")
+    n0 = TCP.LAUNCHES_BY_KIND["lj_bf16x"]
+    got16 = TCP.cell_pair(*args, body=body, out=LJ_OUT, r_cut=cfg.r_cut,
+                          precision="bf16x")["f"]
+    assert TCP.LAUNCHES_BY_KIND["lj_bf16x"] == n0 + 1
+    ref16 = TCP.cell_pair_torch(*args, body=body, out=LJ_OUT,
+                                r_cut=cfg.r_cut, precision="bf16x")["f"]
+    torch.cuda.synchronize()
+    assert rel(got16, ref16) <= 1e-5    # the same roundings: sum order only
+    assert rel(got16, got) > 0          # bf16 really used

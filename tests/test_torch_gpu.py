@@ -1,5 +1,5 @@
 """The CUDA kernels against their plain PyTorch versions, on the card
-(B1 with the LJ, SPH and DEM functors, B3, B4).
+(B1 with the LJ, SPH and DEM functors, B2, B3, B4; fp32 and bf16x).
 Imports neither jax nor repro, so it runs on the GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -18,6 +18,9 @@ from repro_torch.kernels.m4_interp import m4_interp as TK
 from repro_torch.kernels.m4_interp import ops as TM4
 
 TOL = 1e-5      # fp32, only the summation order differs
+# bf16x: the same bf16 roundings, in the same order, on both paths, so
+# only the summation order differs, as in fp32
+BF16_TOL = TOL
 CB = 4
 
 pytestmark = pytest.mark.gpu
@@ -45,15 +48,20 @@ def _tiles(dim, seed, edge):
                                            (3, 2, True)])
 def test_cuda_p2m_matches_plain(card, dim, seed, edge):
     b, cell_val, _, kk = _tiles(dim, seed, edge)
-    n0 = TK.LAUNCHES["p2m"]
+    n0, n0_bf16 = TK.LAUNCHES["p2m"], TK.LAUNCHES["p2m_bf16x"]
     got = TK.p2m_cells(b.cell_x, cell_val, b.cell_mask, **kk)
     assert TK.LAUNCHES["p2m"] == n0 + 1
     ref = TK.p2m_cells_torch(b.cell_x, cell_val, b.cell_mask, **kk)
     torch.cuda.synchronize()
     assert rel(got, ref) <= TOL
-    with pytest.raises(NotImplementedError, match="B3/B4"):
-        TK.p2m_cells(b.cell_x, cell_val, b.cell_mask, precision="bf16x",
-                     **kk)
+    got16 = TK.p2m_cells(b.cell_x, cell_val, b.cell_mask, precision="bf16x",
+                         **kk)
+    assert TK.LAUNCHES["p2m_bf16x"] == n0_bf16 + 1
+    ref16 = TK.p2m_cells_torch(b.cell_x, cell_val, b.cell_mask,
+                               precision="bf16x", **kk)
+    torch.cuda.synchronize()
+    assert rel(got16, ref16) <= BF16_TOL
+    assert rel(got16, got) > 0          # bf16 really used
 
 
 @pytest.mark.parametrize("dim,seed,edge", [(2, 3, False), (3, 4, False),
@@ -61,14 +69,20 @@ def test_cuda_p2m_matches_plain(card, dim, seed, edge):
 def test_cuda_m2p_matches_plain(card, dim, seed, edge):
     b, _, field, kk = _tiles(dim, seed, edge)
     field = torch.cat([field, field[..., :1] * 2.0], -1).contiguous()  # C=4
-    n0 = TK.LAUNCHES["m2p"]
+    n0, n0_bf16 = TK.LAUNCHES["m2p"], TK.LAUNCHES["m2p_bf16x"]
     got = TK.m2p_cells(field, b.cell_x, b.cell_mask, **kk)
     assert TK.LAUNCHES["m2p"] == n0 + 1
     ref = TK.m2p_cells_torch(field, b.cell_x, b.cell_mask, **kk)
     torch.cuda.synchronize()
     assert rel(got, ref) <= TOL
-    with pytest.raises(NotImplementedError, match="B3/B4"):
-        TK.m2p_cells(field, b.cell_x, b.cell_mask, precision="bf16x", **kk)
+    got16 = TK.m2p_cells(field, b.cell_x, b.cell_mask, precision="bf16x",
+                         **kk)
+    assert TK.LAUNCHES["m2p_bf16x"] == n0_bf16 + 1
+    ref16 = TK.m2p_cells_torch(field, b.cell_x, b.cell_mask,
+                               precision="bf16x", **kk)
+    torch.cuda.synchronize()
+    assert rel(got16, ref16) <= BF16_TOL
+    assert rel(got16, got) > 0          # bf16 really used
 
 
 def test_vortex_kernel_path_matches_plain_path(card):
@@ -148,8 +162,22 @@ def test_cuda_sph_functor_matches_plain(card, dim, C, cc):
     torch.cuda.synchronize()
     for name in ("a", "drho"):
         assert rel(got[name], ref[name]) <= TOL, name
-    with pytest.raises(NotImplementedError, match="fp32 only"):
-        CP.cell_pair(*args, precision="bf16x:drho", **kw)
+    # bf16x: both outputs bf16; the mixed forms: the named output bf16,
+    # the other the fp32 evaluation
+    for prec, key, bf16_outs in (("bf16x", "sph_bf16x", ("a", "drho")),
+                                 ("bf16x:drho", "sph_bf16x_drho", ("drho",)),
+                                 ("bf16x:a", "sph_bf16x_a", ("a",))):
+        n0 = CP.LAUNCHES_BY_KIND[key]
+        got16 = CP.cell_pair(*args, precision=prec, **kw)
+        assert CP.LAUNCHES_BY_KIND[key] == n0 + 1
+        ref16 = CP.cell_pair_torch(*args, precision=prec, **kw)
+        torch.cuda.synchronize()
+        for name in ("a", "drho"):
+            assert rel(got16[name], ref16[name]) <= BF16_TOL, (prec, name)
+            if name in bf16_outs:
+                assert rel(got16[name], got[name]) > 0, (prec, name)
+            else:
+                assert rel(got16[name], got[name]) <= TOL, (prec, name)
 
 
 def test_cuda_dem_functor_matches_plain(card):
@@ -170,8 +198,13 @@ def test_cuda_dem_functor_matches_plain(card):
     torch.cuda.synchronize()
     assert float(ref.abs().max()) > 1.0
     assert rel(got, ref) <= TOL
-    with pytest.raises(NotImplementedError, match="fp32 only"):
-        CP.cell_pair(*args, precision="bf16x", **kw)
+    n0 = CP.LAUNCHES_BY_KIND["dem_bf16x"]
+    got16 = CP.cell_pair(*args, precision="bf16x", **kw)["f"]
+    assert CP.LAUNCHES_BY_KIND["dem_bf16x"] == n0 + 1
+    ref16 = CP.cell_pair_torch(*args, precision="bf16x", **kw)["f"]
+    torch.cuda.synchronize()
+    assert rel(got16, ref16) <= BF16_TOL
+    assert rel(got16, got) > 0          # bf16 really used
 
 
 def test_sph_and_dem_kernel_path_match_plain_path(card):
@@ -206,3 +239,139 @@ def test_sph_and_dem_kernel_path_match_plain_path(card):
     assert CP.LAUNCHES_BY_KIND["dem"] == n0 + 5
     for name in ("v", "w"):
         assert rel(pk.props[name], pp.props[name]) <= 1e-4, name
+
+
+def test_bf16x_kernel_paths_match_plain_paths(card):
+    """A few bf16x steps of MD, the small 2-D dam break, the small
+    avalanche and VIC through the kernels against the plain path in
+    bf16x, with each app's bf16x launches per step."""
+    from repro_torch.apps import dem, md, sph
+    from repro_torch.kernels.cell_pair import cell_pair as CP
+    tol = 1e-2
+    cfg = md.MDConfig(n_per_side=6, sigma=0.085, device="cuda",
+                      precision="bf16x")
+    n0 = CP.LAUNCHES_BY_KIND["lj_bf16x"]
+    pk, _ = md.run(cfg, 5, thermal_v=0.4, seed=2)
+    assert CP.LAUNCHES_BY_KIND["lj_bf16x"] == n0 + 6
+    pp, _ = md.run(dataclasses.replace(cfg, backend="torch"), 5,
+                   thermal_v=0.4, seed=2)
+    assert rel(pk.props["v"], pp.props["v"]) <= tol
+    scfg = sph.SPHConfig(dp=0.04, box=(1.0, 0.5), fluid=(0.25, 0.25),
+                         device="cuda", precision="bf16x:drho")
+    n0 = CP.LAUNCHES_BY_KIND["sph_bf16x_drho"]
+    pk, _ = sph.run(scfg, 5)
+    assert CP.LAUNCHES_BY_KIND["sph_bf16x_drho"] == n0 + 5
+    pp, _ = sph.run(dataclasses.replace(scfg, backend="torch"), 5)
+    assert rel(pk.props["v"], pp.props["v"]) <= tol
+    assert rel(pk.props["rho"], pp.props["rho"]) <= tol
+    dcfg = dem.DEMConfig(box=(2.0, 0.6, 1.0), fill=(0.8, 0.66, 0.5),
+                         device="cuda", precision="bf16x")
+    n0 = CP.LAUNCHES_BY_KIND["dem_bf16x"]
+    pk = dem.run(dcfg, 5)
+    assert CP.LAUNCHES_BY_KIND["dem_bf16x"] == n0 + 5
+    pp = dem.run(dataclasses.replace(dcfg, backend="torch"), 5)
+    assert rel(pk.props["v"], pp.props["v"]) <= tol
+    vcfg = TV.VortexConfig(shape=(16, 8, 8), lengths=(4.0, 2.0, 2.0),
+                           dt=0.02, device="cuda", precision="bf16x")
+    n0 = dict(TK.LAUNCHES)
+    wk, _, _ = TV.run(vcfg, 2)
+    assert TK.LAUNCHES["p2m_bf16x"] - n0["p2m_bf16x"] >= 4
+    assert TK.LAUNCHES["p2m"] == n0["p2m"]
+    wp, _, _ = TV.run(dataclasses.replace(vcfg, backend="torch"), 2)
+    assert rel(wk, wp) <= tol
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 16), (32, 16, 8), (8, 32, 40)])
+def test_cuda_stencil7_matches_plain(card, shape):
+    """B2 against its plain version on the card, bit for bit, through
+    gray_scott_step and through ops.step against the app's gs_step."""
+    from repro_torch.apps import gray_scott as GS
+    from repro_torch.kernels.stencil7 import ops as SOPS
+    from repro_torch.kernels.stencil7 import stencil7 as SK
+    from repro_torch.kernels.stencil7.ref import gray_scott_step_ref
+    rng = np.random.default_rng(sum(shape))
+    u, v = (torch.from_numpy(rng.uniform(size=shape).astype(np.float32))
+            .cuda() for _ in range(2))
+    args = dict(Du=2e-5, Dv=1e-5, F=0.03, k=0.06, dt=1.0, inv_h2=100.0)
+    n0 = SK.LAUNCHES
+    got = SK.gray_scott_step(u, v, **args)
+    assert SK.LAUNCHES == n0 + 1
+    ref = gray_scott_step_ref(u, v, **args)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    cfg = GS.GSConfig(shape=shape, L=shape[0] / 3.0)
+    for g, r in zip(SOPS.step(u, v, cfg), GS.gs_step(u, v, cfg)):
+        assert torch.equal(g, r)
+    with pytest.raises(TypeError, match="float32"):
+        SK.gray_scott_step(u.double(), v.double(), **args)
+
+
+def test_bf16_scalar_ops_round_as_the_functors_assume(card):
+    """B1's bf16x functors mirror the plain bodies' bf16 ops on the card
+    (csrc/cell_pair.cu, Ops<P>): a tensor op computes in fp32 and rounds
+    the result, and a constant taken through ``interactions.weak`` (a 0-d
+    bf16 tensor on the card) enters it rounded to bf16, as JAX's weak
+    typing rounds it; ``div_scalar`` divides by it. A bare Python scalar
+    would enter unrounded, and a 0-d CPU divisor as its reciprocal."""
+    from repro_torch.core import interactions as I
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.uniform(0.0, 4.0, 1 << 16).astype(np.float32)
+                         ).cuda().to(torch.bfloat16)
+    y = torch.from_numpy(rng.uniform(0.5, 4.0, 1 << 16).astype(np.float32)
+                         ).cuda().to(torch.bfloat16)
+    bf = lambda t: t.to(torch.bfloat16).float()
+    xf, yf = x.float(), y.float()
+    for s in (1.01, 0.1234567, 3.3333333, 0.12, 1e-6):
+        w = I.weak(s, x)
+        assert w.dtype == torch.bfloat16 and w.is_cuda and w.dim() == 0
+        sb = torch.tensor(s, dtype=torch.float32, device="cuda")
+        sb = bf(sb)                               # s rounded to bf16
+        cases = {"x * w": ((x * w).float(), bf(xf * sb)),
+                 "w * x": ((w * x).float(), bf(sb * xf)),
+                 "x + w": ((x + w).float(), bf(xf + sb)),
+                 "w - x": ((w - x).float(), bf(sb - xf)),
+                 "x - w": ((x - w).float(), bf(xf - sb)),
+                 "x / w": ((x / w).float(), bf(xf / sb)),
+                 "div_scalar": (I.div_scalar(x, s).float(), bf(xf / sb))}
+        for name, (got, want) in cases.items():
+            assert torch.equal(got, want), (name, s)
+    assert I.weak(0.12, xf) == 0.12               # fp32 keeps the number
+    assert torch.equal((x / y).float(), bf(xf / yf))
+    assert torch.equal((x * y).float(), bf(xf * yf))
+    assert torch.equal(torch.sqrt(x).float(), bf(torch.sqrt(xf)))
+    assert torch.equal(torch.pow(x, 7.0).float(), bf(torch.pow(xf, 7.0)))
+    assert torch.equal(torch.clamp(x, min=1e-12).float(),
+                       bf(torch.clamp(xf, min=1e-12)))
+
+
+def test_bf16x_plain_on_card_equals_plain_on_cpu(card):
+    """The plain bf16x bodies round alike on the card and on the CPU: B1's
+    plain version on the same DEM and SPH (2-D, 3-D) tiles on both, in
+    bf16x, to the summation order."""
+    from repro_torch.apps import dem, sph
+    from repro_torch.kernels.cell_pair import cell_pair as CP
+    cases = [(dem.dem_normal_body(dem.DEMConfig(device="cuda")),
+              {"f": "radial"}, dem.DEMConfig().r_cut, ("v",),
+              _pair_tiles(3, 5, 24, 27, 0.3, seed=3))]
+    for dim in (2, 3):
+        cfg = sph.SPHConfig(dim=dim, dp=0.05, box=(1.0, 0.5, 0.5)[:dim],
+                            fluid=(0.25,) * dim, device="cuda")
+        cases.append((sph.sph_pair_body(cfg),
+                      {"a": "radial", "drho": "scalar"}, cfg.r_cut,
+                      ("v", "rho"), _pair_tiles(dim, 4, 16, 3 ** dim, 0.2,
+                                                seed=30 + dim)))
+    for body, out, r_cut, names, tl in cases:
+        args = [tl["cell_x"], tl["nbr_x"], tl["cell_mask"], tl["nbr_mask"],
+                {k: tl[f"cell_{k}"] for k in names},
+                {k: tl[f"nbr_{k}"] for k in names}]
+        on_card = CP.cell_pair_torch(*args, body=body, out=out, r_cut=r_cut,
+                                     precision="bf16x")
+        cpu = lambda a: ({k: t.cpu() for k, t in a.items()}
+                         if isinstance(a, dict) else a.cpu())
+        on_cpu = CP.cell_pair_torch(*map(cpu, args), body=body, out=out,
+                                    r_cut=r_cut, precision="bf16x")
+        for name in out:
+            assert float(on_cpu[name].abs().max()) > 0, name
+            assert rel(on_card[name], on_cpu[name]) <= TOL, \
+                (body.cuda_kind, name)

@@ -157,7 +157,7 @@ def test_sph_scalars_from_engine():
 
 
 def test_sph_kernel_body_carries_its_functor():
-    """The pair body names the SPH functor with its 11 params in the
+    """The pair body names the SPH functor with its 12 params in the
     functor's order; run_distributed is not in this port yet."""
     cfg = tsph.SPHConfig(dim=3, dp=0.006, box=(1.6, 0.67, 0.4),
                          fluid=(0.4, 0.6, 0.3), cell_cap=128, device="cpu")
@@ -165,7 +165,7 @@ def test_sph_kernel_body_carries_its_functor():
     assert body.cuda_kind == "sph"
     h, alpha_d = tsph.kernel_consts(cfg)
     assert body.cuda_params == (h, 1.0 / h, alpha_d, -0.75 * alpha_d,
-                                1e-3, 7.0, cfg.b_eos, cfg.eta2,
+                                1000.0, 1e-3, 7.0, cfg.b_eos, cfg.eta2,
                                 -cfg.alpha * cfg.c_sound, -cfg.mass,
                                 cfg.mass)
     assert len(body.cuda_params) == TCP.KINDS["sph"].n_params
