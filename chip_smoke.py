@@ -64,6 +64,23 @@ Phases, each of which raises (non-zero exit) on failure:
      energy in the first; ms per launch and per step, the plain step's
      ms, node-updates per second, the bytes bound.
 
+ 10. the LM stack's serve path (starcoder2-15b, ``configs/
+     starcoder2_15b.py``): (a) B5, the flash-attention kernel, against its
+     plain version at the prefill's shapes (4 x 48 heads over 4 KV heads,
+     2048 queries against a 2176-deep cache, hd 128, causal): <= 1e-5 in
+     fp32 and <= 1e-2 in bf16 (max-abs error over the plain max), timed
+     beside the plain version and PyTorch's SDPA, with the bound; (b) full
+     width, 2 layers, fp32: prefill logits through B5 against the plain
+     path <= 1e-4; (c) the full 40-layer model in bf16 (weights from a
+     seeded ``torch.Generator`` on the card): ``greedy_generate`` of 64
+     tokens for four 2048-token prompts — exactly 40 B5 launches, all in
+     the prefill — finite logits, tokens in [0, vocab), the prefill's
+     last logits against the plain path <= 5e-2 of the plain max-abs,
+     the first greedy tokens equal wherever the plain top-2 margin exceeds
+     twice that gap; prefill and decode ms and tokens/s, the decode
+     step's device time, host enqueue and bound, device breakdowns by
+     kernel (torch.profiler), peak memory.
+
 It prints a ``{"kernels": [...]}`` line and, as its last line,
 ``{"ok": true, "device": {...}}``. It exits non-zero without a result when
 ``torch.cuda.is_available()`` is false, and fails at import when the
@@ -156,6 +173,23 @@ GS_CHECK_STEPS = 200
 GS_PAIRS = ((0.030, 0.055), (0.010, 0.070))
 GS_ONE_TOL = 1e-6     # one step, kernel vs plain: the same roundings
 GS_RUN_TOL = 1e-5     # 200 steps, kernel path vs plain path
+# Phase 10: starcoder2-15b (configs/starcoder2_15b.py) served at full
+# width and depth in bf16: four 2048-token prompts into a 2176-deep cache,
+# 64 new tokens each.
+LM_ARCH = "starcoder2-15b"
+LM_BATCH = 4
+LM_PROMPT = 2048
+LM_S_MAX = 2176
+LM_NEW = 64
+LM_FP32_LAYERS = 2    # 10b: full width, depth cut to 2, fp32
+B5_FP32_TOL = 1e-5    # B5 vs plain, fp32: only the summation order differs
+# B5 vs plain, bf16: one bf16 rounding of the output is 2^-8 relative, and
+# another summation order can flip it
+B5_BF16_TOL = 1e-2
+LM_FP32_TOL = 1e-4    # 10b prefill logits, kernel path vs plain path
+LM_BF16_TOL = 5e-2    # 10c prefill logits (bf16, 40 layers), same
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+BF16_FLOP_PER_S = 989e12
 # flops per in-cutoff body evaluation, accumulation included (b1_bound)
 SPH_EVAL_FLOPS = {2: 50, 3: 55}
 DEM_EVAL_FLOPS = 27
@@ -1108,6 +1142,302 @@ def gray_scott_phase():
         "library_ms": None}
 
 
+def rel_err(got, ref) -> float:
+    """max-abs error of ``got`` over the max-abs of ``ref``, in fp32."""
+    got, ref = got.float(), ref.float()
+    return float((got - ref).abs().max()) / (float(ref.abs().max()) + 1e-9)
+
+
+def b5_bound(B, H, K, Sq, Sk, hd, itemsize, flop_per_s):
+    """(bound ms, bound_by, operations, bytes) of causal B5 on these
+    shapes: 4 hd operations per visible (q, k) pair, query i seeing keys
+    0..i (start-aligned); bytes: q and o once, the visible prefix of k and
+    v once per KV head."""
+    n = min(Sq, Sk)
+    pairs = B * H * (n * (n + 1) // 2 + (Sq - n) * Sk)
+    ops = 4 * hd * pairs
+    n_bytes = itemsize * hd * (2 * B * H * Sq + 2 * B * K * n)
+    ops_ms = ops / flop_per_s * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", ops, n_bytes)
+
+
+def b5_phase(cfg):
+    """Phase 10a: B5 against its plain version at the prefill's shapes
+    (LM_BATCH x H over K heads, LM_PROMPT queries against LM_S_MAX keys,
+    causal), fp32 and bf16, each timed with CUDA events beside its plain
+    version and PyTorch's ``scaled_dot_product_attention`` (start-aligned
+    ``is_causal`` like B5; checked against the plain output first; the
+    port never calls it). Returns the entry for the ``kernels`` line
+    (bf16, the serve path's type) without the main path's launches."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    import torch.nn.functional as F
+    B, H, K, hd = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    Sq, Sk = LM_PROMPT, LM_S_MAX
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q32, k32, v32 = (torch.randn(shape, generator=gen, device="cuda")
+                     for shape in ((B, H, Sq, hd), (B, K, Sk, hd),
+                                   (B, K, Sk, hd)))
+    res = {}
+    for dtype, tol, peak in ((torch.float32, B5_FP32_TOL, FP32_FLOP_PER_S),
+                             (torch.bfloat16, B5_BF16_TOL,
+                              BF16_FLOP_PER_S)):
+        name = str(dtype).split(".")[1]
+        q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+        got = FA.flash_attention(q, k, v, causal=True)
+        ref = flash_attention_ref(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"B5 {name}: output not finite")
+        err = rel_err(got, ref)
+        max_abs = float((got.float() - ref.float()).abs().max())
+        print(f"B5 {name}: q {tuple(q.shape)}, k/v {tuple(k.shape)}, causal, "
+              f"kernel vs plain max abs {max_abs:.3e}, rel {err:.3e} (tol "
+              f"{tol:g})")
+        if not err <= tol:
+            raise RuntimeError(f"B5 {name} disagrees with plain: rel {err}")
+        sdpa = lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
+        lib_err = rel_err(sdpa(), ref)
+        same = lib_err <= B5_BF16_TOL
+        print(f"B5 {name}: SDPA vs plain rel {lib_err:.3e} ("
+              + ("the same function" if same else
+                 "another function: no library time") + f" at "
+              f"{B5_BF16_TOL:g})")
+        del got, ref
+        kernel_ms = time_cuda(lambda: FA.flash_attention(q, k, v), iters=10)
+        plain_ms = time_cuda(lambda: flash_attention_ref(q, k, v), iters=3,
+                             warmup=1)
+        lib_ms = time_cuda(sdpa, iters=10) if same else None
+        bound_ms, bound_by, ops, n_bytes = b5_bound(
+            B, H, K, Sq, Sk, hd, q.element_size(), peak)
+        print(f"B5 {name}: {kernel_ms:.4f} ms kernel, {plain_ms:.3f} ms "
+              f"plain, {lib_ms} ms SDPA; {ops:.4e} operations, "
+              f"{n_bytes / 1e6:.1f} MB, bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{peak / 1e12:g} TFLOP/s), {ops / kernel_ms / 1e9:.2f} "
+              f"TFLOP/s achieved")
+        res[name] = dict(max_abs_err=max_abs, rel_err=err, ms=kernel_ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
+        del q, k, v
+    bf, f32 = res["bfloat16"], res["float32"]
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:30",
+        "max_abs_err": bf["max_abs_err"], "max_rel_err": bf["rel_err"],
+        "ms": bf["ms"], "kernel_ms": bf["ms"], "plain_ms": bf["plain_ms"],
+        "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
+        "library_ms": bf["library_ms"], "dtype": "bfloat16",
+        "fp32": f32}
+
+
+def lm_fp32_phase(cfg, TT, TS, FA):
+    """Phase 10b: starcoder2-15b at full width, LM_FP32_LAYERS layers,
+    fp32: the prefill's last logits through B5 against the plain path
+    (``backend="torch"`` on the same CUDA tensors)."""
+    c = dataclasses.replace(cfg, n_layers=LM_FP32_LAYERS,
+                            param_dtype="float32", compute_dtype="float32")
+    params = TT.init_params(c, torch.Generator(device="cuda").manual_seed(1),
+                            device="cuda")
+    prompt = torch.randint(0, c.vocab, (LM_BATCH, LM_PROMPT), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(2))
+    n0 = FA.LAUNCHES
+    lk, _ = TS.make_prefill_step(c, LM_S_MAX)(params, {"tokens": prompt})
+    n_k = FA.LAUNCHES - n0
+    lp, _ = TS.make_prefill_step(c, LM_S_MAX, backend="torch")(
+        params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    err = rel_err(lk, lp)
+    print(f"10b: {c.name} width {c.d_model}, {c.n_layers} layers, fp32, "
+          f"{LM_BATCH} x {LM_PROMPT} prompt: prefill logits kernel vs plain "
+          f"rel {err:.3e} (tol {LM_FP32_TOL:g}), {n_k} B5 launches")
+    if n_k != c.n_layers or FA.LAUNCHES - n0 != n_k:
+        raise RuntimeError(f"10b: {n_k} B5 launches for {c.n_layers} layers")
+    if not (bool(torch.isfinite(lk).all()) and err <= LM_FP32_TOL):
+        raise RuntimeError(f"10b: kernel path disagrees: rel {err}")
+
+
+def device_breakdown(name, fn, wall_ms, n=1):
+    """Device time of ``n`` calls of ``fn`` by kernel, from torch.profiler:
+    B5, matrix products, the rest; prints the total per call, its share of
+    ``wall_ms``, the launches per call and the top kernels. Returns (device
+    ms per call, {group: ms})."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    total = sum(ms for _, ms, _ in rows)
+    if not total > 0:
+        raise RuntimeError(f"{name}: the profiler saw no device time")
+    groups = {"B5": 0.0, "matmul": 0.0, "rest": 0.0}
+    for key, ms, _ in rows:
+        k = key.lower()
+        if "flash_attention_kernel" in k:
+            groups["B5"] += ms
+        elif any(w in k for w in ("gemm", "xmma", "cutlass", "nvjet",
+                                  "gemv", "splitk")):
+            groups["matmul"] += ms
+        else:
+            groups["rest"] += ms
+    launches = sum(cnt for _, _, cnt in rows)
+    print(f"{name} device ms (torch.profiler): total {total:.3f} of "
+          f"{wall_ms:.3f} wall (idle share {1 - total / wall_ms:.3f}), "
+          f"{launches:.0f} kernels; " + ", ".join(
+              f"{g} {ms:.3f} ({ms / total:.1%})" for g, ms in groups.items()))
+    for key, ms, cnt in sorted(rows, key=lambda r: -r[1])[:6]:
+        print(f"  {ms:9.3f} ms  {cnt:6.0f} calls  {key[:90]}")
+    return total, groups
+
+
+def serve_phase(cfg, TT, TS, FA):
+    """Phase 10c: starcoder2-15b FULL in bf16 on the card, weights from a
+    seeded torch.Generator: ``greedy_generate`` of LM_NEW tokens for
+    LM_BATCH prompts of LM_PROMPT tokens (the main path: 40 B5 launches in
+    its prefill, none in decode), then the prefill's last logits against
+    the plain path, the first tokens, and the prefill and decode times.
+    Returns the main path's B5 launches."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = TT.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+    torch.cuda.synchronize()
+    n_params = TT.count_params(params)
+    print(f"10c: {cfg.name}: {n_params} parameters in {cfg.param_dtype}, "
+          f"{cfg.n_layers} layers, init {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    prompt = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(3))
+
+    # the main path, once, through the entry point a user calls
+    FA.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = TS.greedy_generate(cfg, params, prompt, LM_NEW, LM_S_MAX)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = FA.LAUNCHES
+    print(f"10c main path: greedy_generate {LM_BATCH} x {LM_PROMPT} prompt, "
+          f"{LM_NEW} new tokens, s_max {LM_S_MAX}: {gen_s:.3f} s wall, "
+          f"{launches} B5 launches")
+    if launches != cfg.n_layers:
+        raise RuntimeError(f"10c: {launches} B5 launches; want "
+                           f"{cfg.n_layers} (one per prefill layer)")
+    if not (tokens.shape == (LM_BATCH, LM_NEW) and int(tokens.min()) >= 0
+            and int(tokens.max()) < cfg.vocab):
+        raise RuntimeError(f"10c: bad tokens {tokens.shape}")
+
+    prefill = TS.make_prefill_step(cfg, LM_S_MAX)
+    decode = TS.make_decode_step(cfg)
+    batch = {"tokens": prompt}
+    n0 = FA.LAUNCHES
+    lk, caches = prefill(params, batch)
+    if FA.LAUNCHES - n0 != cfg.n_layers:
+        raise RuntimeError(f"10c: {FA.LAUNCHES - n0} B5 launches in one "
+                           "prefill")
+    lp, _ = TS.make_prefill_step(cfg, LM_S_MAX, backend="torch")(params,
+                                                                 batch)
+    torch.cuda.synchronize()
+    lk, lp = lk[:, -1].float(), lp[:, -1].float()
+    if not bool(torch.isfinite(lk).all()):
+        raise RuntimeError("10c: prefill logits not finite")
+    gap = float((lk - lp).abs().max())
+    scale = float(lp.abs().max())
+    print(f"10c: prefill last logits, kernel vs plain path: max abs gap "
+          f"{gap:.4e}, plain max abs {scale:.4e}, rel {gap / scale:.4e} "
+          f"(tol {LM_BF16_TOL:g})")
+    if not gap <= LM_BF16_TOL * scale:
+        raise RuntimeError(f"10c: prefill logits gap {gap} > "
+                           f"{LM_BF16_TOL} x {scale}")
+    top2 = torch.topk(lp, 2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    first_k, first_p = lk.argmax(-1), lp.argmax(-1)
+    held = margin > 2 * gap
+    print(f"10c: first tokens kernel {first_k.tolist()}, plain "
+          f"{first_p.tolist()}, greedy {tokens[:, 0].tolist()}, plain top-2 "
+          f"margins {[round(m, 4) for m in margin.tolist()]}, held where > "
+          f"{2 * gap:.4f}: {held.tolist()}")
+    if bool(((first_k != first_p) & held).any()) or \
+            not torch.equal(first_k, tokens[:, 0]):
+        raise RuntimeError("10c: first greedy tokens differ")
+    del lp
+
+    pre_ms = time_cuda(lambda: prefill(params, batch), iters=3, warmup=1)
+    n_tok = LM_BATCH * LM_PROMPT
+    print(f"10c prefill: {pre_ms:.3f} ms, {n_tok / pre_ms * 1e3:.1f} "
+          f"tokens/s ({LM_BATCH} x {LM_PROMPT})")
+    state = {"caches": caches, "pos": LM_PROMPT}
+
+    def one_step():
+        pos = torch.full((LM_BATCH,), state["pos"], dtype=torch.int64,
+                         device="cuda")
+        tok = tokens[:, :1]
+        _, state["caches"] = decode(params, state["caches"],
+                                    {"tokens": tok, "position": pos})
+
+    n0 = FA.LAUNCHES
+    one_step()
+    if FA.LAUNCHES != n0:
+        raise RuntimeError("10c: a decode step launched B5")
+    dec_ms = time_cuda(one_step, iters=30)
+    host_s = 0.0
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step()
+        host_s += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in TT.leaves(params)) \
+        - params["embed"].numel() * params["embed"].element_size()
+    device_breakdown("10c prefill", lambda: prefill(params, batch), pre_ms)
+    # the step's kernels alone, from the profiler: the sleep-kernel timing
+    # of the other phases fails here, since a step's ~3,000 launches fill
+    # the launch queue and hold the host back
+    busy_ms, _ = device_breakdown("10c decode step", one_step, dec_ms, n=5)
+    print(f"10c decode: {dec_ms:.3f} ms/step, {LM_BATCH / dec_ms * 1e3:.1f} "
+          f"tokens/s (batch {LM_BATCH}, position {LM_PROMPT}); device "
+          f"{busy_ms:.3f} ms/step, idle share {1 - busy_ms / dec_ms:.3f}; "
+          f"host enqueue {host_s / 5 * 1e3:.3f} ms/step; bound "
+          f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms (the "
+          f"{weight_bytes / 1e9:.2f} GB of weights a step reads)")
+    print(f"10c: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB of {torch.cuda.mem_get_info()[1] / 2**30:.2f}")
+    return launches
+
+
+def lm_phase():
+    """Phase 10: the serve path of the LM stack (10a B5 alone, 10b full
+    width in fp32, 10c the full model in bf16). Returns B5's entry for
+    the ``kernels`` line."""
+    from repro_torch.configs import registry as TR
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.models import transformer as TT
+    from repro_torch.training import serve as TS
+    cfg = TR.get_config(LM_ARCH)
+    entry = b5_phase(cfg)
+    torch.cuda.empty_cache()
+    lm_fp32_phase(cfg, TT, TS, FA)
+    torch.cuda.empty_cache()
+    entry["launches"] = serve_phase(cfg, TT, TS, FA)
+    entry["launches_per_prefill"] = entry["launches"]
+    entry["launches_per_decode_step"] = 0
+    torch.cuda.empty_cache()
+    return entry
+
+
 def dem_paper_size() -> None:
     """One ``dem_step`` at the paper's grain count (the DEMConfig defaults
     scaled DEM_PAPER_SCALE per axis); prints whether it fit the card and
@@ -1346,12 +1676,16 @@ def main() -> int:
                      launches_per_step=(n_run + n_cached) / (2 * DEM_STEPS))
 
     gs_entry = gray_scott_phase()
+    torch.cuda.empty_cache()
+
+    # -- phase 10: the LM stack's serve path ---------------------------------
+    fa_entry = lm_phase()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, build "
           "included")
 
     print(json.dumps({"kernels": [md_entry, sph_entry, dem_entry]
                       + m4_entries + [gs_entry, lj16_entry] + sph16_entries
-                      + [dem16_entry] + m4_16_entries}))
+                      + [dem16_entry] + m4_16_entries + [fa_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,12 +1,13 @@
-"""Carry particle state between ``repro`` and ``repro_torch`` as numpy
-arrays. A particle system's "weights" are its state: both packages step
-the same state after the conversion.
+"""Carry particle state, mesh fields and LM parameters between ``repro``
+and ``repro_torch`` as numpy arrays. A particle system's "weights" are its
+state: both packages step the same state after the conversion.
 
 The ``repro`` side is given as numpy (``np.asarray`` on each leaf of its
-``ParticleSet``), so this module needs neither package's other side."""
+``ParticleSet`` or parameter pytree), so this module needs neither
+package's other side."""
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -44,3 +45,26 @@ def fields_from_numpy(*arrays: np.ndarray, device="cuda"
     """Mesh fields (e.g. ``repro``'s Gray–Scott ``(u, v)``) on ``device``
     from numpy arrays (copied), one tensor per array."""
     return tuple(field_from_numpy(a, device=device) for a in arrays)
+
+
+def _tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":          # ml_dtypes' bfloat16 (JAX's)
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
+
+
+def lm_params_from_numpy(tree, device="cuda") -> Dict[str, Any]:
+    """The port's LM parameter dict on ``device`` from ``repro``'s
+    ``models.transformer.init_params`` pytree with numpy leaves (copied;
+    bf16 leaves keep their bits). The two share names and layouts
+    (blocks stacked ``(n_groups, ...)``), so this is a map of the tree."""
+    dev = resolve_device(device)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        return _tensor(t, dev)
+
+    return walk(tree)

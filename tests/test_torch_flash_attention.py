@@ -1,0 +1,129 @@
+"""repro_torch's flash attention (B5) on the CPU against repro's: the
+plain version against repro's Pallas kernel in interpret mode at
+tests/test_kernels.py's five shapes, the start-aligned causal mask at
+Sq < Sk (the prefill's case) against the kernel and blocked_attention and
+unlike repro's end-aligned oracle, ops.mha against repro's ops.mha, and
+the wrapper's contract. The CUDA kernel itself is held against the plain
+version on the card (tests/test_torch_gpu.py, chip_smoke.py phase 10)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_bridge import np_
+
+from repro.kernels.flash_attention import ops as JOPS
+from repro.kernels.flash_attention.flash_attention import \
+    flash_attention as j_flash
+from repro.kernels.flash_attention.ref import attention_ref as j_oracle
+from repro.models import layers as JL
+from repro_torch.kernels.flash_attention import flash_attention as TK
+from repro_torch.kernels.flash_attention import ops as TOPS
+from repro_torch.kernels.flash_attention import ref as TREF
+
+# repro's own Pallas-vs-oracle bounds (tests/test_kernels.py)
+ATOL = {np.float32: 2e-5, "bfloat16": 2e-2}
+
+
+def _qkv(B, H, K, Sq, Sk, hd, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, H, Sq, hd)).astype(np.float32),
+            rng.standard_normal((B, K, Sk, hd)).astype(np.float32),
+            rng.standard_normal((B, K, Sk, hd)).astype(np.float32))
+
+
+def _both(arrays, bf16):
+    """(jax arrays, torch tensors) of numpy fp32 arrays, bf16-rounded
+    alike when ``bf16``."""
+    if bf16:
+        js = [jnp.asarray(a).astype(jnp.bfloat16) for a in arrays]
+        ts = [torch.from_numpy(a).to(torch.bfloat16) for a in arrays]
+        return js, ts
+    return ([jnp.asarray(a) for a in arrays],
+            [torch.from_numpy(a) for a in arrays])
+
+
+def _f32(a):
+    a = a.float() if isinstance(a, torch.Tensor) else a.astype(jnp.float32)
+    return np_(a)
+
+
+@pytest.mark.parametrize("B,H,K,S,hd,causal,bf16", [
+    (2, 4, 2, 256, 64, True, False),
+    (1, 4, 4, 128, 128, False, False),
+    (2, 8, 2, 256, 32, True, False),
+    (1, 2, 1, 384, 64, True, True),
+    (1, 4, 2, 128, 256, True, False),   # gemma-style head_dim
+])
+def test_plain_matches_repro_pallas_kernel(B, H, K, S, hd, causal, bf16):
+    js, ts = _both(_qkv(B, H, K, S, S, hd, seed=S + hd), bf16)
+    got = TK.flash_attention(*ts, causal=causal)
+    assert TK.LAUNCHES == 0          # CPU tensors take the plain version
+    assert got.dtype == ts[0].dtype and got.shape == ts[0].shape
+    want = j_flash(*js, causal=causal, block_q=128, block_k=128,
+                   interpret=True)
+    atol = ATOL["bfloat16" if bf16 else np.float32]
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=0, atol=atol)
+
+
+def test_start_aligned_mask_at_sq_below_sk():
+    """Sq 128 against Sk 256: B5 and blocked_attention with positions
+    from 0 compute one function; repro's oracle, aligned to the end,
+    another."""
+    q, k, v = _qkv(1, 4, 2, 128, 256, 64, seed=3)
+    js, ts = _both((q, k, v), False)
+    got = TK.flash_attention(*ts, causal=True)
+    want = j_flash(*js, causal=True, interpret=True)
+    np.testing.assert_allclose(np_(got), np_(want), rtol=0, atol=2e-5)
+    tr = lambda a: jnp.transpose(a, (0, 2, 1, 3))
+    blocked = JL.blocked_attention(
+        tr(js[0]), tr(js[1]), tr(js[2]), causal=True,
+        q_positions=jnp.arange(128)[None], block_q=128, block_k=128)
+    np.testing.assert_allclose(np_(got), np_(tr(blocked)), rtol=0,
+                               atol=2e-5)
+    # the two oracles: end-aligned in both packages, far from B5
+    oracle = TREF.attention_ref(*ts, causal=True)
+    np.testing.assert_allclose(np_(oracle), np_(j_oracle(*js, causal=True)),
+                               rtol=0, atol=2e-5)
+    assert float((oracle - got).abs().max()) > 0.1
+    # at Sq == Sk the two masks coincide
+    sq = [t[:, :, :128] for t in ts]
+    np.testing.assert_allclose(
+        np_(TK.flash_attention(ts[0], sq[1], sq[2])),
+        np_(TREF.attention_ref(ts[0], sq[1], sq[2])), rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_mha_matches_repro(causal):
+    rng = np.random.default_rng(11)
+    arrays = (rng.standard_normal((2, 128, 8, 32)).astype(np.float32),
+              rng.standard_normal((2, 128, 2, 32)).astype(np.float32),
+              rng.standard_normal((2, 128, 2, 32)).astype(np.float32))
+    js, ts = _both(arrays, False)
+    got = TOPS.mha(*ts, causal=causal)
+    assert got.shape == (2, 128, 8, 32)
+    np.testing.assert_allclose(np_(got), np_(JOPS.mha(*js, causal=causal)),
+                               rtol=0, atol=2e-5)
+
+
+def test_ragged_lengths_on_the_plain_path():
+    """Any Sq and Sk (repro's kernel wants multiples of 128): the plain
+    version against repro's blocked_attention with positions from 0."""
+    q, k, v = _qkv(2, 6, 3, 37, 53, 16, seed=5)
+    _, ts = _both((q, k, v), False)
+    got = TK.flash_attention(*ts, causal=True)
+    tr = lambda a: jnp.transpose(jnp.asarray(a), (0, 2, 1, 3))
+    want = JL.blocked_attention(tr(q), tr(k), tr(v), causal=True,
+                                block_q=16, block_k=16)
+    np.testing.assert_allclose(np_(got), np_(tr(want)), rtol=0, atol=2e-5)
+
+
+def test_wrapper_contract():
+    q = torch.zeros(1, 4, 8, 16)
+    with pytest.raises(ValueError, match="do not fit"):
+        TK.flash_attention(q, torch.zeros(1, 3, 8, 16),
+                           torch.zeros(1, 3, 8, 16))
+    with pytest.raises(ValueError, match="want q"):
+        TK.flash_attention(q[0], q, q)
+    with pytest.raises(ValueError, match="empty"):
+        TK.flash_attention(q[:, :, :0], q, q)

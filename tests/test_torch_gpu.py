@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card
-(B1 with the LJ, SPH and DEM functors, B2, B3, B4; fp32 and bf16x).
+(B1 with the LJ, SPH and DEM functors, B2, B3, B4; fp32 and bf16x; B5,
+the flash attention, in fp32 and bf16, and the dense LM path through it).
 Imports neither jax nor repro, so it runs on the GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -375,3 +376,94 @@ def test_bf16x_plain_on_card_equals_plain_on_cpu(card):
             assert float(on_cpu[name].abs().max()) > 0, name
             assert rel(on_card[name], on_cpu[name]) <= TOL, \
                 (body.cuda_kind, name)
+
+
+# B5 against its plain version: fp32 within TOL (only the summation order
+# differs); bf16 within 1e-2 of the plain output's max-abs (one bf16
+# rounding of the output is 2^-8 relative, and another summation order can
+# flip it)
+B5_BF16_TOL = 1e-2
+
+
+@pytest.mark.parametrize("B,H,K,Sq,Sk,hd,causal", [
+    (2, 4, 4, 128, 128, 64, True),       # rep 1
+    (1, 16, 4, 200, 200, 128, True),     # rep 4, ragged
+    (2, 12, 1, 77, 131, 128, True),      # rep 12, Sq < Sk, ragged
+    (1, 4, 2, 96, 160, 256, True),       # gemma-style head dim
+    (1, 24, 2, 65, 300, 64, False),      # rep 12, non-causal
+    (3, 6, 3, 1, 9, 32, True),           # one query
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_matches_plain(card, B, H, K, Sq, Sk, hd,
+                                            causal, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    rng = np.random.default_rng(Sq * 7 + Sk + hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .cuda().to(dtype) for s in ((B, H, Sq, hd), (B, K, Sk, hd),
+                                           (B, K, Sk, hd)))
+    n0 = FA.LAUNCHES
+    got = FA.flash_attention(q, k, v, causal=causal)
+    assert FA.LAUNCHES == n0 + 1
+    ref = flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    assert rel(got.float(), ref.float()) <= (TOL if dtype == torch.float32
+                                             else B5_BF16_TOL)
+
+
+def test_cuda_mha_takes_strided_views(card):
+    """ops.mha hands the kernel transposed views: no copy in, the output
+    written in q's layout."""
+    from repro_torch.kernels.flash_attention import ops as FOPS
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((2, 150, 8, 64)).astype(
+        np.float32)).cuda()
+    cache = torch.from_numpy(rng.standard_normal((2, 2, 192, 2, 64)).astype(
+        np.float32)).cuda()
+    k, v = cache[0], cache[1]                  # slices of a stacked cache
+    got = FOPS.mha(q, k, v)
+    assert got.is_contiguous()
+    ref = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2)).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert rel(got, ref) <= TOL
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    with pytest.raises(ValueError, match="multiple of 8"):
+        FA.flash_attention(q[..., :12].transpose(1, 2).contiguous(),
+                           k[..., :12].transpose(1, 2).contiguous(),
+                           v[..., :12].transpose(1, 2).contiguous())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        FA.flash_attention(*(t.transpose(1, 2).half() for t in (q, k, v)))
+
+
+def test_lm_backends_on_the_card(card):
+    """A CUDA tensor given backend="torch" runs the plain path (no B5
+    launch); "auto" and "cuda" launch B5 once per layer of the prefill and
+    never in decode, and agree with the plain path."""
+    from repro_torch.configs import registry as TR
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.models import transformer as TT
+    from repro_torch.training import serve as TS
+    cfg = TR.get_config("starcoder2-15b", reduced=True)
+    params = TT.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                            device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(2, 40))).cuda()
+    n0 = FA.LAUNCHES
+    plain, _, _ = TT.forward(params, {"tokens": toks}, cfg, backend="torch")
+    assert FA.LAUNCHES == n0
+    for backend in ("auto", "cuda"):
+        got, _, _ = TT.forward(params, {"tokens": toks}, cfg,
+                               backend=backend)
+        torch.cuda.synchronize()
+        assert rel(got, plain) <= 1e-4
+    assert FA.LAUNCHES == n0 + 2 * cfg.n_layers
+    n1 = FA.LAUNCHES
+    out = TS.greedy_generate(cfg, params, toks, 5, s_max=48)
+    assert FA.LAUNCHES == n1 + cfg.n_layers        # the prefill only
+    ref = TS.greedy_generate(cfg, params, toks, 5, s_max=48,
+                             backend="torch")
+    assert out.shape == (2, 5) and torch.equal(out, ref)

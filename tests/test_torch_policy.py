@@ -144,3 +144,78 @@ def test_new_modules_are_checked_for_imports():
                 "kernels/sph_forces/ref.py",
                 "kernels/sph_forces/sph_forces.py"):
         assert f"src/repro_torch/{mod}" in rel_paths, mod
+
+
+def test_lm_modules_are_checked_for_imports():
+    """The LM slice's modules are among the files the import rule covers."""
+    rel_paths = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("configs/base.py", "configs/registry.py",
+                "configs/starcoder2_15b.py", "models/layers.py",
+                "models/transformer.py", "training/serve.py",
+                "kernels/flash_attention/flash_attention.py",
+                "kernels/flash_attention/ops.py",
+                "kernels/flash_attention/ref.py"):
+        assert f"src/repro_torch/{mod}" in rel_paths, mod
+
+
+NOT_DENSE = [("qwen2-moe-a2.7b", "A16b"), ("qwen3-moe-235b-a22b", "A16b"),
+             ("mamba2-780m", "A16c"), ("jamba-1.5-large-398b", "A16b"),
+             ("whisper-medium", "A16d"), ("llama-3.2-vision-11b", "A16d")]
+
+
+@pytest.mark.parametrize("arch,item", NOT_DENSE)
+def test_lm_kinds_not_ported_raise(arch, item):
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    cfg = registry.get_config(arch, reduced=True)
+    assert cfg.kind != "dense"
+    with pytest.raises(NotImplementedError, match=item):
+        T.init_params(cfg, torch.Generator(), device="cpu")
+    with pytest.raises(NotImplementedError, match=item):
+        T.forward({}, {"tokens": torch.zeros(1, 4, dtype=torch.int64)}, cfg)
+    with pytest.raises(NotImplementedError, match=item):
+        T.init_caches(cfg, 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match=item):
+        cfg.params_count()
+
+
+def test_lm_sharding_ctx_raises():
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.training import serve as S
+    cfg = registry.get_config("starcoder2-15b", reduced=True)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    toks = torch.zeros(2, 4, dtype=torch.int64)
+    ctx = object()
+    for fn in (lambda: T.forward(params, {"tokens": toks}, cfg, ctx),
+               lambda: T.init_caches(cfg, 2, 8, ctx, device="cpu"),
+               lambda: S.make_prefill_step(cfg, 8, ctx),
+               lambda: S.make_decode_step(cfg, ctx),
+               lambda: S.greedy_generate(cfg, params, toks, 2, 8, ctx)):
+        with pytest.raises(NotImplementedError, match="A14"):
+            fn()
+
+
+def test_lm_cuda_backend_and_device_without_card_raise(monkeypatch):
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.training import serve as S
+    cfg = registry.get_config("starcoder2-15b", reduced=True)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    prompt = torch.zeros(2, 12, dtype=torch.int64)
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        S.greedy_generate(cfg, params, prompt, 2, 16, backend="cuda")
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        S.greedy_generate(cfg, params, prompt[:, :4], 2, 16,
+                          backend="cuda")     # no kernel route either
+    with pytest.raises(ValueError, match="unknown backend"):
+        T.forward(params, {"tokens": prompt}, cfg, backend="pallas")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        T.init_params(cfg, torch.Generator(), device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        T.init_caches(cfg, 2, 16)              # device defaults to the card
+    with pytest.raises(ValueError, match="Generator"):
+        T.init_params(cfg, None, device="cpu")
