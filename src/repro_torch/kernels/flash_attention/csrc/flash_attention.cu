@@ -1,4 +1,5 @@
 // Causal GQA flash attention, forward only, for Hopper (sm_90a).
+// nvcc-flags: -lcuda
 //
 // Replaces the Pallas TPU kernel `_kernel` in
 // src/repro/kernels/flash_attention/flash_attention.py (launched by
@@ -14,80 +15,101 @@
 // The mask is aligned to the START, as the Pallas kernel's: query i sees
 // keys 0..i whatever Sk is, which is the prefill's attention over a deeper
 // zeroed cache (repro's oracle `attention_ref` aligns it to the end; the
-// two agree only at Sq == Sk).
+// two agree only at Sq == Sk). Both forms take any Sq and Sk (the ragged
+// edge is masked inside), causal or not, any rep, hd a multiple of 8 up
+// to 256, and strided q, k, v (the head axis contiguous, every other
+// stride a multiple of 8 elements, 16-byte aligned pointers); o has q's
+// strides. Each block walks the key tiles 0 .. the last one its causal
+// mask leaves visible (the loop replaces the Pallas kernel's `pl.when`),
+// so the zeroed cache tail beyond the prompt is never read, and the
+// heaviest causal query tiles are scheduled first.
 //
-// Design (a simple, correct first version; the TPU grid is not carried
-// over): one block of 256 threads per (64-row query tile, head, batch
-// row), heaviest causal tiles scheduled first. The block stages its query
-// tile in shared memory as fp32 once, then walks the key tiles 0 .. the
-// last one the causal mask leaves visible (the loop replaces the Pallas
-// kernel's `pl.when(run)`, and the zeroed cache tail beyond the prompt is
-// never read). Per 64-key tile: K staged in shared memory, each thread
-// forms a 4 x 4 patch of scores with fp32 FMAs over float4 reads (rows
-// padded by 4 floats, so the reads are conflict-free), the row max and
-// sum go through 16-lane shuffles, p goes to shared memory, V is staged
-// into the K buffer, and each thread accumulates p . v for its 4 rows x
-// 4*NJ columns in registers. Ragged Sq and Sk are masked in the kernel:
-// keys beyond Sk score NEG_INF and read as zeros, rows beyond Sq are not
-// written. Inputs are read with 16-byte vector loads, so the wrapper
-// requires the head axis contiguous, every other stride a multiple of 8
-// elements and 16-byte aligned base pointers.
+// bf16 (flash_attention_bf16, the serve path's form): tensor cores.
+//   * q.k^T runs as bf16 wgmma (m64n64k16, fp32 accumulate). A product of
+//     two bf16 values is exact in fp32, so this is the function up to the
+//     summation order.
+//   * p stays fp32 (repro casts v to fp32). It is split into three bf16
+//     terms, p1 = bf16(p), p2 = bf16(p - p1), p3 = bf16(p - p1 - p2), and
+//     p.v runs as three wgmmas against the same V tile with A from
+//     registers (the RS form; the accumulator layout of q.k^T is the A
+//     layout of p.v). v is exact in bf16 and p1 + p2 + p3 == p exactly for
+//     every p >= ~2^-100 (below that a term is under fp32's resolution
+//     next to l >= 1), so this too is the function up to the summation
+//     order (`ref.split_bf16x3` is the same split in PyTorch).
+//   * Q, K and V tiles come in by TMA (cp.async.bulk.tensor, 4-D tensor
+//     maps over the strided (B, H, S, hd) views, built on the host with
+//     cuTensorMapEncodeTiled), 64 rows x 64 columns per 128-byte-swizzled
+//     box, the ragged edge and the columns past hd zero-filled by the
+//     hardware (which also pads the product depth to 16). One producer
+//     warp keeps a two-stage K/V ring in flight on mbarriers; two consumer
+//     warpgroups (one for hd > 128, for registers) each own 64 query rows
+//     of the block's 128 and share every K/V tile. A warpgroup whose rows
+//     see none of the block's last tile waits for it and releases it.
+//   * Cost: 8 hd tensor-core operations per visible pair (2 hd for q.k^T,
+//     3 x 2 hd for p.v) against the function's 4 hd; p.v runs in 64-column
+//     chunks of hd (zero columns past hd).
+// fp32 (flash_attention_f32): the first version's SIMT kernel (fp32 inputs
+// on tensor cores would be TF32, another function). One block of 256
+// threads per (64-row query tile, head, batch row); K and V staged in
+// shared memory as fp32; each thread forms a 4 x 4 patch of scores with
+// fp32 FMAs and accumulates p . v for its 4 rows in registers.
 //
 // What bounds it on the H100: operations. At the prefill's shapes (B 4,
 // H 48 over K 4, Sq 2048, Sk 2176, hd 128) the visible (q, k) pairs are
 // B.H.sum_i(i+1) = 4.03e8, 4.hd operations each: 2.06e11, 0.21 ms at
 // 989 TFLOP/s bf16; its bytes (q, the visible k and v prefix once per KV
-// head, o) are 1.3e8 B in bf16, 0.04 ms at 3.35 TB/s. This version runs
-// both products on the fp32 pipes (67 TFLOP/s), so it cannot come nearer
-// than ~3 ms; tensor-core products (wgmma for q.k^T, whose bf16 products
-// are exact in fp32; p.v needs fp32 p) are later work. Measured on an
-// H100 80GB HBM3 (700 W) at those shapes (chip_smoke.py phase 10a):
-// 7.70 ms in bf16 and 7.87 ms in fp32 (~26.5 TFLOP/s), 37x the bound;
-// PyTorch's SDPA takes 0.37 ms for the same bf16 call.
+// head, o) are 1.3e8 B in bf16, 0.04 ms at 3.35 TB/s. The bf16 design's
+// own floor (8 hd per pair) is ~0.42 ms. Measured on an H100 80GB HBM3
+// (700 W) at those shapes (chip_smoke.py phase 10a): the first version
+// (SIMT for both types) 7.70 ms in bf16 and 7.87 ms in fp32; PyTorch's
+// SDPA 0.37 ms for the same bf16 call. Prediction for this bf16 design,
+// written before its first timed run: 1.0-2.0 ms (the 64 x 64 wgmmas at
+// ~40-50% of the bf16 peak, the softmax and the p split not overlapped
+// with the tensor cores within a warpgroup, only across the two).
+// Measured: 1.24 ms (chip_smoke.py phase 10a; PERF.md), 3.0x the design's
+// floor, 3.3x SDPA. What holds it back: inside a warpgroup the softmax
+// and the split run between the two products. Issuing the next tile's
+// q.k^T and softmax beside this tile's p.v needs a second score tile in
+// registers; under the 168-register cap that ptxas gives two consumer
+// warpgroups it spilled and ran slower, so it is not taken here.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;         // query rows per block
-constexpr int BK = 64;         // keys per tile
-constexpr int THREADS = 256;   // 16 x 16: ty picks rows, tx columns
-constexpr int PAD = 4;         // floats of padding per staged row
-constexpr int LDP = BK + PAD;  // row stride of the p tile
 constexpr float NEG_INF = -1e30f;
 
 struct Strides {
   long long b, h, s;  // element strides of axes 0-2; axis 3 is contiguous
 };
 
-// 8 consecutive elements (16 B of bf16, 32 B of fp32) as fp32
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// fp32: the SIMT kernel
+// ---------------------------------------------------------------------------
+
+namespace simt {
+
+constexpr int BQ = 64;         // query rows per block
+constexpr int BK = 64;         // keys per tile
+constexpr int THREADS = 256;   // 16 x 16: ty picks rows, tx columns
+constexpr int PAD = 4;         // floats of padding per staged row
+constexpr int LDP = BK + PAD;  // row stride of the p tile
+// 8 consecutive fp32 elements
 __device__ __forceinline__ void load8(const float* p, float4& a, float4& b) {
   a = __ldg(reinterpret_cast<const float4*>(p));
   b = __ldg(reinterpret_cast<const float4*>(p) + 1);
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float4& a,
-                                      float4& b) {
-  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 x = __bfloat1622float2(h[0]), y = __bfloat1622float2(h[1]);
-  const float2 z = __bfloat1622float2(h[2]), w = __bfloat1622float2(h[3]);
-  a = make_float4(x.x, x.y, y.x, y.y);
-  b = make_float4(z.x, z.y, w.x, w.y);
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
 // rows [row0, row0 + 64) of a (rows, hd) matrix with row stride `ld`
 // into shared memory as fp32 (row stride hd + PAD); rows >= n as zeros
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, long long ld,
-                                      int row0, int n, int hd) {
+__device__ __forceinline__ void stage(float* dst, const float* src,
+                                      long long ld, int row0, int n,
+                                      int hd) {
   const int ldq = hd + PAD;
   const int chunks = hd / 8;
   for (int c = threadIdx.x; c < 64 * chunks; c += THREADS) {
@@ -115,10 +137,11 @@ __device__ __forceinline__ float row_sum16(float x) {
 
 // NJ: float4 column groups per thread; columns 4 tx + 64 j (j < NJ), so
 // hd <= 64 NJ
-template <typename T, int NJ>
+template <int NJ>
 __global__ void __launch_bounds__(THREADS)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o,
+    flash_attention_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
                            int rep, int Sq, int Sk, int hd, int causal,
                            float scale, Strides sq, Strides sk, Strides sv,
                            Strides so) {
@@ -133,9 +156,9 @@ __global__ void __launch_bounds__(THREADS)
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / rep;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + kvh * sk.h;
-  const T* vb = v + b * sv.b + kvh * sv.h;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + kvh * sk.h;
+  const float* vb = v + b * sv.b + kvh * sv.h;
 
   stage(Qs, qb, sq.s, q0, Sq, hd);
 
@@ -169,7 +192,8 @@ __global__ void __launch_bounds__(THREADS)
         qv[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * ldq + d);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(KVs + (tx + 16 * j) * ldq + d);
+        kv[j] =
+            *reinterpret_cast<const float4*>(KVs + (tx + 16 * j) * ldq + d);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -248,13 +272,13 @@ __global__ void __launch_bounds__(THREADS)
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* orow = o + b * so.b + h * so.h + qpos * so.s;
+    float* orow = o + b * so.b + h * so.h + qpos * so.s;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int d = 4 * tx + 64 * j;
       if (d < hd) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) store(orow + d + e, acc[i][j][e] / den);
+        for (int e = 0; e < 4; ++e) orow[d + e] = acc[i][j][e] / den;
       }
     }
   }
@@ -265,42 +289,528 @@ size_t smem_bytes(int hd) {
          (static_cast<size_t>(BQ + BK) * (hd + PAD) + BQ * LDP);
 }
 
-template <typename T, int NJ>
+template <int NJ>
 int launch_nj(const void* q, const void* k, const void* v, void* o, int B,
               int H, int K, int Sq, int Sk, int hd, int causal, float scale,
               Strides sq, Strides sk, Strides sv, Strides so,
               cudaStream_t stream) {
   const size_t smem = smem_bytes(hd);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, NJ>,
+      flash_attention_kernel<NJ>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attention_kernel<T, NJ><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H / K, Sq, Sk, hd,
+  flash_attention_kernel<NJ><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), H / K, Sq, Sk, hd,
       causal, scale, sq, sk, sv, so);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int K, int Sq, int Sk, int hd, int causal, float scale,
-           const long long* st, void* stream) {
+           const Strides* st, cudaStream_t s) {
+  if (hd <= 64)
+    return launch_nj<1>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, scale,
+                        st[0], st[1], st[2], st[3], s);
+  if (hd <= 128)
+    return launch_nj<2>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, scale,
+                        st[0], st[1], st[2], st[3], s);
+  return launch_nj<4>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, scale,
+                      st[0], st[1], st[2], st[3], s);
+}
+
+}  // namespace simt
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma and TMA
+// ---------------------------------------------------------------------------
+
+namespace hopper {
+
+constexpr int ROWS = 64;                // query rows per warpgroup; keys
+                                        // per tile
+constexpr int COLS = 64;                // hd columns per 128-byte box
+constexpr int CHUNK = ROWS * COLS * 2;  // bytes of one bf16 box
+constexpr int STAGES = 2;               // K/V ring depth
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Spins on the barrier's phase; a phase that never completes (a fault in
+// the pipeline) traps after ~2^28 tries instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  for (uint32_t tries = 0; !done; ++tries) {
+    if (tries == (1u << 28)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// One 64 x 64 box of a 4-D tensor map into shared memory; `c` are the
+// coordinates in the map's dimension order, innermost first.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         const int (&c)[4], uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c[0]), "r"(c[1]), "r"(c[2]),
+      "r"(c[3]), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start
+// address, leading and stride byte offsets (>> 4), layout 1 (128B swizzle).
+// Every box starts 1024-byte aligned, so the base offset is 0.
+__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+// K-major (rows of 64 contiguous columns; q and k): 8-row groups 1024 B
+// apart, the leading offset unused by a swizzled K-major operand.
+__device__ __forceinline__ uint64_t desc_k(const void* p) {
+  return desc(p, 16, 1024);
+}
+
+// MN-major (v as the K x N operand of p.v: keys down, hd across): 8-key
+// groups 1024 B apart; one 64-column box per instruction, so the leading
+// (N) offset is never stepped.
+__device__ __forceinline__ uint64_t desc_mn(const void* p) {
+  return desc(p, 1024, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across a wgmma issue or wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (m64 x n64 fp32, in registers) (+)= A (m64 x k16) . B (k16 x n64), A
+// and B from shared-memory descriptors; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d += A . B with A (m64 x k16 bf16) from registers, B an MN-major
+// shared-memory descriptor.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16;
+}
+
+// The map's dimensions 1..3 hold the logical axes ax[0..2] (0 = s,
+// 1 = head, 2 = batch), ordered by stride; dimension 0 is hd.
+struct Order {
+  int ax[3];
+};
+
+__device__ __forceinline__ void coords(int (&c)[4], const Order& o, int col,
+                                       int s, int h, int b) {
+  const int by_axis[3] = {s, h, b};
+  c[0] = col;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) c[i + 1] = by_axis[o.ax[i]];
+}
+
+// NC: 64-column boxes of hd (hd <= 64 NC); NWG: consumer warpgroups.
+// A consumer warpgroup's work on one tile: q.k^T into sc, the online
+// softmax on sc in place, p split into the A fragments of p.v, then p.v.
+
+// sc = q.k^T of the K tile at sk (asynchronous: one wgmma group).
+__device__ __forceinline__ void issue_qk(float (&sc)[32], const uint8_t* q,
+                                         const uint8_t* sk, int ksteps) {
+#pragma unroll
+  for (int r = 0; r < 32; ++r) sc[r] = 0.0f;
+  fence_regs(sc);
+  wgmma_fence();
+  for (int kk = 0; kk < ksteps; ++kk) {
+    const int off = (kk >> 2) * CHUNK + (kk & 3) * 32;
+    wgmma_ss(sc, desc_k(q + off), desc_k(sk + off), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// Scale, mask and the online softmax of the tile of keys k0.. on sc, in
+// place: sc becomes p = exp(s - m); l takes the tile's row sums; corr is
+// the factor that rescales the earlier tiles' acc. Rows r0 and r0 + 8
+// (half 0 and 1).
+__device__ __forceinline__ void softmax(float (&sc)[32], float (&m)[2],
+                                        float (&l)[2], float (&corr)[2],
+                                        int k0, int r0, int wq0, int lane,
+                                        int Sk, int causal, float scale) {
+  const bool masked = k0 + ROWS > Sk || (causal && k0 + ROWS - 1 > wq0);
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int r = 0; r < 32; ++r) {
+    const int half = (r >> 1) & 1;
+    float x = sc[r] * scale;
+    if (masked) {
+      const int kpos = k0 + (r >> 2) * 8 + (lane & 3) * 2 + (r & 1);
+      if (kpos >= Sk || (causal && kpos > r0 + 8 * half)) x = NEG_INF;
+    }
+    sc[r] = x;
+    mx[half] = fmaxf(mx[half], x);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i]);
+    corr[i] = expf(m[i] - m_new);
+    m[i] = m_new;
+  }
+  float rs[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int r = 0; r < 32; ++r) {
+    sc[r] = expf(sc[r] - m[(r >> 1) & 1]);
+    rs[(r >> 1) & 1] += sc[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
+    rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
+    l[i] = l[i] * corr[i] + rs[i];
+  }
+}
+
+// p split into three bf16 terms, packed as the A fragments of the four
+// 16-key steps of p.v: pa[term][step][reg].
+__device__ __forceinline__ void split(const float (&p)[32],
+                                      uint32_t (&pa)[3][4][4]) {
+#pragma unroll
+  for (int r = 0; r < 32; r += 2) {
+    __nv_bfloat16 t1[2], t2[2], t3[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      t1[e] = __float2bfloat16_rn(p[r + e]);
+      const float rem = __fsub_rn(p[r + e], __bfloat162float(t1[e]));
+      t2[e] = __float2bfloat16_rn(rem);
+      t3[e] = __float2bfloat16_rn(__fsub_rn(rem, __bfloat162float(t2[e])));
+    }
+    pa[0][r >> 3][(r >> 1) & 3] = pack(t1[0], t1[1]);
+    pa[1][r >> 3][(r >> 1) & 3] = pack(t2[0], t2[1]);
+    pa[2][r >> 3][(r >> 1) & 3] = pack(t3[0], t3[1]);
+  }
+}
+
+// acc += p . v of the V tile at sv (asynchronous: one wgmma group).
+template <int NC>
+__device__ __forceinline__ void issue_pv(float (&acc)[NC][32],
+                                         const uint32_t (&pa)[3][4][4],
+                                         const uint8_t* sv) {
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dv = desc_mn(sv + j * CHUNK + kk * 16 * 128);
+#pragma unroll
+      for (int term = 2; term >= 0; --term)
+        wgmma_rs(acc[j], pa[term][kk], dv);
+    }
+  }
+  wgmma_commit();
+}
+
+// Threads: NWG consumer warpgroups and one producer warp, of which one
+// thread issues the loads.
+template <int NC, int NWG>
+__global__ void __launch_bounds__(NWG * 128 + 32, 1)
+    flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          __nv_bfloat16* __restrict__ o, Strides so,
+                          Order oq, Order ok, Order ov, int rep, int Sq,
+                          int Sk, int hd, int causal, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sK = sQ + NWG * NC * CHUNK;
+  uint8_t* sV = sK + STAGES * NC * CHUNK;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + STAGES * NC * CHUNK);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* empty = v_full + STAGES;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * (NWG * ROWS);
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / rep;
+  const int k_end = causal ? min(Sk, q0 + NWG * ROWS) : Sk;
+  const int n_tiles = (k_end + ROWS - 1) / ROWS;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(empty + s, NWG * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= NWG * 128) {  // the producer warp: one thread issues the TMA
+    if (tid == NWG * 128) {
+      int c[4];
+      mbar_expect_tx(q_full, NWG * NC * CHUNK);
+      for (int w = 0; w < NWG; ++w)
+        for (int j = 0; j < NC; ++j) {
+          coords(c, oq, j * COLS, q0 + w * ROWS, h, b);
+          tma_load(sQ + (w * NC + j) * CHUNK, &tq, c, q_full);
+        }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(empty + s, ((t / STAGES) & 1) ^ 1);
+        mbar_expect_tx(k_full + s, NC * CHUNK);
+        for (int j = 0; j < NC; ++j) {
+          coords(c, ok, j * COLS, t * ROWS, kvh, b);
+          tma_load(sK + (s * NC + j) * CHUNK, &tk, c, k_full + s);
+        }
+        mbar_expect_tx(v_full + s, NC * CHUNK);
+        for (int j = 0; j < NC; ++j) {
+          coords(c, ov, j * COLS, t * ROWS, kvh, b);
+          tma_load(sV + (s * NC + j) * CHUNK, &tv, c, v_full + s);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows wq0 .. wq0 + 63; this thread's two rows
+  // are r0 and r0 + 8 (the wgmma accumulator layout)
+  const int wg = tid / 128, lane = tid % 32;
+  const int wq0 = q0 + wg * ROWS;
+  const int r0 = wq0 + (tid % 128) / 32 * 16 + lane / 4;
+  const int my_end = wq0 >= Sq ? 0 : (causal ? min(Sk, wq0 + ROWS) : Sk);
+  const int my_tiles = (my_end + ROWS - 1) / ROWS;
+  const int ksteps = (hd + 15) / 16;
+  const uint8_t* myQ = sQ + wg * NC * CHUNK;
+
+  float acc[NC][32];
+#pragma unroll
+  for (int j = 0; j < NC; ++j)
+#pragma unroll
+    for (int r = 0; r < 32; ++r) acc[j][r] = 0.0f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+
+  float sc[32], corr[2];
+  uint32_t pa[3][4][4];
+  mbar_wait(q_full, 0);
+  for (int t = 0; t < my_tiles; ++t) {
+    const int s = t % STAGES, ph = (t / STAGES) & 1;
+    mbar_wait(k_full + s, ph);
+    issue_qk(sc, myQ, sK + s * NC * CHUNK, ksteps);
+    wgmma_wait();
+    fence_regs(sc);
+    softmax(sc, m, l, corr, t * ROWS, r0, wq0, lane, Sk, causal, scale);
+    split(sc, pa);
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+#pragma unroll
+      for (int r = 0; r < 32; ++r) acc[j][r] *= corr[(r >> 1) & 1];
+      fence_regs(acc[j]);
+    }
+    mbar_wait(v_full + s, ph);
+    issue_pv(acc, pa, sV + s * NC * CHUNK);
+    wgmma_wait();
+#pragma unroll
+    for (int j = 0; j < NC; ++j) fence_regs(acc[j]);
+    mbar_arrive(empty + s);
+  }
+  for (int t = my_tiles; t < n_tiles; ++t) {  // tiles no row here sees
+    const int s = t % STAGES, ph = (t / STAGES) & 1;
+    mbar_wait(k_full + s, ph);
+    mbar_wait(v_full + s, ph);
+    mbar_arrive(empty + s);
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qpos = r0 + 8 * half;
+    if (qpos >= Sq) continue;
+    const float den = fmaxf(l[half], 1e-30f);
+    __nv_bfloat16* orow = o + b * so.b + h * so.h + qpos * so.s;
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int g = 0; g < 8; ++g) {
+        const int col = j * COLS + g * 8 + (lane & 3) * 2;
+        if (col < hd)
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(acc[j][4 * g + 2 * half] / den,
+                                    acc[j][4 * g + 2 * half + 1] / den);
+      }
+  }
+}
+
+// A tensor map over the strided (B, n_heads, S, hd) view at `ptr`: hd
+// innermost, then the other three axes by stride; 64 x 64 boxes with the
+// 128-byte swizzle, out-of-bounds elements read as zeros.
+CUresult make_map(CUtensorMap* map, Order* order, const void* ptr, int B,
+                  int n_heads, int S, int hd, const Strides& st) {
+  const long long dims[3] = {S, n_heads, B};
+  const long long strides[3] = {st.s, st.h, st.b};
+  int ax[3] = {0, 1, 2};
+  for (int i = 0; i < 3; ++i)
+    for (int j = i + 1; j < 3; ++j)
+      if (strides[ax[j]] < strides[ax[i]]) {
+        const int tmp = ax[i];
+        ax[i] = ax[j];
+        ax[j] = tmp;
+      }
+  cuuint64_t gdim[4] = {static_cast<cuuint64_t>(hd), 0, 0, 0};
+  cuuint64_t gstride[3];
+  cuuint32_t box[4] = {COLS, 1, 1, 1};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 3; ++i) {
+    order->ax[i] = ax[i];
+    gdim[i + 1] = static_cast<cuuint64_t>(dims[ax[i]]);
+    gstride[i] = static_cast<cuuint64_t>(strides[ax[i]]) * 2;
+    if (ax[i] == 0) box[i + 1] = ROWS;
+  }
+  return cuTensorMapEncodeTiled(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), gdim,
+      gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// A refused tensor map returns kMapError + its CUresult.
+constexpr int kMapError = 10000;
+
+template <int NC, int NWG>
+int launch_nc(const void* q, const void* k, const void* v, void* o, int B,
+              int H, int K, int Sq, int Sk, int hd, int causal, float scale,
+              const Strides* st, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  Order oq, ok, ov;
+  CUresult r = make_map(&tq, &oq, q, B, H, Sq, hd, st[0]);
+  if (r == CUDA_SUCCESS) r = make_map(&tk, &ok, k, B, K, Sk, hd, st[1]);
+  if (r == CUDA_SUCCESS) r = make_map(&tv, &ov, v, B, K, Sk, hd, st[2]);
+  if (r != CUDA_SUCCESS) return kMapError + static_cast<int>(r);
+  const size_t smem = static_cast<size_t>(NWG + 2 * STAGES) * NC * CHUNK +
+                      (1 + 3 * STAGES) * sizeof(uint64_t) + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_wgmma<NC, NWG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((Sq + NWG * ROWS - 1) / (NWG * ROWS), H, B);
+  flash_attention_wgmma<NC, NWG><<<grid, NWG * 128 + 32, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), st[3], oq, ok, ov, H / K,
+      Sq, Sk, hd, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int H, int K, int Sq, int Sk, int hd, int causal, float scale,
+           const Strides* st, cudaStream_t s) {
+  if (hd <= 64)
+    return launch_nc<1, 2>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, scale,
+                           st, s);
+  if (hd <= 128)
+    return launch_nc<2, 2>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, scale,
+                           st, s);
+  if (hd <= 192)
+    return launch_nc<3, 1>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, scale,
+                           st, s);
+  return launch_nc<4, 1>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, scale, st,
+                         s);
+}
+
+}  // namespace hopper
+
+namespace {
+
+// strides: 12 element strides, (b, h, s) of q, k, v and o in that order
+int check_args(int B, int H, int K, int Sq, int Sk, int hd) {
   if (B < 1 || H < 1 || K < 1 || H % K != 0 || Sq < 1 || Sk < 1 ||
       hd < 8 || hd > 256 || hd % 8 != 0 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]};
-  const Strides sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd <= 64)
-    return launch_nj<T, 1>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, scale,
-                           sq, sk, sv, so, s);
-  if (hd <= 128)
-    return launch_nj<T, 2>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, scale,
-                           sq, sk, sv, so, s);
-  return launch_nj<T, 4>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, scale, sq,
-                         sk, sv, so, s);
+  return 0;
+}
+
+void unpack(const long long* st, Strides (&out)[4]) {
+  for (int i = 0; i < 4; ++i) out[i] = Strides{st[3 * i], st[3 * i + 1],
+                                               st[3 * i + 2]};
 }
 
 }  // namespace
@@ -308,25 +818,32 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" {
 
 // q (B, H, Sq, hd), k and v (B, K, Sk, hd), o like q; one dtype for all
-// four (fp32 or bf16). strides: 12 element strides, (b, h, s) of q, k, v
-// and o in that order; the head axis is contiguous, every stride a
-// multiple of 8 and every pointer 16-byte aligned (the wrapper checks).
-// 8 <= hd <= 256, hd % 8 == 0, H % K == 0. Returns cudaGetLastError()
-// after the launch (or the error of a refused argument or attribute).
+// four. strides: 12 element strides, (b, h, s) of q, k, v and o in that
+// order; the head axis is contiguous, every stride a multiple of 8 and
+// every pointer 16-byte aligned (the wrapper checks). 8 <= hd <= 256,
+// hd % 8 == 0, H % K == 0. Returns cudaGetLastError() after the launch (or
+// the error of a refused argument or attribute; for bf16, 10000 + the
+// CUresult of a refused tensor map).
 int flash_attention_f32(const void* q, const void* k, const void* v,
                         void* o, int B, int H, int K, int Sq, int Sk, int hd,
                         int causal, float scale, const long long* strides,
                         void* stream) {
-  return launch<float>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, scale,
-                       strides, stream);
+  if (const int e = check_args(B, H, K, Sq, Sk, hd)) return e;
+  Strides st[4];
+  unpack(strides, st);
+  return simt::launch(q, k, v, o, B, H, K, Sq, Sk, hd, causal, scale, st,
+                      static_cast<cudaStream_t>(stream));
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* o, int B, int H, int K, int Sq, int Sk,
                          int hd, int causal, float scale,
                          const long long* strides, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, B, H, K, Sq, Sk, hd, causal,
-                               scale, strides, stream);
+  if (const int e = check_args(B, H, K, Sq, Sk, hd)) return e;
+  Strides st[4];
+  unpack(strides, st);
+  return hopper::launch(q, k, v, o, B, H, K, Sq, Sk, hd, causal, scale, st,
+                        static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -3,7 +3,11 @@
 
 :func:`flash_attention` launches the hand-written CUDA kernel
 ``csrc/flash_attention.cu`` for CUDA tensors and runs the plain version
-(``ref.flash_attention_ref``) for CPU tensors. Both compute the Pallas
+(``ref.flash_attention_ref``) for CPU tensors. The dtype picks the
+kernel, both counted in :data:`LAUNCHES`: bf16 runs on the tensor cores
+(``wgmma``, tiles by TMA, ``p`` split into three bf16 terms,
+``ref.split_bf16x3``), fp32 on the SIMT pipes (fp32 on tensor cores would
+be TF32, another function). Both compute the Pallas
 kernel's function: fp32 scores, the causal mask ``kpos <= qpos`` counted
 from 0 (aligned to the start, unlike ``repro``'s oracle
 ``attention_ref``), online softmax in fp32, ``p·v`` in fp32, the output in

@@ -53,6 +53,23 @@ def attention_ref(q, k, v, *, causal: bool = True):
     return _pv(torch.softmax(s, dim=-1), v, q).to(q.dtype)
 
 
+def split_bf16x3(p):
+    """fp32 ``p`` as three bf16 terms ``(p1, p2, p3)``: ``p1 = bf16(p)``,
+    ``p2 = bf16(p − p1)``, ``p3 = bf16(p − p1 − p2)``, each difference
+    exact in fp32. ``p1 + (p2 + p3) == p`` for every ``p >= ~2⁻¹⁰⁰``
+    (below, the last term falls under bf16's subnormal step, far under
+    fp32's resolution next to a softmax denominator >= 1). B5's bf16 form
+    splits its fp32 softmax weights so, to run ``p·v`` as three bf16
+    tensor-core products with fp32 sums: the same function as fp32 ``p·v``
+    up to the summation order."""
+    p = p.to(torch.float32)
+    p1 = p.to(torch.bfloat16)
+    rem = p - p1.to(torch.float32)
+    p2 = rem.to(torch.bfloat16)
+    p3 = (rem - p2.to(torch.float32)).to(torch.bfloat16)
+    return p1, p2, p3
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True):
     """B5's own function: scores ``(q·kᵀ)·(1/√hd)`` in fp32, the causal
     mask ``kpos <= qpos`` counted from 0 (aligned to the start), masked

@@ -1,6 +1,6 @@
-// M'4 particle-mesh interpolation for Hopper (sm_90a): P2M as an owner
-// gather and the fused M2P gather, over particles pre-bucketed into
-// interpolation cells of cb mesh nodes per axis.
+// M'4 particle-mesh interpolation for Hopper (sm_90a): P2M as a
+// shared-memory patch scatter and the fused M2P gather, over particles
+// pre-bucketed into interpolation cells of cb mesh nodes per axis.
 //
 // Replaces the Pallas TPU kernels in src/repro/kernels/m4_interp/
 // m4_interp.py: `_p2m_kernel` (launched by `p2m_cells`) and `_m2p_kernel`
@@ -12,7 +12,8 @@
 // fp32, as the plain versions' bf16-rounded fp32 `bmm` computes them.
 // The operands stay fp32 in memory and are rounded where they are used,
 // so the bytes bound is fp32's; measured on an H100 80GB HBM3 (700 W) at
-// the VIC size below, P2M 158 ms (1.04x fp32) and M2P 65 ms (0.97x).
+// the VIC size below, the owner-gather P2M 158 ms (1.04x fp32) and M2P
+// 65 ms (0.97x).
 //
 //   P2M  field[node] = sum over the 3^DIM neighbour buckets b, slots s:
 //          mask_s * prod_d M'4((node_d - x_sd - shift_bd) / h_d) * val_s
@@ -23,47 +24,75 @@
 //        node_d = ((cell_d + off_d) * cb + i) * h_d + lo_d from the
 //        UNWRAPPED block index; F is read from the wrapped block.
 //
-// Each node (P2M) and each slot (M2P) has one owner thread, so there are
-// no atomics and the summation order is fixed: the offsets are walked in
+// M2P gives each slot one owner thread, so it needs no atomics and its
+// summation order is fixed: the offsets are walked in
 // itertools.product((-1, 0, 1), repeat=DIM) order, every one of them every
 // time. On a grid with fewer than 3 cells along an axis two offsets fetch
 // the same bucket, each with its own image; deduplicating would drop one.
-// Empty slots hold a real particle's position (the bucketing clamps the
-// sentinel to a real index), so slots are weighted by the mask and the
-// position is never tested.
+// P2M sums each node's contributions with shared-memory atomics, in an
+// order that changes from run to run: its fp32 result agrees with the
+// plain version's to the summation order (1e-5 relative), and two runs may
+// differ in the last bits. Empty slots hold a real particle's position
+// (the bucketing clamps the sentinel to a real index), so slots are
+// weighted by the mask and the position is never tested.
 //
-// Design (a simple, correct first version):
-//   * P2M: one block per interpolation cell, one thread per node of its
-//     cb^DIM patch (64 for cb = 4, DIM = 3), C fp32 accumulators in
-//     registers. Per offset the block stages the neighbour bucket's values
-//     (cc x C) and its per-axis weights (DIM x cb x cc, mask folded into
-//     axis 0; the weights of a slot along one axis depend only on the
-//     node's index along that axis) in shared memory; each thread then
-//     walks the cc slots and forms the weight as a product of DIM staged
-//     factors.
-//   * M2P: one block per bucket, one thread per slot (cc rounded up to a
-//     warp multiple). Per offset the block stages the wrapped neighbour
-//     field block (cb^DIM x C) in shared memory; each thread computes its
-//     DIM x cb per-axis weights and sums over the nodes with a nonzero
-//     product, skipping an axis index as soon as its factor is zero.
+// Design:
+//   * P2M (redesigned for the card): the work follows the particles'
+//     support instead of the node x staged-slot product. A block of 256
+//     threads owns a patch of T^DIM interpolation cells and keeps its
+//     nodes' sums in shared memory; T is the largest (<= 16) whose padded
+//     sums and the warps' tables fit 64 KB (T = 3 at cb 4, C 3, DIM 3:
+//     25 KB of sums, 19 KB of tables). Each warp streams the slots of
+//     its share of the patch's cells and of the one-cell band around
+//     them (the only buckets whose particles reach the patch: a particle
+//     reaches nodes floor((x-lo)/h) - 1 .. + 2), 32 at a time. A valid
+//     particle that reaches the patch forms its 4 weights per axis once,
+//     keeping those of owned nodes in cells within one of its bucket
+//     along that axis (the owner gather's pairs, images included), and
+//     goes to the warp's table. The warp then adds its table's particles
+//     one at a time, a lane per (node, channel) term, with shared-memory
+//     atomicAdd: the 32 lanes of one add hit 32 distinct nodes, in 32
+//     distinct banks (the patch's row and plane strides are padded so).
+//     Each owned node is written to HBM once; there are no global
+//     atomics and no limit on the bucket capacity.
+//     What holds it back: fp32 atomicAdd on shared memory is a
+//     compare-and-swap loop on the H100 (SASS ATOMS.CAST.SPIN), so the
+//     adds (64 x C per particle) take most of the time, and the band
+//     re-reads each bucket (T+2)^DIM / T^DIM times (4.6x at T = 3). A
+//     warp-level gather (each lane summing a column of its table's node
+//     box in registers, one add per node) was tried and ran slower: it
+//     tests every table particle against every column. An atomic-free
+//     gather from particles binned by base node is the next step.
+//   * M2P (a simple, correct first version): one block per bucket, one
+//     thread per slot (cc rounded up to a warp multiple). Per offset the
+//     block stages the wrapped neighbour field block (cb^DIM x C) in
+//     shared memory; each thread computes its DIM x cb per-axis weights
+//     and sums over the nodes with a nonzero product, skipping an axis
+//     index as soon as its factor is zero.
 //   * node - x - shift and the divisions by h are explicitly rounded fp32
 //     (__fmul_rn/__fadd_rn/__fsub_rn, IEEE division), in the order of the
 //     plain PyTorch versions, so positions round the same way on both
-//     paths. h and L come in as float32 of the same doubles (L/n) that the
-//     plain versions use.
+//     paths and every fp32 and bf16x weight rounds as the plain version's.
+//     h and L come in as float32 of the same doubles (L/n) that the plain
+//     versions use.
 //
 // What bounds it on the H100: memory. At the one-card VIC size (800 x 200
 // x 200 nodes, cb = 4, 500,000 cells x 128 slots) one P2M pass reads
-// cell_x (768 MB), cell_val (768 MB, C = 3) and cell_mask (64 MB) and
-// writes the field (384 MB): about 0.59 ms at 3.35 TB/s. One M2P pass
-// (C = 6) reads the field (768 MB), cell_x and the mask, and writes
-// 1.54 GB of per-slot values: about 0.93 ms. The in-support arithmetic is
-// 64 particle-node pairs per particle, about 2e9 pairs, under 0.3 ms at
-// 67 TFLOP/s fp32. This first version does not reach those bounds: each
-// P2M thread walks all 27 x cc staged slots although only particles within
-// 2h of its node contribute, and each M2P thread evaluates its weights
-// per offset; both re-read every bucket or field block 27 times through
-// L2. Its measured times are in PERF.md.
+// the mask, the valid slots' positions and values and writes the field:
+// 0.363 ms at 3.35 TB/s (chip_smoke.py's count). One M2P pass (C = 6)
+// reads the field (768 MB), cell_x and the mask, and writes 1.54 GB of
+// per-slot values: 0.82 ms. The in-support arithmetic is 64
+// particle-node pairs per particle, about 2e9 pairs, under 0.3 ms at
+// 67 TFLOP/s fp32. The owner-gather P2M took 151.09 ms there (every
+// thread walked 27 x 128 staged slots, ~3.7% of which contribute).
+// Prediction for the patch scatter, written before its first timed run:
+// 3-6 ms, bound by the shared-memory atomics (3.2e7 particles x 64 nodes
+// x 3 channels, ~6e9 atomics, ~1 ms at one atomic per bank per clock on
+// 132 SMs, times bank and address conflicts) and by reading each bucket
+// 3.4 times through L2. Measured (chip_smoke.py phase 4, H100 80GB HBM3,
+// 700 W): a thread per particle with 4^DIM x C atomics each, 39.0 ms;
+// this lane-per-term form, 11.25 ms (PERF.md). M2P walks 27 field
+// blocks per slot; its measured times are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -127,78 +156,215 @@ __device__ __forceinline__ int wrap(int c, int g) {
   return r < 0 ? r + g : r;
 }
 
-template <int DIM, int C, bool BF16>
-__global__ void m4_p2m_kernel(const float* __restrict__ cell_x,   // (cells, cc, DIM)
-                              const float* __restrict__ cell_val, // (cells, cc, C)
-                              const bool* __restrict__ cell_mask, // (cells, cc)
-                              float* __restrict__ out,            // shape + (C,)
-                              Geom g, int cc) {
-  extern __shared__ float smem[];
-  const int cb = g.cb;
-  const int ccp = cc + 1;              // padded weight row: no bank clash
-  float* s_val = smem;                 // cc * C
-  float* s_w = smem + cc * C;          // DIM * cb * ccp
+// P2M: a block of P2M_THREADS owns a patch of up to T^DIM interpolation
+// cells (fewer at the grid's far edge) and keeps its nodes' sums in shared
+// memory. Its warps stream 32-slot chunks of the patch's cells and of the
+// one-cell band around it (each band cell with its own periodic image).
+// Per chunk, each lane takes one slot: a valid particle whose support
+// meets the patch forms its 4 weights per axis once, keeping those of
+// owned nodes in cells within one of its bucket along that axis (exactly
+// the (node, bucket) pairs of the owner gather over 3^DIM offsets, so a
+// bucket that two offsets fetch, on an axis of fewer than 3 cells, counts
+// once per image), and writes them to the warp's table. Then the warp
+// adds the table's particles one at a time, one (node, channel) term per
+// lane, with shared-memory atomicAdd: the 32 lanes of an add hit 32
+// distinct nodes, and the patch's row and plane strides are padded so
+// that they hit 32 distinct banks (fp32 atomicAdd on shared memory is a
+// compare-and-swap loop on the H100, so a conflict costs a retry).
+constexpr int P2M_THREADS = 256;
+constexpr int P2M_WARPS = P2M_THREADS / 32;
+constexpr size_t P2M_SMEM_BUDGET = 64 * 1024;
+constexpr int P2M_MAX_T = 16;
+constexpr int TAB_LD = 33;             // table field stride: no bank clash
 
-  int home[DIM];
-  int node[DIM];
+struct Patch {
+  int T;          // cells per patch side
+  int stride[3];  // words between nodes along each axis (padded)
+  int words;      // words of the node sums
+};
+
+// Fields of a warp's table, TAB_LD words apart, one column per particle:
+// the 4 weights per axis, the patch-local first node per axis, the values.
+template <int DIM, int C>
+struct Table {
+  static constexpr int W = 0, J = 4 * DIM, V = 5 * DIM, FIELDS = 5 * DIM + C;
+};
+
+template <int DIM, int C, bool BF16>
+__global__ void __launch_bounds__(P2M_THREADS)
+    m4_p2m_kernel(const float* __restrict__ cell_x,    // (cells, cc, DIM)
+                  const float* __restrict__ cell_val,  // (cells, cc, C)
+                  const bool* __restrict__ cell_mask,  // (cells, cc)
+                  float* __restrict__ out,             // shape + (C,)
+                  Geom g, int cc, Patch pt) {
+  using TB = Table<DIM, C>;
+  extern __shared__ float acc[];       // the patch's node sums, padded
+  const int cb = g.cb, T = pt.T;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* tab = acc + pt.words + warp * TB::FIELDS * TAB_LD;
+  int p0[DIM], tn[DIM], band[DIM];
   {
     int rem = blockIdx.x;
+#pragma unroll
     for (int d = DIM - 1; d >= 0; --d) {
-      home[d] = rem % g.grid[d];
-      rem /= g.grid[d];
-    }
-    rem = threadIdx.x;
-    for (int d = DIM - 1; d >= 0; --d) {
-      node[d] = rem % cb;
-      rem /= cb;
+      const int np = (g.grid[d] + T - 1) / T;
+      p0[d] = (rem % np) * T;
+      rem /= np;
+      tn[d] = min(T, g.grid[d] - p0[d]);
+      band[d] = tn[d] + 2;
     }
   }
-
-  float acc[C];
+  int n_band = 1, n_nodes = 1;
 #pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
+  for (int d = 0; d < DIM; ++d) {
+    n_band *= band[d];
+    n_nodes *= tn[d] * cb;
+  }
+  for (int i = threadIdx.x; i < pt.words; i += blockDim.x) acc[i] = 0.0f;
+  __syncthreads();
 
-  for (int o = 0; o < Pow3<DIM>::value; ++o) {
+  // each warp takes every P2M_WARPS-th band cell, 32 slots at a time
+  for (int cell = warp; cell < n_band; cell += P2M_WARPS) {
+    int u[DIM];
+    {
+      int rem = cell;
+#pragma unroll
+      for (int d = DIM - 1; d >= 0; --d) {
+        u[d] = p0[d] - 1 + rem % band[d];
+        rem /= band[d];
+      }
+    }
     int nb = 0;
     float shift[DIM];
+    int lo_n[DIM], hi_n[DIM];
 #pragma unroll
     for (int d = 0; d < DIM; ++d) {
-      const int cell = home[d] + offset_of<DIM>(o, d);
-      shift[d] = cell < 0 ? -g.L[d] : (cell >= g.grid[d] ? g.L[d] : 0.0f);
-      nb = nb * g.grid[d] + wrap(cell, g.grid[d]);
+      shift[d] = u[d] < 0 ? -g.L[d] : (u[d] >= g.grid[d] ? g.L[d] : 0.0f);
+      nb = nb * g.grid[d] + wrap(u[d], g.grid[d]);
+      // owned nodes in cells within one of u along d
+      lo_n[d] = max(p0[d], u[d] - 1) * cb;
+      hi_n[d] = min(p0[d] + tn[d], u[d] + 2) * cb;
     }
-    const size_t base = static_cast<size_t>(nb) * cc;
-    __syncthreads();                   // the previous offset's readers
-    for (int i = threadIdx.x; i < cc * C; i += blockDim.x)
-      s_val[i] = operand<BF16>(cell_val[base * C + i]);
-    for (int i = threadIdx.x; i < DIM * cb * cc; i += blockDim.x) {
-      const int s = i % cc;
-      const int k = (i / cc) % cb;
-      const int d = i / (cc * cb);
-      const float nx = __fadd_rn(
-          __fmul_rn(static_cast<float>(home[d] * cb + k), g.h[d]), g.lo[d]);
-      const float xs = cell_x[(base + s) * DIM + d];
-      float w = m4(__fsub_rn(__fsub_rn(nx, xs), shift[d]) / g.h[d]);
-      if (d == 0 && !cell_mask[base + s]) w = 0.0f;
-      s_w[(d * cb + k) * ccp + s] = w;
-    }
-    __syncthreads();
-    for (int s = 0; s < cc; ++s) {
-      float w = s_w[node[0] * ccp + s];
+    for (int s0 = 0; s0 < cc; s0 += 32) {
+      // -- each lane: one slot; a particle that reaches the patch -> table
+      const int s = s0 + lane;
+      const size_t slot = static_cast<size_t>(nb) * cc + s;
+      bool reach = s < cc && cell_mask[slot];
+      if (__ballot_sync(0xffffffffu, reach) == 0) continue;  // none valid
+      float xs[DIM];
+      int j0[DIM];
 #pragma unroll
-      for (int d = 1; d < DIM; ++d) w *= s_w[(d * cb + node[d]) * ccp + s];
-      if (w == 0.0f) continue;
-      w = operand<BF16>(w);
+      for (int d = 0; d < DIM; ++d) {
+        // candidates: the image's base node - 1 .. + 2 (M'4's support),
+        // kept where the node is owned and its cell within one of u
+        xs[d] = reach ? cell_x[slot * DIM + d] : 0.0f;
+        j0[d] = static_cast<int>(floorf(__fsub_rn(
+                    __fadd_rn(xs[d], shift[d]), g.lo[d]) / g.h[d])) - 1;
+        reach &= j0[d] + 3 >= lo_n[d] && j0[d] < hi_n[d];
+      }
+      float w[DIM][4];
+      if (reach) {
 #pragma unroll
-      for (int c = 0; c < C; ++c) acc[c] += w * s_val[s * C + c];
+        for (int d = 0; d < DIM; ++d) {
+          bool any = false;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int j = j0[d] + k;
+            float wk = 0.0f;
+            if (j >= lo_n[d] && j < hi_n[d]) {
+              const float nx = __fadd_rn(
+                  __fmul_rn(static_cast<float>(j), g.h[d]), g.lo[d]);
+              wk = m4(__fsub_rn(__fsub_rn(nx, xs[d]), shift[d]) / g.h[d]);
+            }
+            w[d][k] = wk;
+            any |= wk != 0.0f;
+          }
+          reach &= any;
+        }
+      }
+      const unsigned in_tab = __ballot_sync(0xffffffffu, reach);
+      const int n_tab = __popc(in_tab);
+      if (reach) {
+        float* col = tab + __popc(in_tab & ((1u << lane) - 1));
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            col[(TB::W + 4 * d + k) * TAB_LD] = w[d][k];
+          col[(TB::J + d) * TAB_LD] = __int_as_float(j0[d] - p0[d] * cb);
+        }
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          col[(TB::V + c) * TAB_LD] = operand<BF16>(cell_val[slot * C + c]);
+      }
+      __syncwarp();
+
+      // -- the warp: each table particle's 4^DIM x C terms, a lane per node
+      if constexpr (DIM == 3) {
+        const int kh = lane >> 4, k1 = (lane >> 2) & 3, k2 = lane & 3;
+        for (int q = 0; q < n_tab; ++q) {
+          const float* col = tab + q;
+          const float w1 = col[(TB::W + 4 + k1) * TAB_LD];
+          const float w2 = col[(TB::W + 8 + k2) * TAB_LD];
+          const int base =
+              (__float_as_int(col[(TB::J + 1) * TAB_LD]) + k1) *
+                  pt.stride[1] +
+              (__float_as_int(col[(TB::J + 2) * TAB_LD]) + k2) * C;
+          const int b0 = __float_as_int(col[TB::J * TAB_LD]);
+#pragma unroll
+          for (int pass = 0; pass < 2; ++pass) {
+            const int k0 = kh + 2 * pass;
+            float ww =
+                __fmul_rn(__fmul_rn(col[(TB::W + k0) * TAB_LD], w1), w2);
+            if (ww == 0.0f) continue;
+            ww = operand<BF16>(ww);
+            float* a = acc + (b0 + k0) * pt.stride[0] + base;
+#pragma unroll
+            for (int c = 0; c < C; ++c)
+              atomicAdd(a + c, __fmul_rn(ww, col[(TB::V + c) * TAB_LD]));
+          }
+        }
+      } else {
+        const int sub = lane >> 4, k0 = (lane >> 2) & 3, k1 = lane & 3;
+        for (int q = sub; q < n_tab + sub; q += 2) {
+          if (q >= n_tab) continue;
+          const float* col = tab + q;
+          float ww = __fmul_rn(col[(TB::W + k0) * TAB_LD],
+                               col[(TB::W + 4 + k1) * TAB_LD]);
+          if (ww == 0.0f) continue;
+          ww = operand<BF16>(ww);
+          float* a =
+              acc +
+              (__float_as_int(col[TB::J * TAB_LD]) + k0) * pt.stride[0] +
+              (__float_as_int(col[(TB::J + 1) * TAB_LD]) + k1) * C;
+#pragma unroll
+          for (int c = 0; c < C; ++c)
+            atomicAdd(a + c, __fmul_rn(ww, col[(TB::V + c) * TAB_LD]));
+        }
+      }
+      __syncwarp();
     }
   }
+  __syncthreads();
 
-  size_t flat = 0;
+  // each owned node written once, the innermost axis contiguous
+  for (int i = threadIdx.x; i < n_nodes * C; i += blockDim.x) {
+    int rem = i / C;
+    int l[DIM];
 #pragma unroll
-  for (int d = 0; d < DIM; ++d) flat = flat * g.n[d] + home[d] * cb + node[d];
+    for (int d = DIM - 1; d >= 0; --d) {
+      l[d] = rem % (tn[d] * cb);
+      rem /= tn[d] * cb;
+    }
+    size_t flat = 0;
+    int a = i % C;
 #pragma unroll
-  for (int c = 0; c < C; ++c) out[flat * C + c] = acc[c];
+    for (int d = 0; d < DIM; ++d) {
+      flat = flat * g.n[d] + p0[d] * cb + l[d];
+      a += l[d] * (d == DIM - 1 ? C : pt.stride[d]);
+    }
+    out[flat * C + i % C] = acc[a];
+  }
 }
 
 template <int DIM, int C, bool BF16>
@@ -309,22 +475,72 @@ int set_smem(Kernel kern, size_t smem) {
       static_cast<int>(smem)));
 }
 
+// The patch: the largest side T (up to P2M_MAX_T) whose padded node sums
+// and the warps' tables fit P2M_SMEM_BUDGET. The row (and, at DIM 3,
+// plane) stride is padded so that the nodes a warp's atomics hit at once,
+// 4 along the last axis x 4 along the one before (x 2 before that at
+// DIM 3), fall in distinct banks, or as few shared banks as a pad of
+// under 32 words allows.
+template <int DIM, int C>
+size_t p2m_patch(const Geom& g, Patch* pt) {
+  auto clash = [](int R, int P) {
+    int hits[32] = {0}, worst = 0;
+    for (int a = 0; a < (DIM == 3 ? 2 : 1); ++a)
+      for (int b = 0; b < 4; ++b)
+        for (int k = 0; k < 4; ++k) {
+          const int bank = (a * P + b * R + k * C) % 32;
+          worst = ++hits[bank] > worst ? hits[bank] : worst;
+        }
+    return worst;
+  };
+  const size_t tables =
+      sizeof(float) * P2M_WARPS * Table<DIM, C>::FIELDS * TAB_LD;
+  size_t best = 0;
+  for (int t = 1; t <= P2M_MAX_T; ++t) {
+    int ext[DIM];
+    for (int d = 0; d < DIM; ++d)
+      ext[d] = (t < g.grid[d] ? t : g.grid[d]) * g.cb;
+    Patch p{t, {0, 0, 0}, 0};
+    int fewest = 33;
+    for (int pr = 0; pr < 32; ++pr) {
+      const int R = ext[DIM - 1] * C + pr;
+      for (int pp = 0; pp < (DIM == 3 ? 32 : 1); ++pp) {
+        const int P = DIM == 3 ? ext[1] * R + pp : 0;
+        const int worst = clash(R, P);
+        const int words = DIM == 3 ? ext[0] * P : ext[0] * R;
+        if (worst < fewest || (worst == fewest && words < p.words)) {
+          fewest = worst;
+          p.words = words;
+          p.stride[DIM - 1] = C;
+          p.stride[DIM - 2] = R;
+          if (DIM == 3) p.stride[0] = P;
+        }
+      }
+    }
+    const size_t bytes = sizeof(float) * p.words + tables;
+    if (t > 1 && bytes > P2M_SMEM_BUDGET) break;
+    *pt = p;
+    best = bytes;
+  }
+  return best;
+}
+
 template <int DIM, int C, bool BF16>
 int launch_p2m(const void* cell_x, const void* cell_val,
                const void* cell_mask, void* out, const Geom& g, int cc,
                int n_cells, cudaStream_t stream) {
-  int threads = 1;
-  for (int d = 0; d < DIM; ++d) threads *= g.cb;
-  const size_t smem =
-      (static_cast<size_t>(cc) * C +
-       static_cast<size_t>(DIM) * g.cb * (cc + 1)) * sizeof(float);
+  Patch pt;
+  const size_t smem = p2m_patch<DIM, C>(g, &pt);
+  int blocks = 1;
+  for (int d = 0; d < DIM; ++d) blocks *= (g.grid[d] + pt.T - 1) / pt.T;
   auto kern = m4_p2m_kernel<DIM, C, BF16>;
   const int e = set_smem(kern, smem);
   if (e != 0) return e;
   if (n_cells > 0)
-    kern<<<n_cells, threads, smem, stream>>>(
+    kern<<<blocks, P2M_THREADS, smem, stream>>>(
         static_cast<const float*>(cell_x), static_cast<const float*>(cell_val),
-        static_cast<const bool*>(cell_mask), static_cast<float*>(out), g, cc);
+        static_cast<const bool*>(cell_mask), static_cast<float*>(out), g, cc,
+        pt);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -432,7 +648,7 @@ int m2p_entry(const void* field, const void* cell_x, const void* cell_mask,
 extern "C" {
 
 // P2M: cell_x (cells, cc, dim), cell_val (cells, cc, C), cell_mask
-// (cells, cc) -> out, the mesh (cb*grid..., C); cb^dim <= 1024.
+// (cells, cc) -> out, the mesh (cb*grid..., C); any cc >= 1.
 int m4_p2m_f32(const void* cell_x, const void* cell_val, const void* cell_mask,
                void* out, M4_ARGS) {
   return p2m_entry<false>(cell_x, cell_val, cell_mask, out, M4_PASS);

@@ -11,7 +11,11 @@ per axis (``ops.bucket_particles``), so every node has one owner:
   those buckets hold every particle that can reach the patch). The
   periodic image of a wrapped neighbour bucket is resolved by a per-axis
   shift, -L below the grid and +L above it:
-  ``w = mask · Π_d M'4((node_d − x_d − shift_d) / h_d)``.
+  ``w = mask · Π_d M'4((node_d − x_d − shift_d) / h_d)``. The CUDA
+  kernel computes the same sums as a scatter: a block owns a patch of
+  cells, streams the particles that reach it and adds their
+  contributions in shared memory (any bucket capacity; the fp32 sums in
+  an order that varies from run to run).
 * **M2P** (:func:`m2p_cells`) — each bucket gathers from the 3^dim
   neighbouring field blocks, with node coordinates formed from the
   *unwrapped* block index ``((cell + off)·cb + i)·h + lo``:
@@ -50,8 +54,9 @@ LAUNCHES = {"p2m": 0, "m2p": 0, "p2m_bf16x": 0, "m2p_bf16x": 0}
 _ENTRIES = {(kind, prec): f"m4_{kind}_{'f32' if prec == 'fp32' else prec}"
             for kind in ("p2m", "m2p") for prec in ("fp32", "bf16x")}
 
-#: Largest channel count, cells per axis and bucket capacity the CUDA
-#: kernels are built for.
+#: Largest channel count and cells per axis the CUDA kernels are built
+#: for, and the largest bucket capacity of the M2P kernel (one thread per
+#: slot); the P2M kernel takes any.
 MAX_CHANNELS = 8
 MAX_CB = 8
 MAX_CELL_CAP = 1024
@@ -245,7 +250,8 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_cuda_args(tensors, *, grid_cells, cb, n_ch, cc, precision):
+def _check_cuda_args(tensors, *, grid_cells, cb, n_ch, cc, precision,
+                     max_cc=None):
     _check_precision(precision)
     dev = tensors[0][1].device
     for name, t, dtype, shape in tensors:
@@ -266,9 +272,11 @@ def _check_cuda_args(tensors, *, grid_cells, cb, n_ch, cc, precision):
                          f"{MAX_CHANNELS}")
     if not 2 <= cb <= MAX_CB:
         raise ValueError(f"cb={cb}: the CUDA M'4 kernels take 2 to {MAX_CB}")
-    if not 1 <= cc <= MAX_CELL_CAP:
-        raise ValueError(f"cell_cap {cc}: the CUDA M'4 kernels take 1 to "
-                         f"{MAX_CELL_CAP} (one M2P thread per slot)")
+    if cc < 1:
+        raise ValueError(f"cell_cap {cc}: want at least 1")
+    if max_cc is not None and cc > max_cc:
+        raise ValueError(f"cell_cap {cc}: the CUDA M2P kernel takes 1 to "
+                         f"{max_cc} (one thread per slot)")
 
 
 def _geom_args(grid_cells, cb, box_lo, box_hi, n_ch):
@@ -316,7 +324,7 @@ def _m2p_cuda(field, cell_x, cell_mask, *, grid_cells, cb, box_lo, box_hi,
                       ("field", field, torch.float32, shape + (n_ch,)),
                       ("cell_mask", cell_mask, torch.bool, (n_cells, cc))),
                      grid_cells=grid_cells, cb=cb, n_ch=n_ch, cc=cc,
-                     precision=precision)
+                     precision=precision, max_cc=MAX_CELL_CAP)
     out = torch.empty((n_cells, cc, n_ch), dtype=torch.float32,
                       device=cell_x.device)
     entry = _ENTRIES["m2p", precision]

@@ -127,3 +127,33 @@ def test_wrapper_contract():
         TK.flash_attention(q[0], q, q)
     with pytest.raises(ValueError, match="empty"):
         TK.flash_attention(q[:, :, :0], q, q)
+
+
+def test_split_bf16x3_sums_back_exactly():
+    """B5's bf16 form splits the fp32 softmax weights p into three bf16
+    terms: p1 + (p2 + p3) == p bit for bit for seeded p in [0, 1], 0, 1
+    and values a few ulps around every power of two down to 2^-100; below
+    that (down to fp32's subnormals) the split is off by less than bf16's
+    subnormal step, 2^-133, under fp32's resolution next to l >= 1."""
+    rng = np.random.default_rng(16)
+    ulps = np.arange(-3, 4, dtype=np.int32)
+    pow2 = np.float32(2.0) ** -np.arange(0, 101, dtype=np.float32)
+    near = (pow2.view(np.int32)[:, None] + ulps[None, :]).view(np.float32)
+    p = np.concatenate([
+        rng.uniform(size=20000).astype(np.float32),
+        rng.uniform(size=2000).astype(np.float32) * np.float32(2.0) ** -rng
+        .integers(0, 100, size=2000).astype(np.float32),
+        np.float32([0.0, 1.0]), near[near <= 1.0].ravel()])
+    assert p.min() >= 0 and p.max() <= 1
+    t = torch.from_numpy(p)
+    p1, p2, p3 = TREF.split_bf16x3(t)
+    assert p1.dtype == p2.dtype == p3.dtype == torch.bfloat16
+    back = p1.float() + (p2.float() + p3.float())
+    assert torch.equal(back, t)
+    # fp32's smallest normal and subnormals: exact to 2^-133
+    tiny = torch.from_numpy((np.float32(2.0) ** -126).reshape(1).view(
+        np.int32) + np.arange(-40, 40, dtype=np.int32)).view(torch.float32)
+    tiny = torch.cat([tiny, torch.tensor([1e-45, 1e-40, 2.0 ** -110])])
+    q1, q2, q3 = TREF.split_bf16x3(tiny)
+    err = (q1.float() + (q2.float() + q3.float()) - tiny).abs()
+    assert float(err.max()) <= 2.0 ** -133

@@ -86,6 +86,69 @@ def test_cuda_m2p_matches_plain(card, dim, seed, edge):
     assert rel(got16, got) > 0          # bf16 really used
 
 
+def _dense_tiles(shape, lengths, cb, n, cell_cap, seed):
+    """Uniform particles (numpy draws) in a periodic box, bucketed on the
+    card with ``cell_cap`` slots, and C = 3 values per particle."""
+    rng = np.random.default_rng(seed)
+    dim = len(shape)
+    x = (rng.uniform(size=(n, dim)) * np.asarray(lengths)).astype(np.float32)
+    val = rng.normal(size=(n, 3)).astype(np.float32)
+    valid = rng.uniform(size=n) > 0.1
+    kw = dict(shape=shape, box_lo=(0.0,) * dim, box_hi=tuple(lengths),
+              periodic=(True,) * dim)
+    t = lambda a: torch.from_numpy(a).cuda()
+    b = TM4.bucket_particles(t(x), t(valid), cell_cap=cell_cap, cb=cb, **kw)
+    assert int(b.overflow) == 0
+    kk = dict(grid_cells=tuple(m // cb for m in shape), cb=cb,
+              box_lo=kw["box_lo"], box_hi=kw["box_hi"])
+    return b, t(val)[b.safe.long()].contiguous(), kk
+
+
+def _p2m_both_precisions(b, cell_val, kk):
+    """B3 against its plain version in fp32 and bf16x (unlike fp32)."""
+    got = TK.p2m_cells(b.cell_x, cell_val, b.cell_mask, **kk)
+    ref = TK.p2m_cells_torch(b.cell_x, cell_val, b.cell_mask, **kk)
+    torch.cuda.synchronize()
+    assert float(ref.abs().max()) > 0
+    assert rel(got, ref) <= TOL
+    got16 = TK.p2m_cells(b.cell_x, cell_val, b.cell_mask, precision="bf16x",
+                         **kk)
+    ref16 = TK.p2m_cells_torch(b.cell_x, cell_val, b.cell_mask,
+                               precision="bf16x", **kk)
+    torch.cuda.synchronize()
+    assert rel(got16, ref16) <= BF16_TOL
+    assert rel(got16, got) > 0
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_cuda_p2m_takes_any_cell_cap(card, dim):
+    """B3 at cell_cap 2048 and cb 8 (cb 8's first re-provision doubles
+    its default 2·8^3 = 1024): the patch scatter streams slots and has no
+    capacity limit; M2P keeps its one thread per slot and raises."""
+    shape = (16, 8, 8)[:dim]
+    b, cell_val, kk = _dense_tiles(shape, (2.0, 1.0, 1.0)[:dim], cb=8,
+                                   n=3000, cell_cap=2048, seed=40 + dim)
+    assert b.cell_x.shape[1] == 2048 and int(b.cell_mask.sum(1).max()) > 1024
+    n0 = TK.LAUNCHES["p2m"]
+    _p2m_both_precisions(b, cell_val, kk)
+    assert TK.LAUNCHES["p2m"] == n0 + 1
+    field = torch.zeros(shape + (3,), device="cuda")
+    with pytest.raises(ValueError, match="M2P"):
+        TK.m2p_cells(field, b.cell_x, b.cell_mask, **kk)
+
+
+@pytest.mark.parametrize("shape,lengths", [
+    ((8, 24, 12), (1.0, 3.0, 1.5)),     # 2 x 6 x 3 cells
+    ((24, 8), (3.0, 1.0)),              # 6 x 2 cells
+])
+def test_cuda_p2m_two_cells_on_an_axis(card, shape, lengths):
+    """A grid with 2 cells along an axis: two offsets fetch the same
+    bucket, each with its own periodic image, and both count."""
+    b, cell_val, kk = _dense_tiles(shape, lengths, cb=4, n=1500,
+                                   cell_cap=256, seed=sum(shape))
+    _p2m_both_precisions(b, cell_val, kk)
+
+
 def test_vortex_kernel_path_matches_plain_path(card):
     """5 steps at (16, 8, 8): the CUDA kernels (backend auto) against the
     plain versions (backend torch), and 2 + 2 launches per step."""
@@ -411,6 +474,32 @@ def test_cuda_flash_attention_matches_plain(card, B, H, K, Sq, Sk, hd,
     assert bool(torch.isfinite(got).all())
     assert rel(got.float(), ref.float()) <= (TOL if dtype == torch.float32
                                              else B5_BF16_TOL)
+
+
+@pytest.mark.parametrize("B,H,K,Sq,Sk,hd,causal", [
+    (2, 4, 2, 77, 77, 8, True),          # the narrowest head, ragged
+    (1, 6, 3, 130, 200, 24, True),       # product depth 24: padded to 32
+    (1, 12, 1, 33, 70, 24, False),       # rep 12, non-causal
+    (2, 4, 2, 190, 190, 256, True),      # the widest head, one warpgroup
+    (1, 8, 8, 300, 300, 200, True),      # hd 200: four boxes, one short
+])
+def test_cuda_flash_attention_bf16_head_dims(card, B, H, K, Sq, Sk, hd,
+                                             causal):
+    """B5's bf16 (wgmma) form at head dims whose product depth is not a
+    multiple of 16 or that need one consumer warpgroup, with ragged Sq."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    rng = np.random.default_rng(Sq + hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .cuda().to(torch.bfloat16)
+               for s in ((B, H, Sq, hd), (B, K, Sk, hd), (B, K, Sk, hd)))
+    n0 = FA.LAUNCHES
+    got = FA.flash_attention(q, k, v, causal=causal)
+    assert FA.LAUNCHES == n0 + 1
+    ref = flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    assert rel(got.float(), ref.float()) <= B5_BF16_TOL
 
 
 def test_cuda_mha_takes_strided_views(card):

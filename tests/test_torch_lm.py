@@ -252,6 +252,41 @@ def test_greedy_generate_matches_repro(arch):
         assert rel(tl, jl) <= MODEL_TOL, t
 
 
+def test_greedy_generate_past_s_max_raises():
+    """ROADMAP C1: B 2, S 12, 6 new tokens need 17 cache positions, more
+    than s_max 14. repro drops the writes past the cache and runs on; the
+    port raises ValueError naming s_max before any cache write (an index
+    assignment past the cache would raise IndexError here and end the
+    CUDA context on the card)."""
+    cfg, _, tp = _params("starcoder2-15b")
+    prompt = _t(_tokens(cfg, 2, 12, seed=12))
+    with pytest.raises(ValueError, match="s_max=14"):
+        TS.greedy_generate(_tcfg("starcoder2-15b"), tp, prompt, 6, s_max=14)
+
+
+def test_prefill_longer_than_s_max_raises():
+    _, _, tp = _params("starcoder2-15b")
+    cfg = _tcfg("starcoder2-15b")
+    prefill = TS.make_prefill_step(cfg, s_max=10)
+    with pytest.raises(ValueError, match="s_max=10"):
+        prefill(tp, {"tokens": _t(_tokens(cfg, 2, 12, seed=13))})
+    with pytest.raises(ValueError, match="s_max=10"):
+        TS.greedy_generate(cfg, tp, _t(_tokens(cfg, 2, 12, seed=13)), 1,
+                           s_max=10)
+
+
+def test_greedy_generate_up_to_s_max_matches_repro():
+    """The C1 case cut to 3 new tokens: 14 positions, exactly s_max, and
+    the same tokens as repro's."""
+    cfg, jp, tp = _params("starcoder2-15b")
+    prompt = _tokens(cfg, 2, 12, seed=12)
+    jtok = np.asarray(JS.greedy_generate(cfg, jp, jnp.asarray(prompt), 3,
+                                         s_max=14))
+    ttok = TS.greedy_generate(_tcfg("starcoder2-15b"), tp, _t(prompt), 3,
+                              s_max=14)
+    np.testing.assert_array_equal(np_(ttok), jtok)
+
+
 @pytest.mark.parametrize("arch", DENSE)
 def test_prefill_decode_consistency(arch):
     """The port's prefill of 8 tokens and 4 decode steps against its own

@@ -112,6 +112,26 @@ def test_cells_torch_batch_loop_matches_pallas(kernel, monkeypatch):
     assert rel(got, ref) <= TOL
 
 
+def test_p2m_cells_torch_large_cell_cap_matches_pallas():
+    """cell_cap 2048 at cb 8 (cb 8's first re-provision doubles its
+    default 2·8^3): the plain P2M against repro's Pallas kernel, which
+    sets no capacity limit; the CUDA P2M kernel takes it too (held
+    against the plain version in tests/test_torch_gpu.py)."""
+    kw, x, val, valid, _ = interp_case(3, 31, n=3000)
+    jb = JM4.bucket_particles(jnp.asarray(x), jnp.asarray(valid),
+                              cell_cap=2048, cb=8, **kw)
+    assert int(jb.overflow) == 0
+    assert int(np.asarray(jb.cell_mask).sum(1).max()) > 1024
+    args = (np.asarray(jb.cell_x), val[np.asarray(jb.safe)],
+            np.asarray(jb.cell_mask))
+    kk = dict(grid_cells=tuple(n // 8 for n in kw["shape"]), cb=8,
+              box_lo=kw["box_lo"], box_hi=kw["box_hi"])
+    ref = JK.p2m_cells(*map(jnp.asarray, args), interpret=True, **kk)
+    got = TK.p2m_cells_torch(*_t(*args), **kk)
+    assert got.shape == ref.shape
+    assert rel(got, ref) <= TOL
+
+
 def test_cells_torch_bf16x_matches_pallas():
     """bf16x: bf16 weight and value operands, fp32 sums, as the Pallas
     kernels. An operand one fp32 ulp apart on the two sides may round to

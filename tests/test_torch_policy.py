@@ -219,3 +219,23 @@ def test_lm_cuda_backend_and_device_without_card_raise(monkeypatch):
         T.init_caches(cfg, 2, 16)              # device defaults to the card
     with pytest.raises(ValueError, match="Generator"):
         T.init_params(cfg, None, device="cpu")
+
+
+def test_per_source_nvcc_flags():
+    """A source's own nvcc flags come from its ``// nvcc-flags:`` line:
+    B5 links libcuda for its TMA tensor maps; the other sources
+    build with the common flags alone. The flags are part of the
+    library's name, so a change of flags rebuilds."""
+    from repro_torch.kernels import _build
+    flags = {src.stem: _build.source_flags(src) for src in _build.sources()}
+    assert flags == {"cell_pair": [], "flash_attention": ["-lcuda"],
+                     "m4_interp": [], "stencil7": []}
+    src = next(s for s in _build.sources() if s.stem == "flash_attention")
+    stem = _build.lib_path(src).stem
+    assert stem.startswith("flash_attention-")
+    real = _build.source_flags
+    try:
+        _build.source_flags = lambda s: real(s) + ["-DX"]
+        assert _build.lib_path(src).stem != stem
+    finally:
+        _build.source_flags = real
