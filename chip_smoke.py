@@ -71,7 +71,10 @@ Phases, each of which raises (non-zero exit) on failure:
      plain version at the prefill's shapes (4 x 48 heads over 4 KV heads,
      2048 queries against a 2176-deep cache, hd 128, causal): <= 1e-5 in
      fp32 and <= 1e-2 in bf16 (max-abs error over the plain max), timed
-     beside the plain version and PyTorch's SDPA, with the bound; (b) full
+     beside the plain version and PyTorch's SDPA, with the bound; in bf16
+     the share of outputs unequal to plain held under half that of plain
+     with only the first term of p (and, at few keys, the first two: the
+     three-term split must be exact); (b) full
      width, 2 layers, fp32: prefill logits through B5 against the plain
      path <= 1e-4; (c) the full 40-layer model in bf16 (weights from a
      seeded ``torch.Generator`` on the card): ``greedy_generate`` of 64
@@ -188,6 +191,14 @@ B5_FP32_TOL = 1e-5    # B5 vs plain, fp32: only the summation order differs
 # B5 vs plain, bf16: one bf16 rounding of the output is 2^-8 relative, and
 # another summation order can flip it
 B5_BF16_TOL = 1e-2
+# B5 bf16, the exactness of the three-term split of p: the share of bf16
+# outputs that differ from plain (fp32 p) is held under B5_SPLIT_FRAC of the
+# share a control with only the first terms of p gives (plain, ``p_terms``
+# 1 or 2). At the prefill's shapes the summation order over 2176 keys flips
+# about as many outputs as dropping p3 does, so there only the one-term
+# control is held; at few keys (B5_SPLIT_SHAPE) the two-term one too.
+B5_SPLIT_FRAC = 0.5
+B5_SPLIT_SHAPE = (8, 32, 4, 64, 16, 128)     # B, H, K, Sq, Sk, hd; all keys
 LM_FP32_TOL = 1e-4    # 10b prefill logits, kernel path vs plain path
 LM_BF16_TOL = 5e-2    # 10c prefill logits (bf16, 40 layers), same
 # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
@@ -1165,6 +1176,32 @@ def b5_bound(B, H, K, Sq, Sk, hd, itemsize, flop_per_s):
             "operations" if ops_ms >= bytes_ms else "bytes", ops, n_bytes)
 
 
+def b5_split_check(q, k, v, *, causal, controls):
+    """B5's bf16 form against plain with fp32 p and against plain with only
+    the first 1 or 2 (``controls``) of the three bf16 terms of p: the share
+    of bf16 outputs that differ from plain. Raises unless the kernel's share
+    is under B5_SPLIT_FRAC of every control's. Returns the shares."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    ref = flash_attention_ref(q, k, v, causal=causal)
+    shares = {"kernel": float(
+        (FA.flash_attention(q, k, v, causal=causal) != ref).float().mean())}
+    for n in controls:
+        shares[f"p_terms_{n}"] = float((flash_attention_ref(
+            q, k, v, causal=causal, p_terms=n) != ref).float().mean())
+    print(f"B5 bfloat16 split: q {tuple(q.shape)}, k/v {tuple(k.shape)}, "
+          "share of outputs unequal to plain: " + ", ".join(
+              f"{key} {val:.4e}" for key, val in shares.items())
+          + f" (kernel held under {B5_SPLIT_FRAC:g} x each control)")
+    for n in controls:
+        if not shares["kernel"] < B5_SPLIT_FRAC * shares[f"p_terms_{n}"]:
+            raise RuntimeError(f"B5 bf16: {shares['kernel']:.4e} of outputs "
+                               "differ from plain, not under "
+                               f"{B5_SPLIT_FRAC:g} x the {n}-term control's "
+                               f"{shares[f'p_terms_{n}']:.4e}")
+    return shares
+
+
 def b5_phase(cfg):
     """Phase 10a: B5 against its plain version at the prefill's shapes
     (LM_BATCH x H over K heads, LM_PROMPT queries against LM_S_MAX keys,
@@ -1228,10 +1265,19 @@ def b5_phase(cfg):
                                      if floor_ms else ""))
         res[name] = dict(max_abs_err=max_abs, rel_err=err, ms=kernel_ms,
                          plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms, bound_by=bound_by,
-                         **({"design_floor_ms": floor_ms} if floor_ms
-                            else {}))
+                         bound_ms=bound_ms, bound_by=bound_by)
+        if dtype == torch.bfloat16:
+            res[name]["split"] = b5_split_check(q, k, v, causal=True,
+                                                controls=(1,))
         del q, k, v
+    B, H, K, Sq, Sk, hd = B5_SPLIT_SHAPE
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               .to(torch.bfloat16) for shape in ((B, H, Sq, hd),
+                                                 (B, K, Sk, hd),
+                                                 (B, K, Sk, hd)))
+    res["bfloat16"]["split_few_keys"] = b5_split_check(
+        q, k, v, causal=False, controls=(1, 2))
+    del q, k, v
     bf, f32 = res["bfloat16"], res["float32"]
     return {
         "name": "flash_attention", "route": "cuda",
@@ -1242,7 +1288,9 @@ def b5_phase(cfg):
         "ms": bf["ms"], "kernel_ms": bf["ms"], "plain_ms": bf["plain_ms"],
         "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
         "library_ms": bf["library_ms"], "dtype": "bfloat16",
-        "design_floor_ms": bf["design_floor_ms"], "fp32": f32}
+        "split_shares": {"prefill": bf["split"],
+                         "few_keys": bf["split_few_keys"]},
+        "fp32": f32}
 
 
 def lm_fp32_phase(cfg, TT, TS, FA):

@@ -7,12 +7,9 @@ own shared library with a plain C interface and loaded with ``ctypes``:
          -Xcompiler -fPIC -Xptxas -v -o <lib>.so <file>.cu
 
 (no ``--use_fast_math``: the kernels stay within the stated tolerance of
-their plain PyTorch versions). A source may add flags of its own on a
-line ``// nvcc-flags: <flags>`` among its first lines (B5 links
-``-lcuda`` so, for its TMA tensor maps). Libraries go to
-``build/repro_torch/`` at the repository root, named by a hash of the
-source and all its flags, so a changed source is rebuilt and an
-unchanged one is reused. The build runs
+their plain PyTorch versions). Libraries go to ``build/repro_torch/`` at
+the repository root, named by a hash of the source and the flags, so a
+changed source is rebuilt and an unchanged one is reused. The build runs
 at first use; :func:`build_all` compiles every source at once, one
 ``nvcc`` process per source, all started together. ``ptxas``'s report of
 registers and shared memory is kept beside each library as ``<lib>.log``.
@@ -55,20 +52,10 @@ def _nvcc() -> str:
     return str(path)
 
 
-def source_flags(src: pathlib.Path) -> List[str]:
-    """The extra nvcc flags a source asks for on ``// nvcc-flags:`` lines
-    among its first 40 lines."""
-    flags = []
-    for line in src.read_text().splitlines()[:40]:
-        if line.startswith("// nvcc-flags:"):
-            flags += line.split(":", 1)[1].split()
-    return flags
-
-
 def lib_path(src: pathlib.Path) -> pathlib.Path:
     """Where the library of ``src`` lives: keyed by source text + flags."""
     h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS + tuple(source_flags(src))).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
@@ -87,8 +74,7 @@ def build_all(srcs: List[pathlib.Path] | None = None
     procs = []
     for src in todo:
         tmp = out[src].with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src),
-               *source_flags(src)]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
         procs.append((src, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     errors = []

@@ -1,5 +1,4 @@
 // Causal GQA flash attention, forward only, for Hopper (sm_90a).
-// nvcc-flags: -lcuda
 //
 // Replaces the Pallas TPU kernel `_kernel` in
 // src/repro/kernels/flash_attention/flash_attention.py (launched by
@@ -38,8 +37,9 @@
 //     order (`ref.split_bf16x3` is the same split in PyTorch).
 //   * Q, K and V tiles come in by TMA (cp.async.bulk.tensor, 4-D tensor
 //     maps over the strided (B, H, S, hd) views, built on the host with
-//     cuTensorMapEncodeTiled), 64 rows x 64 columns per 128-byte-swizzled
-//     box, the ragged edge and the columns past hd zero-filled by the
+//     the driver's cuTensorMapEncodeTiled, fetched through the runtime's
+//     cudaGetDriverEntryPoint so that nothing links libcuda), 64 rows x
+//     64 columns per 128-byte-swizzled box, the ragged edge and the columns past hd zero-filled by the
 //     hardware (which also pads the product depth to 16). One producer
 //     warp keeps a two-stage K/V ring in flight on mbarriers; two consumer
 //     warpgroups (one for hd > 128, for registers) each own 64 query rows
@@ -722,6 +722,28 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
   }
 }
 
+// The driver's cuTensorMapEncodeTiled, fetched once through the runtime
+// (null if the driver does not offer it).
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
 // A tensor map over the strided (B, n_heads, S, hd) view at `ptr`: hd
 // innermost, then the other three axes by stride; 64 x 64 boxes with the
 // 128-byte swizzle, out-of-bounds elements read as zeros.
@@ -747,7 +769,9 @@ CUresult make_map(CUtensorMap* map, Order* order, const void* ptr, int B,
     gstride[i] = static_cast<cuuint64_t>(strides[ax[i]]) * 2;
     if (ax[i] == 0) box[i + 1] = ROWS;
   }
-  return cuTensorMapEncodeTiled(
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  return encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), gdim,
       gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

@@ -70,12 +70,19 @@ def split_bf16x3(p):
     return p1, p2, p3
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True):
+def flash_attention_ref(q, k, v, *, causal: bool = True, p_terms: int = 3):
     """B5's own function: scores ``(q·kᵀ)·(1/√hd)`` in fp32, the causal
     mask ``kpos <= qpos`` counted from 0 (aligned to the start), masked
     scores ``NEG_INF``, ``p = exp(s − max)``, ``(p·v) / max(Σp, 1e-30)``
     in fp32, the output in q's dtype. Whole rows at once where the kernel
-    sweeps them tile by tile, so only the summation order differs."""
+    sweeps them tile by tile, so only the summation order differs.
+
+    ``p_terms`` 1 or 2 is another function, a control for the bf16 form's
+    split: ``p·v`` takes only the first one or two of
+    :func:`split_bf16x3`'s terms of ``p`` (``Σp`` stays fp32). The default,
+    3, is fp32 ``p`` itself."""
+    if p_terms not in (1, 2, 3):
+        raise ValueError(f"p_terms {p_terms}: want 1, 2 or 3")
     B, H, Sq, hd = q.shape
     s = _scores(q, k).mul_(1.0 / math.sqrt(hd))
     if causal:
@@ -84,4 +91,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True):
         s.masked_fill_(kpos[None, :] > qpos[:, None], NEG_INF)
     p = s.sub_(s.amax(dim=-1, keepdim=True)).exp_()
     den = p.sum(dim=-1, keepdim=True).clamp_min_(1e-30)
+    if p_terms < 3:
+        terms = split_bf16x3(p)[:p_terms]
+        p = sum(t.to(torch.float32) for t in terms)
     return (_pv(p, v, q) / den.reshape(B, H, Sq, 1)).to(q.dtype)

@@ -250,8 +250,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_cuda_args(tensors, *, grid_cells, cb, n_ch, cc, precision,
-                     max_cc=None):
+def _check_cuda_args(tensors, *, grid_cells, cb, n_ch, cc, precision):
     _check_precision(precision)
     dev = tensors[0][1].device
     for name, t, dtype, shape in tensors:
@@ -274,9 +273,6 @@ def _check_cuda_args(tensors, *, grid_cells, cb, n_ch, cc, precision,
         raise ValueError(f"cb={cb}: the CUDA M'4 kernels take 2 to {MAX_CB}")
     if cc < 1:
         raise ValueError(f"cell_cap {cc}: want at least 1")
-    if max_cc is not None and cc > max_cc:
-        raise ValueError(f"cell_cap {cc}: the CUDA M2P kernel takes 1 to "
-                         f"{max_cc} (one thread per slot)")
 
 
 def _geom_args(grid_cells, cb, box_lo, box_hi, n_ch):
@@ -324,7 +320,10 @@ def _m2p_cuda(field, cell_x, cell_mask, *, grid_cells, cb, box_lo, box_hi,
                       ("field", field, torch.float32, shape + (n_ch,)),
                       ("cell_mask", cell_mask, torch.bool, (n_cells, cc))),
                      grid_cells=grid_cells, cb=cb, n_ch=n_ch, cc=cc,
-                     precision=precision, max_cc=MAX_CELL_CAP)
+                     precision=precision)
+    if cc > MAX_CELL_CAP:
+        raise ValueError(f"cell_cap {cc}: the CUDA M2P kernel takes 1 to "
+                         f"{MAX_CELL_CAP} (one thread per slot)")
     out = torch.empty((n_cells, cc, n_ch), dtype=torch.float32,
                       device=cell_x.device)
     entry = _ENTRIES["m2p", precision]

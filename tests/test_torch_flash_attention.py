@@ -157,3 +157,19 @@ def test_split_bf16x3_sums_back_exactly():
     q1, q2, q3 = TREF.split_bf16x3(tiny)
     err = (q1.float() + (q2.float() + q3.float()) - tiny).abs()
     assert float(err.max()) <= 2.0 ** -133
+
+
+def test_flash_attention_ref_p_terms_controls():
+    """``p_terms`` 3 is fp32 p itself; 1 and 2 keep only the first bf16
+    terms of p in p·v (controls for the bf16 form's split), the first
+    farther from fp32 p than the second; anything else raises."""
+    rng = np.random.default_rng(17)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((2, 4, 40, 32), (2, 2, 48, 32), (2, 2, 48, 32)))
+    full = TREF.flash_attention_ref(q, k, v)
+    assert torch.equal(TREF.flash_attention_ref(q, k, v, p_terms=3), full)
+    gap = {n: float((TREF.flash_attention_ref(q, k, v, p_terms=n) - full)
+                    .abs().max()) for n in (1, 2)}
+    assert 0 < gap[2] < gap[1] <= 2.0 ** -7 * float(full.abs().max())
+    with pytest.raises(ValueError, match="p_terms"):
+        TREF.flash_attention_ref(q, k, v, p_terms=0)

@@ -502,6 +502,35 @@ def test_cuda_flash_attention_bf16_head_dims(card, B, H, K, Sq, Sk, hd,
     assert rel(got.float(), ref.float()) <= B5_BF16_TOL
 
 
+# The bf16 form's split of p must be exact: the share of bf16 outputs that
+# differ from plain (fp32 p) stays under half of what plain with only the
+# first one or two bf16 terms of p gives. Few keys, so that the summation
+# order flips few outputs (at 2176 keys it flips about as many as dropping
+# the third term does).
+B5_SPLIT_FRAC = 0.5
+
+
+@pytest.mark.parametrize("B,H,K,Sq,Sk,hd,causal", [
+    (8, 32, 4, 64, 16, 128, False),
+    (4, 16, 2, 128, 128, 64, True),
+])
+def test_cuda_flash_attention_bf16_split_is_exact(card, B, H, K, Sq, Sk, hd,
+                                                  causal):
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    rng = np.random.default_rng(Sk + hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .cuda().to(torch.bfloat16)
+               for s in ((B, H, Sq, hd), (B, K, Sk, hd), (B, K, Sk, hd)))
+    ref = flash_attention_ref(q, k, v, causal=causal)
+    share = lambda x: float((x != ref).float().mean())
+    got = share(FA.flash_attention(q, k, v, causal=causal))
+    for n in (1, 2):
+        control = share(flash_attention_ref(q, k, v, causal=causal,
+                                            p_terms=n))
+        assert got < B5_SPLIT_FRAC * control, (n, got, control)
+
+
 def test_cuda_mha_takes_strided_views(card):
     """ops.mha hands the kernel transposed views: no copy in, the output
     written in q's layout."""

@@ -221,21 +221,18 @@ def test_lm_cuda_backend_and_device_without_card_raise(monkeypatch):
         T.init_params(cfg, None, device="cpu")
 
 
-def test_per_source_nvcc_flags():
-    """A source's own nvcc flags come from its ``// nvcc-flags:`` line:
-    B5 links libcuda for its TMA tensor maps; the other sources
-    build with the common flags alone. The flags are part of the
-    library's name, so a change of flags rebuilds."""
+def test_library_name_keys_source_and_flags(monkeypatch):
+    """Every source builds with the common flags alone, into a library
+    named by its stem and a hash of its text and those flags, so a change
+    of either rebuilds (B5 takes the driver's tensor-map encoder through
+    the runtime and links nothing more)."""
     from repro_torch.kernels import _build
-    flags = {src.stem: _build.source_flags(src) for src in _build.sources()}
-    assert flags == {"cell_pair": [], "flash_attention": ["-lcuda"],
-                     "m4_interp": [], "stencil7": []}
-    src = next(s for s in _build.sources() if s.stem == "flash_attention")
-    stem = _build.lib_path(src).stem
-    assert stem.startswith("flash_attention-")
-    real = _build.source_flags
-    try:
-        _build.source_flags = lambda s: real(s) + ["-DX"]
-        assert _build.lib_path(src).stem != stem
-    finally:
-        _build.source_flags = real
+    names = {src: _build.lib_path(src) for src in _build.sources()}
+    assert {src.stem for src in names} == {"cell_pair", "flash_attention",
+                                          "m4_interp", "stencil7"}
+    for src, lib in names.items():
+        assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"
+        assert lib.stem.startswith(src.stem + "-")
+    assert len(set(names.values())) == len(names)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-DX",))
+    assert all(_build.lib_path(src) != lib for src, lib in names.items())
