@@ -8,7 +8,8 @@ Phases, each of which raises (non-zero exit) on failure:
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA
      versions, and the build of every CUDA kernel from the sources in the
      checkout (``nvcc``, at first use, into ``build/repro_torch/``);
-  2. the cell-pair kernel against its plain PyTorch version on the tiles
+  2. the cell-pair kernel (compacted, chunked candidates; its launch
+     geometry printed) against its plain PyTorch version on the tiles
      of the paper's MD state (216,000 particles, after 10 steps):
      max-abs relative error <= 1e-5 in fp32 and in bf16x (which must
      differ from fp32; the relative gap is printed), both timed with CUDA events; plus small
@@ -20,8 +21,9 @@ Phases, each of which raises (non-zero exit) on failure:
      raises otherwise), one kernel launch per force evaluation, finite
      positions and velocities, total-energy drift < 0.05; then the step
      time (CUDA events) and particle-steps per second;
-  4. the M'4 P2M (a shared-memory patch scatter) and M2P kernels against
-     their plain PyTorch versions on the bucket tiles of the one-card
+  4. the M'4 P2M (a shared-memory patch scatter) and M2P (a patch
+     gather) kernels against their plain PyTorch versions, their patch
+     sides printed, on the bucket tiles of the one-card
      vortex-in-cell size (800 x 200 x 200 nodes, the paper's §4.4 box at
      half its resolution per axis; 3.2e7 particles), after one step so
      particles sit off the lattice:
@@ -328,10 +330,13 @@ def b1_check(name, CP, t, body, out, r_cut, eval_flops, cell_batch,
     width = CP.KINDS[kind].width(t.cell_x.shape[-1]) if names else 0
     n_bytes, n_ops, tests, inside, bound_ms, bound_by = b1_bound(
         t, width, r_cut * r_cut, eval_flops, list(got.values()))
+    design = CP.plan(kind, prec, t.cell_x.shape[-1], t.cell_x.shape[1])
     print(f"{name}: {kernel_ms:.4f} ms kernel, {plain_ms:.3f} ms plain, "
           f"{n_bytes / 1e6:.1f} MB, {tests:.4e} tests, {inside:.4e} in "
           f"cutoff, {n_ops:.4e} flops, bound {bound_ms:.4f} ms "
-          f"({bound_by})")
+          f"({bound_by}); design: {design['threads']} threads a cell, "
+          f"tiles of {design['tile']} candidates, chunks of "
+          f"{design['chunk']} rows, {design['smem_bytes']} B shared")
     return {
         "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/cell_pair/csrc/cell_pair.cu",
@@ -342,7 +347,8 @@ def b1_check(name, CP, t, body, out, r_cut, eval_flops, cell_batch,
                    for k, (a, r) in errors.items()},
         **({"fp32_gap_rel": gaps} if fp32_out is not None else {}),
         "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}, got
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "design": design}, got
 
 
 def small_run_check(name, pairs, tol=SMALL_TOL):
@@ -467,9 +473,12 @@ def vic_kernel_checks(V, M4, K, cfg):
                 + valid * 3 * 4 * 12
             bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
             ops_ms = n_ops / FP32_FLOP_PER_S * 1e3
+            design = K.plan(name[3:], kk["grid_cells"], kk["cb"], n_ch)
             print(f"{label}: {kernel_ms:.4f} ms kernel, {plain_ms:.3f} ms "
                   f"plain, {n_bytes / 1e6:.1f} MB, {pairs:.4e} pairs, "
-                  f"{n_ops:.4e} flops, bound {max(bytes_ms, ops_ms):.4f} ms")
+                  f"{n_ops:.4e} flops, bound {max(bytes_ms, ops_ms):.4f} ms"
+                  f"; design: patches of {design['T']}^3 buckets, "
+                  f"{design['smem_bytes']} B shared a block")
             entries.append({
                 "name": label, "route": "cuda",
                 "source": "src/repro_torch/kernels/m4_interp/csrc/"
@@ -482,7 +491,7 @@ def vic_kernel_checks(V, M4, K, cfg):
                 "ms": kernel_ms, "kernel_ms": kernel_ms,
                 "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "library_ms": None})
+                "library_ms": None, "design": design})
             del got
         del f32_out
     return entries, (b, cell_val, field, x1, ps.valid, kk)

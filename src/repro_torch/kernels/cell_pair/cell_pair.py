@@ -6,7 +6,9 @@ per-cell candidate tiles (:func:`gather_cell_tiles`), applying the
 per-neighbor-cell periodic box shift so the kernel's *direct* displacement
 equals the minimum image for any grid size; the hand-written CUDA kernel
 ``csrc/cell_pair.cu`` sums a pair body over each (cc) x (K·cc) masked
-tile; per-slot sums are scattered back to particles (:func:`scatter_slots`).
+tile (staging only the valid candidates, in fixed-size chunks, with each
+functor's per-particle terms formed once per staged candidate); per-slot
+sums are scattered back to particles (:func:`scatter_slots`).
 
 :func:`cell_pair` is the tile-level entry. For CUDA tensors it launches the
 kernel, or raises if the body or precision has no CUDA form; for CPU
@@ -209,7 +211,21 @@ def _lib() -> ctypes.CDLL:
                 fn = getattr(lib, f"cell_pair_{kind}_{prec}_d{dim}")
                 fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, p, p]
                 fn.restype = i
+                fn = getattr(lib, f"cell_pair_{kind}_{prec}_d{dim}_plan")
+                fn.argtypes = [i, p]
+                fn.restype = i
     return lib
+
+
+def plan(kind: str, prec: str, dim: int, cc: int) -> dict:
+    """The launch plan of functor ``kind`` in precision ``prec`` (as in
+    its C entry's name) for cell capacity ``cc``: threads per block,
+    candidates per staging tile, rows per chunk and the dynamic shared
+    memory of a block in bytes (builds the library)."""
+    out = (ctypes.c_int * 4)()
+    entry = f"cell_pair_{kind}_{prec}_d{dim}_plan"
+    _build.check(getattr(_lib(), entry)(cc, out), entry)
+    return dict(zip(("threads", "tile", "chunk", "smem_bytes"), out))
 
 
 def _check_tiles(cell_x, nbr_x, cell_mask, nbr_mask):

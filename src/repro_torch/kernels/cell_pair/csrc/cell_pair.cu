@@ -37,40 +37,81 @@
 // SPH bf16x_drho 34.9 ms (1.24x: nvcc drops each evaluation's unused
 // output), DEM 2.63 ms (1.01x).
 //
-// Design (a simple, correct first version):
+// Design (redesigned for the card; the first version staged all K*cc
+// candidates of a cell and let every home lane walk all of them):
 //   * one thread block per home cell, cc rounded up to a warp multiple
-//     (64 threads for cc = 48); thread t owns home slot t;
-//   * the cell's K*cc candidates (position, mask, props) are staged in
-//     shared memory, (DIM + 1 + NPROP) floats each: 1296 * 16 B = 20.7 KB
-//     for MD (cc = 48, K = 27, no props);
-//   * each thread loops over the candidates, skips masked pairs before the
-//     body is evaluated (so the FILL sentinel never forms an inf or NaN),
-//     and accumulates in fp32 registers;
+//     (64 threads for cc = 48, 128 for cc = 128); thread t owns home
+//     slot t; a cell with no particle writes zeros and exits after one
+//     vote (__syncthreads_or), before reading any candidate;
+//   * compacted staging: the block reads the candidates' masks a tile at a
+//     time (rep x blockDim candidates, rep = 4, 2 or 1: the most whose
+//     chunk, below, stays within 20 KB), and a stable block-wide prefix (warp
+//     ballots, __popc, one shared count per warp and sub-tile) gives each
+//     valid candidate its row in shared memory. Only valid candidates are
+//     read from HBM and staged: position, props and the functor's
+//     per-particle terms (below), DIM + NPROP + N_HOOK floats, padded to an
+//     odd count so that the rows a warp writes at once fall in distinct
+//     banks;
+//   * fixed-size chunks: rows accumulate until the next tile might not fit
+//     a chunk of 2 x tile rows (512 for SPH at cc 128 and for MD), then
+//     the block evaluates the chunk and starts the next one. Shared memory
+//     no longer grows with K*cc: any cc up to the 1,024 home slots of a
+//     block launches (d3 SPH at cc 1,024: 2,048 rows, 74 KB);
+//   * per-particle terms: a functor may declare N_HOOK floats that depend
+//     on one particle only (SPH: the Tait term eos(rho) / max(rho^2, 1e-6),
+//     once per precision it evaluates). They are formed once per staged
+//     candidate and once per home slot, by the same explicitly rounded
+//     operations as before, so the pair body sees bit-equal values;
+//   * each home lane walks the chunk's rows in order (a broadcast read
+//     per row), tests the cutoff and evaluates the body on the rows inside
+//     it. The chunks follow the candidate order, so each slot's fp32 sum
+//     adds its terms in the same order as the first version (the two give
+//     bit-equal outputs on the card tiles of every functor and precision);
 //   * dx and r2 are computed with explicitly rounded operations
 //     (__fmul_rn/__fadd_rn, never contracted into an FMA) in the same order
 //     as the plain PyTorch version, so the cutoff and self-exclusion tests
-//     decide every pair identically on both paths;
-//   * a block whose home cell holds no particle writes zeros and exits
-//     after one vote (__syncthreads_or), before staging anything;
-//   * the grid covers C cells exactly; no padding to a block multiple.
+//     decide every pair identically on both paths.
 //
 // What bounds the LJ form on the H100: memory. At the MD size (216,000 particles,
-// 12,167 cells, cc = 48, K = 27) the inputs are nbr_x 12,167 * 1296 * 3 *
-// 4 B = 189 MB, nbr_mask 16 MB, cell_x and out 7 MB each: about 220 MB, or
-// 66 us at 3.35 TB/s. The arithmetic is about 1.0e8 candidate tests and
-// 1.5e7 in-cutoff LJ evaluations, near 1 GFLOP, 16 us at 67 TFLOP/s fp32.
-// The K-fold candidate pre-gather (each position is written 27 times by
-// the gather and read 27 times here) is the cost; reading candidates
-// through the neighbourhood table inside the kernel would remove it and is
-// left to a later change, which keeps these inputs for now.
+// 12,167 cells, cc = 48, K = 27) a kernel needs both masks whole and the
+// data of the valid slots only, and writes the forces once: 0.0286 ms at
+// 3.35 TB/s (chip_smoke.py's count). The arithmetic is about 1.0e8
+// candidate tests and 1.5e7 in-cutoff LJ evaluations, near 1 GFLOP, 16 us
+// at 67 TFLOP/s fp32. The K-fold candidate pre-gather (each position is
+// written 27 times by the gather and read 27 times here) costs more than
+// the kernel; reading candidates through the neighbourhood table inside
+// the kernel would remove it and is left to a later change.
 //
-// Measured on an H100 80GB HBM3 (700 W) at that size: about 1.24 ms, 19x
-// the bytes bound. This simple form is limited by instruction issue and
-// shared-memory latency, not by memory: every lane walks all K*cc
-// candidates (about 63% of them empty slots), in-cutoff lanes diverge
-// through two IEEE divisions, and 64-thread blocks with ~18 busy lanes
-// leave few warps to hide latency. Compacting the valid candidates at
-// staging and giving a block more home slots are the first remedies.
+// The first version took 1.26 ms for LJ, 28.2 ms for SPH and 2.59 ms for
+// DEM on an H100 80GB HBM3 (700 W), 44x, 102x and 26x their bounds: every
+// home lane walked all K*cc candidates (two thirds of them empty slots),
+// the in-cutoff body ran for a warp whenever one lane passed, SPH formed
+// its two Tait terms (two powf, two divisions) for every pair, and SPH's
+// 110.6 KB of staged candidates left two blocks, 8 warps, on an SM.
+// Prediction for this design, written before its first timed run: SPH
+// 2-5 ms (about 9e8 warp instructions: 2.5e7 warp steps of the scan and
+// 8.3e7 pairs evaluated through the lists at ~70% lane use), LJ 0.5-0.9
+// ms, DEM 2.0-2.6 ms (most of its 226,800 blocks hold no grain and exit
+// after the vote, as before), the bf16x forms about 1.3x their fp32 times.
+// Measured (chip_smoke.py phases 2 and 6, H100 80GB HBM3, 700 W; each
+// output bit-equal to the first version's): LJ 0.481 ms (bf16x 1.007),
+// SPH 3.29 ms (bf16x 6.65, bf16x:drho 6.17), DEM 0.423 ms (bf16x 0.482),
+// 17x, 12x and 4.2x their bounds. The SPH kernel spends 0.43 ms staging,
+// 0.60 more scanning (a variant with a trivial body) and the rest, 2.2
+// ms, in the in-cutoff body; DEM's 0.33 ms of staging is mostly reading
+// its 152 MB of masks.
+//
+// Tried and dropped, measured on an H100 80GB HBM3 (700 W) against this
+// form in one run: per-lane lists of in-cutoff rows (each warp scanning a
+// chunk in lock step, every lane appending its in-cutoff rows to a
+// 32-entry list in shared memory, the warp evaluating the lists when one
+// is full), so that the body runs on in-cutoff pairs only. It kept the
+// summation order but was slower for SPH (6.20 against 5.24 ms; bf16x
+// 9.86 against 9.45, bf16x:drho 9.18 against 8.74) and for LJ (0.663
+// against 0.474), faster only for LJ bf16x (0.840 against 1.017) and DEM
+// (0.466 against 0.479): the lanes' lists differ in length, and the list
+// reads hit shared-memory banks at random, so divergence is not what
+// bounds the body here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -140,10 +181,14 @@ struct Ops {
   }
 };
 
-// The body interface: operator()(dx, r2, wi, wj, radial, scalar) takes
-// the fp32 geometry and the fp32 props of one pair that passed the mask,
-// and writes radial[k * DIM + d] (the per-pair term of radial output k)
-// and scalar[k].
+// The body interface: operator()(dx, r2, wi, wj, hi, hj, radial, scalar)
+// takes the fp32 geometry and the fp32 props of one pair that passed the
+// mask, with each side's per-particle terms hi / hj, and writes
+// radial[k * DIM + d] (the per-pair term of radial output k) and
+// scalar[k]. N_HOOK is the number of per-particle terms and hook(w, h)
+// forms them from one particle's props (the kernel calls it once per
+// staged candidate and once per home slot); a body without any declares
+// N_HOOK = 0 and an empty hook.
 
 // Lennard-Jones force body (src/repro/apps/md.py `lj_pair_body`; plain
 // version repro_torch/apps/md.py `LJPairBody`):
@@ -158,11 +203,18 @@ struct LJBody {
   float s2;     // sigma^2
   float eps24;  // 24 * epsilon
 
+  static constexpr int N_HOOK = 0;
+
   static LJBody from(const float* p) { return LJBody{p[0], p[1]}; }
+
+  __device__ __forceinline__ void hook(const float* /*w*/,
+                                       float* /*h*/) const {}
 
   __device__ __forceinline__ void operator()(const float* dx, float r2,
                                              const float* /*wi*/,
                                              const float* /*wj*/,
+                                             const float* /*hi*/,
+                                             const float* /*hj*/,
                                              float* radial,
                                              float* /*scalar*/) const {
     using O = Ops<P>;
@@ -193,7 +245,10 @@ struct LJBody {
 // type); in fp32 the plain version takes rho/rho0 as rho * (1/rho0), so
 // both round alike. The q <= 1, q <= 2 and vr < 0 branches are selects: the body only
 // runs on pairs that passed the mask, and neither branch can form a NaN
-// there.
+// there. The Tait term eos(rho) / max(rho^2, 1e-6) of each side depends
+// on that particle only: it is the body's one per-particle term (hook),
+// formed from the rounded rho by the same operations as the plain
+// version's per-pair expression, so it is bit-equal to it.
 template <class P, int DIM_>
 struct SPHBody {
   static constexpr int DIM = DIM_;
@@ -201,6 +256,8 @@ struct SPHBody {
   static constexpr int N_SCALAR = 1;
   float h, inv_h, alpha_d, c_w2, rho0, inv_rho0, gamma, b_eos, eta2, visc,
       neg_m, m;
+
+  static constexpr int N_HOOK = 1;
 
   static SPHBody from(const float* p) {
     return SPHBody{p[0], p[1], p[2], p[3], p[4],  p[5],
@@ -214,9 +271,18 @@ struct SPHBody {
         O::sub(O::pow(O::div_scalar(rho, rho0, inv_rho0), P::r(gamma)), 1.0f));
   }
 
+  // w: v_0 .. v_{DIM-1}, rho -> h[0] = eos(rho) / max(rho^2, 1e-6)
+  __device__ __forceinline__ void hook(const float* w, float* h) const {
+    using O = Ops<P>;
+    const float rho = P::r(w[DIM]);
+    h[0] = O::div(eos(rho), O::max(O::mul(rho, rho), 1e-6f));
+  }
+
   __device__ __forceinline__ void operator()(const float* dx_in, float r2_in,
                                              const float* wi_in,
                                              const float* wj_in,
+                                             const float* hi,
+                                             const float* hj,
                                              float* radial,
                                              float* scalar) const {
     using O = Ops<P>;
@@ -247,10 +313,7 @@ struct SPHBody {
     const float rho_bar = O::mul(0.5f, O::add(rho_i, rho_j));
     const float pi_visc =
         vr < 0.0f ? O::div(O::mul(P::r(visc), mu), rho_bar) : 0.0f;
-    const float coef = O::add(
-        O::add(O::div(eos(rho_i), O::max(O::mul(rho_i, rho_i), 1e-6f)),
-               O::div(eos(rho_j), O::max(O::mul(rho_j, rho_j), 1e-6f))),
-        pi_visc);
+    const float coef = O::add(O::add(hi[0], hj[0]), pi_visc);
     const float mag = O::mul(O::mul(P::r(neg_m), coef), gw);
 #pragma unroll
     for (int d = 0; d < DIM; ++d) radial[d] = P::term(mag, dx[d]);
@@ -275,13 +338,20 @@ struct DEMNormalBody {
   static constexpr int N_SCALAR = 0;
   float two_R, inv_two_R, kn, gn_meff;
 
+  static constexpr int N_HOOK = 0;
+
   static DEMNormalBody from(const float* p) {
     return DEMNormalBody{p[0], p[1], p[2], p[3]};
   }
 
+  __device__ __forceinline__ void hook(const float* /*w*/,
+                                       float* /*h*/) const {}
+
   __device__ __forceinline__ void operator()(const float* dx_in, float r2,
                                              const float* wi_in,
                                              const float* wj_in,
+                                             const float* /*hi*/,
+                                             const float* /*hj*/,
                                              float* radial,
                                              float* /*scalar*/) const {
     using O = Ops<P>;
@@ -313,11 +383,13 @@ struct DEMNormalBody {
 // `bf16x:<names>`: the body evaluated under both precisions, each output
 // taking its own (B32 and B16 are one functor at F32 and at BF16).
 // RAD16 / SCA16: the radial / scalar outputs take the bf16 evaluation.
+// The per-particle terms are both functors', fp32 first.
 template <class B32, class B16, bool RAD16, bool SCA16>
 struct MixedBody {
   static constexpr int DIM = B32::DIM;
   static constexpr int N_RADIAL = B32::N_RADIAL;
   static constexpr int N_SCALAR = B32::N_SCALAR;
+  static constexpr int N_HOOK = B32::N_HOOK + B16::N_HOOK;
   B32 f32;
   B16 bf16;
 
@@ -325,13 +397,20 @@ struct MixedBody {
     return MixedBody{B32::from(p), B16::from(p)};
   }
 
+  __device__ __forceinline__ void hook(const float* w, float* h) const {
+    f32.hook(w, h);
+    bf16.hook(w, h + B32::N_HOOK);
+  }
+
   __device__ __forceinline__ void operator()(const float* dx, float r2,
                                              const float* wi,
-                                             const float* wj, float* radial,
+                                             const float* wj,
+                                             const float* hi,
+                                             const float* hj, float* radial,
                                              float* scalar) const {
     float rad16[N_RADIAL * DIM], sca16[N_SCALAR > 0 ? N_SCALAR : 1];
-    f32(dx, r2, wi, wj, radial, scalar);
-    bf16(dx, r2, wi, wj, rad16, sca16);
+    f32(dx, r2, wi, wj, hi, hj, radial, scalar);
+    bf16(dx, r2, wi, wj, hi + B32::N_HOOK, hj + B32::N_HOOK, rad16, sca16);
     if (RAD16) {
 #pragma unroll
       for (int i = 0; i < N_RADIAL * DIM; ++i) radial[i] = rad16[i];
@@ -348,8 +427,61 @@ struct AtLeastOne {
   static constexpr int value = N > 0 ? N : 1;
 };
 
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_REP = 4;     // sub-tiles of blockDim candidates per tile
+// A chunk's rows stay within this many bytes of shared memory unless a
+// tile of one sub-tile (blockDim candidates) needs more, so that several
+// blocks share an SM.
+constexpr size_t CHUNK_BYTES = 20 * 1024;
+
+// Floats per staged row: position, props, per-particle terms; padded to
+// an odd count so that the rows that the lanes of a warp stage at once
+// fall in distinct banks.
+template <class Body, int NPROP>
+struct Row {
+  static constexpr int S = (Body::DIM + NPROP + Body::N_HOOK) | 1;
+};
+
+// The launch geometry of a cell capacity cc: threads, sub-tiles per tile
+// (the most, up to MAX_REP, whose chunk of 2 x tile rows fits
+// CHUNK_BYTES), chunk rows and dynamic shared memory.
+struct Plan {
+  int threads, rep, chunk;
+  size_t smem;
+};
+
+template <class Body, int NPROP>
+Plan plan_for(int cc) {
+  Plan p;
+  p.threads = ((cc + 31) / 32) * 32;
+  constexpr size_t row_bytes = sizeof(float) * Row<Body, NPROP>::S;
+  p.rep = MAX_REP;
+  while (p.rep > 1 && 2 * p.rep * p.threads * row_bytes > CHUNK_BYTES)
+    p.rep /= 2;
+  p.chunk = 2 * p.rep * p.threads;
+  const int warps = p.threads / 32;
+  p.smem = sizeof(float) * static_cast<size_t>(p.chunk) * Row<Body, NPROP>::S
+           + sizeof(int) * 2 * MAX_REP * warps;
+  return p;
+}
+
+// dx = xi - xj and r2 with explicitly rounded operations, in the plain
+// version's order.
+template <int DIM>
+__device__ __forceinline__ float geometry(const float* xi, const float* xj,
+                                          float* dx) {
+  float r2 = 0.0f;
+#pragma unroll
+  for (int d = 0; d < DIM; ++d) {
+    dx[d] = __fsub_rn(xi[d], xj[d]);
+    const float sq = __fmul_rn(dx[d], dx[d]);
+    r2 = d == 0 ? sq : __fadd_rn(r2, sq);
+  }
+  return r2;
+}
+
 template <class Body, int DIM, int NPROP>
-__global__ void cell_pair_kernel(
+__global__ void __launch_bounds__(1024) cell_pair_kernel(
     const float* __restrict__ cell_x,      // (C, cc, DIM)
     const float* __restrict__ nbr_x,       // (C, kcc, DIM)
     const bool* __restrict__ cell_mask,    // (C, cc)
@@ -358,16 +490,22 @@ __global__ void cell_pair_kernel(
     const float* __restrict__ props_j,     // (C, kcc, NPROP), unused if 0
     float* __restrict__ out_radial,        // (N_RADIAL, C, cc, DIM)
     float* __restrict__ out_scalar,        // (N_SCALAR, C, cc)
-    int C, int cc, int kcc, float rc2, Body body) {
+    int C, int cc, int kcc, float rc2, Body body, int rep, int chunk) {
   static_assert(Body::DIM == DIM, "the body is built for another DIM");
-  constexpr int S = DIM + 1 + NPROP;       // floats per staged candidate
+  constexpr int S = Row<Body, NPROP>::S;
+  constexpr int NH = Body::N_HOOK;
   constexpr int NP = AtLeastOne<NPROP>::value;
+  constexpr int NHP = AtLeastOne<NH>::value;
   constexpr int NR = AtLeastOne<Body::N_RADIAL>::value;
   constexpr int NS = AtLeastOne<Body::N_SCALAR>::value;
-  extern __shared__ float s_cand[];
+  extern __shared__ float smem[];
 
   const int c = blockIdx.x;
   const int t = threadIdx.x;
+  const int T = blockDim.x;
+  const int warps = T / 32, warp = t / 32, lane = t % 32;
+  float* s_rows = smem;                                    // chunk x S
+  int* s_cnt = reinterpret_cast<int*>(smem + static_cast<size_t>(chunk) * S);
   const size_t slot = static_cast<size_t>(c) * cc + t;
   const size_t n_slots = static_cast<size_t>(C) * cc;
   const bool home = t < cc && cell_mask[slot];
@@ -381,51 +519,89 @@ __global__ void cell_pair_kernel(
 #pragma unroll
   for (int k = 0; k < NS; ++k) acc_s[k] = 0.0f;
 
-  // A cell with no particle stages nothing and writes zeros (most cells
-  // of the SPH tank's air and of the DEM box are empty).
+  // A cell with no particle reads no candidate and writes zeros (most
+  // cells of the SPH tank's air and of the DEM box are empty).
   if (__syncthreads_or(home)) {
-    const float* nx = nbr_x + static_cast<size_t>(c) * kcc * DIM;
-    for (int i = t; i < kcc * DIM; i += blockDim.x)
-      s_cand[(i / DIM) * S + (i % DIM)] = nx[i];
+    float xi[DIM], wi[NP], hi[NHP];
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) xi[d] = home ? cell_x[slot * DIM + d] : 0.0f;
+#pragma unroll
+    for (int p = 0; p < NPROP; ++p)
+      wi[p] = home ? props_i[slot * NPROP + p] : 0.0f;
+    if (home) body.hook(wi, hi);
     const bool* nm = nbr_mask + static_cast<size_t>(c) * kcc;
-    for (int j = t; j < kcc; j += blockDim.x)
-      s_cand[j * S + DIM] = nm[j] ? 1.0f : 0.0f;
-    if (NPROP > 0) {
-      const float* pj = props_j + static_cast<size_t>(c) * kcc * NPROP;
-      for (int i = t; i < kcc * NPROP; i += blockDim.x)
-        s_cand[(i / NP) * S + DIM + 1 + (i % NP)] = pj[i];
-    }
-    __syncthreads();
+    const size_t cand0 = static_cast<size_t>(c) * kcc;
+    const unsigned below = (1u << lane) - 1u;
 
-    if (home) {
-      float xi[DIM];
+    int n = 0, parity = 0;
+    const int tile = rep * T;
+    for (int base = 0; base < kcc; base += tile) {
+      // -- stable compaction of this tile's valid candidates -------------
+      bool v[MAX_REP];
+      int pre[MAX_REP];
+      int* cnt = s_cnt + parity * MAX_REP * warps;
 #pragma unroll
-      for (int d = 0; d < DIM; ++d) xi[d] = cell_x[slot * DIM + d];
-      float wi[NP];
-#pragma unroll
-      for (int p = 0; p < NPROP; ++p) wi[p] = props_i[slot * NPROP + p];
-      for (int j = 0; j < kcc; ++j) {
-        const float* cj = s_cand + j * S;
-        if (cj[DIM] == 0.0f) continue;
-        float dx[DIM];
-        float r2 = 0.0f;
-#pragma unroll
-        for (int d = 0; d < DIM; ++d) {
-          dx[d] = __fsub_rn(xi[d], cj[d]);
-          const float sq = __fmul_rn(dx[d], dx[d]);
-          r2 = d == 0 ? sq : __fadd_rn(r2, sq);
-        }
-        if (!(r2 < rc2 && r2 > 1e-12f)) continue;
-        float rad[NR * DIM];
-        float sca[NS];
-        body(dx, r2, wi, cj + DIM + 1, rad, sca);
-#pragma unroll
-        for (int k = 0; k < Body::N_RADIAL; ++k)
-#pragma unroll
-          for (int d = 0; d < DIM; ++d) acc_r[k][d] += rad[k * DIM + d];
-#pragma unroll
-        for (int k = 0; k < Body::N_SCALAR; ++k) acc_s[k] += sca[k];
+      for (int r = 0; r < MAX_REP; ++r) {
+        const int j = base + r * T + t;
+        v[r] = r < rep && j < kcc && nm[j];
       }
+#pragma unroll
+      for (int r = 0; r < MAX_REP; ++r) {
+        if (r >= rep) break;
+        const unsigned b = __ballot_sync(FULL, v[r]);
+        pre[r] = __popc(b & below);
+        if (lane == 0) cnt[r * warps + warp] = __popc(b);
+      }
+      __syncthreads();
+      int total = 0;
+#pragma unroll
+      for (int r = 0; r < MAX_REP; ++r) {
+        if (r >= rep) break;
+        for (int w = 0; w < warps; ++w) {
+          if (w == warp) pre[r] += n + total;
+          total += cnt[r * warps + w];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < MAX_REP; ++r) {
+        if (r >= rep || !v[r]) continue;
+        const size_t j = cand0 + base + r * T + t;
+        float* row = s_rows + pre[r] * S;
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) row[d] = nbr_x[j * DIM + d];
+        float wj[NP];
+#pragma unroll
+        for (int p = 0; p < NPROP; ++p) {
+          wj[p] = props_j[j * NPROP + p];
+          row[DIM + p] = wj[p];
+        }
+        if (NH > 0) body.hook(wj, row + DIM + NPROP);
+      }
+      n += total;
+      parity ^= 1;
+      if (n <= chunk - tile && base + tile < kcc) continue;
+
+      // -- the chunk: each home lane walks its rows in order -------------
+      __syncthreads();
+      if (home) {
+        for (int jj = 0; jj < n; ++jj) {
+          const float* cj = s_rows + jj * S;
+          float dx[DIM];
+          const float r2 = geometry<DIM>(xi, cj, dx);
+          if (!(r2 < rc2 && r2 > 1e-12f)) continue;
+          float rad[NR * DIM];
+          float sca[NS];
+          body(dx, r2, wi, cj + DIM, hi, cj + DIM + NPROP, rad, sca);
+#pragma unroll
+          for (int q = 0; q < Body::N_RADIAL; ++q)
+#pragma unroll
+            for (int d = 0; d < DIM; ++d) acc_r[q][d] += rad[q * DIM + d];
+#pragma unroll
+          for (int q = 0; q < Body::N_SCALAR; ++q) acc_s[q] += sca[q];
+        }
+      }
+      __syncthreads();
+      n = 0;
     }
   }
   if (t >= cc) return;
@@ -446,27 +622,24 @@ int launch(const void* cell_x, const void* nbr_x, const void* cell_mask,
            void* out_radial, void* out_scalar, int C, int cc, int kcc,
            float rc2, const float* params, void* stream) {
   constexpr int DIM = Body::DIM;
-  constexpr int S = DIM + 1 + NPROP;
-  const int threads = ((cc + 31) / 32) * 32;
-  const size_t smem = static_cast<size_t>(kcc) * S * sizeof(float);
+  const Plan p = plan_for<Body, NPROP>(cc);
   auto kern = cell_pair_kernel<Body, DIM, NPROP>;
-  if (smem > 48 * 1024) {
-    // above 48 KB only as opted-in dynamic shared memory; this fails
-    // past the card's 227 KB per block, and the caller raises
+  if (p.smem > 48 * 1024) {
+    // above 48 KB only as opted-in dynamic shared memory
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        static_cast<int>(p.smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if (C > 0) {
-    kern<<<C, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+    kern<<<C, p.threads, p.smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(cell_x), static_cast<const float*>(nbr_x),
         static_cast<const bool*>(cell_mask),
         static_cast<const bool*>(nbr_mask),
         static_cast<const float*>(props_i),
         static_cast<const float*>(props_j),
         static_cast<float*>(out_radial), static_cast<float*>(out_scalar), C,
-        cc, kcc, rc2, Body::from(params));
+        cc, kcc, rc2, Body::from(params), p.rep, p.chunk);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -475,6 +648,21 @@ template <int DIM>
 using SPH32 = SPHBody<F32, DIM>;
 template <int DIM>
 using SPH16 = SPHBody<BF16, DIM>;
+template <int DIM>
+using SPHDrho = MixedBody<SPH32<DIM>, SPH16<DIM>, false, true>;
+template <int DIM>
+using SPHAcc = MixedBody<SPH32<DIM>, SPH16<DIM>, true, false>;
+
+template <class Body, int NPROP>
+int plan_entry(int cc, int* out) {
+  if (cc < 1 || cc > 1024) return 1;   // cudaErrorInvalidValue
+  const Plan p = plan_for<Body, NPROP>(cc);
+  out[0] = p.threads;
+  out[1] = p.rep * p.threads;
+  out[2] = p.chunk;
+  out[3] = static_cast<int>(p.smem);
+  return 0;
+}
 
 }  // namespace
 
@@ -484,7 +672,9 @@ using SPH16 = SPHBody<BF16, DIM>;
 // out_radial (C, cc, DIM) and out_scalar (C, cc) or null, the sizes, the
 // squared cutoff, the body's float params (a host array, in the order its
 // functor lists) and the stream. Each returns cudaGetLastError() after the
-// launch (or the error of the shared-memory opt-in).
+// launch (or the error of the shared-memory opt-in). Beside each, <entry>_plan(cc, out)
+// writes the launch geometry for a cell capacity cc: threads per block,
+// candidates per staging tile, rows per chunk, dynamic shared-memory bytes.
 #define CELL_PAIR_ARGS                                                     \
   const void *cell_x, const void *nbr_x, const void *cell_mask,            \
       const void *nbr_mask, const void *props_i, const void *props_j,      \
@@ -493,17 +683,15 @@ using SPH16 = SPHBody<BF16, DIM>;
 #define CELL_PAIR_PASS                                                     \
   cell_x, nbr_x, cell_mask, nbr_mask, props_i, props_j, out_radial,        \
       out_scalar, C, cc, kcc, rc2, params, stream
+#define CELL_PAIR_ENTRY(NAME, BODY, NPROP)                                 \
+  int NAME(CELL_PAIR_ARGS) { return launch<BODY, NPROP>(CELL_PAIR_PASS); } \
+  int NAME##_plan(int cc, int *out) { return plan_entry<BODY, NPROP>(cc, out); }
 
 extern "C" {
 
 // LJ forces: DIM 3, no props, out_radial "f"; fp32 and bf16x.
-int cell_pair_lj_f32_d3(CELL_PAIR_ARGS) {
-  return launch<LJBody<F32>, 0>(CELL_PAIR_PASS);
-}
-
-int cell_pair_lj_bf16x_d3(CELL_PAIR_ARGS) {
-  return launch<LJBody<BF16>, 0>(CELL_PAIR_PASS);
-}
+CELL_PAIR_ENTRY(cell_pair_lj_f32_d3, LJBody<F32>, 0)
+CELL_PAIR_ENTRY(cell_pair_lj_bf16x_d3, LJBody<BF16>, 0)
 
 // SPH rates, 2-D: NPROP 3 (v, rho), out_radial "a", out_scalar "drho".
 //
@@ -511,9 +699,7 @@ int cell_pair_lj_bf16x_d3(CELL_PAIR_ARGS) {
 // with `sph_pair_body`. At the 2-D check size (dp 0.04 in a 1.0 x 0.5
 // tank, 642 particles, 14 x 7 cells, cc 64, K = 9) the bound is launch
 // latency; the entry exists for the 2-D dam break and its tests.
-int cell_pair_sph_f32_d2(CELL_PAIR_ARGS) {
-  return launch<SPH32<2>, 3>(CELL_PAIR_PASS);
-}
+CELL_PAIR_ENTRY(cell_pair_sph_f32_d2, SPH32<2>, 3)
 
 // SPH rates, 3-D: NPROP 4 (v, rho), out_radial "a", out_scalar "drho".
 //
@@ -525,55 +711,30 @@ int cell_pair_sph_f32_d2(CELL_PAIR_ARGS) {
 // at 3.35 TB/s (10 steps after the dam's release). The arithmetic is
 // 7.6e8 candidate tests (8 flops) and 8.3e7 in-cutoff evaluations (55,
 // powf and divisions counted as one): 1.1e10 flops, 0.16 ms at 67
-// TFLOP/s. Memory binds it.
+// TFLOP/s. Memory binds the function; instruction issue binds the
+// kernel.
 //
-// The simple design: one block per home cell (128 threads, one per home
-// slot); the cell's 3,456 candidates staged in shared memory at 8 floats
-// each, 110.6 KB, so the launch opts in above 48 KB and two blocks share
-// an SM; each thread walks every candidate, skips empty slots and pairs
-// outside the cutoff before the body, and sums in fp32 registers. Most
-// slots of a 128-slot cell are empty (12 particles per cell on average),
-// and a cell with no particle exits after one vote.
-//
-// Measured on an H100 80GB HBM3 (700 W) at that size: 28.2 ms, 102x the
-// bound, and 156x faster than the plain version. Every home lane walks
-// all 3,456 candidates (valid ones are about a third in the fluid), and
-// the in-cutoff body (two powf, six IEEE divisions) diverges across the
-// lanes; 8 warps an SM hide little latency.
-int cell_pair_sph_f32_d3(CELL_PAIR_ARGS) {
-  return launch<SPH32<3>, 4>(CELL_PAIR_PASS);
-}
+// The first version (one block per cell staging all 3,456 candidates,
+// 110.6 KB; every lane walking all of them; two powf and six divisions
+// per in-cutoff pair) took 28.2 ms on an H100 80GB HBM3 (700 W), 102x the
+// bound. This design, per fluid cell of ~43 particles: blocks of 128
+// threads, tiles of 256 candidates, chunks of up to 512 rows of 9 floats
+// (18 KB, so ten blocks, 40 warps, share an SM, as many as the registers
+// allow), about 1,160 valid candidates staged with their Tait term, and
+// 43 home lanes walking them and evaluating ~146 in-cutoff pairs each.
+// Measured on an H100 80GB HBM3 (700 W): 3.29 ms, 12x the bound.
+CELL_PAIR_ENTRY(cell_pair_sph_f32_d3, SPH32<3>, 4)
 
 // SPH under bf16x (both outputs from the bf16 evaluation), bf16x:drho
 // (drho bf16, a fp32) and bf16x:a (a bf16, drho fp32), 2-D and 3-D. The
-// mixed forms evaluate the body twice per pair.
-int cell_pair_sph_bf16x_d2(CELL_PAIR_ARGS) {
-  return launch<SPH16<2>, 3>(CELL_PAIR_PASS);
-}
-
-int cell_pair_sph_bf16x_d3(CELL_PAIR_ARGS) {
-  return launch<SPH16<3>, 4>(CELL_PAIR_PASS);
-}
-
-int cell_pair_sph_bf16x_drho_d2(CELL_PAIR_ARGS) {
-  return launch<MixedBody<SPH32<2>, SPH16<2>, false, true>, 3>(
-      CELL_PAIR_PASS);
-}
-
-int cell_pair_sph_bf16x_drho_d3(CELL_PAIR_ARGS) {
-  return launch<MixedBody<SPH32<3>, SPH16<3>, false, true>, 4>(
-      CELL_PAIR_PASS);
-}
-
-int cell_pair_sph_bf16x_a_d2(CELL_PAIR_ARGS) {
-  return launch<MixedBody<SPH32<2>, SPH16<2>, true, false>, 3>(
-      CELL_PAIR_PASS);
-}
-
-int cell_pair_sph_bf16x_a_d3(CELL_PAIR_ARGS) {
-  return launch<MixedBody<SPH32<3>, SPH16<3>, true, false>, 4>(
-      CELL_PAIR_PASS);
-}
+// mixed forms evaluate the body twice per pair and stage both
+// precisions' Tait terms.
+CELL_PAIR_ENTRY(cell_pair_sph_bf16x_d2, SPH16<2>, 3)
+CELL_PAIR_ENTRY(cell_pair_sph_bf16x_d3, SPH16<3>, 4)
+CELL_PAIR_ENTRY(cell_pair_sph_bf16x_drho_d2, SPHDrho<2>, 3)
+CELL_PAIR_ENTRY(cell_pair_sph_bf16x_drho_d3, SPHDrho<3>, 4)
+CELL_PAIR_ENTRY(cell_pair_sph_bf16x_a_d2, SPHAcc<2>, 3)
+CELL_PAIR_ENTRY(cell_pair_sph_bf16x_a_d3, SPHAcc<3>, 4)
 
 // DEM normal forces: DIM 3, NPROP 3 (v), out_radial "f".
 //
@@ -583,17 +744,14 @@ int cell_pair_sph_bf16x_a_d3(CELL_PAIR_ARGS) {
 // (152 MB, nearly all false), the valid slots' data and the output come
 // to 337 MB, 0.10 ms at 3.35 TB/s; 3.9e6 tests and 4.2e5 evaluations
 // are 4.3e7 flops. Memory binds it.
-// The design is the SPH one with 32-thread blocks and 7 floats a
-// candidate (18.1 KB); 0.3 grains per cell on average, so most blocks
-// exit after the vote. Measured on an H100 80GB HBM3 (700 W): 2.59 ms,
-// 26x the bound: the 226,800 blocks, a fifth of them busy, each with one
-// warp, are short of warps and of work.
-int cell_pair_dem_f32_d3(CELL_PAIR_ARGS) {
-  return launch<DEMNormalBody<F32>, 3>(CELL_PAIR_PASS);
-}
-
-int cell_pair_dem_bf16x_d3(CELL_PAIR_ARGS) {
-  return launch<DEMNormalBody<BF16>, 3>(CELL_PAIR_PASS);
-}
+// The design is the SPH one with 32-thread blocks, tiles of 128
+// candidates and chunks of 256 rows of 7 floats; 0.3 grains per cell on
+// average, so most blocks exit after the vote. The first version took
+// 2.59 ms on an H100 80GB HBM3 (700 W), 26x the bound: the 226,800
+// blocks, a fifth of them busy, each with one warp, are short of warps
+// and of work. This design: 0.423 ms there (bf16x 0.482), 4.2x the
+// bound, on the same H100.
+CELL_PAIR_ENTRY(cell_pair_dem_f32_d3, DEMNormalBody<F32>, 3)
+CELL_PAIR_ENTRY(cell_pair_dem_bf16x_d3, DEMNormalBody<BF16>, 3)
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // M'4 particle-mesh interpolation for Hopper (sm_90a): P2M as a
-// shared-memory patch scatter and the fused M2P gather, over particles
-// pre-bucketed into interpolation cells of cb mesh nodes per axis.
+// shared-memory patch scatter and the fused M2P as a patch gather, over
+// particles pre-bucketed into interpolation cells of cb mesh nodes per
+// axis.
 //
 // Replaces the Pallas TPU kernels in src/repro/kernels/m4_interp/
 // m4_interp.py: `_p2m_kernel` (launched by `p2m_cells`) and `_m2p_kernel`
@@ -12,8 +13,8 @@
 // fp32, as the plain versions' bf16-rounded fp32 `bmm` computes them.
 // The operands stay fp32 in memory and are rounded where they are used,
 // so the bytes bound is fp32's; measured on an H100 80GB HBM3 (700 W) at
-// the VIC size below, the owner-gather P2M 158 ms (1.04x fp32) and M2P
-// 65 ms (0.97x).
+// the VIC size below, the patch scatter P2M 11.32 ms (1.01x fp32) and the
+// patch gather M2P 7.15 ms (1.05x).
 //
 //   P2M  field[node] = sum over the 3^DIM neighbour buckets b, slots s:
 //          mask_s * prod_d M'4((node_d - x_sd - shift_bd) / h_d) * val_s
@@ -24,11 +25,12 @@
 //        node_d = ((cell_d + off_d) * cb + i) * h_d + lo_d from the
 //        UNWRAPPED block index; F is read from the wrapped block.
 //
-// M2P gives each slot one owner thread, so it needs no atomics and its
-// summation order is fixed: the offsets are walked in
-// itertools.product((-1, 0, 1), repeat=DIM) order, every one of them every
-// time. On a grid with fewer than 3 cells along an axis two offsets fetch
-// the same bucket, each with its own image; deduplicating would drop one.
+// M2P gives each valid particle one thread, so it needs no atomics and
+// its summation order is fixed: the window order (axis 0 outermost, the
+// nodes ascending along each axis). Its window is the unwrapped node range
+// of the 3^DIM blocks around the particle's bucket, as in the Pallas
+// kernel: on a grid with fewer than 3 cells along an axis two offsets
+// fetch the same block, each with its own image, and both count.
 // P2M sums each node's contributions with shared-memory atomics, in an
 // order that changes from run to run: its fp32 result agrees with the
 // plain version's to the summation order (1e-5 relative), and two runs may
@@ -63,12 +65,21 @@
 //     box in registers, one add per node) was tried and ran slower: it
 //     tests every table particle against every column. An atomic-free
 //     gather from particles binned by base node is the next step.
-//   * M2P (a simple, correct first version): one block per bucket, one
-//     thread per slot (cc rounded up to a warp multiple). Per offset the
-//     block stages the wrapped neighbour field block (cb^DIM x C) in
-//     shared memory; each thread computes its DIM x cb per-axis weights
-//     and sums over the nodes with a nonzero product, skipping an axis
-//     index as soon as its factor is zero.
+//   * M2P (redesigned for the card; the first version gave each bucket a
+//     block and each slot a thread, staged the 27 neighbour blocks one at
+//     a time and formed DIM x cb weights for each, 324 a particle): a
+//     block of 256 threads owns a patch of T^DIM buckets (T = 2 at cb 4,
+//     C 6, DIM 3) and stages once the field nodes its particles reach, the
+//     patch's own and two more on each side along each axis (12^3 nodes,
+//     41.5 KB), in rows and planes padded so that a warp of consecutive
+//     slots reads 32 banks. Each warp queues the valid slots of its buckets
+//     and gives each lane one particle; an empty slot only gets its zeros.
+//     A particle forms its 6 candidate weights per axis once (18, about 4
+//     per axis nonzero), bit-equal to the first version's, and sums the
+//     products over the nonzero span (4 nodes per axis, or 5 where a
+//     rounding leaves a tiny weight at distance 2, for a particle on a
+//     node) from shared memory in registers. A particle whose span leaves
+//     the staged nodes takes the general walk over global memory.
 //   * node - x - shift and the divisions by h are explicitly rounded fp32
 //     (__fmul_rn/__fadd_rn/__fsub_rn, IEEE division), in the order of the
 //     plain PyTorch versions, so positions round the same way on both
@@ -91,8 +102,21 @@
 // 132 SMs, times bank and address conflicts) and by reading each bucket
 // 3.4 times through L2. Measured (chip_smoke.py phase 4, H100 80GB HBM3,
 // 700 W): a thread per particle with 4^DIM x C atomics each, 39.0 ms;
-// this lane-per-term form, 11.25 ms (PERF.md). M2P walks 27 field
-// blocks per slot; its measured times are in PERF.md.
+// this lane-per-term form, 11.25 ms (PERF.md).
+//
+// The first M2P (a block per bucket, 27 staged blocks, 324 weights a
+// particle) took 67.6 ms there, 82x its bound. The patch gather's first
+// timed form (a 4-node window per axis, the outer loop unrolled, unpadded
+// strides; no prediction was written down before that run) took 12.7
+// ms: 5% of the particles (those on a node at their bucket's face, where
+// the two floors of the bucketing and of the weights disagree) and any
+// particle with a tiny weight at distance 2 took the general walk, and
+// 11% of the warps with them. Prediction for this form (the nonzero span
+// of up to 5 staged nodes per axis, padded strides, the outer loop
+// rolled), written before its first timed run: 4.5-6 ms. Measured
+// (chip_smoke.py phase 4, H100 80GB HBM3, 700 W): 6.84 ms fp32, 7.15
+// bf16x, 8.3x the bytes bound; inside the VIC step, 13.56 ms for its
+// two launches. What binds it is in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -132,23 +156,6 @@ __device__ __forceinline__ float m4(float s) {
     return __fmul_rn(__fmul_rn(0.5f, __fmul_rn(t, t)), __fsub_rn(1.0f, s));
   }
   return 0.0f;
-}
-
-template <int DIM>
-struct Pow3 {
-  static constexpr int value = 3 * Pow3<DIM - 1>::value;
-};
-template <>
-struct Pow3<0> {
-  static constexpr int value = 1;
-};
-
-// Offset o of itertools.product((-1, 0, 1), repeat=DIM) along axis d.
-template <int DIM>
-__device__ __forceinline__ int offset_of(int o, int d) {
-  int div = 1;
-  for (int e = DIM - 1; e > d; --e) div *= 3;
-  return (o / div) % 3 - 1;
 }
 
 __device__ __forceinline__ int wrap(int c, int g) {
@@ -367,104 +374,282 @@ __global__ void __launch_bounds__(P2M_THREADS)
   }
 }
 
-template <int DIM, int C, bool BF16>
-__global__ void m4_m2p_kernel(const float* __restrict__ field,     // shape + (C,)
-                              const float* __restrict__ cell_x,    // (cells, cc, DIM)
-                              const bool* __restrict__ cell_mask,  // (cells, cc)
-                              float* __restrict__ out,             // (cells, cc, C)
-                              Geom g, int cc) {
-  extern __shared__ float s_f[];       // cb^DIM * C
-  const int cb = g.cb;
-  int npatch = 1;
-  for (int d = 0; d < DIM; ++d) npatch *= cb;
+// M2P: a block of M2P_THREADS owns a patch of up to T^DIM buckets (fewer
+// at the grid's far edge). It stages, once, the field nodes that the
+// patch's particles reach, M2P_LO nodes below and M2P_HI above the
+// patch's own along each axis (a particle in its bucket reaches nodes
+// floor((x-lo)/h) - 1 .. + 2, and one more where a rounding leaves a tiny
+// weight), each rounded to the operand type, the rows along the last axis
+// read contiguously but for the periodic wrap. Each warp then takes every
+// M2P_WARPS-th bucket of the patch, 32 slots at a time: an empty slot gets
+// its zeros written, and the valid ones go to the warp's queue; each time
+// the queue holds 32, every lane takes one particle. A particle forms its
+// per-axis weights once, for the nodes jb .. jb + 5 (jb = floor((x-lo)/h)
+// - 2: every node whose M'4 weight can round to nonzero), by the
+// operations of the first version and zero outside its bucket's
+// 3^DIM-block window, so each weight is bit-equal to the first version's.
+// Where every axis's nonzero weights span at most 5 staged nodes (all but
+// particles far across their bucket's face), it sums the products over
+// that span from shared memory in registers; otherwise it walks the
+// 6^DIM nodes, skipping zero weights, and reads the field from global
+// memory. Either way in window order (axis 0 outermost, nodes ascending),
+// with no atomics: the result is deterministic.
+constexpr int M2P_THREADS = 256;
+constexpr int M2P_WARPS = M2P_THREADS / 32;
+constexpr int M2P_LO = 2, M2P_HI = 2;
+constexpr int M2P_QUEUE = 64;
+constexpr size_t M2P_SMEM_BUDGET = 48 * 1024;
 
-  int home[DIM];
+__device__ __forceinline__ int wrap_once(int j, int n) {
+  return j < 0 ? j + n : (j >= n ? j - n : j);
+}
+
+// The M'4 weight of node j along axis d for position x: the node's
+// coordinate from its unwrapped index, then m4((x - node) / h).
+__device__ __forceinline__ float m2p_weight(const Geom& g, int d, float x,
+                                            int j) {
+  const float nx =
+      __fadd_rn(__fmul_rn(static_cast<float>(j), g.h[d]), g.lo[d]);
+  return m4(__fsub_rn(x, nx) / g.h[d]);
+}
+
+template <int DIM, int C, bool BF16>
+__global__ void __launch_bounds__(M2P_THREADS)
+    m4_m2p_kernel(const float* __restrict__ field,     // shape + (C,)
+                  const float* __restrict__ cell_x,    // (cells, cc, DIM)
+                  const bool* __restrict__ cell_mask,  // (cells, cc)
+                  float* __restrict__ out,             // (cells, cc, C)
+                  Geom g, int cc, Patch pt) {
+  extern __shared__ float s_f[];       // the staged nodes, then the queues
+  const int cb = g.cb, T = pt.T;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int p0[DIM], tn[DIM], slo[DIM], ext[DIM];
   {
     int rem = blockIdx.x;
+#pragma unroll
     for (int d = DIM - 1; d >= 0; --d) {
-      home[d] = rem % g.grid[d];
-      rem /= g.grid[d];
+      const int np = (g.grid[d] + T - 1) / T;
+      p0[d] = (rem % np) * T;
+      rem /= np;
+      tn[d] = min(T, g.grid[d] - p0[d]);
+      slo[d] = p0[d] * cb - M2P_LO;
+      ext[d] = tn[d] * cb + M2P_LO + M2P_HI;
     }
   }
-  const int t = threadIdx.x;
-  const size_t slot = static_cast<size_t>(blockIdx.x) * cc + t;
-  const bool mine = t < cc && cell_mask[slot];
-  float x[DIM];
+  int n_rows = 1, n_buckets = 1;
 #pragma unroll
-  for (int d = 0; d < DIM; ++d) x[d] = mine ? cell_x[slot * DIM + d] : 0.0f;
+  for (int d = 0; d < DIM; ++d) {
+    if (d < DIM - 1) n_rows *= ext[d];
+    n_buckets *= tn[d];
+  }
+  const int row_len = ext[DIM - 1] * C;
+  int* queue = reinterpret_cast<int*>(s_f + pt.words) + warp * M2P_QUEUE;
 
-  float acc[C];
+  // -- stage the patch's nodes, a warp per row along the last axis -------
+  for (int row = warp; row < n_rows; row += M2P_WARPS) {
+    size_t flat = 0;
+    float* dst = s_f;
+    {
+      int rem = row, l[DIM];
 #pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
+      for (int d = DIM - 2; d >= 0; --d) {
+        l[d] = rem % ext[d];
+        rem /= ext[d];
+      }
+#pragma unroll
+      for (int d = 0; d < DIM - 1; ++d) {
+        flat = flat * g.n[d] + wrap_once(slo[d] + l[d], g.n[d]);
+        dst += l[d] * pt.stride[d];
+      }
+      flat *= g.n[DIM - 1];
+    }
+    for (int e = lane; e < row_len; e += 32) {
+      const int k = e / C;
+      const size_t node = flat + wrap_once(slo[DIM - 1] + k, g.n[DIM - 1]);
+      dst[e] = operand<BF16>(field[node * C + (e - k * C)]);
+    }
+  }
+  __syncthreads();
 
-  for (int o = 0; o < Pow3<DIM>::value; ++o) {
-    int cell[DIM];
-    int blk[DIM];
+  // -- one particle a lane: weights once, then the node sums -------------
+  auto interpolate = [&](int item) {
+    const int bl = item / cc;
+    const int s = item - bl * cc;
+    int u[DIM];
+    size_t nb = 0;
+    {
+      int rem = bl;
+#pragma unroll
+      for (int d = DIM - 1; d >= 0; --d) {
+        u[d] = p0[d] + rem % tn[d];
+        rem /= tn[d];
+      }
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) nb = nb * g.grid[d] + u[d];
+    }
+    const size_t slot = nb * cc + s;
+    float x[DIM], ws[DIM][5];
+    int jb[DIM], first[DIM], span[DIM];
+    bool fast = true;
 #pragma unroll
     for (int d = 0; d < DIM; ++d) {
-      cell[d] = home[d] + offset_of<DIM>(o, d);
-      blk[d] = wrap(cell[d], g.grid[d]);
-    }
-    __syncthreads();                   // the previous offset's readers
-    for (int i = t; i < npatch * C; i += blockDim.x) {
-      const int c = i % C;
-      int rem = i / C;
-      int k[DIM];
-      for (int d = DIM - 1; d >= 0; --d) {
-        k[d] = rem % cb;
-        rem /= cb;
+      x[d] = cell_x[slot * DIM + d];
+      const int win_lo = (u[d] - 1) * cb, win_hi = (u[d] + 2) * cb;
+      const float q = floorf(__fsub_rn(x[d], g.lo[d]) / g.h[d]);
+      // a valid position is finite and inside the box; clamping keeps a
+      // far one's nodes outside its window (all weights zero)
+      jb[d] = static_cast<int>(fminf(fmaxf(q, win_lo - 8.0f), win_hi + 8.0f)) - 2;
+      float w[6];
+      first[d] = 6;
+      int last = -1;
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        const int j = jb[d] + k;
+        w[k] = j >= win_lo && j < win_hi ? m2p_weight(g, d, x[d], j) : 0.0f;
+        if (w[k] != 0.0f) {
+          first[d] = min(first[d], k);
+          last = k;
+        }
       }
-      size_t flat = 0;
+      // the nonzero weights' span: 4 nodes, or up to 5 where a rounding
+      // leaves a tiny weight at distance 2 (a particle on a node)
+      span[d] = last >= first[d] ? last - first[d] + 1 : 0;
+      const int l = jb[d] + first[d] - slo[d];
+      fast = fast && span[d] <= 5 &&
+             (span[d] == 0 || (l >= 0 && l + span[d] <= ext[d]));
+#pragma unroll
+      for (int k = 0; k < 5; ++k) {       // ws[d][k] = w[first + k]
+        float v = 0.0f;
+#pragma unroll
+        for (int f = 0; f + k < 6; ++f) v = first[d] == f ? w[f + k] : v;
+        ws[d][k] = v;
+      }
+    }
+    float acc[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] = 0.0f;
+    if (fast) {
+      const float* base = s_f;
+#pragma unroll
       for (int d = 0; d < DIM; ++d)
-        flat = flat * g.n[d] + blk[d] * cb + k[d];
-      s_f[i] = operand<BF16>(field[flat * C + c]);
-    }
-    __syncthreads();
-    if (!mine) continue;
-    float w[DIM][MAX_CB];
+        base += (jb[d] + first[d] - slo[d]) * pt.stride[d];
+      // the outer axis rolled (the unrolled 5^(DIM-1) x C body is large
+      // enough to cost instruction fetches), its weight picked by selects
+#pragma unroll 1
+      for (int a = 0; a < span[0]; ++a) {
+        float w0 = ws[0][0];
 #pragma unroll
-    for (int d = 0; d < DIM; ++d)
-      for (int k = 0; k < cb; ++k) {
-        const float nx = __fadd_rn(
-            __fmul_rn(static_cast<float>(cell[d] * cb + k), g.h[d]), g.lo[d]);
-        w[d][k] = m4(__fsub_rn(x[d], nx) / g.h[d]);
-      }
-    if (DIM == 3) {
-      for (int i0 = 0; i0 < cb; ++i0) {
-        const float w0 = w[0][i0];
-        if (w0 == 0.0f) continue;
-        for (int i1 = 0; i1 < cb; ++i1) {
-          const float w01 = w0 * w[1][i1];
-          if (w01 == 0.0f) continue;
-          for (int i2 = 0; i2 < cb; ++i2) {
-            float ww = w01 * w[DIM - 1][i2];
-            if (ww == 0.0f) continue;
-            ww = operand<BF16>(ww);
-            const float* f = s_f + ((i0 * cb + i1) * cb + i2) * C;
+        for (int k = 1; k < 5; ++k) w0 = a == k ? ws[0][k] : w0;
+        const float* fa = base + a * pt.stride[0];
+        if constexpr (DIM == 3) {
 #pragma unroll
-            for (int c = 0; c < C; ++c) acc[c] += ww * f[c];
+          for (int b = 0; b < 5; ++b) {
+            if (b >= span[1]) break;
+            const float w01 = __fmul_rn(w0, ws[1][b]);
+            const float* f = fa + b * pt.stride[1];
+#pragma unroll
+            for (int i = 0; i < 5; ++i) {
+              if (i >= span[2]) break;
+              const float ww = operand<BF16>(__fmul_rn(w01, ws[2][i]));
+#pragma unroll
+              for (int c = 0; c < C; ++c) acc[c] += ww * f[i * C + c];
+            }
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 5; ++i) {
+            if (i >= span[1]) break;
+            const float ww = operand<BF16>(__fmul_rn(w0, ws[1][i]));
+#pragma unroll
+            for (int c = 0; c < C; ++c) acc[c] += ww * fa[i * C + c];
           }
         }
       }
     } else {
-      for (int i0 = 0; i0 < cb; ++i0) {
-        const float w0 = w[0][i0];
-        if (w0 == 0.0f) continue;
-        for (int i1 = 0; i1 < cb; ++i1) {
-          float ww = w0 * w[DIM - 1][i1];
-          if (ww == 0.0f) continue;
-          ww = operand<BF16>(ww);
-          const float* f = s_f + (i0 * cb + i1) * C;
+      // the general walk: weights formed again where needed (bit-equal),
+      // the field read from global memory
+      int win[DIM][2];
 #pragma unroll
-          for (int c = 0; c < C; ++c) acc[c] += ww * f[c];
+      for (int d = 0; d < DIM; ++d) {
+        win[d][0] = (u[d] - 1) * cb;
+        win[d][1] = (u[d] + 2) * cb;
+      }
+      auto wt = [&](int d, int j) {
+        return j >= win[d][0] && j < win[d][1] ? m2p_weight(g, d, x[d], j)
+                                               : 0.0f;
+      };
+#pragma unroll 1
+      for (int a = 0; a < 6; ++a) {
+        const int ja = jb[0] + a;
+        const float wa = wt(0, ja);
+        if (wa == 0.0f) continue;
+        const size_t fa = wrap(ja, g.n[0]);
+#pragma unroll 1
+        for (int b = 0; b < 6; ++b) {
+          const int jbb = jb[1] + b;
+          const float wab = __fmul_rn(wa, wt(1, jbb));
+          if (wab == 0.0f) continue;
+          const size_t fab = fa * g.n[1] + wrap(jbb, g.n[1]);
+          if constexpr (DIM == 3) {
+#pragma unroll 1
+            for (int i = 0; i < 6; ++i) {
+              const int ji = jb[2] + i;
+              const float ww0 = __fmul_rn(wab, wt(2, ji));
+              if (ww0 == 0.0f) continue;
+              const float ww = operand<BF16>(ww0);
+              const float* f = field + (fab * g.n[2] + wrap(ji, g.n[2])) * C;
+#pragma unroll
+              for (int c = 0; c < C; ++c) acc[c] += ww * operand<BF16>(f[c]);
+            }
+          } else {
+            const float ww = operand<BF16>(wab);
+            const float* f = field + fab * C;
+#pragma unroll
+            for (int c = 0; c < C; ++c) acc[c] += ww * operand<BF16>(f[c]);
+          }
         }
       }
     }
-  }
-  if (t < cc) {
 #pragma unroll
-    for (int c = 0; c < C; ++c) out[slot * C + c] = mine ? acc[c] : 0.0f;
+    for (int c = 0; c < C; ++c) out[slot * C + c] = acc[c];
+  };
+
+  int queued = 0;
+  const unsigned below = (1u << lane) - 1u;
+  for (int bl = warp; bl < n_buckets; bl += M2P_WARPS) {
+    size_t nb = 0;
+    {
+      int rem = bl, u[DIM];
+#pragma unroll
+      for (int d = DIM - 1; d >= 0; --d) {
+        u[d] = p0[d] + rem % tn[d];
+        rem /= tn[d];
+      }
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) nb = nb * g.grid[d] + u[d];
+    }
+    for (int s0 = 0; s0 < cc; s0 += 32) {
+      const int s = s0 + lane;
+      const size_t slot = nb * cc + s;
+      const bool valid = s < cc && cell_mask[slot];
+      if (s < cc && !valid) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) out[slot * C + c] = 0.0f;
+      }
+      const unsigned in = __ballot_sync(0xffffffffu, valid);
+      if (valid) queue[queued + __popc(in & below)] = bl * cc + s;
+      queued += __popc(in);
+      __syncwarp();
+      if (queued >= 32) {
+        const int item = queue[lane];
+        if (lane < queued - 32) queue[lane] = queue[lane + 32];
+        queued -= 32;
+        __syncwarp();
+        interpolate(item);
+      }
+    }
   }
+  if (lane < queued) interpolate(queue[lane]);
 }
 
 template <class Kernel>
@@ -475,23 +660,30 @@ int set_smem(Kernel kern, size_t smem) {
       static_cast<int>(smem)));
 }
 
-// The patch: the largest side T (up to P2M_MAX_T, and no larger than the
-// grid's longest axis) whose padded node sums and the warps' tables fit
-// P2M_SMEM_BUDGET. The row (and, at DIM 3, plane) stride is padded so
-// that the nodes a warp's atomics hit at once, 4 along the last axis x 4
-// along the one before (x 2 before that at DIM 3), fall in distinct
-// banks, or as few shared banks as a pad of under 32 words allows. The
-// search depends only on (DIM, C, cb, grid); the last geometry's patch is
-// kept, so a run's repeated launches search once.
+// A patch plan: the largest side T (up to max_t, and no larger than the
+// grid's longest axis) whose nodes, min(T, grid) * cb + margin along each
+// axis in padded rows and planes, plus `fixed` bytes fit `budget` (T = 1
+// always). The row (and, at DIM 3, plane) stride is padded so that the
+// nodes 4 along the last axis x 4 along the one before (x 2 before that
+// at DIM 3) fall in distinct banks, or as few shared banks as a pad of
+// under 32 words allows: the nodes a P2M warp's atomics hit at once, and
+// those an M2P warp of consecutive slots reads at once when its
+// particles sit near consecutive nodes (a bucket's slots after
+// remeshing). The search depends only on (DIM, C, cb, grid); the last
+// geometry's plan is kept, so a run's repeated launches search once.
+struct PatchPlan {
+  int key[4];
+  Patch patch;
+  size_t bytes;
+};
+
 template <int DIM, int C>
-size_t p2m_patch(const Geom& g, Patch* pt) {
-  static int key[4] = {0, 0, 0, 0};
-  static Patch kept;
-  static size_t kept_bytes = 0;
-  if (kept_bytes != 0 && key[0] == g.cb && key[1] == g.grid[0] &&
-      key[2] == g.grid[1] && key[3] == g.grid[2]) {
-    *pt = kept;
-    return kept_bytes;
+size_t plan_patch(const Geom& g, int margin, size_t fixed, size_t budget,
+                  int max_t, PatchPlan& kept, Patch* pt) {
+  if (kept.bytes != 0 && kept.key[0] == g.cb && kept.key[1] == g.grid[0] &&
+      kept.key[2] == g.grid[1] && kept.key[3] == g.grid[2]) {
+    *pt = kept.patch;
+    return kept.bytes;
   }
   int longest = 1;
   for (int d = 0; d < DIM; ++d)
@@ -506,13 +698,11 @@ size_t p2m_patch(const Geom& g, Patch* pt) {
         }
     return worst;
   };
-  const size_t tables =
-      sizeof(float) * P2M_WARPS * Table<DIM, C>::FIELDS * TAB_LD;
   size_t best = 0;
-  for (int t = 1; t <= P2M_MAX_T && t <= longest; ++t) {
+  for (int t = 1; t <= max_t && t <= longest; ++t) {
     int ext[DIM];
     for (int d = 0; d < DIM; ++d)
-      ext[d] = (t < g.grid[d] ? t : g.grid[d]) * g.cb;
+      ext[d] = (t < g.grid[d] ? t : g.grid[d]) * g.cb + margin;
     Patch p{t, {0, 0, 0}, 0};
     int fewest = 33;
     for (int pr = 0; pr < 32; ++pr) {
@@ -530,18 +720,27 @@ size_t p2m_patch(const Geom& g, Patch* pt) {
         }
       }
     }
-    const size_t bytes = sizeof(float) * p.words + tables;
-    if (t > 1 && bytes > P2M_SMEM_BUDGET) break;
+    const size_t bytes = sizeof(float) * p.words + fixed;
+    if (t > 1 && bytes > budget) break;
     *pt = p;
     best = bytes;
   }
-  kept = *pt;
-  kept_bytes = best;
-  key[0] = g.cb;
-  key[1] = g.grid[0];
-  key[2] = g.grid[1];
-  key[3] = g.grid[2];
+  kept.patch = *pt;
+  kept.bytes = best;
+  kept.key[0] = g.cb;
+  kept.key[1] = g.grid[0];
+  kept.key[2] = g.grid[1];
+  kept.key[3] = g.grid[2];
   return best;
+}
+
+// P2M's patch: the cells' node sums and the warps' tables in 64 KB.
+template <int DIM, int C>
+size_t p2m_patch(const Geom& g, Patch* pt) {
+  static PatchPlan kept{};
+  return plan_patch<DIM, C>(
+      g, 0, sizeof(float) * P2M_WARPS * Table<DIM, C>::FIELDS * TAB_LD,
+      P2M_SMEM_BUDGET, P2M_MAX_T, kept, pt);
 }
 
 template <int DIM, int C, bool BF16>
@@ -563,22 +762,50 @@ int launch_p2m(const void* cell_x, const void* cell_val,
   return static_cast<int>(cudaGetLastError());
 }
 
+// M2P's patch: the buckets' nodes and M2P_LO + M2P_HI more per axis, and
+// the warps' queues, in M2P_SMEM_BUDGET (T = 1 always: 12^3 nodes at cb 8
+// and 8 channels take about 58 KB).
+template <int DIM, int C>
+size_t m2p_patch(const Geom& g, Patch* pt) {
+  static PatchPlan kept{};
+  return plan_patch<DIM, C>(g, M2P_LO + M2P_HI,
+                            sizeof(int) * M2P_WARPS * M2P_QUEUE,
+                            M2P_SMEM_BUDGET, 1 << 30, kept, pt);
+}
+
 template <int DIM, int C, bool BF16>
 int launch_m2p(const void* field, const void* cell_x, const void* cell_mask,
                void* out, const Geom& g, int cc, int n_cells,
                cudaStream_t stream) {
-  int npatch = 1;
-  for (int d = 0; d < DIM; ++d) npatch *= g.cb;
-  const int threads = ((cc + 31) / 32) * 32;
-  const size_t smem = static_cast<size_t>(npatch) * C * sizeof(float);
+  Patch pt;
+  const size_t smem = m2p_patch<DIM, C>(g, &pt);
+  int blocks = 1;
+  for (int d = 0; d < DIM; ++d) blocks *= (g.grid[d] + pt.T - 1) / pt.T;
   auto kern = m4_m2p_kernel<DIM, C, BF16>;
   const int e = set_smem(kern, smem);
   if (e != 0) return e;
   if (n_cells > 0)
-    kern<<<n_cells, threads, smem, stream>>>(
+    kern<<<blocks, M2P_THREADS, smem, stream>>>(
         static_cast<const float*>(field), static_cast<const float*>(cell_x),
-        static_cast<const bool*>(cell_mask), static_cast<float*>(out), g, cc);
+        static_cast<const bool*>(cell_mask), static_cast<float*>(out), g, cc,
+        pt);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int DIM, int C, bool BF16>
+int plan_m2p(int* out, const Geom& g) {
+  Patch pt;
+  out[1] = static_cast<int>(m2p_patch<DIM, C>(g, &pt));
+  out[0] = pt.T;
+  return 0;
+}
+
+template <int DIM, int C, bool BF16>
+int plan_p2m(int* out, const Geom& g) {
+  Patch pt;
+  out[1] = static_cast<int>(p2m_patch<DIM, C>(g, &pt));
+  out[0] = pt.T;
+  return 0;
 }
 
 Geom make_geom(int dim, int g0, int g1, int g2, int cb, float lo0, float lo1,
@@ -651,12 +878,26 @@ int p2m_entry(const void* cell_x, const void* cell_val, const void* cell_mask,
 template <bool BF16>
 int m2p_entry(const void* field, const void* cell_x, const void* cell_mask,
               void* out, M4_ARGS) {
-  if (cb < 2 || cb > MAX_CB || cc < 1 || cc > 1024) return kBadArgs;
+  if (cb < 2 || cb > MAX_CB || cc < 1) return kBadArgs;
   const Geom g = make_geom(dim, g0, g1, g2, cb, lo0, lo1, lo2, h0, h1, h2, L0,
                            L1, L2);
   const int n_cells = g.grid[0] * g.grid[1] * g.grid[2];
   M4_DISPATCH(launch_m2p, BF16, dim, n_ch, field, cell_x, cell_mask, out, g,
               cc, n_cells, static_cast<cudaStream_t>(stream))
+}
+
+// The patch side T and the dynamic shared-memory bytes a launch of kernel
+// KIND (launch_p2m / launch_m2p's planner) takes for this geometry.
+template <bool BF16>
+int plan_entry(bool m2p, int dim, int n_ch, int g0, int g1, int g2, int cb,
+               int* out) {
+  if (cb < 2 || cb > MAX_CB) return kBadArgs;
+  const Geom g = make_geom(dim, g0, g1, g2, cb, 0.0f, 0.0f, 0.0f, 1.0f, 1.0f,
+                           1.0f, 1.0f, 1.0f, 1.0f);
+  if (m2p) {
+    M4_DISPATCH(plan_m2p, BF16, dim, n_ch, out, g)
+  }
+  M4_DISPATCH(plan_p2m, BF16, dim, n_ch, out, g)
 }
 
 }  // namespace
@@ -679,7 +920,7 @@ int m4_p2m_bf16x(const void* cell_x, const void* cell_val,
 }
 
 // Fused M2P: field (cb*grid..., C), cell_x (cells, cc, dim), cell_mask
-// (cells, cc) -> out (cells, cc, C); masked slots read 0; cc <= 1024.
+// (cells, cc) -> out (cells, cc, C); masked slots read 0; any cc >= 1.
 int m4_m2p_f32(const void* field, const void* cell_x, const void* cell_mask,
                void* out, M4_ARGS) {
   return m2p_entry<false>(field, cell_x, cell_mask, out, M4_PASS);
@@ -688,6 +929,14 @@ int m4_m2p_f32(const void* field, const void* cell_x, const void* cell_mask,
 int m4_m2p_bf16x(const void* field, const void* cell_x, const void* cell_mask,
                  void* out, M4_ARGS) {
   return m2p_entry<true>(field, cell_x, cell_mask, out, M4_PASS);
+}
+
+// The launch plan of P2M (m2p = 0) or M2P (m2p = 1) for a geometry:
+// out[0] the patch side T in buckets, out[1] the dynamic shared-memory
+// bytes of a block.
+int m4_plan(int m2p, int dim, int n_ch, int g0, int g1, int g2, int cb,
+            int* out) {
+  return plan_entry<false>(m2p != 0, dim, n_ch, g0, g1, g2, cb, out);
 }
 
 }  // extern "C"

@@ -20,7 +20,11 @@ per axis (``ops.bucket_particles``), so every node has one owner:
   neighbouring field blocks, with node coordinates formed from the
   *unwrapped* block index ``((cell + off)·cb + i)·h + lo``:
   ``w = mask · Π_d M'4((x_d − node_d) / h_d)``. Several fields ride in
-  one channel axis (u and the RHS in one pass).
+  one channel axis (u and the RHS in one pass). The CUDA kernel is a
+  patch gather: a block stages the field nodes that a patch of buckets
+  reaches, and each valid particle forms its per-axis weights once and
+  sums the nodes of its support in registers (any bucket capacity; a
+  fixed summation order).
 
 On CUDA tensors both launch the hand-written kernels of
 ``csrc/m4_interp.cu``; on CPU tensors they run the plain PyTorch versions
@@ -55,11 +59,9 @@ _ENTRIES = {(kind, prec): f"m4_{kind}_{'f32' if prec == 'fp32' else prec}"
             for kind in ("p2m", "m2p") for prec in ("fp32", "bf16x")}
 
 #: Largest channel count and cells per axis the CUDA kernels are built
-#: for, and the largest bucket capacity of the M2P kernel (one thread per
-#: slot); the P2M kernel takes any.
+#: for; both take any bucket capacity.
 MAX_CHANNELS = 8
 MAX_CB = 8
-MAX_CELL_CAP = 1024
 
 #: Cells per batch of the plain versions, which bounds their temporaries
 #: at the one-card vortex size (500,000 cells).
@@ -247,7 +249,21 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, entry)
         fn.argtypes = [p, p, p, p, *geom, i, p]
         fn.restype = i
+    lib.m4_plan.argtypes = [i] * 7 + [p]
+    lib.m4_plan.restype = i
     return lib
+
+
+def plan(kind: str, grid_cells, cb: int, n_ch: int) -> dict:
+    """The launch plan the CUDA kernel ``kind`` ("p2m" or "m2p") takes for
+    this geometry: the patch side ``T`` in buckets and the dynamic shared
+    memory of a block in bytes (builds the library)."""
+    grid_cells = tuple(int(g) for g in grid_cells)
+    out = (ctypes.c_int * 2)()
+    g = grid_cells + (1,) * (3 - len(grid_cells))
+    _build.check(_lib().m4_plan(int(kind == "m2p"), len(grid_cells), n_ch,
+                                *g, cb, out), f"m4_plan({kind})")
+    return {"T": out[0], "smem_bytes": out[1]}
 
 
 def _check_cuda_args(tensors, *, grid_cells, cb, n_ch, cc, precision):
@@ -321,9 +337,6 @@ def _m2p_cuda(field, cell_x, cell_mask, *, grid_cells, cb, box_lo, box_hi,
                       ("cell_mask", cell_mask, torch.bool, (n_cells, cc))),
                      grid_cells=grid_cells, cb=cb, n_ch=n_ch, cc=cc,
                      precision=precision)
-    if cc > MAX_CELL_CAP:
-        raise ValueError(f"cell_cap {cc}: the CUDA M2P kernel takes 1 to "
-                         f"{MAX_CELL_CAP} (one thread per slot)")
     out = torch.empty((n_cells, cc, n_ch), dtype=torch.float32,
                       device=cell_x.device)
     entry = _ENTRIES["m2p", precision]

@@ -120,11 +120,36 @@ def _p2m_both_precisions(b, cell_val, kk):
     assert rel(got16, got) > 0
 
 
+def _m2p_both_precisions(b, kk, seed):
+    """B4 against its plain version in fp32 and bf16x (unlike fp32) on a
+    normal(0, 1) field of C = 3 channels (numpy draws)."""
+    shape = tuple(g * kk["cb"] for g in kk["grid_cells"])
+    rng = np.random.default_rng(seed)
+    field = torch.from_numpy(rng.normal(size=shape + (3,))
+                             .astype(np.float32)).cuda()
+    n0, n0_bf16 = TK.LAUNCHES["m2p"], TK.LAUNCHES["m2p_bf16x"]
+    got = TK.m2p_cells(field, b.cell_x, b.cell_mask, **kk)
+    ref = TK.m2p_cells_torch(field, b.cell_x, b.cell_mask, **kk)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["m2p"] == n0 + 1
+    assert float(ref.abs().max()) > 0
+    assert rel(got, ref) <= TOL
+    assert bool((got[~b.cell_mask] == 0).all())      # empty slots read 0
+    got16 = TK.m2p_cells(field, b.cell_x, b.cell_mask, precision="bf16x",
+                         **kk)
+    ref16 = TK.m2p_cells_torch(field, b.cell_x, b.cell_mask,
+                               precision="bf16x", **kk)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["m2p_bf16x"] == n0_bf16 + 1
+    assert rel(got16, ref16) <= BF16_TOL
+    assert rel(got16, got) > 0
+
+
 @pytest.mark.parametrize("dim", [2, 3])
 def test_cuda_p2m_takes_any_cell_cap(card, dim):
     """B3 at cell_cap 2048 and cb 8 (cb 8's first re-provision doubles
     its default 2·8^3 = 1024): the patch scatter streams slots and has no
-    capacity limit; M2P keeps its one thread per slot and raises."""
+    capacity limit (test_cuda_m2p_takes_any_cell_cap holds M2P there)."""
     shape = (16, 8, 8)[:dim]
     b, cell_val, kk = _dense_tiles(shape, (2.0, 1.0, 1.0)[:dim], cb=8,
                                    n=3000, cell_cap=2048, seed=40 + dim)
@@ -132,9 +157,48 @@ def test_cuda_p2m_takes_any_cell_cap(card, dim):
     n0 = TK.LAUNCHES["p2m"]
     _p2m_both_precisions(b, cell_val, kk)
     assert TK.LAUNCHES["p2m"] == n0 + 1
-    field = torch.zeros(shape + (3,), device="cuda")
-    with pytest.raises(ValueError, match="M2P"):
-        TK.m2p_cells(field, b.cell_x, b.cell_mask, **kk)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_cuda_m2p_takes_any_cell_cap(card, dim):
+    """B4 at cell_cap 2048 and cb 8, more than 1024 particles in a
+    bucket: the patch gather gives a thread to each valid particle, not to
+    each slot, so it has no capacity limit."""
+    shape = (16, 8, 8)[:dim]
+    b, _, kk = _dense_tiles(shape, (2.0, 1.0, 1.0)[:dim], cb=8, n=3000,
+                            cell_cap=2048, seed=50 + dim)
+    assert b.cell_x.shape[1] == 2048 and int(b.cell_mask.sum(1).max()) > 1024
+    _m2p_both_precisions(b, kk, seed=60 + dim)
+
+
+@pytest.mark.parametrize("shape,lengths", [
+    ((8, 24, 12), (1.0, 3.0, 1.5)),     # 2 x 6 x 3 cells
+    ((24, 8), (3.0, 1.0)),              # 6 x 2 cells
+    ((8, 8, 8), (1.0, 1.0, 1.0)),       # 2 x 2 x 2 cells
+])
+def test_cuda_m2p_two_cells_on_an_axis(card, shape, lengths):
+    """B4 on a grid with 2 buckets along an axis: the two offsets that
+    fetch the same field block, each with its own periodic image, both
+    count, in fp32 and bf16x."""
+    b, _, kk = _dense_tiles(shape, lengths, cb=4, n=1500, cell_cap=256,
+                            seed=7 + sum(shape))
+    _m2p_both_precisions(b, kk, seed=len(shape))
+
+
+def test_cuda_m2p_particles_across_their_bucket_face(card):
+    """B4 where positions are pushed up to 1.6 h off the ones they were
+    bucketed by, so many supports leave the patch's staged nodes: those
+    particles take the kernel's general walk, which must cover the same
+    nodes of the 3^dim-block window as the plain version, in fp32 and
+    bf16x."""
+    b, _, kk = _dense_tiles((16, 8, 8), (2.0, 1.0, 1.0), cb=4, n=1500,
+                            cell_cap=256, seed=21)
+    rng = np.random.default_rng(22)
+    h = torch.tensor([2.0 / 16, 1.0 / 8, 1.0 / 8], device="cuda")
+    push = torch.from_numpy(rng.uniform(-1.6, 1.6, size=tuple(
+        b.cell_x.shape)).astype(np.float32)).cuda()
+    b = b._replace(cell_x=(b.cell_x + push * h).contiguous())
+    _m2p_both_precisions(b, kk, seed=23)
 
 
 @pytest.mark.parametrize("shape,lengths", [
@@ -147,6 +211,25 @@ def test_cuda_p2m_two_cells_on_an_axis(card, shape, lengths):
     b, cell_val, kk = _dense_tiles(shape, lengths, cb=4, n=1500,
                                    cell_cap=256, seed=sum(shape))
     _p2m_both_precisions(b, cell_val, kk)
+
+
+def test_vortex_reprovision_redo_at_cb8(card):
+    """vortex.run at cb 8 from a bucket capacity below the 512 nodes of a
+    bucket: step_reprovision doubles interp_cell_cap and redoes the step
+    on the card (2 + 2 launches per attempt), and the run agrees with the
+    plain path's."""
+    cfg = TV.VortexConfig(shape=(16, 8, 8), lengths=(4.0, 2.0, 2.0),
+                          dt=0.02, interp_cb=8, interp_cell_cap=256,
+                          device="cuda")
+    n0, redo0 = dict(TK.LAUNCHES), TV.REDOS
+    wk, _, _ = TV.run(cfg, 3)
+    redos = TV.REDOS - redo0
+    assert redos >= 1
+    assert TK.LAUNCHES["p2m"] - n0["p2m"] == 2 * (3 + redos)
+    assert TK.LAUNCHES["m2p"] - n0["m2p"] == 2 * (3 + redos)
+    wp, _, _ = TV.run(dataclasses.replace(cfg, backend="torch"), 3)
+    torch.cuda.synchronize()
+    assert rel(wk, wp) <= 1e-4
 
 
 def test_vortex_kernel_path_matches_plain_path(card):
@@ -204,11 +287,14 @@ def _pair_tiles(dim, C, cc, K, box, seed):
                   .astype(np.float32)))
 
 
-@pytest.mark.parametrize("dim,C,cc", [(2, 6, 16), (3, 4, 16), (3, 3, 128)])
+@pytest.mark.parametrize("dim,C,cc", [(2, 6, 16), (3, 4, 16), (3, 3, 128),
+                                      (3, 2, 320)])
 def test_cuda_sph_functor_matches_plain(card, dim, C, cc):
-    """B1-SPH against cell_pair_torch on random tiles; cc=128 at dim 3 is
-    the card size's 110.6 KB of staged candidates (above the 48 KB
-    default)."""
+    """B1-SPH against cell_pair_torch on random tiles, in every precision;
+    cc=128 at dim 3 is the card size's cell capacity, and cc=320 at dim 3
+    asks for more shared memory than a block has (27 x 320 candidates of
+    32 bytes) under the first version's whole-cell staging: the chunked
+    staging takes it."""
     from repro_torch.apps import sph
     from repro_torch.kernels.cell_pair import cell_pair as CP
     cfg = sph.SPHConfig(dim=dim, dp=0.05, box=(1.0, 0.5, 0.5)[:dim],
@@ -242,6 +328,42 @@ def test_cuda_sph_functor_matches_plain(card, dim, C, cc):
                 assert rel(got16[name], got[name]) > 0, (prec, name)
             else:
                 assert rel(got16[name], got[name]) <= TOL, (prec, name)
+
+
+@pytest.mark.parametrize("prec", ["fp32", "bf16x:drho"])
+def test_cuda_cell_pair_partial_chunks(card, prec):
+    """B1-SPH on a tile whose valid candidates fill several chunks and a
+    last, partial one (a count that is no multiple of the chunk), beside a
+    cell with particles but no valid candidate and a cell with no
+    particle; fp32 and the mixed bf16x:drho form."""
+    from repro_torch.apps import sph
+    from repro_torch.kernels.cell_pair import cell_pair as CP
+    cfg = sph.SPHConfig(dim=3, dp=0.05, box=(1.0, 0.5, 0.5),
+                        fluid=(0.25,) * 3, device="cuda")
+    cc = 96
+    plan = CP.plan("sph", "f32" if prec == "fp32" else "bf16x_drho", 3, cc)
+    tl = _pair_tiles(3, 4, cc, 27, 0.2, seed=77)
+    n_valid = 2 * plan["chunk"] + 37
+    assert n_valid < 27 * cc and n_valid % plan["chunk"] != 0
+    nm = torch.zeros_like(tl["nbr_mask"])
+    rng = np.random.default_rng(78)
+    for c in (0, 1):
+        pick = rng.choice(27 * cc, size=n_valid, replace=False)
+        nm[c, torch.from_numpy(pick).cuda()] = True
+    tl["cell_mask"][3] = False               # a cell with no particle
+    args = (tl["cell_x"], tl["nbr_x"], tl["cell_mask"], nm,
+            {"v": tl["cell_v"], "rho": tl["cell_rho"]},
+            {"v": tl["nbr_v"], "rho": tl["nbr_rho"]})
+    kw = dict(body=sph.sph_pair_body(cfg),
+              out={"a": "radial", "drho": "scalar"}, r_cut=cfg.r_cut,
+              precision=prec)
+    got = CP.cell_pair(*args, **kw)
+    ref = CP.cell_pair_torch(*args, **kw)
+    torch.cuda.synchronize()
+    for name in ("a", "drho"):
+        assert float(ref[name][:2].abs().max()) > 0, name
+        assert rel(got[name], ref[name]) <= TOL, name
+        assert bool((got[name][2:] == 0).all()), name
 
 
 def test_cuda_dem_functor_matches_plain(card):

@@ -132,6 +132,27 @@ def test_p2m_cells_torch_large_cell_cap_matches_pallas():
     assert rel(got, ref) <= TOL
 
 
+def test_m2p_cells_torch_large_cell_cap_matches_pallas():
+    """cell_cap 2048 at cb 8, more than 1024 particles in a bucket: the
+    plain M2P against repro's Pallas kernel, which sets no capacity limit;
+    the CUDA M2P kernel takes it too (held against the plain version in
+    tests/test_torch_gpu.py)."""
+    kw, x, _, valid, _ = interp_case(3, 32, n=3000)
+    jb = JM4.bucket_particles(jnp.asarray(x), jnp.asarray(valid),
+                              cell_cap=2048, cb=8, **kw)
+    assert int(jb.overflow) == 0
+    assert int(np.asarray(jb.cell_mask).sum(1).max()) > 1024
+    field = np.random.default_rng(33).normal(
+        size=tuple(kw["shape"]) + (4,)).astype(np.float32)
+    args = (field, np.asarray(jb.cell_x), np.asarray(jb.cell_mask))
+    kk = dict(grid_cells=tuple(n // 8 for n in kw["shape"]), cb=8,
+              box_lo=kw["box_lo"], box_hi=kw["box_hi"])
+    ref = JK.m2p_cells(*map(jnp.asarray, args), interpret=True, **kk)
+    got = TK.m2p_cells_torch(*_t(*args), **kk)
+    assert got.shape == ref.shape == (2, 2048, 4)
+    assert rel(got, ref) <= TOL
+
+
 def test_cells_torch_bf16x_matches_pallas():
     """bf16x: bf16 weight and value operands, fp32 sums, as the Pallas
     kernels. An operand one fp32 ulp apart on the two sides may round to
