@@ -347,8 +347,8 @@ def b1_check(name, CP, t, body, out, r_cut, eval_flops, cell_batch,
                    for k, (a, r) in errors.items()},
         **({"fp32_gap_rel": gaps} if fp32_out is not None else {}),
         "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "design": design}, got
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None}, got
 
 
 def small_run_check(name, pairs, tol=SMALL_TOL):
@@ -491,7 +491,7 @@ def vic_kernel_checks(V, M4, K, cfg):
                 "ms": kernel_ms, "kernel_ms": kernel_ms,
                 "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "library_ms": None, "design": design})
+                "library_ms": None})
             del got
         del f32_out
     return entries, (b, cell_val, field, x1, ps.valid, kk)

@@ -792,7 +792,7 @@ int launch_m2p(const void* field, const void* cell_x, const void* cell_mask,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DIM, int C, bool BF16>
+template <int DIM, int C>
 int plan_m2p(int* out, const Geom& g) {
   Patch pt;
   out[1] = static_cast<int>(m2p_patch<DIM, C>(g, &pt));
@@ -800,7 +800,7 @@ int plan_m2p(int* out, const Geom& g) {
   return 0;
 }
 
-template <int DIM, int C, bool BF16>
+template <int DIM, int C>
 int plan_p2m(int* out, const Geom& g) {
   Patch pt;
   out[1] = static_cast<int>(p2m_patch<DIM, C>(g, &pt));
@@ -831,25 +831,24 @@ constexpr int kBadArgs = 1;  // cudaErrorInvalidValue
 
 }  // namespace
 
-#define M4_DISPATCH(FN, B, DIM_, C_, ...)                      \
-  switch ((DIM_) * 16 + (C_)) {                                \
-    case 2 * 16 + 1: return FN<2, 1, B>(__VA_ARGS__);          \
-    case 2 * 16 + 2: return FN<2, 2, B>(__VA_ARGS__);          \
-    case 2 * 16 + 3: return FN<2, 3, B>(__VA_ARGS__);          \
-    case 2 * 16 + 4: return FN<2, 4, B>(__VA_ARGS__);          \
-    case 2 * 16 + 5: return FN<2, 5, B>(__VA_ARGS__);          \
-    case 2 * 16 + 6: return FN<2, 6, B>(__VA_ARGS__);          \
-    case 2 * 16 + 7: return FN<2, 7, B>(__VA_ARGS__);          \
-    case 2 * 16 + 8: return FN<2, 8, B>(__VA_ARGS__);          \
-    case 3 * 16 + 1: return FN<3, 1, B>(__VA_ARGS__);          \
-    case 3 * 16 + 2: return FN<3, 2, B>(__VA_ARGS__);          \
-    case 3 * 16 + 3: return FN<3, 3, B>(__VA_ARGS__);          \
-    case 3 * 16 + 4: return FN<3, 4, B>(__VA_ARGS__);          \
-    case 3 * 16 + 5: return FN<3, 5, B>(__VA_ARGS__);          \
-    case 3 * 16 + 6: return FN<3, 6, B>(__VA_ARGS__);          \
-    case 3 * 16 + 7: return FN<3, 7, B>(__VA_ARGS__);          \
-    case 3 * 16 + 8: return FN<3, 8, B>(__VA_ARGS__);          \
-    default: return kBadArgs;                                  \
+// Returns CALL, a parenthesised expression in which kD and kC stand for
+// the dimension DIM_ (2 or 3) and the channel count C_ (1..8) as
+// constants; any other pair returns kBadArgs.
+#define M4_CASE(D, K, CALL) \
+  case D * 16 + K: {        \
+    constexpr int kD = D;   \
+    constexpr int kC = K;   \
+    return CALL;            \
+  }
+#define M4_DISPATCH(DIM_, C_, CALL)                                          \
+  switch ((DIM_) * 16 + (C_)) {                                              \
+    M4_CASE(2, 1, CALL) M4_CASE(2, 2, CALL) M4_CASE(2, 3, CALL)              \
+    M4_CASE(2, 4, CALL) M4_CASE(2, 5, CALL) M4_CASE(2, 6, CALL)              \
+    M4_CASE(2, 7, CALL) M4_CASE(2, 8, CALL) M4_CASE(3, 1, CALL)              \
+    M4_CASE(3, 2, CALL) M4_CASE(3, 3, CALL) M4_CASE(3, 4, CALL)              \
+    M4_CASE(3, 5, CALL) M4_CASE(3, 6, CALL) M4_CASE(3, 7, CALL)              \
+    M4_CASE(3, 8, CALL)                                                      \
+    default: return kBadArgs;                                                \
   }
 
 // The four entries take the same arguments. The geometry: dim 2 or 3,
@@ -871,8 +870,10 @@ int p2m_entry(const void* cell_x, const void* cell_val, const void* cell_mask,
   const Geom g = make_geom(dim, g0, g1, g2, cb, lo0, lo1, lo2, h0, h1, h2, L0,
                            L1, L2);
   const int n_cells = g.grid[0] * g.grid[1] * g.grid[2];
-  M4_DISPATCH(launch_p2m, BF16, dim, n_ch, cell_x, cell_val, cell_mask, out,
-              g, cc, n_cells, static_cast<cudaStream_t>(stream))
+  M4_DISPATCH(dim, n_ch,
+              (launch_p2m<kD, kC, BF16>(cell_x, cell_val, cell_mask, out, g,
+                                        cc, n_cells,
+                                        static_cast<cudaStream_t>(stream))))
 }
 
 template <bool BF16>
@@ -882,22 +883,23 @@ int m2p_entry(const void* field, const void* cell_x, const void* cell_mask,
   const Geom g = make_geom(dim, g0, g1, g2, cb, lo0, lo1, lo2, h0, h1, h2, L0,
                            L1, L2);
   const int n_cells = g.grid[0] * g.grid[1] * g.grid[2];
-  M4_DISPATCH(launch_m2p, BF16, dim, n_ch, field, cell_x, cell_mask, out, g,
-              cc, n_cells, static_cast<cudaStream_t>(stream))
+  M4_DISPATCH(dim, n_ch,
+              (launch_m2p<kD, kC, BF16>(field, cell_x, cell_mask, out, g, cc,
+                                        n_cells,
+                                        static_cast<cudaStream_t>(stream))))
 }
 
 // The patch side T and the dynamic shared-memory bytes a launch of kernel
 // KIND (launch_p2m / launch_m2p's planner) takes for this geometry.
-template <bool BF16>
 int plan_entry(bool m2p, int dim, int n_ch, int g0, int g1, int g2, int cb,
                int* out) {
   if (cb < 2 || cb > MAX_CB) return kBadArgs;
   const Geom g = make_geom(dim, g0, g1, g2, cb, 0.0f, 0.0f, 0.0f, 1.0f, 1.0f,
                            1.0f, 1.0f, 1.0f, 1.0f);
   if (m2p) {
-    M4_DISPATCH(plan_m2p, BF16, dim, n_ch, out, g)
+    M4_DISPATCH(dim, n_ch, (plan_m2p<kD, kC>(out, g)))
   }
-  M4_DISPATCH(plan_p2m, BF16, dim, n_ch, out, g)
+  M4_DISPATCH(dim, n_ch, (plan_p2m<kD, kC>(out, g)))
 }
 
 }  // namespace
@@ -936,7 +938,7 @@ int m4_m2p_bf16x(const void* field, const void* cell_x, const void* cell_mask,
 // bytes of a block.
 int m4_plan(int m2p, int dim, int n_ch, int g0, int g1, int g2, int cb,
             int* out) {
-  return plan_entry<false>(m2p != 0, dim, n_ch, g0, g1, g2, cb, out);
+  return plan_entry(m2p != 0, dim, n_ch, g0, g1, g2, cb, out);
 }
 
 }  // extern "C"

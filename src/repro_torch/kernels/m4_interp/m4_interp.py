@@ -258,6 +258,8 @@ def plan(kind: str, grid_cells, cb: int, n_ch: int) -> dict:
     """The launch plan the CUDA kernel ``kind`` ("p2m" or "m2p") takes for
     this geometry: the patch side ``T`` in buckets and the dynamic shared
     memory of a block in bytes (builds the library)."""
+    if kind not in ("p2m", "m2p"):
+        raise ValueError(f"kind must be 'p2m' or 'm2p', got {kind!r}")
     grid_cells = tuple(int(g) for g in grid_cells)
     out = (ctypes.c_int * 2)()
     g = grid_cells + (1,) * (3 - len(grid_cells))

@@ -246,3 +246,10 @@ def test_layout_errors_match_repro():
         TM4.p2m(tx, tv, tvalid, **dict(kw, periodic=(True, False, True)))
     with pytest.raises(ValueError, match="unknown backend"):
         TM4.p2m(tx, tv, tvalid, backend="pallas", **kw)
+
+
+def test_plan_rejects_unknown_kind():
+    """``plan`` names only the two kernels; any other kind raises before the
+    library is built."""
+    with pytest.raises(ValueError, match="'p2m' or 'm2p'"):
+        TK.plan("p2p", (4, 4, 4), 4, 6)
