@@ -87,6 +87,32 @@ Phases, each of which raises (non-zero exit) on failure:
      twice that gap; prefill and decode ms and tokens/s, the decode
      step's device time, host enqueue and bound, device breakdowns by
      kernel (torch.profiler), peak memory.
+ 11. the serial reuse engine (``reuse="skin"``) at full width: the MD
+     positions after 10 steps against the every-step path (<= 1e-5),
+     then ``md.run(reuse="skin")`` for 100 steps at 216,000 particles
+     (cell_cap 96 on the 15^3 skin grid) — exactly 1 + 1 B1-LJ launch a
+     step, drift < 0.05 — its ms/step beside phase 3's, the rebuilds, the
+     cost of the one host read a step (skin steps against "update" steps)
+     and B1 on the skin grid's tiles; the DEM reuse step at 72,030 grains:
+     10 steps against the cached stepper (positions <= 1e-5, the same
+     contact-list rebuild steps), then 50 steps from rest (one B1-DEM
+     launch a step, zero flags, grains moving down the incline), ms/step
+     beside the cached stepper's;
+ 12. the block legs: B3 and B4 (``ops.p2m_block``, ``m2p_fused_block``)
+     on 106-row blocks of the VIC mesh, inside and at the seam (row0 =
+     -3), against their plain versions on the same local torus (<= 1e-5)
+     and the plain ``core.interp`` block legs (<= 1e-4), drop counts
+     equal; ``seed_from_block`` equal to the rows of ``seed_from_mesh``
+     bit for bit; then a mesh-field physics through ``make_sim_step`` for
+     20 steps at 2^21 particles on 2^22 nodes (B1 and B3 once a step, the
+     step's first_row on the card): mass = particles x steps, no drops,
+     against the same steps on the plain path (<= 1e-4);
+ 13. ``multigrid_poisson`` at 128^3 against ``fft_poisson`` (residual
+     printed), DC-PSE gradient and Laplacian on 2^20 scattered 2-D
+     particles (tests/test_dcpse.py's interior bounds), and
+     ``balanced_bounds`` on the card SPH dam break's initial positions
+     into 8 slabs (max/mean <= 1.5). Each of phases 11-13 prints its time
+     and peak memory.
 
 It prints a ``{"kernels": [...]}`` line and, as its last line,
 ``{"ok": true, "device": {...}}``. It exits non-zero without a result when
@@ -203,6 +229,42 @@ B5_SPLIT_FRAC = 0.5
 B5_SPLIT_SHAPE = (8, 32, 4, 64, 16, 128)     # B, H, K, Sq, Sk, hd; all keys
 LM_FP32_TOL = 1e-4    # 10b prefill logits, kernel path vs plain path
 LM_BF16_TOL = 5e-2    # 10c prefill logits (bf16, 40 layers), same
+# Phase 11: the reuse engine at the MD and DEM card sizes. The skin grid
+# of the MD lattice (cells >= r_cut + r_cut / 2: 15^3 cells of 1/15) holds
+# exactly 64 particles a cell at t = 0, above phase 3's cell_cap of 48.
+MD_REUSE_CELL_CAP = 96
+REUSE_CHECK_STEPS = 10
+REUSE_TOL = 1e-5      # reuse vs every step: only the summation order differs
+# Phase 12: 106-row blocks of the VIC mesh (100 owned rows, 3 halo rows a
+# side), and a mesh-field physics at 2^21 particles on 2^22 nodes: a 128^3
+# lattice drifting through a (256, 128, 128) mesh of a 4^3 box; its pair
+# grid has 64^3 cells of 8 particles.
+BLOCK_OWNED = 100
+BLOCK_HALO = 3
+# A block leg (B3 or B4 on the block's local torus) against core.interp's
+# block oracle: the local torus re-origins each position as (b + frac)·h
+# in float32, a rounding of ~ulp(rows) in mesh units that the oracle does
+# not make, so more than the summation order differs (1.3e-5 of the max
+# at 106 rows on an H100); the reference's own jnp-vs-Pallas tolerance.
+# Each kernel is held to REL_TOL against its plain version on the same
+# local torus.
+BLOCK_ORACLE_TOL = 1e-4
+MF_SHAPE = (256, 128, 128)
+MF_BOX = (4.0, 4.0, 4.0)
+MF_SIDE = 128
+MF_R_CUT = 0.0625
+MF_CELL_CAP = 16
+MF_STEPS = 20
+MF_MASS_TOL = 1e-5    # total mass vs particles x steps: fp32 rounding
+# Phase 13: multigrid at 128^3 (8 V-cycles, repro's default; the residual
+# bound of tests/test_io_numerics.py), DC-PSE on 1024^2 scattered particles
+# (k_max above the most neighbours such a set has, ~46, so none is cut),
+# balanced_bounds into 8 slabs.
+MG_N = 128
+MG_RES_FRAC = 1e-2
+DCPSE_SIDE = 1024
+DCPSE_K_MAX = 56
+DLB_SLABS = 8
 # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12
 # flops per in-cutoff body evaluation, accumulation included (b1_bound)
@@ -1329,11 +1391,9 @@ def lm_fp32_phase(cfg, TT, TS, FA):
         raise RuntimeError(f"10b: kernel path disagrees: rel {err}")
 
 
-def device_breakdown(name, fn, wall_ms, n=1):
-    """Device time of ``n`` calls of ``fn`` by kernel, from torch.profiler:
-    B5, matrix products, the rest; prints the total per call, its share of
-    ``wall_ms``, the launches per call and the top kernels. Returns (device
-    ms per call, {group: ms})."""
+def kernel_rows(fn, n: int):
+    """(kernel name, device ms per call, launches per call) of ``n`` calls
+    of ``fn``, from a torch.profiler trace."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1341,10 +1401,18 @@ def device_breakdown(name, fn, wall_ms, n=1):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
+    return [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
+
+
+def device_breakdown(name, fn, wall_ms, n=1):
+    """Device time of ``n`` calls of ``fn`` by kernel, from torch.profiler:
+    B5, matrix products, the rest; prints the total per call, its share of
+    ``wall_ms``, the launches per call and the top kernels. Returns (device
+    ms per call, {group: ms})."""
+    rows = kernel_rows(fn, n)
     total = sum(ms for _, ms, _ in rows)
     if not total > 0:
         raise RuntimeError(f"{name}: the profiler saw no device time")
@@ -1557,6 +1625,572 @@ def vic_paper_size() -> None:
     print(json.dumps(res))
 
 
+# --------------------------------------------------------------------------
+# Phases 11-13: the reuse engine, the block legs and mesh fields, numerics
+# and balance
+# --------------------------------------------------------------------------
+
+def profiled_ms(fn, n: int, name: str = "", top: int = 0) -> float:
+    """Device milliseconds per call of ``fn`` over ``n`` calls: the sum of
+    the CUDA kernels' time in a torch.profiler trace. With ``top``, prints
+    that many kernels by device time per call."""
+    rows = kernel_rows(fn, n)
+    total = sum(ms for _, ms, _ in rows)
+    if not total > 0:
+        raise RuntimeError(f"{name}: the profiler saw no device time")
+    if top:
+        print(f"{name} device ms per step (torch.profiler): total "
+              f"{total:.3f}, {sum(c for _, _, c in rows):.0f} kernels")
+        for key, ms, cnt in sorted(rows, key=lambda r: -r[1])[:top]:
+            print(f"  {ms:9.3f} ms  {cnt:6.0f} calls  {key[:90]}")
+    return total
+
+
+def phase_mark(name: str, t0: float) -> None:
+    """Print a phase's wall time and peak memory."""
+    torch.cuda.synchronize()
+    print(f"{name}: {time.perf_counter() - t0:.2f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def md_reuse_phase(md, CL, CP, cfg, every_ms):
+    """Phase 11a: ``md.run(reuse="skin")`` at the paper's MD size on its
+    own cell_cap (the skin grid's cells hold 64 lattice particles at t =
+    0): positions after REUSE_CHECK_STEPS against the every-step path;
+    then the main run of STEPS steps (exactly 1 + 1 B1 launch a step, the
+    energy drift); then the cadence and the step time through the same
+    engine, the host read's cost (skin steps against "update" steps, which
+    read nothing), and B1 on the skin grid's tiles against the every-step
+    grid's. Returns the B1-LJ launches of the main run."""
+    from repro_torch.core import simulation as SIM
+    rcfg = dataclasses.replace(cfg, cell_cap=MD_REUSE_CELL_CAP)
+    skin = 0.5 * rcfg.r_cut
+    box = ((0.0,) * 3, (rcfg.box,) * 3)
+    gs = CL.grid_shape_for(*box, rcfg.r_cut, skin)
+    print(f"MD reuse: skin {skin:.6f}, grid {gs} (every step "
+          f"{md._cl_kw(cfg)['grid_shape']}), cell_cap {rcfg.cell_cap}")
+    pr, _ = md.run(rcfg, REUSE_CHECK_STEPS, thermal_v=THERMAL_V, seed=0,
+                   reuse="skin")
+    pe, _ = md.run(cfg, REUSE_CHECK_STEPS, thermal_v=THERMAL_V, seed=0)
+    err = float((pr.x[pr.valid] - pe.x[pe.valid]).abs().max())
+    print(f"MD reuse vs every step, positions after {REUSE_CHECK_STEPS} "
+          f"steps: max abs {err:.3e} (tol {REUSE_TOL:g})")
+    if not err <= REUSE_TOL:
+        raise RuntimeError(f"MD reuse disagrees with every step: {err:.3e}")
+    del pr, pe
+
+    # -- the main path ------------------------------------------------------
+    reset_b1_counts(CP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ps, log = md.run(rcfg, STEPS, thermal_v=THERMAL_V, seed=0,
+                     log_every=STEPS - 1, reuse="skin")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    check_b1_launches(CP, "lj", STEPS + 1)   # initial forces + 1 per step
+    launches = CP.LAUNCHES_BY_KIND["lj"]
+    vm = ps.valid
+    if not (bool(torch.isfinite(ps.x[vm]).all())
+            and bool(torch.isfinite(ps.props["v"][vm]).all())):
+        raise RuntimeError("reuse positions or velocities are not finite")
+    e = [k + p for _, k, p in log]
+    drift = abs(e[-1] - e[0]) / (abs(e[0]) + 1e-9)
+    print(f"main path: md.run(reuse='skin') {STEPS} steps, {run_s:.3f} s "
+          f"wall, E_tot {e[0]:.6e} -> {e[-1]:.6e}, drift {drift:.3e} (tol "
+          f"{DRIFT_TOL:g}), {launches} kernel launches")
+    if not drift < DRIFT_TOL:
+        raise RuntimeError(f"reuse energy drift {drift:.3e}")
+    del ps
+
+    # -- cadence, step time and the host read --------------------------------
+    ps0, _ = md.run(rcfg, 0, thermal_v=THERMAL_V, seed=0)
+    step = SIM.make_sim_step(md.physics, rcfg, reuse="skin")
+    rs = SIM.reuse_state(SIM.serial_state(ps0, md.physics, rcfg),
+                         md.physics, rcfg)
+    stale = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(STEPS):
+        rs, flags, _ = step(rs, {})
+        stale.append(flags.stale)
+    end.record()
+    torch.cuda.synchronize()
+    reuse_ms = start.elapsed_time(end) / STEPS
+    rebuilds = int(torch.stack(stale).sum())
+    upd = SIM.make_sim_step(md.physics, rcfg, reuse="update")
+    warm = rs
+    state = {"rs": warm, "stale": []}
+
+    def skin_step():
+        state["rs"], f, _ = step(state["rs"], {})
+        state["stale"].append(f.stale)
+
+    def update_step():
+        state["rs"], _, _ = upd(state["rs"], {})
+
+    skin_ms = time_cuda(skin_step, iters=20)
+    window_rebuilds = int(torch.stack(state["stale"]).sum())
+    state["rs"] = warm
+    update_ms = time_cuda(update_step, iters=20)
+    state["rs"] = warm
+    update_dev = time_device(update_step, iters=10)
+    state["rs"] = warm
+    skin_dev = profiled_ms(skin_step, 10, "MD reuse (skin) step", top=6)
+    n = rcfg.n_particles
+    print(f"md reuse step: {reuse_ms:.4f} ms/step (CUDA events, {STEPS} "
+          f"steps from a cold cache, {rebuilds} rebuilds incl. the cold "
+          f"one) against {every_ms:.4f} every step (phase 3); "
+          f"{n / reuse_ms * 1e3:.4e} particle-steps/s")
+    print(f"md reuse host read: skin steps {skin_ms:.4f} ms/step "
+          f"({window_rebuilds} rebuilds in 22 steps) vs update steps "
+          f"{update_ms:.4f} (no read): {skin_ms - update_ms:.4f} ms/step; "
+          f"device ms per step: update {update_dev:.4f} (no launch gaps), "
+          f"skin {skin_dev:.4f} (profiler), idle share of the skin step "
+          f"{1 - skin_dev / skin_ms:.3f}")
+
+    # -- B1 on the skin grid's tiles against the every-step grid's ----------
+    ps = state["rs"].inner.ps
+    for label, c in (("skin grid", rcfg), ("every-step grid", cfg)):
+        kw_c = dict(md._cl_kw(c))
+        if c is rcfg:
+            kw_c["grid_shape"] = gs
+        t = CP.gather_cell_tiles(ps, CL.build_cell_list(ps, **kw_c))
+        tests, inside = pair_work(t, rcfg.r_cut ** 2)
+        body = md.lj_pair_body(rcfg.sigma, rcfg.epsilon)
+        ms = time_cuda(lambda: CP.cell_pair(
+            t.cell_x, t.nbr_x, t.cell_mask, t.nbr_mask, body=body,
+            out={"f": "radial"}, r_cut=rcfg.r_cut), iters=20)
+        print(f"B1-LJ on the {label} tiles {tuple(t.cell_x.shape[:2])} x "
+              f"{t.nbr_x.shape[1]}: {ms:.4f} ms, {tests:.4e} candidate "
+              f"tests, {inside:.4e} in cutoff "
+              f"({tests / max(inside, 1):.2f} tests per evaluation)")
+        del t
+    return launches
+
+
+def dem_reuse_phase(D, CL, CP):
+    """Phase 11b: ``make_sim_step(dem.physics, cfg, reuse="skin")`` at the
+    card DEM size: REUSE_CHECK_STEPS steps against the cached stepper's
+    (positions, the contact-list rebuild steps); then DEM_STEPS steps from
+    the block at rest, one B1-DEM launch a step, zero flags, grains moving
+    down the incline; ms/step beside the cached stepper's. Returns the
+    B1-DEM launches."""
+    from repro_torch.core import simulation as SIM
+    cfg = D.DEMConfig(**DEM_CARD, device="cuda")
+    skin = 0.5 * cfg.r_cut
+    gs = CL.grid_shape_for((0.0,) * 3, cfg.box, cfg.r_cut, skin)
+    print(f"DEM reuse: skin {skin:.4f}, grid {gs} (every step "
+          f"{D._cl_kw(cfg)['grid_shape']}), cell_cap {cfg.cell_cap}")
+    ps0 = D.init_block(cfg)
+    step = SIM.make_sim_step(D.physics, cfg, reuse="skin")
+
+    def fresh():
+        return SIM.reuse_state(SIM.serial_state(ps0, D.physics, cfg),
+                               D.physics, cfg)
+
+    # a contact list is rebuilt on a step whose build positions are new
+    rebuilt = lambda prev, new: prev is None or new is not prev
+    rs, stepper, cache, ps_c = fresh(), D.make_cached_stepper(cfg), None, ps0
+    rb_r, rb_c = [], []
+    for i in range(REUSE_CHECK_STEPS):
+        prev = None if i == 0 else rs.cache.phys["ct_xb"]
+        rs, flags, _ = step(rs, {})
+        rb_r.append(rebuilt(prev, rs.cache.phys["ct_xb"]))
+        prev = None if cache is None else cache["ct_xb"]
+        ps_c, flags_c, cache = stepper(ps_c, cache)
+        rb_c.append(rebuilt(prev, cache["ct_xb"]))
+        if int(torch.maximum(flags.any(), flags_c.any())) != 0:
+            raise RuntimeError(f"DEM reuse check step {i} flagged")
+    vm = ps_c.valid
+    err = float((rs.inner.ps.x[vm] - ps_c.x[vm]).abs().max())
+    print(f"DEM reuse vs cached stepper after {REUSE_CHECK_STEPS} steps: "
+          f"positions max abs {err:.3e} (tol {REUSE_TOL:g}), contact-list "
+          f"rebuilds at steps {[i for i, r in enumerate(rb_r) if r]} vs "
+          f"{[i for i, r in enumerate(rb_c) if r]}")
+    if not err <= REUSE_TOL or rb_r != rb_c:
+        raise RuntimeError("DEM reuse disagrees with the cached stepper")
+
+    # -- the path: DEM_STEPS reuse steps from the block at rest --------------
+    rs, stale, worst = fresh(), [], None
+    reset_b1_counts(CP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DEM_STEPS):
+        rs, flags, _ = step(rs, {})
+        stale.append(flags.stale)
+        f = flags.any()
+        worst = f if worst is None else torch.maximum(worst, f)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    check_b1_launches(CP, "dem", DEM_STEPS)
+    launches = CP.LAUNCHES_BY_KIND["dem"]
+    ps = rs.inner.ps
+    vm = ps.valid
+    if int(worst) != 0:
+        raise RuntimeError(f"DEM reuse steps flagged {int(worst)}")
+    if not all(bool(torch.isfinite(a[vm]).all()) for a in (
+            ps.x, ps.props["v"], ps.props["w"])):
+        raise RuntimeError("DEM reuse state is not finite")
+    vx = float(ps.props["v"][vm][:, 0].mean())
+    zmin = float(ps.x[vm][:, 2].min())
+    print(f"main path: DEM reuse {DEM_STEPS} steps {run_s:.3f} s wall, "
+          f"{int(torch.stack(stale).sum())} cell-list builds, mean v_x "
+          f"{vx:.6e}, min z {zmin:.6f}, {launches} dem launches")
+    if not vx > 0.0:
+        raise RuntimeError(f"DEM reuse: mean v_x {vx} is not positive")
+    if not zmin > -0.05:
+        raise RuntimeError(f"DEM reuse: a grain fell through: z {zmin}")
+    state = {"rs": rs, "ps": ps, "cache": None}
+
+    def reuse_step():
+        state["rs"], _, _ = step(state["rs"], {})
+
+    def cached_step():
+        state["ps"], _, state["cache"] = stepper(state["ps"], state["cache"])
+
+    cached_step()
+    reuse_ms = time_cuda(reuse_step, iters=10)
+    cached_ms = time_cuda(cached_step, iters=10)
+    n = int(ps.count())
+    print(f"DEM reuse step: {reuse_ms:.4f} ms/step, {n / reuse_ms * 1e3:.4e} "
+          f"grain-steps/s; cached stepper {cached_ms:.4f} ms/step (same "
+          "call)")
+    busy = profiled_ms(reuse_step, 5, "DEM reuse step", top=6)
+    print(f"DEM reuse step: idle share {1 - busy / reuse_ms:.3f}")
+    return launches
+
+
+def block_legs_phase(V, M4, K, vcfg):
+    """Phase 12a: B3 and B4 on 106-row blocks of the VIC mesh (100 owned
+    rows and 3 halo rows a side), one away from the seam and one at row0 =
+    -3, with the ring's particles after one step (those whose row lies in
+    the block: supports that leave it are dropped and counted): each
+    kernel against its plain version on the same local torus (REL_TOL),
+    each leg against the plain core.interp block legs (BLOCK_ORACLE_TOL),
+    the drop counts equal; then seed_from_block against the rows of
+    seed_from_mesh, bit for bit. Returns the B3 and B4 launches of the
+    block legs."""
+    from repro_torch.core import interp as IP
+    from repro_torch.core import remesh as RM
+    kw = dict(shape=vcfg.shape, box_lo=(0.0, 0.0, 0.0),
+              box_hi=vcfg.lengths, periodic=(True, True, True))
+    w, _ = V.vic_step(V.project_divfree(V.init_ring(vcfg), vcfg), vcfg)
+    ps, _ = RM.seed_from_mesh(w, box_lo=kw["box_lo"], box_hi=kw["box_hi"],
+                              periodic=kw["periodic"], dim=3)
+    u = V.velocity_from_vorticity(w, vcfg)
+    r = V.rhs_field(w, u, vcfg)
+    (up,) = M4.m2p_fused((u,), ps.x, ps.valid, cb=vcfg.interp_cb, **kw)
+    L = torch.tensor(vcfg.lengths, device=w.device)
+    x1 = torch.remainder(ps.x + vcfg.dt * up, L)
+    val = ps.props["w"]
+    del up
+    n0 = vcfg.shape[0]
+    h0 = vcfg.lengths[0] / n0
+    rows = BLOCK_OWNED + 2 * BLOCK_HALO
+    launched = {"p2m": 0, "m2p": 0}
+    for row0 in (n0 // 2 - BLOCK_OWNED // 2 - BLOCK_HALO, -BLOCK_HALO):
+        base0 = torch.floor(x1[:, 0] / h0).to(torch.int64)
+        sel = torch.remainder(base0 - row0, n0) < rows
+        xb, vb = x1[sel].contiguous(), val[sel].contiguous()
+        ok = torch.ones(xb.shape[0], dtype=torch.bool, device=xb.device)
+        idx = torch.remainder(torch.arange(row0, row0 + rows,
+                                           device=w.device), n0)
+        ub, rb = u[idx].contiguous(), r[idx].contiguous()
+        r0 = torch.tensor(row0, dtype=torch.int32, device=w.device)
+        K.LAUNCHES.update(dict.fromkeys(K.LAUNCHES, 0))
+        blk, ovf = M4.p2m_block(xb, vb, ok, r0, block_rows=rows,
+                                cb=vcfg.interp_cb, **kw)
+        (gu, gr), ovf_m = M4.m2p_fused_block((ub, rb), xb, ok, r0,
+                                             cb=vcfg.interp_cb, **kw)
+        got = dict(K.LAUNCHES)
+        if got != {"p2m": 1, "m2p": 1, "p2m_bf16x": 0, "m2p_bf16x": 0}:
+            raise RuntimeError(f"block legs launched {got}")
+        for k in launched:
+            launched[k] += got[k]
+        pb, _ = M4.p2m_block(xb, vb, ok, r0, block_rows=rows,
+                             cb=vcfg.interp_cb, backend="torch", **kw)
+        (pu, pr), _ = M4.m2p_fused_block((ub, rb), xb, ok, r0,
+                                         cb=vcfg.interp_cb, backend="torch",
+                                         **kw)
+        ref, drop = IP.p2m_block(xb, vb, ok, r0, block_rows=rows, **kw)
+        ru, drop_m = IP.m2p_block(ub, xb, ok, r0, **kw)
+        rr, _ = IP.m2p_block(rb, xb, ok, r0, **kw)
+        torch.cuda.synchronize()
+        errs = [rel_err(a, b) for a, b in ((blk, pb), (gu, pu), (gr, pr))]
+        errs_o = [rel_err(a, b) for a, b in ((blk, ref), (gu, ru), (gr, rr))]
+        counts = [int(v) for v in (ovf, drop, ovf_m, drop_m)]
+        k_ms = time_cuda(lambda: M4.p2m_block(
+            xb, vb, ok, r0, block_rows=rows, cb=vcfg.interp_cb, **kw), 3)
+        km_ms = time_cuda(lambda: M4.m2p_fused_block(
+            (ub, rb), xb, ok, r0, cb=vcfg.interp_cb, **kw), 3)
+        p_ms = time_cuda(lambda: IP.p2m_block(xb, vb, ok, r0,
+                                              block_rows=rows, **kw), 3)
+        pm_ms = time_cuda(lambda: (IP.m2p_block(ub, xb, ok, r0, **kw),
+                                   IP.m2p_block(rb, xb, ok, r0, **kw)), 3)
+        print(f"block row0 {row0}: {rows} rows (local torus "
+              f"{-(-rows // vcfg.interp_cb)} buckets), {xb.shape[0]} "
+              f"particles; against the plain versions on the local torus: "
+              f"B3 rel {errs[0]:.3e}, B4 rel {errs[1]:.3e} / {errs[2]:.3e} "
+              f"(tol {REL_TOL:g}); against core.interp's block legs: "
+              f"{errs_o[0]:.3e}, {errs_o[1]:.3e} / {errs_o[2]:.3e} (tol "
+              f"{BLOCK_ORACLE_TOL:g}); dropped: kernel {counts[0]} / "
+              f"{counts[2]}, core.interp {counts[1]} / {counts[3]}; "
+              f"{k_ms:.3f} + {km_ms:.3f} ms (core.interp {p_ms:.3f} + "
+              f"{pm_ms:.3f})")
+        if not (max(errs) <= REL_TOL and max(errs_o) <= BLOCK_ORACLE_TOL):
+            raise RuntimeError(f"block legs disagree: {errs}, {errs_o}")
+        if not (counts[0] == counts[1] == counts[2] == counts[3]
+                and counts[1] > 0):
+            raise RuntimeError(f"block drop counts differ: {counts}")
+        del xb, vb, ok, ub, rb, blk, gu, gr, pb, pu, pr, ref, ru, rr
+    # seed_from_block: the rows of seed_from_mesh, bit for bit
+    row0 = n0 // 2 - BLOCK_OWNED // 2
+    ps_all, _ = RM.seed_from_mesh(w, dim=3, box_lo=kw["box_lo"],
+                                  box_hi=kw["box_hi"],
+                                  periodic=kw["periodic"])
+    ps_b, ovf = RM.seed_from_block(
+        w[row0:row0 + BLOCK_OWNED], torch.tensor(row0, device=w.device),
+        **kw)
+    per_row = vcfg.shape[1] * vcfg.shape[2]
+    sl = slice(row0 * per_row, (row0 + BLOCK_OWNED) * per_row)
+    same = (torch.equal(ps_b.x, ps_all.x[sl])
+            and torch.equal(ps_b.props["w"], ps_all.props["w"][sl])
+            and bool(ps_b.valid.all()) and int(ovf) == 0)
+    print(f"seed_from_block rows {row0}..{row0 + BLOCK_OWNED - 1}: "
+          f"{ps_b.capacity} particles, equal to seed_from_mesh's rows bit "
+          f"for bit: {same}")
+    if not same:
+        raise RuntimeError("seed_from_block differs from seed_from_mesh")
+    return launched
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshFieldCfg:
+    """Phase 12b's hybrid physics: MF_SIDE^3 particles on a lattice that
+    drifts along x at dt per step, each step depositing unit mass onto a
+    mesh field (``kernels/m4_interp/ops.p2m_block``: B3) that diffuses,
+    with the pair pass of the LJ functor at epsilon 0 (zero forces: B1)."""
+
+    shape: tuple = MF_SHAPE
+    box: tuple = MF_BOX
+    side: int = MF_SIDE
+    r_cut: float = MF_R_CUT
+    cell_cap: int = MF_CELL_CAP
+    dt: float = 0.01
+    diff: float = 0.05
+    backend: str = "auto"
+
+
+def mesh_field_physics(cfg: MeshFieldCfg):
+    """Phase 12b's PhysicsSpec (module level, so make_sim_step caches it):
+    tests/distributed/test_dist_field.py's toy with the card's bodies."""
+    from repro_torch.apps import md
+    from repro_torch.core import simulation as SIM
+    from repro_torch.core.particles import const_tensor
+    from repro_torch.kernels.m4_interp import ops as M4
+    kw = dict(shape=cfg.shape, box_lo=(0.0, 0.0, 0.0), box_hi=cfg.box,
+              periodic=(True, True, True))
+    H = 2
+
+    def advance(ps, red, extras):
+        L = const_tensor(tuple(cfg.box), ps.x.dtype, ps.device)
+        step = const_tensor((cfg.dt, 0.0, 0.0), ps.x.dtype, ps.device)
+        x = torch.remainder(ps.x + step, L)
+        return ps.replace(x=torch.where(ps.valid[:, None], x, ps.x))
+
+    def finish(ctx):
+        rho = ctx.fields["rho"]
+        n_local = rho.shape[0]
+        row0 = ctx.grid.first_row(n_local) - H
+        if row0.device != ctx.ps.device:
+            raise RuntimeError(f"the step's first_row is on {row0.device}, "
+                               f"the particles on {ctx.ps.device}")
+        mass = ctx.ps.valid.to(torch.float32)
+        blk, drop = M4.p2m_block(ctx.ps.x, mass, ctx.ps.valid, row0,
+                                 block_rows=n_local + 2 * H,
+                                 backend=cfg.backend, **kw)
+        deposit = ctx.grid.ghost_put(blk, H)
+        pad = ctx.grid.ghost_get(rho, 1)
+        lap = (torch.roll(pad, 1, 0) + torch.roll(pad, -1, 0)
+               - 2 * pad)[1:-1]
+        return ctx.ps, {}, drop, {"rho": rho + cfg.diff * lap + deposit}
+
+    return SIM.PhysicsSpec(
+        name="mesh_field", box_lo=(0.0, 0.0, 0.0), box_hi=cfg.box,
+        periodic=(True, True, True), r_cut=cfg.r_cut, cell_cap=cfg.cell_cap,
+        pair_out={"f": "radial"},
+        make_body=lambda: md.lj_pair_body(0.5 * cfg.r_cut, 0.0),
+        advance=advance, finish=finish, backend=cfg.backend,
+        mesh_props=("rho",))
+
+
+def mesh_field_phase(CP, K):
+    """Phase 12b: the mesh-field physics through ``make_sim_step`` for
+    MF_STEPS steps (B1 and B3 once a step; the physics raises unless the
+    step's first_row is on the particles' device): total deposited mass =
+    particles x steps, no drops, and the same steps with backend="torch"
+    agree (<= SMALL_TOL). Returns the B1-LJ and B3 launches."""
+    from repro_torch.core import cell_list as CL
+    from repro_torch.core import particles as P
+    from repro_torch.core import simulation as SIM
+    cfg = MeshFieldCfg()
+    n = cfg.side ** 3
+    ps = P.init_grid((0.0,) * 3, cfg.box, (cfg.side,) * 3, capacity=n,
+                     device="cuda")
+    rho0 = torch.zeros(cfg.shape, device="cuda")
+    nodes = int(np.prod(cfg.shape))
+    gs = CL.grid_shape_for((0.0,) * 3, cfg.box, cfg.r_cut)
+    print(f"mesh field: {n} particles, {cfg.shape} nodes ({nodes}), pair "
+          f"grid {gs}, cell_cap {cfg.cell_cap}, {MF_STEPS} steps")
+    out, launched = {}, None
+    for backend in ("auto", "torch"):
+        c = dataclasses.replace(cfg, backend=backend)
+        st = SIM.serial_state(ps, mesh_field_physics, c,
+                              fields={"rho": rho0})
+        step = SIM.make_sim_step(mesh_field_physics, c)
+        reset_b1_counts(CP)
+        K.LAUNCHES.update(dict.fromkeys(K.LAUNCHES, 0))
+        worst = torch.zeros((), dtype=torch.int32, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MF_STEPS):
+            st, flags, _ = step(st, {})
+            worst = torch.maximum(worst, flags.any())
+        torch.cuda.synchronize()
+        dt_s = time.perf_counter() - t0
+        if backend == "auto":
+            check_b1_launches(CP, "lj", MF_STEPS)
+            if K.LAUNCHES["p2m"] != MF_STEPS:
+                raise RuntimeError(f"mesh field: B3 launched "
+                                   f"{K.LAUNCHES['p2m']} times")
+            launched = (CP.LAUNCHES_BY_KIND["lj"], K.LAUNCHES["p2m"])
+            # warm steps: the run's first steps grow the allocator's cache
+            step_ms = time_cuda(lambda: step(st, {}), iters=10)
+            busy = profiled_ms(lambda: step(st, {}), 3, "mesh-field step",
+                               top=8)
+            print(f"mesh-field step: {step_ms:.3f} ms/step warm (CUDA "
+                  f"events), {n / step_ms * 1e3:.4e} particle-steps/s, "
+                  f"idle share {1 - busy / step_ms:.3f}")
+        if int(worst) != 0:
+            raise RuntimeError(f"mesh field ({backend}) flagged "
+                               f"{int(worst)}: drops or overflow")
+        rho = st.fields["rho"]
+        mass = float(rho.double().sum())
+        want = float(n * MF_STEPS)
+        print(f"mesh field ({backend}): {MF_STEPS} steps {dt_s:.3f} s "
+              f"wall, mass {mass:.6f} of {want:.1f} (rel "
+              f"{abs(mass - want) / want:.3e}), rho max "
+              f"{float(rho.max()):.4f}")
+        if not (bool(torch.isfinite(rho).all())
+                and abs(mass - want) <= MF_MASS_TOL * want):
+            raise RuntimeError(f"mesh field ({backend}): mass {mass} "
+                               f"for {want}")
+        out[backend] = rho
+        del st
+    err = rel_err(out["auto"], out["torch"])
+    print(f"mesh field, kernel path vs plain path after {MF_STEPS} steps: "
+          f"rho rel {err:.3e} (tol {SMALL_TOL:g}); {launched[0]} B1 + "
+          f"{launched[1]} B3 launches")
+    if not err <= SMALL_TOL:
+        raise RuntimeError(f"mesh field disagrees with plain: {err:.3e}")
+    return launched
+
+
+def numerics_phase():
+    """Phase 13: multigrid_poisson at MG_N^3 against fft_poisson
+    (discrete), DC-PSE on DCPSE_SIDE^2 scattered 2-D particles (the
+    interior bounds of tests/test_dcpse.py), and balanced_bounds on the
+    card SPH dam break's initial positions into DLB_SLABS slabs."""
+    from repro_torch.apps import sph as S
+    from repro_torch.core import cell_list as CL
+    from repro_torch.core import dcpse as DC
+    from repro_torch.core import dlb as DLB
+    from repro_torch.core.particles import from_positions
+    from repro_torch.numerics import poisson as PS
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rhs = torch.randn((MG_N,) * 3, generator=gen, device="cuda")
+    rhs = rhs - rhs.mean()
+    lengths = (1.0, 1.0, 1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mg = PS.multigrid_poisson(rhs, lengths)
+    torch.cuda.synchronize()
+    mg_ms = (time.perf_counter() - t0) * 1e3
+    res = float(PS.residual_norm(mg, rhs, lengths))
+    fft = PS.fft_poisson(rhs, lengths, discrete=True)
+    err = rel_err(mg - mg.mean(), fft - fft.mean())
+    std = float(rhs.std())
+    print(f"multigrid_poisson {MG_N}^3, 8 V-cycles: {mg_ms:.2f} ms, "
+          f"residual {res:.3e} (bound {MG_RES_FRAC:g} x std {std:.4f}), "
+          f"against fft_poisson(discrete=True) rel {err:.3e} (tol "
+          f"{SMALL_TOL:g})")
+    if not (res < MG_RES_FRAC * std and err <= SMALL_TOL):
+        raise RuntimeError(f"multigrid: residual {res}, rel {err}")
+    del rhs, mg, fft
+
+    side = DCPSE_SIDE
+    rng = np.random.default_rng(6)
+    g = (np.stack(np.meshgrid(np.arange(side), np.arange(side),
+                              indexing="ij"), -1).reshape(-1, 2) + 0.5) / side
+    x = torch.from_numpy((g + rng.uniform(-0.3, 0.3, g.shape) / side)
+                         .astype(np.float32)).cuda()
+    ps = from_positions(x, capacity=side * side)
+    r_cut = 3.5 / side
+    gs = CL.grid_shape_for((0, 0), (1, 1), r_cut)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cl = CL.build_cell_list(ps, box_lo=(0., 0.), box_hi=(1., 1.),
+                            grid_shape=gs, periodic=(False, False),
+                            cell_cap=64)
+    vl = CL.build_verlet(ps, cl, r_cut, k_max=DCPSE_K_MAX)
+    torch.cuda.synchronize()
+    vl_ms = (time.perf_counter() - t0) * 1e3
+    f_lin = 3.0 * ps.x[:, 0] - 2.0 * ps.x[:, 1] + 0.7
+    f_quad = ps.x[:, 0] ** 2 + 2.0 * ps.x[:, 1] ** 2
+    for _ in range(2):     # the first call loads the batched solver
+        t0 = time.perf_counter()
+        grad = DC.gradient(ps, vl, f_lin)
+        torch.cuda.synchronize()
+        g_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    lap = DC.laplacian(ps, vl, f_quad)
+    torch.cuda.synchronize()
+    l_ms = (time.perf_counter() - t0) * 1e3
+    xi = ps.x
+    inner = ((xi > 0.15) & (xi < 0.85)).all(-1)
+    ge = float((grad[inner] - torch.tensor((3.0, -2.0),
+                                            device="cuda")).abs().max())
+    le = float((lap[inner] - 6.0).abs().max())
+    print(f"DC-PSE {side * side} particles: Verlet lists {vl_ms:.1f} ms "
+          f"(overflow {int(vl.overflow)}), gradient {g_ms:.1f} ms (second "
+          f"call), "
+          f"Laplacian {l_ms:.1f} ms; interior errors: gradient {ge:.3e} "
+          f"(bound 2e-2), Laplacian {le:.3e} (bound 0.5)")
+    if not (int(vl.overflow) == 0 and ge <= 2e-2 and le <= 0.5):
+        raise RuntimeError(f"DC-PSE: gradient {ge}, Laplacian {le}")
+    del ps, cl, vl, grad, lap
+
+    scfg = S.SPHConfig(**SPH_CARD, device="cuda")
+    ps = S.init_dam_break(scfg)
+    t0 = time.perf_counter()
+    bounds = DLB.balanced_bounds(ps.x[:, 0], ps.valid, DLB_SLABS, 0.0,
+                                 scfg.box[0])
+    torch.cuda.synchronize()
+    b_ms = (time.perf_counter() - t0) * 1e3
+    slab = torch.bucketize(ps.x[ps.valid][:, 0].contiguous(),
+                           bounds[1:-1].contiguous(), right=True)
+    counts = torch.bincount(slab, minlength=DLB_SLABS).double()
+    ratio = float(counts.max() / counts.mean())
+    print(f"balanced_bounds: {int(ps.count())} SPH particles into "
+          f"{DLB_SLABS} slabs in {b_ms:.2f} ms, bounds "
+          f"{[round(float(b), 5) for b in bounds]}, counts "
+          f"{[int(c) for c in counts]}, max/mean {ratio:.4f} (bound 1.5)")
+    if not ratio <= 1.5:
+        raise RuntimeError(f"balanced_bounds: max/mean {ratio}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA "
                                  "port on one GPU.")
@@ -1747,6 +2381,35 @@ def main() -> int:
 
     # -- phase 10: the LM stack's serve path ---------------------------------
     fa_entry = lm_phase()
+    torch.cuda.empty_cache()
+
+    # -- phase 11: the reuse engine at full width -----------------------------
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    md_entry["launches_reuse"] = md_reuse_phase(md, CL, CP, cfg, step_ms)
+    dem_entry["launches_reuse"] = dem_reuse_phase(D, CL, CP)
+    phase_mark("phase 11 (reuse)", t_phase)
+    torch.cuda.empty_cache()
+
+    # -- phase 12: the block legs and mesh fields ------------------------------
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    block = block_legs_phase(V, M4, K, vcfg)
+    torch.cuda.empty_cache()
+    mf_b1, mf_b3 = mesh_field_phase(CP, K)
+    m4_by_name = {e["name"]: e for e in m4_entries}
+    m4_by_name["m4_p2m"].update(launches_block=block["p2m"],
+                                launches_mesh_field=mf_b3)
+    m4_by_name["m4_m2p"]["launches_block"] = block["m2p"]
+    md_entry["launches_mesh_field"] = mf_b1
+    phase_mark("phase 12 (block legs, mesh fields)", t_phase)
+    torch.cuda.empty_cache()
+
+    # -- phase 13: numerics and balance --------------------------------------
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    numerics_phase()
+    phase_mark("phase 13 (multigrid, DC-PSE, DLB)", t_phase)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, build "
           "included")
 

@@ -282,11 +282,13 @@ def physics(cfg: DEMConfig) -> SIM.PhysicsSpec:
     gravity, and advances the leapfrog.
 
     Skin-amortized rebuild: when the caller threads a contact-list cache
-    through ``extras`` (:func:`make_cached_stepper`), the rebuild is
-    skipped while no particle moved more than skin/2 since the cached
-    build — the cached list (built with ``r_cut = 2R + skin``) still
-    covers every touching pair. (``repro``'s reuse-engine branch,
-    ``_reuse_slots_stable``, arrives with ROADMAP A8/A14.)"""
+    through ``extras`` (:func:`make_cached_stepper`, or the reuse engine's
+    ``cache_keys`` protocol, ``make_sim_step(..., reuse="skin")``), the
+    rebuild is skipped while no particle moved more than skin/2 since the
+    cached build — the cached list (built with ``r_cut = 2R + skin``)
+    still covers every touching pair. Under the reuse engine the list is
+    also rebuilt when ``"_reuse_slots_stable"`` is False (a slot
+    permutation since the cached build); serially it is always True."""
     lo = (0.0, 0.0, 0.0)
     hi = tuple(float(b) for b in cfg.box)
 
@@ -300,6 +302,11 @@ def physics(cfg: DEMConfig) -> SIM.PhysicsSpec:
             return vl.nbr[:n], vl.overflow, {}
         stale = (~ctx.extras["ct_ok"]) | CL.moved_beyond(
             ps.x, ctx.extras["ct_xb"], ps.valid, cfg.skin)
+        slots_stable = ctx.extras.get("_reuse_slots_stable")
+        if slots_stable is not None:
+            # reuse-engine protocol: a slot permutation invalidates the
+            # slot-indexed contacts whatever the drift
+            stale = ctx.red.max(stale | ~slots_stable)
         if bool(stale):          # one host read per step
             vl = CL.build_verlet(combo, cl, cfg.r_cut, cfg.k_full,
                                  half=False)
@@ -342,8 +349,15 @@ def physics(cfg: DEMConfig) -> SIM.PhysicsSpec:
         pair_out={"f": "radial"},
         make_body=lambda: dem_normal_body(cfg),
         pair_props=("v",),
+        ghost_props=("v", "w", "id"),
         advance=None, finish=finish,
-        backend=cfg.backend, precision=cfg.precision)
+        backend=cfg.backend, precision=cfg.precision,
+        # reuse-engine declarations: update steps refresh ghost angular
+        # velocity too (the tangential pass reads combo "w"), and the
+        # contact cache rides across steps
+        update_props=("v", "w"),
+        cache_keys=CACHE_KEYS, cache_scalars=("ct_ok",),
+        cache_example=lambda ps: empty_contact_cache(ps, cfg))
 
 
 def dem_step(ps: P.ParticleSet, cfg: DEMConfig):

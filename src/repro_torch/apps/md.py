@@ -189,12 +189,13 @@ def run(cfg: MDConfig, n_steps: int, thermal_v: float = 0.0,
     entries (step, E_kin, E_pot).
 
     ``thermal_v > 0`` draws velocities from a seeded CPU
-    ``torch.Generator`` (not ``jax.random``'s numbers). The step flags stay
-    on the device during the loop; after it, a nonzero flag raises
-    RuntimeError (a capacity must be re-provisioned)."""
-    if reuse is not None or skin is not None:
-        raise NotImplementedError(
-            "md.run(reuse=...) needs the reuse engine (ROADMAP A8)")
+    ``torch.Generator`` (not ``jax.random``'s numbers). ``reuse``/``skin``
+    select the skin-amortized engine (DESIGN.md §14,
+    ``simulation.make_sim_step``): the cell binning is cached across steps
+    and rebuilt only when the tripwire fires — the same trajectory, an
+    amortized rebuild. The step flags stay on the device during the loop;
+    after it, a nonzero flag raises RuntimeError (a capacity must be
+    re-provisioned)."""
     ps = init_particles(cfg, device=device)
     if thermal_v > 0:
         gen = torch.Generator().manual_seed(seed)
@@ -208,8 +209,16 @@ def run(cfg: MDConfig, n_steps: int, thermal_v: float = 0.0,
         ps = ps.with_prop("v", torch.where(vm, v - mean, torch.zeros_like(v)))
     ps, worst = compute_forces(ps, cfg)
     log = []
+    if reuse is not None:
+        step = SIM.make_sim_step(physics, cfg, reuse=reuse, skin=skin)
+        rstate = SIM.reuse_state(SIM.serial_state(ps, physics, cfg),
+                                 physics, cfg, skin=skin)
     for i in range(n_steps):
-        ps, overflow = md_step(ps, cfg)
+        if reuse is None:
+            ps, overflow = md_step(ps, cfg)
+        else:
+            rstate, flags, _ = step(rstate, {})
+            ps, overflow = rstate.inner.ps, flags.any()
         worst = torch.maximum(worst, overflow)
         if log_every and (i % log_every == 0 or i == n_steps - 1):
             ek, ep = energies(ps, cfg)

@@ -272,3 +272,10 @@ def moved_beyond(x: torch.Tensor, x_build: torch.Tensor, valid: torch.Tensor,
     d = torch.where(valid[:, None], x - x_build, torch.zeros_like(x))
     moved2 = (d * d).sum(-1)
     return moved2.max() > (0.5 * skin) ** 2
+
+
+def needs_rebuild(ps: ParticleSet, vl: VerletList,
+                  skin: float) -> torch.Tensor:
+    """Verlet skin criterion: rebuild when any particle moved > skin/2
+    since ``vl`` was built (a 0-d bool tensor on the device)."""
+    return moved_beyond(ps.x, vl.x_build, ps.valid, skin)

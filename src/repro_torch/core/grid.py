@@ -112,11 +112,14 @@ class GridOps:
     """ghost_get/ghost_put handed to physics hooks, serially the
     single-device pad and wrap (the grid mirror of
     ``simulation.Reduce``). ``axis_name`` other than None is the
-    distributed layer, ROADMAP A14, and raises."""
+    distributed layer, ROADMAP A14, and raises. ``device`` is where
+    :meth:`first_row` puts its index (the step passes the particles'
+    device, so no op of a step mixes devices)."""
 
     axis_name: Optional[str] = None
     periodic: bool = True
     fill: Optional[float] = 0.0     # None = non-periodic edge replication
+    device: Optional[torch.device] = None   # None: the CPU
 
     def __post_init__(self):
         if self.axis_name is not None:
@@ -136,8 +139,9 @@ class GridOps:
         return halo_reduce_local(padded, halo, periodic=self.periodic)
 
     def first_row(self, n_local: int) -> torch.Tensor:
-        """Global index of the local block's first owned row: 0."""
-        return torch.zeros((), dtype=torch.int32)
+        """Global index of the local block's first owned row: 0, a 0-d
+        int32 tensor on ``device``."""
+        return torch.zeros((), dtype=torch.int32, device=self.device)
 
 
 def apply_stencil_local(stencil_fn: Callable, halo: int,

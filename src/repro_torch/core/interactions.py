@@ -24,7 +24,11 @@ Interaction kernels are ``kernel(dx, r2, wi, wj) -> value`` with
 
 A body that the CUDA kernel can run also carries ``cuda_kind`` (the
 functor it maps to) and ``cuda_params``; see ``apps.md.lj_pair_body``.
-The Verlet-list paths of ``repro`` are not ported yet.
+
+The Verlet-list paths (:func:`apply_kernel_verlet`, the symmetric
+half-list :func:`apply_kernel_verlet_sym`) evaluate a kernel over a
+``cell_list.VerletList`` in plain PyTorch, as ``repro`` evaluates them in
+jnp.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ from typing import Any, Callable
 
 import torch
 
-from .cell_list import CellList, neighborhood
+from .cell_list import CellList, VerletList, _min_image, neighborhood
 from .particles import ParticleSet
 
 KernelFn = Callable[..., Any]
@@ -195,6 +199,81 @@ def _mask0(mask: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """``v`` where ``mask``, else 0 — a select, never a product, so a
     masked inf or NaN does not leak into the result."""
     return torch.where(_bmask(mask, v), v, torch.zeros_like(v))
+
+
+def _gather_props(props, idx, cap):
+    safe = idx.clamp(max=cap - 1).long()
+    return {k: a[safe] for k, a in props.items()}
+
+
+def _tree_map(fn, val):
+    """``fn`` over a kernel result: a tensor or a dict of tensors."""
+    if isinstance(val, dict):
+        return {k: fn(v) for k, v in val.items()}
+    return fn(val)
+
+
+def apply_kernel_verlet(ps: ParticleSet, vl: VerletList, cl: CellList,
+                        kernel: KernelFn, prop_names=(),
+                        batch_size: int = 2048):
+    """result_i = sum_j kernel(x_i - x_j, r2, w_i, w_j) over Verlet
+    neighbors, ``batch_size`` particles at a time (``repro``'s
+    ``lax.map(batch_size=...)``). ``kernel`` sees (B, k_max, ...) pair
+    arrays, with ``w_i`` broadcast over the neighbor axis."""
+    cap = ps.capacity
+    dev = ps.device
+    xm = ps.masked_x()
+    props = {k: ps.props[k] for k in prop_names}
+    parts = []
+    for b0 in range(0, cap, batch_size):
+        i = torch.arange(b0, min(b0 + batch_size, cap), device=dev)
+        nbr = vl.nbr[i]                                  # (B, k_max)
+        ok = nbr < cap
+        xj = xm[nbr.clamp(max=cap - 1).long()]
+        dx = _min_image(xm[i][:, None, :] - xj, cl)
+        r2 = (dx * dx).sum(-1)
+        wi = {k: a[i][:, None] for k, a in props.items()}
+        wj = _gather_props(props, nbr, cap)
+        val = kernel(dx, r2, wi, wj)                     # (B, k_max, ...)
+        parts.append(_tree_map(lambda v: _mask0(ok, v).sum(dim=1), val))
+    if isinstance(parts[0], dict):
+        out = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+    else:
+        out = torch.cat(parts)
+    return _tree_map(lambda v: _mask0(ps.valid, v), out)
+
+
+def apply_kernel_verlet_sym(ps: ParticleSet, vl: VerletList, cl: CellList,
+                            kernel: KernelFn, prop_names=(),
+                            antisymmetric: bool = True):
+    """Symmetric half-list evaluation: pairs (i, j>i) computed once; the
+    reverse contribution is scattered to j (sign-flipped if
+    ``antisymmetric``, e.g. forces; plain for symmetric scalars like SPH
+    density). The ghost_put(sum)-style path of ``repro``."""
+    cap, k_max = vl.nbr.shape
+    dev = ps.device
+    xm = ps.masked_x()
+    props = {k: ps.props[k] for k in prop_names}
+    i_idx = torch.arange(cap, device=dev).repeat_interleave(k_max)
+    j_idx = vl.nbr.reshape(-1).long()
+    ok = j_idx < cap
+    j_safe = j_idx.clamp(max=cap - 1)
+    dx = _min_image(xm[i_idx] - xm[j_safe], cl)
+    r2 = (dx * dx).sum(-1)
+    wi = _gather_props(props, i_idx, cap)
+    wj = _gather_props(props, j_safe, cap)
+    val = _tree_map(lambda v: _mask0(ok, v), kernel(dx, r2, wi, wj))
+    sign = -1.0 if antisymmetric else 1.0
+    j_dest = torch.where(ok, j_idx, torch.full_like(j_idx, cap))
+
+    def reduce(v):
+        zeros = lambda n: torch.zeros((n,) + tuple(v.shape[1:]),
+                                      dtype=v.dtype, device=dev)
+        fwd = zeros(cap).index_add_(0, i_idx, v)
+        rev = zeros(cap + 1).index_add_(0, j_dest, sign * v)[:cap]
+        return fwd + rev
+
+    return _tree_map(lambda v: _mask0(ps.valid, v), _tree_map(reduce, val))
 
 
 def apply_kernel_cells(ps: ParticleSet, cl: CellList, kernel: KernelFn,

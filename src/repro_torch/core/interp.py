@@ -13,9 +13,11 @@ node-centered: node i sits at ``lo + i*h`` with h = L/n on periodic axes
 and h = L/(n-1) otherwise.
 
 These plain PyTorch versions are the oracles of ``kernels/m4_interp`` and
-the ``interp="scatter"`` path of the vortex app. (``repro``'s local-block
-legs ``p2m_block``/``m2p_block`` and their pencil forms serve the
-distributed VIC step and arrive with it, ROADMAP A14.)
+the ``interp="scatter"`` path of the vortex app. The local-block legs
+:func:`p2m_block`/:func:`m2p_block` address a slab block of the mesh
+(owned rows plus a halo; serially the whole axis plus both halos). Their
+pencil forms (``*_block2``) serve the distributed VIC step and arrive
+with it, ROADMAP A14.
 """
 from __future__ import annotations
 
@@ -109,6 +111,108 @@ def p2m(x: torch.Tensor, value: torch.Tensor, valid: torch.Tensor, *,
         out.index_add_(0, flat, val2 * w[:, None])
     out = out.reshape(shape + (n_ch,))
     return out if vec else out[..., 0]
+
+
+# --------------------------------------------------------------------------
+# Local-block interpolation: the slab P2M/M2P legs
+# --------------------------------------------------------------------------
+# A block holds rows [row0, row0 + n_block) of the global leading axis
+# (owned rows plus a halo). The leading axis is addressed relative to
+# ``row0``, a 0-d device tensor (so no host read), transverse axes keep the
+# global extent and semantics. A valid particle whose M'4 support leaves
+# the block is dropped WHOLE and counted, never clamped into the edge;
+# nonzero counts mean the halo must be re-provisioned.
+
+def _block_base_frac(x, row0, n_block, shape, box_lo, box_hi, periodic):
+    """base/frac with the leading axis re-origined at global row ``row0``:
+    the fractional part matches the global indexing exactly (integer
+    shifts), the global periodic seam folds via the mod. When the block
+    is wider than the global axis (the serial 1-slab case: owned rows and
+    both halos), a folded row whose support would fall off the low edge
+    is lifted by one period into the high halo — both placements land on
+    the same global rows once the halo wraps."""
+    base, frac = _base_and_frac(x, shape, box_lo, box_hi, periodic)
+    n0 = int(shape[0])
+    rel0 = base[:, 0] - row0
+    if periodic[0]:
+        rel0 = torch.remainder(rel0, n0)
+        rel0 = torch.where((rel0 < 1) & (rel0 + n0 <= n_block - 3),
+                           rel0 + n0, rel0)
+    return torch.cat([rel0[:, None].to(base.dtype), base[:, 1:]], 1), frac
+
+
+def _block_ok(base0_rel, n_block):
+    """Full M'4 support (rows base-1..base+2) inside [0, n_block)."""
+    return (base0_rel >= 1) & (base0_rel <= n_block - 3)
+
+
+def p2m_block(x: torch.Tensor, value: torch.Tensor, valid: torch.Tensor,
+              row0, *, block_rows: int, shape: Tuple[int, ...], box_lo,
+              box_hi, periodic):
+    """Particle→mesh onto a local slab block (rows [row0, row0 +
+    block_rows) of the global mesh that ``shape``/``box_lo``/``box_hi``/
+    ``periodic`` describe, as in :func:`p2m`). Returns ``(block,
+    dropped)``: ``block`` has leading dim ``block_rows``; ``dropped`` (0-d
+    int32) counts valid particles whose support left the block."""
+    shape = tuple(int(n) for n in shape)
+    dim = len(shape)
+    base, frac = _block_base_frac(x, row0, block_rows, shape, box_lo,
+                                  box_hi, periodic)
+    ok = valid & _block_ok(base[:, 0], block_rows)
+    bshape = (int(block_rows),) + shape[1:]
+    n_nodes = int(np.prod(bshape))
+    vec = value.dim() == 2
+    n_ch = value.shape[1] if vec else 1
+    # one dump row past the end takes the rows outside the block (repro's
+    # scatter mode="drop"); their weights are zero
+    out = torch.zeros((n_nodes + 1, n_ch), dtype=value.dtype,
+                      device=value.device)
+    vm = ok.to(value.dtype)
+    val2 = value if vec else value[:, None]
+    for off in _stencil_offsets(dim):
+        idx = base + torch.as_tensor(off, dtype=torch.int32,
+                                     device=x.device)
+        w = (_stencil_weight(frac, off) * vm).to(value.dtype)
+        row = idx[:, 0]
+        wrapped = _wrap_index(idx[:, 1:], shape[1:], periodic[1:])
+        flat = _flat_index((row,) + wrapped, bshape)
+        flat = torch.where((row >= 0) & (row < block_rows), flat,
+                           torch.full_like(flat, n_nodes))
+        out.index_add_(0, flat, val2 * w[:, None])
+    out = out[:n_nodes].reshape(bshape + (n_ch,))
+    dropped = (valid & ~ok).sum().to(torch.int32)
+    return (out if vec else out[..., 0]), dropped
+
+
+def m2p_block(block: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
+              row0, *, shape: Tuple[int, ...], box_lo, box_hi, periodic):
+    """Mesh→particle from a local slab block (a halo-padded field whose row
+    0 is global row ``row0``), with the global mesh geometry as in
+    :func:`m2p`. Returns ``(values, dropped)``; dropped particles read
+    0."""
+    shape = tuple(int(n) for n in shape)
+    dim = len(shape)
+    n_block = block.shape[0]
+    base, frac = _block_base_frac(x, row0, n_block, shape, box_lo, box_hi,
+                                  periodic)
+    ok = valid & _block_ok(base[:, 0], n_block)
+    bshape = (n_block,) + shape[1:]
+    vec = block.dim() == dim + 1
+    flat_block = block.reshape((int(np.prod(bshape)),)
+                               + tuple(block.shape[dim:]))
+    out = torch.zeros(x.shape[:1] + tuple(block.shape[dim:]),
+                      dtype=block.dtype, device=block.device)
+    safe0 = torch.clamp(base[:, 0], 1, max(n_block - 3, 1))
+    for off in _stencil_offsets(dim):
+        off_t = torch.as_tensor(off, dtype=torch.int32, device=x.device)
+        idx = torch.cat([safe0[:, None], base[:, 1:]], 1) + off_t
+        w = _stencil_weight(frac, off).to(block.dtype)
+        wrapped = _wrap_index(idx[:, 1:], shape[1:], periodic[1:])
+        v = flat_block[_flat_index((idx[:, 0],) + wrapped, bshape)]
+        out = out + v * (w[:, None] if vec else w)
+    vm = ok.reshape(ok.shape + (1,) * (out.dim() - 1))
+    dropped = (valid & ~ok).sum().to(torch.int32)
+    return torch.where(vm, out, torch.zeros_like(out)), dropped
 
 
 def m2p(field: torch.Tensor, x: torch.Tensor, valid: torch.Tensor, *,

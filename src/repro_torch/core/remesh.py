@@ -8,8 +8,10 @@ re-seed is a static-shape compaction into a fixed-capacity
 :class:`ParticleSet` (kept nodes stable-sorted to the front, surplus
 counted as overflow); ``threshold=0.0`` keeps every node, in node order.
 
-(``repro``'s per-slab and per-pencil re-seeds ``seed_from_block*`` serve
-the distributed VIC step and arrive with it, ROADMAP A14.)
+:func:`seed_from_block` re-seeds one slab block of the mesh in global
+coordinates (serially, the whole mesh is one block). The per-pencil
+re-seed ``seed_from_block2`` serves the distributed VIC step and arrives
+with it, ROADMAP A14.
 """
 from __future__ import annotations
 
@@ -70,11 +72,18 @@ def seed_from_mesh(field: torch.Tensor, *, box_lo, box_hi, periodic,
     ``props["w"]`` is a view of ``field``."""
     dim = dim if dim is not None else len(box_lo)
     shape = tuple(field.shape[:dim])
+    nodes = node_positions(shape, box_lo, box_hi, periodic, field.device)
+    return _seed(field, nodes, threshold, capacity, dim)
+
+
+def _seed(field, nodes, threshold, capacity, dim):
+    """The re-seed of :func:`seed_from_mesh` on given node positions
+    (prod(shape), dim)."""
+    shape = tuple(field.shape[:dim])
     n_nodes = int(np.prod(shape))
     capacity = capacity or n_nodes
     dev = field.device
     flat = field.reshape((n_nodes,) + tuple(field.shape[dim:]))
-    nodes = node_positions(shape, box_lo, box_hi, periodic, dev)
     if threshold == 0.0 and capacity == n_nodes:
         # dense lattice: every node kept, in node order — skip the sort
         return (ParticleSet(x=nodes, props={"w": flat},
@@ -92,6 +101,38 @@ def seed_from_mesh(field: torch.Tensor, *, box_lo, box_hi, periodic,
                     torch.zeros((), dtype=flat.dtype, device=dev))
     overflow = torch.clamp(keep.sum() - capacity, min=0).to(torch.int32)
     return ParticleSet(x=x, props={"w": w}, valid=valid), overflow
+
+
+def seed_from_block(block: torch.Tensor, row0, *, shape, box_lo, box_hi,
+                    periodic, threshold: float = 0.0, capacity: int = 0
+                    ) -> Tuple[ParticleSet, torch.Tensor]:
+    """Per-slab re-seed: :func:`seed_from_mesh` over a local slab block.
+
+    ``block`` holds rows [row0, row0 + n_local) of the global mesh that
+    ``shape``/``box_lo``/``box_hi``/``periodic`` describe; ``row0`` is a
+    0-d device tensor (or an int). Seeded particles carry global
+    coordinates; thresholding and compaction are per block. A node's
+    leading coordinate is formed as :func:`node_positions` forms it (lo +
+    row·h in float64, then float32), so the block's particles equal the
+    rows of :func:`seed_from_mesh`'s bit for bit (``repro`` adds the
+    block's origin in float32, within an ulp of it)."""
+    dim = len(shape)
+    lo, h = _node_spacing(shape, box_lo, box_hi, periodic)
+    dev = block.device
+    bshape = tuple(block.shape[:dim])
+    n_local = bshape[0]
+    # the transverse axes of a local box with the global spacing
+    local_lo = (0.0,) + tuple(float(v) for v in np.asarray(box_lo)[1:])
+    local_hi = (float(n_local * h[0]),) + tuple(
+        float(v) for v in np.asarray(box_hi)[1:])
+    nodes = node_positions(bshape, local_lo, local_hi,
+                           (True,) + tuple(periodic[1:]), dev)
+    rows = torch.arange(n_local, device=dev) + row0
+    x0 = (rows.to(torch.float64) * float(h[0]) + float(lo[0])).to(
+        torch.float32)
+    x0 = x0.repeat_interleave(int(np.prod(bshape[1:])))
+    nodes = torch.cat([x0[:, None], nodes[:, 1:]], 1)
+    return _seed(block, nodes, threshold, capacity, dim)
 
 
 def remesh(x: torch.Tensor, w: torch.Tensor, valid: torch.Tensor, *, shape,

@@ -16,8 +16,11 @@ never clamped: the caller re-provisions.
 ``backend``: ``"auto"`` launches the CUDA kernels for CUDA tensors and
 runs their plain versions for CPU tensors; ``"torch"`` forces the plain
 versions; ``"cuda"`` forces the kernels and raises RuntimeError on CPU
-tensors. (``repro``'s local-block legs ``p2m_block``/``m2p_fused_block``
-serve the distributed VIC step and arrive with it, ROADMAP A14.)
+tensors.
+
+The local-block legs :func:`p2m_block`/:func:`m2p_fused_block` run the same
+kernels on a slab block of the mesh (owned rows plus a halo), embedded in
+a ``cb``-aligned local torus.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import cell_list as CL
+from repro_torch.core import interp as IP
 from repro_torch.core.particles import ParticleSet
 from repro_torch.kernels.m4_interp import m4_interp as K
 
@@ -165,6 +169,83 @@ def m2p_fused_bucketed(buckets: InterpBuckets, fields, valid, *, shape,
         out.append(piece[:, 0] if f.dim() == dim else piece)
         c0 += c
     return tuple(out)
+
+
+# --------------------------------------------------------------------------
+# Local-block legs (the slab P2M/M2P, DESIGN.md §10)
+# --------------------------------------------------------------------------
+# A block holds ``block_rows`` global rows from ``row0`` (owned rows ± a
+# halo). The kernels are torus kernels, so the block is embedded in a local
+# torus: rows padded up to a multiple of ``cb``, positions re-origined at
+# the block start. Particles whose M'4 support leaves the block are masked
+# out and counted (the contract of ``core.interp.p2m_block``, the oracle
+# these are held against); for kept particles the torus wrap never
+# engages, so the results match the oracle's.
+
+def _block_frame(x, valid, row0, block_rows, shape, box_lo, box_hi,
+                 periodic, cb):
+    """(x_local, ok, padded rows, local box lo, hi) for a block embedded in
+    a cb-aligned local torus."""
+    _, h = IP._node_spacing(shape, box_lo, box_hi, periodic)
+    base, frac = IP._block_base_frac(x, row0, block_rows, shape, box_lo,
+                                     box_hi, periodic)
+    ok = valid & IP._block_ok(base[:, 0], block_rows)
+    rows_k = -(-block_rows // cb) * cb
+    # the local coordinate rebuilt from the folded relative row and the
+    # exact frac, so the kernel re-derives the (base, frac) the oracle uses
+    x0_rel = (base[:, 0].to(x.dtype) + frac[:, 0]) * float(h[0])
+    x_loc = torch.cat([x0_rel[:, None], x[:, 1:]], 1)
+    x_loc = torch.where(ok[:, None], x_loc,
+                        torch.full_like(x_loc, ParticleSet.FILL))
+    local_lo = (0.0,) + tuple(float(v) for v in np.asarray(box_lo)[1:])
+    local_hi = (float(rows_k * h[0]),) + tuple(
+        float(v) for v in np.asarray(box_hi)[1:])
+    return x_loc, ok, rows_k, local_lo, local_hi
+
+
+def p2m_block(x, value, valid, row0, *, block_rows: int, shape, box_lo,
+              box_hi, periodic, cb: int = DEFAULT_CB, cell_cap: int = 0,
+              backend: str = "auto", precision: str = "fp32"):
+    """Cell-path P2M onto a local slab block, the counterpart of
+    ``core.interp.p2m_block`` (periodic global axes only). Returns
+    ``(block, overflow)``: overflow (0-d int32) sums the particles whose
+    support left the block and the bucket-capacity drops."""
+    shape = tuple(int(n) for n in shape)
+    x_loc, ok, rows_k, lo_l, hi_l = _block_frame(
+        x, valid, row0, block_rows, shape, box_lo, box_hi, periodic, cb)
+    kw = dict(shape=(rows_k,) + shape[1:], box_lo=lo_l, box_hi=hi_l,
+              periodic=tuple(periodic), cb=cb)
+    b = bucket_particles(x_loc, ok, cell_cap=cell_cap, **kw)
+    vmask = ok[:, None] if value.dim() == 2 else ok
+    out = p2m_bucketed(b, torch.where(vmask, value, torch.zeros_like(value)),
+                       backend=backend, precision=precision, **kw)
+    dropped = (valid & ~ok).sum().to(torch.int32)
+    return out[:block_rows], b.overflow + dropped
+
+
+def m2p_fused_block(blocks, x, valid, row0, *, shape, box_lo, box_hi,
+                    periodic, cb: int = DEFAULT_CB, cell_cap: int = 0,
+                    backend: str = "auto", precision: str = "fp32"):
+    """Fused cell-path M2P from local slab blocks (each ``(block_rows,
+    ...)``, all the same rows), the block counterpart of
+    :func:`m2p_fused`. Returns ``(tuple(values), overflow)``; dropped
+    particles read 0."""
+    shape = tuple(int(n) for n in shape)
+    blocks = tuple(blocks)
+    block_rows = blocks[0].shape[0]
+    x_loc, ok, rows_k, lo_l, hi_l = _block_frame(
+        x, valid, row0, block_rows, shape, box_lo, box_hi, periodic, cb)
+    kw = dict(shape=(rows_k,) + shape[1:], box_lo=lo_l, box_hi=hi_l,
+              periodic=tuple(periodic), cb=cb)
+    pad = rows_k - block_rows
+    fields = tuple(
+        torch.cat([f, f.new_zeros((pad,) + tuple(f.shape[1:]))]) if pad
+        else f for f in blocks)
+    b = bucket_particles(x_loc, ok, cell_cap=cell_cap, **kw)
+    out = m2p_fused_bucketed(b, fields, ok, backend=backend,
+                             precision=precision, **kw)
+    dropped = (valid & ~ok).sum().to(torch.int32)
+    return out, b.overflow + dropped
 
 
 def p2m(x, value, valid, *, shape, box_lo, box_hi, periodic,

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card
 (B1 with the LJ, SPH and DEM functors, B2, B3, B4; fp32 and bf16x; B5,
-the flash attention, in fp32 and bf16, and the dense LM path through it).
+the flash attention, in fp32 and bf16, and the dense LM path through it;
+the block legs of B3/B4, the MD reuse step and the mesh-field step).
 Imports neither jax nor repro, so it runs on the GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -12,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_bridge import interp_case, rel
+from _torch_bridge import ToyCfg, interp_case, rel, toy_physics
 
 from repro_torch.apps import vortex as TV
 from repro_torch.kernels.m4_interp import m4_interp as TK
@@ -707,3 +708,126 @@ def test_lm_backends_on_the_card(card):
     ref = TS.greedy_generate(cfg, params, toks, 5, s_max=48,
                              backend="torch")
     assert out.shape == (2, 5) and torch.equal(out, ref)
+
+
+# --------------------------------------------------------------------------
+# The block legs, the reuse engine and mesh fields on the card
+# --------------------------------------------------------------------------
+
+def _slab_case(n0, n_own, H, row0, seed):
+    """A (n0, 8, 8) mesh of an (n0 / 8, 1, 1) box, 3000 particles, and the
+    block of global rows [row0, row0 + n_own + 2H); the particles whose
+    row lies in the block (owned and halo rows, so some supports leave
+    the block and are dropped)."""
+    rng = np.random.default_rng(seed)
+    kw = dict(shape=(n0, 8, 8), box_lo=(0.0, 0.0, 0.0),
+              box_hi=(n0 / 8.0, 1.0, 1.0), periodic=(True, True, True))
+    x = (rng.uniform(size=(3000, 3)) * np.asarray(kw["box_hi"])).astype(
+        np.float32)
+    rows = n_own + 2 * H
+    rel_row = np.mod(np.floor(x[:, 0] * 8.0).astype(np.int64) - row0, n0)
+    mine = rel_row < rows
+    val = rng.normal(size=(3000, 3)).astype(np.float32)
+    blk = rng.normal(size=(rows, 8, 8, 4)).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).cuda()
+    return kw, t(x), t(val), t(mine), t(blk), rows, \
+        torch.tensor(row0, dtype=torch.int32, device="cuda")
+
+
+# (n0, owned rows, halo, row0): local tori of rows_k / cb = 2 and 3 buckets
+# at the seam (row0 < 0), 8 buckets inside and at the seam
+@pytest.mark.parametrize("n0,n_own,H,row0", [
+    (16, 4, 2, -2), (16, 8, 2, -2), (64, 28, 2, 20), (64, 28, 2, -2),
+    (64, 26, 3, 30)])
+def test_cuda_block_legs_match_plain(card, n0, n_own, H, row0):
+    """ops.p2m_block / m2p_fused_block launch B3 / B4 once each on the
+    block's local torus and agree with their plain versions there and
+    with the plain core.interp block legs (<= TOL; at these few rows the
+    local torus's float32 re-origin is far below it), with the same drop
+    counts."""
+    from repro_torch.core import interp as TIP
+    kw, x, val, mine, blk, rows, r0 = _slab_case(n0, n_own, H, row0,
+                                                 seed=n0 + row0)
+    assert -(-rows // CB) in (2, 3, 8)
+    n_p2m, n_m2p = TK.LAUNCHES["p2m"], TK.LAUNCHES["m2p"]
+    got, ovf = TM4.p2m_block(x, val, mine, r0, block_rows=rows,
+                             cell_cap=256, **kw)
+    (gu, gr), ovf_m = TM4.m2p_fused_block((blk[..., :3], blk[..., 3]), x,
+                                          mine, r0, cell_cap=256, **kw)
+    assert TK.LAUNCHES["p2m"] == n_p2m + 1 and TK.LAUNCHES["m2p"] == n_m2p + 1
+    pb, _ = TM4.p2m_block(x, val, mine, r0, block_rows=rows, cell_cap=256,
+                          backend="torch", **kw)
+    (pu, pr), _ = TM4.m2p_fused_block((blk[..., :3], blk[..., 3]), x, mine,
+                                      r0, cell_cap=256, backend="torch",
+                                      **kw)
+    assert rel(got, pb) <= TOL and rel(gu, pu) <= TOL and rel(gr, pr) <= TOL
+    ref, drop = TIP.p2m_block(x, val, mine, r0, block_rows=rows, **kw)
+    ru, drop_m = TIP.m2p_block(blk[..., :3].contiguous(), x, mine, r0, **kw)
+    rr, _ = TIP.m2p_block(blk[..., 3].contiguous(), x, mine, r0, **kw)
+    torch.cuda.synchronize()
+    assert int(drop) > 0 and int(ovf) == int(drop) == int(ovf_m) \
+        == int(drop_m)
+    assert rel(got, ref) <= TOL
+    assert rel(gu, ru) <= TOL and rel(gr, rr) <= TOL
+
+
+def test_cuda_md_reuse_matches_plain(card):
+    """md.run(reuse="skin") through B1 (1 + 1 launch per step) against the
+    same run on the plain path (backend torch), and the every-step kernel
+    path after 20 steps."""
+    from repro_torch.apps import md
+    from repro_torch.kernels.cell_pair import cell_pair as CP
+    cfg = md.MDConfig(n_per_side=6, sigma=0.085, cell_cap=96, device="cuda")
+    n0 = CP.LAUNCHES_BY_KIND["lj"]
+    pk, _ = md.run(cfg, 20, thermal_v=0.4, seed=2, reuse="skin")
+    assert CP.LAUNCHES_BY_KIND["lj"] == n0 + 21
+    pp, _ = md.run(dataclasses.replace(cfg, backend="torch"), 20,
+                   thermal_v=0.4, seed=2, reuse="skin")
+    pe, _ = md.run(cfg, 20, thermal_v=0.4, seed=2)
+    torch.cuda.synchronize()
+    vm = pk.valid
+    assert rel(pk.x[vm], pp.x[vm]) <= 1e-4
+    assert rel(pk.props["v"][vm], pp.props["v"][vm]) <= 1e-4
+    assert rel(pk.x[vm], pe.x[vm]) <= 1e-4
+
+
+def test_mesh_field_step_on_the_card(card, monkeypatch):
+    """The toy mesh-field physics with the card's bodies (the LJ functor
+    at epsilon 0 through B1, the deposit through B3 on the block's local
+    torus): the step's first_row is on the card, each step launches B1
+    and B3 once, and 4 steps agree with the plain path (backend torch)."""
+    from repro_torch.core import grid as G
+    from repro_torch.core import particles as P
+    from repro_torch.core import simulation as SIM
+    from repro_torch.kernels.cell_pair import cell_pair as CP
+    seen = []
+    first_row = G.GridOps.first_row
+
+    def spy(self, n_local):
+        row = first_row(self, n_local)
+        seen.append(row.device)
+        return row
+
+    monkeypatch.setattr(G.GridOps, "first_row", spy)
+    cfg = ToyCfg(kernel=True)
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy((rng.uniform(0, 1, (cfg.n, 3))
+                          * np.asarray(cfg.box)).astype(np.float32)).cuda()
+    ps = SIM.with_ids(P.from_positions(x))
+    rho0 = torch.zeros(cfg.shape, device="cuda")
+    out = {}
+    for backend in ("auto", "torch"):
+        c = dataclasses.replace(cfg, backend=backend)
+        st = SIM.serial_state(ps, toy_physics, c, fields={"rho": rho0})
+        step = SIM.make_sim_step(toy_physics, c)
+        n_b1, n_b3 = CP.LAUNCHES_BY_KIND["lj"], TK.LAUNCHES["p2m"]
+        for _ in range(4):
+            st, flags, _ = step(st, {})
+            assert int(flags.any()) == 0
+        launched = (CP.LAUNCHES_BY_KIND["lj"] - n_b1,
+                    TK.LAUNCHES["p2m"] - n_b3)
+        assert launched == ((4, 4) if backend == "auto" else (0, 0))
+        out[backend] = st.fields["rho"]
+    assert len(seen) == 8 and all(d.type == "cuda" for d in seen)
+    assert float(out["auto"].sum()) > cfg.n * 3.99
+    assert rel(out["auto"], out["torch"]) <= TOL

@@ -116,12 +116,9 @@ def test_serial_flags_match(cell_cap):
 
 def test_unported_engine_options_raise():
     tcfg = tmd.MDConfig(n_per_side=3, device="cpu")
-    for kw in (dict(mesh=object()), dict(overlap=True), dict(n_hops=2),
-               dict(reuse="skin")):
+    for kw in (dict(mesh=object()), dict(overlap=True), dict(n_hops=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TSIM.make_sim_step(tmd.physics, tcfg, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmd.run(tcfg, 1, reuse="skin")
     with pytest.raises(NotImplementedError):
         TSIM.Reduce("shards")
 
