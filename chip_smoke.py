@@ -113,6 +113,34 @@ Phases, each of which raises (non-zero exit) on failure:
      ``balanced_bounds`` on the card SPH dam break's initial positions
      into 8 slabs (max/mean <= 1.5). Each of phases 11-13 prints its time
      and peak memory.
+ 14. the fleet engine: (a) 64 MD members of 32,768 particles
+     (quickstart.py's configuration scaled as phase 3 scales it), each
+     with its own seeded velocities, for 20 ``make_fleet_step`` steps —
+     exactly one B1-LJ launch a step for all members, zero flags, members
+     0, 21, 42 and 63 equal to their serial ``make_sim_step`` runs bit for
+     bit in x and v — then the fleet's ms/step, member- and
+     particle-steps/s, a serial sweep of the 64 members, host enqueue,
+     idle share and peak memory; (b) ``FleetServer`` over 16 slots
+     draining 48 requests of 5-30 steps (seeded numpy budgets) into
+     ``build/fleet_results``: one step signature after the churn, one
+     B1-LJ launch per fleet step, sampled results equal to their serial
+     runs bit for bit, no ``.tmp`` after ``close()``, a streamed result
+     loaded back exactly, and the ``repro-fleet-metrics/v1`` snapshot;
+     (c) 8 SPH dam breaks at dp 0.012 (phase 7's tank) with per-member
+     euler flags ((i + b) % 4 == 0) for 10 steps — one B1-SPH launch a
+     step, members 0 and 5 equal to their serial steps bit for bit;
+ 15. PS-CMA-ES (§4.6): ``cma_update`` on the card against the float64
+     numpy oracle with shared z, from the init and a mid-run state, at
+     d = 10 (<= 5e-4 elementwise, tests/test_cmaes.py's bound) and
+     d = 50 (<= 5e-4 of each field's max; both measures printed); the
+     paper-scale success rate (d = 50, 8 runs x 20,000 evaluations, 4
+     instances, f < 150) on the card no lower than the numpy loop's and
+     >= 0.75; 1,024 instances at d = 50 for 200 generations,
+     generations/s and evaluations/s;
+ 16. io: ``write_particles`` of a fleet member from the card, the same
+     bytes as from a CPU copy; a checkpoint of phase 3's 216,000-particle
+     state read back bit for bit, a blocking save and an async save timed
+     until they return.
 
 It prints a ``{"kernels": [...]}`` line and, as its last line,
 ``{"ok": true, "device": {...}}``. It exits non-zero without a result when
@@ -270,6 +298,37 @@ BF16_FLOP_PER_S = 989e12
 # flops per in-cutoff body evaluation, accumulation included (b1_bound)
 SPH_EVAL_FLOPS = {2: 50, 3: 55}
 DEM_EVAL_FLOPS = 27
+# Phase 14: the fleet. (a) B members of quickstart.py's MD scaled as phase
+# 3 scales it (32^3 particles a member, 12^3 cells), each with its own
+# seeded velocities; (b) FleetServer with FLEET_SLOTS slots draining
+# FLEET_REQUESTS requests of 5-30 steps; (c) the SPH dam break of phases
+# 6-7 at twice its spacing (about 71k particles a member), member b taking
+# an Euler step where (i + b) % FLEET_SPH_CADENCE == 0.
+FLEET_B = 64
+FLEET_SIDE = 32
+FLEET_STEPS = 20
+FLEET_SAMPLES = (0, 21, 42, 63)
+FLEET_SLOTS = 16
+FLEET_REQUESTS = 48
+FLEET_BUDGETS = (5, 30)
+FLEET_SPH_B = 8
+FLEET_SPH_DP = 0.012
+FLEET_SPH_STEPS = 10
+FLEET_SPH_CADENCE = 4
+FLEET_SPH_SAMPLES = (0, 5)
+# Phase 15: PS-CMA-ES (paper §4.6). (a) one generation against the float64
+# numpy oracle with shared z at d = 50 (tests/test_cmaes.py's 5e-4); (b)
+# tests/test_cmaes.py's paper-scale acceptance; (c) the engine's rate on a
+# large population.
+CMA_DIM = 50
+CMA_TOL = 5e-4
+CMA_RUNS = 8
+CMA_EVALS = 20000
+CMA_INSTANCES = 4
+CMA_TARGET = 150.0
+CMA_MIN_RATE = 0.75
+CMA_POP = 1024
+CMA_GENS = 200
 
 
 def time_cuda(fn, iters: int, warmup: int = 2) -> float:
@@ -2191,6 +2250,430 @@ def numerics_phase():
         raise RuntimeError(f"balanced_bounds: max/mean {ratio}")
 
 
+
+# --------------------------------------------------------------------------
+# Phases 14-16: the fleet engine and its server, PS-CMA-ES, io
+# --------------------------------------------------------------------------
+
+def held_equal(name, got, want) -> None:
+    """Fail unless ``got`` equals ``want`` bit for bit; on a gap, print
+    it (max-abs over the reference's max-abs) before failing."""
+    if torch.equal(got, want):
+        return
+    gap = float((got.double() - want.double()).abs().max())
+    scale = float(want.double().abs().max()) + 1e-30
+    raise RuntimeError(f"{name}: not bit-equal; largest gap {gap:.3e} "
+                       f"({gap / scale:.3e} of the max)")
+
+
+def fleet_md_members(md, SIM, cfg, B: int, seed0: int = 0):
+    """B serial MD states of ``cfg`` on the card, member b with
+    THERMAL_V·N(0, 1) velocities from a generator seeded seed0 + b."""
+    base = md.init_particles(cfg)
+    states = []
+    for b in range(B):
+        gen = torch.Generator(device="cuda").manual_seed(seed0 + b)
+        v = THERMAL_V * torch.randn(tuple(base.x.shape), generator=gen,
+                                    device="cuda")
+        ps = base.with_prop("v", torch.where(base.valid[:, None], v, 0.0))
+        states.append(SIM.serial_state(ps, md.physics, cfg))
+    return states
+
+
+def serial_run(SIM, physics, cfg, state, n: int, extras_at=None):
+    """``n`` serial steps of ``state`` (``extras_at(i)``: step i's
+    extras)."""
+    step = SIM.make_sim_step(physics, cfg)
+    for i in range(n):
+        state, _, _ = step(state, extras_at(i) if extras_at else {})
+    return state
+
+
+def fleet_md_phase(md, CP):
+    """Phase 14a: FLEET_STEPS fleet steps of FLEET_B MD members — one
+    B1-LJ launch a step for all of them, sampled members equal to their
+    serial runs bit for bit — then the fleet's step time against a serial
+    sweep of every member. Returns (cfg, the initial member states, the
+    stepped ensemble, launches)."""
+    from repro_torch.core import simulation as SIM
+    from repro_torch.fleet import batch as FB
+    cfg = md.MDConfig(n_per_side=FLEET_SIDE, sigma=0.85 / FLEET_SIDE,
+                      dt=0.005 / FLEET_SIDE, cell_cap=48, device="cuda")
+    gs = md._cl_kw(cfg)["grid_shape"]
+    print(f"fleet MD: {FLEET_B} members x {cfg.n_particles} particles "
+          f"({FLEET_B * cfg.n_particles} in all), capacity "
+          f"{int(cfg.n_particles * cfg.capacity_factor)}, grid {gs}, "
+          f"cell_cap {cfg.cell_cap}")
+    states = fleet_md_members(md, SIM, cfg, FLEET_B)
+    ens = FB.stack_members(states)
+    fstep = FB.make_fleet_step(md.physics, cfg)
+    reset_b1_counts(CP)
+    flags = None
+    for _ in range(FLEET_STEPS):
+        ens, flags, _ = fstep(ens, {})
+    torch.cuda.synchronize()
+    check_b1_launches(CP, "lj", FLEET_STEPS)
+    launches = CP.LAUNCHES_BY_KIND["lj"]
+    worst = int(flags.any().max())
+    if worst != 0:
+        raise RuntimeError(f"fleet MD step flags {worst}")
+    x = ens.member.ps.x[ens.member.ps.valid]
+    if not bool(torch.isfinite(x).all()):
+        raise RuntimeError("fleet MD positions are not finite")
+    for b in FLEET_SAMPLES:
+        ref = serial_run(SIM, md.physics, cfg, states[b], FLEET_STEPS)
+        m = FB.member_at(ens, b)
+        held_equal(f"fleet member {b} x", m.ps.x, ref.ps.x)
+        held_equal(f"fleet member {b} v", m.ps.props["v"],
+                   ref.ps.props["v"])
+    print(f"fleet MD: {FLEET_STEPS} steps, {launches} B1-LJ launches (one "
+          f"a step for {FLEET_B} members), members {FLEET_SAMPLES} equal "
+          "to their serial runs bit for bit in x and v")
+
+    box = {"ens": ens}
+
+    def one_step():
+        box["ens"], _, _ = fstep(box["ens"], {})
+
+    serial = {"states": list(states)}
+    sstep = SIM.make_sim_step(md.physics, cfg)
+
+    def sweep():
+        serial["states"] = [sstep(s, {})[0] for s in serial["states"]]
+
+    step_ms = time_cuda(one_step, iters=10)
+    sweep_ms = time_cuda(sweep, iters=3, warmup=1)
+    busy_ms = time_device(one_step, iters=3)
+    host_s = 0.0
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step()
+        host_s += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    n_all = FLEET_B * cfg.n_particles
+    print(f"fleet MD step: {step_ms:.4f} ms/step for {FLEET_B} members, "
+          f"{FLEET_B / step_ms * 1e3:.4e} member-steps/s, "
+          f"{n_all / step_ms * 1e3:.4e} particle-steps/s; serial loop "
+          f"{sweep_ms:.4f} ms per sweep of the {FLEET_B} members "
+          f"({sweep_ms / step_ms:.2f}x the fleet step); device busy "
+          f"{busy_ms:.4f} ms, idle share {1 - busy_ms / step_ms:.3f}; host "
+          f"enqueue {host_s / 5 * 1e3:.4f} ms/step; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    ens = box["ens"]
+    del box, serial
+    return cfg, states, ens, launches
+
+
+def fleet_server_phase(md, CP, cfg, states):
+    """Phase 14b: FleetServer over FLEET_SLOTS slots drains FLEET_REQUESTS
+    MD requests (budgets from a seeded numpy generator) with one step
+    signature; sampled results equal their serial runs bit for bit;
+    results stream to build/fleet_results with no .tmp left, and one
+    loads back exactly. Returns the B1 launches (one per fleet step)."""
+    import shutil
+    from repro_torch.core import simulation as SIM
+    from repro_torch.fleet import FleetServer, SimRequest
+    from repro_torch.io import checkpoint as CK
+    out = ROOT / "build" / "fleet_results"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    budgets = np.random.default_rng(7).integers(
+        FLEET_BUDGETS[0], FLEET_BUDGETS[1] + 1, size=FLEET_REQUESTS)
+    srv = FleetServer(md.physics, cfg, n_slots=FLEET_SLOTS,
+                      template=states[0], out_dir=str(out),
+                      queue_cap=FLEET_REQUESTS)
+    for rid in range(FLEET_REQUESTS):
+        srv.submit(SimRequest(rid=rid, state=states[rid],
+                              n_steps=int(budgets[rid])))
+    reset_b1_counts(CP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with srv:
+        results = srv.run()
+    wall = time.perf_counter() - t0
+    steps = srv.metrics.fleet_steps
+    check_b1_launches(CP, "lj", steps)
+    if srv.step_cache_size() != 1:
+        raise RuntimeError(f"step_cache_size {srv.step_cache_size()} != 1")
+    if sorted(r.rid for r in results) != list(range(FLEET_REQUESTS)):
+        raise RuntimeError("the server lost requests")
+    if any(v for r in results for v in r.flags_max.values()):
+        raise RuntimeError("a served member raised a step flag")
+    for rid in FLEET_SAMPLES[:3] + (FLEET_REQUESTS - 1,):
+        res = next(r for r in results if r.rid == rid)
+        if res.steps_done != int(budgets[rid]):
+            raise RuntimeError(f"request {rid}: {res.steps_done} steps")
+        ref = serial_run(SIM, md.physics, cfg, states[rid],
+                         int(budgets[rid]))
+        held_equal(f"served request {rid} x", res.state.ps.x, ref.ps.x)
+        held_equal(f"served request {rid} v", res.state.ps.props["v"],
+                   ref.ps.props["v"])
+    tmp = sorted(p.name for p in out.glob("*.tmp"))
+    if tmp:
+        raise RuntimeError(f".tmp left after close(): {tmp}")
+    if len(list(out.iterdir())) != FLEET_REQUESTS:
+        raise RuntimeError("not every result was streamed out")
+    res = next(r for r in results if r.rid == 5)
+    ps, step, meta = CK.load_particles(out / "sim_5",
+                                       capacity=res.state.ps.capacity)
+    if step != int(budgets[5]) or meta["rid"] != "5":
+        raise RuntimeError(f"streamed result 5: step {step}, meta {meta}")
+    held_equal("streamed result 5 x", ps.x[ps.valid],
+               res.state.ps.x[res.state.ps.valid])
+    held_equal("streamed result 5 v", ps.props["v"][ps.valid],
+               res.state.ps.props["v"][res.state.ps.valid])
+    print(f"fleet server: {FLEET_REQUESTS} requests ({int(budgets.sum())} "
+          f"member-steps) through {FLEET_SLOTS} slots in {steps} fleet "
+          f"steps, {wall:.3f} s, step_cache_size 1, {steps} B1-LJ launches; "
+          "sampled results equal their serial runs bit for bit, no .tmp, "
+          "result 5 loads back exactly")
+    print(json.dumps(srv.metrics.snapshot()))
+    return steps
+
+
+def fleet_sph_phase(S, CP):
+    """Phase 14c: FLEET_SPH_B dam breaks with per-member euler flags for
+    FLEET_SPH_STEPS fleet steps — one B1-SPH launch a step — sampled
+    members equal their serial steps bit for bit. Returns the launches."""
+    from repro_torch.core import simulation as SIM
+    from repro_torch.fleet import batch as FB
+    cfg = S.SPHConfig(**{**SPH_CARD, "dp": FLEET_SPH_DP}, device="cuda")
+    base = S.init_dam_break(cfg)
+    states = []
+    for b in range(FLEET_SPH_B):
+        gen = torch.Generator(device="cuda").manual_seed(100 + b)
+        v = 0.01 * torch.randn(tuple(base.props["v"].shape), generator=gen,
+                               device="cuda")
+        ps = base.with_prop("v", torch.where(base.valid[:, None], v, 0.0))
+        states.append(SIM.serial_state(ps, S.physics, cfg))
+    n = int(base.count())
+    print(f"fleet SPH: {FLEET_SPH_B} members x {n} particles "
+          f"({FLEET_SPH_B * n} in all), grid "
+          f"{S._cl_kw(cfg)['grid_shape']}, cell_cap {cfg.cell_cap}")
+    ens = FB.stack_members(states)
+    fstep = FB.make_fleet_step(S.physics, cfg)
+    rows = torch.arange(FLEET_SPH_B, device="cuda")
+
+    def euler_rows(i):
+        return torch.remainder(rows + i, FLEET_SPH_CADENCE) == 0
+
+    reset_b1_counts(CP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flags = scal = None
+    for i in range(FLEET_SPH_STEPS):
+        ens, flags, scal = fstep(ens, {"euler": euler_rows(i)})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_b1_launches(CP, "sph", FLEET_SPH_STEPS)
+    launches = CP.LAUNCHES_BY_KIND["sph"]
+    if int(flags.any().max()) != 0:
+        raise RuntimeError("fleet SPH step flags")
+    if not (bool(torch.isfinite(ens.member.ps.x).all())
+            and bool((scal["dt"] > 0).all())):
+        raise RuntimeError("fleet SPH state not finite or dt <= 0")
+    for b in FLEET_SPH_SAMPLES:
+        ref = serial_run(
+            SIM, S.physics, cfg, states[b], FLEET_SPH_STEPS,
+            lambda i, b=b: {"euler": (i + b) % FLEET_SPH_CADENCE == 0})
+        m = FB.member_at(ens, b)
+        for name in ("v", "rho"):
+            held_equal(f"fleet SPH member {b} {name}", m.ps.props[name],
+                       ref.ps.props[name])
+        held_equal(f"fleet SPH member {b} x", m.ps.x, ref.ps.x)
+    box = {"ens": ens}
+
+    def one_step():
+        box["ens"], _, _ = fstep(box["ens"], {"euler": euler_rows(1)})
+
+    step_ms = time_cuda(one_step, iters=5)
+    print(f"fleet SPH: {FLEET_SPH_STEPS} steps in {wall:.3f} s, {launches} "
+          f"B1-SPH launches (one a step for {FLEET_SPH_B} members), members "
+          f"{FLEET_SPH_SAMPLES} equal to their serial steps bit for bit; "
+          f"{step_ms:.4f} ms/step, "
+          f"{FLEET_SPH_B * n / step_ms * 1e3:.4e} particle-steps/s; dt per "
+          f"member {[f'{v:.3e}' for v in scal['dt'].tolist()]}")
+    return launches
+
+
+def cma_oracle_states(C, dim: int):
+    """tests/test_cmaes.py's two states at ``dim``: the fresh init (C = I)
+    and a mid-run state with a well-separated spectrum."""
+    rng = np.random.default_rng(0)
+    init = C.cma_init(dim, rng)
+    q, _ = np.linalg.qr(np.random.default_rng(7).standard_normal((dim, dim)))
+    Cm = q @ np.diag(np.linspace(0.5, 2.0, dim)) @ q.T
+    mid = C.CMAState(mean=rng.uniform(-3, 3, dim), sigma=0.8,
+                     C=0.5 * (Cm + Cm.T),
+                     p_sigma=rng.standard_normal(dim) * 0.3,
+                     p_c=rng.standard_normal(dim) * 0.3, best_f=50.0,
+                     best_x=rng.uniform(-3, 3, dim), evals=120, gen=12)
+    return (("init", init), ("mid-run", mid))
+
+
+def cma_update_check(C, dim: int, elementwise: bool) -> None:
+    """One cma_update on the card against the float64 numpy oracle with
+    shared z, from both of :func:`cma_oracle_states`. Every field's error
+    is printed both ways: elementwise, |a - b| / (|b| + 1e-6) as
+    tests/test_cmaes.py measures it, and over the field's max-abs. The
+    first is held at d = 10, as that test holds it; at d = 50 a mid-run
+    state has path components near 1e-5, where float32 alone makes the
+    elementwise form exceed 5e-4 (repro's jax engine too: 1.3e-2 on
+    p_sigma), so the second is held there."""
+    lam = C.cma_consts(dim)["lam"]
+    zrng = np.random.default_rng(42)
+    fields = ("mean", "sigma", "C", "p_sigma", "p_c", "best_f", "best_x")
+    f32 = lambda a: torch.tensor(np.asarray(a)[None], dtype=torch.float32,
+                                 device="cuda")
+    i32 = lambda a: torch.tensor([a], dtype=torch.int32, device="cuda")
+    for tag, st in cma_oracle_states(C, dim):
+        z = zrng.standard_normal((lam, dim))
+
+        class FixedZ:
+            def standard_normal(self, shape, z=z):
+                return z
+
+        ref = C.cma_generation(st, C.rastrigin, FixedZ())
+        pop = C.CMAStateT(mean=f32(st.mean), sigma=f32(st.sigma),
+                          C=f32(st.C), p_sigma=f32(st.p_sigma),
+                          p_c=f32(st.p_c), best_f=f32(st.best_f),
+                          best_x=f32(st.best_x), evals=i32(st.evals),
+                          gen=i32(st.gen))
+        out = C.cma_update(pop, f32(z), C.rastrigin_t)
+        elem, scale = {}, {}
+        for fld in fields:
+            a = getattr(out, fld)[0].double().cpu().numpy()
+            b = np.asarray(getattr(ref, fld), np.float64)
+            elem[fld] = float(np.max(np.abs(a - b) / (np.abs(b) + 1e-6)))
+            scale[fld] = float(np.max(np.abs(a - b))
+                               / (np.max(np.abs(b)) + 1e-30))
+        held = elem if elementwise else scale
+        print(f"cma_update d={dim} ({tag}) vs the numpy oracle, shared z; "
+              "elementwise " + ", ".join(f"{k} {v:.2e}"
+                                         for k, v in elem.items())
+              + "; over the max " + ", ".join(f"{k} {v:.2e}"
+                                              for k, v in scale.items())
+              + f"; held: {'elementwise' if elementwise else 'over the max'}"
+              f" <= {CMA_TOL:g}")
+        if not max(held.values()) <= CMA_TOL:
+            raise RuntimeError(f"cma_update d={dim} ({tag}) off the oracle")
+        if int(out.evals[0]) != ref.evals or int(out.gen[0]) != ref.gen:
+            raise RuntimeError("cma_update counters differ from the oracle")
+
+
+def cmaes_phase():
+    """Phase 15: (a) cma_update on the card against the numpy oracle with
+    shared z at d = 10 and d = CMA_DIM (:func:`cma_update_check`); (b)
+    the paper-scale success rate against the numpy loop's; (c) the
+    engine's generations/s on CMA_POP instances."""
+    from repro_torch.apps import cmaes as C
+    from repro_torch.core import simulation as SIM
+    dim = CMA_DIM
+    lam = C.cma_consts(dim)["lam"]
+    cma_update_check(C, 10, elementwise=True)
+    cma_update_check(C, dim, elementwise=False)
+
+    t0 = time.perf_counter()
+    sr_np = C.success_rate(C.rastrigin, dim, CMA_RUNS, CMA_EVALS,
+                           n_particles=CMA_INSTANCES, f_target=CMA_TARGET,
+                           seed0=0)
+    np_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sr_t = C.success_rate_torch(C.rastrigin_t, dim, CMA_RUNS, CMA_EVALS,
+                                n_particles=CMA_INSTANCES,
+                                f_target=CMA_TARGET, seed0=0, device="cuda")
+    t_s = time.perf_counter() - t0
+    print(f"PS-CMA-ES d={dim}, {CMA_RUNS} runs x {CMA_EVALS} evaluations, "
+          f"{CMA_INSTANCES} instances, f < {CMA_TARGET:g}: success rate "
+          f"{sr_t:.3f} on the card ({t_s:.2f} s), {sr_np:.3f} numpy loop "
+          f"({np_s:.2f} s)")
+    if not (sr_t >= sr_np and sr_t >= CMA_MIN_RATE):
+        raise RuntimeError(f"card success rate {sr_t} (numpy {sr_np}, "
+                           f"floor {CMA_MIN_RATE})")
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    pop = C.cma_init_t(gen, dim, CMA_POP)
+    red = SIM.Reduce(None)
+
+    def generation(g):
+        nonlocal pop
+        pop = C.cma_generation_t(pop, gen, C.rastrigin_t, lam)
+        pop = C.restart_collapsed(pop, gen)
+        if g % 20 == 0:
+            pop = C.migrate(pop, red)
+
+    generation(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for g in range(2, CMA_GENS + 2):
+        generation(g)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    best = float(pop.best_f.min())
+    if not np.isfinite(best):
+        raise RuntimeError("CMA-ES population best is not finite")
+    eigh_ms = time_cuda(lambda: torch.linalg.eigh(pop.C), iters=3, warmup=1)
+    print(f"PS-CMA-ES engine: {CMA_POP} instances at d={dim}, {CMA_GENS} "
+          f"generations in {s:.3f} s: {CMA_GENS / s:.2f} generations/s, "
+          f"{CMA_GENS * CMA_POP * lam / s:.4e} evaluations/s; best f "
+          f"{best:.3f}; torch.linalg.eigh of the population's C alone "
+          f"{eigh_ms:.3f} ms a call ({eigh_ms * CMA_GENS / (s * 1e3):.3f} "
+          "of the generations' time)")
+
+
+def io_phase(ens, md_ps):
+    """Phase 16: ``write_particles`` of one fleet member on the card
+    against the same call on a CPU copy (bytes equal); a checkpoint of
+    the 216,000-particle MD state read back bit for bit, the blocking
+    save and an async save timed until they return."""
+    import shutil
+    from repro_torch.fleet import batch as FB
+    from repro_torch.io import checkpoint as CK
+    from repro_torch.io import vtk as VTK
+    out = ROOT / "build" / "io_phase"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    m = FB.member_at(ens, 0).ps
+    t0 = time.perf_counter()
+    VTK.write_particles(out / "card.vtk", m.x,
+                        {"v": m.props["v"], "f": m.props["f"]}, m.valid)
+    vtk_s = time.perf_counter() - t0
+    VTK.write_particles(out / "cpu.vtk", m.x.cpu(),
+                        {"v": m.props["v"].cpu(), "f": m.props["f"].cpu()},
+                        m.valid.cpu())
+    if (out / "card.vtk").read_bytes() != (out / "cpu.vtk").read_bytes():
+        raise RuntimeError("write_particles: card and CPU bytes differ")
+    tree = {"x": md_ps.x, "props": dict(md_ps.props), "valid": md_ps.valid}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    CK.save(out / "md", tree, step=STEPS)
+    block_s = time.perf_counter() - t0
+    got, step, _ = CK.load(out / "md", tree)
+    if step != STEPS:
+        raise RuntimeError(f"checkpoint step {step}")
+    for name, a, b in (("x", got["x"], md_ps.x),
+                       ("valid", got["valid"], md_ps.valid),
+                       *((k, got["props"][k], v)
+                         for k, v in md_ps.props.items())):
+        held_equal(f"checkpoint {name}", a, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    CK.save(out / "md_async", tree, step=STEPS, block=False)
+    async_s = time.perf_counter() - t0
+    CK.flush()
+    if list(out.glob("*.tmp")):
+        raise RuntimeError("io: .tmp left after flush()")
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in (md_ps.x, md_ps.valid, *md_ps.props.values()))
+    print(f"io: write_particles of a fleet member ({int(m.valid.sum())} "
+          f"particles) {vtk_s:.3f} s, bytes equal to the CPU copy's; "
+          f"checkpoint of the {int(md_ps.valid.sum())}-particle MD state "
+          f"({n_bytes / 2**20:.2f} MiB) read back bit for bit; blocking "
+          f"save {block_s * 1e3:.2f} ms, async save {async_s * 1e3:.2f} ms "
+          "until it returns")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA "
                                  "port on one GPU.")
@@ -2330,6 +2813,7 @@ def main() -> int:
 
     md_entry.update(launches=launches,
                     launches_per_step=(launches - 1) / STEPS)
+    md_state = state["ps"]          # phase 16 checkpoints it
     del state, ps, cl, t, f
 
     # -- phases 4 and 5: vortex-in-cell --------------------------------------
@@ -2410,6 +2894,30 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     numerics_phase()
     phase_mark("phase 13 (multigrid, DC-PSE, DLB)", t_phase)
+    torch.cuda.empty_cache()
+
+    # -- phase 14: the fleet engine and its server ---------------------------
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    fcfg, fstates, fens, md_entry["launches_fleet"] = fleet_md_phase(md, CP)
+    md_entry["launches_server"] = fleet_server_phase(md, CP, fcfg, fstates)
+    del fstates
+    torch.cuda.empty_cache()
+    sph_entry["launches_fleet"] = fleet_sph_phase(S, CP)
+    phase_mark("phase 14 (fleet, server)", t_phase)
+    torch.cuda.empty_cache()
+
+    # -- phase 15: PS-CMA-ES ---------------------------------------------------
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cmaes_phase()
+    phase_mark("phase 15 (PS-CMA-ES)", t_phase)
+
+    # -- phase 16: io ----------------------------------------------------------
+    t_phase = time.perf_counter()
+    io_phase(fens, md_state)
+    phase_mark("phase 16 (io)", t_phase)
+    del fens, md_state
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, build "
           "included")
 

@@ -174,7 +174,8 @@ def physics(cfg: SPHConfig) -> SIM.PhysicsSpec:
     """SPH as a simulation-layer spec. No ``advance`` (rates come first);
     ``finish`` is the DualSPHysics Verlet scheme with the global dynamic
     dt (``red.max`` is the identity serially). ``extras["euler"]`` (a
-    Python bool) picks the periodic Euler stabilization step."""
+    Python bool or a 0-d bool tensor; ``(B,)`` rows in a fleet) selects
+    the periodic Euler stabilization step."""
     dim = cfg.dim
     lo = (0.0,) * dim
     hi = tuple(float(b) for b in cfg.box)
@@ -196,12 +197,14 @@ def physics(cfg: SPHConfig) -> SIM.PhysicsSpec:
             max=cfg.h / cfg.c_sound)
         v, v_prev = ps.props["v"], ps.props["v_prev"]
         rho, rho_prev = ps.props["rho"], ps.props["rho_prev"]
-        if bool(ctx.extras["euler"]):
-            v_new = v + dt * a
-            rho_new = rho + dt * drho
-        else:
-            v_new = v_prev + 2.0 * dt * a
-            rho_new = rho_prev + 2.0 * dt * drho
+        # a select, as repro's jnp.where: per member under the fleet's
+        # vmap, and no host read of a device flag
+        euler = ctx.extras["euler"]
+        if not isinstance(euler, torch.Tensor):
+            euler = const_tensor(bool(euler), torch.bool, ps.device)
+        v_new = torch.where(euler, v + dt * a, v_prev + 2.0 * dt * a)
+        rho_new = torch.where(euler, rho + dt * drho,
+                              rho_prev + 2.0 * dt * drho)
         step = dt * v + 0.5 * dt * dt * a
         x_new = ps.x + torch.where(fl, step, torch.zeros_like(step))
         # clamp into box (boundary-penetration guard)

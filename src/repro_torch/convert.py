@@ -1,6 +1,7 @@
-"""Carry particle state, mesh fields and LM parameters between ``repro``
-and ``repro_torch`` as numpy arrays. A particle system's "weights" are its
-state: both packages step the same state after the conversion.
+"""Carry particle state, mesh fields, fleet ensembles, CMA-ES populations
+and LM parameters between ``repro`` and ``repro_torch`` as numpy arrays.
+A particle system's "weights" are its state: both packages step the same
+state after the conversion.
 
 The ``repro`` side is given as numpy (``np.asarray`` on each leaf of its
 ``ParticleSet`` or parameter pytree), so this module needs neither
@@ -68,3 +69,38 @@ def lm_params_from_numpy(tree, device="cuda") -> Dict[str, Any]:
         return _tensor(t, dev)
 
     return walk(tree)
+
+
+def ensemble_from_numpy(ens, device="cuda"):
+    """The port's ``fleet.batch.EnsembleState`` on ``device`` from
+    ``repro``'s (``jax.tree.map(np.asarray, ens)``: an object with
+    ``member.ps.{x, valid, props}``, ``member.bounds``, ``member.fields``,
+    ``params`` and ``active`` as numpy leaves with a leading batch axis;
+    copied)."""
+    from repro_torch.core.simulation import DistributedParticles
+    from repro_torch.fleet.batch import EnsembleState
+    dev = resolve_device(device)
+    m = ens.member
+    ps = particles_from_numpy(m.ps.x, m.ps.valid, dict(m.ps.props),
+                              device=dev)
+    member = DistributedParticles(
+        ps=ps, bounds=_tensor(m.bounds, dev),
+        fields={k: _tensor(v, dev) for k, v in dict(m.fields).items()})
+    return EnsembleState(
+        member=member,
+        params={k: _tensor(v, dev) for k, v in dict(ens.params).items()},
+        active=_tensor(np.asarray(ens.active, bool), dev))
+
+
+def cma_state_from_numpy(st, device="cuda"):
+    """The port's ``apps.cmaes.CMAStateT`` on ``device`` from ``repro``'s
+    stacked ``CMAStateJ`` with numpy leaves (``(B, ...)``; float fields as
+    float32, ``evals`` and ``gen`` as int32; copied)."""
+    from repro_torch.apps.cmaes import CMAStateT
+    dev = resolve_device(device)
+    f32 = lambda a: torch.from_numpy(np.array(a, np.float32)).to(dev)
+    i32 = lambda a: torch.from_numpy(np.array(a, np.int32)).to(dev)
+    return CMAStateT(mean=f32(st.mean), sigma=f32(st.sigma), C=f32(st.C),
+                     p_sigma=f32(st.p_sigma), p_c=f32(st.p_c),
+                     best_f=f32(st.best_f), best_x=f32(st.best_x),
+                     evals=i32(st.evals), gen=i32(st.gen))

@@ -104,11 +104,13 @@ def build_cell_list(ps: ParticleSet, *, box_lo, box_hi, grid_shape,
     n_slots = (n_cells + 1) * cell_cap
     dest = torch.where(rank < cell_cap, sorted_cells.long() * cell_cap + rank,
                        torch.full_like(rank, n_slots))
-    cells = torch.full((n_slots + 1,), cap, dtype=torch.int32, device=dev)
-    cells[dest] = order.to(torch.int32)
+    # out-of-place writes into the fresh buffers, so the build also runs
+    # under torch.func.vmap (the fleet step); same values as in place
+    cells = torch.full((n_slots + 1,), cap, dtype=torch.int32,
+                       device=dev).index_put((dest,), order.to(torch.int32))
     cells = cells[:n_slots].view(n_cells + 1, cell_cap)
-    counts = torch.zeros(n_cells + 1, dtype=torch.int32, device=dev)
-    counts.index_add_(0, cell_id, torch.ones_like(cell_id))
+    counts = torch.zeros(n_cells + 1, dtype=torch.int32, device=dev
+                         ).index_add(0, cell_id, torch.ones_like(cell_id))
     overflow = torch.clamp(counts[:n_cells].max() - cell_cap, min=0)
     return CellList(cells=cells, counts=counts, cell_id=cell_id,
                     overflow=overflow, grid_shape=tuple(grid_shape),

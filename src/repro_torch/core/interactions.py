@@ -293,7 +293,7 @@ def apply_kernel_cells(ps: ParticleSet, cl: CellList, kernel: KernelFn,
     xm = ps.masked_x()
     props = {k: ps.props[k] for k in prop_names}
     rc2 = r_cut * r_cut
-    sums = {}
+    slot_rows, slot_sums = [], {}
     for b0 in range(0, n_cells, cell_batch):
         c = torch.arange(b0, min(b0 + cell_batch, n_cells), device=dev)
         rows = cl.cells[c]                               # (B, cc)
@@ -318,12 +318,19 @@ def apply_kernel_cells(ps: ParticleSet, cl: CellList, kernel: KernelFn,
         val = kernel(dx, r2, wi, wj)                     # (B, cc, Kcc, ...)
         if not isinstance(val, dict):
             val = {None: val}
+        slot_rows.append(rows.reshape(-1).long())
         for name, v in val.items():
             s = _mask0(pair_ok, v).sum(dim=2)            # (B, cc, ...)
-            flat = _mask0(row_ok, s).reshape((-1,) + tuple(s.shape[2:]))
-            if name not in sums:
-                sums[name] = torch.zeros((cap + 1,) + tuple(s.shape[2:]),
-                                         dtype=s.dtype, device=dev)
-            sums[name].index_add_(0, rows.reshape(-1).long(), flat)
-    out = {name: _mask0(ps.valid, s[:cap]) for name, s in sums.items()}
+            slot_sums.setdefault(name, []).append(
+                _mask0(row_ok, s).reshape((-1,) + tuple(s.shape[2:])))
+    # slot -> particle in one out-of-place index_add (the fleet step runs
+    # this under vmap): a particle fills one slot, so its row takes one
+    # addition onto zero; sentinel slots land on the dropped row ``cap``
+    dest = torch.cat(slot_rows)
+    out = {}
+    for name, parts in slot_sums.items():
+        flat = torch.cat(parts)
+        s = torch.zeros((cap + 1,) + tuple(flat.shape[1:]), dtype=flat.dtype,
+                        device=dev).index_add(0, dest, flat)
+        out[name] = _mask0(ps.valid, s[:cap])
     return out[None] if list(out) == [None] else out

@@ -15,7 +15,10 @@ kernel, or raises if the body or precision has no CUDA form; for CPU
 tensors it runs :func:`cell_pair_torch`, the plain PyTorch version of the
 same function (the Pallas ``_pair_kernel`` rule: self-pairs are excluded by
 ``r2 > 1e-12``). Both take ``precision`` ``"fp32"``, ``"bf16x"`` or
-``"bf16x:<names>"``. :data:`LAUNCHES` counts kernel launches.
+``"bf16x:<names>"``. :data:`LAUNCHES` counts kernel launches. The
+launch is the PyTorch operator ``repro_torch::cell_pair``, whose batching
+rule lets ``torch.func.vmap`` (the fleet step) fold many members' tiles
+into one launch.
 
 The body protocol is that of ``repro_torch.core.interactions``. A body the
 kernel can run carries ``cuda_kind`` (the C++ functor it maps to, one of
@@ -29,7 +32,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import pathlib
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -290,6 +293,14 @@ def _launch(kind, body, cell_x, nbr_x, cell_mask, nbr_mask, packed_i,
     """Launch functor ``kind`` in precision ``prec`` (one of its
     :data:`KINDS` precisions) on PyTorch's current stream (no sync) with
     the props already packed; returns {name: (C, cc[, dim])}."""
+    return _launch_params(kind, body.cuda_params, cell_x, nbr_x, cell_mask,
+                          nbr_mask, packed_i, packed_j, r_cut, prec)
+
+
+def _launch_params(kind, params, cell_x, nbr_x, cell_mask, nbr_mask,
+                   packed_i, packed_j, r_cut, prec="f32"):
+    """:func:`_launch` with the functor's float params given as they are
+    (``body.cuda_params``)."""
     global LAUNCHES
     spec = KINDS[kind]
     _check_tiles(cell_x, nbr_x, cell_mask, nbr_mask)
@@ -303,7 +314,7 @@ def _launch(kind, body, cell_x, nbr_x, cell_mask, nbr_mask, packed_i,
         width = spec.width(dim)
         _check_packed("props_i", packed_i, (C, cc, width), dev)
         _check_packed("props_j", packed_j, (C, kcc, width), dev)
-    params = tuple(float(v) for v in body.cuda_params)
+    params = tuple(float(v) for v in params)
     if len(params) != spec.n_params:
         raise ValueError(f"the {kind} functor takes {spec.n_params} params, "
                          f"the body gives {len(params)}")
@@ -330,9 +341,80 @@ def _launch(kind, body, cell_x, nbr_x, cell_mask, nbr_mask, packed_i,
     return res
 
 
+# --------------------------------------------------------------------------
+# The launch as a PyTorch operator, so that torch.func.vmap sees it
+# --------------------------------------------------------------------------
+#
+# A ctypes launch is invisible to torch.func.vmap. As the operator
+# ``repro_torch::cell_pair`` (CUDA only), the launch has a batching rule:
+# under vmap (the fleet step, fleet/batch.py) the members' tiles fold into
+# the cell axis, (B, C, ...) -> (B·C, ...), and ONE launch serves all B
+# members — the kernel gives each cell its own block and indexes in
+# size_t, so the folded launch computes each member's cells exactly as
+# its own launch would. The outputs unfold to (B, C, cc[, dim]).
+
+#: The folded tiles' elements must stay below 2^31 (the C entry takes the
+#: cell count as an int; every index inside is size_t).
+_FOLD_LIMIT = 2 ** 31
+
+
+@torch.library.custom_op("repro_torch::cell_pair", mutates_args=(),
+                         device_types="cuda")
+def _cell_pair_op(cell_x: torch.Tensor, nbr_x: torch.Tensor,
+                  cell_mask: torch.Tensor, nbr_mask: torch.Tensor,
+                  packed_i: Optional[torch.Tensor],
+                  packed_j: Optional[torch.Tensor], kind: str, prec: str,
+                  params: List[float], r_cut: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of functor ``kind``: (radial, scalar) per-slot sums; an
+    output the functor lacks is an empty tensor."""
+    res = _launch_params(kind, params, cell_x, nbr_x, cell_mask, nbr_mask,
+                         packed_i, packed_j, r_cut, prec)
+    by_kind = {k: res[n] for n, k in KINDS[kind].out.items()}
+    return (by_kind.get("radial", cell_x.new_empty((0,))),
+            by_kind.get("scalar", cell_x.new_empty((0,))))
+
+
+def _fold(t, bdim, batch: int):
+    """(B, C, ...) with the batch axis ``bdim`` (None: shared by every
+    member) as a contiguous (B·C, ...) tensor."""
+    if t is None:
+        return None
+    t = t.expand((batch,) + tuple(t.shape)) if bdim is None \
+        else t.movedim(bdim, 0)
+    return t.reshape((batch * t.shape[1],) + tuple(t.shape[2:])).contiguous()
+
+
+@_cell_pair_op.register_vmap
+def _cell_pair_vmap(info, in_dims, cell_x, nbr_x, cell_mask, nbr_mask,
+                    packed_i, packed_j, kind, prec, params, r_cut):
+    """The batching rule: fold, launch once, unfold. ``kind``, ``prec``,
+    ``params`` and ``r_cut`` are the same for every member (one ``cfg``
+    per fleet)."""
+    B = info.batch_size
+    tiles = [_fold(t, d, B) for t, d in zip(
+        (cell_x, nbr_x, cell_mask, nbr_mask, packed_i, packed_j),
+        in_dims[:6])]
+    if tiles[1].numel() >= _FOLD_LIMIT:
+        raise ValueError(
+            f"the folded candidate tiles of {B} members hold "
+            f"{tiles[1].numel()} elements, above the kernel's 2^31")
+    outs = _cell_pair_op(*tiles, kind, prec, params, r_cut)
+    res, dims = [], []
+    for t in outs:
+        if t.numel():
+            res.append(t.view((B, -1) + tuple(t.shape[1:])))
+            dims.append(0)
+        else:
+            res.append(t)
+            dims.append(None)
+    return tuple(res), tuple(dims)
+
+
 def _cell_pair_cuda(cell_x, nbr_x, cell_mask, nbr_mask, props_i, props_j,
                     *, body, out, r_cut, precision):
-    """Pack the tile props in the functor's order and launch it."""
+    """Pack the tile props in the functor's order and launch it through
+    ``repro_torch::cell_pair``."""
     kind, prec = _kind_of(body, out, precision)
     names = KINDS[kind].props
     if sorted(props_i) != sorted(names) or sorted(props_j) != sorted(names):
@@ -340,8 +422,11 @@ def _cell_pair_cuda(cell_x, nbr_x, cell_mask, nbr_mask, props_i, props_j,
                          f"{sorted(props_i)} / {sorted(props_j)}")
     packed_i = pack_props(props_i, names) if names else None
     packed_j = pack_props(props_j, names) if names else None
-    return _launch(kind, body, cell_x, nbr_x, cell_mask, nbr_mask, packed_i,
-                   packed_j, r_cut, prec)
+    radial, scalar = _cell_pair_op(
+        cell_x, nbr_x, cell_mask, nbr_mask, packed_i, packed_j, kind, prec,
+        [float(v) for v in body.cuda_params], float(r_cut))
+    return {name: radial if k == "radial" else scalar
+            for name, k in KINDS[kind].out.items()}
 
 
 def cell_pair(cell_x, nbr_x, cell_mask, nbr_mask, props_i=None,
@@ -379,9 +464,10 @@ def scatter_slots(rows: torch.Tensor, val: torch.Tensor,
     spread = cap + torch.arange(flat_rows.shape[0], device=flat.device) \
         % _DUMP_ROWS
     dest = torch.where(flat_rows < cap, flat_rows, spread)
+    # out-of-place (the fleet step runs this under torch.func.vmap)
     buf = torch.zeros((cap + _DUMP_ROWS,) + tuple(flat.shape[1:]),
-                      dtype=flat.dtype, device=flat.device)
-    buf.index_add_(0, dest, flat)
+                      dtype=flat.dtype, device=flat.device
+                      ).index_add(0, dest, flat)
     return buf[:cap]
 
 
