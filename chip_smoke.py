@@ -141,6 +141,31 @@ Phases, each of which raises (non-zero exit) on failure:
      bytes as from a CPU copy; a checkpoint of phase 3's 216,000-particle
      state read back bit for bit, a blocking save and an async save timed
      until they return.
+ 17. the 1-D slab layer (``core/runtime.py``, ``core/mappings.py``, the
+     mesh path of ``make_sim_step``, the grid halo layer, slab FFT
+     Poisson) at world 1 over NCCL — one card is one slab, the
+     degenerate decomposition with periodic self-ghosts at ±L: (a) two
+     NCCL ranks on the one card (what NCCL says is printed), then every
+     runtime collective on the 1-rank NCCL mesh against its expected
+     value (exact); (b) B1 through ``cells=`` on phase 3's state, the
+     interior and boundary rows of the split-phase schedule, against the
+     plain engine on the same cells (<= 1e-5); (c) MD at 216,000
+     particles, ``distribute`` + ``make_sim_step(md.physics, cfg, mesh)``
+     with overlap on, then off, 20 steps each: the schedules bit-equal,
+     each within 1e-4 of ``md_step`` by id, zero flags, B1 twice a step
+     with overlap and once without; ms/step beside ``md_step``'s, the
+     step's stages (map, ghost pack, collectives, cell lists, B1
+     interior, B1 boundary, combine), idle share, peak memory; (d) SPH at
+     570,248 and DEM at 72,030 for 10 steps each against their serial
+     steps (<= 1e-4, rho over rho0, SPH's dt), zero flags, ms/step
+     beside the serial step; (e) ``gray_scott.run_distributed`` at 256^3,
+     100 steps, against ``run`` (<= 1e-4), ms/step; (f)
+     ``make_distributed_vic_step`` at 800 x 200 x 200, 2 steps, against
+     ``vic_step`` (<= 1e-4 of the max), 2 B3 + 2 B4 launches a step,
+     ms/step beside the serial step. The ``kernels`` line's
+     ``cell_pair_lj``, ``_sph``, ``_dem``, ``m4_p2m`` and ``m4_m2p``
+     entries carry ``launches_dist``: their launches in phase 17's runs.
+     The process group is destroyed before the last line.
 
 It prints a ``{"kernels": [...]}`` line and, as its last line,
 ``{"ok": true, "device": {...}}``. It exits non-zero without a result when
@@ -329,6 +354,18 @@ CMA_TARGET = 150.0
 CMA_MIN_RATE = 0.75
 CMA_POP = 1024
 CMA_GENS = 200
+# Phase 17: the 1-D slab layer on the card at world 1 over NCCL (one card
+# is one slab: NCCL takes one rank per GPU). The serial phases' sizes;
+# ghost_cap provisioned from the state (GHOST_MARGIN x the larger face
+# band's count); the distributed steps held to the serial ones by id.
+AXIS = "shards"
+DIST_MD_STEPS = 20
+DIST_SPH_STEPS = 10
+DIST_DEM_STEPS = 10
+DIST_GS_STEPS = 100
+DIST_VIC_STEPS = 2
+DIST_TOL = 1e-4       # distributed vs serial (repro's distributed suite)
+GHOST_MARGIN = 1.5
 
 
 def time_cuda(fn, iters: int, warmup: int = 2) -> float:
@@ -2674,6 +2711,473 @@ def io_phase(ens, md_ps):
           "until it returns")
 
 
+# --------------------------------------------------------------------------
+# Phase 17: the 1-D slab layer at world 1 over NCCL
+# --------------------------------------------------------------------------
+
+def runtime_checks(RT):
+    """17a: every collective of the runtime on the NCCL world-1 mesh
+    against its expected value (exact), and an all_reduce's latency."""
+    dev = torch.device("cuda")
+    x = torch.arange(6, dtype=torch.float32, device=dev).reshape(2, 3)
+    right, left = RT.shift_perms(1)
+    both = RT.ppermute_many_start([([x, x > 2], right), ([2 * x], left)],
+                                  AXIS).wait()
+    z = torch.complex(x, -x)
+    s = torch.full((), 5, dtype=torch.int32, device=dev)
+    checks = {
+        "ppermute (self-edge copy)": (RT.ppermute(x, AXIS, right), x),
+        "ppermute batch": (torch.cat([both[0][0], both[1][0]]),
+                           torch.cat([x, 2 * x])),
+        "ppermute bool": (both[0][1], x > 2),
+        "all_to_all": (RT.all_to_all(x[:1], AXIS), x[:1]),
+        "all_to_all tiled complex": (RT.all_to_all(
+            z, AXIS, split_axis=1, concat_axis=0, tiled=True), z),
+        "psum": (RT.psum(s, AXIS), s),
+        "pmax": (RT.pmax(s, AXIS), s),
+        "pmean": (RT.pmean(s.float(), AXIS), s.float()),
+        "pmax bool": (RT.pmax(x.sum() > 0, AXIS), x.sum() > 0),
+        "all_gather": (RT.all_gather(s, AXIS), s[None]),
+        "all_gather tiled": (RT.all_gather(x, AXIS, tiled=True), x)}
+    torch.cuda.synchronize()
+    for name, (got, want) in checks.items():
+        if not (got.device == want.device and got.dtype == want.dtype
+                and torch.equal(got, want)):
+            raise RuntimeError(f"runtime {name}: {got} != {want}")
+    us = time_cuda(lambda: RT.pmax(s, AXIS), iters=200) * 1e3
+    print(f"17a runtime on NCCL at world 1: {len(checks)} collectives "
+          f"exact; a 0-d pmax (all_reduce) {us:.2f} us on the stream")
+
+
+DUPLICATE_PROBE = """
+import datetime, sys, torch, torch.distributed as dist
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", init_method="file://" + sys.argv[2],
+                        rank=int(sys.argv[1]), world_size=2,
+                        device_id=torch.device("cuda", 0),
+                        timeout=datetime.timedelta(seconds=60))
+t = torch.ones(1, device="cuda")
+dist.all_reduce(t)
+torch.cuda.synchronize()
+print("all_reduce over two ranks on one card:", float(t))
+dist.destroy_process_group()
+"""
+
+
+def duplicate_gpu_probe() -> None:
+    """17a: two NCCL ranks on the one card (each in its own process, 90 s
+    at most, both killed then): what NCCL does with them is printed."""
+    store = ROOT / "build" / "nccl_probe_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    procs = [subprocess.Popen([sys.executable, "-c", DUPLICATE_PROBE,
+                               str(r), str(store)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs, deadline = [], time.monotonic() + 90
+    for p in procs:
+        try:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+        except subprocess.TimeoutExpired:
+            outs.append("timed out after 90 s")
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    store.unlink(missing_ok=True)
+    text = "\n".join(outs)
+    dup = [ln.strip() for ln in text.splitlines() if "Duplicate GPU" in ln]
+    print("17a two NCCL ranks on one card: exit codes "
+          f"{[p.returncode for p in procs]}; "
+          + (dup[0][:200] if dup else "no 'Duplicate GPU' message: "
+             + " | ".join(ln.strip() for ln in text.splitlines()[-4:])))
+
+
+def slab_cells(SIM, cl_kw, ps_bounds, rc: float):
+    """The interior and boundary home cells of the split-phase schedule
+    at world 1, formed as the step forms them."""
+    g = SIM._slab_geom(cl_kw, 0, 1, None, ps_bounds.device)
+    my_lo, my_hi = ps_bounds[0], ps_bounds[1]
+    r0 = g["row_of"](my_lo)
+    rows = r0 + torch.arange(g["w_int"], dtype=torch.int32,
+                             device=my_lo.device)
+    interior = g["rows_to_cells"](rows, rows < g["n_rows"])
+    wb = torch.arange(SIM.W_B, dtype=torch.int32, device=my_lo.device)
+    lo_rows = g["row_of"](my_lo - rc) - 1 + wb
+    hi_rows = g["row_of"](my_hi - rc) - 1 + wb
+    lo_ok = (lo_rows >= 0) & (lo_rows < g["n_rows"])
+    hi_ok = ((hi_rows >= 0) & (hi_rows < g["n_rows"])
+             & (hi_rows > lo_rows[-1]))
+    boundary = torch.cat([g["rows_to_cells"](lo_rows, lo_ok),
+                          g["rows_to_cells"](hi_rows, hi_ok)])
+    return interior, boundary
+
+
+def ghost_cap_for(ps, rc: float, lo: float, hi: float) -> int:
+    """ghost_cap from a state (a host read: set-up): GHOST_MARGIN times
+    the particles within ``rc`` of the larger slab face, plus 64."""
+    xs = ps.x[ps.valid][:, 0]
+    n = max(int((xs < lo + rc).sum()), int((xs >= hi - rc).sum()))
+    return int(GHOST_MARGIN * n) + 64
+
+
+def by_id_err(ps, ref, key: str) -> float:
+    """max |distributed - serial| over valid particles, matched by id."""
+    a = ps.x if key == "x" else ps.props[key]
+    b = ref.x if key == "x" else ref.props[key]
+    b_by_id = torch.zeros_like(b)
+    b_by_id[ref.props["id"][ref.valid].long()] = b[ref.valid]
+    return float((a[ps.valid] - b_by_id[ps.props["id"][ps.valid].long()])
+                 .abs().max())
+
+
+def dist_run(step, st, n: int, extras_at=None):
+    """``n`` steps of a distributed step; (state, worst flag, scalars of
+    the last step), the flags read once after the loop."""
+    worst = torch.zeros((), dtype=torch.int32, device="cuda")
+    scal = {}
+    for i in range(n):
+        st, flags, scal = step(st, extras_at(i) if extras_at else {})
+        worst = torch.maximum(worst, flags.any())
+    return st, int(worst), scal
+
+
+def b1_cells_check(md, SIM, M, RT, CL, CP, I, cfg, ps_md) -> None:
+    """17b: B1 through ``cells=`` on phase 3's 216,000-particle state, the
+    interior rows of a locals-only cell list and the boundary rows of the
+    locals + ghosts list, against the plain engine on the same cells."""
+    spec = md.physics(cfg)
+    rc = float(spec.r_cut)
+    cl_kw = SIM._grid_kw(spec, (0,))
+    bounds = torch.tensor([0.0, cfg.box], dtype=torch.float32,
+                          device="cuda")
+    g_cap = ghost_cap_for(ps_md, rc, 0.0, cfg.box)
+    ghosts, ovf = M.ghost_get_local(ps_md, bounds, rc, AXIS, g_cap,
+                                    periodic=True, box_len=cfg.box,
+                                    prop_names=())
+    gp = ghosts.as_particles()
+    combo = ps_md.replace(x=torch.cat([ps_md.x, gp.x]), props={},
+                          valid=torch.cat([ps_md.valid, gp.valid]))
+    interior, boundary = slab_cells(SIM, cl_kw, bounds, rc)
+    body = md.lj_pair_body(cfg.sigma, cfg.epsilon)
+    kw = dict(out={"f": "radial"}, r_cut=rc)
+    for name, ps, cells in (("interior", ps_md, interior),
+                            ("boundary", combo, boundary)):
+        cl = CL.build_cell_list(ps, **cl_kw)
+        n0 = CP.LAUNCHES
+        got = I.apply_pair_kernel(ps, cl, body, cells=cells,
+                                  backend="cuda", **kw)["f"]
+        ref = I.apply_pair_kernel(ps, cl, body, cells=cells,
+                                  backend="torch", **kw)["f"]
+        torch.cuda.synchronize()
+        rel = float((got - ref).abs().max()) / (float(ref.abs().max())
+                                                + 1e-9)
+        homed = int((torch.isin(cl.cell_id, cells) & ps.valid).sum())
+        print(f"17b B1 cells= {name}: {cells.shape[0]} cells "
+              f"({int((cells < cl.n_cells).sum())} active), {homed} "
+              f"particles homed there, {CP.LAUNCHES - n0} launch, rel "
+              f"{rel:.3e} (tol {REL_TOL:g}); ghosts "
+              f"{int(ghosts.valid.sum())} of 2 x {g_cap}, overflow "
+              f"{int(ovf)}")
+        if not (rel <= REL_TOL and CP.LAUNCHES - n0 == 1 and homed > 0
+                and int(ovf) == 0):
+            raise RuntimeError(f"B1 through cells= ({name}) failed")
+
+
+def dist_md_stages(md, SIM, M, RT, CL, I, cfg, st, mesh, g_cap, b_cap):
+    """The world-1 slab step's stages as callables (phase 3's
+    stage_breakdown form)."""
+    spec = md.physics(cfg)
+    rc = float(spec.r_cut)
+    cl_kw = SIM._grid_kw(spec, (0,))
+    body = spec.make_body()
+    pk = dict(out=spec.pair_out, r_cut=rc)
+    red = SIM.Reduce(AXIS)
+    with RT.on_mesh(mesh):
+        ps = spec.advance(st.ps, red, {})
+        ps, _ = M.map_particles_local(ps, st.bounds, AXIS, b_cap)
+        gkw = dict(periodic=True, box_len=cfg.box, prop_names=())
+        ghosts, _ = M.ghost_get_local(ps, st.bounds, rc, AXIS, g_cap, **gkw)
+    gp = ghosts.as_particles()
+    combo = ps.replace(x=torch.cat([ps.x, gp.x]), props={},
+                       valid=torch.cat([ps.valid, gp.valid]))
+    cl_loc = CL.build_cell_list(ps, **cl_kw)
+    cl = CL.build_cell_list(combo, **cl_kw)
+    interior, boundary = slab_cells(SIM, cl_kw, st.bounds, rc)
+    p_int = I.apply_pair_kernel(ps, cl_loc, body, cells=interior, **pk)
+    p_bnd = I.apply_pair_kernel(combo, cl, body, cells=boundary, **pk)
+    xs = ps.x[:, 0]
+    n_loc = ps.capacity
+    z = torch.zeros(3, dtype=torch.int32, device="cuda")
+
+    def on_mesh(fn):
+        def run():
+            with RT.on_mesh(mesh):
+                return fn()
+        return run
+
+    def combine():
+        bnd = (xs < st.bounds[0] + rc) | (xs >= st.bounds[1] - rc)
+        return torch.cat([torch.where(bnd[:, None], p_bnd["f"][:n_loc],
+                                      p_int["f"]), p_bnd["f"][n_loc:]])
+
+    return {
+        "map": (on_mesh(lambda: M.map_particles_local(
+            ps, st.bounds, AXIS, b_cap)), 1),
+        "ghost pack + exchange": (on_mesh(lambda: M.ghost_get_local(
+            ps, st.bounds, rc, AXIS, g_cap, **gkw)), 1),
+        "collectives (4 pmax)": (on_mesh(lambda: [RT.pmax(z, AXIS)
+                                                 for _ in range(4)]), 1),
+        "cell lists": (lambda: (CL.build_cell_list(ps, **cl_kw),
+                                CL.build_cell_list(combo, **cl_kw)), 1),
+        "B1 interior": (lambda: I.apply_pair_kernel(
+            ps, cl_loc, body, cells=interior, **pk), 1),
+        "B1 boundary": (lambda: I.apply_pair_kernel(
+            combo, cl, body, cells=boundary, **pk), 1),
+        "combine": (combine, 1)}
+
+
+def dist_md_phase(md, SIM, M, RT, CL, CP, I, cfg, mesh) -> int:
+    """17c: MD at 216,000 particles on the world-1 mesh, overlap on then
+    off, DIST_MD_STEPS steps each, against ``md_step``; ms/step beside
+    md_step's, the stage breakdown, idle share and peak memory. Returns
+    the B1 launches of the two runs."""
+    from repro_torch import convert
+    spec = md.physics(cfg)
+    ps0, _ = md.run(cfg, 0, thermal_v=THERMAL_V, seed=0)
+    ps0 = SIM.with_ids(ps0)
+    g_cap = ghost_cap_for(ps0, cfg.r_cut, 0.0, cfg.box)
+    b_cap = spec.bucket_cap     # one slab: nothing leaves, buckets stay empty
+    ref = ps0
+    for _ in range(DIST_MD_STEPS):
+        ref, _ = md.md_step(ref, cfg)
+    finals, launches, steps = {}, 0, {}
+    torch.cuda.reset_peak_memory_stats()
+    for overlap in (True, False):
+        st = SIM.distribute(ps0, md.physics, cfg, mesh,
+                            cap_per_dev=ps0.capacity)
+        step = SIM.make_sim_step(md.physics, cfg, mesh, overlap=overlap,
+                                 ghost_cap=g_cap, bucket_cap=b_cap)
+        reset_b1_counts(CP)
+        st, worst, _ = dist_run(step, st, DIST_MD_STEPS)
+        want = DIST_MD_STEPS * (2 if overlap else 1)
+        check_b1_launches(CP, "lj", want)
+        launches += CP.LAUNCHES
+        errs = {k: by_id_err(st.ps, ref, k) for k in ("x", "v")}
+        print(f"17c MD slab step, overlap={overlap}: {DIST_MD_STEPS} steps, "
+              f"{want} B1 launches, worst flag {worst}, vs md_step by id: "
+              + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+              + f" (tol {DIST_TOL:g}); ghost_cap {g_cap}")
+        if worst != 0 or not max(errs.values()) <= DIST_TOL:
+            raise RuntimeError(f"MD slab step (overlap={overlap}) failed")
+        finals[overlap], steps[overlap] = st, step
+    # the global state (at world 1 the one block), as a user gathers it
+    a = convert.gather_dist_state(finals[True], mesh, AXIS).ps
+    b = convert.gather_dist_state(finals[False], mesh, AXIS).ps
+    if not (torch.equal(a.x, b.x) and all(torch.equal(a.props[k],
+                                                      b.props[k])
+                                          for k in a.props)):
+        raise RuntimeError("overlap and blocking MD steps differ")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    state = {True: finals[True], False: finals[False], "ps": ref}
+
+    def one(overlap):
+        def run():
+            state[overlap], _, _ = steps[overlap](state[overlap], {})
+        return run
+
+    def serial():
+        state["ps"], _ = md.md_step(state["ps"], cfg)
+
+    ms = {"md_step": time_cuda(serial, iters=10),
+          "overlap": time_cuda(one(True), iters=10),
+          "blocking": time_cuda(one(False), iters=10)}
+    print("17c MD ms/step (CUDA events, 216,000 particles): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in ms.items()) + f"; bit-equal schedules; "
+          f"peak memory {peak:.2f} GiB")
+    stage_breakdown("17c MD slab step (overlap)", dist_md_stages(
+        md, SIM, M, RT, CL, I, cfg, state[True], mesh, g_cap, b_cap),
+        one(True), ms["overlap"])
+    profiled_ms(one(True), 5, "17c MD slab step (overlap)", top=8)
+    return launches
+
+
+def dist_sph_dem_phase(S, D, SIM, CP, mesh):
+    """17d: SPH at 570,248 and DEM at 72,030 on the world-1 mesh,
+    DIST_SPH_STEPS / DIST_DEM_STEPS steps against their serial steps;
+    ms/step beside the serial step. Returns (SPH, DEM) B1 launches."""
+    out = []
+    for name, mod, cfg, n, keys in (
+            ("SPH", S, S.SPHConfig(**SPH_CARD, device="cuda"),
+             DIST_SPH_STEPS, ("x", "v", "rho")),
+            ("DEM", D, D.DEMConfig(**DEM_CARD, device="cuda"),
+             DIST_DEM_STEPS, ("x", "v", "w"))):
+        spec = mod.physics(cfg)
+        ps0 = S.init_dam_break(cfg) if mod is S else D.init_block(cfg)
+        ps0 = SIM.with_ids(ps0)
+        ex = (lambda i: {"euler": i % cfg.verlet_reset == 0}) \
+            if mod is S else None
+        g_cap = ghost_cap_for(ps0, spec.r_cut, spec.box_lo[0],
+                              spec.box_hi[0])
+        serial = SIM.make_sim_step(mod.physics, cfg)
+        ref, worst_s, sc_s = dist_run(serial, SIM.serial_state(
+            ps0, mod.physics, cfg), n, ex)
+        st = SIM.distribute(ps0, mod.physics, cfg, mesh,
+                            cap_per_dev=ps0.capacity)
+        step = SIM.make_sim_step(mod.physics, cfg, mesh, ghost_cap=g_cap)
+        kind = "sph" if mod is S else "dem"
+        reset_b1_counts(CP)
+        st, worst, sc = dist_run(step, st, n, ex)
+        check_b1_launches(CP, kind, 2 * n)
+        out.append(CP.LAUNCHES)
+        scale = {"rho": cfg.rho0} if mod is S else {}
+        errs = {k: by_id_err(st.ps, ref.ps, k) / scale.get(k, 1.0)
+                for k in keys}
+        dt = ""
+        if mod is S:
+            d = abs(float(sc["dt"]) - float(sc_s["dt"])) / float(sc_s["dt"])
+            errs["dt (rel)"] = d
+            dt = f", dt {float(sc['dt']):.6e}"
+        print(f"17d {name} slab step: {n} steps, {2 * n} B1 launches, flags "
+              f"{worst} (serial {worst_s}), vs serial by id: " + ", ".join(
+                  f"{k} {e:.3e}" for k, e in errs.items())
+              + f" (tol {DIST_TOL:g}){dt}; ghost_cap {g_cap}")
+        if worst or worst_s or not max(errs.values()) <= DIST_TOL:
+            raise RuntimeError(f"{name} slab step failed")
+        state = {"d": st, "s": ref}
+        e0 = {"euler": False} if mod is S else {}
+
+        def run_d():
+            state["d"], _, _ = step(state["d"], e0)
+
+        def run_s():
+            state["s"], _, _ = serial(state["s"], e0)
+
+        ms_s, ms_d = time_cuda(run_s, iters=5), time_cuda(run_d, iters=5)
+        print(f"17d {name} ms/step (CUDA events): serial {ms_s:.4f}, slab "
+              f"step {ms_d:.4f} ({ms_d / ms_s:.2f}x); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del st, ref, state
+        torch.cuda.empty_cache()
+    return tuple(out)
+
+
+def dist_gs_phase(GS, G, mesh) -> None:
+    """17e: gray_scott.run_distributed at 256^3 for DIST_GS_STEPS steps
+    against gray_scott.run; ms/step of the field step beside gs_step."""
+    cfg = GS.GSConfig(shape=GS_SHAPE, L=GS_L, dt=GS_DT, device="cuda")
+    ud, vd = GS.run_distributed(cfg, DIST_GS_STEPS, mesh)
+    us, vs = GS.run(cfg, DIST_GS_STEPS)
+    torch.cuda.synchronize()
+    rel = max(float((a - b).abs().max()) / float(b.abs().max())
+              for a, b in ((ud, us), (vd, vs)))
+    equal = torch.equal(ud, us) and torch.equal(vd, vs)
+    step = G.make_field_step(mesh, AXIS, GS.gs_step_padded(cfg), halo=1)
+    st = {"f": (G.distribute_field(us, mesh, AXIS),
+                G.distribute_field(vs, mesh, AXIS)), "s": (us, vs)}
+
+    def run_d():
+        st["f"] = step(*st["f"])
+
+    def run_s():
+        st["s"] = GS.gs_step(*st["s"], cfg)
+
+    ms_d, ms_s = time_cuda(run_d, iters=10), time_cuda(run_s, iters=10)
+    print(f"17e Gray-Scott run_distributed {DIST_GS_STEPS} steps at "
+          f"{GS_SHAPE}: rel {rel:.3e} against run (tol {DIST_TOL:g}), "
+          f"bit-equal {equal}; ms/step: field step {ms_d:.4f}, gs_step "
+          f"{ms_s:.4f}")
+    if not rel <= DIST_TOL:
+        raise RuntimeError("Gray-Scott run_distributed disagrees with run")
+
+
+def dist_vic_phase(V, G, K, vcfg, mesh):
+    """17f: make_distributed_vic_step at 800 x 200 x 200 for
+    DIST_VIC_STEPS steps against vic_step; B3/B4 launches and ms/step
+    beside the serial step. Returns the {kernel: launches} of the run."""
+    w0 = V.project_divfree(V.init_ring(vcfg), vcfg)
+    ws = w0
+    for _ in range(DIST_VIC_STEPS):
+        ws, ovf_s = V.vic_step(ws, vcfg)
+        if int(ovf_s):
+            raise RuntimeError(f"serial VIC overflow {int(ovf_s)}")
+    step = V.make_distributed_vic_step(mesh, vcfg)
+    f = G.distribute_field(w0, mesh, AXIS)
+    K.LAUNCHES.update(dict.fromkeys(K.LAUNCHES, 0))
+    torch.cuda.reset_peak_memory_stats()
+    total = torch.zeros((), dtype=torch.int32, device="cuda")
+    for _ in range(DIST_VIC_STEPS):
+        f, ovf = step(f)
+        total = total + ovf
+    launches = dict(K.LAUNCHES)
+    want = 2 * DIST_VIC_STEPS
+    rel = float((f.data - ws).abs().max()) / float(ws.abs().max())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"17f VIC slab step: {DIST_VIC_STEPS} steps at {VIC_SHAPE}, "
+          f"launches {launches}, overflow {int(total)}, rel {rel:.3e} "
+          f"against vic_step (tol {DIST_TOL:g}), peak memory {peak:.2f} GiB")
+    if launches != {"p2m": want, "m2p": want, "p2m_bf16x": 0,
+                    "m2p_bf16x": 0} or int(total) or not rel <= DIST_TOL:
+        raise RuntimeError("the distributed VIC step failed")
+    del ws
+    st = {"f": f, "w": f.data}
+
+    def run_d():
+        st["f"], _ = step(st["f"])
+
+    def run_s():
+        st["w"], _ = V.vic_step(st["w"], vcfg)
+
+    ms = {}
+    for name, fn in (("serial", run_s), ("slab", run_d)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+    print(f"17f VIC ms/step (host clock, synced): serial "
+          f"{ms['serial']:.2f}, slab step {ms['slab']:.2f}")
+    return launches
+
+
+def slab_phase(md, cfg, md_ps, vcfg):
+    """Phase 17: the 1-D slab layer on the card at world 1 over NCCL.
+    Returns the ``launches_dist`` of each kernel entry."""
+    import torch.distributed as dist
+    from repro_torch.apps import dem as D
+    from repro_torch.apps import gray_scott as GS
+    from repro_torch.apps import sph as S
+    from repro_torch.apps import vortex as V
+    from repro_torch.core import cell_list as CL
+    from repro_torch.core import grid as G
+    from repro_torch.core import interactions as I
+    from repro_torch.core import mappings as M
+    from repro_torch.core import runtime as RT
+    from repro_torch.core import simulation as SIM
+    from repro_torch.kernels.cell_pair import cell_pair as CP
+    from repro_torch.kernels.m4_interp import m4_interp as K
+    duplicate_gpu_probe()
+    mesh = RT.make_mesh((1,), (AXIS,), device_type="cuda")
+    print(f"17 mesh: {mesh}, backend {dist.get_backend()}")
+    with RT.on_mesh(mesh):
+        runtime_checks(RT)
+        b1_cells_check(md, SIM, M, RT, CL, CP, I, cfg, md_ps)
+    out = {"cell_pair_lj": dist_md_phase(md, SIM, M, RT, CL, CP, I, cfg,
+                                         mesh)}
+    torch.cuda.empty_cache()
+    out["cell_pair_sph"], out["cell_pair_dem"] = dist_sph_dem_phase(
+        S, D, SIM, CP, mesh)
+    torch.cuda.empty_cache()
+    dist_gs_phase(GS, G, mesh)
+    torch.cuda.empty_cache()
+    vl = dist_vic_phase(V, G, K, vcfg, mesh)
+    out["m4_p2m"], out["m4_m2p"] = vl["p2m"], vl["m2p"]
+    dist.destroy_process_group()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA "
                                  "port on one GPU.")
@@ -2917,7 +3421,17 @@ def main() -> int:
     t_phase = time.perf_counter()
     io_phase(fens, md_state)
     phase_mark("phase 16 (io)", t_phase)
-    del fens, md_state
+    del fens
+    torch.cuda.empty_cache()
+
+    # -- phase 17: the 1-D slab layer at world 1 over NCCL ----------------------
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    dist_launches = slab_phase(md, cfg, md_state, vcfg)
+    del md_state
+    for entry in [md_entry, sph_entry, dem_entry] + m4_entries:
+        entry["launches_dist"] = dist_launches[entry["name"]]
+    phase_mark("phase 17 (slab layer, NCCL world 1)", t_phase)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, build "
           "included")
 

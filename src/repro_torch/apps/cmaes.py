@@ -24,7 +24,7 @@ Two engines share this file, as in ``repro``:
 
 CMA-ES has no TPU kernel: ``eigh`` and the products are library calls
 here, as ``repro`` leaves them to XLA. The mesh-sharded population is the
-multi-device layer (ROADMAP A14).
+multi-device layer (ROADMAP A14b).
 """
 from __future__ import annotations
 
@@ -358,7 +358,8 @@ def migrate(pop: CMAStateT, red: SIM.Reduce) -> CMAStateT:
     best mean migrates into the globally worst instance (sigma re-excited
     to at least 0.5, covariance and paths reset) when it is worse —
     :func:`ps_cma_es`'s swarm step as a batched rewrite. ``red`` is the
-    serial identity here; spanning shards is ROADMAP A14."""
+    serial identity here; the meshed PS-CMA-ES round that spans shards
+    is ROADMAP A14b."""
     bf = pop.best_f                                       # (B,)
     n = pop.mean.shape[-1]
     loc_best = torch.argmin(bf)

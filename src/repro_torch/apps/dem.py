@@ -296,13 +296,17 @@ def physics(cfg: DEMConfig) -> SIM.PhysicsSpec:
         """(nbr, overflow, cache_out) — cached or rebuilt."""
         ps, combo, cl = ctx.ps, ctx.combo, ctx.cl
         n = ps.capacity
-        if "ct_nbr" not in ctx.extras:
+        slots_stable = ctx.extras.get("_reuse_slots_stable")
+        # on a mesh, cached combo slots hold only while the slot
+        # permutation is frozen (the reuse cadence says so); an every-step
+        # distributed step re-maps and re-ghosts, so it rebuilds
+        if "ct_nbr" not in ctx.extras or (ctx.red.distributed
+                                          and slots_stable is None):
             vl = CL.build_verlet(combo, cl, cfg.r_cut, cfg.k_full,
                                  half=False)
             return vl.nbr[:n], vl.overflow, {}
         stale = (~ctx.extras["ct_ok"]) | CL.moved_beyond(
             ps.x, ctx.extras["ct_xb"], ps.valid, cfg.skin)
-        slots_stable = ctx.extras.get("_reuse_slots_stable")
         if slots_stable is not None:
             # reuse-engine protocol: a slot permutation invalidates the
             # slot-indexed contacts whatever the drift
@@ -352,6 +356,7 @@ def physics(cfg: DEMConfig) -> SIM.PhysicsSpec:
         ghost_props=("v", "w", "id"),
         advance=None, finish=finish,
         backend=cfg.backend, precision=cfg.precision,
+        bucket_cap=512, ghost_cap=1024,
         # reuse-engine declarations: update steps refresh ghost angular
         # velocity too (the tangential pass reads combo "w"), and the
         # contact cache rides across steps

@@ -12,7 +12,8 @@ step; the fused CUDA stencil kernel is reached through
 ``kernels.stencil7.ops.step``. :func:`gs_step_padded` is the step over a
 halo-padded leading axis that ``core.grid.apply_stencil_local`` takes.
 ``GSConfig.device`` (default ``"cuda"``) is where :func:`init_fields` and
-:func:`run` put the fields. The slab-distributed run is ROADMAP A14.
+:func:`run` put the fields. :func:`run_distributed` is the slab run over a
+1-D device mesh, on ``grid.DistributedField`` blocks.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.core import grid as G
+from repro_torch.core import runtime as RT
 from repro_torch.core.particles import resolve_device
 
 # Pearson (1993) parameter sets (paper Fig. 6 uses these classes)
@@ -122,10 +125,24 @@ def run(cfg: GSConfig, n_steps: int, seed: int = 0):
 
 def run_distributed(cfg: GSConfig, n_steps: int, mesh=None,
                     axis_name="shards", seed: int = 0):
-    """The slab-distributed run: the multi-device layer, not ported."""
-    raise NotImplementedError(
-        "gray_scott.run_distributed needs the distributed grid layer "
-        "(ROADMAP A14); use run")
+    """The slab-distributed run, as each rank calls it: both fields live
+    as ``grid.DistributedField`` slab blocks (leading axis, halo 1) and
+    step by ``grid.make_field_step`` over :func:`gs_step_padded`. Returns
+    the full ``(u, v)`` (the blocks gathered) on every rank. ``mesh=None``
+    builds a 1-D mesh over every rank (``runtime.make_mesh`` on
+    ``cfg.device``'s type)."""
+    if mesh is None:
+        mesh = RT.make_mesh((RT.device_count(),), (axis_name,),
+                            device_type=resolve_device(cfg.device).type)
+    step = G.make_field_step(mesh, axis_name, gs_step_padded(cfg), halo=1,
+                             periodic=True)
+    u, v = init_fields(cfg, seed)
+    fu = G.distribute_field(u, mesh, axis_name)
+    fv = G.distribute_field(v, mesh, axis_name)
+    for _ in range(n_steps):
+        fu, fv = step(fu, fv)
+    return (G.gather_field(fu, mesh, axis_name),
+            G.gather_field(fv, mesh, axis_name))
 
 
 def pattern_energy(v) -> float:

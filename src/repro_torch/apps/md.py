@@ -103,8 +103,10 @@ def physics(cfg: MDConfig) -> SIM.PhysicsSpec:
         r_cut=cfg.r_cut, cell_cap=cfg.cell_cap,
         pair_out={"f": "radial"},
         make_body=lambda: lj_pair_body(cfg.sigma, cfg.epsilon),
+        ghost_props=(),                  # ghosts carry positions only
         advance=advance, finish=finish,
-        backend=cfg.backend, precision=cfg.precision)
+        backend=cfg.backend, precision=cfg.precision,
+        bucket_cap=512, ghost_cap=1024)
 
 
 # --------------------------------------------------------------------------

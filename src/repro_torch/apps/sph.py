@@ -229,8 +229,10 @@ def physics(cfg: SPHConfig) -> SIM.PhysicsSpec:
         pair_out={"a": "radial", "drho": "scalar"},
         make_body=lambda: sph_pair_body(cfg),
         pair_props=("v", "rho"),
+        ghost_props=("v", "rho", "kind"),   # property-subset ghost_get
         advance=None, finish=finish,
-        backend=cfg.backend, precision=cfg.precision)
+        backend=cfg.backend, precision=cfg.precision,
+        bucket_cap=2048, ghost_cap=2048)
 
 
 # --------------------------------------------------------------------------
@@ -363,7 +365,7 @@ def run(cfg: SPHConfig, n_steps: int, device=None):
 
 def run_distributed(cfg: SPHConfig, n_steps: int, mesh, ndev: int, **kw):
     """The distributed dam break with dynamic load balancing (``repro``'s
-    Table 3 driver) needs the multi-device layer."""
+    Table 3 driver) needs ``make_rebalance``: ROADMAP A14b. The dam break
+    itself steps on a mesh through ``make_sim_step(physics, cfg, mesh)``."""
     raise NotImplementedError(
-        "sph.run_distributed arrives with the multi-device layer "
-        "(ROADMAP A14)")
+        "sph.run_distributed needs make_rebalance (ROADMAP A14b)")

@@ -19,9 +19,13 @@ P2M and fused M2P kernels (one M2P pass interpolates u AND the RHS);
 ``use_pallas=True`` / ``False``. ``VortexConfig.device`` (default
 ``"cuda"``) is where :func:`init_ring` and :func:`run` put the field.
 
-(``repro``'s distributed steps ``make_distributed_vic_step``,
-``_make_pencil_vic_step`` and ``run_distributed`` arrive with the
-multi-device layer, ROADMAP A14.)
+:func:`make_distributed_vic_step` and :func:`run_distributed` are the
+slab-distributed step over a 1-D device mesh: the field lives in
+``grid.DistributedField`` blocks, ψ comes from the slab FFT, the M'4 legs
+are the 1-D block legs (``kernels.m4_interp.ops.p2m_block`` /
+``m2p_fused_block`` on the cell path, so the CUDA P2M and M2P kernels
+run on CUDA tensors; ``core.interp``'s on the scatter path), and
+deposits go home by the halo reduce. The pencil step is ROADMAP A14b.
 """
 from __future__ import annotations
 
@@ -31,8 +35,10 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import grid as G
 from repro_torch.core import interp as IP
 from repro_torch.core import remesh as RM
+from repro_torch.core import runtime as RT
 from repro_torch.core.particles import const_tensor, resolve_device
 from repro_torch.numerics import poisson as PS
 
@@ -58,6 +64,10 @@ class VortexConfig:
     interp_cb: int = 4                # mesh nodes per interpolation cell/axis
     interp_cell_cap: int = 0          # particle slots per cell (0 = auto)
     device: str = "cuda"              # where init_ring / run put the field
+    # distributed step: ghost rows per side of the M2P gather blocks and
+    # the P2M deposit blocks (M'4 support needs 2; the rest absorbs a
+    # step's advection across the slab face; an outrun is counted)
+    mesh_halo: int = 3
 
 
 def _axes(cfg):
@@ -278,4 +288,162 @@ def run(cfg: VortexConfig, n_steps: int):
     z0 = float(centroid_z(w, cfg))
     for _ in range(n_steps):
         w, cfg = step_reprovision(w, cfg)
+    return w, z0, float(centroid_z(w, cfg))
+
+
+# --------------------------------------------------------------------------
+# Distributed phase: the field and the particles in slab blocks
+# --------------------------------------------------------------------------
+
+def make_distributed_vic_step(mesh, cfg: VortexConfig, axis_name="shards",
+                              *, stencil_overlap: bool = True):
+    """The slab-sharded VIC step, as each rank calls it: ``step(f:
+    grid.DistributedField) -> (f, overflow)``. Per stage, on this rank's
+    block: re-seed particles from the block (``remesh.seed_from_block``);
+    ψ by the slab FFT (``poisson.fft_poisson_slab_local``, one transpose);
+    curl and RHS as halo-1 stencils (``grid.apply_stencil_local``, the
+    two-slot schedule when ``stencil_overlap``); M'4 M2P against
+    ``mesh_halo``-padded blocks and P2M into a ``local + 2 mesh_halo``
+    block that the halo reduce (ghost_put) folds home. ``cfg.interp``
+    picks the legs as :func:`vic_step` does. ``overflow`` (a 0-d int32,
+    summed over ranks) counts re-seed surplus, particles whose support
+    outran ``mesh_halo`` and cell-bucket drops. A ``(row, col)`` tuple
+    ``axis_name`` whose column axis has size 1 is the slab step; a larger
+    one is the pencil step, ROADMAP A14b."""
+    if isinstance(axis_name, tuple):
+        row_axis, col_axis = axis_name
+        if int(mesh.size(mesh.mesh_dim_names.index(col_axis))) > 1:
+            raise NotImplementedError(
+                "the pencil VIC step (a 2-D device mesh) is not ported yet "
+                "(ROADMAP A14b)")
+        axis_name = row_axis
+    with RT.on_mesh(mesh):
+        ndev = RT.axis_size(axis_name)
+    n0, n1, _ = cfg.shape
+    if n0 % ndev or n1 % ndev:
+        raise ValueError(
+            f"shape {cfg.shape}: axes 0 and 1 must divide over {ndev} "
+            "shards (slab rows + FFT transpose)")
+    n0l = n0 // ndev
+    H = int(cfg.mesh_halo)
+    if not 2 <= H <= n0l:
+        raise ValueError(
+            f"mesh_halo={H} must be in [2, {n0l}] (M'4 support; single-hop "
+            "ghost exchange)")
+    kw = dict(shape=tuple(cfg.shape), box_lo=(0.0, 0.0, 0.0),
+              box_hi=tuple(cfg.lengths), periodic=(True, True, True))
+    hs = _hs(cfg)
+    curl_st = G.apply_stencil_local(lambda p: curl(p, hs), 1, axis_name,
+                                    overlap=stencil_overlap)
+    rhs_st = G.apply_stencil_local(
+        lambda wp, up: rhs_field(wp, up, cfg), 1, axis_name,
+        overlap=stencil_overlap)
+    if cfg.interp == "cells":
+        from repro_torch.kernels.m4_interp import ops as M4
+        pk = dict(cb=cfg.interp_cb, cell_cap=cfg.interp_cell_cap,
+                  backend=cfg.backend, precision=cfg.precision, **kw)
+
+        def m2p2(pa, pb, x, valid, row0):
+            return M4.m2p_fused_block((pa, pb), x, valid, row0, **pk)
+
+        def p2m_(x, wp, valid, row0):
+            return M4.p2m_block(x, wp, valid, row0, block_rows=n0l + 2 * H,
+                                **pk)
+    elif cfg.interp == "scatter":
+        def m2p2(pa, pb, x, valid, row0):
+            a, da = IP.m2p_block(pa, x, valid, row0, **kw)
+            b, db = IP.m2p_block(pb, x, valid, row0, **kw)
+            return (a, b), da + db
+
+        def p2m_(x, wp, valid, row0):
+            return IP.p2m_block(x, wp, valid, row0, block_rows=n0l + 2 * H,
+                                **kw)
+    else:
+        raise ValueError(f"unknown interp {cfg.interp!r}; want 'cells' or "
+                         "'scatter'")
+
+    def local_step(f):
+        me = RT.axis_index(axis_name)
+        w = f.data                                    # (n0l, n1, n2, 3)
+        row_lo = f.node_bounds[me]
+        row0 = row_lo - H                             # padded-block origin
+        ps, ovf = RM.seed_from_block(w, row_lo,
+                                     threshold=cfg.remesh_threshold, **kw)
+        x0, wp0, valid = ps.x, ps.props["w"], ps.valid
+        del ps
+        L = const_tensor(tuple(float(v) for v in cfg.lengths), x0.dtype,
+                         x0.device)
+        vm = valid[:, None]
+
+        def eval_fields(wf):
+            """ψ solve, curl and RHS, on the local blocks."""
+            psi = PS.fft_poisson_slab_local(-wf, cfg.lengths, axis_name)
+            (u,) = curl_st(psi)
+            del psi
+            (r,) = rhs_st(wf, u)
+            return u, r
+
+        def gather(fa, fb, x):
+            """M2P of two fields against ghost_get-padded blocks."""
+            return m2p2(G.halo_pad(fa, H, axis_name),
+                        G.halo_pad(fb, H, axis_name), x, valid, row0)
+
+        def deposit(x, wp):
+            """P2M into the local+halo block, then the halo reduce."""
+            blk, drop = p2m_(x, wp, valid, row0)
+            return G.halo_reduce(blk, H, axis_name), drop
+
+        # stage 1
+        u0, r0 = eval_fields(w)
+        (up, rp), d0 = gather(u0, r0, x0)
+        del u0, r0
+        x1 = torch.where(vm, torch.remainder(x0 + cfg.dt * up, L), x0)
+        wp1 = wp0 + cfg.dt * rp
+        w1, d1 = deposit(x1, wp1)
+        del wp1
+        # stage 2 at the predicted state
+        u1, r1 = eval_fields(w1)
+        del w1
+        (up1, rp1), d2 = gather(u1, r1, x1)
+        del u1, r1, x1
+        xf = torch.where(vm, torch.remainder(
+            x0 + 0.5 * cfg.dt * (up + up1), L), x0)
+        del up, up1
+        wpf = wp0 + 0.5 * cfg.dt * (rp + rp1)
+        del rp, rp1
+        wf, d3 = deposit(xf, wpf)
+        ovf = ovf + d0 + d1 + d2 + d3
+        return (dataclasses.replace(f, data=wf),
+                RT.psum(ovf.to(torch.int32), axis_name))
+
+    def step(f):
+        with RT.on_mesh(mesh):
+            return local_step(f)
+
+    return step
+
+
+def run_distributed(cfg: VortexConfig, n_steps: int, mesh,
+                    axis_name="shards"):
+    """The distributed driver mirroring :func:`run`, as each rank calls
+    it: the field lives in slab blocks for the whole run. Returns (w, z0,
+    z1) with the full field (the blocks gathered) on every rank. The
+    overflow is summed on the device and read once after the loop; a
+    nonzero total raises RuntimeError (raise ``mesh_halo`` or
+    ``interp_cell_cap``)."""
+    step = make_distributed_vic_step(mesh, cfg, axis_name)
+    w = project_divfree(init_ring(cfg), cfg)
+    z0 = float(centroid_z(w, cfg))
+    f = G.distribute_field(w, mesh, axis_name)
+    del w
+    total = torch.zeros((), dtype=torch.int32, device=f.data.device)
+    for _ in range(n_steps):
+        f, ovf = step(f)
+        total = total + ovf
+    if int(total) != 0:
+        raise RuntimeError(
+            f"interpolation overflow ({int(total)} particles outran the "
+            f"halo or their cell bucket over {n_steps} steps); raise "
+            f"VortexConfig.mesh_halo (= {cfg.mesh_halo}) or interp_cell_cap")
+    w = G.gather_field(f, mesh, axis_name)
     return w, z0, float(centroid_z(w, cfg))

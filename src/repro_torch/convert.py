@@ -3,6 +3,13 @@ and LM parameters between ``repro`` and ``repro_torch`` as numpy arrays.
 A particle system's "weights" are its state: both packages step the same
 state after the conversion.
 
+Distributed state: ``repro`` holds a slab-decomposed container as global
+arrays whose leading dim is sharded (rank d owns slots ``[d·cap,
+(d+1)·cap)``); the port holds each rank's block.
+:func:`scatter_to_slabs` lays global arrays out as ``repro``'s
+``distribute`` does, :func:`dist_state_from_numpy` cuts one rank's block
+out of them, and :func:`gather_dist_state` joins the blocks again.
+
 The ``repro`` side is given as numpy (``np.asarray`` on each leaf of its
 ``ParticleSet`` or parameter pytree), so this module needs neither
 package's other side."""
@@ -104,3 +111,88 @@ def cma_state_from_numpy(st, device="cuda"):
                      p_sigma=f32(st.p_sigma), p_c=f32(st.p_c),
                      best_f=f32(st.best_f), best_x=f32(st.best_x),
                      evals=i32(st.evals), gen=i32(st.gen))
+
+
+def scatter_to_slabs(x: np.ndarray, valid: np.ndarray,
+                     props: Dict[str, np.ndarray], bounds, ndev: int, *,
+                     slab_axis: int = 0, cap_per_dev: int | None = None,
+                     cap_factor: float = 3.0):
+    """``repro``'s ``distribute`` layout of a particle set, as global numpy
+    arrays ``(x, valid, props)`` with ``ndev * cap_per_dev`` rows: every
+    valid particle in its owner's slot block (owner by ``bounds`` along
+    ``slab_axis``), in index order. ``cap_per_dev`` defaults to
+    ``ceil(n / ndev * cap_factor)``."""
+    val0 = np.asarray(valid, bool)
+    xs = np.asarray(x)[val0]
+    pr = {k: np.asarray(v)[val0] for k, v in props.items()}
+    n = len(xs)
+    if cap_per_dev is None:
+        cap_per_dev = int(np.ceil(n / ndev * cap_factor))
+    owner = np.clip(np.searchsorted(np.asarray(bounds, np.float32),
+                                    xs[:, slab_axis], "right") - 1,
+                    0, ndev - 1)
+    cap = ndev * cap_per_dev
+    X = np.full((cap, xs.shape[1]), ParticleSet.FILL, np.float32)
+    PR = {k: np.zeros((cap,) + v.shape[1:], v.dtype) for k, v in pr.items()}
+    V = np.zeros(cap, bool)
+    for d in range(ndev):
+        rows = np.nonzero(owner == d)[0]
+        if len(rows) > cap_per_dev:
+            raise ValueError(f"slab {d} holds {len(rows)} particles, above "
+                             f"cap_per_dev={cap_per_dev}; raise it")
+        b = d * cap_per_dev
+        X[b:b + len(rows)] = xs[rows]
+        for k in PR:
+            PR[k][b:b + len(rows)] = pr[k][rows]
+        V[b:b + len(rows)] = True
+    return X, V, PR
+
+
+def dist_state_from_numpy(x: np.ndarray, valid: np.ndarray,
+                          props: Dict[str, np.ndarray], bounds, rank: int,
+                          ndev: int, *,
+                          fields: Dict[str, np.ndarray] | None = None,
+                          device="cuda"):
+    """Rank ``rank``'s block of a slab-sharded ``DistributedParticles``
+    given as global numpy arrays (``repro``'s leaves, or
+    :func:`scatter_to_slabs`): slots ``[rank·cap, (rank+1)·cap)`` with
+    ``cap = len(x) // ndev``, the replicated ``bounds``, and the rank's
+    uniform slab of each full mesh field in ``fields`` (copied)."""
+    from repro_torch.core.simulation import DistributedParticles
+    n = len(x)
+    if n % ndev:
+        raise ValueError(f"{n} slots do not split over {ndev} ranks")
+    cap = n // ndev
+    rows = slice(rank * cap, (rank + 1) * cap)
+    ps = particles_from_numpy(x[rows], np.asarray(valid)[rows],
+                              {k: np.asarray(v)[rows]
+                               for k, v in props.items()}, device=device)
+    blocks = {}
+    for k, v in (fields or {}).items():
+        if v.shape[0] % ndev:
+            raise ValueError(f"mesh field {k!r}: leading axis {v.shape[0]} "
+                             f"not divisible by {ndev} shards")
+        nl = v.shape[0] // ndev
+        blocks[k] = field_from_numpy(v[rank * nl:(rank + 1) * nl], device)
+    return DistributedParticles(
+        ps=ps, bounds=field_from_numpy(np.asarray(bounds, np.float32),
+                                       device),
+        fields=blocks)
+
+
+def gather_dist_state(state, mesh, axis_name: str = "shards"):
+    """The inverse of :func:`dist_state_from_numpy`, as every rank calls
+    it: a ``DistributedParticles`` of the global arrays (the ranks'
+    blocks in rank order, an all_gather) on each rank."""
+    import dataclasses
+    from repro_torch.core import runtime as RT
+
+    def cat(a):
+        return RT.all_gather(a, axis_name, tiled=True)
+
+    with RT.on_mesh(mesh):
+        ps = ParticleSet(x=cat(state.ps.x),
+                         props={k: cat(v) for k, v in state.ps.props.items()},
+                         valid=cat(state.ps.valid))
+        fields = {k: cat(v) for k, v in state.fields.items()}
+    return dataclasses.replace(state, ps=ps, fields=fields)

@@ -16,7 +16,7 @@ blocked; repeat from the next unassigned boundary cell.
 All host-side NumPy (control plane): the port's own copy of
 ``repro.core.decomposition``. The resulting ``Decomposition`` is the
 static metadata the data plane (particles.py / grid.py, and the
-multi-device mappings of ROADMAP A14) shards against.
+multi-device mappings, ``core.mappings``) shards against.
 """
 from __future__ import annotations
 

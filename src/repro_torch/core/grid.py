@@ -1,26 +1,41 @@
-"""DistributedField — Cartesian mesh container, serial slice (port of
-``repro.core.grid``; paper §3.1, OpenFPM's ``grid_dist``).
+"""DistributedField — Cartesian mesh container with halo exchange (port
+of ``repro.core.grid``; paper §3.1, OpenFPM's ``grid_dist``).
 
-The two grid mappings, in their single-device form:
+A mesh decomposed into slabs along its leading axis over a 1-D mesh axis,
+carried with its slab geometry (``node_bounds``) in
+:class:`DistributedField`. The two grid mappings:
 
-  * ``ghost_get``  → :func:`halo_pad_local` — pad the leading axis with
-    ``halo`` rows: the periodic wrap, a ``fill`` value, or (``fill=None``)
-    the edge row replicated;
-  * ``ghost_put``  → :func:`halo_reduce_local` — fold contributions that
-    local computation deposited into the halo rows back onto their owners
-    (periodic: the opposite edge; otherwise dropped).
+  * ``ghost_get``  → :func:`halo_pad` — a pair of ``ppermute`` shifts
+    populating ``halo`` rows from the slab neighbours;
+  * ``ghost_put``  → :func:`halo_reduce` — the reverse: contributions
+    deposited into the halo rows go back and are summed into the owners'
+    edge rows (the O(halo) replacement of a full-mesh ``psum``).
 
-Stencil application is the same strict communication/computation split as
-in ``repro``::
+Their single-device forms (:func:`halo_pad_local`,
+:func:`halo_reduce_local`) have the same semantics: the periodic wrap, a
+``fill`` value, or (``fill=None``) the edge row replicated. Stencil
+application is the same strict communication/computation split as in
+``repro``::
 
-    padded = halo_pad_local(block)      # ghost_get
+    padded = halo_pad(block)            # ghost_get
     new    = stencil_fn(padded)[h:-h]   # local computation
 
-:class:`GridOps` hands both mappings to physics hooks. Everything with a
-device mesh (``halo_pad``, ``halo_reduce``, the ``*_start``/``*_finish``
-split, the pencil ops, ``make_stencil_step``, ``make_field_step``,
-``distribute_field*``) is the multi-device layer, ROADMAP A14; a
-non-serial ``axis_name`` raises NotImplementedError here.
+The split-phase (two-slot) mode of DESIGN.md §12: :func:`halo_pad_start`
+issues the shifts and returns the two slots in flight
+(``runtime.InFlight``), :func:`halo_pad_finish` waits for them and
+assembles the padded block; ``apply_stencil_local(..., overlap=True)``
+runs the stencil on the unpadded block between the two and only two
+3·halo-row edge strips wait for the slots. :func:`halo_reduce_start` /
+:func:`halo_reduce_finish` split ghost_put the same way. :class:`GridOps`
+hands both mappings to physics hooks, distributed or serial.
+
+Functions taking ``axis_name`` run per rank (``repro``'s shard_map
+bodies); collectives come from ``runtime``. ``grid_sharding`` and ``field_spec``
+have no counterpart: there is no ``NamedSharding`` or PartitionSpec; a
+rank holds its block, which :func:`distribute_field` cuts and
+:func:`gather_field` joins. The pencil forms (``halo_pad2``,
+``halo_reduce2``, ``apply_stencil_local2``, ``distribute_field2``) are
+ROADMAP A14b and raise.
 """
 from __future__ import annotations
 
@@ -30,10 +45,63 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from . import runtime as RT
 from .particles import resolve_device
 
-_A14 = ("the distributed grid layer (axis_name={!r}) is not ported yet "
-        "(ROADMAP A14); use axis_name=None")
+_A14B = ("the pencil (2-D) grid layer is not ported yet (ROADMAP A14b); "
+         "decompose along the leading axis only")
+
+
+def halo_pad_start(field: torch.Tensor, halo: int, axis_name: str, *,
+                   periodic: bool = True, fill: Optional[float] = 0.0):
+    """First half of the two-slot ghost_get: issue the neighbour shift
+    pair and return the slots ``(from_left, from_right)`` in flight
+    (``runtime.InFlight``). Non-periodic edges get ``fill`` rows;
+    ``fill=None`` replicates the edge row."""
+    ndev = RT.axis_size(axis_name)
+    me = RT.axis_index(axis_name)
+    right, left = RT.shift_perms(ndev)
+    # my highest rows go right (the right neighbour's low halo), my lowest
+    # rows left
+    sent = RT.ppermute_many_start([([field[-halo:]], right),
+                                   ([field[:halo]], left)], axis_name)
+    from_left = sent.then(lambda r: r[0][0])
+    from_right = sent.then(lambda r: r[1][0])
+    if not periodic:
+        rest = tuple(field.shape[1:])
+        if fill is None:
+            pad_lo = field[:1].expand((halo,) + rest)
+            pad_hi = field[-1:].expand((halo,) + rest)
+        else:
+            pad_lo = torch.full((halo,) + rest, fill, dtype=field.dtype,
+                                device=field.device)
+            pad_hi = pad_lo
+        if me == 0:
+            from_left = from_left.then(lambda _: pad_lo)
+        if me == ndev - 1:
+            from_right = from_right.then(lambda _: pad_hi)
+    return from_left, from_right
+
+
+def halo_pad_finish(field: torch.Tensor, from_left, from_right
+                    ) -> torch.Tensor:
+    """Second half of the two-slot ghost_get: wait for the slots and
+    assemble the padded block."""
+    return torch.cat([RT.wait(from_left), field, RT.wait(from_right)], 0)
+
+
+def halo_pad(field: torch.Tensor, halo: int, axis_name: str, *,
+             periodic: bool = True, fill: Optional[float] = 0.0
+             ) -> torch.Tensor:
+    """Pad the leading axis of the local block with ``halo`` rows from the
+    neighbouring slabs (non-periodic edges: ``fill``, or the edge row for
+    ``fill=None``). The blocking composition of :func:`halo_pad_start` and
+    :func:`halo_pad_finish`."""
+    if halo == 0:
+        return field
+    from_left, from_right = halo_pad_start(field, halo, axis_name,
+                                           periodic=periodic, fill=fill)
+    return halo_pad_finish(field, from_left, from_right)
 
 
 def halo_pad_local(field: torch.Tensor, halo: int, *, periodic: bool = True,
@@ -82,13 +150,60 @@ def halo_reduce_local(padded: torch.Tensor, halo: int, *,
     return core
 
 
+def halo_reduce(padded: torch.Tensor, halo: int, axis_name: str, *,
+                periodic: bool = True) -> torch.Tensor:
+    """The grid ``ghost_put``, per rank: fold the ``halo`` leading and
+    trailing rows of a locally accumulated padded block (laid out as a
+    :func:`halo_pad` result) into their owners and return the owned block.
+    Contributions are summed; non-periodic edges drop the wrap-link rows.
+    The single-hop exchange: ``halo`` must not exceed the local rows."""
+    if halo == 0:
+        return padded
+    from_left, from_right = halo_reduce_start(padded, halo, axis_name,
+                                              periodic=periodic)
+    return halo_reduce_finish(padded, halo, from_left, from_right)
+
+
+def halo_reduce_start(padded: torch.Tensor, halo: int, axis_name: str, *,
+                      periodic: bool = True):
+    """First half of the two-slot ghost_put: ship the foreign halo rows
+    toward their owners and return the contribution slots ``(from_left,
+    from_right)`` in flight. Work on the core rows can run meanwhile."""
+    ndev = RT.axis_size(axis_name)
+    me = RT.axis_index(axis_name)
+    right, left = RT.shift_perms(ndev)
+    # my low rows travel left (what I get back came from my right
+    # neighbour), my high rows right
+    sent = RT.ppermute_many_start([([padded[:halo]], left),
+                                   ([padded[-halo:]], right)], axis_name)
+    from_right = sent.then(lambda r: r[0][0])
+    from_left = sent.then(lambda r: r[1][0])
+    if not periodic:
+        if me == 0:
+            from_left = from_left.then(torch.zeros_like)
+        if me == ndev - 1:
+            from_right = from_right.then(torch.zeros_like)
+    return from_left, from_right
+
+
+def halo_reduce_finish(padded: torch.Tensor, halo: int, from_left,
+                       from_right) -> torch.Tensor:
+    """Second half of the two-slot ghost_put: add the arrived neighbour
+    contributions into the owned edge rows (a new tensor) and return the
+    owned block."""
+    core = padded[halo:-halo].clone()
+    core[:halo] += RT.wait(from_left)
+    core[-halo:] += RT.wait(from_right)
+    return core
+
+
 @dataclasses.dataclass(frozen=True)
 class DistributedField:
-    """The mesh container (``grid_dist``): ``data`` the mesh field and
-    ``node_bounds`` the slab geometry — slab d owns global rows
-    ``node_bounds[d] <= r < node_bounds[d+1]``. Serial state is the 1-slab
-    case ``[0, n]``. ``col_bounds`` is the pencil decomposition's (A14),
-    None here."""
+    """The mesh container (``grid_dist``): ``data`` the mesh field (per
+    rank: its slab block) and ``node_bounds`` the slab geometry — slab d
+    owns global rows ``node_bounds[d] <= r < node_bounds[d+1]``, a
+    replicated int32 tensor. Serial state is the 1-slab case ``[0, n]``.
+    ``col_bounds`` is the pencil decomposition's (A14b), None here."""
 
     data: torch.Tensor
     node_bounds: torch.Tensor       # (n_slabs + 1,) int32
@@ -107,59 +222,113 @@ def serial_field(arr: torch.Tensor) -> DistributedField:
                                            device=arr.device))
 
 
+def distribute_field(arr: torch.Tensor, mesh,
+                     axis_name: str) -> DistributedField:
+    """This rank's slab block of a full mesh array (every rank passes the
+    same ``arr``), with the uniform slab geometry recorded in the
+    container."""
+    with RT.on_mesh(mesh):
+        ndev = RT.axis_size(axis_name)
+        me = RT.axis_index(axis_name)
+    n = arr.shape[0]
+    if n % ndev:
+        raise ValueError(f"leading axis {n} not divisible by {ndev} shards")
+    nl = n // ndev
+    bounds = torch.from_numpy(np.arange(ndev + 1, dtype=np.int32) * nl).to(
+        arr.device)
+    return DistributedField(data=arr[me * nl:(me + 1) * nl].contiguous(),
+                            node_bounds=bounds)
+
+
+def gather_field(f: DistributedField, mesh, axis_name: str) -> torch.Tensor:
+    """The full mesh array on every rank: the blocks in rank order."""
+    with RT.on_mesh(mesh):
+        return RT.all_gather(f.data, axis_name, tiled=True)
+
+
+def distribute_field2(arr, mesh, row_axis, col_axis):
+    """The pencil container: ROADMAP A14b."""
+    raise NotImplementedError(_A14B)
+
+
+def halo_pad2(field, halo, row_axis, col_axis, *, periodic=True, fill=0.0):
+    """The pencil ghost_get: ROADMAP A14b."""
+    raise NotImplementedError(_A14B)
+
+
+def halo_reduce2(padded, halo, row_axis, col_axis, *, periodic=True):
+    """The pencil ghost_put: ROADMAP A14b."""
+    raise NotImplementedError(_A14B)
+
+
 @dataclasses.dataclass(frozen=True)
 class GridOps:
-    """ghost_get/ghost_put handed to physics hooks, serially the
-    single-device pad and wrap (the grid mirror of
-    ``simulation.Reduce``). ``axis_name`` other than None is the
-    distributed layer, ROADMAP A14, and raises. ``device`` is where
-    :meth:`first_row` puts its index (the step passes the particles'
-    device, so no op of a step mixes devices)."""
+    """ghost_get/ghost_put handed to physics hooks (the grid mirror of
+    ``simulation.Reduce``): on a distributed step the slab-neighbour
+    exchanges (:func:`halo_pad`, :func:`halo_reduce`) over ``axis_name``,
+    serially the single-device pad and wrap with the same semantics.
+    ``device`` is where :meth:`first_row` puts its index (the step passes
+    the particles' device, so no op of a step mixes devices)."""
 
     axis_name: Optional[str] = None
     periodic: bool = True
     fill: Optional[float] = 0.0     # None = non-periodic edge replication
     device: Optional[torch.device] = None   # None: the CPU
 
-    def __post_init__(self):
-        if self.axis_name is not None:
-            raise NotImplementedError(_A14.format(self.axis_name))
-
     @property
     def distributed(self) -> bool:
-        return False
+        return self.axis_name is not None
 
     def ghost_get(self, field: torch.Tensor, halo: int) -> torch.Tensor:
-        """Pad the leading axis with ``halo`` wrap/edge/fill rows."""
-        return halo_pad_local(field, halo, periodic=self.periodic,
-                              fill=self.fill)
+        """Pad the leading axis with ``halo`` rows from the slab
+        neighbours (serially: the wrap/edge/fill rows)."""
+        if self.axis_name is None:
+            return halo_pad_local(field, halo, periodic=self.periodic,
+                                  fill=self.fill)
+        return halo_pad(field, halo, self.axis_name, periodic=self.periodic,
+                        fill=self.fill)
 
     def ghost_put(self, padded: torch.Tensor, halo: int) -> torch.Tensor:
         """Halo-reduce a padded contribution block back to its owners."""
-        return halo_reduce_local(padded, halo, periodic=self.periodic)
+        if self.axis_name is None:
+            return halo_reduce_local(padded, halo, periodic=self.periodic)
+        return halo_reduce(padded, halo, self.axis_name,
+                           periodic=self.periodic)
 
     def first_row(self, n_local: int) -> torch.Tensor:
-        """Global index of the local block's first owned row: 0, a 0-d
-        int32 tensor on ``device``."""
-        return torch.zeros((), dtype=torch.int32, device=self.device)
+        """Global index of the local block's first owned row, a 0-d int32
+        tensor on ``device`` (0 serially; uniform slabs distributed)."""
+        me = 0 if self.axis_name is None else RT.axis_index(self.axis_name)
+        return torch.full((), me * n_local, dtype=torch.int32,
+                          device=self.device)
 
 
 def apply_stencil_local(stencil_fn: Callable, halo: int,
                         axis_name: Optional[str] = None, *,
                         periodic: bool = True, fill: Optional[float] = 0.0,
                         overlap: bool = False):
-    """Pad each field by ``halo`` on the leading axis, apply
-    ``stencil_fn`` to the padded blocks, trim outputs of padded shape back
-    to the interior. Returns ``run(*fields) -> tuple(new_fields)``.
-    Serially ``overlap=True`` is the blocking path, as in ``repro``;
-    ``axis_name`` other than None raises (A14)."""
-    if axis_name is not None:
-        raise NotImplementedError(_A14.format(axis_name))
-    del overlap     # the split-phase schedule needs a mesh axis
+    """The local engine of :func:`make_stencil_step`, per rank
+    (``axis_name`` set) or serially (None): pad each field by ``halo`` on
+    the leading axis, apply ``stencil_fn`` to the padded blocks, trim
+    outputs of padded shape back to the owned rows. Returns
+    ``run(*fields) -> tuple(new_fields)``.
+
+    ``overlap=True`` selects the split-phase schedule (DESIGN.md §12):
+    :func:`halo_pad_start` issues the exchange, ``stencil_fn`` runs on the
+    unpadded blocks (rows ``[halo, n - halo)`` need no ghost), then only
+    two 3·halo-row edge strips wait for the slots. It needs a stencil of
+    radius <= halo that maps n rows to n rows, ``n >= 2 * halo`` and equal
+    leading sizes, and runs the blocking path when the shapes do not
+    allow it (and serially). Its rows equal the blocking path's bit for
+    bit for an elementwise-composed stencil."""
+
+    def pad(f):
+        if axis_name is None:
+            return halo_pad_local(f, halo, periodic=periodic, fill=fill)
+        return halo_pad(f, halo, axis_name, periodic=periodic, fill=fill)
 
     def run_blocking(*fields):
-        out = stencil_fn(*(halo_pad_local(f, halo, periodic=periodic,
-                                          fill=fill) for f in fields))
+        out = stencil_fn(*(pad(f) for f in fields))
         if not isinstance(out, tuple):
             out = (out,)
         trimmed = []
@@ -169,7 +338,80 @@ def apply_stencil_local(stencil_fn: Callable, halo: int,
             trimmed.append(o)
         return tuple(trimmed)
 
-    return run_blocking
+    if not overlap or halo == 0 or axis_name is None:
+        return run_blocking
+
+    def run_overlap(*fields):
+        n = fields[0].shape[0]
+        if n < 2 * halo or any(f.shape[0] != n for f in fields):
+            return run_blocking(*fields)
+        # 1) the exchange in flight
+        slots = [halo_pad_start(f, halo, axis_name, periodic=periodic,
+                                fill=fill) for f in fields]
+        # 2) the interior: no dependence on the slots
+        interior = stencil_fn(*fields)
+        # 3) the edges: two 3*halo-row strips whose middle rows are final
+        arrived = [(RT.wait(fl), RT.wait(fr)) for fl, fr in slots]
+        lo_out = stencil_fn(*(torch.cat([fl, f[:2 * halo]], 0)
+                              for f, (fl, _) in zip(fields, arrived)))
+        hi_out = stencil_fn(*(torch.cat([f[-2 * halo:], fr], 0)
+                              for f, (_, fr) in zip(fields, arrived)))
+        if not isinstance(interior, tuple):
+            interior, lo_out, hi_out = (interior,), (lo_out,), (hi_out,)
+        combined = []
+        for o_int, o_lo, o_hi in zip(interior, lo_out, hi_out):
+            if o_int.shape[0] != n:
+                raise ValueError(
+                    "overlap=True needs an n-rows-to-n-rows stencil_fn "
+                    f"(got {o_int.shape[0]} rows from {n})")
+            combined.append(torch.cat(
+                [o_lo[halo:2 * halo], o_int[halo:n - halo],
+                 o_hi[halo:2 * halo]], 0))
+        return tuple(combined)
+
+    return run_overlap
+
+
+def apply_stencil_local2(stencil_fn, halo, row_axis, col_axis, *,
+                         periodic=True, fill=0.0):
+    """The pencil stencil engine: ROADMAP A14b."""
+    raise NotImplementedError(_A14B)
+
+
+def make_stencil_step(mesh, axis_name: str, stencil_fn: Callable,
+                      halo: int, *, periodic: bool = True,
+                      fill: Optional[float] = 0.0, overlap: bool = False):
+    """The distributed stencil step over each rank's raw blocks:
+    ``step(*blocks) -> tuple(blocks)``. ``stencil_fn(*padded) ->
+    tuple(new)`` sees blocks padded by ``halo`` along the leading axis and
+    returns arrays of the padded or of the owned shape. ``overlap=True``
+    needs the two-slot contract (see :func:`apply_stencil_local`)."""
+    local = apply_stencil_local(stencil_fn, halo, axis_name,
+                                periodic=periodic, fill=fill,
+                                overlap=overlap)
+
+    def step(*blocks):
+        with RT.on_mesh(mesh):
+            return local(*blocks)
+
+    return step
+
+
+def make_field_step(mesh, axis_name: str, stencil_fn: Callable, halo: int,
+                    *, periodic: bool = True, fill: Optional[float] = 0.0,
+                    overlap: bool = False):
+    """:func:`make_stencil_step` over :class:`DistributedField` containers:
+    ``step(*fields) -> tuple(fields)``, the slab geometry carried through
+    unchanged."""
+    local = make_stencil_step(mesh, axis_name, stencil_fn, halo,
+                              periodic=periodic, fill=fill, overlap=overlap)
+
+    def step(*fields: DistributedField):
+        out = local(*(f.data for f in fields))
+        return tuple(dataclasses.replace(f, data=o)
+                     for f, o in zip(fields, out))
+
+    return step
 
 
 def grid_coords(shape: Sequence[int], box_lo, box_hi,

@@ -164,15 +164,20 @@ def as_torch_kernel(body, out, r_cut: float,
 
 def apply_pair_kernel(ps: ParticleSet, cl: CellList, body, *, out,
                       r_cut: float, prop_names=(), backend: str = "auto",
-                      cell_batch: int = 256, precision: str = "fp32"):
+                      cell_batch: int = 256, cells=None,
+                      precision: str = "fp32"):
     """Uniform front door over the cell-blocked execution paths.
 
     ``backend="auto"`` launches the CUDA kernel for CUDA tensors and runs
     the plain PyTorch path for CPU tensors; ``"torch"`` forces the plain
     path (:func:`apply_kernel_cells`); ``"cuda"`` forces the kernel and
     raises on CPU tensors. Returns {name: (cap, ...) per-particle sums}.
-    (``repro``'s ``cells`` restriction serves split-phase overlap stepping
-    and arrives with it, ROADMAP A14.)
+
+    ``cells`` restricts evaluation to the given *home* cells (an int32
+    tensor; entries ``>= n_cells`` are inactive sentinels); candidates
+    still come from the full cell array, so the sums of particles homed in
+    selected cells equal the full evaluation's and the others are 0 — the
+    primitive of split-phase interior/boundary stepping (DESIGN.md §12).
     """
     if backend == "auto":
         backend = "cuda" if ps.x.is_cuda else "torch"
@@ -180,12 +185,13 @@ def apply_pair_kernel(ps: ParticleSet, cl: CellList, body, *, out,
         kern = as_torch_kernel(body, out, r_cut, precision=precision)
         return apply_kernel_cells(ps, cl, kern, r_cut=r_cut,
                                   prop_names=prop_names,
-                                  cell_batch=cell_batch)
+                                  cell_batch=cell_batch, cells=cells)
     if backend == "cuda":
         # deferred import: core stays importable without kernels/
         from repro_torch.kernels.cell_pair.cell_pair import apply_kernel_cuda
         return apply_kernel_cuda(ps, cl, body, out=out, r_cut=r_cut,
-                                 prop_names=prop_names, precision=precision)
+                                 prop_names=prop_names, precision=precision,
+                                 cells=cells)
     raise ValueError(
         f"unknown backend {backend!r}; want 'auto', 'torch' or 'cuda'")
 
@@ -277,13 +283,17 @@ def apply_kernel_verlet_sym(ps: ParticleSet, vl: VerletList, cl: CellList,
 
 
 def apply_kernel_cells(ps: ParticleSet, cl: CellList, kernel: KernelFn,
-                       r_cut: float, prop_names=(), cell_batch: int = 256):
+                       r_cut: float, prop_names=(), cell_batch: int = 256,
+                       cells=None):
     """Cell-blocked dense-tile evaluation in plain PyTorch. For each cell:
     a (cell_cap) x (3^dim * cell_cap) masked pair tile, with each neighbor
     cell's positions shifted by its box offset (exact for any grid size).
     Cells are processed ``cell_batch`` at a time (``repro``'s
     ``lax.map(batch_size=cell_batch)``). Self-pairs are excluded by slot
     identity, as in ``repro``. Returns per-particle sums.
+
+    ``cells`` (an int32 tensor) restricts the evaluated *home* cells;
+    entries ``>= n_cells`` are inactive sentinels contributing nothing.
     """
     cap = ps.capacity
     dev = ps.device
@@ -294,9 +304,17 @@ def apply_kernel_cells(ps: ParticleSet, cl: CellList, kernel: KernelFn,
     props = {k: ps.props[k] for k in prop_names}
     rc2 = r_cut * r_cut
     slot_rows, slot_sums = [], {}
-    for b0 in range(0, n_cells, cell_batch):
-        c = torch.arange(b0, min(b0 + cell_batch, n_cells), device=dev)
-        rows = cl.cells[c]                               # (B, cc)
+    n_eval = n_cells if cells is None else cells.shape[0]
+    for b0 in range(0, n_eval, cell_batch):
+        if cells is None:
+            c = torch.arange(b0, min(b0 + cell_batch, n_cells), device=dev)
+            rows = cl.cells[c]                           # (B, cc)
+        else:
+            sel = cells[b0:b0 + cell_batch].long()
+            c = torch.clamp(sel, max=n_cells - 1)
+            rows = cl.cells[c]
+            rows = torch.where((sel < n_cells)[:, None], rows,
+                               torch.full_like(rows, cap))
         cand2 = cl.cells[hood[c].long()]                 # (B, K, cc)
         B = c.shape[0]
         cand = cand2.reshape(B, K * cell_cap)

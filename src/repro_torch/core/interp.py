@@ -16,8 +16,7 @@ These plain PyTorch versions are the oracles of ``kernels/m4_interp`` and
 the ``interp="scatter"`` path of the vortex app. The local-block legs
 :func:`p2m_block`/:func:`m2p_block` address a slab block of the mesh
 (owned rows plus a halo; serially the whole axis plus both halos). Their
-pencil forms (``*_block2``) serve the distributed VIC step and arrive
-with it, ROADMAP A14.
+pencil forms (``*_block2``) serve the pencil VIC step, ROADMAP A14b.
 """
 from __future__ import annotations
 

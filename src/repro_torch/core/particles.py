@@ -118,7 +118,7 @@ class ParticleSet:
         free_slots = torch.argsort((~free).to(torch.int8), stable=True)
         take = other.valid & (inc_rank < n_free)
         dest = torch.where(take, free_slots[inc_rank.clamp(0, cap - 1)],
-                           torch.full_like(free_slots, cap))
+                           torch.full_like(inc_rank, cap))
 
         def scat(dst_arr, src_arr):
             # destination ``cap`` is a dump row, sliced off: the drop mode

@@ -10,8 +10,7 @@ counted as overflow); ``threshold=0.0`` keeps every node, in node order.
 
 :func:`seed_from_block` re-seeds one slab block of the mesh in global
 coordinates (serially, the whole mesh is one block). The per-pencil
-re-seed ``seed_from_block2`` serves the distributed VIC step and arrives
-with it, ROADMAP A14.
+re-seed ``seed_from_block2`` serves the pencil VIC step, ROADMAP A14b.
 """
 from __future__ import annotations
 

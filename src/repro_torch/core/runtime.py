@@ -1,0 +1,386 @@
+"""The distributed runtime of the port (port of ``repro.core.runtime``,
+DESIGN.md §2a).
+
+``repro`` runs a distributed step as one program under ``shard_map``; the
+port runs it SPMD by process: every rank calls the local function
+(``repro``'s ``local_step``) on its own block, and the collectives below
+are ``torch.distributed`` calls on the process group of a named mesh
+axis. There is no ``shard_map`` counterpart: the per-rank call replaces
+it.
+
+A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` whose
+``mesh_dim_names`` are ``repro``'s axis names (``"shards"``). Code inside
+a step names axes as ``repro`` does (``axis_name=...``); a name resolves
+to the process group of the mesh that :func:`on_mesh` installs (the
+per-rank wrappers of the mappings, steps and solvers install theirs on
+every call), as a name resolves inside ``repro``'s ``shard_map``.
+
+Rules (as in ``repro``): every collective of the port comes from this
+module, never from ``torch.distributed`` directly, anywhere else in the
+port. Nothing here reads a device tensor on the host.
+
+  * ``ppermute``   → one ``batch_isend_irecv`` batch; the receiver knows
+                     the shape. A pair ``(i, i)`` of the permutation is a
+                     local copy, never a message, so the ring of a 1-rank
+                     axis (``shift_perms(1)``) moves nothing.
+                     :func:`ppermute_many_start` returns a batch in
+                     flight (:class:`InFlight`), which the split-phase
+                     schedules run work under before they wait.
+  * ``all_to_all`` → ``all_to_all_single`` with equal splits (the
+                     fixed-capacity buckets of ``map()``, the slab FFT
+                     transpose); :func:`all_to_all_many` sends several
+                     tensors as one message of bytes.
+  * ``psum``/``pmax``/``pmean`` → ``all_reduce`` of small device tensors
+                     (``pmean`` is the sum over the axis size).
+  * ``all_gather`` → ``all_gather_into_tensor`` (gloo takes it too).
+
+Messages go as their bytes' dtype where the backends differ: bool as
+uint8, complex as its real view.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import math
+import os
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+#: The mesh that names resolve against inside :func:`on_mesh`.
+_CURRENT: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_mesh", default=None)
+
+#: Default gloo timeout of the groups :func:`make_mesh` creates (seconds).
+GLOO_TIMEOUT_S = 60
+
+
+def _backend(device_type: str) -> str:
+    if device_type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "make_mesh(device_type='cuda') needs a CUDA card, and "
+                "torch.cuda.is_available() is False; pass device_type='cpu' "
+                "for gloo ranks on the CPU")
+        return "nccl"
+    if device_type == "cpu":
+        return "gloo"
+    raise ValueError(f"unknown device_type {device_type!r}; want 'cuda' or "
+                     "'cpu'")
+
+
+def _init_group(backend: str) -> None:
+    """A process group: from torchrun's environment when it is set,
+    otherwise a 1-rank group on an in-process HashStore."""
+    import datetime
+    kw = {}
+    if backend == "gloo":
+        kw["timeout"] = datetime.timedelta(seconds=GLOO_TIMEOUT_S)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        if backend == "nccl":
+            local = int(os.environ.get("LOCAL_RANK", 0))
+            torch.cuda.set_device(local)
+            kw["device_id"] = torch.device("cuda", local)
+        dist.init_process_group(backend, **kw)
+        return
+    if backend == "nccl":
+        torch.cuda.set_device(0)
+        kw["device_id"] = torch.device("cuda", 0)
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1, **kw)
+
+
+def make_mesh(shape: Sequence[int], names: Sequence[str], *,
+              device_type: str = "cuda"):
+    """A ``DeviceMesh`` of ``shape`` with axis ``names``. When no process
+    group exists it initialises one: from torchrun's environment
+    (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``...) when that is set,
+    otherwise at world size 1 from an in-process ``HashStore``.
+    ``"cuda"`` means NCCL and raises without a card (no fallback to gloo
+    or the CPU); ``"cpu"`` means gloo."""
+    from torch.distributed.device_mesh import init_device_mesh
+    backend = _backend(device_type)
+    shape = tuple(int(s) for s in shape)
+    names = tuple(names)
+    if not dist.is_initialized():
+        _init_group(backend)
+    have = dist.get_backend()
+    if backend not in str(have):
+        raise RuntimeError(
+            f"the process group runs {have!r}; a {device_type!r} mesh needs "
+            f"{backend!r}")
+    if math.prod(shape) != dist.get_world_size():
+        raise ValueError(f"mesh {shape} needs {math.prod(shape)} ranks; the "
+                         f"process group has {dist.get_world_size()}")
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
+
+
+def device_count() -> int:
+    """Ranks of the process group (of torchrun's environment, or 1, when
+    none exists yet): the devices a mesh over everything spans."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", 1))
+
+
+@contextlib.contextmanager
+def on_mesh(mesh):
+    """Resolve axis names against ``mesh`` inside the block (the per-rank
+    wrappers of the mappings, steps and solvers enter it on each call)."""
+    token = _CURRENT.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _CURRENT.reset(token)
+
+
+def _mesh_of(axis_name: str):
+    mesh = _CURRENT.get()
+    if mesh is None or axis_name not in (mesh.mesh_dim_names or ()):
+        raise RuntimeError(
+            f"no mesh with an axis named {axis_name!r} is in scope; call "
+            "inside runtime.on_mesh(mesh)")
+    return mesh
+
+
+def _group(axis_name: str):
+    return _mesh_of(axis_name).get_group(axis_name)
+
+
+# --------------------------------------------------------------------------
+# Axis queries: host integers, no device read
+# --------------------------------------------------------------------------
+
+def axis_index(axis_name: str) -> int:
+    """This rank's index along the axis."""
+    return _mesh_of(axis_name).get_local_rank(axis_name)
+
+
+def axis_size(axis_name: str) -> int:
+    """The axis's size (ranks along it)."""
+    mesh = _mesh_of(axis_name)
+    return mesh.size(mesh.mesh_dim_names.index(axis_name))
+
+
+def shift_perms(ndev: int, hop: int = 1):
+    """The two ring permutations of a 1-D mesh axis: (right, left) neighbor
+    send lists, shared by every slab/ring exchange. ``hop`` generalises to
+    the k-hop rings of the multi-hop ghost exchange (DESIGN.md §13)."""
+    right = [(i, (i + hop) % ndev) for i in range(ndev)]
+    left = [(i, (i - hop) % ndev) for i in range(ndev)]
+    return right, left
+
+
+# --------------------------------------------------------------------------
+# Point to point: the ghost and halo shifts
+# --------------------------------------------------------------------------
+
+def _wire(x: torch.Tensor) -> torch.Tensor:
+    """The tensor a message carries: bool as uint8, complex as its real
+    view; contiguous."""
+    if x.dtype == torch.bool:
+        x = x.to(torch.uint8)
+    elif x.is_complex():
+        x = torch.view_as_real(x)
+    return x.contiguous()
+
+
+def _unwire(buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    if like.dtype == torch.bool:
+        return buf.to(torch.bool)
+    if like.is_complex():
+        return torch.view_as_complex(buf)
+    return buf
+
+
+class InFlight:
+    """Messages in flight and what their arrival yields: ``wait()`` waits
+    for them (on NCCL it makes the current stream wait, without blocking
+    the host) and returns ``then(received)``. Objects made by ``then``
+    share the messages, and each message is waited for once (a gloo send
+    waited for twice blocks until its timeout)."""
+
+    def __init__(self, works: List, value, then: Optional[Callable] = None):
+        self._works = works
+        self._value = value
+        self._then = then
+
+    def then(self, fn: Callable) -> "InFlight":
+        """The same messages, yielding ``fn`` of what this one yields."""
+        prev = self._then
+        return InFlight(self._works, self._value,
+                        fn if prev is None else (lambda v: fn(prev(v))))
+
+    def wait(self):
+        while self._works:          # the list is shared: empty it in place
+            self._works.pop(0).wait()
+        return self._value if self._then is None else self._then(
+            self._value)
+
+
+def wait(x):
+    """``x.wait()`` for an :class:`InFlight`, ``x`` itself otherwise."""
+    return x.wait() if isinstance(x, InFlight) else x
+
+
+def ppermute_many_start(sends: Sequence[Tuple[Sequence[torch.Tensor],
+                                              Sequence[Tuple[int, int]]]],
+                        axis_name: str) -> InFlight:
+    """Issue several collective permutes as ONE batch: ``sends`` is a list
+    of ``(tensors, perm)``; each tensor goes along its perm as
+    :func:`ppermute` would send it. The batch yields the received tensors
+    in the same nesting. Every rank issues the messages in the same order
+    and each carries its position as its tag, so two messages to one peer
+    (the two directions of a 2-rank ring) cannot swap."""
+    me = axis_index(axis_name)
+    group = _group(axis_name)
+    ops, out = [], []
+    tag = 0
+    for tensors, perm in sends:
+        dst = [d for s, d in perm if s == me]
+        src = [s for s, d in perm if d == me]
+        if len(dst) > 1 or len(src) > 1:
+            raise ValueError(f"perm {perm} is not a permutation")
+        got = []
+        for x in tensors:
+            wire = _wire(x)
+            if dst and dst[0] == me:              # a self-edge: a copy
+                got.append(_unwire(wire.clone(), x))
+                tag += 1
+                continue
+            if dst:
+                ops.append(dist.P2POp(dist.isend, wire,
+                                      dist.get_global_rank(group, dst[0]),
+                                      group, tag=tag))
+            if src:
+                buf = torch.empty_like(wire)
+                ops.append(dist.P2POp(dist.irecv, buf,
+                                      dist.get_global_rank(group, src[0]),
+                                      group, tag=tag))
+                got.append((buf, x))
+            else:                                 # nothing arrives: zeros
+                got.append(torch.zeros_like(x))
+            tag += 1
+        out.append(got)
+    works = dist.batch_isend_irecv(ops) if ops else []
+
+    def unpack(received):
+        return [[_unwire(*g) if isinstance(g, tuple) else g for g in row]
+                for row in received]
+
+    return InFlight(works, out, unpack)
+
+
+def ppermute(x: torch.Tensor, axis_name: str, perm) -> torch.Tensor:
+    """Collective permute (``jax.lax.ppermute``): rank ``d`` receives what
+    ``s`` sent for each ``(s, d)`` in ``perm``, zeros where nothing
+    arrives."""
+    return ppermute_many_start([([x], perm)], axis_name).wait()[0][0]
+
+
+# --------------------------------------------------------------------------
+# Collectives
+# --------------------------------------------------------------------------
+
+def all_to_all(x: torch.Tensor, axis_name: str, *, split_axis: int = 0,
+               concat_axis: int = 0, tiled: bool = False) -> torch.Tensor:
+    """``jax.lax.all_to_all``: split ``x`` along ``split_axis`` into one
+    equal chunk per rank, send chunk ``j`` to rank ``j``, and place what
+    rank ``i`` sent at position ``i`` along ``concat_axis`` (a new axis
+    of size ndev in place of the split one when ``tiled`` is False, and
+    then ``split_axis == concat_axis`` and ``x.shape[split_axis] ==
+    ndev``)."""
+    ndev = axis_size(axis_name)
+    n = x.shape[split_axis]
+    if n % ndev:
+        raise ValueError(f"axis {split_axis} ({n}) does not split over "
+                         f"{ndev} ranks")
+    if not tiled and (split_axis != concat_axis or n != ndev):
+        raise NotImplementedError(
+            "untiled all_to_all takes split_axis == concat_axis over an "
+            "axis of size ndev")
+    # chunks along a new leading axis, in rank order
+    shp = list(x.shape)
+    chunked = x.reshape(shp[:split_axis] + [ndev, n // ndev]
+                        + shp[split_axis + 1:]).movedim(split_axis, 0)
+    wire = _wire(chunked)
+    out = torch.empty_like(wire)
+    dist.all_to_all_single(out, wire, group=_group(axis_name))
+    got = _unwire(out, x)                        # (ndev, ...chunk...)
+    if not tiled:
+        return got.movedim(0, split_axis).reshape(x.shape)
+    # each chunk keeps x's rank (its split axis now n // ndev long); the
+    # rank axis becomes the outer part of concat_axis
+    got = got.movedim(0, concat_axis)
+    shp = list(got.shape)
+    shp[concat_axis:concat_axis + 2] = [shp[concat_axis]
+                                        * shp[concat_axis + 1]]
+    return got.reshape(shp)
+
+
+def all_to_all_many(xs: Sequence[torch.Tensor],
+                    axis_name: str) -> List[torch.Tensor]:
+    """The untiled :func:`all_to_all` of several ``(ndev, ...)`` tensors as
+    ONE message: each rank's rows are their bytes side by side (any
+    dtypes), exchanged once and cut back apart."""
+    ndev = axis_size(axis_name)
+    for x in xs:
+        if x.shape[0] != ndev:
+            raise ValueError(f"leading axis {x.shape[0]} is not the axis "
+                             f"size {ndev}")
+    parts = [x.contiguous().view(torch.uint8).reshape(ndev, -1)
+             for x in xs]
+    wire = torch.cat(parts, 1)
+    out = torch.empty_like(wire)
+    dist.all_to_all_single(out, wire, group=_group(axis_name))
+    got, at = [], 0
+    for x, p in zip(xs, parts):
+        w = p.shape[1]
+        got.append(out[:, at:at + w].contiguous().view(x.dtype)
+                   .reshape(x.shape))
+        at += w
+    return got
+
+
+def _reduce(x, axis_name: str, op) -> torch.Tensor:
+    t = torch.as_tensor(x)
+    buf = t.to(torch.int32) if t.dtype == torch.bool else t.clone()
+    dist.all_reduce(buf, op=op, group=_group(axis_name))
+    return buf.to(torch.bool) if t.dtype == torch.bool else buf
+
+
+def psum(x, axis_name: str) -> torch.Tensor:
+    return _reduce(x, axis_name, dist.ReduceOp.SUM)
+
+
+def pmax(x, axis_name: str) -> torch.Tensor:
+    return _reduce(x, axis_name, dist.ReduceOp.MAX)
+
+
+def pmean(x, axis_name: str) -> torch.Tensor:
+    return psum(x, axis_name) / axis_size(axis_name)
+
+
+#: ``all_gather_into_tensor`` under its newer name where torch has it
+_ALL_GATHER = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+
+
+def all_gather(x, axis_name: str, *, axis: int = 0,
+               tiled: bool = False) -> torch.Tensor:
+    """``jax.lax.all_gather``: every rank's ``x`` in rank order, stacked on
+    a new ``axis`` (``tiled``: concatenated along it)."""
+    t = torch.as_tensor(x)
+    ndev = axis_size(axis_name)
+    wire = _wire(t.movedim(axis, 0) if tiled and t.dim() else t)
+    # the backends take the output as the inputs concatenated on dim 0
+    wire = wire.reshape((1,) + tuple(wire.shape))
+    out = torch.empty((ndev,) + tuple(wire.shape[1:]), dtype=wire.dtype,
+                      device=wire.device)
+    _ALL_GATHER(out, wire, group=_group(axis_name))
+    got = _unwire(out, t)
+    if tiled:
+        got = got.reshape((-1,) + tuple(got.shape[2:])).movedim(0, axis)
+        return got
+    return got.movedim(0, axis)

@@ -1,24 +1,27 @@
-"""Simulation layer, serial slice (port of ``repro.core.simulation``,
-DESIGN.md §9).
+"""Simulation layer — one particle container, every backend (port of
+``repro.core.simulation``, DESIGN.md §9).
 
   * :class:`DistributedParticles` — the particle container plus the slab
     ``bounds`` it lives under; serial is the 1-slab case.
   * :class:`PhysicsSpec` — what an application declares: domain, cutoff,
     pair body, fields, and the ``advance``/``finish`` hooks.
-  * :func:`make_sim_step` — the engine. This port has the serial path
-    (``mesh=None``): ``advance`` → cell list → cell-pair engine →
-    ``finish``, with declared mesh fields (``PhysicsSpec.mesh_props``)
-    riding in the container, and the serial skin-amortized reuse cadence
-    (``reuse="skin"|"update"``, DESIGN.md §14; state type
-    :class:`ReuseState`, built by :func:`reuse_state`). The multi-device
-    path, split-phase overlap and multi-hop ghosts raise
-    NotImplementedError naming ROADMAP A14.
+  * :func:`make_sim_step` — the engine. ``mesh=None`` is the serial path:
+    ``advance`` → cell list → cell-pair engine → ``finish``, with declared
+    mesh fields (``PhysicsSpec.mesh_props``) riding in the container, and
+    the serial skin-amortized reuse cadence (``reuse="skin"|"update"``,
+    DESIGN.md §14; state type :class:`ReuseState`, built by
+    :func:`reuse_state`). With a 1-D device mesh the same hooks run per
+    rank with ``map()`` → multi-hop ``ghost_get`` → combo cell list →
+    pair pass → ``finish``, under the split-phase overlap schedule or the
+    blocking one; :func:`distribute` cuts a rank's block. The 2-D pencil
+    step, the reuse cadence on a mesh and ``make_rebalance`` are ROADMAP
+    A14b and raise.
 
 Capacity contracts surface as :class:`StepFlags`: 0-d int32 tensors on the
-particles' device. Nothing in an every-step engine step reads a device
-tensor on the host, so it never waits for the card; callers read the
-flags at their log points. The reuse step reads one flag per step (see
-:func:`make_sim_step`).
+particles' device, the same on every rank. Nothing in an every-step
+engine step reads a device tensor on the host, so it never waits for the
+card; callers read the flags at their log points. The serial reuse step
+reads one flag per step (see :func:`make_sim_step`).
 """
 from __future__ import annotations
 
@@ -30,9 +33,15 @@ import numpy as np
 import torch
 
 from . import cell_list as CL
+from . import dlb
 from . import grid as G
 from . import interactions as I
+from . import mappings as M
+from . import runtime as RT
 from .particles import ParticleSet, const_tensor
+
+_A14B = ("{} is not ported yet (ROADMAP A14b: the 2-D pencil step, the "
+         "reuse cadence on a mesh, make_rebalance)")
 
 
 # --------------------------------------------------------------------------
@@ -90,32 +99,29 @@ class StepFlags:
 
 @dataclasses.dataclass(frozen=True)
 class Reduce:
-    """Global reductions handed to physics hooks; serially identities.
-    Only ``axis_name=None`` is ported."""
+    """Global reductions handed to physics hooks: the mesh collectives
+    over ``axis_name`` on a distributed step, identities serially — so a
+    hook writes e.g. the SPH global dt once (``red.max(amax)``)."""
 
     axis_name: Optional[str] = None
 
-    def __post_init__(self):
-        if self.axis_name is not None:
-            raise NotImplementedError(
-                "collective reductions arrive with the multi-device layer "
-                "(ROADMAP A14)")
-
     @property
     def distributed(self) -> bool:
-        return False
+        return self.axis_name is not None
 
     def max(self, x):
-        return x
+        return RT.pmax(x, self.axis_name) if self.axis_name else x
 
     def sum(self, x):
-        return x
+        return RT.psum(x, self.axis_name) if self.axis_name else x
 
     def mean(self, x):
-        return x
+        return RT.pmean(x, self.axis_name) if self.axis_name else x
 
     def gather(self, x):
         """(ndev,)-stacked per-shard values (shape (1,) serially)."""
+        if self.axis_name:
+            return RT.all_gather(x, self.axis_name)
         return torch.as_tensor(x)[None]
 
 
@@ -166,9 +172,11 @@ class PhysicsSpec:
     into ``extras`` next step, with ``"_reuse_slots_stable"``: always True
     serially, where slots never permute); ``cache_scalars`` marks which of
     those are scalars; ``cache_example`` builds the cold cache from a
-    particle set. The serial engine reads only these. ``ghost_props``,
-    ``update_props``, ``extras_example``, ``bucket_cap`` and ``ghost_cap``
-    are declared for the multi-device layer (ROADMAP A14).
+    particle set. ``ghost_props`` are the props ghosts carry (OpenFPM's
+    property-subset ``ghost_get``; a superset of ``pair_props``), and
+    ``bucket_cap``/``ghost_cap`` the default ``map()`` bucket and
+    ``ghost_get`` per-side capacities of a mesh step. ``update_props`` is
+    the reuse cadence's on a mesh (ROADMAP A14b).
     """
 
     name: str
@@ -184,13 +192,13 @@ class PhysicsSpec:
     finish: Optional[Callable] = None
     backend: str = "auto"                    # "auto" | "torch" | "cuda"
     precision: str = "fp32"                  # "fp32" | "bf16x" pair engine
-    ghost_props: Tuple[str, ...] = ()        # props ghosts carry (A14)
+    ghost_props: Tuple[str, ...] = ()        # props ghosts carry
     extras_example: Tuple[str, ...] = ()     # names of per-step extras
-    bucket_cap: int = 512                    # map() bucket (A14)
-    ghost_cap: int = 1024                    # ghost_get per side (A14)
+    bucket_cap: int = 512                    # map() per-destination bucket
+    ghost_cap: int = 1024                    # ghost_get per-side capacity
     mesh_props: Tuple[str, ...] = ()         # mesh fields in state.fields
     update_props: Optional[Tuple[str, ...]] = None  # ghost props refreshed
-    #                                          on reuse update steps (A14)
+    #                                          on reuse update steps (A14b)
     cache_keys: Tuple[str, ...] = ()         # finish scalars carried as
     #                                          reuse-engine physics cache
     cache_scalars: Tuple[str, ...] = ()      # cache_keys that are scalars
@@ -269,19 +277,120 @@ def make_serial_step_fn(physics, cfg, *, slab_axis: int = 0):
     return step
 
 
+def _auto_hops(rc: float, box_len: float, ndev: int) -> int:
+    """Static default ghost-hop count: the hops a *uniform* decomposition
+    of ``ndev`` slabs needs to cover ``rc`` (clamped to the ring
+    diameter). The step re-derives the need from its bounds; the excess
+    lands in ``StepFlags.ghost_contract``."""
+    if ndev <= 1:
+        return 1
+    need = int(np.ceil(rc * ndev / box_len - 1e-9))
+    return max(1, min(ndev - 1, need))
+
+
+def _slab_geom(cl_kw, slab_axis: int, ndev: int,
+               interior_rows: Optional[int], device):
+    """Static split-phase window geometry over a slab-decomposed cell
+    grid: the slab-axis row count, the interior window ``w_int``, the
+    coordinate→row map (the cell list's own binning expression, so window
+    edges agree with particle homes bit for bit) and whole rows → flat
+    home-cell ids (masked-out rows become the sentinel ``n_cells``)."""
+    gs = cl_kw["grid_shape"]
+    n_rows = int(gs[slab_axis])
+    n_cells = int(np.prod(gs))
+    strides = np.concatenate(
+        [np.cumprod(np.asarray(gs)[::-1])[::-1][1:], [1]]).astype(np.int64)
+    row_stride = int(strides[slab_axis])
+    oshape = list(gs)
+    oshape[slab_axis] = 1
+    oix = np.indices(oshape).reshape(len(gs), -1)
+    # flat cell ids of the slab-row cross-section (row index 0)
+    other_offs = const_tensor(tuple(int(v) for v in np.sort(
+        (oix * strides[:, None]).sum(axis=0))), torch.int32, device)
+    lo_s = const_tensor((float(cl_kw["box_lo"][slab_axis]),), torch.float32,
+                        device)[0]
+    hi_s = const_tensor((float(cl_kw["box_hi"][slab_axis]),), torch.float32,
+                        device)[0]
+    w_int = int(interior_rows if interior_rows is not None
+                else min(n_rows, -(-n_rows // ndev) + 4))
+
+    def row_of(t):
+        frac = (t - lo_s) / (hi_s - lo_s)
+        r = torch.floor(frac * float(n_rows))
+        return torch.clamp(torch.clamp(r, min=0.0), max=n_rows - 1).to(
+            torch.int32)
+
+    def rows_to_cells(rows, ok):
+        flat = rows[:, None] * row_stride + other_offs[None, :]
+        return torch.where(ok[:, None], flat,
+                           torch.full_like(flat, n_cells)).reshape(-1)
+
+    return dict(n_rows=n_rows, n_cells=n_cells, w_int=w_int, row_of=row_of,
+                rows_to_cells=rows_to_cells)
+
+
+def _hop_excess(bounds: torch.Tensor, rc: float, k: int) -> torch.Tensor:
+    """The ghost contract against the slab bounds: how many hops ``ceil(rc
+    / min width)`` needs beyond the ``k`` exchanged (0 = covered)."""
+    min_w = torch.clamp((bounds[1:] - bounds[:-1]).min(), min=1e-12)
+    k_needed = torch.ceil(rc / min_w).to(torch.int32)
+    return torch.clamp(k_needed - k, min=0).to(torch.int32)
+
+
+#: Boundary cell rows per slab face in the split-phase schedule: <= 3 are
+#: needed (cells are >= r_cut wide, so [face - r_cut, face + r_cut] spans
+#: <= 3 rows), plus 1 margin each way for fp32 seam-shift rounding.
+W_B = 5
+
+
+def _axis_names(mesh, axis_name):
+    """(row axis, size of the column axis) of ``axis_name``: a name, or a
+    ``(row, col)`` tuple whose column axis must have size 1 here."""
+    if not isinstance(axis_name, tuple):
+        return axis_name, 1
+    row, col = axis_name
+    return row, int(mesh.size(mesh.mesh_dim_names.index(col)))
+
+
 @functools.lru_cache(maxsize=None)
 def make_sim_step(physics, cfg, mesh=None, *, axis_name="shards",
-                  slab_axis: int = 0, overlap: bool = False,
+                  slab_axis: int = 0, bucket_cap: Optional[int] = None,
+                  ghost_cap: Optional[int] = None, overlap: bool = True,
+                  interior_rows: Optional[int] = None,
                   n_hops: Optional[int] = None,
                   reuse: Optional[str] = None,
                   skin: Optional[float] = None):
     """Build the simulation step for ``physics(cfg)``: ``step(state,
     extras) -> (state, flags, scalars)`` over a
-    :class:`DistributedParticles` state. Only the serial path
-    (``mesh=None``) is ported; the step runs eagerly (``repro`` jits it).
+    :class:`DistributedParticles` state. The step runs eagerly (``repro``
+    jits it).
 
-    ``reuse`` selects the skin-amortized cadence (DESIGN.md §14) and makes
-    the state a :class:`ReuseState` (build it with :func:`reuse_state`):
+    ``mesh=None`` builds the serial path (the mesh options are then
+    ignored, as in ``repro``). With a 1-D device mesh (``runtime
+    .make_mesh``) every rank calls the step on its own block (its state
+    from :func:`distribute`): ``map()`` under the (replicated) bounds, the
+    ``n_hops``-hop ``ghost_get`` of ``ghost_props`` (default: the hops a
+    uniform decomposition needs; a shortfall against the actual bounds is
+    ``StepFlags.ghost_contract``), a cell list over locals + ghosts on the
+    ghost-padded box, the pair pass, and ``finish``. ``bucket_cap`` and
+    ``ghost_cap`` default to the spec's. A ``(row, col)`` tuple
+    ``axis_name`` whose column axis has size 1 is the same slab step;
+    a larger column axis is the pencil step, ROADMAP A14b.
+
+    ``overlap=True`` selects the split-phase schedule (DESIGN.md §12): the
+    ghost shifts are issued first (``mappings.ghost_get_start``), the pair
+    engine runs on the interior cell rows of a locals-only cell list while
+    they fly, and only the boundary rows (within r_cut of a face, and the
+    ghost pad) wait for the ghosts; the combine takes each particle's sums
+    from the pass that saw all its partners. Both passes sum identical
+    tiles, so the step equals ``overlap=False`` (the blocking chain) bit
+    for bit. Multi-hop steps run the blocking schedule. ``interior_rows``
+    caps the interior window (default: the uniform share + 4); a slab
+    beyond it raises ``StepFlags.window``.
+
+    ``reuse`` selects the skin-amortized cadence (DESIGN.md §14; serial
+    only here) and makes the state a :class:`ReuseState` (build it with
+    :func:`reuse_state`):
 
       * ``"skin"`` — cells widen to ``r_cut + skin``; the cell list is
         cached with the positions it was binned at, and a step rebuilds it
@@ -299,17 +408,141 @@ def make_sim_step(physics, cfg, mesh=None, *, axis_name="shards",
 
     ``physics`` must be a module-level callable ``physics(cfg) ->``
     :class:`PhysicsSpec` and ``cfg`` hashable: the step is cached on
-    ``(physics, cfg)``."""
+    ``(physics, cfg, mesh, ...)``."""
     if reuse is not None and reuse not in ("skin", "update"):
         raise ValueError(
             f"reuse must be None, 'skin' or 'update'; got {reuse!r}")
-    if mesh is not None or overlap or n_hops is not None:
-        raise NotImplementedError(
-            "make_sim_step on a device mesh (overlap, n_hops) arrives with "
-            "the multi-device layer (ROADMAP A14); pass mesh=None")
+    if mesh is None:
+        if reuse is not None:
+            return _make_reuse_serial_fn(physics, cfg, slab_axis, reuse,
+                                         skin)
+        return make_serial_step_fn(physics, cfg, slab_axis=slab_axis)
+    row_axis, ndev_c = _axis_names(mesh, axis_name)
+    if ndev_c > 1:
+        raise NotImplementedError(_A14B.format(
+            "make_sim_step on a 2-D (pencil) device mesh"))
     if reuse is not None:
-        return _make_reuse_serial_fn(physics, cfg, slab_axis, reuse, skin)
-    return make_serial_step_fn(physics, cfg, slab_axis=slab_axis)
+        raise NotImplementedError(_A14B.format(
+            "make_sim_step(reuse=...) on a device mesh"))
+    return _make_sim_step_1d(physics, cfg, mesh, row_axis, slab_axis,
+                             bucket_cap, ghost_cap, overlap, interior_rows,
+                             n_hops)
+
+
+def _make_sim_step_1d(physics, cfg, mesh, axis_name: str, slab_axis: int,
+                      bucket_cap, ghost_cap, overlap: bool, interior_rows,
+                      n_hops):
+    """The slab (1-D device mesh) step composition, per rank."""
+    spec = physics(cfg)
+    body = spec.make_body()
+    rc = float(spec.r_cut)
+    pair_kw = dict(out=spec.pair_out, r_cut=rc, prop_names=spec.pair_props,
+                   backend=spec.backend, precision=spec.precision)
+    b_cap = int(bucket_cap or spec.bucket_cap)
+    g_cap = int(ghost_cap or spec.ghost_cap)
+    box_len = float(spec.box_hi[slab_axis]) - float(spec.box_lo[slab_axis])
+    per_slab = bool(spec.periodic[slab_axis])
+    with RT.on_mesh(mesh):
+        ndev = RT.axis_size(axis_name)
+    k_hops = int(n_hops) if n_hops is not None else _auto_hops(rc, box_len,
+                                                               ndev)
+    cl_kw = _grid_kw(spec, (slab_axis,))
+    # the split-phase windows assume single-hop boundary bands
+    overlap = overlap and k_hops == 1
+    geoms = {}
+
+    def geom(device):
+        if device not in geoms:
+            geoms[device] = _slab_geom(cl_kw, slab_axis, ndev,
+                                       interior_rows, device)
+        return geoms[device]
+
+    def local_step(state: DistributedParticles, extras):
+        red = Reduce(axis_name)
+        ps, bounds = state.ps, state.bounds
+        dev = ps.device
+        grid = G.GridOps(axis_name, periodic=per_slab, device=dev)
+        if spec.advance is not None:
+            ps = spec.advance(ps, red, extras)
+        # map(): migrate to the owners under the (replicated) bounds
+        ps, ovf_bucket = M.map_particles_local(ps, bounds, axis_name, b_cap,
+                                               slab_axis)
+        contract = _hop_excess(bounds, rc, k_hops)
+        pending = M.ghost_get_start(
+            ps, bounds, rc, axis_name, g_cap, periodic=per_slab,
+            box_len=box_len, slab_axis=slab_axis,
+            prop_names=spec.ghost_props, n_hops=k_hops)
+        win_ovf = _z32(dev)
+        if overlap:
+            # the interior pass while the ghosts fly: a locals-only cell
+            # list restricted to this rank's owned rows (boundary
+            # particles get ghost-less sums here, replaced below)
+            g = geom(dev)
+            me = RT.axis_index(axis_name)
+            my_lo, my_hi = bounds[me], bounds[me + 1]
+            r0 = g["row_of"](my_lo)
+            r_last = g["row_of"](my_hi)
+            int_rows = r0 + torch.arange(g["w_int"], dtype=torch.int32,
+                                         device=dev)
+            cl_loc = CL.build_cell_list(ps, **cl_kw)
+            pair_int = I.apply_pair_kernel(
+                ps, cl_loc, body,
+                cells=g["rows_to_cells"](int_rows, int_rows < g["n_rows"]),
+                **pair_kw)
+            win_ovf = torch.clamp(r_last + 1 - (r0 + g["w_int"]), min=0)
+        ghosts, ovf_ghost = pending.wait()
+        gp = ghosts.as_particles()
+        combo = ParticleSet(
+            x=torch.cat([ps.x, gp.x]),
+            props={k: torch.cat([ps.props[k], gp.props[k]])
+                   for k in spec.ghost_props},
+            valid=torch.cat([ps.valid, gp.valid]))
+        cl = CL.build_cell_list(combo, **cl_kw)
+        if overlap:
+            # the boundary pass against the arrived ghosts: the rows within
+            # r_cut of either face and the ghost pad, the hi side
+            # deduplicated against the lo side so no cell scatters twice
+            wb = torch.arange(W_B, dtype=torch.int32, device=dev)
+            lo_rows = g["row_of"](my_lo - rc) - 1 + wb
+            hi_rows = g["row_of"](my_hi - rc) - 1 + wb
+            lo_ok = (lo_rows >= 0) & (lo_rows < g["n_rows"])
+            hi_ok = ((hi_rows >= 0) & (hi_rows < g["n_rows"])
+                     & (hi_rows > lo_rows[-1]))
+            bnd_cells = torch.cat([g["rows_to_cells"](lo_rows, lo_ok),
+                                   g["rows_to_cells"](hi_rows, hi_ok)])
+            pair_bnd = I.apply_pair_kernel(combo, cl, body, cells=bnd_cells,
+                                           **pair_kw)
+            # per particle: the boundary sums within r_cut of a face (and
+            # for every ghost row), the interior sums elsewhere
+            xs = ps.x[:, slab_axis]
+            bnd = (xs < my_lo + rc) | (xs >= my_hi - rc)
+            n_loc = ps.capacity
+            pair = {k: torch.cat(
+                [torch.where(I._bmask(bnd, v[:n_loc]), v[:n_loc],
+                             pair_int[k]), v[n_loc:]])
+                for k, v in pair_bnd.items()}
+            cl_ovf = torch.maximum(cl.overflow, cl_loc.overflow)
+        else:
+            pair = I.apply_pair_kernel(combo, cl, body, **pair_kw)
+            cl_ovf = cl.overflow
+        ps, scalars, nb_ovf, fields = _finish(
+            spec, StepCtx(ps=ps, combo=combo, cl=cl, pair=pair, red=red,
+                          extras=extras, fields=state.fields, grid=grid))
+        # the rank-local flags in one all_reduce
+        local = RT.pmax(torch.stack([cl_ovf.to(torch.int32), nb_ovf,
+                                     win_ovf.to(torch.int32)]), axis_name)
+        flags = StepFlags(cell=local[0], neighbor=local[1],
+                          bucket=ovf_bucket, ghost=ovf_ghost,
+                          ghost_contract=contract, window=local[2],
+                          stale=_z32(dev))
+        return (dataclasses.replace(state, ps=ps, fields=fields), flags,
+                scalars)
+
+    def step(state: DistributedParticles, extras):
+        with RT.on_mesh(mesh):
+            return local_step(state, extras)
+
+    return step
 
 
 # --------------------------------------------------------------------------
@@ -324,7 +557,8 @@ class ReuseCache:
     host bool (``repro``: a device scalar read by ``lax.cond``): False
     marks a cold cache, so the next step builds unconditionally. The
     multi-device fields of ``repro``'s cache (the ghost layer, the
-    locals-only binning) arrive with ROADMAP A14."""
+    locals-only binning) arrive with the reuse cadence on a mesh, ROADMAP
+    A14b."""
 
     ok: bool
     x_anchor: torch.Tensor               # (cap, dim) positions at build
@@ -432,11 +666,10 @@ def reuse_state(state: DistributedParticles, physics, cfg, mesh=None, *,
     """Wrap a container for the reuse engine with a cold cache: the first
     step builds unconditionally and warms it. Pass the ``skin`` given to
     ``make_sim_step``; it shapes the cached grid. ``mesh`` other than None
-    is the multi-device layer (ROADMAP A14) and raises."""
+    is the reuse cadence on a mesh, ROADMAP A14b, and raises."""
     if mesh is not None:
-        raise NotImplementedError(
-            "reuse_state on a device mesh arrives with the multi-device "
-            "layer (ROADMAP A14); pass mesh=None")
+        raise NotImplementedError(_A14B.format("reuse_state on a device "
+                                               "mesh"))
     spec = physics(cfg)
     skin_v = _resolve_skin(spec, skin)
     phys = {}
@@ -482,3 +715,45 @@ def serial_state(ps: ParticleSet, physics, cfg, slab_axis: int = 0,
                           ps.device)
     return DistributedParticles(ps=ps, bounds=bounds,
                                 fields=dict(fields or {}))
+
+
+def make_rebalance(physics, cfg, mesh, **kw):
+    """The DLB 'repartition + migrate' pair: ROADMAP A14b."""
+    raise NotImplementedError(_A14B.format("make_rebalance"))
+
+
+def distribute(ps0: ParticleSet, physics, cfg, mesh, *,
+               axis_name="shards", slab_axis: int = 0,
+               cap_per_dev: Optional[int] = None, cap_factor: float = 3.0,
+               bounds=None, fields: Optional[Dict[str, torch.Tensor]] = None
+               ) -> DistributedParticles:
+    """The host-side 'global map' (paper: distributed read + global map),
+    as each rank calls it with the same ``ps0``: every valid particle goes
+    to its owner's slot block (rank d owns global slots ``[d·cap, (d+1)
+    ·cap)``, as in ``repro``), with the ``id`` prop added; returns THIS
+    rank's block, on ``ps0``'s device, with the replicated ``bounds``
+    (default: uniform slabs) and this rank's rows of ``fields`` (full mesh
+    arrays, leading axis the slab axis). Reads ``ps0`` on the host: a
+    set-up function, not for a step."""
+    from repro_torch import convert
+    row_axis, ndev_c = _axis_names(mesh, axis_name)
+    if ndev_c > 1:
+        raise NotImplementedError(_A14B.format("distribute over a 2-D "
+                                               "(pencil) device mesh"))
+    spec = physics(cfg)
+    with RT.on_mesh(mesh):
+        ndev = RT.axis_size(row_axis)
+        me = RT.axis_index(row_axis)
+    if bounds is None:
+        bounds = dlb.uniform_bounds(ndev, float(spec.box_lo[slab_axis]),
+                                    float(spec.box_hi[slab_axis]))
+    bounds = np.asarray(bounds.cpu() if isinstance(bounds, torch.Tensor)
+                        else bounds, np.float32)
+    x, valid, props = convert.particles_to_numpy(with_ids(ps0))
+    X, V, PR = convert.scatter_to_slabs(x, valid, props, bounds, ndev,
+                                        slab_axis=slab_axis,
+                                        cap_per_dev=cap_per_dev,
+                                        cap_factor=cap_factor)
+    fnp = {k: v.cpu().numpy() for k, v in (fields or {}).items()}
+    return convert.dist_state_from_numpy(X, V, PR, bounds, me, ndev,
+                                         fields=fnp, device=ps0.device)

@@ -24,7 +24,7 @@ Per-member semantics, as in ``repro``:
     (fleet/server.py) join and leave simulations without a rebuild.
 
 The mesh-sharded batch axis (``repro``'s ``shard_map`` over a device
-mesh) is the multi-device layer, ROADMAP A14.
+mesh) is the sharded fleet of ROADMAP A14b.
 """
 from __future__ import annotations
 
@@ -100,11 +100,10 @@ def set_member(ens: EnsembleState, i: int, state: SIM.DistributedParticles,
 
 def shard_ensemble(ens: EnsembleState, mesh, axis_name: str = "fleet"
                    ) -> EnsembleState:
-    """The batch axis sharded over a device mesh is the multi-device
-    layer (ROADMAP A14)."""
+    """The batch axis sharded over a device mesh: ROADMAP A14b."""
     raise NotImplementedError(
-        "shard_ensemble (the fleet's batch axis over a device mesh) arrives "
-        "with the multi-device layer (ROADMAP A14)")
+        "shard_ensemble (the fleet's batch axis over a device mesh) is not "
+        "ported yet (ROADMAP A14b)")
 
 
 # --------------------------------------------------------------------------
@@ -199,9 +198,9 @@ def make_fleet_step(physics, cfg, mesh=None, *,
 
     The step runs eagerly and out of place (``repro``'s jit with buffer
     donation has no counterpart here). ``mesh`` other than None is the
-    multi-device layer (ROADMAP A14) and raises."""
+    meshed fleet step, ROADMAP A14b, and raises."""
     if mesh is not None:
         raise NotImplementedError(
-            "make_fleet_step over a device mesh arrives with the "
-            "multi-device layer (ROADMAP A14); pass mesh=None")
+            "make_fleet_step over a device mesh is not ported yet "
+            "(ROADMAP A14b); pass mesh=None")
     return FleetStep(physics, cfg, slab_axis)

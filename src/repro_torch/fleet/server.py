@@ -101,7 +101,7 @@ class FleetServer:
     ``param_template`` declares the per-member params (every request
     supplies the same keys); ``default_extras`` the extras of empty slots
     and of requests without ``extras_fn``. ``mesh`` other than None is the
-    multi-device layer (ROADMAP A14) and raises."""
+    meshed server, ROADMAP A14b, and raises."""
 
     def __init__(self, physics, cfg, n_slots: int,
                  template: SIM.DistributedParticles, *, mesh=None,
@@ -110,8 +110,8 @@ class FleetServer:
                  default_extras: Optional[Dict[str, Any]] = None):
         if mesh is not None:
             raise NotImplementedError(
-                "FleetServer over a device mesh arrives with the "
-                "multi-device layer (ROADMAP A14); pass mesh=None")
+                "FleetServer over a device mesh is not ported yet "
+                "(ROADMAP A14b); pass mesh=None")
         self.physics, self.cfg = physics, cfg
         self.n_slots = int(n_slots)
         self.out_dir = out_dir

@@ -100,20 +100,32 @@ class CellTiles(NamedTuple):
     props_j: Dict[str, torch.Tensor]
 
 
-def gather_cell_tiles(ps: ParticleSet, cl: CellList,
-                      prop_names=()) -> CellTiles:
+def gather_cell_tiles(ps: ParticleSet, cl: CellList, prop_names=(),
+                      cells=None) -> CellTiles:
     """Dense per-cell tiles from a CellList, candidates in the K order of
     ``neighbor_offsets``. Periodic neighbor cells' positions are shifted by
     the box offset of the image they were reached through, so the direct
     displacement equals the periodic image displacement for any grid size.
-    (``repro``'s ``cells`` restriction arrives with split-phase overlap
-    stepping, ROADMAP A14.)"""
+
+    ``cells`` (an int32 tensor) restricts the gathered *home* cells;
+    entries ``>= n_cells`` are inactive sentinels whose row slots come out
+    masked. Candidates are still indexed from the full cell array, so a
+    restricted tile equals the full one of its cell."""
     cap = ps.capacity
     xm = ps.masked_x()
     hood, shifts = neighborhood(cl)         # (n_cells, K), (n_cells, K, dim)
     n_cells, K = hood.shape
     cc = cl.cell_cap
-    rows = cl.cells[:n_cells]                       # (n_cells, cc)
+    if cells is None:
+        rows = cl.cells[:n_cells]                   # (n_cells, cc)
+    else:
+        sel = cells.long()
+        safe = torch.clamp(sel, max=n_cells - 1)
+        rows = cl.cells[safe]
+        rows = torch.where((sel < n_cells)[:, None], rows,
+                           torch.full_like(rows, cap))
+        hood, shifts = hood[safe], shifts[safe]
+        n_cells = sel.shape[0]
     cand = cl.cells[hood.long()].reshape(n_cells, K * cc)
     safe_r = rows.clamp(max=cap - 1).long()
     safe_c = cand.clamp(max=cap - 1).long()
@@ -472,15 +484,18 @@ def scatter_slots(rows: torch.Tensor, val: torch.Tensor,
 
 
 def apply_kernel_cuda(ps: ParticleSet, cl: CellList, body, *, out,
-                      r_cut: float, prop_names=(), precision: str = "fp32"):
+                      r_cut: float, prop_names=(), precision: str = "fp32",
+                      cells=None):
     """End-to-end kernel path: gather → CUDA kernel → scatter (use
-    ``apply_pair_kernel(..., backend="cuda")``). Raises RuntimeError on
-    CPU tensors."""
+    ``apply_pair_kernel(..., backend="cuda")``). ``cells`` restricts the
+    launch to those home cells' tiles (``gather_cell_tiles``), and the
+    scatter writes only their slots. Raises RuntimeError on CPU
+    tensors."""
     if not ps.x.is_cuda:
         raise RuntimeError(
             f"backend='cuda' needs CUDA tensors; the particles are on "
             f"{ps.device} (use backend='auto' or 'torch' on the CPU)")
-    t = gather_cell_tiles(ps, cl, prop_names)
+    t = gather_cell_tiles(ps, cl, prop_names, cells=cells)
     res = cell_pair(t.cell_x, t.nbr_x, t.cell_mask, t.nbr_mask, t.props_i,
                     t.props_j, body=body, out=out, r_cut=r_cut,
                     precision=precision)

@@ -34,8 +34,8 @@ KIND_ITEMS = {
 def _check(cfg: ModelConfig, ctx=None) -> None:
     if ctx is not None:
         raise NotImplementedError(
-            "a sharding ctx needs the multi-device layer (ROADMAP A14); the "
-            "port runs on one device, pass ctx=None")
+            "a sharding ctx needs the sharded LM stack (ROADMAP A14b); the "
+            "port runs the LM on one device, pass ctx=None")
     if cfg.kind != "dense":
         item = KIND_ITEMS.get(cfg.kind, "ROADMAP A16")
         raise NotImplementedError(

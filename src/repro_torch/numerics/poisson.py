@@ -1,13 +1,16 @@
-"""Poisson solves on a periodic box (port of the serial part of
-``repro.numerics.poisson``; the PetSc replacement of paper §4.4).
+"""Poisson solves on a periodic box (port of ``repro.numerics.poisson``;
+the PetSc replacement of paper §4.4).
 
 The vortex-in-cell step solves ∆ψ = -ω on a periodic Cartesian mesh with
 :func:`fft_poisson`: ``torch.fft.fftn``/``ifftn`` in complex64, as the JAX
 package leaves them to XLA's FFT outside any Pallas kernel.
-:func:`multigrid_poisson` is the geometric V-cycle alternative (damped
-Jacobi smoothing of the 2·dim+1-point Laplacian), with
-:func:`residual_norm`. The slab and pencil solvers are the multi-device
-layer, ROADMAP A14.
+:func:`fft_poisson_slab_local` / :func:`make_fft_poisson_slab` solve on a
+mesh sharded along its leading axis (DESIGN.md §10): local 2-D FFTs, ONE
+``all_to_all`` transpose, a local 1-D FFT and the spectral division, and
+back; one slab degenerates to :func:`fft_poisson`. The pencil solver is
+ROADMAP A14b. :func:`multigrid_poisson` is the geometric V-cycle
+alternative (damped Jacobi smoothing of the 2·dim+1-point Laplacian),
+with :func:`residual_norm`.
 """
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core import runtime as RT
 
 
 def _k2_axes(shape, lengths, discrete: bool):
@@ -68,6 +73,81 @@ def fft_poisson(rhs: torch.Tensor, lengths: Tuple[float, ...],
                      rh / torch.where(zero, torch.ones_like(lam), lam))
     del rh
     return torch.fft.ifftn(uh, dim=axes).real.to(rhs.dtype)
+
+
+# --------------------------------------------------------------------------
+# Slab-decomposed spectral solve (sharded leading axis, one transpose)
+# --------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=8)
+def _slab_lam(shape, lengths, discrete: bool, me: int, ndev: int,
+              device: torch.device) -> torch.Tensor:
+    """The eigenvalues of this rank's k1 rows, ``(n0, n1 / ndev, n2)``
+    float32, as ``repro`` forms them (per-axis float32 vectors summed), kept
+    on ``device`` per geometry."""
+    l0, l1, l2 = (torch.from_numpy(v).to(torch.float32)
+                  for v in _k2_axes(shape, lengths, discrete))
+    n1l = shape[1] // ndev
+    l1 = l1[me * n1l:(me + 1) * n1l]
+    return (l0[:, None, None] + l1[None, :, None]
+            + l2[None, None, :]).to(device)
+
+
+def fft_poisson_slab_local(rhs: torch.Tensor, lengths: Tuple[float, ...],
+                           axis_name: str, discrete: bool = True
+                           ) -> torch.Tensor:
+    """Solve ∆u = rhs on a slab-sharded 3-D periodic mesh, per rank.
+
+    ``rhs`` is this rank's block ``(n0/ndev, n1, n2[, C])``. FFT the two
+    complete axes, ``all_to_all``-transpose so axis 0 is complete (axis 1
+    sharded instead), FFT axis 0, divide by this rank's eigenvalues, and
+    invert the path. Needs ``n1 % ndev == 0``."""
+    lengths = tuple(float(v) for v in lengths)
+    if len(lengths) != 3:
+        raise ValueError("the slab decomposition is 3-D")
+    ndev = RT.axis_size(axis_name)
+    me = RT.axis_index(axis_name)
+    vec = rhs.dim() == 4
+    n0l, n1, n2 = rhs.shape[:3]
+    if n1 % ndev:
+        raise ValueError(f"axis 1 ({n1}) must divide over {ndev} shards "
+                         "for the FFT transpose")
+    rh = torch.fft.fftn(rhs.to(torch.complex64), dim=(1, 2))
+    # transpose: scatter my axis-1 columns, gather everyone's axis-0 rows
+    rh = RT.all_to_all(rh, axis_name, split_axis=1, concat_axis=0,
+                       tiled=True)
+    rh = torch.fft.fft(rh, dim=0)                   # (n0, n1l, n2[, C])
+    lam = _slab_lam((n0l * ndev, n1, n2), lengths, discrete, me, ndev,
+                    rhs.device)
+    if vec:
+        lam = lam[..., None]
+    zero = lam == 0
+    uh = torch.where(zero, torch.zeros_like(rh),
+                     rh / torch.where(zero, torch.ones_like(lam), lam))
+    del rh
+    uh = torch.fft.ifft(uh, dim=0)
+    uh = RT.all_to_all(uh, axis_name, split_axis=0, concat_axis=1,
+                       tiled=True)
+    return torch.fft.ifftn(uh, dim=(1, 2)).real.to(rhs.dtype)
+
+
+def make_fft_poisson_slab(mesh, axis_name: str, lengths: Tuple[float, ...],
+                          discrete: bool = True):
+    """``solve(rhs_block) -> u_block`` over a leading-axis-sharded rhs, as
+    each rank calls it (the global values of :func:`fft_poisson` up to FFT
+    round-off). A 1-slab mesh returns the serial solver itself: the slab
+    path degenerates to it."""
+    lengths = tuple(float(v) for v in lengths)
+    with RT.on_mesh(mesh):
+        ndev = RT.axis_size(axis_name)
+    if ndev == 1:
+        return lambda rhs: fft_poisson(rhs, lengths, discrete)
+
+    def solve(rhs):
+        with RT.on_mesh(mesh):
+            return fft_poisson_slab_local(rhs, lengths, axis_name, discrete)
+
+    return solve
 
 
 # --------------------------------------------------------------------------

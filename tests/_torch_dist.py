@@ -1,0 +1,615 @@
+"""Rank bodies of the multi-rank CPU tests (tests/test_torch_mappings.py,
+tests/test_torch_distributed.py) and the runner that starts them.
+
+:func:`run_ranks` starts ``world`` Python processes of this file, each a
+gloo rank on the CPU: they meet through a ``file://`` store under the
+test's ``tmp_path`` (no port to collide with another worker), run with
+one thread each and a 60 s gloo timeout, and each calls one rank body
+here and saves what it returns (numpy arrays) as an npz. The runner waits
+for them against a deadline: when a rank fails, or the deadline passes,
+it kills every rank and fails, so a hung collective fails its test
+instead of stalling the suite.
+
+A rank body is ``body(mesh, rank, world, **args) -> {name: array}``; it
+imports neither jax nor repro. :func:`repro_reference` is the one
+function here that runs ``repro`` (in its own process, on forced host
+devices); it writes the reference that the 4-rank mapping body is held
+against.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import json
+import os
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+AXIS = "shards"
+
+# --- the 4-rank mapping case shared by repro_reference and `mappings` ----
+MAP_CAP = 96           # slots per rank
+MAP_FILLED = 60        # valid particles a rank starts with
+MAP_BUCKET = 64
+GHOST_CAP = 128
+#: name -> (n_hops, periodic, prop subset or None, r_ghost)
+GHOST_CASES = {
+    "h1_per_all": (1, True, None, 0.1),
+    "h2_per_v": (2, True, ("v",), 0.3),
+    "h1_np_mid": (1, False, ("m", "id"), 0.1),
+}
+MD_REPRO_STEPS = 5
+
+
+def mapping_input(seed: int, ndev: int, cap: int, filled: int):
+    """Global arrays of a slab-sharded set whose particles sit at random
+    positions in the unit cube, so ``map()`` has work: ``filled`` valid
+    particles per rank block (the rest invalid), props v (3,), m, id."""
+    rng = np.random.default_rng(seed)
+    n = ndev * cap
+    x = np.full((n, 3), 1e30, np.float32)
+    valid = np.zeros(n, bool)
+    for d in range(ndev):
+        rows = d * cap + rng.choice(cap, filled, replace=False)
+        valid[rows] = True
+    x[valid] = rng.uniform(0, 1, (int(valid.sum()), 3)).astype(np.float32)
+    props = {"v": rng.normal(size=(n, 3)).astype(np.float32),
+             "m": rng.uniform(1, 2, n).astype(np.float32),
+             "id": np.arange(n, dtype=np.int32)}
+    bounds = np.linspace(0, 1, ndev + 1).astype(np.float32)
+    return x, valid, props, bounds
+
+
+# --------------------------------------------------------------------------
+# The runner
+# --------------------------------------------------------------------------
+
+def run_ranks(body: str, world: int, tmp_path, *, timeout: float = 120.0,
+              **args):
+    """Run ``body`` on ``world`` gloo ranks; returns each rank's results
+    (a list of dicts of numpy arrays, in rank order)."""
+    d = pathlib.Path(tmp_path) / f"{body}_{world}"
+    d.mkdir(parents=True)
+    (d / "args.json").write_text(json.dumps(args))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    procs = []
+    for r in range(world):
+        log = open(d / f"rank{r}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, __file__, body, str(r), str(world), str(d)],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT), log))
+    deadline = time.monotonic() + timeout
+    failed = None
+    try:
+        while True:
+            codes = [p.poll() for p, _ in procs]
+            if all(c == 0 for c in codes):
+                break
+            bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            if bad:
+                failed = f"rank {bad[0]} exited with {codes[bad[0]]}"
+                break
+            if time.monotonic() > deadline:
+                failed = f"ranks still running after {timeout} s"
+                break
+            time.sleep(0.05)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log.close()
+    if failed:
+        logs = "\n".join(f"--- rank {r} ---\n"
+                         + (d / f"rank{r}.log").read_text()[-3000:]
+                         for r in range(world))
+        raise AssertionError(f"{body} on {world} ranks: {failed}\n{logs}")
+    out = []
+    for r in range(world):
+        with np.load(d / f"rank{r}.npz") as z:
+            out.append({k: z[k] for k in z.files})
+    return out
+
+
+def _main(argv) -> None:
+    body, rank, world, d = argv[1], int(argv[2]), int(argv[3]), argv[4]
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    sys.path.insert(0, str(ROOT / "src"))
+    d = pathlib.Path(d)
+    dist.init_process_group("gloo", init_method=f"file://{d / 'store'}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    from repro_torch.core import runtime as RT
+    mesh = RT.make_mesh((world,), (AXIS,), device_type="cpu")
+    args = json.loads((d / "args.json").read_text())
+    with RT.on_mesh(mesh):
+        out = globals()[body](mesh, rank, world, **args)
+    np.savez(d / f"rank{rank}.npz", **{k: np.asarray(v)
+                                       for k, v in out.items()})
+    dist.destroy_process_group()
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _ps_arrays(prefix: str, ps):
+    out = {f"{prefix}x": _np(ps.x), f"{prefix}valid": _np(ps.valid)}
+    out.update({f"{prefix}p_{k}": _np(v) for k, v in ps.props.items()})
+    return out
+
+
+def _flags(prefix: str, flags):
+    return {f"{prefix}flag_{f.name}": _np(getattr(flags, f.name))
+            for f in dataclasses.fields(flags)}
+
+
+# --------------------------------------------------------------------------
+# Rank bodies
+# --------------------------------------------------------------------------
+
+def collectives(mesh, rank, world):
+    """Every collective of the runtime on small tensors."""
+    import torch
+    from repro_torch.core import runtime as RT
+    x = torch.arange(6, dtype=torch.float32).reshape(2, 3) + 100 * rank
+    out = {}
+    for hop in (1, 2):
+        right, left = RT.shift_perms(world, hop)
+        out[f"right{hop}"] = RT.ppermute(x, AXIS, right)
+        out[f"left{hop}"] = RT.ppermute(x, AXIS, left)
+    right, left = RT.shift_perms(world)
+    both = RT.ppermute_many_start([([x], right), ([x * 2], left)],
+                                  AXIS).wait()
+    out["both_r"], out["both_l"] = both[0][0], both[1][0]
+    out["bool_r"] = RT.ppermute(x > 102, AXIS, right)
+    out["self"] = RT.ppermute(x, AXIS, [(i, i) for i in range(world)])
+    out["partial"] = RT.ppermute(x, AXIS, [(0, world - 1)])
+    a = torch.arange(world * 2, dtype=torch.int32).reshape(world, 2) \
+        + 10 * rank
+    out["a2a"] = RT.all_to_all(a, AXIS)
+    b = torch.arange(2 * world * 3, dtype=torch.float32).reshape(
+        2, world * 3) + 1000 * rank
+    out["a2a_t10"] = RT.all_to_all(b, AXIS, split_axis=1, concat_axis=0,
+                                   tiled=True)
+    c = torch.arange(world * 2 * 3, dtype=torch.float32).reshape(
+        world * 2, 3) + 1000 * rank
+    out["a2a_t01"] = RT.all_to_all(c, AXIS, split_axis=0, concat_axis=1,
+                                   tiled=True)
+    z = torch.complex(b, -b)
+    out["a2a_cplx"] = RT.all_to_all(z, AXIS, split_axis=1, concat_axis=0,
+                                    tiled=True)
+    s = torch.tensor(rank + 1, dtype=torch.int32)
+    out["psum"] = RT.psum(s, AXIS)
+    out["pmax"] = RT.pmax(s, AXIS)
+    out["pmean"] = RT.pmean(s.to(torch.float32), AXIS)
+    out["pmax_bool"] = RT.pmax(torch.tensor(rank == world - 1), AXIS)
+    out["gather0"] = RT.all_gather(s, AXIS)
+    out["gather"] = RT.all_gather(x, AXIS)
+    out["gather_tiled"] = RT.all_gather(x, AXIS, tiled=True)
+    out["gather_ax1"] = RT.all_gather(x, AXIS, axis=1, tiled=True)
+    return {k: _np(v) for k, v in out.items()}
+
+
+def mappings(mesh, rank, world, inp, md_in):
+    """map(), ghost_get (GHOST_CASES), ghost_put and MD_REPRO_STEPS MD
+    steps from the inputs ``repro_reference`` reads: this rank's
+    blocks."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.apps import md
+    from repro_torch.core import mappings as M
+    from repro_torch.core import simulation as SIM
+    z = dict(np.load(inp))
+    props = {k[2:]: z[k] for k in z if k.startswith("p_")}
+    st = convert.dist_state_from_numpy(z["x"], z["valid"], props,
+                                       z["bounds"], rank, world,
+                                       device="cpu")
+    out = {}
+    mp = M.make_map_fn(mesh, AXIS, MAP_BUCKET)
+    ps, ovf = mp(st.ps, st.bounds)
+    out.update(_ps_arrays("map_", ps))
+    out["map_ovf"] = _np(ovf)
+    for name, (hops, periodic, names, rg) in GHOST_CASES.items():
+        gg = M.make_ghost_get_fn(mesh, AXIS, GHOST_CAP, rg,
+                                 periodic=periodic, box_len=1.0,
+                                 prop_names=names, n_hops=hops)
+        g, o = gg(ps, st.bounds)
+        out[f"{name}_x"], out[f"{name}_valid"] = _np(g.x), _np(g.valid)
+        out[f"{name}_src"], out[f"{name}_ovf"] = _np(g.src_slot), _np(o)
+        out.update({f"{name}_p_{k}": _np(v) for k, v in g.props.items()})
+        if name == "h1_per_all":
+            from repro_torch.core import runtime as RT
+            with RT.on_mesh(mesh):
+                # repro_reference sends the same contributions
+                contrib = {"c": g.x[..., 0] * 2.0 + 1.0,
+                           "n": (g.x[..., 1] * 100).to(torch.int32)}
+                for op in ("sum", "max"):
+                    put = M.ghost_put_local(contrib, g, ps, AXIS, op=op)
+                    out.update({f"put_{op}_{k}": _np(v)
+                                for k, v in put.items()})
+    z = dict(np.load(md_in))
+    props = {k[2:]: z[k] for k in z if k.startswith("p_")}
+    st = convert.dist_state_from_numpy(z["x"], z["valid"], props,
+                                       z["bounds"], rank, world,
+                                       device="cpu")
+    cfg = md_repro_config(md)
+    step = SIM.make_sim_step(md.physics, cfg, mesh)
+    worst = torch.zeros((), dtype=torch.int32)
+    for _ in range(MD_REPRO_STEPS):
+        st, flags, _ = step(st, {})
+        worst = torch.maximum(worst, flags.any())
+    out.update(_ps_arrays("md_", st.ps))
+    out["md_worst"] = _np(worst)
+    return out
+
+
+def md_repro_config(md):
+    """benchmarks/dist_common.md_config(n_per_side=10, sigma=0.04) with
+    cell_cap 8 (either package's module ``md``)."""
+    return dataclasses.replace(
+        md.MDConfig(n_per_side=10, sigma=0.04, dt=0.0005), cell_cap=8,
+        **({"device": "cpu"} if "device" in md.MDConfig.__dataclass_fields__
+           else {}))
+
+
+def md_steps(mesh, rank, world, inp, cases):
+    """The MD cases: ``cases`` maps a name to (n_per_side, sigma,
+    cell_cap, n_steps, overlap, n_hops, cap_per_dev); each starts from
+    ``inp``'s ``<name>_v`` velocities on the lattice."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.apps import md
+    from repro_torch.core import simulation as SIM
+    z = dict(np.load(inp))
+    out = {}
+    for name, (nps, sigma, cc, n_steps, overlap, hops, cap) in \
+            cases.items():
+        cfg = md.MDConfig(n_per_side=nps, sigma=sigma, dt=0.0005,
+                          cell_cap=cc, device="cpu")
+        ps0 = md.init_particles(cfg, capacity=cfg.n_particles)
+        ps0 = ps0.with_prop("v", torch.from_numpy(z[f"{name}_v"]))
+        st = SIM.distribute(ps0, md.physics, cfg, mesh, cap_per_dev=cap)
+        step = SIM.make_sim_step(md.physics, cfg, mesh, overlap=overlap,
+                                 n_hops=hops)
+        worst = torch.zeros((), dtype=torch.int32)
+        for _ in range(n_steps):
+            st, flags, _ = step(st, {})
+            worst = torch.maximum(worst, flags.any())
+        out.update(_ps_arrays(f"{name}_", st.ps))
+        out[f"{name}_worst"] = _np(worst)
+        if name == "main":
+            g = convert.gather_dist_state(st, mesh, AXIS)
+            out.update(_ps_arrays("gathered_", g.ps))
+    return out
+
+
+def sph_dem(mesh, rank, world, sph_steps, dem_in, dem_steps):
+    """The SPH dam break and the DEM avalanche of benchmarks/dist_common
+    on the mesh: the final blocks, SPH's dt per step, the worst flags."""
+    import torch
+    from repro_torch.apps import dem, sph
+    from repro_torch.core import simulation as SIM
+    out = {}
+    cfg = sph_test_config(sph)
+    ps0 = sph.init_dam_break(cfg, capacity_factor=1.05)
+    st = SIM.distribute(ps0, sph.physics, cfg, mesh)
+    step = SIM.make_sim_step(sph.physics, cfg, mesh)
+    worst = torch.zeros((), dtype=torch.int32)
+    dts = []
+    for i in range(sph_steps):
+        euler = torch.tensor(i % cfg.verlet_reset == 0)
+        st, flags, scal = step(st, {"euler": euler})
+        worst = torch.maximum(worst, flags.any())
+        dts.append(_np(scal["dt"]))
+    out.update(_ps_arrays("sph_", st.ps))
+    out["sph_worst"], out["sph_dt"] = _np(worst), np.stack(dts)
+    out["sph_load"] = _np(scal["load"])
+    cfg = dem_test_config(dem)
+    z = dict(np.load(dem_in))
+    from repro_torch import convert
+    ps0 = convert.particles_from_numpy(
+        z["x"], z["valid"], {k[2:]: z[k] for k in z if k.startswith("p_")},
+        device="cpu")
+    st = SIM.distribute(ps0, dem.physics, cfg, mesh)
+    step = SIM.make_sim_step(dem.physics, cfg, mesh)
+    worst = torch.zeros((), dtype=torch.int32)
+    for _ in range(dem_steps):
+        st, flags, _ = step(st, {})
+        worst = torch.maximum(worst, flags.any())
+    out.update(_ps_arrays("dem_", st.ps))
+    out["dem_worst"] = _np(worst)
+    return out
+
+
+def sph_test_config(sph):
+    """benchmarks/dist_common.sph_config() on the CPU, cell_cap 16."""
+    return sph.SPHConfig(dp=0.05, box=(1.2, 0.6), fluid=(0.25, 0.25),
+                         cell_cap=16, device="cpu")
+
+
+def dem_test_config(dem):
+    """benchmarks/dist_common.dem_config() on the CPU, cell_cap 8 (its
+    cells hold ~2 grains; the flags hold it)."""
+    return dem.DEMConfig(box=(2.4, 0.6, 1.0), fill=(2.0, 0.66, 0.5),
+                         cell_cap=8, device="cpu")
+
+
+def grid(mesh, rank, world, halo_f, gs_steps, rhs):
+    """The grid layer: halo_pad / halo_reduce of this rank's block of
+    ``halo_f`` in each (periodic, fill) mode, start/finish against the
+    blocking forms, a stencil's overlap schedule against its blocking one,
+    gray_scott.run_distributed and the slab FFT solve of ``rhs``."""
+    import torch
+    from repro_torch.apps import gray_scott as GS
+    from repro_torch.core import grid as G
+    from repro_torch.core import runtime as RT
+    from repro_torch.numerics import poisson as PS
+    out = {}
+    f = torch.from_numpy(np.load(halo_f))
+    nl = f.shape[0] // world
+    blk = f[rank * nl:(rank + 1) * nl]
+    with RT.on_mesh(mesh):
+        for i, (periodic, fill) in enumerate(HALO_MODES):
+            out[f"pad{i}"] = G.halo_pad(blk, 2, AXIS, periodic=periodic,
+                                        fill=fill)
+            fl, fr = G.halo_pad_start(blk, 2, AXIS, periodic=periodic,
+                                      fill=fill)
+            busy = (blk * 3.0).sum()          # work while the slots fly
+            out[f"pad_split{i}"] = G.halo_pad_finish(blk, fl, fr)
+            padded = G.halo_pad(blk, 2, AXIS, periodic=periodic, fill=fill)
+            out[f"red{i}"] = G.halo_reduce(padded, 2, AXIS,
+                                           periodic=periodic)
+            fl, fr = G.halo_reduce_start(padded, 2, AXIS, periodic=periodic)
+            out[f"red_split{i}"] = G.halo_reduce_finish(padded, 2, fl, fr)
+        del busy
+        cfg = GS.GSConfig(shape=(8 * world, 8, 8), device="cpu")
+        u, v = GS.init_fields(cfg, seed=5)
+        ub, vb = (a[rank * 8:(rank + 1) * 8] for a in (u, v))
+        for ov in (False, True):
+            run = G.apply_stencil_local(GS.gs_step_padded(cfg), 1, AXIS,
+                                        overlap=ov)
+            out[f"stencil_ov{int(ov)}"] = torch.stack(run(ub, vb))
+    ud, vd = GS.run_distributed(cfg, gs_steps, mesh, seed=5)
+    out["gs_u"], out["gs_v"] = ud, vd
+    r = torch.from_numpy(np.load(rhs))
+    rl = r.shape[0] // world
+    solve = PS.make_fft_poisson_slab(mesh, AXIS, (2.0, 1.0, 1.5))
+    out["poisson"] = solve(r[rank * rl:(rank + 1) * rl])
+    return {k: _np(v) for k, v in out.items()}
+
+
+#: (periodic, fill) of the halo checks
+HALO_MODES = ((True, 0.0), (False, 0.0), (False, None), (False, 1.5))
+
+
+def vic_mesh(mesh, rank, world, w_in, toy_in, toy_steps):
+    """One distributed VIC step from ``w_in`` on each interp path, and the
+    toy mesh physics riding the mesh step."""
+    import torch
+    from _torch_bridge import ToyCfg, toy_physics
+    from repro_torch.apps import vortex as V
+    from repro_torch.core import grid as G
+    from repro_torch.core import simulation as SIM
+    from repro_torch.core.particles import from_positions
+    out = {}
+    w = torch.from_numpy(np.load(w_in))
+    for interp in ("cells", "scatter"):
+        cfg = vic_test_config(V, interp)
+        step = V.make_distributed_vic_step(mesh, cfg)
+        f, ovf = step(G.distribute_field(w, mesh, AXIS))
+        out[f"vic_{interp}"], out[f"vic_{interp}_ovf"] = f.data, ovf
+    cfg = ToyCfg()
+    x = torch.from_numpy(np.load(toy_in))
+    ps0 = SIM.with_ids(from_positions(x))
+    st = SIM.distribute(ps0, toy_physics, cfg, mesh,
+                        fields={"rho": torch.zeros(cfg.shape)})
+    step = SIM.make_sim_step(toy_physics, cfg, mesh)
+    worst = torch.zeros((), dtype=torch.int32)
+    for _ in range(toy_steps):
+        st, flags, _ = step(st, {})
+        worst = torch.maximum(worst, flags.any())
+    out["toy_rho"], out["toy_worst"] = st.fields["rho"], worst
+    return {k: _np(v) for k, v in out.items()}
+
+
+def vic_test_config(V, interp):
+    """A small VIC box whose axes 0 and 1 split over 4 ranks."""
+    return V.VortexConfig(shape=(16, 8, 8), lengths=(4.0, 2.0, 2.0),
+                          interp=interp, device="cpu")
+
+
+def overflow(mesh, rank, world, inp):
+    """One MD step each with bucket_cap, ghost_cap and cell_cap too small:
+    every rank's flags."""
+    import torch
+    from repro_torch.apps import md
+    from repro_torch.core import dlb
+    from repro_torch.core import simulation as SIM
+    z = dict(np.load(inp))
+    cfg = md.MDConfig(n_per_side=8, sigma=0.04, dt=0.0005, cell_cap=8,
+                      device="cpu")
+    ps0 = md.init_particles(cfg, capacity=cfg.n_particles)
+    ps0 = ps0.with_prop("v", torch.from_numpy(z["v"]))
+    out = {}
+    uniform = dlb.uniform_bounds(world, 0.0, 1.0)
+    # every particle starts on rank 0: map() must move 3/4 of them
+    skew = torch.tensor([0.0] + [1.0] * world)
+    cases = {"bucket": (dict(bucket_cap=8), skew),
+             "ghost": (dict(ghost_cap=4), uniform),
+             "cell": (dict(), uniform)}
+    for name, (kw, start_bounds) in cases.items():
+        # cells of ~0.25 hold ~8 lattice particles: cell_cap 1 overflows
+        c = dataclasses.replace(cfg, cell_cap=1, sigma=0.085) \
+            if name == "cell" else cfg
+        st = SIM.distribute(ps0, md.physics, c, mesh, bounds=start_bounds,
+                            cap_per_dev=cfg.n_particles)
+        st = dataclasses.replace(st, bounds=uniform)
+        st, flags, _ = SIM.make_sim_step(md.physics, c, mesh, **kw)(st, {})
+        out.update(_flags(f"{name}_", flags))
+    return out
+
+
+# --------------------------------------------------------------------------
+# repro's side of the 4-rank mapping check (its own process)
+# --------------------------------------------------------------------------
+
+def repro_reference(inp: str, md_in: str, out: str) -> None:
+    """On 4 of the forced host devices: repro's map(), ghost_get
+    (GHOST_CASES) and ghost_put of ``inp``, and MD_REPRO_STEPS MD steps of
+    ``md_repro_config`` from ``md_in``; the global arrays go to ``out``."""
+    import jax
+    import jax.numpy as jnp
+    sys.path.insert(0, str(ROOT))
+    from benchmarks import dist_common as DC
+    from jax.sharding import PartitionSpec as P
+    from repro.apps import md
+    from repro.core import mappings as M
+    from repro.core import runtime as JRT
+    from repro.core import simulation as SIM
+    from repro.core.particles import ParticleSet
+    mesh = DC.make_submesh(4)
+
+    def load(path):
+        z = dict(np.load(path))
+        props = {k[2:]: jnp.asarray(z[k]) for k in z if k.startswith("p_")}
+        ps = DC.shard_over(ParticleSet(x=jnp.asarray(z["x"]), props=props,
+                                       valid=jnp.asarray(z["valid"])), mesh)
+        return ps, jnp.asarray(z["bounds"])
+
+    ps, bounds = load(inp)
+    res = {}
+    ps2, ovf = M.make_map_fn(mesh, ps, AXIS, MAP_BUCKET)(ps, bounds)
+    res.update({"map_x": ps2.x, "map_valid": ps2.valid, "map_ovf": ovf})
+    res.update({f"map_p_{k}": v for k, v in ps2.props.items()})
+    for name, (hops, periodic, names, rg) in GHOST_CASES.items():
+        g, o = M.make_ghost_get_fn(mesh, ps2, AXIS, GHOST_CAP, rg,
+                                   periodic=periodic, box_len=1.0,
+                                   prop_names=names, n_hops=hops)(ps2,
+                                                                  bounds)
+        res.update({f"{name}_x": g.x, f"{name}_valid": g.valid,
+                    f"{name}_src": g.src_slot, f"{name}_ovf": o})
+        res.update({f"{name}_p_{k}": v for k, v in g.props.items()})
+    hops, periodic, names, rg = GHOST_CASES["h1_per_all"]
+    spec = M.ps_specs(ps2, AXIS)
+    for op in ("sum", "max"):
+        def put(p, b, op=op):
+            g, _ = M.ghost_get_local(p, b, rg, AXIS, GHOST_CAP,
+                                     periodic=periodic, box_len=1.0,
+                                     prop_names=names, n_hops=hops)
+            contrib = {"c": g.x[..., 0] * 2.0 + 1.0,
+                       "n": (g.x[..., 1] * 100).astype(jnp.int32)}
+            return M.ghost_put_local(contrib, g, p, AXIS, op=op)
+        fn = jax.jit(JRT.shard_map(put, mesh, in_specs=(spec, P()),
+                                   out_specs=P(AXIS), check_vma=False))
+        res.update({f"put_{op}_{k}": v for k, v in fn(ps2, bounds).items()})
+    cfg = md_repro_config(md)
+    ps, bounds = load(md_in)
+    state = SIM.DistributedParticles(ps=ps, bounds=bounds)
+    step = SIM.make_sim_step(md.physics, cfg, mesh, axis_name=AXIS)
+    worst = 0
+    for _ in range(MD_REPRO_STEPS):
+        state, flags, _ = step(state, {})
+        worst = max(worst, int(flags.any()))
+    res.update({"md_x": state.ps.x, "md_valid": state.ps.valid,
+                "md_worst": np.int32(worst)})
+    res.update({f"md_p_{k}": v for k, v in state.ps.props.items()})
+    np.savez(out, **{k: np.asarray(v) for k, v in res.items()})
+
+
+def nccl_md(n_steps: int = 10) -> None:
+    """The MD slab step over NCCL on every rank of the process group (one
+    card per rank: world 1 in this process, or torchrun's ranks), against
+    the serial step on the same card, for both schedules: x and v by id
+    within 1e-4 (the gathered state), zero flags, B1 launched twice a
+    step with overlap and once without. Then, across several cards, rank
+    0 prints the slab step's ms/step at the 216,000-particle MD size.
+    Raises on a mismatch."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import convert
+    from repro_torch.apps import md
+    from repro_torch.core import runtime as RT
+    from repro_torch.core import simulation as SIM
+    from repro_torch.kernels.cell_pair import cell_pair as CP
+    world = RT.device_count()
+    mesh = RT.make_mesh((world,), (AXIS,), device_type="cuda")
+    rank = torch.distributed.get_rank()
+
+    def start(cfg, seed):
+        rng = np.random.default_rng(seed)
+        v = (0.3 * rng.standard_normal((cfg.n_particles, 3))).astype(
+            np.float32)
+        ps = md.init_particles(cfg, capacity=cfg.n_particles)
+        return SIM.with_ids(ps.with_prop("v", torch.from_numpy(v).cuda()))
+
+    cfg = md.MDConfig(n_per_side=16, sigma=0.03, dt=0.0005, cell_cap=16,
+                      device="cuda")
+    ps0 = start(cfg, 0)
+    ref = ps0
+    for _ in range(n_steps):
+        ref, ovf = md.md_step(ref, cfg)
+        assert int(ovf) == 0
+    for overlap in (True, False):
+        st = SIM.distribute(ps0, md.physics, cfg, mesh)
+        step = SIM.make_sim_step(md.physics, cfg, mesh, overlap=overlap)
+        CP.LAUNCHES = 0
+        for _ in range(n_steps):
+            st, flags, _ = step(st, {})
+            assert int(flags.any()) == 0, flags
+        assert CP.LAUNCHES == n_steps * (2 if overlap else 1), CP.LAUNCHES
+        g = convert.gather_dist_state(st, mesh, AXIS).ps
+        val = g.valid
+        assert int(val.sum()) == cfg.n_particles
+        ids = g.props["id"][val].long()
+        for a, b in ((g.x, ref.x), (g.props["v"], ref.props["v"])):
+            err = float((a[val] - b[ids]).abs().max())
+            assert err <= 1e-4, (overlap, err)
+    if world > 1:
+        big = md.MDConfig(n_per_side=60, sigma=0.085 / 6, dt=0.0005 / 6,
+                          cell_cap=48, device="cuda")
+        ps0 = start(big, 1)
+        ghost_cap = int(1.5 * big.n_particles * big.r_cut / big.box) + 64
+        for overlap in (True, False):
+            st = SIM.distribute(ps0, md.physics, big, mesh,
+                                cap_per_dev=int(1.3 * big.n_particles
+                                                / world))
+            step = SIM.make_sim_step(md.physics, big, mesh, overlap=overlap,
+                                     ghost_cap=ghost_cap)
+            for _ in range(3):
+                st, flags, _ = step(st, {})
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            torch.distributed.barrier()
+            t0.record()
+            for _ in range(20):
+                st, flags, _ = step(st, {})
+            t1.record()
+            torch.cuda.synchronize()
+            assert int(flags.any()) == 0, flags
+            if rank == 0:
+                print(f"{world} cards, MD slab step at {big.n_particles} "
+                      f"particles, overlap={overlap}: "
+                      f"{t0.elapsed_time(t1) / 20:.4f} ms/step "
+                      f"(rank 0, CUDA events)", flush=True)
+    torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    if sys.argv[1] == "--repro":
+        repro_reference(*sys.argv[2:5])
+    elif sys.argv[1] == "--nccl-md":
+        nccl_md()
+    else:
+        _main(sys.argv)

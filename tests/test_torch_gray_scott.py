@@ -84,8 +84,11 @@ def test_init_fields_layout():
     assert float(np.abs(np_(u) - np.asarray(ju)).max()) <= 0.05
     u2, _ = TGS.init_fields(tc, seed=3)
     assert torch.equal(u, u2)                # the seed decides the noise
-    with pytest.raises(NotImplementedError, match="A14"):
-        TGS.run_distributed(tc, 1)
+    # the slab run over every rank (one here: a 1-rank gloo mesh) is the
+    # serial run, bit for bit
+    ud, vd = TGS.run_distributed(tc, 2, seed=3)
+    us, vs = TGS.run(tc, 2, seed=3)
+    assert torch.equal(ud, us) and torch.equal(vd, vs)
 
 
 def test_pattern_vs_death():

@@ -12,7 +12,13 @@ from _torch_bridge import np_
 
 from repro.core import grid as JG
 from repro_torch.core import grid as TG
+from repro_torch.core import runtime as TRT
 from repro_torch.core import simulation as TSIM
+
+
+def _world1():
+    """A 1-rank gloo mesh in this process."""
+    return TRT.make_mesh((1,), ("shards",), device_type="cpu")
 
 
 def _field(shape, seed):
@@ -69,8 +75,18 @@ def test_gridops_ghost_get_put_match_repro(fill):
         _same(t.ghost_put(torch.from_numpy(a), 2),
               j.ghost_put(jnp.asarray(a), 2))
         _same(t.first_row(8), j.first_row(8))
-    with pytest.raises(NotImplementedError, match="A14"):
-        TG.GridOps(axis_name="shards")
+        # the distributed ops on one rank (a 1-rank gloo mesh) are the
+        # serial ones
+        d = TG.GridOps(axis_name="shards", periodic=periodic, fill=fill)
+        assert d.distributed
+        with TRT.on_mesh(_world1()):
+            _same(d.ghost_get(torch.from_numpy(a), 2),
+                  j.ghost_get(jnp.asarray(a), 2))
+            _same(d.ghost_put(torch.from_numpy(a), 2),
+                  j.ghost_put(jnp.asarray(a), 2))
+            _same(d.first_row(8), j.first_row(8))
+    with pytest.raises(NotImplementedError, match="A14b"):
+        TG.halo_pad2(torch.from_numpy(a), 1, "rows", "cols")
 
 
 def test_serial_field_and_step_ctx_grid():
@@ -105,8 +121,17 @@ def test_apply_stencil_local_matches_repro(periodic, fill):
             torch.from_numpy(u), torch.from_numpy(v))
         for g, r in zip(got, ref):
             _same(g, r)
-    with pytest.raises(NotImplementedError, match="A14"):
-        TG.apply_stencil_local(_lap_stencil, 1, "shards")
+    # on one rank (a 1-rank gloo mesh) the distributed engine is the
+    # serial one; its overlap schedule needs an n-rows-to-n-rows stencil
+    with TRT.on_mesh(_world1()):
+        got = TG.apply_stencil_local(_lap_stencil, 1, "shards", **kw)(
+            torch.from_numpy(u), torch.from_numpy(v))
+        for g, r in zip(got, ref):
+            _same(g, r)
+        with pytest.raises(ValueError, match="n-rows-to-n-rows"):
+            TG.apply_stencil_local(_lap_stencil, 1, "shards", overlap=True,
+                                   **kw)(torch.from_numpy(u),
+                                         torch.from_numpy(v))
 
 
 @pytest.mark.parametrize("shape,lo,hi", [((4, 6), (0.0, -1.0), (1.0, 2.5)),

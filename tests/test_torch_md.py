@@ -115,12 +115,34 @@ def test_serial_flags_match(cell_cap):
 
 
 def test_unported_engine_options_raise():
+    """The engine options of ROADMAP A14b raise: the reuse cadence on a
+    mesh, a 2-D (pencil) mesh, make_rebalance. The serial step ignores
+    the mesh options (overlap, n_hops), as repro's does, and Reduce takes
+    an axis name."""
+    from repro_torch.core import runtime as TRT
+
+    class Pencil:
+        """What make_sim_step reads of a 2-D (1, 2) mesh."""
+        mesh_dim_names = ("rows", "cols")
+
+        def size(self, i):
+            return (1, 2)[i]
+
     tcfg = tmd.MDConfig(n_per_side=3, device="cpu")
-    for kw in (dict(mesh=object()), dict(overlap=True), dict(n_hops=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    mesh = TRT.make_mesh((1,), ("shards",), device_type="cpu")
+    pencil = Pencil()
+    for kw in (dict(mesh=mesh, reuse="skin"),
+               dict(mesh=pencil, axis_name=("rows", "cols"))):
+        with pytest.raises(NotImplementedError, match="A14b"):
             TSIM.make_sim_step(tmd.physics, tcfg, **kw)
-    with pytest.raises(NotImplementedError):
-        TSIM.Reduce("shards")
+    with pytest.raises(NotImplementedError, match="A14b"):
+        TSIM.make_rebalance(tmd.physics, tcfg, mesh)
+    with pytest.raises(NotImplementedError, match="A14b"):
+        TSIM.reuse_state(None, tmd.physics, tcfg, mesh)
+    serial = TSIM.make_sim_step(tmd.physics, tcfg)
+    for kw in (dict(overlap=False), dict(n_hops=2)):
+        assert TSIM.make_sim_step(tmd.physics, tcfg, **kw) is serial
+    assert TSIM.Reduce("shards").distributed
 
 
 def test_with_ids_and_serial_state():

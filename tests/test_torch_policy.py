@@ -36,6 +36,20 @@ def test_port_imports_neither_jax_nor_repro(path):
         assert mod.split(".")[0] != "jax", f"{path}: imports {mod}"
 
 
+@pytest.mark.parametrize("path", [p for p in PORT_FILES
+                                  if p.name != "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_collectives_only_from_runtime(path):
+    """core/runtime.py's rule: the port takes every collective from
+    runtime, never from torch.distributed directly."""
+    if path == ROOT / "src" / "repro_torch" / "core" / "runtime.py":
+        return
+    text = path.read_text()
+    assert "torch.distributed" not in text, path
+    for mod in _imported_modules(path):
+        assert not mod.startswith("torch.distributed"), (path, mod)
+
+
 def test_port_imports_without_jax_or_cuda():
     code = ("import sys, importlib, pkgutil, repro_torch\n"
             "for m in pkgutil.walk_packages(repro_torch.__path__, "
