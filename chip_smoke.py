@@ -162,10 +162,27 @@ Phases, each of which raises (non-zero exit) on failure:
      100 steps, against ``run`` (<= 1e-4), ms/step; (f)
      ``make_distributed_vic_step`` at 800 x 200 x 200, 2 steps, against
      ``vic_step`` (<= 1e-4 of the max), 2 B3 + 2 B4 launches a step,
-     ms/step beside the serial step. The ``kernels`` line's
+     ms/step beside the serial step; (g) the reuse slab step
+     (``reuse_state(..., mesh)``, ``make_sim_step(..., mesh,
+     reuse="skin")``) for MD at 216,000 particles, overlap on then off, 20
+     steps each: within 1e-4 of (c)'s every-step run by id, stale 1 on
+     the cold step and 0 on a later one, zero flags, B1 once a full step
+     and twice (overlap) or once an update step; ms/step beside (c)'s and
+     phase 11's serial reuse step, and the pmax'd tripwire read's cost;
+     (h) the DEM reuse slab step at 72,030 grains, 10 steps, within 1e-4
+     of (d)'s DEM run, the contact cache carried (``ct_ok``); (i)
+     ``make_rebalance`` at 570,248 SPH particles (the bounds stay the box,
+     nothing moves) and ``sph.run_distributed`` for 10 steps with the
+     threshold trigger forced (two rebalances), without and with
+     ``reuse="skin"``, within 1e-4 of 10 serial steps by id; (j)
+     ``vortex.run_distributed(auto_reprovision=True)`` at 800 x 200 x 200
+     for 2 steps: no overflow, no redo, within 1e-4 of (f)'s field (B3's
+     fp32 atomics need not sum alike in two runs). The ``kernels`` line's
      ``cell_pair_lj``, ``_sph``, ``_dem``, ``m4_p2m`` and ``m4_m2p``
-     entries carry ``launches_dist``: their launches in phase 17's runs.
-     The process group is destroyed before the last line.
+     entries carry ``launches_dist`` (their launches in (c)-(f)) and
+     ``launches_dist_reuse`` (in (g)-(j): LJ in (g), DEM in (h), SPH in
+     (i), M'4 in (j)). The process group is destroyed before the last
+     line.
 
 It prints a ``{"kernels": [...]}`` line and, as its last line,
 ``{"ok": true, "device": {...}}``. It exits non-zero without a result when
@@ -366,6 +383,13 @@ DIST_GS_STEPS = 100
 DIST_VIC_STEPS = 2
 DIST_TOL = 1e-4       # distributed vs serial (repro's distributed suite)
 GHOST_MARGIN = 1.5
+# 17g-17j: the reuse cadence and DLB on the world-1 mesh. SPH's skin grid
+# (cells r_cut + r_cut / 2 wide) holds up to 216 particles a cell at t = 0.
+DIST_REUSE_STEPS = 20
+DIST_DEM_REUSE_STEPS = 10
+DLB_STEPS = 10
+DLB_GAP = 5           # min_rebalance_gap: rebalances at steps 0 and 5
+SPH_REUSE_CELL_CAP = 256
 
 
 def time_cuda(fn, iters: int, warmup: int = 2) -> float:
@@ -1757,7 +1781,8 @@ def md_reuse_phase(md, CL, CP, cfg, every_ms):
     energy drift); then the cadence and the step time through the same
     engine, the host read's cost (skin steps against "update" steps, which
     read nothing), and B1 on the skin grid's tiles against the every-step
-    grid's. Returns the B1-LJ launches of the main run."""
+    grid's. Returns the B1-LJ launches of the main run and the reuse
+    step's ms/step."""
     from repro_torch.core import simulation as SIM
     rcfg = dataclasses.replace(cfg, cell_cap=MD_REUSE_CELL_CAP)
     skin = 0.5 * rcfg.r_cut
@@ -1863,7 +1888,7 @@ def md_reuse_phase(md, CL, CP, cfg, every_ms):
               f"tests, {inside:.4e} in cutoff "
               f"({tests / max(inside, 1):.2f} tests per evaluation)")
         del t
-    return launches
+    return launches, reuse_ms
 
 
 def dem_reuse_phase(D, CL, CP):
@@ -2799,19 +2824,8 @@ def slab_cells(SIM, cl_kw, ps_bounds, rc: float):
     at world 1, formed as the step forms them."""
     g = SIM._slab_geom(cl_kw, 0, 1, None, ps_bounds.device)
     my_lo, my_hi = ps_bounds[0], ps_bounds[1]
-    r0 = g["row_of"](my_lo)
-    rows = r0 + torch.arange(g["w_int"], dtype=torch.int32,
-                             device=my_lo.device)
-    interior = g["rows_to_cells"](rows, rows < g["n_rows"])
-    wb = torch.arange(SIM.W_B, dtype=torch.int32, device=my_lo.device)
-    lo_rows = g["row_of"](my_lo - rc) - 1 + wb
-    hi_rows = g["row_of"](my_hi - rc) - 1 + wb
-    lo_ok = (lo_rows >= 0) & (lo_rows < g["n_rows"])
-    hi_ok = ((hi_rows >= 0) & (hi_rows < g["n_rows"])
-             & (hi_rows > lo_rows[-1]))
-    boundary = torch.cat([g["rows_to_cells"](lo_rows, lo_ok),
-                          g["rows_to_cells"](hi_rows, hi_ok)])
-    return interior, boundary
+    interior, _ = SIM._interior_cells(g, my_lo, my_hi)
+    return interior, SIM._boundary_cells(g, my_lo, my_hi, rc)
 
 
 def ghost_cap_for(ps, rc: float, lo: float, hi: float) -> int:
@@ -2856,9 +2870,7 @@ def b1_cells_check(md, SIM, M, RT, CL, CP, I, cfg, ps_md) -> None:
     ghosts, ovf = M.ghost_get_local(ps_md, bounds, rc, AXIS, g_cap,
                                     periodic=True, box_len=cfg.box,
                                     prop_names=())
-    gp = ghosts.as_particles()
-    combo = ps_md.replace(x=torch.cat([ps_md.x, gp.x]), props={},
-                          valid=torch.cat([ps_md.valid, gp.valid]))
+    combo = SIM._combo_of(ps_md, ghosts, ())
     interior, boundary = slab_cells(SIM, cl_kw, bounds, rc)
     body = md.lj_pair_body(cfg.sigma, cfg.epsilon)
     kw = dict(out={"f": "radial"}, r_cut=rc)
@@ -2899,16 +2911,12 @@ def dist_md_stages(md, SIM, M, RT, CL, I, cfg, st, mesh, g_cap, b_cap):
         ps, _ = M.map_particles_local(ps, st.bounds, AXIS, b_cap)
         gkw = dict(periodic=True, box_len=cfg.box, prop_names=())
         ghosts, _ = M.ghost_get_local(ps, st.bounds, rc, AXIS, g_cap, **gkw)
-    gp = ghosts.as_particles()
-    combo = ps.replace(x=torch.cat([ps.x, gp.x]), props={},
-                       valid=torch.cat([ps.valid, gp.valid]))
+    combo = SIM._combo_of(ps, ghosts, ())
     cl_loc = CL.build_cell_list(ps, **cl_kw)
     cl = CL.build_cell_list(combo, **cl_kw)
     interior, boundary = slab_cells(SIM, cl_kw, st.bounds, rc)
     p_int = I.apply_pair_kernel(ps, cl_loc, body, cells=interior, **pk)
     p_bnd = I.apply_pair_kernel(combo, cl, body, cells=boundary, **pk)
-    xs = ps.x[:, 0]
-    n_loc = ps.capacity
     z = torch.zeros(3, dtype=torch.int32, device="cuda")
 
     def on_mesh(fn):
@@ -2918,9 +2926,8 @@ def dist_md_stages(md, SIM, M, RT, CL, I, cfg, st, mesh, g_cap, b_cap):
         return run
 
     def combine():
-        bnd = (xs < st.bounds[0] + rc) | (xs >= st.bounds[1] - rc)
-        return torch.cat([torch.where(bnd[:, None], p_bnd["f"][:n_loc],
-                                      p_int["f"]), p_bnd["f"][n_loc:]])
+        return SIM._combine(ps, p_int, p_bnd, st.bounds[0], st.bounds[1],
+                            rc, 0)
 
     return {
         "map": (on_mesh(lambda: M.map_particles_local(
@@ -2938,11 +2945,12 @@ def dist_md_stages(md, SIM, M, RT, CL, I, cfg, st, mesh, g_cap, b_cap):
         "combine": (combine, 1)}
 
 
-def dist_md_phase(md, SIM, M, RT, CL, CP, I, cfg, mesh) -> int:
+def dist_md_phase(md, SIM, M, RT, CL, CP, I, cfg, mesh):
     """17c: MD at 216,000 particles on the world-1 mesh, overlap on then
     off, DIST_MD_STEPS steps each, against ``md_step``; ms/step beside
     md_step's, the stage breakdown, idle share and peak memory. Returns
-    the B1 launches of the two runs."""
+    the B1 launches of the two runs, the overlap run's final particles
+    and the ms/step."""
     from repro_torch import convert
     spec = md.physics(cfg)
     ps0, _ = md.run(cfg, 0, thermal_v=THERMAL_V, seed=0)
@@ -2980,6 +2988,7 @@ def dist_md_phase(md, SIM, M, RT, CL, CP, I, cfg, mesh) -> int:
                                           for k in a.props)):
         raise RuntimeError("overlap and blocking MD steps differ")
     peak = torch.cuda.max_memory_allocated() / 2**30
+    final = finals[True].ps
     state = {True: finals[True], False: finals[False], "ps": ref}
 
     def one(overlap):
@@ -3000,13 +3009,14 @@ def dist_md_phase(md, SIM, M, RT, CL, CP, I, cfg, mesh) -> int:
         md, SIM, M, RT, CL, I, cfg, state[True], mesh, g_cap, b_cap),
         one(True), ms["overlap"])
     profiled_ms(one(True), 5, "17c MD slab step (overlap)", top=8)
-    return launches
+    return launches, final, ms
 
 
 def dist_sph_dem_phase(S, D, SIM, CP, mesh):
     """17d: SPH at 570,248 and DEM at 72,030 on the world-1 mesh,
     DIST_SPH_STEPS / DIST_DEM_STEPS steps against their serial steps;
-    ms/step beside the serial step. Returns (SPH, DEM) B1 launches."""
+    ms/step beside the serial step. Returns the (SPH, DEM) B1 launches
+    and DEM's slab state after its DIST_DEM_STEPS steps."""
     out = []
     for name, mod, cfg, n, keys in (
             ("SPH", S, S.SPHConfig(**SPH_CARD, device="cuda"),
@@ -3058,9 +3068,10 @@ def dist_sph_dem_phase(S, D, SIM, CP, mesh):
         print(f"17d {name} ms/step (CUDA events): serial {ms_s:.4f}, slab "
               f"step {ms_d:.4f} ({ms_d / ms_s:.2f}x); peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        final = st
         del st, ref, state
         torch.cuda.empty_cache()
-    return tuple(out)
+    return tuple(out), final
 
 
 def dist_gs_phase(GS, G, mesh) -> None:
@@ -3095,7 +3106,8 @@ def dist_gs_phase(GS, G, mesh) -> None:
 def dist_vic_phase(V, G, K, vcfg, mesh):
     """17f: make_distributed_vic_step at 800 x 200 x 200 for
     DIST_VIC_STEPS steps against vic_step; B3/B4 launches and ms/step
-    beside the serial step. Returns the {kernel: launches} of the run."""
+    beside the serial step. Returns the {kernel: launches} of the run and
+    its field after DIST_VIC_STEPS steps."""
     w0 = V.project_divfree(V.init_ring(vcfg), vcfg)
     ws = w0
     for _ in range(DIST_VIC_STEPS):
@@ -3121,6 +3133,7 @@ def dist_vic_phase(V, G, K, vcfg, mesh):
                     "m2p_bf16x": 0} or int(total) or not rel <= DIST_TOL:
         raise RuntimeError("the distributed VIC step failed")
     del ws
+    w_dist = f.data
     st = {"f": f, "w": f.data}
 
     def run_d():
@@ -3139,12 +3152,221 @@ def dist_vic_phase(V, G, K, vcfg, mesh):
         ms[name] = (time.perf_counter() - t0) * 1e3
     print(f"17f VIC ms/step (host clock, synced): serial "
           f"{ms['serial']:.2f}, slab step {ms['slab']:.2f}")
+    return launches, w_dist
+
+
+def dist_md_reuse_phase(md, SIM, CP, cfg, mesh, every, ms17c, ms11):
+    """17g: the reuse slab step at 216,000 particles on the world-1 mesh
+    (phase 11's cell_cap), from ``reuse_state(..., mesh)``, overlap on then
+    off, DIST_REUSE_STEPS steps each: within DIST_TOL of 17c's every-step
+    slab run (``every``) by id, stale 1 on the cold step and 0 on a later
+    one, zero flags, B1 once on a full step and twice (overlap) or once
+    on an update step; ms/step beside 17c's and phase 11's serial reuse
+    step, and the tripwire read's cost (skin steps against "update"
+    steps, which neither read nor rebuild). Returns the B1 launches."""
+    rcfg = dataclasses.replace(cfg, cell_cap=MD_REUSE_CELL_CAP)
+    skin = 0.5 * rcfg.r_cut
+    ps0, _ = md.run(cfg, 0, thermal_v=THERMAL_V, seed=0)
+    ps0 = SIM.with_ids(ps0)
+    g_cap = ghost_cap_for(ps0, rcfg.r_cut + skin, 0.0, cfg.box)
+    st0 = SIM.distribute(ps0, md.physics, rcfg, mesh,
+                         cap_per_dev=ps0.capacity)
+    launches, warm, steps = 0, {}, {}
+    for overlap in (True, False):
+        kw = dict(overlap=overlap, ghost_cap=g_cap)
+        step = SIM.make_sim_step(md.physics, rcfg, mesh, reuse="skin", **kw)
+        rs = SIM.reuse_state(st0, md.physics, rcfg, mesh, **kw)
+        reset_b1_counts(CP)
+        stale = []
+        worst = torch.zeros((), dtype=torch.int32, device="cuda")
+        for _ in range(DIST_REUSE_STEPS):
+            rs, flags, _ = step(rs, {})
+            stale.append(flags.stale)
+            worst = torch.maximum(worst, flags.any())
+        stale = [int(v) for v in torch.stack(stale).tolist()]
+        full = sum(stale)
+        want = full + (DIST_REUSE_STEPS - full) * (2 if overlap else 1)
+        check_b1_launches(CP, "lj", want)
+        launches += CP.LAUNCHES
+        errs = {k: by_id_err(rs.inner.ps, every, k) for k in ("x", "v")}
+        print(f"17g MD reuse slab step, overlap={overlap}: "
+              f"{DIST_REUSE_STEPS} steps, stale {stale}, {want} B1 launches "
+              f"({full} full steps), worst flag {int(worst)}, vs 17c by id: "
+              + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+              + f" (tol {DIST_TOL:g}); ghost_cap {g_cap}")
+        if (int(worst) != 0 or stale[0] != 1 or 0 not in stale[1:]
+                or not max(errs.values()) <= DIST_TOL):
+            raise RuntimeError(f"MD reuse slab step (overlap={overlap}) "
+                               "failed")
+        warm[overlap], steps[overlap] = rs, step
+    upd = SIM.make_sim_step(md.physics, rcfg, mesh, reuse="update",
+                            overlap=True, ghost_cap=g_cap)
+    state = dict(warm)
+    window = []
+
+    def one(overlap):
+        def run():
+            state[overlap], f, _ = steps[overlap](state[overlap], {})
+            window.append(f.stale)
+        return run
+
+    def update_step():
+        state["u"], _, _ = upd(state["u"], {})
+
+    state["u"] = warm[True]
+    # in turns (skin, update, update, skin): host-bound times drift
+    turns = [(k, time_cuda(one(True) if k == "skin" else update_step,
+                           iters=20))
+             for k in ("skin", "update", "update", "skin")]
+    ms_t = {k: sum(v for kk, v in turns if kk == k) / 2
+            for k in ("skin", "update")}
+    ms = {True: ms_t["skin"], False: time_cuda(one(False), iters=20)}
+    rebuilds = int(torch.stack(window).sum())
+    print(f"17g MD ms/step (CUDA events, 216,000 particles): reuse slab "
+          f"step overlap {ms[True]:.4f}, blocking {ms[False]:.4f} "
+          f"({rebuilds} rebuilds in {len(window)} timed skin steps); "
+          f"every-step slab step (17c) overlap {ms17c['overlap']:.4f}, "
+          f"blocking {ms17c['blocking']:.4f}; serial reuse (phase 11) "
+          f"{ms11:.4f}; update steps (no tripwire read, overlap) "
+          f"{ms_t['update']:.4f}; the pmax'd tripwire read "
+          f"{ms_t['skin'] - ms_t['update']:.4f} ms/step (turns: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in turns) + ")")
     return launches
 
 
-def slab_phase(md, cfg, md_ps, vcfg):
+def dist_dem_reuse_phase(D, SIM, CP, mesh, every):
+    """17h: the DEM reuse slab step at 72,030 grains on the world-1 mesh
+    for DIST_DEM_REUSE_STEPS steps: within DIST_TOL of 17d's every-step
+    slab run (``every``) by id, zero flags, the contact cache carried
+    (``ct_ok`` after every step); ms/step. Returns the B1 launches."""
+    cfg = D.DEMConfig(**DEM_CARD, device="cuda")
+    spec = D.physics(cfg)
+    skin = 0.5 * cfg.r_cut
+    ps0 = SIM.with_ids(D.init_block(cfg))
+    g_cap = ghost_cap_for(ps0, cfg.r_cut + skin, 0.0, cfg.box[0])
+    st0 = SIM.distribute(ps0, D.physics, cfg, mesh, cap_per_dev=ps0.capacity)
+    step = SIM.make_sim_step(D.physics, cfg, mesh, reuse="skin",
+                             ghost_cap=g_cap)
+    rs = SIM.reuse_state(st0, D.physics, cfg, mesh, ghost_cap=g_cap)
+    reset_b1_counts(CP)
+    stale, ok = [], []
+    worst = torch.zeros((), dtype=torch.int32, device="cuda")
+    for _ in range(DIST_DEM_REUSE_STEPS):
+        rs, flags, _ = step(rs, {})
+        stale.append(flags.stale)
+        ok.append(rs.cache.phys["ct_ok"])
+        worst = torch.maximum(worst, flags.any())
+    stale = [int(v) for v in torch.stack(stale).tolist()]
+    # overlap (the default): B1 once a full step, twice an update step
+    check_b1_launches(CP, "dem", 2 * DIST_DEM_REUSE_STEPS - sum(stale))
+    launches = CP.LAUNCHES
+    carried = bool(torch.stack(ok).all())
+    errs = {k: by_id_err(rs.inner.ps, every.ps, k) for k in ("x", "v", "w")}
+    print(f"17h DEM reuse slab step: {DIST_DEM_REUSE_STEPS} steps, stale "
+          f"{stale}, {launches} B1 launches, worst flag {int(worst)}, "
+          f"contact cache carried {carried}, vs 17d by id: " + ", ".join(
+              f"{k} {e:.3e}" for k, e in errs.items())
+          + f" (tol {DIST_TOL:g}); {spec.name} ghost_cap {g_cap}")
+    if int(worst) != 0 or not carried or not max(errs.values()) <= DIST_TOL:
+        raise RuntimeError("DEM reuse slab step failed")
+    state = {"rs": rs}
+
+    def run():
+        state["rs"], _, _ = step(state["rs"], {})
+
+    print(f"17h DEM reuse slab step {time_cuda(run, iters=5):.4f} ms/step "
+          "(CUDA events)")
+    return launches
+
+
+def dist_dlb_phase(S, SIM, CP, mesh):
+    """17i: ``make_rebalance`` and ``sph.run_distributed`` at 570,248
+    particles on the world-1 mesh: the rebalance keeps the bounds at the
+    box and moves nothing (overflow 0); the driver for DLB_STEPS steps
+    with the threshold trigger forced (imbalance threshold -1, gap
+    DLB_GAP: two rebalances), without and with reuse="skin", within
+    DIST_TOL of DLB_STEPS serial steps by id. Returns the B1 launches of
+    the two driver runs."""
+    cfg = S.SPHConfig(**SPH_CARD, device="cuda")
+    ps0 = SIM.with_ids(S.init_dam_break(cfg, capacity_factor=1.05))
+    st = SIM.distribute(ps0, S.physics, cfg, mesh, cap_per_dev=ps0.capacity)
+    st2, ovf = SIM.make_rebalance(S.physics, cfg, mesh)(st)
+    box = torch.tensor([0.0, cfg.box[0]], dtype=torch.float32,
+                       device="cuda")
+    same = (torch.equal(st2.bounds, box) and torch.equal(st2.ps.x, st.ps.x)
+            and torch.equal(st2.ps.valid, st.ps.valid))
+    print(f"17i make_rebalance at world 1: bounds {st2.bounds.tolist()}, "
+          f"overflow {int(ovf)}, the box's bounds and particles unmoved "
+          f"{same}")
+    if int(ovf) or not same:
+        raise RuntimeError("make_rebalance moved the world-1 slab")
+    del st, st2
+    ref, worst, _ = dist_run(
+        SIM.make_sim_step(S.physics, cfg),
+        SIM.serial_state(ps0, S.physics, cfg), DLB_STEPS,
+        lambda i: {"euler": i % cfg.verlet_reset == 0})
+    if worst:
+        raise RuntimeError(f"serial SPH flagged {worst}")
+    # the faces' band at r_cut + skin (the wider of the two runs')
+    g_cap = ghost_cap_for(ps0, 1.5 * cfg.r_cut, 0.0, cfg.box[0])
+    launches = 0
+    for reuse, c in ((None, cfg), ("skin", dataclasses.replace(
+            cfg, cell_cap=SPH_REUSE_CELL_CAP))):
+        reset_b1_counts(CP)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ps, t, n_reb, imb = S.run_distributed(
+            c, DLB_STEPS, mesh, 1, use_sar=False, imb_threshold=-1.0,
+            min_rebalance_gap=DLB_GAP, reuse=reuse, ghost_cap=g_cap)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_b1 = CP.LAUNCHES_BY_KIND["sph"]
+        if CP.LAUNCHES != n_b1 or n_b1 < DLB_STEPS:
+            raise RuntimeError(f"B1 launches {dict(CP.LAUNCHES_BY_KIND)}")
+        launches += n_b1
+        errs = {k: by_id_err(ps, ref.ps, k) / (cfg.rho0 if k == "rho" else 1)
+                for k in ("x", "v", "rho")}
+        print(f"17i sph.run_distributed reuse={reuse}: {DLB_STEPS} steps in "
+              f"{wall:.3f} s (host clock, rebalances and host reads "
+              f"included), {n_reb} rebalances, imbalance {imb[-1]:.3e}, "
+              f"t {t:.6e}, {n_b1} B1 launches, vs serial by id: "
+              + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+              + f" (tol {DIST_TOL:g}); ghost_cap {g_cap}")
+        if n_reb != 2 or not max(errs.values()) <= DIST_TOL:
+            raise RuntimeError(f"sph.run_distributed(reuse={reuse}) failed")
+    return launches
+
+
+def dist_vic_reprovision_phase(V, K, vcfg, mesh, w17f):
+    """17j: ``vortex.run_distributed(auto_reprovision=True)`` at 800 x 200
+    x 200 for DIST_VIC_STEPS steps: no overflow fires, so the halo is
+    unchanged, no step is redone (2 B3 + 2 B4 launches a step) and the
+    field is 17f's (``w17f``) within DIST_TOL of the max: B3 sums with
+    fp32 atomics in shared memory, whose order varies between runs, so
+    two runs of the same steps need not be equal bit for bit (whether
+    they are is printed). Returns the {kernel: launches} of the run."""
+    K.LAUNCHES.update(dict.fromkeys(K.LAUNCHES, 0))
+    w, z0, z1, cfg_out = V.run_distributed(vcfg, DIST_VIC_STEPS, mesh,
+                                           auto_reprovision=True)
+    launches = dict(K.LAUNCHES)
+    want = 2 * DIST_VIC_STEPS
+    rel = float((w - w17f).abs().max()) / float(w17f.abs().max())
+    print(f"17j vortex.run_distributed(auto_reprovision=True): "
+          f"{DIST_VIC_STEPS} steps, launches {launches}, mesh_halo "
+          f"{cfg_out.mesh_halo} (was {vcfg.mesh_halo}), centroid z {z0:.6f} "
+          f"-> {z1:.6f}, against 17f: rel {rel:.3e} (tol {DIST_TOL:g}), "
+          f"bit-equal {torch.equal(w, w17f)}")
+    if (launches != {"p2m": want, "m2p": want, "p2m_bf16x": 0,
+                     "m2p_bf16x": 0} or not rel <= DIST_TOL
+            or cfg_out.mesh_halo != vcfg.mesh_halo):
+        raise RuntimeError("vortex.run_distributed(auto_reprovision) failed")
+    return launches
+
+
+def slab_phase(md, cfg, md_ps, vcfg, md_reuse_ms):
     """Phase 17: the 1-D slab layer on the card at world 1 over NCCL.
-    Returns the ``launches_dist`` of each kernel entry."""
+    Returns the ``launches_dist`` and ``launches_dist_reuse`` of each
+    kernel entry."""
     import torch.distributed as dist
     from repro_torch.apps import dem as D
     from repro_torch.apps import gray_scott as GS
@@ -3164,18 +3386,32 @@ def slab_phase(md, cfg, md_ps, vcfg):
     with RT.on_mesh(mesh):
         runtime_checks(RT)
         b1_cells_check(md, SIM, M, RT, CL, CP, I, cfg, md_ps)
-    out = {"cell_pair_lj": dist_md_phase(md, SIM, M, RT, CL, CP, I, cfg,
-                                         mesh)}
+    out, reuse = {}, {}
+    out["cell_pair_lj"], md_every, ms17c = dist_md_phase(
+        md, SIM, M, RT, CL, CP, I, cfg, mesh)
     torch.cuda.empty_cache()
-    out["cell_pair_sph"], out["cell_pair_dem"] = dist_sph_dem_phase(
-        S, D, SIM, CP, mesh)
+    (out["cell_pair_sph"], out["cell_pair_dem"]), dem_every = \
+        dist_sph_dem_phase(S, D, SIM, CP, mesh)
     torch.cuda.empty_cache()
     dist_gs_phase(GS, G, mesh)
     torch.cuda.empty_cache()
-    vl = dist_vic_phase(V, G, K, vcfg, mesh)
+    vl, w17f = dist_vic_phase(V, G, K, vcfg, mesh)
     out["m4_p2m"], out["m4_m2p"] = vl["p2m"], vl["m2p"]
+    torch.cuda.empty_cache()
+    reuse["cell_pair_lj"] = dist_md_reuse_phase(md, SIM, CP, cfg, mesh,
+                                                md_every, ms17c, md_reuse_ms)
+    del md_every
+    torch.cuda.empty_cache()
+    reuse["cell_pair_dem"] = dist_dem_reuse_phase(D, SIM, CP, mesh,
+                                                  dem_every)
+    del dem_every
+    torch.cuda.empty_cache()
+    reuse["cell_pair_sph"] = dist_dlb_phase(S, SIM, CP, mesh)
+    torch.cuda.empty_cache()
+    vl = dist_vic_reprovision_phase(V, K, vcfg, mesh, w17f)
+    reuse["m4_p2m"], reuse["m4_m2p"] = vl["p2m"], vl["m2p"]
     dist.destroy_process_group()
-    return out
+    return out, reuse
 
 
 def main() -> int:
@@ -3374,7 +3610,8 @@ def main() -> int:
     # -- phase 11: the reuse engine at full width -----------------------------
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    md_entry["launches_reuse"] = md_reuse_phase(md, CL, CP, cfg, step_ms)
+    md_entry["launches_reuse"], md_reuse_ms = md_reuse_phase(md, CL, CP, cfg,
+                                                             step_ms)
     dem_entry["launches_reuse"] = dem_reuse_phase(D, CL, CP)
     phase_mark("phase 11 (reuse)", t_phase)
     torch.cuda.empty_cache()
@@ -3427,10 +3664,12 @@ def main() -> int:
     # -- phase 17: the 1-D slab layer at world 1 over NCCL ----------------------
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    dist_launches = slab_phase(md, cfg, md_state, vcfg)
+    dist_launches, reuse_launches = slab_phase(md, cfg, md_state, vcfg,
+                                               md_reuse_ms)
     del md_state
     for entry in [md_entry, sph_entry, dem_entry] + m4_entries:
         entry["launches_dist"] = dist_launches[entry["name"]]
+        entry["launches_dist_reuse"] = reuse_launches[entry["name"]]
     phase_mark("phase 17 (slab layer, NCCL world 1)", t_phase)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, build "
           "included")

@@ -363,9 +363,123 @@ def run(cfg: SPHConfig, n_steps: int, device=None):
     return ps, float(t)
 
 
-def run_distributed(cfg: SPHConfig, n_steps: int, mesh, ndev: int, **kw):
+def run_distributed(cfg: SPHConfig, n_steps: int, mesh, ndev: int,
+                    cap_factor: float = 3.0, axis_name: str = "shards",
+                    use_sar: bool = True, imb_threshold: float = 0.3,
+                    min_rebalance_gap: int = 10, _make_step=None,
+                    reuse=None, skin=None, ghost_cap=None):
     """The distributed dam break with dynamic load balancing (``repro``'s
-    Table 3 driver) needs ``make_rebalance``: ROADMAP A14b. The dam break
-    itself steps on a mesh through ``make_sim_step(physics, cfg, mesh)``."""
-    raise NotImplementedError(
-        "sph.run_distributed needs make_rebalance (ROADMAP A14b)")
+    driver of the paper's Table 3), as each rank calls it on ``cfg.device``.
+    Returns (ps, t, n_rebalances, imbalance trace); ``ps`` is this rank's
+    block (``convert.gather_dist_state`` joins the blocks).
+
+    Rebalance trigger = SAR (degrading balance) OR the imbalance threshold
+    (paper §3.5: 'automatically determined using SAR or specified by the
+    user program'; SAR alone cannot fire on a constant imbalance). SAR
+    runs on every rank, so its inputs must be the same on every rank: the
+    load is gathered by the step, and the step's wall time is its ``pmax``
+    over the ranks (one 0-d collective a step, only with ``use_sar``);
+    a rank-local wall time would let one rank rebalance (a psum and an
+    all_to_all) while another steps on.
+
+    The split-phase window flag (``StepFlags.window``) is acted on: when
+    DLB skews a slab past the step's interior row window, the window grows
+    by the reported excess, the step is rebuilt and REDONE from the
+    pre-step state, and a RuntimeError is raised at the grid's row count.
+    ``_make_step`` is the step factory ``make_step(interior_rows) ->
+    step`` (injectable, to test the control loop without a real skew).
+
+    ``reuse``/``skin`` select the skin-amortized two-speed step (DESIGN.md
+    §14): the state rides as ``SIM.ReuseState``, and a rebalance re-wraps
+    it cold (moved slab bounds invalidate the cached ghost slots). The
+    rebalance floors the slabs at the step's ghost band over its hops
+    (``r_cut + skin`` under reuse), so it never moves the decomposition
+    into ghost-contract violation. ``ghost_cap`` overrides the spec's
+    per-side ghost capacity (2048; a large tank needs more), as
+    ``make_sim_step``'s does."""
+    import time
+    from repro_torch.core import dlb
+    from repro_torch.core import runtime as RT
+    ps0 = init_dam_break(cfg, capacity_factor=1.05)
+    state = SIM.distribute(ps0, physics, cfg, mesh, axis_name=axis_name,
+                           cap_factor=cap_factor)
+    del ps0
+    dev = state.ps.device
+    spec = physics(cfg)
+    use_reuse = reuse is not None
+    skin_v = SIM._resolve_skin(spec, skin) if use_reuse else 0.0
+    n_rows = int(SIM._grid_kw(spec, (0,), skin=skin_v)["grid_shape"][0])
+    w_int = min(n_rows, -(-n_rows // ndev) + 4)   # the step's default
+    make_step = _make_step or (lambda w: SIM.make_sim_step(
+        physics, cfg, mesh, axis_name=axis_name, interior_rows=w,
+        reuse=reuse, skin=skin, ghost_cap=ghost_cap))
+    step = make_step(w_int)
+    # the rebalance keeps every slab as wide as the step's ghost band
+    # needs at its hop count: r_cut, or r_cut + skin under reuse (repro
+    # floors the slabs at r_cut either way, which the reuse step's band
+    # flags as ghost_contract)
+    r_band = float(spec.r_cut) + skin_v
+    box_len = float(spec.box_hi[0]) - float(spec.box_lo[0])
+    hops = SIM._auto_hops(r_band, box_len, ndev)
+    rebalance = SIM.make_rebalance(physics, cfg, mesh, axis_name=axis_name,
+                                   min_slab_width=r_band * 1.001 / hops)
+    sar = dlb.SARController(rebalance_cost=0.02)
+
+    def wrap(inner):
+        return (SIM.reuse_state(inner, physics, cfg, mesh,
+                                axis_name=axis_name, skin=skin,
+                                ghost_cap=ghost_cap)
+                if use_reuse else inner)
+
+    state = wrap(state)
+    t = 0.0
+    n_reb = 0
+    last_reb = -10**9
+    imb_trace = []
+    for i in range(n_steps):
+        t0 = time.perf_counter()
+        extras = {"euler": i % cfg.verlet_reset == 0}
+        new_state, flags, scal = step(state, extras)
+        while int(flags.window) > 0:
+            grown = min(n_rows, w_int + int(flags.window))
+            if grown == w_int:
+                raise RuntimeError(
+                    f"interior window overflow persists at the geometric "
+                    f"ceiling interior_rows={w_int} (grid rows {n_rows})")
+            w_int = grown
+            step = make_step(w_int)
+            new_state, flags, scal = step(state, extras)  # redo, pre-step
+        state = new_state
+        if int(flags.any()) != 0:
+            bad = {f.name: int(getattr(flags, f.name))
+                   for f in dataclasses.fields(flags) if f.name != "stale"}
+            raise RuntimeError(
+                f"capacity overflow at step {i} ({bad}); raise "
+                "SPHConfig.cell_cap or the mesh capacities")
+        t += float(scal["dt"])
+        load = scal["load"].cpu().numpy().astype(np.float64)
+        imb = float(load.max() / max(load.mean(), 1.0) - 1.0)
+        imb_trace.append(imb)
+        fire_sar = False
+        if use_sar:
+            wall = time.perf_counter() - t0
+            with RT.on_mesh(mesh):
+                wall = float(RT.pmax(torch.full(
+                    (), wall, dtype=torch.float64, device=dev), axis_name))
+            # SAR: imbalance-cost proxy = step wall time × imbalance
+            fire_sar = sar.observe(wall * (1 + imb), wall)
+        fire_thr = (imb > imb_threshold
+                    and i - last_reb >= min_rebalance_gap)
+        if fire_sar or fire_thr:
+            inner, ovf = rebalance(state.inner if use_reuse else state)
+            if int(ovf) != 0:
+                raise RuntimeError(
+                    f"map() overflow {int(ovf)} in the rebalance after step "
+                    f"{i}; raise the bucket or slot capacity")
+            # re-wrap cold: new bounds invalidate the cached structure
+            state = wrap(inner)
+            n_reb += 1
+            last_reb = i
+            sar.reset()
+    ps_out = state.inner.ps if use_reuse else state.ps
+    return ps_out, t, n_reb, imb_trace

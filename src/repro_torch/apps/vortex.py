@@ -424,18 +424,48 @@ def make_distributed_vic_step(mesh, cfg: VortexConfig, axis_name="shards",
 
 
 def run_distributed(cfg: VortexConfig, n_steps: int, mesh,
-                    axis_name="shards"):
+                    axis_name="shards", *, auto_reprovision: bool = False,
+                    _make_step=None):
     """The distributed driver mirroring :func:`run`, as each rank calls
     it: the field lives in slab blocks for the whole run. Returns (w, z0,
-    z1) with the full field (the blocks gathered) on every rank. The
-    overflow is summed on the device and read once after the loop; a
-    nonzero total raises RuntimeError (raise ``mesh_halo`` or
-    ``interp_cell_cap``)."""
-    step = make_distributed_vic_step(mesh, cfg, axis_name)
+    z1) with the full field (the blocks gathered) on every rank. By
+    default the overflow is summed on the device and read once after the
+    loop; a nonzero total raises RuntimeError (raise ``mesh_halo`` or
+    ``interp_cell_cap``).
+
+    ``auto_reprovision=True`` adds the control plane: on an overflow (the
+    step's, summed over the ranks, so every rank sees the same) the step
+    is redone from the pre-step field with ``mesh_halo`` doubled, clamped
+    to the slab height (the geometric ceiling of a single-hop exchange),
+    and a RuntimeError at that ceiling. It reads the overflow on the host
+    each step, and returns the grown ``cfg`` as a fourth value.
+    ``_make_step`` is the step factory ``make_step(mesh, cfg, axis_name)
+    -> step`` (injectable, to test the control loop without a real
+    overflow)."""
+    make_step = _make_step or make_distributed_vic_step
+    row = axis_name[0] if isinstance(axis_name, tuple) else axis_name
+    step = make_step(mesh, cfg, axis_name)
     w = project_divfree(init_ring(cfg), cfg)
     z0 = float(centroid_z(w, cfg))
-    f = G.distribute_field(w, mesh, axis_name)
+    f = G.distribute_field(w, mesh, row)
     del w
+    if auto_reprovision:
+        n0l = f.data.shape[0]
+        for _ in range(n_steps):
+            f2, ovf = step(f)
+            while int(ovf) > 0:
+                new_halo = min(2 * cfg.mesh_halo, n0l)
+                if new_halo == cfg.mesh_halo:
+                    raise RuntimeError(
+                        f"halo overflow persists at the geometric ceiling "
+                        f"mesh_halo={cfg.mesh_halo} (slab height {n0l}); "
+                        "the decomposition is too fine for this flow")
+                cfg = dataclasses.replace(cfg, mesh_halo=new_halo)
+                step = make_step(mesh, cfg, axis_name)
+                f2, ovf = step(f)        # redo from the pre-step field
+            f = f2
+        w = G.gather_field(f, mesh, row)
+        return w, z0, float(centroid_z(w, cfg)), cfg
     total = torch.zeros((), dtype=torch.int32, device=f.data.device)
     for _ in range(n_steps):
         f, ovf = step(f)
@@ -445,5 +475,5 @@ def run_distributed(cfg: VortexConfig, n_steps: int, mesh,
             f"interpolation overflow ({int(total)} particles outran the "
             f"halo or their cell bucket over {n_steps} steps); raise "
             f"VortexConfig.mesh_halo (= {cfg.mesh_halo}) or interp_cell_cap")
-    w = G.gather_field(f, mesh, axis_name)
+    w = G.gather_field(f, mesh, row)
     return w, z0, float(centroid_z(w, cfg))

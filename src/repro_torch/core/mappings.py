@@ -284,18 +284,14 @@ def _pack_payload(tree: Dict[str, torch.Tensor], sel: torch.Tensor,
     return {k: _take(a, src, filled) for k, a in tree.items()}
 
 
-def ghost_update_local(ps: ParticleSet, x_anchor: torch.Tensor,
+def ghost_update_start(ps: ParticleSet, x_anchor: torch.Tensor,
                        bounds: torch.Tensor, r_ghost: float, axis_name: str,
                        ghost_cap: int, *, periodic: bool, box_len: float,
                        slab_axis: int = 0, prop_names: Tuple[str, ...] = (),
-                       n_hops: int = 1) -> Dict[str, torch.Tensor]:
-    """Property-subset refresh of an existing ghost layer (OpenFPM's
-    ``ghost_get<prop...>(SKIP_LABELLING)``): the current positions and
-    ``prop_names`` of the particles a prior :func:`ghost_get_local` shipped,
-    selected again from ``x_anchor`` (the positions the layer was built
-    from) so the slots are the same. Valid while no ``map()`` ran and
-    ``bounds`` did not move since. Returns ``{"x": (2K, ghost_cap, dim),
-    name: (2K, ghost_cap, ...)}`` row-aligned with the cached layer."""
+                       n_hops: int = 1) -> RT.InFlight:
+    """First half of :func:`ghost_update_local`: pack and issue the
+    refresh as one batch. ``.wait()`` on the result yields the refreshed
+    payload; work scheduled in between overlaps the exchange."""
     ndev = RT.axis_size(axis_name)
     me = RT.axis_index(axis_name)
     xa = x_anchor[:, slab_axis]
@@ -310,18 +306,39 @@ def ghost_update_local(ps: ParticleSet, x_anchor: torch.Tensor,
         right, left = RT.shift_perms(ndev, h)
         sends.append(([hi_pk[k] for k in names], right))
         sends.append(([lo_pk[k] for k in names], left))
-    received = RT.ppermute_many_start(sends, axis_name).wait()
-    sides_l, sides_r = [], []
-    for h in range(1, n_hops + 1):
-        # the cached valid mask already zeroes non-periodic wrap links
-        shift_l, shift_r, _, _ = _seam(me, ndev, h, periodic, box_len)
-        for got, shift, out in ((received[2 * h - 2], shift_l, sides_l),
-                                (received[2 * h - 1], shift_r, sides_r)):
-            d = dict(zip(names, got))
-            d["x"] = _shift_slab(d["x"], slab_axis, shift)
-            out.append(d)
-    sides = sides_l + sides_r
-    return {k: torch.stack([s[k] for s in sides]) for k in names}
+
+    def assemble(received):
+        sides_l, sides_r = [], []
+        for h in range(1, n_hops + 1):
+            # the cached valid mask already zeroes non-periodic wrap links
+            shift_l, shift_r, _, _ = _seam(me, ndev, h, periodic, box_len)
+            for got, shift, out in ((received[2 * h - 2], shift_l, sides_l),
+                                    (received[2 * h - 1], shift_r, sides_r)):
+                d = dict(zip(names, got))
+                d["x"] = _shift_slab(d["x"], slab_axis, shift)
+                out.append(d)
+        sides = sides_l + sides_r
+        return {k: torch.stack([s[k] for s in sides]) for k in names}
+
+    return RT.ppermute_many_start(sends, axis_name).then(assemble)
+
+
+def ghost_update_local(ps: ParticleSet, x_anchor: torch.Tensor,
+                       bounds: torch.Tensor, r_ghost: float, axis_name: str,
+                       ghost_cap: int, *, periodic: bool, box_len: float,
+                       slab_axis: int = 0, prop_names: Tuple[str, ...] = (),
+                       n_hops: int = 1) -> Dict[str, torch.Tensor]:
+    """Property-subset refresh of an existing ghost layer (OpenFPM's
+    ``ghost_get<prop...>(SKIP_LABELLING)``): the current positions and
+    ``prop_names`` of the particles a prior :func:`ghost_get_local` shipped,
+    selected again from ``x_anchor`` (the positions the layer was built
+    from) so the slots are the same. Valid while no ``map()`` ran and
+    ``bounds`` did not move since. Returns ``{"x": (2K, ghost_cap, dim),
+    name: (2K, ghost_cap, ...)}`` row-aligned with the cached layer."""
+    return ghost_update_start(ps, x_anchor, bounds, r_ghost, axis_name,
+                              ghost_cap, periodic=periodic, box_len=box_len,
+                              slab_axis=slab_axis, prop_names=prop_names,
+                              n_hops=n_hops).wait()
 
 
 # --------------------------------------------------------------------------

@@ -13,15 +13,16 @@
     :func:`reuse_state`). With a 1-D device mesh the same hooks run per
     rank with ``map()`` → multi-hop ``ghost_get`` → combo cell list →
     pair pass → ``finish``, under the split-phase overlap schedule or the
-    blocking one; :func:`distribute` cuts a rank's block. The 2-D pencil
-    step, the reuse cadence on a mesh and ``make_rebalance`` are ROADMAP
-    A14b and raise.
+    blocking one, or under the two-speed reuse cadence (the ghost layer
+    as a cache); :func:`distribute` cuts a rank's block and
+    :func:`make_rebalance` moves the slab bounds (dynamic load
+    balancing). The 2-D pencil step is ROADMAP A14b and raises.
 
 Capacity contracts surface as :class:`StepFlags`: 0-d int32 tensors on the
 particles' device, the same on every rank. Nothing in an every-step
 engine step reads a device tensor on the host, so it never waits for the
-card; callers read the flags at their log points. The serial reuse step
-reads one flag per step (see :func:`make_sim_step`).
+card; callers read the flags at their log points. The reuse step reads
+one flag per step, on a mesh the pmax'd one (see :func:`make_sim_step`).
 """
 from __future__ import annotations
 
@@ -40,8 +41,7 @@ from . import mappings as M
 from . import runtime as RT
 from .particles import ParticleSet, const_tensor
 
-_A14B = ("{} is not ported yet (ROADMAP A14b: the 2-D pencil step, the "
-         "reuse cadence on a mesh, make_rebalance)")
+_A14B = "{} is not ported yet (ROADMAP A14b-4: the 2-D pencil forms)"
 
 
 # --------------------------------------------------------------------------
@@ -175,8 +175,9 @@ class PhysicsSpec:
     particle set. ``ghost_props`` are the props ghosts carry (OpenFPM's
     property-subset ``ghost_get``; a superset of ``pair_props``), and
     ``bucket_cap``/``ghost_cap`` the default ``map()`` bucket and
-    ``ghost_get`` per-side capacities of a mesh step. ``update_props`` is
-    the reuse cadence's on a mesh (ROADMAP A14b).
+    ``ghost_get`` per-side capacities of a mesh step. ``update_props`` are
+    the ghost props a reuse update step on a mesh refreshes (default
+    ``pair_props``); the other ghost props come from the cached layer.
     """
 
     name: str
@@ -198,7 +199,7 @@ class PhysicsSpec:
     ghost_cap: int = 1024                    # ghost_get per-side capacity
     mesh_props: Tuple[str, ...] = ()         # mesh fields in state.fields
     update_props: Optional[Tuple[str, ...]] = None  # ghost props refreshed
-    #                                          on reuse update steps (A14b)
+    #                                          on reuse update steps
     cache_keys: Tuple[str, ...] = ()         # finish scalars carried as
     #                                          reuse-engine physics cache
     cache_scalars: Tuple[str, ...] = ()      # cache_keys that are scalars
@@ -343,6 +344,56 @@ def _hop_excess(bounds: torch.Tensor, rc: float, k: int) -> torch.Tensor:
 W_B = 5
 
 
+def _interior_cells(g, my_lo, my_hi):
+    """The split-phase interior home cells: the ``w_int`` rows from this
+    rank's first owned row; and the window excess (0-d, the owned rows
+    past the window: ``StepFlags.window``)."""
+    r0 = g["row_of"](my_lo)
+    r_last = g["row_of"](my_hi)
+    rows = r0 + torch.arange(g["w_int"], dtype=torch.int32,
+                             device=my_lo.device)
+    return (g["rows_to_cells"](rows, rows < g["n_rows"]),
+            torch.clamp(r_last + 1 - (r0 + g["w_int"]), min=0))
+
+
+def _boundary_cells(g, my_lo, my_hi, width: float):
+    """The split-phase boundary home cells: ``W_B`` rows from one below
+    ``face - width`` at either face (the band within ``width`` of a face
+    and the ghost pad), the hi side deduplicated against the lo side so no
+    cell scatters twice."""
+    wb = torch.arange(W_B, dtype=torch.int32, device=my_lo.device)
+    lo_rows = g["row_of"](my_lo - width) - 1 + wb
+    hi_rows = g["row_of"](my_hi - width) - 1 + wb
+    lo_ok = (lo_rows >= 0) & (lo_rows < g["n_rows"])
+    hi_ok = ((hi_rows >= 0) & (hi_rows < g["n_rows"])
+             & (hi_rows > lo_rows[-1]))
+    return torch.cat([g["rows_to_cells"](lo_rows, lo_ok),
+                      g["rows_to_cells"](hi_rows, hi_ok)])
+
+
+def _combine(ps, pair_int, pair_bnd, my_lo, my_hi, width: float,
+             slab_axis: int):
+    """Per particle, the boundary pass's sums within ``width`` of a face
+    (and for every ghost row), the interior pass's elsewhere."""
+    xs = ps.x[:, slab_axis]
+    bnd = (xs < my_lo + width) | (xs >= my_hi - width)
+    n_loc = ps.capacity
+    return {k: torch.cat([torch.where(I._bmask(bnd, v[:n_loc]), v[:n_loc],
+                                      pair_int[k]), v[n_loc:]])
+            for k, v in pair_bnd.items()}
+
+
+def _combo_of(ps: ParticleSet, ghosts: M.GhostLayer,
+              prop_names) -> ParticleSet:
+    """Locals then ghosts, over the ghost props: the set a slab step's
+    combo cell list bins and its pair pass reads."""
+    gp = ghosts.as_particles()
+    return ParticleSet(
+        x=torch.cat([ps.x, gp.x]),
+        props={k: torch.cat([ps.props[k], gp.props[k]]) for k in prop_names},
+        valid=torch.cat([ps.valid, gp.valid]))
+
+
 def _axis_names(mesh, axis_name):
     """(row axis, size of the column axis) of ``axis_name``: a name, or a
     ``(row, col)`` tuple whose column axis must have size 1 here."""
@@ -388,23 +439,30 @@ def make_sim_step(physics, cfg, mesh=None, *, axis_name="shards",
     caps the interior window (default: the uniform share + 4); a slab
     beyond it raises ``StepFlags.window``.
 
-    ``reuse`` selects the skin-amortized cadence (DESIGN.md §14; serial
-    only here) and makes the state a :class:`ReuseState` (build it with
-    :func:`reuse_state`):
+    ``reuse`` selects the skin-amortized two-speed cadence (DESIGN.md
+    §14) and makes the state a :class:`ReuseState` (build it with
+    :func:`reuse_state`, mirroring these options):
 
-      * ``"skin"`` — cells widen to ``r_cut + skin``; the cell list is
-        cached with the positions it was binned at, and a step rebuilds it
-        only when the tripwire fires (some particle moved more than
-        ``skin/2`` since, surfaced as ``StepFlags.stale``), so no pair
-        within ``r_cut`` is missed;
-      * ``"update"`` — the cached binning with no tripwire (the first step
-        after a cold cache still builds). Unsafe beyond skin/2 drift; the
-        negative control of the cadence.
+      * ``"skin"`` — cells (and on a mesh the ghost band) widen to
+        ``r_cut + skin``; the cell list (on a mesh also the ghost slot
+        layout) is cached with the positions it was built at, and a step
+        rebuilds only when the tripwire fires (some particle moved more
+        than ``skin/2`` since, surfaced as ``StepFlags.stale``), so no
+        pair within ``r_cut`` is missed. A step in between is an update
+        step: on a mesh no ``map()`` and no re-binning, only the
+        fixed-payload ``mappings.ghost_update_start`` refreshing the
+        positions and ``update_props`` of the same ghost slots; with
+        ``overlap`` the interior pass runs on the cached locals-only
+        binning while that refresh is in flight;
+      * ``"update"`` — the cached structure with no tripwire (the first
+        step after a cold cache still builds). Unsafe beyond skin/2
+        drift; the negative control of the cadence.
 
     ``skin`` is the margin (default ``0.5 * r_cut``; in ``(0, r_cut]``).
     ``repro`` decides a step's branch in the graph (``lax.cond``); here it
     is one host read of the tripwire a step, and only the chosen branch
-    runs.
+    runs. On a mesh the tripwire read is of its ``pmax`` over the ranks,
+    so every rank takes the same branch and issues the same collectives.
 
     ``physics`` must be a module-level callable ``physics(cfg) ->``
     :class:`PhysicsSpec` and ``cfg`` hashable: the step is cached on
@@ -422,8 +480,9 @@ def make_sim_step(physics, cfg, mesh=None, *, axis_name="shards",
         raise NotImplementedError(_A14B.format(
             "make_sim_step on a 2-D (pencil) device mesh"))
     if reuse is not None:
-        raise NotImplementedError(_A14B.format(
-            "make_sim_step(reuse=...) on a device mesh"))
+        return _make_reuse_step_1d(physics, cfg, mesh, row_axis, slab_axis,
+                                   bucket_cap, ghost_cap, overlap,
+                                   interior_rows, n_hops, reuse, skin)
     return _make_sim_step_1d(physics, cfg, mesh, row_axis, slab_axis,
                              bucket_cap, ghost_cap, overlap, interior_rows,
                              n_hops)
@@ -480,47 +539,20 @@ def _make_sim_step_1d(physics, cfg, mesh, axis_name: str, slab_axis: int,
             g = geom(dev)
             me = RT.axis_index(axis_name)
             my_lo, my_hi = bounds[me], bounds[me + 1]
-            r0 = g["row_of"](my_lo)
-            r_last = g["row_of"](my_hi)
-            int_rows = r0 + torch.arange(g["w_int"], dtype=torch.int32,
-                                         device=dev)
+            int_cells, win_ovf = _interior_cells(g, my_lo, my_hi)
             cl_loc = CL.build_cell_list(ps, **cl_kw)
-            pair_int = I.apply_pair_kernel(
-                ps, cl_loc, body,
-                cells=g["rows_to_cells"](int_rows, int_rows < g["n_rows"]),
-                **pair_kw)
-            win_ovf = torch.clamp(r_last + 1 - (r0 + g["w_int"]), min=0)
+            pair_int = I.apply_pair_kernel(ps, cl_loc, body, cells=int_cells,
+                                           **pair_kw)
         ghosts, ovf_ghost = pending.wait()
-        gp = ghosts.as_particles()
-        combo = ParticleSet(
-            x=torch.cat([ps.x, gp.x]),
-            props={k: torch.cat([ps.props[k], gp.props[k]])
-                   for k in spec.ghost_props},
-            valid=torch.cat([ps.valid, gp.valid]))
+        combo = _combo_of(ps, ghosts, spec.ghost_props)
         cl = CL.build_cell_list(combo, **cl_kw)
         if overlap:
-            # the boundary pass against the arrived ghosts: the rows within
-            # r_cut of either face and the ghost pad, the hi side
-            # deduplicated against the lo side so no cell scatters twice
-            wb = torch.arange(W_B, dtype=torch.int32, device=dev)
-            lo_rows = g["row_of"](my_lo - rc) - 1 + wb
-            hi_rows = g["row_of"](my_hi - rc) - 1 + wb
-            lo_ok = (lo_rows >= 0) & (lo_rows < g["n_rows"])
-            hi_ok = ((hi_rows >= 0) & (hi_rows < g["n_rows"])
-                     & (hi_rows > lo_rows[-1]))
-            bnd_cells = torch.cat([g["rows_to_cells"](lo_rows, lo_ok),
-                                   g["rows_to_cells"](hi_rows, hi_ok)])
-            pair_bnd = I.apply_pair_kernel(combo, cl, body, cells=bnd_cells,
-                                           **pair_kw)
-            # per particle: the boundary sums within r_cut of a face (and
-            # for every ghost row), the interior sums elsewhere
-            xs = ps.x[:, slab_axis]
-            bnd = (xs < my_lo + rc) | (xs >= my_hi - rc)
-            n_loc = ps.capacity
-            pair = {k: torch.cat(
-                [torch.where(I._bmask(bnd, v[:n_loc]), v[:n_loc],
-                             pair_int[k]), v[n_loc:]])
-                for k, v in pair_bnd.items()}
+            # the boundary pass against the arrived ghosts
+            pair_bnd = I.apply_pair_kernel(
+                combo, cl, body, cells=_boundary_cells(g, my_lo, my_hi, rc),
+                **pair_kw)
+            pair = _combine(ps, pair_int, pair_bnd, my_lo, my_hi, rc,
+                            slab_axis)
             cl_ovf = torch.maximum(cl.overflow, cl_loc.overflow)
         else:
             pair = I.apply_pair_kernel(combo, cl, body, **pair_kw)
@@ -546,23 +578,27 @@ def _make_sim_step_1d(physics, cfg, mesh, axis_name: str, slab_axis: int,
 
 
 # --------------------------------------------------------------------------
-# The reuse engine: the serial skin-amortized cadence (DESIGN.md §14)
+# The reuse engine: the skin-amortized two-speed cadence (DESIGN.md §14)
 # --------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class ReuseCache:
-    """What the reuse engine carries across steps: the anchor positions
-    the cell list was binned at, that binning, and the physics cache the
-    spec declares (``cache_keys``, e.g. DEM's contact list). ``ok`` is a
-    host bool (``repro``: a device scalar read by ``lax.cond``): False
-    marks a cold cache, so the next step builds unconditionally. The
-    multi-device fields of ``repro``'s cache (the ghost layer, the
-    locals-only binning) arrive with the reuse cadence on a mesh, ROADMAP
-    A14b."""
+    """What the reuse engine carries across steps (OpenFPM's ghost layer
+    as a cache, paper §4.1): the anchor positions the structure was built
+    from, the (combo) cell-list binning, on a mesh the ghost layer (slot
+    layout and static props; its positions are the build-time ones) and
+    the locals-only binning of the split-phase schedule (``None``
+    serially), and the physics cache the spec declares (``cache_keys``,
+    e.g. DEM's contact list). ``ok`` is a host bool (``repro``: a device
+    scalar read by ``lax.cond``): False marks a cold cache, so the next
+    step builds unconditionally. On a mesh it is the same on every rank:
+    every rank sets it from the same replicated decision."""
 
     ok: bool
     x_anchor: torch.Tensor               # (cap, dim) positions at build
-    cl: CL.CellList                      # binning at build
+    cl: CL.CellList                      # combo binning at build
+    ghosts: Optional[M.GhostLayer] = None   # cached layer (None serially)
+    cl_loc: Optional[CL.CellList] = None    # locals-only binning (overlap)
     phys: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
 
@@ -643,6 +679,163 @@ def _make_reuse_serial_fn(physics, cfg, slab_axis, reuse, skin):
     return step
 
 
+def _make_reuse_step_1d(physics, cfg, mesh, axis_name: str, slab_axis: int,
+                        bucket_cap, ghost_cap, overlap: bool, interior_rows,
+                        n_hops, reuse: str, skin):
+    """The two-speed slab step (``repro``'s ``_make_reuse_step_1d``), per
+    rank. Each step advances, then reads the Verlet tripwire (locals
+    against their build anchors) pmax'd over the ranks: every ghost is
+    some rank's local with the same anchor, so the global max covers the
+    ghost band too, and every rank takes the same branch. The full branch
+    is map → ``ghost_get`` at ``r_cut + skin`` → combo cell list → one pair
+    pass (with overlap, also the locals-only binning later update steps
+    use). The update branch issues ``mappings.ghost_update_start`` (the
+    positions and ``update_props`` of the cached ghost slots, re-derived
+    from the cached anchors so the slots are the cached layer's), runs
+    the interior pass on the cached locals-only binning while it flies
+    (overlap), then the pass over the combo on the cached binning: only
+    its boundary rows with overlap, the whole combo without. Cells and
+    the ghost band are ``r_cut + skin`` wide, so the cached structure is
+    pair-complete for ``r_cut`` until some particle drifts past skin/2,
+    which is when the tripwire forces the full branch."""
+    spec = physics(cfg)
+    body = spec.make_body()
+    rc = float(spec.r_cut)
+    skin_v = _resolve_skin(spec, skin)
+    r_g = rc + skin_v
+    pair_kw = dict(out=spec.pair_out, r_cut=rc, prop_names=spec.pair_props,
+                   backend=spec.backend, precision=spec.precision)
+    b_cap = int(bucket_cap or spec.bucket_cap)
+    g_cap = int(ghost_cap or spec.ghost_cap)
+    box_len = float(spec.box_hi[slab_axis]) - float(spec.box_lo[slab_axis])
+    per_slab = bool(spec.periodic[slab_axis])
+    with RT.on_mesh(mesh):
+        ndev = RT.axis_size(axis_name)
+    k_row = (int(n_hops) if n_hops is not None
+             else _auto_hops(r_g, box_len, ndev))
+    overlap = overlap and k_row == 1
+    cl_kw = _grid_kw(spec, (slab_axis,), skin=skin_v)
+    upd_props = (spec.update_props if spec.update_props is not None
+                 else spec.pair_props)
+    gkw = dict(periodic=per_slab, box_len=box_len, slab_axis=slab_axis,
+               n_hops=k_row)
+    # W_B boundary rows per face hold here too: the combine band is r_cut
+    # + skin wide and cached anchors lag positions by <= skin/2, so the
+    # band's build rows span <= 2 + (skin/2)/(r_cut + skin) <= 2.25 cell
+    # widths: <= 4 rows, + 1 low margin
+    geoms = {}
+
+    def geom(device):
+        if device not in geoms:
+            geoms[device] = _slab_geom(cl_kw, slab_axis, ndev,
+                                       interior_rows, device)
+        return geoms[device]
+
+    def local_step(rstate: ReuseState, extras):
+        state, cache = rstate.inner, rstate.cache
+        red = Reduce(axis_name)
+        ps, bounds = state.ps, state.bounds
+        dev = ps.device
+        grid = G.GridOps(axis_name, periodic=per_slab, device=dev)
+        if spec.advance is not None:
+            ps = spec.advance(ps, red, extras)
+        if cache.ok:
+            moved = CL.moved_beyond(ps.x, cache.x_anchor, ps.valid, skin_v)
+            stale = RT.pmax(moved.to(torch.int32), axis_name)
+            # the one host read of the step, of the pmax'd tripwire (repro:
+            # lax.cond in the graph); "update" skips it
+            take_full = reuse == "skin" and bool(stale)
+        else:
+            stale = torch.ones((), dtype=torch.int32, device=dev)
+            take_full = True
+        contract = _hop_excess(bounds, r_g, k_row)
+        win_ovf = _z32(dev)
+        if overlap:
+            g = geom(dev)
+            me = RT.axis_index(axis_name)
+            my_lo, my_hi = bounds[me], bounds[me + 1]
+            int_cells, win_ovf = _interior_cells(g, my_lo, my_hi)
+        if take_full:
+            ps, ovf_bucket = M.map_particles_local(ps, bounds, axis_name,
+                                                   b_cap, slab_axis)
+            ghosts, ovf_ghost = M.ghost_get_local(
+                ps, bounds, r_g, axis_name, g_cap,
+                prop_names=spec.ghost_props, **gkw)
+            combo = _combo_of(ps, ghosts, spec.ghost_props)
+            cl = CL.build_cell_list(combo, **cl_kw)
+            pair = I.apply_pair_kernel(combo, cl, body, **pair_kw)
+            cl_loc = CL.build_cell_list(ps, **cl_kw) if overlap else None
+        else:
+            # the same slots, refreshed positions and update props; the
+            # valid mask, source slots, static props and both binnings
+            # come from the cache
+            pending = M.ghost_update_start(ps, cache.x_anchor, bounds, r_g,
+                                           axis_name, g_cap,
+                                           prop_names=upd_props, **gkw)
+            cl, cl_loc = cache.cl, cache.cl_loc
+            if overlap:
+                pair_int = I.apply_pair_kernel(ps, cl_loc, body,
+                                               cells=int_cells, **pair_kw)
+            upd = pending.wait()
+            ghosts = dataclasses.replace(
+                cache.ghosts, x=upd["x"],
+                props={**cache.ghosts.props,
+                       **{k: upd[k] for k in upd_props}})
+            combo = _combo_of(ps, ghosts, spec.ghost_props)
+            if overlap:
+                # the combine band widens by the skin: cached ghosts may
+                # have drifted up to skin/2 into the slab since the build
+                pair_bnd = I.apply_pair_kernel(
+                    combo, cl, body,
+                    cells=_boundary_cells(g, my_lo, my_hi, r_g), **pair_kw)
+                pair = _combine(ps, pair_int, pair_bnd, my_lo, my_hi, r_g,
+                                slab_axis)
+            else:
+                pair = I.apply_pair_kernel(combo, cl, body, **pair_kw)
+            ovf_bucket = ovf_ghost = _z32(dev)
+        extras_f = extras
+        if spec.cache_keys:
+            # combo slots hold only while nothing re-mapped or re-ghosted
+            extras_f = {**extras, **cache.phys,
+                        "_reuse_slots_stable": torch.full(
+                            (), not take_full, dtype=torch.bool,
+                            device=dev)}
+        ps2, scalars, nb_ovf, fields = _finish(
+            spec, StepCtx(ps=ps, combo=combo, cl=cl, pair=pair, red=red,
+                          extras=extras_f, fields=state.fields, grid=grid))
+        phys_new = cache.phys
+        if spec.cache_keys:
+            scalars = dict(scalars)
+            phys_new = {k: scalars.pop(k) for k in spec.cache_keys}
+        # the rank-local flags in one all_reduce; the cached cell lists
+        # keep the pmax'd overflow, the same on every rank
+        loc_ovf = cl_loc.overflow if overlap else _z32(dev)
+        local = RT.pmax(torch.stack([cl.overflow.to(torch.int32),
+                                     loc_ovf.to(torch.int32), nb_ovf,
+                                     win_ovf.to(torch.int32)]), axis_name)
+        cl = dataclasses.replace(cl, overflow=local[0])
+        if overlap:
+            cl_loc = dataclasses.replace(cl_loc, overflow=local[1])
+        # an update step keeps the cached layer (anchor positions), not
+        # the refreshed one: its slots are the same
+        new_cache = ReuseCache(
+            ok=True, x_anchor=ps.x if take_full else cache.x_anchor, cl=cl,
+            ghosts=ghosts if take_full else cache.ghosts, cl_loc=cl_loc,
+            phys=phys_new)
+        flags = StepFlags(cell=torch.maximum(local[0], local[1]),
+                          neighbor=local[2], bucket=ovf_bucket,
+                          ghost=ovf_ghost, ghost_contract=contract,
+                          window=local[3], stale=stale)
+        inner = dataclasses.replace(state, ps=ps2, fields=fields)
+        return ReuseState(inner=inner, cache=new_cache), flags, scalars
+
+    def step(rstate: ReuseState, extras):
+        with RT.on_mesh(mesh):
+            return local_step(rstate, extras)
+
+    return step
+
+
 def _cold_cell_list(cl_kw, rows_lead: int, id_lead: int, sentinel: int,
                     device) -> CL.CellList:
     """An all-empty cell list with the right static geometry — the
@@ -662,16 +855,25 @@ def _cold_cell_list(cl_kw, rows_lead: int, id_lead: int, sentinel: int,
 
 
 def reuse_state(state: DistributedParticles, physics, cfg, mesh=None, *,
+                axis_name="shards", slab_axis: int = 0,
+                ghost_cap: Optional[int] = None, overlap: bool = True,
+                n_hops: Optional[int] = None,
                 skin: Optional[float] = None) -> ReuseState:
-    """Wrap a container for the reuse engine with a cold cache: the first
-    step builds unconditionally and warms it. Pass the ``skin`` given to
-    ``make_sim_step``; it shapes the cached grid. ``mesh`` other than None
-    is the reuse cadence on a mesh, ROADMAP A14b, and raises."""
-    if mesh is not None:
-        raise NotImplementedError(_A14B.format("reuse_state on a device "
-                                               "mesh"))
+    """Wrap a container for the reuse engine with a COLD cache: the first
+    step takes the full path (on a mesh map → ghost_get → rebuild)
+    unconditionally and warms it. Mirror the options given to
+    ``make_sim_step``: they shape the cached structure (grid geometry, hop
+    count, overlap binning). On a mesh each rank wraps its own block, so
+    the cache has this rank's shapes. Call it again after any
+    re-decomposition outside the step (``make_rebalance``): a moved slab
+    boundary invalidates the cached ghost slots."""
     spec = physics(cfg)
     skin_v = _resolve_skin(spec, skin)
+    if mesh is not None:
+        row_axis, ndev_c = _axis_names(mesh, axis_name)
+        if ndev_c > 1:
+            raise NotImplementedError(_A14B.format(
+                "reuse_state on a 2-D (pencil) device mesh"))
     phys = {}
     if spec.cache_keys:
         if spec.cache_example is None:
@@ -680,12 +882,43 @@ def reuse_state(state: DistributedParticles, physics, cfg, mesh=None, *,
                 "cold reuse cache")
         ex = spec.cache_example(state.ps)
         phys = {k: ex[k] for k in spec.cache_keys}
-    cl_kw = _grid_kw(spec, (), skin=skin_v)
-    cap = state.ps.capacity
+    ps = state.ps
+    dev = ps.device
+    cap = ps.capacity
+    if mesh is None:
+        cl_kw = _grid_kw(spec, (), skin=skin_v)
+        cache = ReuseCache(
+            ok=False, x_anchor=ps.x,
+            cl=_cold_cell_list(cl_kw, int(np.prod(cl_kw["grid_shape"])) + 1,
+                               cap, cap, dev),
+            phys=phys)
+        return ReuseState(inner=state, cache=cache)
+    g_cap = int(ghost_cap or spec.ghost_cap)
+    box_len = float(spec.box_hi[slab_axis]) - float(spec.box_lo[slab_axis])
+    with RT.on_mesh(mesh):
+        ndev = RT.axis_size(row_axis)
+    k_row = (int(n_hops) if n_hops is not None
+             else _auto_hops(float(spec.r_cut) + skin_v, box_len, ndev))
+    overlap = overlap and k_row == 1
+    cl_kw = _grid_kw(spec, (slab_axis,), skin=skin_v)
+    n_cells = int(np.prod(cl_kw["grid_shape"]))
+    k2 = 2 * k_row
+    combo_cap = cap + k2 * g_cap
+    ghosts = M.GhostLayer(
+        x=torch.zeros((k2, g_cap, ps.x.shape[1]), dtype=ps.x.dtype,
+                      device=dev),
+        props={k: torch.zeros((k2, g_cap) + tuple(ps.props[k].shape[1:]),
+                              dtype=ps.props[k].dtype, device=dev)
+               for k in spec.ghost_props},
+        valid=torch.zeros((k2, g_cap), dtype=torch.bool, device=dev),
+        src_slot=torch.full((k2, g_cap), cap, dtype=torch.int32,
+                            device=dev))
     cache = ReuseCache(
-        ok=False, x_anchor=state.ps.x,
-        cl=_cold_cell_list(cl_kw, int(np.prod(cl_kw["grid_shape"])) + 1,
-                           cap, cap, state.ps.device),
+        ok=False, x_anchor=ps.x,
+        cl=_cold_cell_list(cl_kw, n_cells + 1, combo_cap, combo_cap, dev),
+        ghosts=ghosts,
+        cl_loc=(_cold_cell_list(cl_kw, n_cells + 1, cap, cap, dev)
+                if overlap else None),
         phys=phys)
     return ReuseState(inner=state, cache=cache)
 
@@ -717,9 +950,53 @@ def serial_state(ps: ParticleSet, physics, cfg, slab_axis: int = 0,
                                 fields=dict(fields or {}))
 
 
-def make_rebalance(physics, cfg, mesh, **kw):
-    """The DLB 'repartition + migrate' pair: ROADMAP A14b."""
-    raise NotImplementedError(_A14B.format("make_rebalance"))
+@functools.lru_cache(maxsize=None)
+def make_rebalance(physics, cfg, mesh, *, axis_name="shards",
+                   slab_axis: int = 0, bucket_cap: Optional[int] = None,
+                   nbins: int = 256, min_slab_width: Optional[float] = None,
+                   n_hops: int = 1):
+    """The DLB 'repartition + migrate' pair (paper §3.5), as each rank
+    calls it: cost-balanced slab bounds from the particle histogram
+    (psum'd over the ranks, so every rank computes the same bounds), then
+    ``map()`` under the new decomposition. The bounds are projected onto
+    slabs >= ``min_slab_width`` (default ``r_cut·1.001 / n_hops``: a step
+    exchanging ``n_hops`` ghost hops covers r_cut across slabs that thin;
+    the 0.1% margin keeps rounding from landing under it), so the
+    balancer never moves the decomposition into ghost-contract violation.
+    Mesh fields stay where they are: DLB moves the particle slab bounds
+    only. Returns ``fn(state) -> (state, overflow)``, overflow the
+    ``map()`` flag (the same on every rank). A ``(row, col)`` tuple
+    ``axis_name`` whose column axis has size 1 is the slab; a larger one
+    is the pencil, ROADMAP A14b."""
+    row_axis, ndev_c = _axis_names(mesh, axis_name)
+    if ndev_c > 1:
+        raise NotImplementedError(_A14B.format(
+            "make_rebalance on a 2-D (pencil) device mesh"))
+    spec = physics(cfg)
+    with RT.on_mesh(mesh):
+        ndev = RT.axis_size(row_axis)
+    lo = float(spec.box_lo[slab_axis])
+    hi = float(spec.box_hi[slab_axis])
+    b_cap = int(bucket_cap or spec.bucket_cap)
+    min_w = float(spec.r_cut * 1.001 / max(int(n_hops), 1)
+                  if min_slab_width is None else min_slab_width)
+
+    def local(state: DistributedParticles):
+        ps = state.ps
+        w = ps.valid.to(torch.float32)
+        hist = dlb.histogram_cost(ps.x[:, slab_axis], w, lo, hi, nbins)
+        hist = RT.psum(hist, row_axis)
+        bounds = dlb.bounds_from_histogram(hist, ndev, lo, hi)
+        bounds = dlb.enforce_min_width(bounds, min_w)
+        ps, ovf = M.map_particles_local(ps, bounds, row_axis, b_cap,
+                                        slab_axis)
+        return dataclasses.replace(state, ps=ps, bounds=bounds), ovf
+
+    def fn(state: DistributedParticles):
+        with RT.on_mesh(mesh):
+            return local(state)
+
+    return fn
 
 
 def distribute(ps0: ParticleSet, physics, cfg, mesh, *,

@@ -1,5 +1,6 @@
 """Rank bodies of the multi-rank CPU tests (tests/test_torch_mappings.py,
-tests/test_torch_distributed.py) and the runner that starts them.
+tests/test_torch_distributed.py, tests/test_torch_dist_reuse.py) and the
+runner that starts them.
 
 :func:`run_ranks` starts ``world`` Python processes of this file, each a
 gloo rank on the CPU: they meet through a ``file://`` store under the
@@ -11,10 +12,10 @@ it kills every rank and fails, so a hung collective fails its test
 instead of stalling the suite.
 
 A rank body is ``body(mesh, rank, world, **args) -> {name: array}``; it
-imports neither jax nor repro. :func:`repro_reference` is the one
-function here that runs ``repro`` (in its own process, on forced host
-devices); it writes the reference that the 4-rank mapping body is held
-against.
+imports neither jax nor repro. :func:`repro_reference` and
+:func:`repro_reuse_reference` are the functions here that run ``repro``
+(each in its own process, on forced host devices); they write the
+references that the 4-rank mapping and reuse bodies are held against.
 """
 from __future__ import annotations
 
@@ -462,6 +463,207 @@ def overflow(mesh, rank, world, inp):
 
 
 # --------------------------------------------------------------------------
+# The reuse cadence and DLB on the slab mesh
+# --------------------------------------------------------------------------
+
+REUSE_MD_STEPS = 12
+#: MD reuse cases: name -> (overlap, skin). At skin 0.06 the ghost band
+#: (r_cut 0.18 + skin) fits a 0.25-wide slab, one hop: the split-phase
+#: update steps; at the default skin (r_cut / 2) it needs two hops, where
+#: the step runs the blocking schedule.
+MD_REUSE_CASES = {"ov1": (True, 0.06), "ov0": (False, 0.06),
+                  "hop2": (True, None)}
+REUSE_SPH_STEPS = 8
+REUSE_DEM_STEPS = 20
+DLB_BUCKET = 128       # map() buckets of the rebalance check
+#: probe runs: name -> (scenario, steps, reuse)
+PROBE_RUNS = {"boundary": ("boundary", 6, "skin"),
+              "fast_skin": ("fast", 10, "skin"),
+              "fast_update": ("fast", 10, "update")}
+DLB_STEPS = 10         # sph.run_distributed steps (threshold trigger)
+DLB_GAP = 4            # its min_rebalance_gap
+SAR_STEPS = 6          # sph.run_distributed steps with SAR on
+
+
+def md_reuse_config(md):
+    """benchmarks/dist_common.md_config(n_per_side=6, sigma=0.06) (either
+    package's module ``md``) with cell_cap 16: tests/distributed/
+    test_dist_reuse.py's 64 makes the plain pair pass 16x slower on the
+    CPU, and the skin grid's cells (>= 0.24, lattice spacing 1/6) hold at
+    most 8 particles; the cell flag holds it."""
+    return dataclasses.replace(
+        md.MDConfig(n_per_side=6, sigma=0.06, dt=0.0005), cell_cap=16,
+        **({"device": "cpu"} if "device" in md.MDConfig.__dataclass_fields__
+           else {}))
+
+
+def sph_reuse_config(sph):
+    """benchmarks/dist_common.sph_config() on the CPU (cell_cap 64: the
+    skin grid's cells are r_cut + skin wide)."""
+    return sph.SPHConfig(dp=0.05, box=(1.2, 0.6), fluid=(0.25, 0.25),
+                         device="cpu")
+
+
+def dem_reuse_config(dem):
+    """benchmarks/dist_common.dem_config() on the CPU, cell_cap 12 (at
+    skin = cfg.skin the reuse cells are 0.16 wide, 3 along the periodic
+    y axis)."""
+    return dem.DEMConfig(box=(2.4, 0.6, 1.0), fill=(2.0, 0.66, 0.5),
+                         cell_cap=12, device="cpu")
+
+
+def _load_state(path, rank, world):
+    from repro_torch import convert
+    z = dict(np.load(path))
+    props = {k[2:]: z[k] for k in z if k.startswith("p_")}
+    return convert.dist_state_from_numpy(z["x"], z["valid"], props,
+                                         z["bounds"], rank, world,
+                                         device="cpu")
+
+
+def _steps(step, st, n, extras_at=None):
+    """``n`` steps; (state, stale flags, worst error flag)."""
+    stales, worst = [], 0
+    for i in range(n):
+        st, flags, _ = step(st, extras_at(i) if extras_at else {})
+        stales.append(int(flags.stale))
+        worst = max(worst, int(flags.any()))
+    return st, np.asarray(stales, np.int32), np.int32(worst)
+
+
+def reuse_dlb(mesh, rank, world, dlb_in, md_in, probe_in, dem_in):
+    """The reuse cadence and DLB on the slab mesh: ``make_rebalance`` of
+    ``dlb_in``; REUSE_MD_STEPS MD steps from ``md_in`` every step and
+    under reuse="skin" (overlap on and off); the SPH dam break every step
+    and under reuse; the probe runs of PROBE_RUNS from ``probe_in``; DEM
+    every step and under reuse from ``dem_in`` (the contact cache per
+    step); ``sph.run_distributed`` with a threshold trigger (reuse off and
+    on) and with SAR on, each rank sleeping its own time a step."""
+    import time
+    from _torch_bridge import ProbeCfg, probe_physics
+    from repro_torch.apps import dem, md, sph
+    from repro_torch.core import simulation as SIM
+    out = {}
+    cfg = md_reuse_config(md)
+    st, ovf = SIM.make_rebalance(md.physics, cfg, mesh,
+                                 bucket_cap=DLB_BUCKET)(
+        _load_state(dlb_in, rank, world))
+    out.update(_ps_arrays("rb_", st.ps))
+    out["rb_bounds"], out["rb_ovf"] = _np(st.bounds), _np(ovf)
+
+    st0 = _load_state(md_in, rank, world)
+    st, _, out["md_full_worst"] = _steps(
+        SIM.make_sim_step(md.physics, cfg, mesh), st0, REUSE_MD_STEPS)
+    out.update(_ps_arrays("md_full_", st.ps))
+    for name, (overlap, skin) in MD_REUSE_CASES.items():
+        step = SIM.make_sim_step(md.physics, cfg, mesh, reuse="skin",
+                                 overlap=overlap, skin=skin)
+        rs = SIM.reuse_state(st0, md.physics, cfg, mesh, overlap=overlap,
+                             skin=skin)
+        rs, out[f"md_{name}_stale"], out[f"md_{name}_worst"] = _steps(
+            step, rs, REUSE_MD_STEPS)
+        out.update(_ps_arrays(f"md_{name}_", rs.inner.ps))
+
+    scfg = sph_reuse_config(sph)
+    st0 = SIM.distribute(sph.init_dam_break(scfg, capacity_factor=1.05),
+                         sph.physics, scfg, mesh)
+    ex = lambda i: {"euler": i % scfg.verlet_reset == 0}
+    st, _, out["sph_full_worst"] = _steps(
+        SIM.make_sim_step(sph.physics, scfg, mesh), st0, REUSE_SPH_STEPS, ex)
+    out.update(_ps_arrays("sph_full_", st.ps))
+    rs = SIM.reuse_state(st0, sph.physics, scfg, mesh)
+    rs, out["sph_reuse_stale"], out["sph_reuse_worst"] = _steps(
+        SIM.make_sim_step(sph.physics, scfg, mesh, reuse="skin"), rs,
+        REUSE_SPH_STEPS, ex)
+    out.update(_ps_arrays("sph_reuse_", rs.inner.ps))
+
+    from repro_torch import convert
+    z = dict(np.load(probe_in))
+    pcfg = ProbeCfg()
+    skin = float(z["skin"])
+    for name, (scenario, n, reuse) in PROBE_RUNS.items():
+        ps0 = convert.particles_from_numpy(
+            z[f"{scenario}_x"], z[f"{scenario}_valid"],
+            {"u": z[f"{scenario}_u"], "nc": z[f"{scenario}_nc"]},
+            device="cpu")
+        st0 = SIM.distribute(ps0, probe_physics, pcfg, mesh, cap_per_dev=8)
+        step = SIM.make_sim_step(probe_physics, pcfg, mesh, reuse=reuse,
+                                 skin=skin)
+        rs = SIM.reuse_state(st0, probe_physics, pcfg, mesh, skin=skin)
+        stales, nc, ids, worst = [], [], [], 0
+        for _ in range(n):
+            rs, flags, _ = step(rs, {})
+            stales.append(int(flags.stale))
+            worst = max(worst, int(flags.any()))
+            ps = rs.inner.ps
+            nc.append(_np(_valid_or(ps, ps.props["nc"], 0.0)))
+            ids.append(_np(_valid_or(ps, ps.props["id"], -1)))
+        out[f"probe_{name}_stale"] = np.asarray(stales, np.int32)
+        out[f"probe_{name}_nc"], out[f"probe_{name}_id"] = (np.stack(nc),
+                                                           np.stack(ids))
+        out[f"probe_{name}_worst"] = np.int32(worst)
+
+    dcfg = dem_reuse_config(dem)
+    st0 = _load_state(dem_in, rank, world)
+    st, _, out["dem_full_worst"] = _steps(
+        SIM.make_sim_step(dem.physics, dcfg, mesh), st0, REUSE_DEM_STEPS)
+    out.update(_ps_arrays("dem_full_", st.ps))
+    step = SIM.make_sim_step(dem.physics, dcfg, mesh, reuse="skin",
+                             skin=dcfg.skin)
+    rs = SIM.reuse_state(st0, dem.physics, dcfg, mesh, skin=dcfg.skin)
+    stales, xb, ok, worst = [], [], [], 0
+    for _ in range(REUSE_DEM_STEPS):
+        rs, flags, _ = step(rs, {})
+        stales.append(int(flags.stale))
+        worst = max(worst, int(flags.any()))
+        xb.append(_np(rs.cache.phys["ct_xb"]))
+        ok.append(bool(rs.cache.phys["ct_ok"]))
+    out["dem_reuse_stale"], out["dem_reuse_worst"] = (
+        np.asarray(stales, np.int32), np.int32(worst))
+    out["dem_reuse_xb"], out["dem_reuse_ok"] = np.stack(xb), np.asarray(ok)
+    out.update(_ps_arrays("dem_reuse_", rs.inner.ps))
+
+    for reuse in (None, "skin"):
+        ps, t, n_reb, imb = sph.run_distributed(
+            scfg, DLB_STEPS, mesh, world, use_sar=False, imb_threshold=0.3,
+            min_rebalance_gap=DLB_GAP, reuse=reuse)
+        key = f"dlb_{reuse or 'none'}_"
+        out.update(_ps_arrays(key, ps))
+        out[key + "t"], out[key + "n_reb"] = np.float64(t), np.int32(n_reb)
+        out[key + "imb"] = np.asarray(imb)
+
+    def slow_factory(w):
+        inner = SIM.make_sim_step(sph.physics, scfg, mesh, interior_rows=w)
+        calls = [0]
+
+        def step(state, extras):
+            calls[0] += 1
+            time.sleep(0.01 * calls[0])         # growing walls: SAR rises
+            return inner(state, extras)
+
+        return step
+
+    # each rank's clock runs at its own rate, so its own wall times differ
+    # from every other rank's however the collectives line the ranks up
+    real = time.perf_counter
+    time.perf_counter = lambda: real() * (1 + rank)
+    try:
+        _, _, n_reb, imb = sph.run_distributed(
+            scfg, SAR_STEPS, mesh, world, use_sar=True, imb_threshold=10.0,
+            _make_step=slow_factory)
+    finally:
+        time.perf_counter = real
+    out["sar_n_reb"], out["sar_imb"] = np.int32(n_reb), np.asarray(imb)
+    return out
+
+
+def _valid_or(ps, a, fill):
+    """``a`` where the particle is valid, ``fill`` elsewhere."""
+    import torch
+    return torch.where(ps.valid, a, torch.full_like(a, fill))
+
+
+# --------------------------------------------------------------------------
 # repro's side of the 4-rank mapping check (its own process)
 # --------------------------------------------------------------------------
 
@@ -525,6 +727,49 @@ def repro_reference(inp: str, md_in: str, out: str) -> None:
     res.update({"md_x": state.ps.x, "md_valid": state.ps.valid,
                 "md_worst": np.int32(worst)})
     res.update({f"md_p_{k}": v for k, v in state.ps.props.items()})
+    np.savez(out, **{k: np.asarray(v) for k, v in res.items()})
+
+
+def repro_reuse_reference(dlb_in: str, md_in: str, out: str) -> None:
+    """On 4 of the forced host devices: repro's ``make_rebalance`` of
+    ``dlb_in`` (md_reuse_config's physics, bucket_cap DLB_BUCKET) and
+    REUSE_MD_STEPS reuse="skin" MD steps (MD_REUSE_CASES' "ov1") from
+    ``md_in``; the global arrays go to ``out``."""
+    import jax.numpy as jnp
+    sys.path.insert(0, str(ROOT))
+    from benchmarks import dist_common as DC
+    from repro.apps import md
+    from repro.core import simulation as SIM
+    from repro.core.particles import ParticleSet
+    mesh = DC.make_submesh(4)
+
+    def load(path):
+        z = dict(np.load(path))
+        props = {k[2:]: jnp.asarray(z[k]) for k in z if k.startswith("p_")}
+        ps = DC.shard_over(ParticleSet(x=jnp.asarray(z["x"]), props=props,
+                                       valid=jnp.asarray(z["valid"])), mesh)
+        return SIM.DistributedParticles(ps=ps, bounds=jnp.asarray(
+            z["bounds"]))
+
+    cfg = md_reuse_config(md)
+    st, ovf = SIM.make_rebalance(md.physics, cfg, mesh, axis_name=AXIS,
+                                 bucket_cap=DLB_BUCKET)(load(dlb_in))
+    res = {"rb_x": st.ps.x, "rb_valid": st.ps.valid, "rb_ovf": ovf,
+           "rb_bounds": st.bounds}
+    res.update({f"rb_p_{k}": v for k, v in st.ps.props.items()})
+    overlap, skin = MD_REUSE_CASES["ov1"]
+    step = SIM.make_sim_step(md.physics, cfg, mesh, axis_name=AXIS,
+                             reuse="skin", overlap=overlap, skin=skin)
+    rs = SIM.reuse_state(load(md_in), md.physics, cfg, mesh,
+                         axis_name=AXIS, overlap=overlap, skin=skin)
+    stales = []
+    for _ in range(REUSE_MD_STEPS):
+        rs, flags, _ = step(rs, {})
+        assert int(flags.any()) == 0
+        stales.append(int(flags.stale))
+    res.update({"md_x": rs.inner.ps.x, "md_valid": rs.inner.ps.valid,
+                "md_id": rs.inner.ps.props["id"],
+                "md_stale": np.asarray(stales, np.int32)})
     np.savez(out, **{k: np.asarray(v) for k, v in res.items()})
 
 
@@ -606,10 +851,105 @@ def nccl_md(n_steps: int = 10) -> None:
     torch.distributed.destroy_process_group()
 
 
+def nccl_reuse(n_steps: int = 12) -> None:
+    """The reuse cadence and DLB over NCCL on every rank of the process
+    group (one card per rank): the MD reuse slab step (overlap on and
+    off) against the serial step on the same card, x and v by id within
+    1e-4 (the gathered state), zero flags, the cold step full and some
+    update step; ``make_rebalance`` of the dam break's start moving the
+    bounds off uniform; ``sph.run_distributed`` with the threshold
+    trigger (reuse off and on) rebalancing, within 1e-4 of the serial
+    steps by id. Raises on a mismatch."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import convert
+    from repro_torch.apps import md, sph
+    from repro_torch.core import dlb
+    from repro_torch.core import runtime as RT
+    from repro_torch.core import simulation as SIM
+    world = RT.device_count()
+    mesh = RT.make_mesh((world,), (AXIS,), device_type="cuda")
+    rank = torch.distributed.get_rank()
+
+    def check_by_id(block, ref, keys, what):
+        g = convert.gather_dist_state(SIM.DistributedParticles(
+            ps=block, bounds=ref.x.new_zeros(2)), mesh, AXIS).ps
+        val = g.valid
+        assert int(val.sum()) == int(ref.valid.sum()), what
+        ids = g.props["id"][val].long()
+        by_id = {}
+        for k in keys:
+            b = ref.x if k == "x" else ref.props[k]
+            full = torch.zeros_like(b)
+            full[ref.props["id"][ref.valid].long()] = b[ref.valid]
+            by_id[k] = full
+        for k in keys:
+            a = g.x if k == "x" else g.props[k]
+            err = float((a[val] - by_id[k][ids]).abs().max())
+            assert err <= 1e-4, (what, k, err)
+
+    cfg = md.MDConfig(n_per_side=16, sigma=0.03, dt=0.0005, cell_cap=32,
+                      device="cuda")
+    rng = np.random.default_rng(0)
+    v = (0.3 * rng.standard_normal((cfg.n_particles, 3))).astype(np.float32)
+    ps0 = SIM.with_ids(md.init_particles(cfg, capacity=cfg.n_particles)
+                       .with_prop("v", torch.from_numpy(v).cuda()))
+    ref = ps0
+    for _ in range(n_steps):
+        ref, ovf = md.md_step(ref, cfg)
+        assert int(ovf) == 0
+    for overlap in (True, False):
+        st = SIM.distribute(ps0, md.physics, cfg, mesh)
+        step = SIM.make_sim_step(md.physics, cfg, mesh, reuse="skin",
+                                 overlap=overlap)
+        rs = SIM.reuse_state(st, md.physics, cfg, mesh, overlap=overlap)
+        stale = []
+        for _ in range(n_steps):
+            rs, flags, _ = step(rs, {})
+            assert int(flags.any()) == 0, flags
+            stale.append(int(flags.stale))
+        assert stale[0] == 1 and 0 in stale, stale
+        check_by_id(rs.inner.ps, ref, ("x", "v"), f"MD reuse {overlap}")
+        if rank == 0:
+            print(f"{world} cards, MD reuse slab step overlap={overlap}: "
+                  f"stale {stale}, within 1e-4 of md_step", flush=True)
+
+    scfg = sph.SPHConfig(dp=0.05, box=(1.2, 0.6), fluid=(0.25, 0.25),
+                         device="cuda")
+    ps0 = SIM.with_ids(sph.init_dam_break(scfg, capacity_factor=1.05))
+    st = SIM.distribute(ps0, sph.physics, scfg, mesh)
+    st2, ovf = SIM.make_rebalance(sph.physics, scfg, mesh)(st)
+    uniform = dlb.uniform_bounds(world, 0.0, scfg.box[0], device="cuda")
+    assert int(ovf) == 0 and (world == 1 or not torch.allclose(
+        st2.bounds, uniform)), st2.bounds
+    sref = SIM.serial_state(ps0, sph.physics, scfg)
+    serial = SIM.make_sim_step(sph.physics, scfg)
+    for i in range(10):
+        sref, flags, _ = serial(sref, {"euler": i % scfg.verlet_reset == 0})
+        assert int(flags.any()) == 0
+    for reuse in (None, "skin"):
+        ps, t, n_reb, imb = sph.run_distributed(
+            scfg, 10, mesh, world, use_sar=False, imb_threshold=0.3,
+            min_rebalance_gap=4, reuse=reuse)
+        assert world == 1 or (n_reb >= 1 and imb[-1] < imb[0]), (n_reb, imb)
+        check_by_id(ps, sref.ps, ("x", "v"), f"SPH DLB reuse={reuse}")
+        if rank == 0:
+            print(f"{world} cards, sph.run_distributed reuse={reuse}: "
+                  f"{n_reb} rebalances, imbalance {imb[0]:.3f} -> "
+                  f"{imb[-1]:.3f}, bounds after make_rebalance "
+                  f"{[round(b, 4) for b in st2.bounds.tolist()]}; within "
+                  "1e-4 of the serial steps", flush=True)
+    torch.distributed.destroy_process_group()
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "--repro":
         repro_reference(*sys.argv[2:5])
+    elif sys.argv[1] == "--repro-reuse":
+        repro_reuse_reference(*sys.argv[2:5])
     elif sys.argv[1] == "--nccl-md":
         nccl_md()
+    elif sys.argv[1] == "--nccl-reuse":
+        nccl_reuse()
     else:
         _main(sys.argv)

@@ -369,12 +369,12 @@ def test_make_mesh_cuda_raises_without_card(monkeypatch):
         RT.make_mesh((1,), (TD.AXIS,), device_type="tpu")
 
 
-def _nccl_md(launcher, timeout):
+def _nccl_md(launcher, timeout, what="--nccl-md"):
     env = dict(os.environ, PYTHONPATH=str(TD.ROOT / "src"))
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
               "MASTER_PORT"):
         env.pop(k, None)
-    r = subprocess.run(launcher + [TD.__file__, "--nccl-md"], cwd=TD.ROOT,
+    r = subprocess.run(launcher + [TD.__file__, what], cwd=TD.ROOT,
                        env=env, capture_output=True, text=True,
                        timeout=timeout)
     print(r.stdout[-3000:])
@@ -403,3 +403,17 @@ def test_four_card_nccl_md_step_matches_serial():
                     f"{torch.cuda.device_count()})")
     _nccl_md([sys.executable, "-m", "torch.distributed.run", "--standalone",
               "--nproc_per_node=4"], 900)
+
+
+@pytest.mark.gpu
+def test_four_card_nccl_reuse_and_dlb_match_serial():
+    """The reuse cadence and DLB on 4 cards, one NCCL rank each under
+    torchrun: the MD reuse slab step (overlap on and off) within 1e-4 of
+    the serial step by id, and sph.run_distributed with the threshold
+    trigger, whose rebalance moves the bounds off uniform, within 1e-4 of
+    the serial steps (tests/_torch_dist.py --nccl-reuse)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA cards (torch.cuda.device_count() is "
+                    f"{torch.cuda.device_count()})")
+    _nccl_md([sys.executable, "-m", "torch.distributed.run", "--standalone",
+              "--nproc_per_node=4"], 900, "--nccl-reuse")

@@ -115,30 +115,29 @@ def test_serial_flags_match(cell_cap):
 
 
 def test_unported_engine_options_raise():
-    """The engine options of ROADMAP A14b raise: the reuse cadence on a
-    mesh, a 2-D (pencil) mesh, make_rebalance. The serial step ignores
-    the mesh options (overlap, n_hops), as repro's does, and Reduce takes
-    an axis name."""
-    from repro_torch.core import runtime as TRT
+    """The engine options of ROADMAP A14b-4 raise: a 2-D (pencil) mesh in
+    make_sim_step (with or without reuse), reuse_state and
+    make_rebalance. The serial step ignores the mesh options (overlap,
+    n_hops), as repro's does, and Reduce takes an axis name."""
 
     class Pencil:
-        """What make_sim_step reads of a 2-D (1, 2) mesh."""
+        """What the engine reads of a 2-D (1, 2) mesh."""
         mesh_dim_names = ("rows", "cols")
 
         def size(self, i):
             return (1, 2)[i]
 
     tcfg = tmd.MDConfig(n_per_side=3, device="cpu")
-    mesh = TRT.make_mesh((1,), ("shards",), device_type="cpu")
     pencil = Pencil()
-    for kw in (dict(mesh=mesh, reuse="skin"),
-               dict(mesh=pencil, axis_name=("rows", "cols"))):
+    axes = ("rows", "cols")
+    for kw in (dict(mesh=pencil, axis_name=axes),
+               dict(mesh=pencil, axis_name=axes, reuse="skin")):
         with pytest.raises(NotImplementedError, match="A14b"):
             TSIM.make_sim_step(tmd.physics, tcfg, **kw)
     with pytest.raises(NotImplementedError, match="A14b"):
-        TSIM.make_rebalance(tmd.physics, tcfg, mesh)
+        TSIM.make_rebalance(tmd.physics, tcfg, pencil, axis_name=axes)
     with pytest.raises(NotImplementedError, match="A14b"):
-        TSIM.reuse_state(None, tmd.physics, tcfg, mesh)
+        TSIM.reuse_state(None, tmd.physics, tcfg, pencil, axis_name=axes)
     serial = TSIM.make_sim_step(tmd.physics, tcfg)
     for kw in (dict(overlap=False), dict(n_hops=2)):
         assert TSIM.make_sim_step(tmd.physics, tcfg, **kw) is serial

@@ -158,7 +158,7 @@ def test_sph_scalars_from_engine():
 
 def test_sph_kernel_body_carries_its_functor():
     """The pair body names the SPH functor with its 12 params in the
-    functor's order; run_distributed is not in this port yet."""
+    functor's order."""
     cfg = tsph.SPHConfig(dim=3, dp=0.006, box=(1.6, 0.67, 0.4),
                          fluid=(0.4, 0.6, 0.3), cell_cap=128, device="cpu")
     body = tsph.sph_pair_body(cfg)
@@ -169,5 +169,3 @@ def test_sph_kernel_body_carries_its_functor():
                                 -cfg.alpha * cfg.c_sound, -cfg.mass,
                                 cfg.mass)
     assert len(body.cuda_params) == TCP.KINDS["sph"].n_params
-    with pytest.raises(NotImplementedError, match="A14"):
-        tsph.run_distributed(cfg, 1, None, 4)
