@@ -177,12 +177,28 @@ Phases, each of which raises (non-zero exit) on failure:
      ``reuse="skin"``, within 1e-4 of 10 serial steps by id; (j)
      ``vortex.run_distributed(auto_reprovision=True)`` at 800 x 200 x 200
      for 2 steps: no overflow, no redo, within 1e-4 of (f)'s field (B3's
-     fp32 atomics need not sum alike in two runs). The ``kernels`` line's
+     fp32 atomics need not sum alike in two runs); (k) phase 14a's fleet
+     (64 MD members x 32,768) on a 1-rank ("fleet",) mesh:
+     ``shard_ensemble`` and the meshed fleet step, 20 steps, one B1
+     launch a step, bit-equal to the unmeshed fleet step, ms/step beside
+     it; (l) phase 14b's server (16 slots, 48 requests, the same budgets)
+     on that mesh: one step signature, every result equal to 14b's bit
+     for bit, wall and fleet steps beside 14b's; (m) ``ps_cma_es_torch``
+     at 1,024 instances x d 50 for 10 generations (migration every 5),
+     unmeshed and meshed: the best bit-equal, generations/s of each; (n)
+     the pencil builders on a 1 x 1 ("rows", "cols") mesh (at world 1
+     ``make_sim_step`` routes one column to the slab step), both seams
+     the periodic ±L images: the MD pencil step at 216,000 particles for
+     20 steps within 1e-4 of ``md_step`` by id, one B1 launch a step,
+     ms/step beside ``md_step`` and (c)'s, idle share; the pencil Poisson
+     solve at 800 x 200 x 200 within 2e-5 of the slab solve; 2 pencil VIC
+     steps within 1e-4 of (f)'s field. The ``kernels`` line's
      ``cell_pair_lj``, ``_sph``, ``_dem``, ``m4_p2m`` and ``m4_m2p``
      entries carry ``launches_dist`` (their launches in (c)-(f)) and
      ``launches_dist_reuse`` (in (g)-(j): LJ in (g), DEM in (h), SPH in
-     (i), M'4 in (j)). The process group is destroyed before the last
-     line.
+     (i), M'4 in (j)); the three B1 entries carry ``launches_dist_fleet``
+     ((k) and (l)) and ``launches_pencil`` ((n)). The process group is
+     destroyed before the last line.
 
 It prints a ``{"kernels": [...]}`` line and, as its last line,
 ``{"ok": true, "device": {...}}``. It exits non-zero without a result when
@@ -390,6 +406,16 @@ DIST_DEM_REUSE_STEPS = 10
 DLB_STEPS = 10
 DLB_GAP = 5           # min_rebalance_gap: rebalances at steps 0 and 5
 SPH_REUSE_CELL_CAP = 256
+# 17k-17n: the sharded fleet, server and PS-CMA-ES on a 1-rank ("fleet",)
+# mesh (phases 14-15's sizes; 17m cuts phase 15's 200 generations to
+# CMA_MESH_GENS, run twice), and the pencil builders on a 1 x 1 mesh at
+# the serial phases' sizes.
+CMA_MESH_GENS = 10
+CMA_MESH_MIGRATE = 5
+PENCIL = ("rows", "cols")
+PEN_MD_STEPS = 20
+PEN_VIC_STEPS = 2
+POISSON_TOL = 2e-5    # tests/distributed/test_dist_pencil.py
 
 
 def time_cuda(fn, iters: int, warmup: int = 2) -> float:
@@ -2432,7 +2458,9 @@ def fleet_server_phase(md, CP, cfg, states):
     MD requests (budgets from a seeded numpy generator) with one step
     signature; sampled results equal their serial runs bit for bit;
     results stream to build/fleet_results with no .tmp left, and one
-    loads back exactly. Returns the B1 launches (one per fleet step)."""
+    loads back exactly. Returns the B1 launches (one per fleet step) and
+    what 17l holds the meshed server to (the results by rid, the
+    budgets, the fleet steps and wall time)."""
     import shutil
     from repro_torch.core import simulation as SIM
     from repro_torch.fleet import FleetServer, SimRequest
@@ -2491,7 +2519,8 @@ def fleet_server_phase(md, CP, cfg, states):
           "sampled results equal their serial runs bit for bit, no .tmp, "
           "result 5 loads back exactly")
     print(json.dumps(srv.metrics.snapshot()))
-    return steps
+    return steps, dict(results={r.rid: r for r in results}, budgets=budgets,
+                       steps14b=steps, wall14b=wall)
 
 
 def fleet_sph_phase(S, CP):
@@ -3363,10 +3392,242 @@ def dist_vic_reprovision_phase(V, K, vcfg, mesh, w17f):
     return launches
 
 
-def slab_phase(md, cfg, md_ps, vcfg, md_reuse_ms):
-    """Phase 17: the 1-D slab layer on the card at world 1 over NCCL.
-    Returns the ``launches_dist`` and ``launches_dist_reuse`` of each
-    kernel entry."""
+def dist_fleet_phase(md, RT, CP, fleet):
+    """17k: phase 14a's fleet (FLEET_B MD members) on a ("fleet",) mesh:
+    ``shard_ensemble`` + the meshed fleet step for FLEET_STEPS steps, one
+    B1 launch a step, bit-equal to as many unmeshed fleet steps from the
+    same members; ms/step beside the unmeshed step's in this call.
+    Returns (the launches, the fleet mesh)."""
+    from repro_torch.fleet import batch as FB
+    cfg, states = fleet["cfg"], fleet["states"]
+    fmesh = RT.make_mesh((1,), ("fleet",), device_type="cuda")
+    ens = FB.stack_members(states)
+    local = FB.shard_ensemble(ens, fmesh)
+    step = FB.make_fleet_step(md.physics, cfg, fmesh)
+    plain = FB.make_fleet_step(md.physics, cfg)
+    reset_b1_counts(CP)
+    for _ in range(FLEET_STEPS):
+        local, flags, _ = step(local, {})
+    torch.cuda.synchronize()
+    check_b1_launches(CP, "lj", FLEET_STEPS)
+    launches = CP.LAUNCHES_BY_KIND["lj"]
+    if int(flags.any().max()) != 0 or flags.cell.shape != (FLEET_B,):
+        raise RuntimeError(f"17k meshed fleet flags {flags}")
+    for _ in range(FLEET_STEPS):
+        ens, _, _ = plain(ens, {})
+    held_equal("17k meshed fleet x", local.member.ps.x, ens.member.ps.x)
+    held_equal("17k meshed fleet v", local.member.ps.props["v"],
+               ens.member.ps.props["v"])
+    box = {"meshed": local, "unmeshed": ens}
+
+    def run(name, fn):
+        def one():
+            box[name], _, _ = fn(box[name], {})
+        return one
+
+    ms = {name: time_cuda(run(name, fn), iters=10)
+          for name, fn in (("unmeshed", plain), ("meshed", step))}
+    print(f"17k meshed fleet: {FLEET_B} members x {cfg.n_particles} "
+          f"particles on a 1-rank ('fleet',) mesh, {FLEET_STEPS} steps, "
+          f"{launches} B1-LJ launches (one a step), bit-equal to the "
+          f"unmeshed fleet step in x and v; ms/step (CUDA events): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+    return launches, fmesh
+
+
+def dist_server_phase(md, CP, fleet, fmesh):
+    """17l: phase 14b's FleetServer (FLEET_SLOTS slots, FLEET_REQUESTS
+    requests, the same budgets) on the ("fleet",) mesh: one step
+    signature, every result equal to 14b's bit for bit, every result
+    streamed by its owner; wall and fleet steps beside 14b's. Returns the
+    B1 launches."""
+    import shutil
+    from repro_torch.fleet import FleetServer, SimRequest
+    cfg, states, budgets = fleet["cfg"], fleet["states"], fleet["budgets"]
+    out = ROOT / "build" / "fleet_results_mesh"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    srv = FleetServer(md.physics, cfg, n_slots=FLEET_SLOTS,
+                      template=states[0], mesh=fmesh, out_dir=str(out),
+                      queue_cap=FLEET_REQUESTS)
+    for rid in range(FLEET_REQUESTS):
+        srv.submit(SimRequest(rid=rid, state=states[rid],
+                              n_steps=int(budgets[rid])))
+    reset_b1_counts(CP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with srv:
+        results = srv.run()
+    wall = time.perf_counter() - t0
+    steps = srv.metrics.fleet_steps
+    check_b1_launches(CP, "lj", steps)
+    if srv.step_cache_size() != 1:
+        raise RuntimeError(f"17l step_cache_size {srv.step_cache_size()}")
+    if sorted(r.rid for r in results) != list(range(FLEET_REQUESTS)):
+        raise RuntimeError("17l: the meshed server lost requests")
+    ref = fleet["results"]
+    for r in results:
+        held_equal(f"17l request {r.rid} x", r.state.ps.x,
+                   ref[r.rid].state.ps.x)
+        held_equal(f"17l request {r.rid} v", r.state.ps.props["v"],
+                   ref[r.rid].state.ps.props["v"])
+        if r.flags_max != ref[r.rid].flags_max:
+            raise RuntimeError(f"17l request {r.rid}: flags differ")
+    if (len(list(out.iterdir())) != FLEET_REQUESTS
+            or list(out.glob("*.tmp"))):
+        raise RuntimeError("17l: not every result was streamed out")
+    print(f"17l meshed server: {FLEET_REQUESTS} requests through "
+          f"{FLEET_SLOTS} slots in {steps} fleet steps, {wall:.3f} s "
+          f"(14b: {fleet['steps14b']} steps, {fleet['wall14b']:.3f} s), "
+          f"step_cache_size 1, {steps} B1-LJ launches, every result equal "
+          "to 14b's bit for bit and streamed, no .tmp")
+    return steps
+
+
+def dist_cmaes_phase(fmesh):
+    """17m: ps_cma_es_torch on phase 15's CMA_POP instances at d =
+    CMA_DIM for CMA_MESH_GENS generations (migration every
+    CMA_MESH_MIGRATE), unmeshed and with the population on the ("fleet",)
+    mesh: the best bit-equal (at world 1 the shard is the population);
+    generations/s of each (host clock, synced)."""
+    from repro_torch.apps import cmaes as C
+    lam = C.cma_consts(CMA_DIM)["lam"]
+    evals = CMA_MESH_GENS * CMA_POP * lam
+    runs = {}
+    for name, mesh in (("unmeshed", None), ("meshed", fmesh)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bf, bx, ev = C.ps_cma_es_torch(
+            C.rastrigin_t, CMA_DIM, CMA_POP, evals, seed=11,
+            migrate_every=CMA_MESH_MIGRATE, device="cuda", mesh=mesh)
+        runs[name] = (bf, bx, time.perf_counter() - t0)
+    (bf_u, bx_u, s_u), (bf_m, bx_m, s_m) = runs["unmeshed"], runs["meshed"]
+    bit = bf_u == bf_m and np.array_equal(bx_u, bx_m)
+    print(f"17m PS-CMA-ES, {CMA_POP} instances at d={CMA_DIM}, "
+          f"{CMA_MESH_GENS} generations (migration every "
+          f"{CMA_MESH_MIGRATE}): unmeshed {CMA_MESH_GENS / s_u:.3f} "
+          f"generations/s, meshed {CMA_MESH_GENS / s_m:.3f}; best "
+          f"{bf_u!r} and {bf_m!r}, "
+          + ("bit-equal" if bit else "NOT bit-equal"))
+    if not (bit and np.isfinite(bf_m)):
+        raise RuntimeError("17m: the meshed PS-CMA-ES differs at world 1")
+
+
+def pencil_phase(md, SIM, RT, CP, G, PS, V, cfg, mesh, vcfg, ms17c, w17f):
+    """17n: the pencil builders on a 1 × 1 ("rows", "cols") mesh (at
+    world 1 ``make_sim_step`` routes a one-column mesh to the slab step),
+    whose two seams are the periodic ±L images: the MD pencil step at
+    216,000 particles for PEN_MD_STEPS steps against ``md_step`` by id,
+    one B1 launch a step, ms/step beside ``md_step`` and 17c's slab
+    step, idle share; the pencil Poisson solve at 800 x 200 x 200
+    against the slab solve; PEN_VIC_STEPS pencil VIC steps against
+    17f's field. Returns the B1 launches."""
+    m11 = RT.make_mesh((1, 1), PENCIL, device_type="cuda")
+    spec = md.physics(cfg)
+    rc = float(spec.r_cut)
+    ps0, _ = md.run(cfg, 0, thermal_v=THERMAL_V, seed=0)
+    ps0 = SIM.with_ids(ps0)
+    ref = ps0
+    for _ in range(PEN_MD_STEPS):
+        ref, _ = md.md_step(ref, cfg)
+    # the column stage ships locals and row ghosts within rc of a column
+    # face: the row ghosts add 2 rc / L to the band
+    xy = ps0.x[ps0.valid][:, 1]
+    n_col = max(int((xy < rc).sum()), int((xy >= cfg.box - rc).sum()))
+    g_cap = max(ghost_cap_for(ps0, rc, 0.0, cfg.box),
+                int(GHOST_MARGIN * n_col * (1 + 2 * rc / cfg.box)) + 64)
+    st = SIM.distribute(ps0, md.physics, cfg, m11, axis_name=PENCIL,
+                        cap_per_dev=ps0.capacity)
+    step = SIM._make_sim_step_2d(md.physics, cfg, m11, *PENCIL, 0, None,
+                                 g_cap, None)
+    torch.cuda.reset_peak_memory_stats()
+    reset_b1_counts(CP)
+    st, worst, _ = dist_run(step, st, PEN_MD_STEPS)
+    check_b1_launches(CP, "lj", PEN_MD_STEPS)
+    launches = CP.LAUNCHES_BY_KIND["lj"]
+    errs = {k: by_id_err(st.ps, ref, k) for k in ("x", "v")}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if worst != 0 or not max(errs.values()) <= DIST_TOL:
+        raise RuntimeError(f"17n MD pencil step: flag {worst}, {errs}")
+    box = {"st": st}
+
+    def one():
+        box["st"], _, _ = step(box["st"], {})
+
+    ms = time_cuda(one, iters=10)
+    # device time from the profiler's kernels, as 17c's (the sleep-kernel
+    # bracket of time_device read 8.2 ms here, 3x the kernels' sum: the
+    # step's NCCL calls do not stay queued behind the sleep)
+    busy = profiled_ms(one, 5, "17n MD pencil step", top=6)
+    print(f"17n MD pencil step (1 x 1 mesh): {PEN_MD_STEPS} steps at "
+          f"{cfg.n_particles} particles, {launches} B1 launches (one a "
+          "step), worst flag 0, vs md_step by id: "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+          + f" (tol {DIST_TOL:g}); ghost_cap {g_cap}; {ms:.4f} ms/step "
+          f"(CUDA events) beside md_step {ms17c['md_step']:.4f} and 17c's "
+          f"slab step {ms17c['overlap']:.4f} (overlap) / "
+          f"{ms17c['blocking']:.4f} (blocking); device {busy:.4f} ms "
+          f"(torch.profiler), idle share {1 - busy / ms:.3f}; peak "
+          f"{peak:.2f} GiB")
+    del box, st, ref, ps0
+    torch.cuda.empty_cache()
+
+    w0 = V.project_divfree(V.init_ring(vcfg), vcfg)
+    rhs = -w0
+    with RT.on_mesh(m11):
+        u_pen = PS.fft_poisson_pencil_local(rhs, vcfg.lengths, *PENCIL)
+    with RT.on_mesh(mesh):
+        u_slab = PS.fft_poisson_slab_local(rhs, vcfg.lengths, AXIS)
+    rel = float((u_pen - u_slab).abs().max()) / float(u_slab.abs().max())
+    del u_pen, u_slab
+
+    def solve(fn, m, *names):
+        def run():
+            with RT.on_mesh(m):
+                fn(rhs, vcfg.lengths, *names)
+        return run
+
+    p_ms = time_cuda(solve(PS.fft_poisson_pencil_local, m11, *PENCIL),
+                     iters=3, warmup=1)
+    s_ms = time_cuda(solve(PS.fft_poisson_slab_local, mesh, AXIS), iters=3,
+                     warmup=1)
+    print(f"17n pencil Poisson (two transposes each way) at {VIC_SHAPE} x "
+          f"3: rel {rel:.3e} against the slab solve (tol {POISSON_TOL:g}); "
+          f"{p_ms:.3f} ms beside the slab solve's {s_ms:.3f} (CUDA events)")
+    if not rel <= POISSON_TOL:
+        raise RuntimeError("17n: the pencil Poisson solve differs")
+    del rhs
+    torch.cuda.empty_cache()
+
+    vstep = V._make_pencil_vic_step(m11, vcfg, *PENCIL)
+    f = G.distribute_field2(w0, m11, *PENCIL)
+    del w0
+    torch.cuda.reset_peak_memory_stats()
+    total = torch.zeros((), dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PEN_VIC_STEPS):
+        f, ovf = vstep(f)
+        total = total + ovf
+    torch.cuda.synchronize()
+    ms_vic = (time.perf_counter() - t0) * 1e3 / PEN_VIC_STEPS
+    rel = float((f.data - w17f).abs().max()) / float(w17f.abs().max())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"17n pencil VIC step (1 x 1 mesh, core.interp's pencil block "
+          f"legs): {PEN_VIC_STEPS} steps at {VIC_SHAPE}, overflow "
+          f"{int(total)}, rel {rel:.3e} against 17f's field (tol "
+          f"{DIST_TOL:g}); {ms_vic:.2f} ms/step (host clock, synced); peak "
+          f"{peak:.2f} GiB")
+    if int(total) or not rel <= DIST_TOL:
+        raise RuntimeError("17n: the pencil VIC step failed")
+    return launches
+
+
+def slab_phase(md, cfg, md_ps, vcfg, md_reuse_ms, fleet):
+    """Phase 17: the 1-D slab layer on the card at world 1 over NCCL, then
+    (17k-17n) the sharded fleet and the pencil forms. Returns the
+    ``launches_dist``, ``launches_dist_reuse``, ``launches_dist_fleet``
+    and ``launches_pencil`` of each kernel entry."""
     import torch.distributed as dist
     from repro_torch.apps import dem as D
     from repro_torch.apps import gray_scott as GS
@@ -3410,8 +3671,24 @@ def slab_phase(md, cfg, md_ps, vcfg, md_reuse_ms):
     torch.cuda.empty_cache()
     vl = dist_vic_reprovision_phase(V, K, vcfg, mesh, w17f)
     reuse["m4_p2m"], reuse["m4_m2p"] = vl["p2m"], vl["m2p"]
+    torch.cuda.empty_cache()
+    from repro_torch.numerics import poisson as PS
+    t_phase = time.perf_counter()
+    n_fleet, fmesh = dist_fleet_phase(md, RT, CP, fleet)
+    n_fleet += dist_server_phase(md, CP, fleet, fmesh)
+    fleet.clear()
+    torch.cuda.empty_cache()
+    dist_cmaes_phase(fmesh)
+    torch.cuda.empty_cache()
+    phase_mark("17k-17m (sharded fleet, server, PS-CMA-ES)", t_phase)
+    t_phase = time.perf_counter()
+    n_pencil = pencil_phase(md, SIM, RT, CP, G, PS, V, cfg, mesh, vcfg,
+                            ms17c, w17f)
+    phase_mark("17n (pencil forms)", t_phase)
+    fl = {"cell_pair_lj": n_fleet}
+    pen = {"cell_pair_lj": n_pencil}
     dist.destroy_process_group()
-    return out, reuse
+    return out, reuse, fl, pen
 
 
 def main() -> int:
@@ -3641,7 +3918,9 @@ def main() -> int:
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     fcfg, fstates, fens, md_entry["launches_fleet"] = fleet_md_phase(md, CP)
-    md_entry["launches_server"] = fleet_server_phase(md, CP, fcfg, fstates)
+    md_entry["launches_server"], fleet = fleet_server_phase(md, CP, fcfg,
+                                                            fstates)
+    fleet.update(cfg=fcfg, states=fstates)   # 17k-17l reuse them
     del fstates
     torch.cuda.empty_cache()
     sph_entry["launches_fleet"] = fleet_sph_phase(S, CP)
@@ -3664,13 +3943,17 @@ def main() -> int:
     # -- phase 17: the 1-D slab layer at world 1 over NCCL ----------------------
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    dist_launches, reuse_launches = slab_phase(md, cfg, md_state, vcfg,
-                                               md_reuse_ms)
-    del md_state
+    dist_launches, reuse_launches, fleet_launches, pencil_launches = \
+        slab_phase(md, cfg, md_state, vcfg, md_reuse_ms, fleet)
+    del md_state, fleet
     for entry in [md_entry, sph_entry, dem_entry] + m4_entries:
         entry["launches_dist"] = dist_launches[entry["name"]]
         entry["launches_dist_reuse"] = reuse_launches[entry["name"]]
-    phase_mark("phase 17 (slab layer, NCCL world 1)", t_phase)
+    for entry in [md_entry, sph_entry, dem_entry]:
+        entry["launches_dist_fleet"] = fleet_launches.get(entry["name"], 0)
+        entry["launches_pencil"] = pencil_launches.get(entry["name"], 0)
+    phase_mark("phase 17 (slab layer, sharded fleet, pencil; NCCL world 1)",
+               t_phase)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, build "
           "included")
 

@@ -23,8 +23,12 @@ Two engines share this file, as in ``repro``:
     draw different numbers from one seed).
 
 CMA-ES has no TPU kernel: ``eigh`` and the products are library calls
-here, as ``repro`` leaves them to XLA. The mesh-sharded population is the
-multi-device layer (ROADMAP A14b).
+here, as ``repro`` leaves them to XLA. With a 1-D device mesh
+(``ps_cma_es_torch(mesh=)``) the population is sharded as the fleet is:
+rank ``d`` owns instances ``[d·B/ndev, (d+1)·B/ndev)``, each rank draws
+the whole population's samples from the same seeded generator and keeps
+its own rows (so the sharded run draws what the serial run draws), and
+:func:`migrate` spans the shards through the ``Reduce`` collectives.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import runtime as RT
 from repro_torch.core import simulation as SIM
 from repro_torch.core.particles import resolve_device
 
@@ -319,13 +324,17 @@ def cma_update(st: CMAStateT, z: torch.Tensor, f: Callable) -> CMAStateT:
 
 
 def cma_generation_t(st: CMAStateT, generator: torch.Generator, f: Callable,
-                     lam: Optional[int] = None) -> CMAStateT:
-    """Generator-threaded generation: draw ``z`` and :func:`cma_update`."""
+                     lam: Optional[int] = None,
+                     shard: Tuple[int, int] = (0, 1)) -> CMAStateT:
+    """Generator-threaded generation: draw ``z`` and :func:`cma_update`.
+    ``shard = (me, ndev)``: ``st`` is block ``me`` of a population sharded
+    ``ndev`` ways, and the whole population's ``z`` is drawn and this
+    block's rows kept."""
     n = st.mean.shape[-1]
     lam = cma_consts(n, lam)["lam"]
-    z = torch.randn((st.batch, lam, n), generator=generator,
+    z = torch.randn((st.batch * shard[1], lam, n), generator=generator,
                     dtype=torch.float32, device=st.mean.device)
-    return cma_update(st, z, f)
+    return cma_update(st, _block(z, shard), f)
 
 
 def _select(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor):
@@ -334,16 +343,28 @@ def _select(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor):
                        new, old)
 
 
+def _block(t: torch.Tensor, shard: Tuple[int, int]) -> torch.Tensor:
+    """Rows of block ``me`` of ``ndev`` equal blocks (``shard = (me,
+    ndev)``)."""
+    me, ndev = shard
+    bl = t.shape[0] // ndev
+    return t[me * bl:(me + 1) * bl]
+
+
 def restart_collapsed(st: CMAStateT, generator: torch.Generator, lo=-5.0,
-                      hi=5.0, sigma0: float = 2.0,
-                      tol: float = 1e-10) -> CMAStateT:
+                      hi=5.0, sigma0: float = 2.0, tol: float = 1e-10,
+                      shard: Tuple[int, int] = (0, 1)) -> CMAStateT:
     """Restart the sigma-collapsed instances (best-so-far survives), the
     select rendering of the numpy loop's restart branch. Fresh means are
     drawn for every instance, so the draws do not depend on which
-    collapsed."""
+    collapsed. ``shard = (me, ndev)``: ``st`` is block ``me`` of a
+    population sharded ``ndev`` ways, and the whole population's means
+    are drawn and this block's rows kept."""
     dead = st.sigma < tol
-    fresh = cma_init_t(generator, st.mean.shape[-1], st.batch, lo, hi,
-                       sigma0)
+    fresh = cma_init_t(generator, st.mean.shape[-1], st.batch * shard[1],
+                       lo, hi, sigma0)
+    fresh = CMAStateT(**{k: _block(getattr(fresh, k), shard)
+                         for k in CMAStateT.__dataclass_fields__})
     return CMAStateT(mean=_select(dead, fresh.mean, st.mean),
                      sigma=_select(dead, fresh.sigma, st.sigma),
                      C=_select(dead, fresh.C, st.C),
@@ -357,9 +378,10 @@ def migrate(pop: CMAStateT, red: SIM.Reduce) -> CMAStateT:
     """PS-coupling through the simulation-layer reductions: the globally
     best mean migrates into the globally worst instance (sigma re-excited
     to at least 0.5, covariance and paths reset) when it is worse —
-    :func:`ps_cma_es`'s swarm step as a batched rewrite. ``red`` is the
-    serial identity here; the meshed PS-CMA-ES round that spans shards
-    is ROADMAP A14b."""
+    :func:`ps_cma_es`'s swarm step as a batched rewrite. ``pop`` is this
+    rank's block; with an axis ``red`` spans the shards (per-shard
+    champions gathered, the worst instance hit on the shard that holds
+    it), serially it is the identity."""
     bf = pop.best_f                                       # (B,)
     n = pop.mean.shape[-1]
     loc_best = torch.argmin(bf)
@@ -371,7 +393,7 @@ def migrate(pop: CMAStateT, red: SIM.Reduce) -> CMAStateT:
     g_worst = red.gather(bf[loc_worst])
     shard_worst = torch.argmax(g_worst)
     worst_f = g_worst[shard_worst]
-    me = 0       # this shard's index (serially the only one)
+    me = RT.axis_index(red.axis_name) if red.axis_name else 0
     hit = ((torch.arange(bf.shape[0], device=bf.device) == loc_worst)
            & (shard_worst == me) & (worst_f > best_f))
     eye = torch.eye(n, dtype=pop.C.dtype, device=pop.C.device)
@@ -388,40 +410,63 @@ def migrate(pop: CMAStateT, red: SIM.Reduce) -> CMAStateT:
 def ps_cma_es_torch(f: Callable, dim: int, n_particles: int, max_evals: int,
                     seed: int = 0, migrate_every: int = 20,
                     swarm: bool = True, lam: Optional[int] = None,
-                    device="cuda") -> Tuple[float, np.ndarray, int]:
+                    device="cuda", mesh=None,
+                    axis_name: str = "fleet"
+                    ) -> Tuple[float, np.ndarray, int]:
     """:func:`ps_cma_es` on the batched engine, on ``device``: each
     generation is one batched update of the population, a collapse
     restart and (every ``migrate_every`` generations, with ``swarm``) a
     migration — ``repro``'s round. Draws come from a ``torch.Generator``
     on the device seeded with ``seed``; the loop reads nothing back until
-    it ends. Returns ``(best_f, best_x, evaluations)``."""
+    it ends. Returns ``(best_f, best_x, evaluations)``.
+
+    With a 1-D ``mesh`` every rank calls it with the same arguments and
+    steps its block of the population (``n_particles % ndev == 0``): it
+    draws the whole population's samples and keeps its rows, so the run
+    draws what the serial run draws, and the migration spans the shards.
+    The best is reduced over the ranks and returned on every rank."""
     dev = resolve_device(device)
     lam_c = cma_consts(dim, lam)["lam"]
-    gen_t = torch.Generator(device=dev).manual_seed(seed)
-    pop = cma_init_t(gen_t, dim, n_particles)
-    red = SIM.Reduce(None)
-    total, gen = 0, 0
-    while total < max_evals:
-        pop = cma_generation_t(pop, gen_t, f, lam_c)
-        pop = restart_collapsed(pop, gen_t)
-        gen += 1
-        if swarm and gen % migrate_every == 0:
-            pop = migrate(pop, red)
-        total += n_particles * lam_c
-    bf = pop.best_f.cpu().numpy()
+    with RT.on_mesh(mesh):
+        shard = (0, 1)
+        if mesh is not None:
+            shard = (RT.axis_index(axis_name), RT.axis_size(axis_name))
+            if n_particles % shard[1]:
+                raise ValueError(f"population {n_particles} not divisible "
+                                 f"by {shard[1]} devices on axis "
+                                 f"{axis_name!r}")
+        red = SIM.Reduce(None if mesh is None else axis_name)
+        gen_t = torch.Generator(device=dev).manual_seed(seed)
+        pop = cma_init_t(gen_t, dim, n_particles)
+        pop = CMAStateT(**{k: _block(getattr(pop, k), shard).clone()
+                           for k in CMAStateT.__dataclass_fields__})
+        total, gen = 0, 0
+        while total < max_evals:
+            pop = cma_generation_t(pop, gen_t, f, lam_c, shard=shard)
+            pop = restart_collapsed(pop, gen_t, shard=shard)
+            gen += 1
+            if swarm and gen % migrate_every == 0:
+                pop = migrate(pop, red)
+            total += n_particles * lam_c
+        bf, bx = pop.best_f, pop.best_x
+        if mesh is not None:
+            bf = RT.all_gather(bf, axis_name, tiled=True)
+            bx = RT.all_gather(bx, axis_name, tiled=True)
+    bf = bf.cpu().numpy()
     i = int(np.argmin(bf))
-    return float(bf[i]), pop.best_x[i].cpu().numpy(), total
+    return float(bf[i]), bx[i].cpu().numpy(), total
 
 
 def success_rate_torch(f, dim, n_runs, max_evals, *, n_particles=4,
                        swarm=True, f_target=1e-2, seed0=0,
-                       device="cuda") -> float:
+                       device="cuda", mesh=None) -> float:
     """The fraction of ``n_runs`` seeded runs whose best value falls below
-    ``f_target``."""
+    ``f_target`` (``mesh``: each run's population sharded over its
+    "fleet" axis, as in :func:`ps_cma_es_torch`)."""
     ok = 0
     for r in range(n_runs):
         bf, _, _ = ps_cma_es_torch(f, dim, n_particles, max_evals,
                                    seed=seed0 + r, swarm=swarm,
-                                   device=device)
+                                   device=device, mesh=mesh)
         ok += bf < f_target
     return ok / n_runs

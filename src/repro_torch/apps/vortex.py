@@ -25,7 +25,10 @@ slab-distributed step over a 1-D device mesh: the field lives in
 are the 1-D block legs (``kernels.m4_interp.ops.p2m_block`` /
 ``m2p_fused_block`` on the cell path, so the CUDA P2M and M2P kernels
 run on CUDA tensors; ``core.interp``'s on the scatter path), and
-deposits go home by the halo reduce. The pencil step is ROADMAP A14b.
+deposits go home by the halo reduce. Over a 2-D ``(rows, cols)`` device
+mesh the pencil step shards the field over axes 0 and 1: the pencil FFT,
+2-D halos and ``core.interp``'s pencil block legs (plain torch, as
+``repro``'s are jnp).
 """
 from __future__ import annotations
 
@@ -308,14 +311,13 @@ def make_distributed_vic_step(mesh, cfg: VortexConfig, axis_name="shards",
     picks the legs as :func:`vic_step` does. ``overflow`` (a 0-d int32,
     summed over ranks) counts re-seed surplus, particles whose support
     outran ``mesh_halo`` and cell-bucket drops. A ``(row, col)`` tuple
-    ``axis_name`` whose column axis has size 1 is the slab step; a larger
-    one is the pencil step, ROADMAP A14b."""
+    ``axis_name`` whose column axis has size 1 is the slab step over the
+    row axis; a larger one is the pencil step (:func:`_make_pencil_vic_step`,
+    over ``grid.distribute_field2`` blocks)."""
     if isinstance(axis_name, tuple):
         row_axis, col_axis = axis_name
         if int(mesh.size(mesh.mesh_dim_names.index(col_axis))) > 1:
-            raise NotImplementedError(
-                "the pencil VIC step (a 2-D device mesh) is not ported yet "
-                "(ROADMAP A14b)")
+            return _make_pencil_vic_step(mesh, cfg, row_axis, col_axis)
         axis_name = row_axis
     with RT.on_mesh(mesh):
         ndev = RT.axis_size(axis_name)
@@ -423,6 +425,112 @@ def make_distributed_vic_step(mesh, cfg: VortexConfig, axis_name="shards",
     return step
 
 
+def _make_pencil_vic_step(mesh, cfg: VortexConfig, row_axis: str,
+                          col_axis: str):
+    """The pencil (2-D device mesh) VIC step, as each rank calls it
+    (``repro``'s ``_make_pencil_vic_step``, DESIGN.md §13): the RK2 stages
+    of the slab step with the field sharded over axes 0 and 1 — ψ by the
+    two-transpose pencil FFT, the stencils over 2-D halos, M'4 against
+    2-D ghost-padded blocks and deposits halo-reduced on both axes (the
+    corners relay through the edge neighbours). ``cfg.interp`` must be
+    one of the slab step's choices; both run the pencil block legs of
+    ``core.interp``, plain torch as ``repro``'s are jnp (the CUDA M'4
+    kernels address a slab block)."""
+    if cfg.interp not in ("cells", "scatter"):
+        raise ValueError(f"unknown interp {cfg.interp!r}; want 'cells' or "
+                         "'scatter'")
+    with RT.on_mesh(mesh):
+        ndev_r, ndev_c = RT.axis_size(row_axis), RT.axis_size(col_axis)
+    n0, n1, n2 = cfg.shape
+    if n0 % ndev_r or n1 % ndev_c:
+        raise ValueError(
+            f"shape {cfg.shape}: axis 0 must divide over {ndev_r} row "
+            f"shards and axis 1 over {ndev_c} column shards (pencil blocks)")
+    if n1 % ndev_r or n2 % ndev_c:
+        raise ValueError(
+            f"shape {cfg.shape}: the pencil FFT transposes need axis 1 "
+            f"divisible by {ndev_r} and axis 2 by {ndev_c}")
+    n0l, n1l = n0 // ndev_r, n1 // ndev_c
+    H = int(cfg.mesh_halo)
+    if not 2 <= H <= min(n0l, n1l):
+        raise ValueError(
+            f"mesh_halo={H} must be in [2, {min(n0l, n1l)}] (M'4 support; "
+            "single-hop ghost exchange per mesh axis)")
+    kw = dict(shape=tuple(cfg.shape), box_lo=(0.0, 0.0, 0.0),
+              box_hi=tuple(cfg.lengths), periodic=(True, True, True))
+    hs = _hs(cfg)
+    curl_st = G.apply_stencil_local2(lambda p: curl(p, hs), 1, row_axis,
+                                     col_axis)
+    rhs_st = G.apply_stencil_local2(
+        lambda wp, up: rhs_field(wp, up, cfg), 1, row_axis, col_axis)
+    axes = (row_axis, col_axis)
+
+    def local_step(f):
+        me_r, me_c = RT.axis_index(row_axis), RT.axis_index(col_axis)
+        w = f.data                                    # (n0l, n1l, n2, 3)
+        row_lo, col_lo = f.node_bounds[me_r], f.col_bounds[me_c]
+        row0, col0 = row_lo - H, col_lo - H           # padded-block origin
+        ps, ovf = RM.seed_from_block2(w, row_lo, col_lo,
+                                      threshold=cfg.remesh_threshold, **kw)
+        x0, wp0, valid = ps.x, ps.props["w"], ps.valid
+        del ps
+        L = const_tensor(tuple(float(v) for v in cfg.lengths), x0.dtype,
+                         x0.device)
+        vm = valid[:, None]
+
+        def eval_fields(wf):
+            """ψ solve, curl and RHS, on the local pencils."""
+            psi = PS.fft_poisson_pencil_local(-wf, cfg.lengths, row_axis,
+                                              col_axis)
+            (u,) = curl_st(psi)
+            del psi
+            (r,) = rhs_st(wf, u)
+            return u, r
+
+        def gather(fld, x):
+            """M2P against a 2-D ghost_get-padded block."""
+            pad = G.halo_pad2(fld, H, row_axis, col_axis)
+            return IP.m2p_block2(pad, x, valid, row0, col0, **kw)
+
+        def deposit(x, wp):
+            """P2M into the pencil + halo block, then the 2-D reduce."""
+            blk, drop = IP.p2m_block2(x, wp, valid, row0, col0,
+                                      block_rows=n0l + 2 * H,
+                                      block_cols=n1l + 2 * H, **kw)
+            return G.halo_reduce2(blk, H, row_axis, col_axis), drop
+
+        # stage 1
+        u0, r0 = eval_fields(w)
+        up, d0 = gather(u0, x0)
+        rp, d1 = gather(r0, x0)
+        del u0, r0
+        x1 = torch.where(vm, torch.remainder(x0 + cfg.dt * up, L), x0)
+        wp1 = wp0 + cfg.dt * rp
+        w1, d2 = deposit(x1, wp1)
+        del wp1
+        # stage 2 at the predicted state
+        u1, r1 = eval_fields(w1)
+        del w1
+        up1, d3 = gather(u1, x1)
+        rp1, d4 = gather(r1, x1)
+        del u1, r1, x1
+        xf = torch.where(vm, torch.remainder(
+            x0 + 0.5 * cfg.dt * (up + up1), L), x0)
+        del up, up1
+        wpf = wp0 + 0.5 * cfg.dt * (rp + rp1)
+        del rp, rp1
+        wf, d5 = deposit(xf, wpf)
+        ovf = ovf + d0 + d1 + d2 + d3 + d4 + d5
+        return (dataclasses.replace(f, data=wf),
+                RT.psum(ovf.to(torch.int32), axes))
+
+    def step(f):
+        with RT.on_mesh(mesh):
+            return local_step(f)
+
+    return step
+
+
 def run_distributed(cfg: VortexConfig, n_steps: int, mesh,
                     axis_name="shards", *, auto_reprovision: bool = False,
                     _make_step=None):
@@ -444,13 +552,21 @@ def run_distributed(cfg: VortexConfig, n_steps: int, mesh,
     overflow)."""
     make_step = _make_step or make_distributed_vic_step
     row = axis_name[0] if isinstance(axis_name, tuple) else axis_name
+    pencil = (isinstance(axis_name, tuple) and int(mesh.size(
+        mesh.mesh_dim_names.index(axis_name[1]))) > 1)
     step = make_step(mesh, cfg, axis_name)
     w = project_divfree(init_ring(cfg), cfg)
     z0 = float(centroid_z(w, cfg))
-    f = G.distribute_field(w, mesh, row)
+    if pencil:
+        f = G.distribute_field2(w, mesh, *axis_name)
+        gather = lambda f: G.gather_field2(f, mesh, *axis_name)
+    else:
+        f = G.distribute_field(w, mesh, row)
+        gather = lambda f: G.gather_field(f, mesh, row)
     del w
     if auto_reprovision:
-        n0l = f.data.shape[0]
+        # the ceiling: a pencil's smaller side, or the slab height
+        n0l = min(f.data.shape[:2]) if pencil else f.data.shape[0]
         for _ in range(n_steps):
             f2, ovf = step(f)
             while int(ovf) > 0:
@@ -464,7 +580,7 @@ def run_distributed(cfg: VortexConfig, n_steps: int, mesh,
                 step = make_step(mesh, cfg, axis_name)
                 f2, ovf = step(f)        # redo from the pre-step field
             f = f2
-        w = G.gather_field(f, mesh, row)
+        w = gather(f)
         return w, z0, float(centroid_z(w, cfg)), cfg
     total = torch.zeros((), dtype=torch.int32, device=f.data.device)
     for _ in range(n_steps):
@@ -475,5 +591,5 @@ def run_distributed(cfg: VortexConfig, n_steps: int, mesh,
             f"interpolation overflow ({int(total)} particles outran the "
             f"halo or their cell bucket over {n_steps} steps); raise "
             f"VortexConfig.mesh_halo (= {cfg.mesh_halo}) or interp_cell_cap")
-    w = G.gather_field(f, mesh, row)
+    w = gather(f)
     return w, z0, float(centroid_z(w, cfg))

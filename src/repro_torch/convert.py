@@ -116,21 +116,31 @@ def cma_state_from_numpy(st, device="cuda"):
 def scatter_to_slabs(x: np.ndarray, valid: np.ndarray,
                      props: Dict[str, np.ndarray], bounds, ndev: int, *,
                      slab_axis: int = 0, cap_per_dev: int | None = None,
-                     cap_factor: float = 3.0):
+                     cap_factor: float = 3.0, col_bounds=None):
     """``repro``'s ``distribute`` layout of a particle set, as global numpy
     arrays ``(x, valid, props)`` with ``ndev * cap_per_dev`` rows: every
     valid particle in its owner's slot block (owner by ``bounds`` along
     ``slab_axis``), in index order. ``cap_per_dev`` defaults to
-    ``ceil(n / ndev * cap_factor)``."""
+    ``ceil(n / ndev * cap_factor)``, with ``ndev`` counting every block.
+    With ``col_bounds`` the layout is the pencil's: ``ndev`` row slabs
+    times ``len(col_bounds) - 1`` column slabs along ``slab_axis + 1``,
+    the owner of row i and column j the block ``i·ncols + j``."""
     val0 = np.asarray(valid, bool)
     xs = np.asarray(x)[val0]
     pr = {k: np.asarray(v)[val0] for k, v in props.items()}
     n = len(xs)
-    if cap_per_dev is None:
-        cap_per_dev = int(np.ceil(n / ndev * cap_factor))
     owner = np.clip(np.searchsorted(np.asarray(bounds, np.float32),
                                     xs[:, slab_axis], "right") - 1,
                     0, ndev - 1)
+    if col_bounds is not None:
+        ncols = len(col_bounds) - 1
+        owner_c = np.clip(np.searchsorted(np.asarray(col_bounds, np.float32),
+                                          xs[:, slab_axis + 1], "right") - 1,
+                          0, ncols - 1)
+        owner = owner * ncols + owner_c
+        ndev = ndev * ncols
+    if cap_per_dev is None:
+        cap_per_dev = int(np.ceil(n / ndev * cap_factor))
     cap = ndev * cap_per_dev
     X = np.full((cap, xs.shape[1]), ParticleSet.FILL, np.float32)
     PR = {k: np.zeros((cap,) + v.shape[1:], v.dtype) for k, v in pr.items()}

@@ -33,9 +33,15 @@ Functions taking ``axis_name`` run per rank (``repro``'s shard_map
 bodies); collectives come from ``runtime``. ``grid_sharding`` and ``field_spec``
 have no counterpart: there is no ``NamedSharding`` or PartitionSpec; a
 rank holds its block, which :func:`distribute_field` cuts and
-:func:`gather_field` joins. The pencil forms (``halo_pad2``,
-``halo_reduce2``, ``apply_stencil_local2``, ``distribute_field2``) are
-ROADMAP A14b and raise.
+:func:`gather_field` joins.
+
+The pencil forms (a 2-D ``(rows, cols)`` device mesh, DESIGN.md §13)
+compose the 1-D exchanges over a moved axis: :func:`halo_pad2` pads axis
+0 over the rows, then axis 1 of the row-padded block over the columns,
+so the corners relay through the edge neighbours; :func:`halo_reduce2`
+is its adjoint; :func:`apply_stencil_local2` the blocking stencil engine;
+:func:`distribute_field2` / :func:`gather_field2` cut and join pencil
+blocks.
 """
 from __future__ import annotations
 
@@ -47,10 +53,6 @@ import torch
 
 from . import runtime as RT
 from .particles import resolve_device
-
-_A14B = ("the pencil (2-D) grid layer is not ported yet (ROADMAP A14b); "
-         "decompose along the leading axis only")
-
 
 def halo_pad_start(field: torch.Tensor, halo: int, axis_name: str, *,
                    periodic: bool = True, fill: Optional[float] = 0.0):
@@ -203,7 +205,9 @@ class DistributedField:
     rank: its slab block) and ``node_bounds`` the slab geometry — slab d
     owns global rows ``node_bounds[d] <= r < node_bounds[d+1]``, a
     replicated int32 tensor. Serial state is the 1-slab case ``[0, n]``.
-    ``col_bounds`` is the pencil decomposition's (A14b), None here."""
+    ``col_bounds`` is the pencil decomposition's column slabs (global
+    columns along axis 1, from :func:`distribute_field2`), None on slab
+    and serial fields."""
 
     data: torch.Tensor
     node_bounds: torch.Tensor       # (n_slabs + 1,) int32
@@ -246,19 +250,68 @@ def gather_field(f: DistributedField, mesh, axis_name: str) -> torch.Tensor:
         return RT.all_gather(f.data, axis_name, tiled=True)
 
 
-def distribute_field2(arr, mesh, row_axis, col_axis):
-    """The pencil container: ROADMAP A14b."""
-    raise NotImplementedError(_A14B)
+def distribute_field2(arr: torch.Tensor, mesh, row_axis: str,
+                      col_axis: str) -> DistributedField:
+    """This rank's pencil block of a full mesh array (every rank passes
+    the same ``arr``): rows and columns (axes 0 and 1) split uniformly over
+    an ``(r, c)`` device mesh, with the pencil geometry recorded in the
+    container (``node_bounds`` the row slabs, ``col_bounds`` the column
+    slabs)."""
+    with RT.on_mesh(mesh):
+        r, c = RT.axis_size(row_axis), RT.axis_size(col_axis)
+        i, j = RT.axis_index(row_axis), RT.axis_index(col_axis)
+    n0, n1 = arr.shape[0], arr.shape[1]
+    if n0 % r:
+        raise ValueError(f"leading axis {n0} not divisible by {r} row shards")
+    if n1 % c:
+        raise ValueError(f"axis 1 ({n1}) not divisible by {c} column "
+                         "shards")
+    nl0, nl1 = n0 // r, n1 // c
+    dev = arr.device
+    return DistributedField(
+        data=arr[i * nl0:(i + 1) * nl0, j * nl1:(j + 1) * nl1].contiguous(),
+        node_bounds=torch.from_numpy(
+            np.arange(r + 1, dtype=np.int32) * nl0).to(dev),
+        col_bounds=torch.from_numpy(
+            np.arange(c + 1, dtype=np.int32) * nl1).to(dev))
 
 
-def halo_pad2(field, halo, row_axis, col_axis, *, periodic=True, fill=0.0):
-    """The pencil ghost_get: ROADMAP A14b."""
-    raise NotImplementedError(_A14B)
+def gather_field2(f: DistributedField, mesh, row_axis: str,
+                  col_axis: str) -> torch.Tensor:
+    """The full mesh array of a pencil field on every rank: the blocks
+    joined along axis 1 over the columns, then along axis 0 over the
+    rows."""
+    with RT.on_mesh(mesh):
+        rows = RT.all_gather(f.data, col_axis, axis=1, tiled=True)
+        return RT.all_gather(rows, row_axis, tiled=True)
 
 
-def halo_reduce2(padded, halo, row_axis, col_axis, *, periodic=True):
-    """The pencil ghost_put: ROADMAP A14b."""
-    raise NotImplementedError(_A14B)
+def halo_pad2(field: torch.Tensor, halo: int, row_axis: str, col_axis: str,
+              *, periodic: bool = True, fill: Optional[float] = 0.0
+              ) -> torch.Tensor:
+    """The pencil ghost_get, per rank: pad axis 0 by ``halo`` over the row
+    axis, then axis 1 of the row-padded block over the column axis. The
+    column exchange ships the row-padded faces, so the corner ghosts of
+    the diagonal neighbours arrive by the two-hop relay (no corner
+    sends)."""
+    if halo == 0:
+        return field
+    p = halo_pad(field, halo, row_axis, periodic=periodic, fill=fill)
+    p = halo_pad(p.movedim(1, 0), halo, col_axis, periodic=periodic,
+                 fill=fill)
+    return p.movedim(0, 1)
+
+
+def halo_reduce2(padded: torch.Tensor, halo: int, row_axis: str,
+                 col_axis: str, *, periodic: bool = True) -> torch.Tensor:
+    """The pencil ghost_put, per rank, the adjoint of :func:`halo_pad2`:
+    reduce the column halos first, then the row halos; corner
+    contributions relay through the (row, col -/+ 1) neighbour's row halo
+    and land on the diagonal owner in the second exchange."""
+    if halo == 0:
+        return padded
+    r = halo_reduce(padded.movedim(1, 0), halo, col_axis, periodic=periodic)
+    return halo_reduce(r.movedim(0, 1), halo, row_axis, periodic=periodic)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -372,10 +425,31 @@ def apply_stencil_local(stencil_fn: Callable, halo: int,
     return run_overlap
 
 
-def apply_stencil_local2(stencil_fn, halo, row_axis, col_axis, *,
-                         periodic=True, fill=0.0):
-    """The pencil stencil engine: ROADMAP A14b."""
-    raise NotImplementedError(_A14B)
+def apply_stencil_local2(stencil_fn: Callable, halo: int, row_axis: str,
+                         col_axis: str, *, periodic: bool = True,
+                         fill: Optional[float] = 0.0):
+    """The pencil form of :func:`apply_stencil_local`, per rank: pad each
+    field by ``halo`` on axes 0 and 1 (:func:`halo_pad2`), apply
+    ``stencil_fn`` to the padded blocks, and trim outputs of padded shape
+    back to the owned block on both axes. The blocking schedule only, as
+    in ``repro`` (the split-phase overlap is a 1-D row-window
+    construction)."""
+
+    def run(*fields):
+        out = stencil_fn(*(halo_pad2(f, halo, row_axis, col_axis,
+                                     periodic=periodic, fill=fill)
+                           for f in fields))
+        if not isinstance(out, tuple):
+            out = (out,)
+        trimmed = []
+        for o, f in zip(out, fields):
+            if (halo and o.shape[0] == f.shape[0] + 2 * halo
+                    and o.shape[1] == f.shape[1] + 2 * halo):
+                o = o[halo:-halo, halo:-halo]
+            trimmed.append(o)
+        return tuple(trimmed)
+
+    return run
 
 
 def make_stencil_step(mesh, axis_name: str, stencil_fn: Callable,

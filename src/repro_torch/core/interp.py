@@ -16,7 +16,9 @@ These plain PyTorch versions are the oracles of ``kernels/m4_interp`` and
 the ``interp="scatter"`` path of the vortex app. The local-block legs
 :func:`p2m_block`/:func:`m2p_block` address a slab block of the mesh
 (owned rows plus a halo; serially the whole axis plus both halos). Their
-pencil forms (``*_block2``) serve the pencil VIC step, ROADMAP A14b.
+pencil forms :func:`p2m_block2`/:func:`m2p_block2` address a block of
+rows and columns and serve the pencil VIC step; they stay plain torch, as
+``repro``'s are jnp outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -208,6 +210,106 @@ def m2p_block(block: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
         w = _stencil_weight(frac, off).to(block.dtype)
         wrapped = _wrap_index(idx[:, 1:], shape[1:], periodic[1:])
         v = flat_block[_flat_index((idx[:, 0],) + wrapped, bshape)]
+        out = out + v * (w[:, None] if vec else w)
+    vm = ok.reshape(ok.shape + (1,) * (out.dim() - 1))
+    dropped = (valid & ~ok).sum().to(torch.int32)
+    return torch.where(vm, out, torch.zeros_like(out)), dropped
+
+
+# --------------------------------------------------------------------------
+# Pencil-block interpolation: the 2-D-mesh P2M/M2P legs
+# --------------------------------------------------------------------------
+# A pencil block holds rows [row0, row0 + n_block0) × columns [col0, col0 +
+# n_block1) of the global mesh (owned nodes plus halos on both axes). The
+# slab blocks' contract on axes 0 AND 1: a valid particle whose support
+# leaves the block on either axis is dropped whole and counted.
+
+def _block_base_frac2(x, row0, col0, n_block0, n_block1, shape, box_lo,
+                      box_hi, periodic):
+    """:func:`_block_base_frac` for a pencil block: axes 0 and 1 are both
+    re-origined (at ``row0``, ``col0``) with the periodic fold and the
+    low-edge lift applied per axis."""
+    base, frac = _base_and_frac(x, shape, box_lo, box_hi, periodic)
+
+    def rel(axis, origin, n_block):
+        r = base[:, axis] - origin
+        if periodic[axis]:
+            n = int(shape[axis])
+            r = torch.remainder(r, n)
+            r = torch.where((r < 1) & (r + n <= n_block - 3), r + n, r)
+        return r[:, None].to(base.dtype)
+
+    return torch.cat([rel(0, row0, n_block0), rel(1, col0, n_block1),
+                      base[:, 2:]], 1), frac
+
+
+def p2m_block2(x: torch.Tensor, value: torch.Tensor, valid: torch.Tensor,
+               row0, col0, *, block_rows: int, block_cols: int,
+               shape: Tuple[int, ...], box_lo, box_hi, periodic):
+    """Particle→mesh onto a local pencil block (rows [row0, row0 +
+    block_rows) × columns [col0, col0 + block_cols) of the global mesh,
+    as :func:`p2m_block` for one axis). Returns ``(block, dropped)``."""
+    shape = tuple(int(n) for n in shape)
+    dim = len(shape)
+    base, frac = _block_base_frac2(x, row0, col0, block_rows, block_cols,
+                                   shape, box_lo, box_hi, periodic)
+    ok = (valid & _block_ok(base[:, 0], block_rows)
+          & _block_ok(base[:, 1], block_cols))
+    bshape = (int(block_rows), int(block_cols)) + shape[2:]
+    n_nodes = int(np.prod(bshape))
+    vec = value.dim() == 2
+    n_ch = value.shape[1] if vec else 1
+    # one dump row past the end takes indices outside the block (repro's
+    # scatter mode="drop"); their weights are zero
+    out = torch.zeros((n_nodes + 1, n_ch), dtype=value.dtype,
+                      device=value.device)
+    vm = ok.to(value.dtype)
+    val2 = value if vec else value[:, None]
+    for off in _stencil_offsets(dim):
+        idx = base + torch.as_tensor(off, dtype=torch.int32,
+                                     device=x.device)
+        w = (_stencil_weight(frac, off) * vm).to(value.dtype)
+        row, col = idx[:, 0], idx[:, 1]
+        wrapped = _wrap_index(idx[:, 2:], shape[2:], periodic[2:])
+        flat = _flat_index((row, col) + wrapped, bshape)
+        inside = ((row >= 0) & (row < block_rows) & (col >= 0)
+                  & (col < block_cols))
+        flat = torch.where(inside, flat, torch.full_like(flat, n_nodes))
+        out.index_add_(0, flat, val2 * w[:, None])
+    out = out[:n_nodes].reshape(bshape + (n_ch,))
+    dropped = (valid & ~ok).sum().to(torch.int32)
+    return (out if vec else out[..., 0]), dropped
+
+
+def m2p_block2(block: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
+               row0, col0, *, shape: Tuple[int, ...], box_lo, box_hi,
+               periodic):
+    """Mesh→particle from a local pencil block (a ``grid.halo_pad2``-padded
+    field whose [0, 0] corner is global node (row0, col0)). Returns
+    ``(values, dropped)``; dropped particles read 0."""
+    shape = tuple(int(n) for n in shape)
+    dim = len(shape)
+    n_block0, n_block1 = block.shape[0], block.shape[1]
+    base, frac = _block_base_frac2(x, row0, col0, n_block0, n_block1, shape,
+                                   box_lo, box_hi, periodic)
+    ok = (valid & _block_ok(base[:, 0], n_block0)
+          & _block_ok(base[:, 1], n_block1))
+    bshape = (n_block0, n_block1) + shape[2:]
+    vec = block.dim() == dim + 1
+    flat_block = block.reshape((int(np.prod(bshape)),)
+                               + tuple(block.shape[dim:]))
+    out = torch.zeros(x.shape[:1] + tuple(block.shape[dim:]),
+                      dtype=block.dtype, device=block.device)
+    safe = torch.stack([torch.clamp(base[:, 0], 1, max(n_block0 - 3, 1)),
+                        torch.clamp(base[:, 1], 1, max(n_block1 - 3, 1))],
+                       1)
+    for off in _stencil_offsets(dim):
+        off_t = torch.as_tensor(off, dtype=torch.int32, device=x.device)
+        idx = torch.cat([safe, base[:, 2:]], 1) + off_t
+        w = _stencil_weight(frac, off).to(block.dtype)
+        wrapped = _wrap_index(idx[:, 2:], shape[2:], periodic[2:])
+        v = flat_block[_flat_index((idx[:, 0], idx[:, 1]) + wrapped,
+                                   bshape)]
         out = out + v * (w[:, None] if vec else w)
     vm = ok.reshape(ok.shape + (1,) * (out.dim() - 1))
     dropped = (valid & ~ok).sum().to(torch.int32)

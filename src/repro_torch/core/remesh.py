@@ -9,8 +9,8 @@ re-seed is a static-shape compaction into a fixed-capacity
 counted as overflow); ``threshold=0.0`` keeps every node, in node order.
 
 :func:`seed_from_block` re-seeds one slab block of the mesh in global
-coordinates (serially, the whole mesh is one block). The per-pencil
-re-seed ``seed_from_block2`` serves the pencil VIC step, ROADMAP A14b.
+coordinates (serially, the whole mesh is one block);
+:func:`seed_from_block2` one pencil block, for the pencil VIC step.
 """
 from __future__ import annotations
 
@@ -131,6 +131,38 @@ def seed_from_block(block: torch.Tensor, row0, *, shape, box_lo, box_hi,
         torch.float32)
     x0 = x0.repeat_interleave(int(np.prod(bshape[1:])))
     nodes = torch.cat([x0[:, None], nodes[:, 1:]], 1)
+    return _seed(block, nodes, threshold, capacity, dim)
+
+
+def seed_from_block2(block: torch.Tensor, row0, col0, *, shape, box_lo,
+                     box_hi, periodic, threshold: float = 0.0,
+                     capacity: int = 0) -> Tuple[ParticleSet, torch.Tensor]:
+    """Per-pencil re-seed: :func:`seed_from_mesh` over a local pencil block
+    owning rows [row0, row0 + n0_local) × columns [col0, col0 + n1_local)
+    of the global mesh (DESIGN.md §13); ``row0`` and ``col0`` are 0-d
+    device tensors (or ints). Seeded particles carry global coordinates,
+    each of the two leading ones formed as :func:`seed_from_block` forms
+    its one (float64, then float32)."""
+    dim = len(shape)
+    lo, h = _node_spacing(shape, box_lo, box_hi, periodic)
+    dev = block.device
+    bshape = tuple(block.shape[:dim])
+    n0, n1 = bshape[0], bshape[1]
+    local_lo = (0.0, 0.0) + tuple(float(v) for v in np.asarray(box_lo)[2:])
+    local_hi = (float(n0 * h[0]), float(n1 * h[1])) + tuple(
+        float(v) for v in np.asarray(box_hi)[2:])
+    nodes = node_positions(bshape, local_lo, local_hi,
+                           (True, True) + tuple(periodic[2:]), dev)
+
+    def coord(origin, n, axis):
+        rows = torch.arange(n, device=dev) + origin
+        return (rows.to(torch.float64) * float(h[axis])
+                + float(lo[axis])).to(torch.float32)
+
+    rest = int(np.prod(bshape[2:]))
+    x0 = coord(row0, n0, 0).repeat_interleave(n1 * rest)
+    x1 = coord(col0, n1, 1).repeat_interleave(rest).repeat(n0)
+    nodes = torch.cat([x0[:, None], x1[:, None], nodes[:, 2:]], 1)
     return _seed(block, nodes, threshold, capacity, dim)
 
 

@@ -31,8 +31,13 @@ port. Nothing here reads a device tensor on the host.
                      transpose); :func:`all_to_all_many` sends several
                      tensors as one message of bytes.
   * ``psum``/``pmax``/``pmean`` → ``all_reduce`` of small device tensors
-                     (``pmean`` is the sum over the axis size).
-  * ``all_gather`` → ``all_gather_into_tensor`` (gloo takes it too).
+                     (``pmean`` is the sum over the axis size); a tuple
+                     of axes (the pencil mesh's ``(rows, cols)``)
+                     reduces over each axis in turn.
+  * ``all_gather`` → ``all_gather_into_tensor`` (gloo takes it too); over
+                     a tuple of axes, in row-major rank order.
+  * ``broadcast``  → one rank's tensor on every rank of an axis (the
+                     meshed fleet server's results).
 
 Messages go as their bytes' dtype where the backends differ: bool as
 uint8, complex as its real view.
@@ -152,13 +157,21 @@ def _group(axis_name: str):
 # Axis queries: host integers, no device read
 # --------------------------------------------------------------------------
 
-def axis_index(axis_name: str) -> int:
-    """This rank's index along the axis."""
+def axis_index(axis_name) -> int:
+    """This rank's index along the axis; for a tuple of axes, its
+    row-major index over their product (``jax.lax.axis_index``)."""
+    if isinstance(axis_name, tuple):
+        i = 0
+        for name in axis_name:
+            i = i * axis_size(name) + axis_index(name)
+        return i
     return _mesh_of(axis_name).get_local_rank(axis_name)
 
 
-def axis_size(axis_name: str) -> int:
-    """The axis's size (ranks along it)."""
+def axis_size(axis_name) -> int:
+    """The axis's size (ranks along it); for a tuple, the product."""
+    if isinstance(axis_name, tuple):
+        return math.prod(axis_size(name) for name in axis_name)
     mesh = _mesh_of(axis_name)
     return mesh.size(mesh.mesh_dim_names.index(axis_name))
 
@@ -343,23 +356,40 @@ def all_to_all_many(xs: Sequence[torch.Tensor],
     return got
 
 
-def _reduce(x, axis_name: str, op) -> torch.Tensor:
+def _names(axis_name) -> Tuple[str, ...]:
+    return axis_name if isinstance(axis_name, tuple) else (axis_name,)
+
+
+def _reduce(x, axis_name, op) -> torch.Tensor:
     t = torch.as_tensor(x)
     buf = t.to(torch.int32) if t.dtype == torch.bool else t.clone()
-    dist.all_reduce(buf, op=op, group=_group(axis_name))
+    # a tuple of axes reduces over each axis in turn
+    for name in _names(axis_name):
+        dist.all_reduce(buf, op=op, group=_group(name))
     return buf.to(torch.bool) if t.dtype == torch.bool else buf
 
 
-def psum(x, axis_name: str) -> torch.Tensor:
+def psum(x, axis_name) -> torch.Tensor:
+    """The sum over the axis (a name, or a tuple of names)."""
     return _reduce(x, axis_name, dist.ReduceOp.SUM)
 
 
-def pmax(x, axis_name: str) -> torch.Tensor:
+def pmax(x, axis_name) -> torch.Tensor:
     return _reduce(x, axis_name, dist.ReduceOp.MAX)
 
 
-def pmean(x, axis_name: str) -> torch.Tensor:
+def pmean(x, axis_name) -> torch.Tensor:
     return psum(x, axis_name) / axis_size(axis_name)
+
+
+def broadcast(x: torch.Tensor, axis_name: str, src: int) -> torch.Tensor:
+    """Rank ``src``'s ``x`` on every rank of the axis (each rank passes a
+    tensor of the same shape and dtype; only ``src``'s values count)."""
+    wire = _wire(x).clone()
+    group = _group(axis_name)
+    dist.broadcast(wire, src=dist.get_global_rank(group, int(src)),
+                   group=group)
+    return _unwire(wire, x)
 
 
 #: ``all_gather_into_tensor`` under its newer name where torch has it
@@ -367,18 +397,28 @@ _ALL_GATHER = getattr(dist, "all_gather_single", None) \
     or dist.all_gather_into_tensor
 
 
-def all_gather(x, axis_name: str, *, axis: int = 0,
+def _gather_stacked(wire: torch.Tensor, axis_name) -> torch.Tensor:
+    """Every rank's ``wire`` stacked on a new leading axis, in rank order
+    (row-major over a tuple of axes: the last axis gathered first)."""
+    for name in reversed(_names(axis_name)):
+        # the backends take the output as the inputs concatenated on dim 0
+        src = wire.reshape((1,) + tuple(wire.shape))
+        out = torch.empty((axis_size(name),) + tuple(wire.shape),
+                          dtype=wire.dtype, device=wire.device)
+        _ALL_GATHER(out, src, group=_group(name))
+        wire = out
+    n_ax = len(_names(axis_name))
+    return wire.reshape((-1,) + tuple(wire.shape[n_ax:]))
+
+
+def all_gather(x, axis_name, *, axis: int = 0,
                tiled: bool = False) -> torch.Tensor:
     """``jax.lax.all_gather``: every rank's ``x`` in rank order, stacked on
-    a new ``axis`` (``tiled``: concatenated along it)."""
+    a new ``axis`` (``tiled``: concatenated along it). A tuple of axes
+    gathers in their row-major rank order."""
     t = torch.as_tensor(x)
-    ndev = axis_size(axis_name)
     wire = _wire(t.movedim(axis, 0) if tiled and t.dim() else t)
-    # the backends take the output as the inputs concatenated on dim 0
-    wire = wire.reshape((1,) + tuple(wire.shape))
-    out = torch.empty((ndev,) + tuple(wire.shape[1:]), dtype=wire.dtype,
-                      device=wire.device)
-    _ALL_GATHER(out, wire, group=_group(axis_name))
+    out = _gather_stacked(wire, axis_name)
     got = _unwire(out, t)
     if tiled:
         got = got.reshape((-1,) + tuple(got.shape[2:])).movedim(0, axis)

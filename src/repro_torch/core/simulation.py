@@ -16,7 +16,10 @@
     blocking one, or under the two-speed reuse cadence (the ghost layer
     as a cache); :func:`distribute` cuts a rank's block and
     :func:`make_rebalance` moves the slab bounds (dynamic load
-    balancing). The 2-D pencil step is ROADMAP A14b and raises.
+    balancing). Over a 2-D ``(rows, cols)`` device mesh the pencil step
+    decomposes two space axes: a two-stage ``map()``, a two-stage
+    ``ghost_get`` whose column exchange relays the corner ghosts, and one
+    pair pass (DESIGN.md §13).
 
 Capacity contracts surface as :class:`StepFlags`: 0-d int32 tensors on the
 particles' device, the same on every rank. Nothing in an every-step
@@ -41,7 +44,6 @@ from . import mappings as M
 from . import runtime as RT
 from .particles import ParticleSet, const_tensor
 
-_A14B = "{} is not ported yet (ROADMAP A14b-4: the 2-D pencil forms)"
 
 
 # --------------------------------------------------------------------------
@@ -54,11 +56,16 @@ class DistributedParticles:
     decomposition ``bounds`` (serial: ``[box_lo, box_hi]`` along the slab
     axis). ``fields`` holds the mesh state a physics declares
     (``PhysicsSpec.mesh_props``): whole mesh tensors serially, leading
-    axis the slab axis in mesh rows."""
+    axis the slab axis in mesh rows. ``col_bounds`` is the pencil
+    decomposition's (DESIGN.md §13): rank (i, j) owns ``bounds[i] <= x0 <
+    bounds[i+1]`` × ``col_bounds[j] <= x1 < col_bounds[j+1]``; None on
+    slab and serial states (an empty subtree, so io and the fleet see
+    the 1-D container's leaves)."""
 
     ps: ParticleSet
     bounds: torch.Tensor       # (n_slabs + 1,) float32
     fields: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    col_bounds: Optional[torch.Tensor] = None   # (n_cols + 1,) float32
 
     @property
     def n_slabs(self) -> int:
@@ -100,10 +107,11 @@ class StepFlags:
 @dataclasses.dataclass(frozen=True)
 class Reduce:
     """Global reductions handed to physics hooks: the mesh collectives
-    over ``axis_name`` on a distributed step, identities serially — so a
-    hook writes e.g. the SPH global dt once (``red.max(amax)``)."""
+    over ``axis_name`` (a name, or the pencil's ``(rows, cols)`` tuple) on
+    a distributed step, identities serially — so a hook writes e.g. the
+    SPH global dt once (``red.max(amax)``)."""
 
-    axis_name: Optional[str] = None
+    axis_name: Any = None
 
     @property
     def distributed(self) -> bool:
@@ -395,12 +403,12 @@ def _combo_of(ps: ParticleSet, ghosts: M.GhostLayer,
 
 
 def _axis_names(mesh, axis_name):
-    """(row axis, size of the column axis) of ``axis_name``: a name, or a
-    ``(row, col)`` tuple whose column axis must have size 1 here."""
+    """(row axis, column axis or None, size of the column axis) of
+    ``axis_name``: a name, or a ``(row, col)`` tuple."""
     if not isinstance(axis_name, tuple):
-        return axis_name, 1
+        return axis_name, None, 1
     row, col = axis_name
-    return row, int(mesh.size(mesh.mesh_dim_names.index(col)))
+    return row, col, int(mesh.size(mesh.mesh_dim_names.index(col)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -425,8 +433,14 @@ def make_sim_step(physics, cfg, mesh=None, *, axis_name="shards",
     ``StepFlags.ghost_contract``), a cell list over locals + ghosts on the
     ghost-padded box, the pair pass, and ``finish``. ``bucket_cap`` and
     ``ghost_cap`` default to the spec's. A ``(row, col)`` tuple
-    ``axis_name`` whose column axis has size 1 is the same slab step;
-    a larger column axis is the pencil step, ROADMAP A14b.
+    ``axis_name`` whose column axis has size 1 is the same slab step over
+    the row axis (bit for bit). A larger column axis is the pencil step
+    (DESIGN.md §13; :func:`distribute` with the tuple gives its state):
+    particles are decomposed along ``slab_axis`` over the rows and
+    ``slab_axis + 1`` over the columns, with a two-stage map, a two-stage
+    ghost_get (rows, then the columns over locals + row ghosts, which
+    relays the corner ghosts) and one blocking pair pass over a cell box
+    padded on both axes. ``n_hops`` is then per axis.
 
     ``overlap=True`` selects the split-phase schedule (DESIGN.md §12): the
     ghost shifts are issued first (``mappings.ghost_get_start``), the pair
@@ -435,7 +449,8 @@ def make_sim_step(physics, cfg, mesh=None, *, axis_name="shards",
     ghost pad) wait for the ghosts; the combine takes each particle's sums
     from the pass that saw all its partners. Both passes sum identical
     tiles, so the step equals ``overlap=False`` (the blocking chain) bit
-    for bit. Multi-hop steps run the blocking schedule. ``interior_rows``
+    for bit. Multi-hop and pencil steps run the blocking schedule.
+    ``interior_rows``
     caps the interior window (default: the uniform share + 4); a slab
     beyond it raises ``StepFlags.window``.
 
@@ -463,6 +478,11 @@ def make_sim_step(physics, cfg, mesh=None, *, axis_name="shards",
     is one host read of the tripwire a step, and only the chosen branch
     runs. On a mesh the tripwire read is of its ``pmax`` over the ranks,
     so every rank takes the same branch and issues the same collectives.
+    On a pencil mesh (more than one column) reuse runs ``repro``'s inert
+    fallback: every step is the full pencil step, ``StepFlags.stale`` is
+    1 throughout, and the state is still a :class:`ReuseState`. (A tuple
+    with one column runs the slab reuse step, where ``repro`` runs the
+    fallback on any tuple.)
 
     ``physics`` must be a module-level callable ``physics(cfg) ->``
     :class:`PhysicsSpec` and ``cfg`` hashable: the step is cached on
@@ -475,10 +495,11 @@ def make_sim_step(physics, cfg, mesh=None, *, axis_name="shards",
             return _make_reuse_serial_fn(physics, cfg, slab_axis, reuse,
                                          skin)
         return make_serial_step_fn(physics, cfg, slab_axis=slab_axis)
-    row_axis, ndev_c = _axis_names(mesh, axis_name)
+    row_axis, col_axis, ndev_c = _axis_names(mesh, axis_name)
     if ndev_c > 1:
-        raise NotImplementedError(_A14B.format(
-            "make_sim_step on a 2-D (pencil) device mesh"))
+        inner = _make_sim_step_2d(physics, cfg, mesh, row_axis, col_axis,
+                                  slab_axis, bucket_cap, ghost_cap, n_hops)
+        return inner if reuse is None else _wrap_reuse_fallback(inner)
     if reuse is not None:
         return _make_reuse_step_1d(physics, cfg, mesh, row_axis, slab_axis,
                                    bucket_cap, ghost_cap, overlap,
@@ -567,6 +588,95 @@ def _make_sim_step_1d(physics, cfg, mesh, axis_name: str, slab_axis: int,
                           bucket=ovf_bucket, ghost=ovf_ghost,
                           ghost_contract=contract, window=local[2],
                           stale=_z32(dev))
+        return (dataclasses.replace(state, ps=ps, fields=fields), flags,
+                scalars)
+
+    def step(state: DistributedParticles, extras):
+        with RT.on_mesh(mesh):
+            return local_step(state, extras)
+
+    return step
+
+
+def _make_sim_step_2d(physics, cfg, mesh, row_axis: str, col_axis: str,
+                      slab_axis: int, bucket_cap, ghost_cap, n_hops):
+    """The pencil (2-D device mesh) step composition, per rank (``repro``'s
+    ``_make_sim_step_2d``, DESIGN.md §13): two-stage map, two-stage
+    multi-hop ghost_get (the columns exchange locals + row ghosts,
+    relaying the corner ghosts), one blocking pair pass over a cell box
+    ghost-padded on both decomposed axes."""
+    spec = physics(cfg)
+    if spec.mesh_props:
+        raise NotImplementedError(
+            "mesh_props on a 2-D device mesh need pencil GridOps (neither "
+            "package has them); decompose mesh-carrying physics as "
+            "(ndev, 1) or use apps/vortex.py's pencil VIC step")
+    col_space_axis = slab_axis + 1
+    if col_space_axis >= len(spec.box_lo):
+        raise ValueError("pencil decomposition needs a space axis "
+                         f"{col_space_axis}; physics is "
+                         f"{len(spec.box_lo)}-D")
+    body = spec.make_body()
+    rc = float(spec.r_cut)
+    pair_kw = dict(out=spec.pair_out, r_cut=rc, prop_names=spec.pair_props,
+                   backend=spec.backend, precision=spec.precision)
+    b_cap = int(bucket_cap or spec.bucket_cap)
+    g_cap = int(ghost_cap or spec.ghost_cap)
+    box_len_r = float(spec.box_hi[slab_axis]) - float(spec.box_lo[slab_axis])
+    box_len_c = (float(spec.box_hi[col_space_axis])
+                 - float(spec.box_lo[col_space_axis]))
+    per_row = bool(spec.periodic[slab_axis])
+    per_col = bool(spec.periodic[col_space_axis])
+    with RT.on_mesh(mesh):
+        ndev_r = RT.axis_size(row_axis)
+        ndev_c = RT.axis_size(col_axis)
+    k_row = (int(n_hops) if n_hops is not None
+             else _auto_hops(rc, box_len_r, ndev_r))
+    k_col = (int(n_hops) if n_hops is not None
+             else _auto_hops(rc, box_len_c, ndev_c))
+    axes = (row_axis, col_axis)
+    cl_kw = _grid_kw(spec, (slab_axis, col_space_axis))
+
+    def local_step(state: DistributedParticles, extras):
+        red = Reduce(axes)
+        ps, bounds, cbounds = state.ps, state.bounds, state.col_bounds
+        if spec.advance is not None:
+            ps = spec.advance(ps, red, extras)
+        # two-stage map(): rows re-own along slab_axis within each mesh
+        # column, then columns along col_space_axis within each row
+        ps, ovf_r = M.map_particles_local(ps, bounds, row_axis, b_cap,
+                                          slab_axis)
+        ps, ovf_c = M.map_particles_local(ps, cbounds, col_axis, b_cap,
+                                          col_space_axis)
+        contract = torch.maximum(_hop_excess(bounds, rc, k_row),
+                                 _hop_excess(cbounds, rc, k_col))
+        # two-stage ghost_get: rows first; the column exchange ships
+        # locals + row ghosts, so the corners relay through the (row,
+        # col -/+ 1) neighbour with no diagonal sends
+        ghosts_r, ovf_gr = M.ghost_get_local(
+            ps, bounds, rc, row_axis, g_cap, periodic=per_row,
+            box_len=box_len_r, slab_axis=slab_axis,
+            prop_names=spec.ghost_props, n_hops=k_row)
+        combo_r = _combo_of(ps, ghosts_r, spec.ghost_props)
+        ghosts_c, ovf_gc = M.ghost_get_local(
+            combo_r, cbounds, rc, col_axis, g_cap, periodic=per_col,
+            box_len=box_len_c, slab_axis=col_space_axis,
+            prop_names=spec.ghost_props, n_hops=k_col)
+        combo = _combo_of(combo_r, ghosts_c, spec.ghost_props)
+        cl = CL.build_cell_list(combo, **cl_kw)
+        pair = I.apply_pair_kernel(combo, cl, body, **pair_kw)
+        ps, scalars, nb_ovf, fields = _finish(
+            spec, StepCtx(ps=ps, combo=combo, cl=cl, pair=pair, red=red,
+                          extras=extras, fields=state.fields,
+                          grid=G.GridOps(device=ps.device)))
+        # the flags over both axes, in one reduction
+        local = RT.pmax(torch.stack([
+            cl.overflow.to(torch.int32), nb_ovf,
+            torch.maximum(ovf_r, ovf_c).to(torch.int32),
+            torch.maximum(ovf_gr, ovf_gc).to(torch.int32)]), axes)
+        flags = StepFlags(cell=local[0], neighbor=local[1], bucket=local[2],
+                          ghost=local[3], ghost_contract=contract,
+                          window=_z32(ps.device), stale=_z32(ps.device))
         return (dataclasses.replace(state, ps=ps, fields=fields), flags,
                 scalars)
 
@@ -836,6 +946,18 @@ def _make_reuse_step_1d(physics, cfg, mesh, axis_name: str, slab_axis: int,
     return step
 
 
+def _wrap_reuse_fallback(inner_step):
+    """The reuse engine on a pencil mesh (``repro``'s inert fallback): the
+    cache rides along untouched and every step runs the full pencil step;
+    ``StepFlags.stale`` is 1 throughout, the state a :class:`ReuseState`."""
+    def step(rstate: ReuseState, extras):
+        inner, flags, scalars = inner_step(rstate.inner, extras)
+        flags = dataclasses.replace(flags, stale=torch.ones(
+            (), dtype=torch.int32, device=flags.stale.device))
+        return ReuseState(inner=inner, cache=rstate.cache), flags, scalars
+    return step
+
+
 def _cold_cell_list(cl_kw, rows_lead: int, id_lead: int, sentinel: int,
                     device) -> CL.CellList:
     """An all-empty cell list with the right static geometry — the
@@ -866,14 +988,15 @@ def reuse_state(state: DistributedParticles, physics, cfg, mesh=None, *,
     count, overlap binning). On a mesh each rank wraps its own block, so
     the cache has this rank's shapes. Call it again after any
     re-decomposition outside the step (``make_rebalance``): a moved slab
-    boundary invalidates the cached ghost slots."""
+    boundary invalidates the cached ghost slots. On a pencil mesh (more
+    than one column) the cache is the inert one of ``repro``'s fallback,
+    shaped as the serial cache (see :func:`make_sim_step`)."""
     spec = physics(cfg)
     skin_v = _resolve_skin(spec, skin)
+    pencil = False
     if mesh is not None:
-        row_axis, ndev_c = _axis_names(mesh, axis_name)
-        if ndev_c > 1:
-            raise NotImplementedError(_A14B.format(
-                "reuse_state on a 2-D (pencil) device mesh"))
+        row_axis, _, ndev_c = _axis_names(mesh, axis_name)
+        pencil = ndev_c > 1
     phys = {}
     if spec.cache_keys:
         if spec.cache_example is None:
@@ -885,7 +1008,7 @@ def reuse_state(state: DistributedParticles, physics, cfg, mesh=None, *,
     ps = state.ps
     dev = ps.device
     cap = ps.capacity
-    if mesh is None:
+    if mesh is None or pencil:
         cl_kw = _grid_kw(spec, (), skin=skin_v)
         cache = ReuseCache(
             ok=False, x_anchor=ps.x,
@@ -966,31 +1089,43 @@ def make_rebalance(physics, cfg, mesh, *, axis_name="shards",
     Mesh fields stay where they are: DLB moves the particle slab bounds
     only. Returns ``fn(state) -> (state, overflow)``, overflow the
     ``map()`` flag (the same on every rank). A ``(row, col)`` tuple
-    ``axis_name`` whose column axis has size 1 is the slab; a larger one
-    is the pencil, ROADMAP A14b."""
-    row_axis, ndev_c = _axis_names(mesh, axis_name)
-    if ndev_c > 1:
-        raise NotImplementedError(_A14B.format(
-            "make_rebalance on a 2-D (pencil) device mesh"))
+    ``axis_name`` whose column axis has size 1 is the slab. On a pencil
+    mesh each decomposed axis is rebalanced against its own histogram,
+    psum'd over the whole mesh: the row bounds, the map over the rows,
+    then the column bounds (``slab_axis + 1``) and the map over the
+    columns; ``col_bounds`` rides in the state."""
+    row_axis, col_axis, ndev_c = _axis_names(mesh, axis_name)
     spec = physics(cfg)
     with RT.on_mesh(mesh):
         ndev = RT.axis_size(row_axis)
-    lo = float(spec.box_lo[slab_axis])
-    hi = float(spec.box_hi[slab_axis])
+    col_space_axis = slab_axis + 1
     b_cap = int(bucket_cap or spec.bucket_cap)
     min_w = float(spec.r_cut * 1.001 / max(int(n_hops), 1)
                   if min_slab_width is None else min_slab_width)
+    # the histograms psum over the whole mesh (a tuple on a pencil)
+    red_axes = (row_axis, col_axis) if ndev_c > 1 else row_axis
+
+    def balanced(ps, axis: int, n: int):
+        lo, hi = float(spec.box_lo[axis]), float(spec.box_hi[axis])
+        hist = RT.psum(dlb.histogram_cost(ps.x[:, axis],
+                                          ps.valid.to(torch.float32), lo,
+                                          hi, nbins), red_axes)
+        return dlb.enforce_min_width(
+            dlb.bounds_from_histogram(hist, n, lo, hi), min_w)
 
     def local(state: DistributedParticles):
         ps = state.ps
-        w = ps.valid.to(torch.float32)
-        hist = dlb.histogram_cost(ps.x[:, slab_axis], w, lo, hi, nbins)
-        hist = RT.psum(hist, row_axis)
-        bounds = dlb.bounds_from_histogram(hist, ndev, lo, hi)
-        bounds = dlb.enforce_min_width(bounds, min_w)
+        bounds = balanced(ps, slab_axis, ndev)
         ps, ovf = M.map_particles_local(ps, bounds, row_axis, b_cap,
                                         slab_axis)
-        return dataclasses.replace(state, ps=ps, bounds=bounds), ovf
+        cbounds = state.col_bounds
+        if ndev_c > 1:
+            cbounds = balanced(ps, col_space_axis, ndev_c)
+            ps, ovf_c = M.map_particles_local(ps, cbounds, col_axis, b_cap,
+                                              col_space_axis)
+            ovf = RT.pmax(torch.maximum(ovf, ovf_c), red_axes)
+        return dataclasses.replace(state, ps=ps, bounds=bounds,
+                                   col_bounds=cbounds), ovf
 
     def fn(state: DistributedParticles):
         with RT.on_mesh(mesh):
@@ -1002,7 +1137,8 @@ def make_rebalance(physics, cfg, mesh, *, axis_name="shards",
 def distribute(ps0: ParticleSet, physics, cfg, mesh, *,
                axis_name="shards", slab_axis: int = 0,
                cap_per_dev: Optional[int] = None, cap_factor: float = 3.0,
-               bounds=None, fields: Optional[Dict[str, torch.Tensor]] = None
+               bounds=None, col_bounds=None,
+               fields: Optional[Dict[str, torch.Tensor]] = None
                ) -> DistributedParticles:
     """The host-side 'global map' (paper: distributed read + global map),
     as each rank calls it with the same ``ps0``: every valid particle goes
@@ -1011,26 +1147,53 @@ def distribute(ps0: ParticleSet, physics, cfg, mesh, *,
     rank's block, on ``ps0``'s device, with the replicated ``bounds``
     (default: uniform slabs) and this rank's rows of ``fields`` (full mesh
     arrays, leading axis the slab axis). Reads ``ps0`` on the host: a
-    set-up function, not for a step."""
+    set-up function, not for a step.
+
+    A ``(row, col)`` tuple ``axis_name`` is the pencil decomposition
+    (DESIGN.md §13): rank (i, j) owns row slab i × the ``slab_axis + 1``
+    column slab j, its slot block is the flat index ``i·ncols + j`` (the
+    mesh's row-major order, as ``repro``'s ``P((row, col))``), and the
+    state carries ``col_bounds`` (default: uniform). Mesh fields on more
+    than one column raise, as in ``repro``."""
     from repro_torch import convert
-    row_axis, ndev_c = _axis_names(mesh, axis_name)
-    if ndev_c > 1:
-        raise NotImplementedError(_A14B.format("distribute over a 2-D "
-                                               "(pencil) device mesh"))
+    row_axis, col_axis, ndev_c = _axis_names(mesh, axis_name)
+    if ndev_c > 1 and fields:
+        raise NotImplementedError(
+            "mesh fields on a 2-D device mesh need pencil GridOps (neither "
+            "package has them); decompose field-carrying physics as "
+            "(ndev, 1) slabs or use apps/vortex.py's pencil VIC step")
     spec = physics(cfg)
+    col_space_axis = slab_axis + 1
     with RT.on_mesh(mesh):
         ndev = RT.axis_size(row_axis)
-        me = RT.axis_index(row_axis)
+        me = RT.axis_index(row_axis if col_axis is None
+                           else (row_axis, col_axis))
+
+    def host(b):
+        return np.asarray(b.cpu() if isinstance(b, torch.Tensor) else b,
+                          np.float32)
+
     if bounds is None:
         bounds = dlb.uniform_bounds(ndev, float(spec.box_lo[slab_axis]),
                                     float(spec.box_hi[slab_axis]))
-    bounds = np.asarray(bounds.cpu() if isinstance(bounds, torch.Tensor)
-                        else bounds, np.float32)
+    bounds = host(bounds)
+    if col_axis is not None:
+        if col_bounds is None:
+            col_bounds = dlb.uniform_bounds(
+                ndev_c, float(spec.box_lo[col_space_axis]),
+                float(spec.box_hi[col_space_axis]))
+        col_bounds = host(col_bounds)
     x, valid, props = convert.particles_to_numpy(with_ids(ps0))
     X, V, PR = convert.scatter_to_slabs(x, valid, props, bounds, ndev,
                                         slab_axis=slab_axis,
                                         cap_per_dev=cap_per_dev,
-                                        cap_factor=cap_factor)
+                                        cap_factor=cap_factor,
+                                        col_bounds=col_bounds)
     fnp = {k: v.cpu().numpy() for k, v in (fields or {}).items()}
-    return convert.dist_state_from_numpy(X, V, PR, bounds, me, ndev,
-                                         fields=fnp, device=ps0.device)
+    state = convert.dist_state_from_numpy(X, V, PR, bounds, me,
+                                          ndev * ndev_c, fields=fnp,
+                                          device=ps0.device)
+    if col_axis is None:
+        return state
+    return dataclasses.replace(state, col_bounds=convert.field_from_numpy(
+        col_bounds, ps0.device))

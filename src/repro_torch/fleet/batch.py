@@ -23,8 +23,13 @@ Per-member semantics, as in ``repro``:
     through with zeroed flags and scalars, which lets the server
     (fleet/server.py) join and leave simulations without a rebuild.
 
-The mesh-sharded batch axis (``repro``'s ``shard_map`` over a device
-mesh) is the sharded fleet of ROADMAP A14b.
+The sharded fleet runs SPMD by process, as the slab layer does: every
+rank calls the same functions with the same arguments. On a 1-D mesh
+rank ``d`` owns global members ``[d·B/ndev, (d+1)·B/ndev)``, as
+``repro``'s ``P(axis_name)`` sharding does: :func:`shard_ensemble` cuts
+that block out of the whole ensemble, and the meshed
+:func:`make_fleet_step` steps it. The step has no collective (members do
+not interact), so each rank keeps one folded B1 launch per pair pass.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 
 from repro_torch import tree as T
+from repro_torch.core import runtime as RT
 from repro_torch.core import simulation as SIM
 
 
@@ -100,10 +106,21 @@ def set_member(ens: EnsembleState, i: int, state: SIM.DistributedParticles,
 
 def shard_ensemble(ens: EnsembleState, mesh, axis_name: str = "fleet"
                    ) -> EnsembleState:
-    """The batch axis sharded over a device mesh: ROADMAP A14b."""
-    raise NotImplementedError(
-        "shard_ensemble (the fleet's batch axis over a device mesh) is not "
-        "ported yet (ROADMAP A14b)")
+    """The batch axis sharded over a 1-D device mesh, as each rank calls it
+    with the whole ensemble: this rank's block of members (rank ``d``
+    owns ``[d·B/ndev, (d+1)·B/ndev)``), copied. ``B`` must divide the
+    mesh."""
+    with RT.on_mesh(mesh):
+        ndev = RT.axis_size(axis_name)
+        me = RT.axis_index(axis_name)
+    if ens.batch % ndev:
+        raise ValueError(f"batch {ens.batch} not divisible by {ndev} "
+                         f"devices on axis {axis_name!r}")
+    bl = ens.batch // ndev
+    rows = lambda a: a[me * bl:(me + 1) * bl].clone()
+    return EnsembleState(member=T.tree_map(rows, ens.member),
+                         params={k: rows(v) for k, v in ens.params.items()},
+                         active=rows(ens.active))
 
 
 # --------------------------------------------------------------------------
@@ -140,15 +157,32 @@ class FleetStep:
     :func:`make_fleet_step`). :meth:`cache_size` counts the distinct input
     signatures (structure, shapes, dtypes, devices, extras keys) it has
     stepped — what a jit cache would hold; a server's joins and leaves
-    keep it at 1."""
+    keep it at 1. With a ``mesh`` it steps this rank's block of a sharded
+    fleet; the first call of each signature (on every rank at once, as
+    the ranks step blocks of one size) checks, in one ``all_gather`` of
+    the block sizes, that every rank holds as many members."""
 
-    def __init__(self, physics, cfg, slab_axis: int = 0):
+    def __init__(self, physics, cfg, slab_axis: int = 0, mesh=None,
+                 axis_name: str = "fleet"):
         self._step_fn = SIM.make_serial_step_fn(physics, cfg,
                                                 slab_axis=slab_axis)
         self._signatures = set()
+        self._mesh, self._axis = mesh, axis_name
 
     def cache_size(self) -> int:
         return len(self._signatures)
+
+    def _check_shards(self, batch: int, dev: torch.device) -> None:
+        """Every rank's block has ``batch`` members (one host read)."""
+        with RT.on_mesh(self._mesh):
+            sizes = RT.all_gather(torch.full((), batch, dtype=torch.int32,
+                                             device=dev),
+                                  self._axis).tolist()
+        if len(set(sizes)) != 1:
+            raise ValueError(
+                f"batch {sum(sizes)} not divisible by {len(sizes)} devices "
+                f"on axis {self._axis!r} (the ranks hold {sizes} members; "
+                "cut the fleet with shard_ensemble)")
 
     def __call__(self, ens: EnsembleState, extras: Dict[str, Any]):
         merged = {**extras, **ens.params}
@@ -156,8 +190,10 @@ class FleetStep:
         m_leaves, m_def = T.flatten(ens.member)
         dev = m_leaves[0].device
         vals = [torch.as_tensor(merged[k], device=dev) for k in keys]
-        self._signatures.add((m_def, keys, _signature(m_leaves),
-                              _signature(vals)))
+        sig = (m_def, keys, _signature(m_leaves), _signature(vals))
+        if self._mesh is not None and sig not in self._signatures:
+            self._check_shards(ens.batch, dev)
+        self._signatures.add(sig)
         out_def = []
 
         def member_step(m_leaves, vals):
@@ -178,7 +214,7 @@ class FleetStep:
 
 
 @functools.lru_cache(maxsize=None)
-def make_fleet_step(physics, cfg, mesh=None, *,
+def make_fleet_step(physics, cfg, mesh=None, *, axis_name: str = "fleet",
                     slab_axis: int = 0) -> FleetStep:
     """Build the batched step for a fleet of ``physics(cfg)`` simulations
     (cached on its arguments).
@@ -197,10 +233,10 @@ def make_fleet_step(physics, cfg, mesh=None, *,
         inactive slots.
 
     The step runs eagerly and out of place (``repro``'s jit with buffer
-    donation has no counterpart here). ``mesh`` other than None is the
-    meshed fleet step, ROADMAP A14b, and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_fleet_step over a device mesh is not ported yet "
-            "(ROADMAP A14b); pass mesh=None")
-    return FleetStep(physics, cfg, slab_axis)
+    donation has no counterpart here). With a 1-D ``mesh`` the batch axis
+    is sharded over ``axis_name``: every rank calls the step on its own
+    block (:func:`shard_ensemble`), and flags and scalars are its
+    ``(B/ndev,)`` rows. Members do not interact, so the step has no
+    collective; a batch that does not divide over the ranks raises
+    ValueError."""
+    return FleetStep(physics, cfg, slab_axis, mesh, axis_name)

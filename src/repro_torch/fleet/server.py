@@ -21,6 +21,14 @@ Per-member per-step inputs (e.g. SPH's ``euler`` flag, which follows each
 member's own step count) come from each request's ``extras_fn``; the
 server stacks them into ``(B,)`` tensors on the ensemble's device each
 step. The one host read of a step is the flags, after the step.
+
+On a 1-D device mesh (``mesh=``) the slots are sharded as the fleet is
+(``fleet.batch.shard_ensemble``): every rank runs the same loop on the
+same requests in the same order, so the admit and retire decisions, which
+read only host step counts, agree across ranks. A slot's member lives on
+the rank that owns it; ``flags_max`` reads every slot's flags through one
+``all_gather`` a step, a result's state reaches every rank from its owner
+(``runtime.broadcast``), and only the owner writes its checkpoint.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
+from repro_torch.core import runtime as RT
 from repro_torch.core import simulation as SIM
 from repro_torch.fleet import batch as FB
 from repro_torch.fleet.metrics import FleetMetrics
@@ -100,20 +109,29 @@ class FleetServer:
     slots still flow through the batched step, masked out).
     ``param_template`` declares the per-member params (every request
     supplies the same keys); ``default_extras`` the extras of empty slots
-    and of requests without ``extras_fn``. ``mesh`` other than None is the
-    meshed server, ROADMAP A14b, and raises."""
+    and of requests without ``extras_fn``. With a 1-D ``mesh`` the slots
+    are sharded over ``axis_name`` (``n_slots`` must divide the mesh) and
+    every rank runs the server on the same requests (module docstring)."""
 
     def __init__(self, physics, cfg, n_slots: int,
                  template: SIM.DistributedParticles, *, mesh=None,
-                 queue_cap: int = 64,
+                 axis_name: str = "fleet", queue_cap: int = 64,
                  out_dir=None, param_template: Optional[Dict[str, Any]] = None,
                  default_extras: Optional[Dict[str, Any]] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "FleetServer over a device mesh is not ported yet "
-                "(ROADMAP A14b); pass mesh=None")
         self.physics, self.cfg = physics, cfg
         self.n_slots = int(n_slots)
+        self.mesh, self.axis_name = mesh, axis_name
+        ndev, me = 1, 0
+        if mesh is not None:
+            with RT.on_mesh(mesh):
+                ndev = RT.axis_size(axis_name)
+                me = RT.axis_index(axis_name)
+            if self.n_slots % ndev:
+                raise ValueError(f"{self.n_slots} slots not divisible by "
+                                 f"{ndev} devices on axis {axis_name!r}")
+        # this rank's slots: [lo, lo + per)
+        self._per = self.n_slots // ndev
+        self._lo = me * self._per
         self.out_dir = out_dir
         self.default_extras = dict(default_extras or {})
         self._queue: "queue.Queue[SimRequest]" = queue.Queue(maxsize=queue_cap)
@@ -125,13 +143,13 @@ class FleetServer:
         dev = T.flatten(template)[0][0].device
         self._device = dev
         params = {k: torch.stack([torch.as_tensor(v, device=dev)]
-                                 * self.n_slots)
+                                 * self._per)
                   for k, v in (param_template or {}).items()}
         self._ens = FB.stack_members(
-            [template] * self.n_slots, params=params,
-            active=torch.zeros((self.n_slots,), dtype=torch.bool,
-                               device=dev))
-        self._step = FB.FleetStep(physics, cfg)
+            [template] * self._per, params=params,
+            active=torch.zeros((self._per,), dtype=torch.bool, device=dev))
+        self._step = FB.FleetStep(physics, cfg, mesh=mesh,
+                                  axis_name=axis_name)
 
     # -- admission ---------------------------------------------------------
     def submit(self, req: SimRequest, block: bool = True,
@@ -144,24 +162,31 @@ class FleetServer:
     def _free_slots(self) -> List[int]:
         return [i for i, s in self._slots.items() if s is None]
 
+    def _local(self, i: int) -> Optional[int]:
+        """Slot ``i``'s row in this rank's block, None on another rank."""
+        j = i - self._lo
+        return j if 0 <= j < self._per else None
+
     def _admit(self) -> None:
         for i in self._free_slots():
             try:
                 req = self._queue.get_nowait()
             except queue.Empty:
                 return
-            # join: one member's bytes written into slot i, in place
-            FB.set_member(self._ens, i, req.state, True)
-            for k, v in req.params.items():
-                self._ens.params[k][i] = torch.as_tensor(v)
+            j = self._local(i)
+            if j is not None:
+                # join: one member's bytes written into slot i, in place
+                FB.set_member(self._ens, j, req.state, True)
+                for k, v in req.params.items():
+                    self._ens.params[k][j] = torch.as_tensor(v)
             self._slots[i] = _Slot(rid=req.rid, extras_fn=req.extras_fn,
                                    n_steps=int(req.n_steps),
                                    t_join=time.perf_counter())
 
     def _gather_extras(self) -> Dict[str, torch.Tensor]:
         """Stack per-member ``extras_fn`` outputs into (B,) tensors on the
-        ensemble's device. Keys must agree across active slots; empty
-        slots take the default."""
+        ensemble's device (this rank's rows). Keys must agree across active
+        slots; empty slots take the default."""
         names = set()
         per_slot = {}
         for i, s in self._slots.items():
@@ -178,7 +203,8 @@ class FleetServer:
                 raise ValueError(
                     f"extras key {k!r} missing on some slots and has no "
                     f"default (give FleetServer default_extras={{{k!r}: ...}})")
-            out[k] = _to_device(np.stack([np.asarray(v) for v in vals]),
+            rows = np.stack([np.asarray(v) for v in vals])
+            out[k] = _to_device(rows[self._lo:self._lo + self._per],
                                 self._device)
         return out
 
@@ -186,19 +212,27 @@ class FleetServer:
         for i, s in self._slots.items():
             if s is None or s.steps_done < s.n_steps:
                 continue
-            state = FB.member_at(self._ens, i)
+            j = self._local(i)
+            state = FB.member_at(self._ens, 0 if j is None else j)
+            if self.mesh is not None:
+                # the owner's member on every rank (the others send a
+                # buffer of the same shapes)
+                with RT.on_mesh(self.mesh):
+                    state = T.tree_map(lambda a: RT.broadcast(
+                        a, self.axis_name, i // self._per), state)
             res = SimResult(rid=s.rid, state=state, steps_done=s.steps_done,
                             flags_max=dict(s.flags_max),
                             wall_s=time.perf_counter() - s.t_join)
             self._results.append(res)
-            if self.out_dir is not None:
+            if self.out_dir is not None and j is not None:
                 CK.save_particles(f"{self.out_dir}/sim_{s.rid}", state.ps,
                                   step=s.steps_done,
                                   meta={"rid": str(s.rid)}, block=False)
             self._slots[i] = None
             # leave = active-mask flip only; the slot's stale state is
             # masked out of later steps
-            self._ens.active[i] = False
+            if j is not None:
+                self._ens.active[j] = False
             self.metrics.observe_complete(self._queue.qsize())
 
     def step_once(self) -> int:
@@ -211,9 +245,13 @@ class FleetServer:
         extras = self._gather_extras()
         t0 = time.perf_counter()
         self._ens, flags, _ = self._step(self._ens, extras)
+        fl = torch.stack([getattr(flags, k).to(torch.int32)
+                          for k in _FLAG_NAMES])          # (5, B local)
+        if self.mesh is not None:
+            with RT.on_mesh(self.mesh):
+                fl = RT.all_gather(fl, self.axis_name, axis=1, tiled=True)
         # the step's one host read, which also waits for the step
-        fl_host = torch.stack([getattr(flags, k).to(torch.int32)
-                               for k in _FLAG_NAMES]).cpu().numpy()
+        fl_host = fl.cpu().numpy()
         wall = time.perf_counter() - t0
         for i in active_slots:
             s = self._slots[i]

@@ -10,7 +10,7 @@ the hand-written kernel B5 instead (``kernels/flash_attention``), which
 computes that function too.
 
 ``repro``'s ``cons`` sharding callbacks have no counterpart here: the port
-runs the LM on one device (ROADMAP A14b).
+runs the LM on one device (ROADMAP A16f: the LM's sharding).
 """
 from __future__ import annotations
 

@@ -34,7 +34,7 @@ KIND_ITEMS = {
 def _check(cfg: ModelConfig, ctx=None) -> None:
     if ctx is not None:
         raise NotImplementedError(
-            "a sharding ctx needs the sharded LM stack (ROADMAP A14b); the "
+            "a sharding ctx needs the sharded LM stack (ROADMAP A16f); the "
             "port runs the LM on one device, pass ctx=None")
     if cfg.kind != "dense":
         item = KIND_ITEMS.get(cfg.kind, "ROADMAP A16")

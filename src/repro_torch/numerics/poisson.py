@@ -7,8 +7,11 @@ package leaves them to XLA's FFT outside any Pallas kernel.
 :func:`fft_poisson_slab_local` / :func:`make_fft_poisson_slab` solve on a
 mesh sharded along its leading axis (DESIGN.md §10): local 2-D FFTs, ONE
 ``all_to_all`` transpose, a local 1-D FFT and the spectral division, and
-back; one slab degenerates to :func:`fft_poisson`. The pencil solver is
-ROADMAP A14b. :func:`multigrid_poisson` is the geometric V-cycle
+back; one slab degenerates to :func:`fft_poisson`.
+:func:`fft_poisson_pencil_local` / :func:`make_fft_poisson_pencil` solve
+on a mesh sharded along axes 0 and 1 over a 2-D device mesh (DESIGN.md
+§13): two tiled ``all_to_all`` transposes each way, each over one mesh
+axis. :func:`multigrid_poisson` is the geometric V-cycle
 alternative (damped Jacobi smoothing of the 2·dim+1-point Laplacian),
 with :func:`residual_norm`.
 """
@@ -146,6 +149,108 @@ def make_fft_poisson_slab(mesh, axis_name: str, lengths: Tuple[float, ...],
     def solve(rhs):
         with RT.on_mesh(mesh):
             return fft_poisson_slab_local(rhs, lengths, axis_name, discrete)
+
+    return solve
+
+
+# --------------------------------------------------------------------------
+# Pencil-decomposed spectral solve (2-D device mesh, two tiled transposes)
+# --------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=8)
+def _pencil_lam(shape, lengths, discrete: bool, me_r: int, r: int,
+                me_c: int, c: int, device: torch.device) -> torch.Tensor:
+    """The eigenvalues of this pencil's (k1, k2) rows, ``(n0, n1 / r, n2 /
+    c)`` float32, formed as ``repro`` forms them (per-axis float32
+    vectors summed), kept on ``device`` per geometry."""
+    l0, l1, l2 = (torch.from_numpy(v).to(torch.float32)
+                  for v in _k2_axes(shape, lengths, discrete))
+    n1r, n2c = shape[1] // r, shape[2] // c
+    l1 = l1[me_r * n1r:(me_r + 1) * n1r]
+    l2 = l2[me_c * n2c:(me_c + 1) * n2c]
+    return (l0[:, None, None] + l1[None, :, None]
+            + l2[None, None, :]).to(device)
+
+
+def fft_poisson_pencil_local(rhs: torch.Tensor, lengths: Tuple[float, ...],
+                             row_axis: str, col_axis: str,
+                             discrete: bool = True) -> torch.Tensor:
+    """Solve ∆u = rhs on a pencil-sharded 3-D periodic mesh, per rank of an
+    ``(r, c)`` device mesh (DESIGN.md §13).
+
+    ``rhs`` is this rank's pencil ``(n0/r, n1/c, n2[, C])``. FFT the
+    complete axis 2; ``all_to_all`` over the column axis (split axis 2,
+    concat axis 1) so axis 1 is complete; FFT axis 1; ``all_to_all`` over
+    the row axis (split axis 1, concat axis 0) so axis 0 is complete; FFT
+    axis 0; divide by this pencil's eigenvalues; and invert the path.
+    Needs ``n2 % c == 0`` and ``n1 % r == 0`` (the transpose tilings); a
+    size-1 axis makes its transposes the identity."""
+    lengths = tuple(float(v) for v in lengths)
+    if len(lengths) != 3:
+        raise ValueError("the pencil decomposition is 3-D")
+    r, c = RT.axis_size(row_axis), RT.axis_size(col_axis)
+    me_r, me_c = RT.axis_index(row_axis), RT.axis_index(col_axis)
+    vec = rhs.dim() == 4
+    n0l, n1l, n2 = rhs.shape[:3]
+    n1 = n1l * c
+    if n2 % c:
+        raise ValueError(f"axis 2 ({n2}) must divide over {c} column shards "
+                         "for the first FFT transpose")
+    if n1 % r:
+        raise ValueError(f"axis 1 ({n1}) must divide over {r} row shards "
+                         "for the second FFT transpose")
+    rh = torch.fft.fft(rhs.to(torch.complex64), dim=2)
+    # transpose 1 (columns): complete axis 1, shard axis 2
+    rh = RT.all_to_all(rh, col_axis, split_axis=2, concat_axis=1,
+                       tiled=True)
+    rh = torch.fft.fft(rh, dim=1)                   # (n0l, n1, n2c[, C])
+    # transpose 2 (rows): complete axis 0, shard axis 1
+    rh = RT.all_to_all(rh, row_axis, split_axis=1, concat_axis=0,
+                       tiled=True)
+    rh = torch.fft.fft(rh, dim=0)                   # (n0, n1r, n2c[, C])
+    lam = _pencil_lam((n0l * r, n1, n2), lengths, discrete, me_r, r, me_c,
+                      c, rhs.device)
+    if vec:
+        lam = lam[..., None]
+    zero = lam == 0
+    uh = torch.where(zero, torch.zeros_like(rh),
+                     rh / torch.where(zero, torch.ones_like(lam), lam))
+    del rh
+    uh = torch.fft.ifft(uh, dim=0)
+    uh = RT.all_to_all(uh, row_axis, split_axis=0, concat_axis=1,
+                       tiled=True)
+    uh = torch.fft.ifft(uh, dim=1)                  # (n0l, n1, n2c[, C])
+    uh = RT.all_to_all(uh, col_axis, split_axis=1, concat_axis=2,
+                       tiled=True)
+    return torch.fft.ifft(uh, dim=2).real.to(rhs.dtype)
+
+
+def make_fft_poisson_pencil(mesh, axis_names: Tuple[str, str],
+                            lengths: Tuple[float, ...],
+                            discrete: bool = True):
+    """``solve(rhs_block) -> u_block`` over a pencil-sharded rhs (axes 0
+    and 1 over an ``(r, c)`` device mesh), as each rank calls it. The
+    degenerate meshes reuse the narrower solvers, as in ``repro``: 1 × 1
+    returns the serial :func:`fft_poisson`, ``(r, 1)`` runs
+    :func:`fft_poisson_slab_local` over the row axis (bit for bit the slab
+    path), anything else the two-transpose pencil plan."""
+    row_axis, col_axis = axis_names
+    lengths = tuple(float(v) for v in lengths)
+    with RT.on_mesh(mesh):
+        r, c = RT.axis_size(row_axis), RT.axis_size(col_axis)
+    if r == 1 and c == 1:
+        return lambda rhs: fft_poisson(rhs, lengths, discrete)
+    if c == 1:
+        def local(rhs):
+            return fft_poisson_slab_local(rhs, lengths, row_axis, discrete)
+    else:
+        def local(rhs):
+            return fft_poisson_pencil_local(rhs, lengths, row_axis,
+                                            col_axis, discrete)
+
+    def solve(rhs):
+        with RT.on_mesh(mesh):
+            return local(rhs)
 
     return solve
 

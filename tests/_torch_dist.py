@@ -538,7 +538,8 @@ def reuse_dlb(mesh, rank, world, dlb_in, md_in, probe_in, dem_in):
     and under reuse; the probe runs of PROBE_RUNS from ``probe_in``; DEM
     every step and under reuse from ``dem_in`` (the contact cache per
     step); ``sph.run_distributed`` with a threshold trigger (reuse off and
-    on) and with SAR on, each rank sleeping its own time a step."""
+    on) and with SAR on, each rank's scripted clock advancing its own
+    time a step."""
     import time
     from _torch_bridge import ProbeCfg, probe_physics
     from repro_torch.apps import dem, md, sph
@@ -632,21 +633,25 @@ def reuse_dlb(mesh, rank, world, dlb_in, md_in, probe_in, dem_in):
         out[key + "t"], out[key + "n_reb"] = np.float64(t), np.int32(n_reb)
         out[key + "imb"] = np.asarray(imb)
 
+    # a scripted clock per rank: each step advances it by 0.01·k·(1 +
+    # rank) s (k the step's number), so every rank's own wall times differ
+    # from every other rank's, grow each step (SAR's imbalance cost rises
+    # and it fires) and are the same on every run, whatever the load
+    clock = [0.0]
+    calls = [0]
+
     def slow_factory(w):
         inner = SIM.make_sim_step(sph.physics, scfg, mesh, interior_rows=w)
-        calls = [0]
 
         def step(state, extras):
             calls[0] += 1
-            time.sleep(0.01 * calls[0])         # growing walls: SAR rises
+            clock[0] += 0.01 * calls[0] * (1 + rank)
             return inner(state, extras)
 
         return step
 
-    # each rank's clock runs at its own rate, so its own wall times differ
-    # from every other rank's however the collectives line the ranks up
     real = time.perf_counter
-    time.perf_counter = lambda: real() * (1 + rank)
+    time.perf_counter = lambda: clock[0]
     try:
         _, _, n_reb, imb = sph.run_distributed(
             scfg, SAR_STEPS, mesh, world, use_sar=True, imb_threshold=10.0,
@@ -770,6 +775,410 @@ def repro_reuse_reference(dlb_in: str, md_in: str, out: str) -> None:
     res.update({"md_x": rs.inner.ps.x, "md_valid": rs.inner.ps.valid,
                 "md_id": rs.inner.ps.props["id"],
                 "md_stale": np.asarray(stales, np.int32)})
+    np.savez(out, **{k: np.asarray(v) for k, v in res.items()})
+
+
+# --------------------------------------------------------------------------
+# The sharded fleet, server and PS-CMA-ES on a ("fleet",) mesh
+# --------------------------------------------------------------------------
+
+FLEET = "fleet"
+FLEET_B = 8            # members of the sharded fleet (2 a rank on 4)
+FLEET_STEPS = 3
+#: the meshed server: slots, and (seed, steps) of each request
+SRV_SLOTS = 8
+SRV_REQS = [(seed, 2 + seed % 3) for seed in range(12)]
+#: ps_cma_es_torch(rastrigin_t, CMA_DIM, CMA_POP, CMA_EVALS, seed=CMA_SEED)
+CMA_DIM, CMA_POP, CMA_EVALS, CMA_SEED = 10, 8, 16000, 3
+
+
+def fleet_md_member(md, SIM, cfg, seed: int):
+    """A serial MD member: the lattice with 0.05·N(0, 1) numpy velocities
+    (tests/test_torch_fleet.py's ``_md_state``)."""
+    import torch
+    ps = md.init_particles(cfg)
+    v = np.random.default_rng(seed).normal(size=tuple(ps.x.shape))
+    v = torch.from_numpy((0.05 * v).astype(np.float32)).to(ps.x.device)
+    ps = ps.with_prop("v", torch.where(ps.valid[:, None], v, 0.0))
+    return SIM.serial_state(ps, md.physics, cfg)
+
+
+def fleet(mesh, rank, world, pop_in, out_dir):
+    """The sharded fleet on a ("fleet",) mesh: FLEET_B members stepped
+    FLEET_STEPS times by the meshed step (this rank's block) and by the
+    port's serial loop in this process; the meshed server draining
+    SRV_REQS through SRV_SLOTS slots beside independent serial runs; the
+    sharded PS-CMA-ES beside the serial run; ``migrate`` of this rank's
+    block of ``pop_in``; and the ValueErrors of batches that do not
+    divide."""
+    import torch
+    from repro_torch.apps import cmaes, md
+    from repro_torch.core import runtime as RT
+    from repro_torch.core import simulation as SIM
+    from repro_torch.fleet import FleetServer, SimRequest
+    from repro_torch.fleet import batch as FB
+    fmesh = RT.make_mesh((world,), (FLEET,), device_type="cpu")
+    cfg = md.MDConfig(n_per_side=3, device="cpu")
+    out = {}
+    states = [fleet_md_member(md, SIM, cfg, s) for s in range(FLEET_B)]
+    ens = FB.shard_ensemble(FB.stack_members(states), fmesh)
+    step = FB.make_fleet_step(md.physics, cfg, fmesh)
+    serial = SIM.make_sim_step(md.physics, cfg)
+    for _ in range(FLEET_STEPS):
+        ens, flags, _ = step(ens, {})
+        states = [serial(s, {})[0] for s in states]
+    out["fleet_x"], out["fleet_v"] = (_np(ens.member.ps.x),
+                                      _np(ens.member.ps.props["v"]))
+    out["fleet_cell"] = _np(flags.cell)
+    out["serial_x"] = np.stack([_np(s.ps.x) for s in states])
+    out["serial_v"] = np.stack([_np(s.ps.props["v"]) for s in states])
+    out["fleet_cache"] = np.int32(step.cache_size())
+    try:
+        FB.shard_ensemble(FB.stack_members(states[:6]), fmesh)
+        out["shard_raises"] = np.bool_(False)
+    except ValueError as e:
+        out["shard_raises"] = np.bool_(FLEET in str(e))
+    # 3 members on rank 0, 1 on the others: a block size no rank has
+    # stepped, so every rank's first call of it checks the blocks
+    uneven = FB.stack_members(states[:1 + 2 * (rank == 0)])
+    try:
+        FB.make_fleet_step(md.physics, cfg, fmesh)(uneven, {})
+        out["step_raises"] = np.bool_(False)
+    except ValueError as e:
+        out["step_raises"] = np.bool_("divisible" in str(e))
+
+    srv = FleetServer(md.physics, cfg, n_slots=SRV_SLOTS,
+                      template=fleet_md_member(md, SIM, cfg, 0), mesh=fmesh,
+                      out_dir=out_dir)
+    for rid, (seed, n) in enumerate(SRV_REQS):
+        srv.submit(SimRequest(rid=rid,
+                              state=fleet_md_member(md, SIM, cfg, seed),
+                              n_steps=n))
+    with srv:
+        results = {r.rid: r for r in srv.run()}
+    out["srv_cache"] = np.int32(srv.step_cache_size())
+    out["srv_rids"] = np.asarray(sorted(results), np.int32)
+    out["srv_x"] = np.stack([_np(results[r].state.ps.x)
+                             for r in sorted(results)])
+    out["srv_flags"] = np.asarray([max(results[r].flags_max.values())
+                                   for r in sorted(results)], np.int32)
+    ref = []
+    for seed, n in SRV_REQS:
+        st = fleet_md_member(md, SIM, cfg, seed)
+        for _ in range(n):
+            st = serial(st, {})[0]
+        ref.append(_np(st.ps.x))
+    out["srv_ref_x"] = np.stack(ref)
+    out["srv_completed"] = np.int32(
+        srv.metrics.snapshot()["counters"]["sims_completed"])
+
+    args = (cmaes.rastrigin_t, CMA_DIM, CMA_POP, CMA_EVALS)
+    bf, bx, ev = cmaes.ps_cma_es_torch(*args, seed=CMA_SEED, device="cpu",
+                                       mesh=fmesh)
+    bf_s, bx_s, _ = cmaes.ps_cma_es_torch(*args, seed=CMA_SEED,
+                                          device="cpu")
+    out.update(cma_bf=np.float32(bf), cma_bx=bx, cma_evals=np.int64(ev),
+               cma_bf_serial=np.float32(bf_s), cma_bx_serial=bx_s)
+    try:
+        cmaes.ps_cma_es_torch(*args[:2], 6, 60, device="cpu", mesh=fmesh)
+        out["cma_raises"] = np.bool_(False)
+    except ValueError as e:
+        out["cma_raises"] = np.bool_("divisible" in str(e))
+
+    z = dict(np.load(pop_in))
+    bl = z["mean"].shape[0] // world
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32))
+    blk = {k: v[rank * bl:(rank + 1) * bl] for k, v in z.items()}
+    pop = cmaes.CMAStateT(
+        mean=f32(blk["mean"]), sigma=f32(blk["sigma"]), C=f32(blk["C"]),
+        p_sigma=f32(blk["p_sigma"]), p_c=f32(blk["p_c"]),
+        best_f=f32(blk["best_f"]), best_x=f32(blk["best_x"]),
+        evals=i32(blk["evals"]), gen=i32(blk["gen"]))
+    with RT.on_mesh(fmesh):
+        mig = cmaes.migrate(pop, SIM.Reduce(FLEET))
+    out.update({f"mig_{k}": _np(getattr(mig, k))
+                for k in ("mean", "sigma", "C", "p_sigma", "p_c")})
+    return out
+
+
+def repro_fleet_reference(pop_in: str, out: str) -> None:
+    """On 4 of the forced host devices: repro's ``migrate`` of ``pop_in``
+    (a stacked population, sharded one block a device, under
+    ``shard_map``); the migrated population goes to ``out``."""
+    import jax
+    import jax.numpy as jnp
+    sys.path.insert(0, str(ROOT))
+    from benchmarks import dist_common as DC
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from repro.apps import cmaes
+    from repro.core import runtime as JRT
+    from repro.core import simulation as SIM
+    mesh = DC.make_submesh(4)
+    z = dict(np.load(pop_in))
+    pop = cmaes.CMAStateJ(**{k: jnp.asarray(v) for k, v in z.items()})
+    sh = NamedSharding(mesh, P(DC.AXIS))
+    pop = jax.device_put(pop, jax.tree.map(lambda _: sh, pop))
+    fn = jax.jit(JRT.shard_map(
+        lambda p: cmaes.migrate(p, SIM.Reduce(DC.AXIS)), mesh,
+        in_specs=(P(DC.AXIS),), out_specs=P(DC.AXIS), check_vma=False))
+    mig = fn(pop)
+    np.savez(out, **{k: np.asarray(getattr(mig, k))
+                     for k in ("mean", "sigma", "C", "p_sigma", "p_c")})
+
+
+# --------------------------------------------------------------------------
+# The pencil forms on 2-D (rows, cols) meshes
+# --------------------------------------------------------------------------
+
+PENCIL = ("rows", "cols")
+PEN_STEPS = 5          # MD pencil steps (tests/distributed/test_dist_pencil)
+PEN_REB_AT = 2         # the rebalance after this step, in a 6-step run
+PEN_REUSE_STEPS = 3
+PEN_BUCKET = 128       # map() buckets of the rebalance check
+VIC_PEN_STEPS = 3
+POISSON_LENGTHS = (8.0, 4.0, 4.0)
+#: the Poisson meshes: name -> shape of the 2-D mesh
+POISSON_MESHES = {"11": (1, 1), "41": (4, 1), "14": (1, 4), "22": (2, 2)}
+HALO2 = 2              # halo_pad2 / halo_reduce2 width of the grid check
+
+
+def md_pencil_config(md):
+    """benchmarks/dist_common.md_config(n_per_side=8, sigma=0.04) with
+    cell_cap 8 (its ~0.12-wide cells hold about one lattice particle)
+    (either package's module ``md``)."""
+    return dataclasses.replace(
+        md.MDConfig(n_per_side=8, sigma=0.04, dt=0.0005), cell_cap=8,
+        **({"device": "cpu"} if "device" in md.MDConfig.__dataclass_fields__
+           else {}))
+
+
+def vic_pencil_config(V):
+    """tests/distributed/test_dist_pencil.py's VIC box (the port's
+    interp="scatter" on the CPU is repro's jnp path) (either package's
+    module ``vortex``)."""
+    return V.VortexConfig(
+        shape=(32, 16, 16), lengths=POISSON_LENGTHS, dt=0.02,
+        **({"interp": "scatter", "device": "cpu"}
+           if "device" in V.VortexConfig.__dataclass_fields__ else {}))
+
+
+def lap7(p, xp):
+    """The periodic 7-point sum -6 p + the ± neighbours on axes 0-2 of a
+    padded block, in one order for both packages (``xp`` is torch or
+    jax.numpy)."""
+    out = -6.0 * p
+    for d in range(3):
+        out = out + xp.roll(p, 1, d) + xp.roll(p, -1, d)
+    return out
+
+
+def _ps_from_npz(path):
+    from repro_torch import convert
+    z = dict(np.load(path))
+    return convert.particles_from_numpy(
+        z["x"], z["valid"], {k[2:]: z[k] for k in z if k.startswith("p_")},
+        device="cpu")
+
+
+def pencil(mesh, rank, world, md_in, rb_in, rhs_in):
+    """The pencil forms on 4 ranks: the MD pencil step on a 2×2 mesh
+    (PEN_STEPS steps from ``md_in``; a PEN_REUSE_STEPS-step run under the
+    reuse fallback; a run with a rebalance after step PEN_REB_AT), the
+    MD step on a (4, 1) tuple mesh beside the "shards" slab step, the
+    2-D ``make_rebalance`` of ``rb_in``, the pencil Poisson solve of
+    ``rhs_in`` on each of POISSON_MESHES (and the slab solve), the pencil
+    VIC step on the 2×2 mesh and ``vortex.run_distributed`` on (4, 1)
+    beside the slab run."""
+    import torch
+    from repro_torch.apps import md, vortex as V
+    from repro_torch.core import grid as G
+    from repro_torch.core import runtime as RT
+    from repro_torch.core import simulation as SIM
+    from repro_torch.numerics import poisson as PS
+    meshes = {name: RT.make_mesh(shape, PENCIL, device_type="cpu")
+              for name, shape in POISSON_MESHES.items() if name != "11"}
+    # a 1 × 1 mesh of this rank alone: the last two axes of (4, 1, 1)
+    meshes["11"] = RT.make_mesh((world, 1, 1), ("rep",) + PENCIL,
+                                device_type="cpu")[PENCIL]
+    m22, m41 = meshes["22"], meshes["41"]
+    out = {}
+    cfg = md_pencil_config(md)
+    ps0 = _ps_from_npz(md_in)
+    st0 = SIM.distribute(ps0, md.physics, cfg, m22, axis_name=PENCIL,
+                         cap_per_dev=256)
+    out["pen_col_bounds"] = _np(st0.col_bounds)
+    step = SIM.make_sim_step(md.physics, cfg, m22, axis_name=PENCIL)
+    st, worst = st0, 0
+    for i in range(PEN_STEPS):
+        st, flags, _ = step(st, {})
+        worst = max(worst, int(flags.any()))
+        if i + 1 == PEN_REUSE_STEPS:
+            out.update(_ps_arrays("pen3_", st.ps))
+    out.update(_ps_arrays("pen_", st.ps))
+    out["pen_worst"] = np.int32(worst)
+
+    rstep = SIM.make_sim_step(md.physics, cfg, m22, axis_name=PENCIL,
+                              reuse="skin")
+    rs = SIM.reuse_state(st0, md.physics, cfg, m22, axis_name=PENCIL)
+    rs, out["reu_stale"], out["reu_worst"] = _steps(rstep, rs,
+                                                    PEN_REUSE_STEPS)
+    out.update(_ps_arrays("reu_", rs.inner.ps))
+
+    rebalance = SIM.make_rebalance(md.physics, cfg, m22, axis_name=PENCIL)
+    st, worst = st0, 0
+    for i in range(PEN_STEPS + 1):
+        st, flags, _ = step(st, {})
+        worst = max(worst, int(flags.any()))
+        if i == PEN_REB_AT:
+            st, ovf = rebalance(st)
+            worst = max(worst, int(ovf))
+    out.update(_ps_arrays("reb_", st.ps))
+    out["reb_worst"] = np.int32(worst)
+    out["reb_bounds"], out["reb_col_bounds"] = (_np(st.bounds),
+                                                _np(st.col_bounds))
+
+    for name, (m, axis_name) in {"t41": (m41, PENCIL),
+                                 "slab": (mesh, AXIS)}.items():
+        st = SIM.distribute(ps0, md.physics, cfg, m, axis_name=axis_name,
+                            cap_per_dev=160)
+        step1 = SIM.make_sim_step(md.physics, cfg, m, axis_name=axis_name)
+        for _ in range(PEN_STEPS):
+            st, flags, _ = step1(st, {})
+        out.update(_ps_arrays(f"{name}_", st.ps))
+        out[f"{name}_has_cols"] = np.bool_(st.col_bounds is not None)
+
+    st = SIM.distribute(_ps_from_npz(rb_in), md.physics, cfg, m22,
+                        axis_name=PENCIL, cap_per_dev=200)
+    st, ovf = SIM.make_rebalance(md.physics, cfg, m22, axis_name=PENCIL,
+                                 bucket_cap=PEN_BUCKET)(st)
+    out.update(_ps_arrays("rb_", st.ps))
+    out["rb_bounds"], out["rb_col_bounds"] = (_np(st.bounds),
+                                              _np(st.col_bounds))
+    out["rb_ovf"] = _np(ovf)
+
+    rhs = torch.from_numpy(np.load(rhs_in))
+    for name, m in meshes.items():
+        f = G.distribute_field2(rhs, m, *PENCIL)
+        solve = PS.make_fft_poisson_pencil(m, PENCIL, POISSON_LENGTHS)
+        u = dataclasses.replace(f, data=solve(f.data))
+        out[f"poisson_{name}"] = _np(G.gather_field2(u, m, *PENCIL))
+    with RT.on_mesh(meshes["11"]):
+        # the generic two-transpose plan on one rank (1 × 1 short-cuts
+        # to the serial solver above)
+        out["poisson_11_plan"] = _np(PS.fft_poisson_pencil_local(
+            rhs, POISSON_LENGTHS, *PENCIL))
+    # the pencil grid layer on 2×2: the container's bounds, halo_pad2 of
+    # this rank's block, halo_reduce2 of the padded block and a halo-1
+    # stencil through apply_stencil_local2
+    f = G.distribute_field2(rhs, m22, *PENCIL)
+    out["f2_bounds"], out["f2_col_bounds"] = (_np(f.node_bounds),
+                                              _np(f.col_bounds))
+    with RT.on_mesh(m22):
+        pad = G.halo_pad2(f.data, HALO2, *PENCIL)
+        out["h2_pad"] = _np(pad)
+        out["h2_red"] = _np(G.halo_reduce2(pad, HALO2, *PENCIL))
+        (lap,) = G.apply_stencil_local2(lambda p: lap7(p, torch), 1,
+                                        *PENCIL)(f.data)
+        out["h2_lap"] = _np(lap)
+    nl = rhs.shape[0] // world
+    slab = PS.make_fft_poisson_slab(mesh, AXIS, POISSON_LENGTHS)(
+        rhs[rank * nl:(rank + 1) * nl])
+    out["poisson_slab"] = _np(RT.all_gather(slab, AXIS, tiled=True))
+
+    vcfg = vic_pencil_config(V)
+    vstep = V.make_distributed_vic_step(m22, vcfg, axis_name=PENCIL)
+    f = G.distribute_field2(V.project_divfree(V.init_ring(vcfg), vcfg),
+                            m22, *PENCIL)
+    out["vic_block"] = np.asarray(f.data.shape[:2], np.int32)
+    ovf = torch.zeros((), dtype=torch.int32)
+    for _ in range(VIC_PEN_STEPS):
+        f, o = vstep(f)
+        ovf = ovf + o
+    out["vic_pen"], out["vic_pen_ovf"] = (_np(G.gather_field2(f, m22,
+                                                              *PENCIL)),
+                                          _np(ovf))
+    out["vic_t41"] = _np(V.run_distributed(vcfg, 2, m41, PENCIL)[0])
+    out["vic_slab"] = _np(V.run_distributed(vcfg, 2, mesh, AXIS)[0])
+    return out
+
+
+def repro_pencil_reference(md_in: str, rb_in: str, rhs_in: str,
+                           out: str) -> None:
+    """On 4 of the forced host devices as a 2×2 mesh: repro's MD pencil
+    step (PEN_STEPS steps of ``md_pencil_config`` from ``md_in``), its
+    2-D ``make_rebalance`` of ``rb_in``, the pencil grid layer on
+    ``rhs_in`` (as ``pencil`` runs it), its pencil Poisson solve of
+    ``rhs_in`` on each of POISSON_MESHES and VIC_PEN_STEPS steps of its
+    pencil VIC step on ``vic_pencil_config``; the global arrays go to
+    ``out``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+    sys.path.insert(0, str(ROOT))
+    from repro.apps import md
+    from repro.apps import vortex as V
+    from repro.core import grid as G
+    from repro.core import runtime as JRT
+    from repro.core import simulation as SIM
+    from repro.core.particles import ParticleSet
+    from repro.numerics import poisson as PS
+    mesh = JRT.make_mesh((2, 2), PENCIL, devices=jax.devices()[:4])
+
+    def load(path):
+        z = dict(np.load(path))
+        return ParticleSet(
+            x=jnp.asarray(z["x"]), valid=jnp.asarray(z["valid"]),
+            props={k[2:]: jnp.asarray(z[k]) for k in z
+                   if k.startswith("p_")})
+
+    cfg = md_pencil_config(md)
+    st = SIM.distribute(load(md_in), md.physics, cfg, mesh,
+                        axis_name=PENCIL, cap_per_dev=256)
+    step = SIM.make_sim_step(md.physics, cfg, mesh, axis_name=PENCIL)
+    for _ in range(PEN_STEPS):
+        st, flags, _ = step(st, {})
+        assert int(flags.any()) == 0
+    res = {"pen_x": st.ps.x, "pen_valid": st.ps.valid,
+           "pen_id": st.ps.props["id"]}
+    st = SIM.distribute(load(rb_in), md.physics, cfg, mesh,
+                        axis_name=PENCIL, cap_per_dev=200)
+    st, ovf = SIM.make_rebalance(md.physics, cfg, mesh, axis_name=PENCIL,
+                                 bucket_cap=PEN_BUCKET)(st)
+    res.update({"rb_x": st.ps.x, "rb_valid": st.ps.valid,
+                "rb_id": st.ps.props["id"], "rb_ovf": ovf,
+                "rb_bounds": st.bounds, "rb_col_bounds": st.col_bounds})
+
+    rhs = jnp.asarray(np.load(rhs_in))
+    f = G.distribute_field2(rhs, mesh, *PENCIL)
+    res["f2_bounds"], res["f2_col_bounds"] = f.node_bounds, f.col_bounds
+
+    def grid_local(a):
+        pad = G.halo_pad2(a, HALO2, *PENCIL)
+        (lap,) = G.apply_stencil_local2(lambda p: lap7(p, jnp), 1,
+                                        *PENCIL)(a)
+        return pad, G.halo_reduce2(pad, HALO2, *PENCIL), lap
+
+    spec = P(*PENCIL)
+    res["h2_pad"], res["h2_red"], res["h2_lap"] = jax.jit(JRT.shard_map(
+        grid_local, mesh, in_specs=(spec,), out_specs=(spec,) * 3,
+        check_vma=False))(f.data)
+    for name, shape in POISSON_MESHES.items():
+        m = JRT.make_mesh(shape, PENCIL,
+                          devices=jax.devices()[:shape[0] * shape[1]])
+        solve = PS.make_fft_poisson_pencil(m, PENCIL, POISSON_LENGTHS)
+        res[f"poisson_{name}"] = solve(
+            G.distribute_field2(rhs, m, *PENCIL).data)
+
+    vcfg = vic_pencil_config(V)
+    step = V.make_distributed_vic_step(mesh, vcfg, PENCIL)
+    f = G.distribute_field2(V.project_divfree(V.init_ring(vcfg), vcfg),
+                            mesh, *PENCIL)
+    ovf = 0
+    for _ in range(VIC_PEN_STEPS):
+        f, o = step(f)
+        ovf += int(o)
+    res["vic_pen"], res["vic_pen_ovf"] = f.data, ovf
     np.savez(out, **{k: np.asarray(v) for k, v in res.items()})
 
 
@@ -942,14 +1351,134 @@ def nccl_reuse(n_steps: int = 12) -> None:
     torch.distributed.destroy_process_group()
 
 
+def nccl_fleet_pencil() -> None:
+    """The sharded fleet, PS-CMA-ES and the pencil forms over NCCL on
+    every rank of the process group (one card per rank; the pencil needs
+    4 ranks, as a 2×2 mesh): 2 MD members a rank stepped by the meshed
+    fleet step against their serial runs on the same card (within 1e-6;
+    whether bit for bit is printed); ps_cma_es_torch with the population
+    sharded against the serial run (the best equal); on 4 ranks the MD
+    pencil step (x by id within 1e-4 of ``md_step``; its ms/step at
+    216,000 particles printed) and the pencil VIC step (within 1e-4 of
+    ``vic_step`` relative to the max). Raises on a mismatch."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.apps import cmaes, md, vortex as V
+    from repro_torch.core import grid as G
+    from repro_torch.core import runtime as RT
+    from repro_torch.core import simulation as SIM
+    from repro_torch.fleet import batch as FB
+    world = RT.device_count()
+    fmesh = RT.make_mesh((world,), (FLEET,), device_type="cuda")
+    rank = torch.distributed.get_rank()
+    say = (lambda *a: print(*a, flush=True)) if rank == 0 else (
+        lambda *a: None)
+
+    cfg = md.MDConfig(n_per_side=16, sigma=0.03, dt=0.0005, cell_cap=16,
+                      device="cuda")
+    states = [fleet_md_member(md, SIM, cfg, s) for s in range(2 * world)]
+    ens = FB.shard_ensemble(FB.stack_members(states), fmesh)
+    step = FB.make_fleet_step(md.physics, cfg, fmesh)
+    serial = SIM.make_sim_step(md.physics, cfg)
+    mine = states[2 * rank:2 * rank + 2]
+    for _ in range(5):
+        ens, flags, _ = step(ens, {})
+        mine = [serial(s, {})[0] for s in mine]
+    assert int(flags.cell.max()) == 0
+    ref = torch.stack([s.ps.x for s in mine])
+    err = float((ens.member.ps.x - ref).abs().max())
+    assert err <= 1e-6, err
+    say(f"{world} cards, sharded fleet of {2 * world} MD members: "
+        f"{'bit-equal to' if err == 0 else f'within {err:.3e} of'} their "
+        "serial runs")
+    args = (cmaes.rastrigin_t, 10, 4 * world, 16000)
+    bf, _, _ = cmaes.ps_cma_es_torch(*args, seed=3, device="cuda",
+                                     mesh=fmesh)
+    bf_s, _, _ = cmaes.ps_cma_es_torch(*args, seed=3, device="cuda")
+    say(f"{world} cards, sharded PS-CMA-ES (10-D, {4 * world} instances): "
+        f"best {bf!r}, serial {bf_s!r}")
+    assert bf == bf_s, (bf, bf_s)
+    if world != 4:
+        torch.distributed.destroy_process_group()
+        return
+
+    m22 = RT.make_mesh((2, 2), PENCIL, device_type="cuda")
+    rng = np.random.default_rng(0)
+    v = (0.3 * rng.standard_normal((cfg.n_particles, 3))).astype(np.float32)
+    ps0 = SIM.with_ids(md.init_particles(cfg, capacity=cfg.n_particles)
+                       .with_prop("v", torch.from_numpy(v).cuda()))
+    ref = ps0
+    for _ in range(10):
+        ref, ovf = md.md_step(ref, cfg)
+        assert int(ovf) == 0
+    st = SIM.distribute(ps0, md.physics, cfg, m22, axis_name=PENCIL)
+    step = SIM.make_sim_step(md.physics, cfg, m22, axis_name=PENCIL)
+    for _ in range(10):
+        st, flags, _ = step(st, {})
+        assert int(flags.any()) == 0, flags
+    with RT.on_mesh(m22):
+        gx, val, gid = (RT.all_gather(a, PENCIL, tiled=True) for a in
+                        (st.ps.x, st.ps.valid, st.ps.props["id"]))
+    assert int(val.sum()) == cfg.n_particles
+    err = float((gx[val] - ref.x[gid[val].long()]).abs().max())
+    assert err <= 1e-4, err
+    say(f"4 cards, MD pencil step (2×2): x within {err:.3e} of md_step")
+
+    big = md.MDConfig(n_per_side=60, sigma=0.085 / 6, dt=0.0005 / 6,
+                      cell_cap=48, device="cuda")
+    v = (0.3 * rng.standard_normal((big.n_particles, 3))).astype(np.float32)
+    ps0 = SIM.with_ids(md.init_particles(big, capacity=big.n_particles)
+                       .with_prop("v", torch.from_numpy(v).cuda()))
+    ghost_cap = int(1.8 * big.n_particles * big.r_cut / big.box) + 64
+    st = SIM.distribute(ps0, md.physics, big, m22, axis_name=PENCIL,
+                        cap_per_dev=int(1.3 * big.n_particles / 4))
+    step = SIM.make_sim_step(md.physics, big, m22, axis_name=PENCIL,
+                             ghost_cap=ghost_cap)
+    for _ in range(3):
+        st, flags, _ = step(st, {})
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.distributed.barrier()
+    t0.record()
+    for _ in range(20):
+        st, flags, _ = step(st, {})
+    t1.record()
+    torch.cuda.synchronize()
+    assert int(flags.any()) == 0, flags
+    say(f"4 cards, MD pencil step (2×2) at {big.n_particles} particles: "
+        f"{t0.elapsed_time(t1) / 20:.4f} ms/step (rank 0, CUDA events)")
+
+    vcfg = V.VortexConfig(shape=(64, 32, 32), lengths=(8.0, 4.0, 4.0),
+                          dt=0.02, interp="scatter", device="cuda")
+    w = V.project_divfree(V.init_ring(vcfg), vcfg)
+    vstep = V.make_distributed_vic_step(m22, vcfg, axis_name=PENCIL)
+    f = G.distribute_field2(w, m22, *PENCIL)
+    for _ in range(3):
+        w, ovf = V.vic_step(w, vcfg)
+        f, ovf_d = vstep(f)
+        assert int(ovf) == 0 and int(ovf_d) == 0
+    full = G.gather_field2(f, m22, *PENCIL)
+    err = float((full - w).abs().max() / w.abs().max())
+    assert err <= 1e-4, err
+    say(f"4 cards, pencil VIC step (2×2, 64×32×32): within {err:.3e} of "
+        "vic_step (relative)")
+    torch.distributed.destroy_process_group()
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "--repro":
         repro_reference(*sys.argv[2:5])
     elif sys.argv[1] == "--repro-reuse":
         repro_reuse_reference(*sys.argv[2:5])
+    elif sys.argv[1] == "--repro-fleet":
+        repro_fleet_reference(*sys.argv[2:4])
+    elif sys.argv[1] == "--repro-pencil":
+        repro_pencil_reference(*sys.argv[2:6])
     elif sys.argv[1] == "--nccl-md":
         nccl_md()
     elif sys.argv[1] == "--nccl-reuse":
         nccl_reuse()
+    elif sys.argv[1] == "--nccl-fleet-pencil":
+        nccl_fleet_pencil()
     else:
         _main(sys.argv)

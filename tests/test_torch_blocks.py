@@ -1,7 +1,9 @@
 """repro_torch's serial leftovers against repro, on the CPU: the 1-D
 block legs of M'4 interpolation (core/interp p2m_block/m2p_block, the
 cell path kernels/m4_interp/ops p2m_block/m2p_fused_block) and
-seed_from_block; mesh fields in the serial step (repro's toy mesh
+seed_from_block, and their pencil forms (p2m_block2/m2p_block2/
+seed_from_block2, at the seam of both axes); mesh fields in the serial
+step (repro's toy mesh
 physics of tests/distributed/test_dist_field.py); multigrid_poisson; the
 Verlet-list kernels; and the LJ cell-tile oracle."""
 import jax.numpy as jnp
@@ -191,6 +193,131 @@ def test_seed_from_block_matches_repro(threshold):
             np.testing.assert_array_equal(np_(tps.x), np_(all_ps.x[sel]))
             np.testing.assert_array_equal(np_(tps.props["w"]),
                                           np_(all_ps.props["w"][sel]))
+
+
+# --------------------------------------------------------------------------
+# The pencil-block legs (p2m_block2, m2p_block2, seed_from_block2)
+# --------------------------------------------------------------------------
+
+PEN_KW = dict(shape=(16, 16, 8), box_lo=(0.0, 0.0, 0.0),
+              box_hi=(2.0, 2.0, 1.0), periodic=(True, True, True))
+
+
+def _pencil_case(seed, mesh, me, H=2):
+    """Particles of a (16, 16, 8) mesh in a (2, 2, 1) box and the pencil
+    block (owned rows and columns ± H halo nodes) of pencil ``me`` of a
+    ``mesh`` = (rows, cols) decomposition: (x, val, mine, field, block
+    rows, block cols, row0, col0)."""
+    shape = PEN_KW["shape"]
+    box_hi = np.asarray(PEN_KW["box_hi"], np.float32)
+    rng = np.random.default_rng(seed)
+    n = 600
+    x = (rng.uniform(size=(n, 3)) * box_hi).astype(np.float32)
+    val = rng.normal(size=(n, 3)).astype(np.float32)
+    valid = rng.uniform(size=n) > 0.2
+    field = rng.normal(size=shape + (3,)).astype(np.float32)
+    n0l, n1l = shape[0] // mesh[0], shape[1] // mesh[1]
+    h = box_hi[:2] / np.asarray(shape[:2], np.float32)
+    node = np.floor(x[:, :2] / h).astype(np.int32)
+    mine = (valid & (node[:, 0] // n0l == me[0])
+            & (node[:, 1] // n1l == me[1]))
+    return (x, val, mine, field, n0l + 2 * H, n1l + 2 * H,
+            me[0] * n0l - H, me[1] * n1l - H)
+
+
+# (mesh, pencil): a 2 × 2 pencil at the seam of both axes (row0 and col0
+# < 0), one at the seam of the columns only, one inside both, and a 4 × 2
+# pencil at the far side of the rows
+PENCILS = [((2, 2), (0, 0)), ((2, 2), (1, 0)), ((2, 2), (1, 1)),
+           ((4, 2), (3, 1))]
+
+
+@pytest.mark.parametrize("mesh,me", PENCILS)
+def test_pencil_block_legs_match_repro(mesh, me):
+    """p2m_block2 onto the pencil's padded block and m2p_block2 from the
+    halo_pad2-padded block (the periodic wrap of the global field) against
+    repro's on the same inputs: rel <= 1e-5, no drops."""
+    x, val, mine, field, rows, cols, row0, col0 = _pencil_case(
+        21 + me[0] + 2 * me[1], mesh, me)
+    j0, j1 = jnp.asarray(row0, jnp.int32), jnp.asarray(col0, jnp.int32)
+    ref, drop_ref = JIP.p2m_block2(
+        jnp.asarray(x), jnp.asarray(val), jnp.asarray(mine), j0, j1,
+        block_rows=rows, block_cols=cols, **PEN_KW)
+    tx, tval, tmine = _t(x, val, mine)
+    t0, t1 = torch.tensor(row0), torch.tensor(col0)
+    got, drop = TIP.p2m_block2(tx, tval, tmine, t0, t1, block_rows=rows,
+                               block_cols=cols, **PEN_KW)
+    assert got.shape == ref.shape and int(drop) == int(drop_ref) == 0
+    assert rel(got, ref) <= TOL
+    n0, n1 = PEN_KW["shape"][:2]
+    blk = field[np.mod(np.arange(row0, row0 + rows), n0)][
+        :, np.mod(np.arange(col0, col0 + cols), n1)]
+    ur, dru = JIP.m2p_block2(jnp.asarray(blk), jnp.asarray(x),
+                             jnp.asarray(mine), j0, j1, **PEN_KW)
+    got_u, dr = TIP.m2p_block2(torch.from_numpy(blk), tx, tmine, t0, t1,
+                               **PEN_KW)
+    assert int(dr) == int(dru) == 0 and rel(got_u, ur) <= TOL
+    # a scalar block
+    sr, _ = JIP.m2p_block2(jnp.asarray(blk[..., 1]), jnp.asarray(x),
+                           jnp.asarray(mine), j0, j1, **PEN_KW)
+    got_s, _ = TIP.m2p_block2(torch.from_numpy(blk[..., 1].copy()), tx,
+                              tmine, t0, t1, **PEN_KW)
+    assert rel(got_s, sr) <= TOL
+
+
+def test_pencil_support_leaving_the_block_is_dropped_whole():
+    """A particle a pencil away on the column axis that claims to be owned
+    is dropped and counted by both legs, as repro drops it."""
+    x, val, mine, field, rows, cols, row0, col0 = _pencil_case(
+        25, (2, 2), (1, 1))
+    x, mine = x.copy(), mine.copy()
+    k = int(np.flatnonzero(mine)[0])
+    x[k, 1] = 0.3            # column 2: pencil column 0, not 1
+    kw = dict(block_rows=rows, block_cols=cols, **PEN_KW)
+    j0, j1 = jnp.asarray(row0, jnp.int32), jnp.asarray(col0, jnp.int32)
+    ref, drop_ref = JIP.p2m_block2(jnp.asarray(x), jnp.asarray(val),
+                                   jnp.asarray(mine), j0, j1, **kw)
+    assert int(drop_ref) >= 1
+    tx, tval, tmine = _t(x, val, mine)
+    got, drop = TIP.p2m_block2(tx, tval, tmine, row0, col0, **kw)
+    assert int(drop) == int(drop_ref) and rel(got, ref) <= TOL
+    vals, drop_m = TIP.m2p_block2(tx.new_ones((rows, cols, 8)), tx, tmine,
+                                  row0, col0, **PEN_KW)
+    assert int(drop_m) == int(drop_ref) and float(vals[k]) == 0.0
+
+
+@pytest.mark.parametrize("threshold", [0.0, 0.8])
+def test_seed_from_block2_matches_repro(threshold):
+    """The per-pencil re-seed of the pencil at the origin of both axes,
+    of one at the far side of both and of one inside: validity and values
+    exact against repro's, positions within repro's own 1e-6; the dense
+    re-seed equals the nodes of the port's seed_from_mesh bit for bit."""
+    shape = (16, 8, 4)
+    kw = dict(shape=shape, box_lo=(0.0, 0.0, 0.0), box_hi=(2.0, 1.0, 0.5),
+              periodic=(True, True, True))
+    field = np.random.default_rng(6).normal(size=shape).astype(np.float32)
+    for row0, col0 in ((0, 0), (12, 4), (4, 4)):
+        blk = field[row0:row0 + 4, col0:col0 + 4]
+        jps, jovf = JRM.seed_from_block2(
+            jnp.asarray(blk), jnp.asarray(row0, jnp.int32),
+            jnp.asarray(col0, jnp.int32), threshold=threshold, **kw)
+        tps, tovf = TRM.seed_from_block2(
+            torch.from_numpy(blk.copy()), torch.tensor(row0),
+            torch.tensor(col0), threshold=threshold, **kw)
+        assert int(tovf) == int(jovf) == 0
+        np.testing.assert_array_equal(np_(tps.valid), np_(jps.valid))
+        np.testing.assert_array_equal(np_(tps.props["w"]),
+                                      np_(jps.props["w"]))
+        np.testing.assert_allclose(np_(tps.x), np_(jps.x), atol=1e-6)
+        if threshold == 0.0:
+            all_ps, _ = TRM.seed_from_mesh(
+                torch.from_numpy(field), dim=3,
+                **{k: v for k, v in kw.items() if k != "shape"})
+            sel = np.arange(np.prod(shape)).reshape(shape)[
+                row0:row0 + 4, col0:col0 + 4].ravel()
+            np.testing.assert_array_equal(np_(tps.x), np_(all_ps.x)[sel])
+            np.testing.assert_array_equal(np_(tps.props["w"]),
+                                          np_(all_ps.props["w"])[sel])
 
 
 # --------------------------------------------------------------------------

@@ -372,10 +372,11 @@ def test_sph_run_distributed_rebalances(runs, sph_serial, reuse):
 
 
 def test_sph_run_distributed_sar_is_the_same_on_every_rank(runs):
-    """SAR on, each rank sleeping its own time a step (so the ranks' own
-    wall times differ): the pmax'd wall time makes every rank take the
-    same rebalance decisions, and the run ends (a rank-local decision
-    would pair a rank's rebalance collectives with another's step)."""
+    """SAR on, each rank's scripted clock advancing its own time a step
+    (so the ranks' own wall times differ, and SAR's inputs are the same
+    on every run): the pmax'd wall time makes every rank take the same
+    rebalance decisions, and the run ends (a rank-local decision would
+    pair a rank's rebalance collectives with another's step)."""
     got, _ = runs
     n = {int(g["sar_n_reb"]) for g in got}
     assert len(n) == 1 and n.pop() >= 1

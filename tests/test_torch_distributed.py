@@ -417,3 +417,19 @@ def test_four_card_nccl_reuse_and_dlb_match_serial():
                     f"{torch.cuda.device_count()})")
     _nccl_md([sys.executable, "-m", "torch.distributed.run", "--standalone",
               "--nproc_per_node=4"], 900, "--nccl-reuse")
+
+
+@pytest.mark.gpu
+def test_four_card_nccl_fleet_and_pencil_match_serial():
+    """The sharded fleet, PS-CMA-ES and the pencil forms on 4 cards, one
+    NCCL rank each under torchrun: the meshed fleet step against the
+    members' serial runs, the sharded PS-CMA-ES best against the serial
+    run's, and on a 2×2 mesh the MD pencil step (by id within 1e-4 of
+    md_step; its ms/step at 216,000 particles printed) and the pencil VIC
+    step (within 1e-4 of vic_step) (tests/_torch_dist.py
+    --nccl-fleet-pencil)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA cards (torch.cuda.device_count() is "
+                    f"{torch.cuda.device_count()})")
+    _nccl_md([sys.executable, "-m", "torch.distributed.run", "--standalone",
+              "--nproc_per_node=4"], 900, "--nccl-fleet-pencil")

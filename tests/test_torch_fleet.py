@@ -5,6 +5,7 @@ tests/test_torch_md.py's trajectories), fleet against the port's own
 serial loop (1e-6), batch=1 is serial bit for bit, member overflow stays
 on its row, inactive slots pass through, the server drains churn through
 one step signature with results equal to serial runs, bounded admission,
+the meshed step and server on a 1-rank mesh equal to the unmeshed ones,
 per-member extras, the metrics snapshot's keys; the SPH euler flag as a
 0-d tensor against the Python bool bit for bit; and B1's batching rule:
 the members' tiles fold into one launch."""
@@ -229,13 +230,32 @@ def test_set_member_writes_slot_in_place():
     assert ens.active.tolist() == [True, False, True]
 
 
-def test_mesh_paths_raise_naming_a14():
+def _world1_fleet():
+    """A 1-rank gloo mesh with a ("fleet",) axis in this process."""
+    from repro_torch.core import runtime as TRT
+    return TRT.make_mesh((1,), ("fleet",), device_type="cpu")
+
+
+def test_world1_meshed_fleet_step_equals_unmeshed():
+    """The sharded fleet on a 1-rank mesh: shard_ensemble keeps every
+    member, and the meshed step equals the unmeshed one bit for bit (a
+    batch that does not divide is shard_ensemble's ValueError on more
+    ranks: tests/test_torch_dist_fleet.py)."""
     cfg = _md_cfg()
-    with pytest.raises(NotImplementedError, match="A14"):
-        FB.make_fleet_step(tmd.physics, cfg, mesh=object())
-    ens = FB.stack_members([_md_state(cfg, 0)])
-    with pytest.raises(NotImplementedError, match="A14"):
-        FB.shard_ensemble(ens, object())
+    mesh = _world1_fleet()
+    ens = FB.stack_members([_md_state(cfg, s) for s in range(3)])
+    local = FB.shard_ensemble(ens, mesh)
+    assert local.batch == 3
+    ref_step = FB.make_fleet_step(tmd.physics, cfg)
+    step = FB.make_fleet_step(tmd.physics, cfg, mesh)
+    assert step is FB.make_fleet_step(tmd.physics, cfg, mesh)
+    for _ in range(3):
+        ens, rflags, _ = ref_step(ens, {})
+        local, flags, _ = step(local, {})
+    assert torch.equal(local.member.ps.x, ens.member.ps.x)
+    assert torch.equal(local.member.ps.props["v"], ens.member.ps.props["v"])
+    assert torch.equal(flags.cell, rflags.cell)
+    assert step.cache_size() == 1
 
 
 # --------------------------------------------------------------------------
@@ -343,11 +363,31 @@ def test_server_per_member_extras():
         assert _err(st.ps.x, res.state.ps.x) <= LOOP_TOL
 
 
-def test_server_mesh_raises_naming_a14():
+def test_world1_meshed_server_equals_unmeshed(tmp_path):
+    """The meshed server on a 1-rank mesh: one step signature across the
+    churn, and every result equal to the unmeshed server's bit for bit,
+    its checkpoint written by the owner (the only rank)."""
     cfg = _md_cfg()
-    with pytest.raises(NotImplementedError, match="A14"):
-        FleetServer(tmd.physics, cfg, n_slots=1,
-                    template=_md_state(cfg, 0), mesh=object())
+    reqs = [(seed, 2 + seed % 3) for seed in range(4)]
+    got = []
+    for mesh, out in ((None, None), (_world1_fleet(), str(tmp_path))):
+        srv = FleetServer(tmd.physics, cfg, n_slots=2,
+                          template=_md_state(cfg, 0), mesh=mesh,
+                          out_dir=out)
+        for rid, (seed, n) in enumerate(reqs):
+            srv.submit(SimRequest(rid=rid, state=_md_state(cfg, seed),
+                                  n_steps=n))
+        with srv:
+            got.append({r.rid: r for r in srv.run()})
+        assert srv.step_cache_size() == 1
+    ref, meshed = got
+    assert sorted(meshed) == sorted(ref) == list(range(4))
+    for rid in ref:
+        assert meshed[rid].steps_done == ref[rid].steps_done
+        assert torch.equal(meshed[rid].state.ps.x, ref[rid].state.ps.x)
+        assert meshed[rid].flags_max == ref[rid].flags_max
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        f"sim_{r}" for r in range(4)]
 
 
 def _keys(d, prefix=""):

@@ -1,7 +1,8 @@
 """repro_torch's serial grid layer against repro's: halo_pad_local (periodic,
 fill, edge replication; halo 1 and 2), pad_axis, halo_reduce_local,
-GridOps() ghost_get/ghost_put, serial_field, apply_stencil_local and
-grid_coords on numpy-seeded fields. The work is data movement and at most
+GridOps() ghost_get/ghost_put (and on 1-rank meshes the slab and pencil
+exchanges), serial_field, apply_stencil_local and grid_coords on
+numpy-seeded fields. The work is data movement and at most
 one add per element, so every result is equal bit for bit."""
 import jax.numpy as jnp
 import numpy as np
@@ -85,8 +86,22 @@ def test_gridops_ghost_get_put_match_repro(fill):
             _same(d.ghost_put(torch.from_numpy(a), 2),
                   j.ghost_put(jnp.asarray(a), 2))
             _same(d.first_row(8), j.first_row(8))
-    with pytest.raises(NotImplementedError, match="A14b"):
-        TG.halo_pad2(torch.from_numpy(a), 1, "rows", "cols")
+    # the pencil forms on a 1 x 1 mesh: the serial pad and reduce on axis
+    # 0, then on axis 1 (reduce: columns first)
+    with TRT.on_mesh(TRT.make_mesh((1, 1), ("rows", "cols"),
+                                   device_type="cpu")):
+        for periodic in (True, False):
+            kw = dict(periodic=periodic, fill=fill)
+            pad = TG.halo_pad2(torch.from_numpy(a), 2, "rows", "cols", **kw)
+            ja = JG.pad_axis(JG.pad_axis(jnp.asarray(a), 0, 2, **kw), 1, 2,
+                             **kw)
+            _same(pad, ja)
+            red = JG.halo_reduce_local(jnp.moveaxis(ja, 1, 0), 2,
+                                       periodic=periodic)
+            red = JG.halo_reduce_local(jnp.moveaxis(red, 0, 1), 2,
+                                       periodic=periodic)
+            _same(TG.halo_reduce2(pad, 2, "rows", "cols",
+                                  periodic=periodic), red)
 
 
 def test_serial_field_and_step_ctx_grid():

@@ -115,10 +115,14 @@ def test_serial_flags_match(cell_cap):
 
 
 def test_unported_engine_options_raise():
-    """The engine options of ROADMAP A14b-4 raise: a 2-D (pencil) mesh in
-    make_sim_step (with or without reuse), reuse_state and
-    make_rebalance. The serial step ignores the mesh options (overlap,
-    n_hops), as repro's does, and Reduce takes an axis name."""
+    """What still raises on a 2-D (pencil) mesh, as in repro: mesh fields
+    (make_sim_step and distribute name the pencil VIC step instead), and
+    a pencil over a physics with no second space axis. The serial step
+    ignores the mesh options (overlap, n_hops), as repro's does, and
+    Reduce takes an axis name or a tuple of them."""
+    from _torch_bridge import ToyCfg, toy_physics
+    from repro_torch.apps import sph as tsph
+    from repro_torch.core import runtime as TRT
 
     class Pencil:
         """What the engine reads of a 2-D (1, 2) mesh."""
@@ -127,21 +131,26 @@ def test_unported_engine_options_raise():
         def size(self, i):
             return (1, 2)[i]
 
-    tcfg = tmd.MDConfig(n_per_side=3, device="cpu")
     pencil = Pencil()
     axes = ("rows", "cols")
-    for kw in (dict(mesh=pencil, axis_name=axes),
-               dict(mesh=pencil, axis_name=axes, reuse="skin")):
-        with pytest.raises(NotImplementedError, match="A14b"):
-            TSIM.make_sim_step(tmd.physics, tcfg, **kw)
-    with pytest.raises(NotImplementedError, match="A14b"):
-        TSIM.make_rebalance(tmd.physics, tcfg, pencil, axis_name=axes)
-    with pytest.raises(NotImplementedError, match="A14b"):
-        TSIM.reuse_state(None, tmd.physics, tcfg, pencil, axis_name=axes)
+    for kw in (dict(), dict(reuse="skin")):
+        with pytest.raises(NotImplementedError, match="pencil VIC"):
+            TSIM.make_sim_step(toy_physics, ToyCfg(), pencil,
+                               axis_name=axes, **kw)
+    tcfg = tmd.MDConfig(n_per_side=3, device="cpu")
+    with pytest.raises(NotImplementedError, match="pencil VIC"):
+        TSIM.distribute(tmd.init_particles(tcfg), tmd.physics, tcfg, pencil,
+                        axis_name=axes, fields={"rho": torch.zeros(4)})
+    scfg = tsph.SPHConfig(dp=0.05, box=(1.0, 0.5), fluid=(0.25, 0.25),
+                          device="cpu")
+    with TRT.on_mesh(pencil), pytest.raises(ValueError, match="space axis"):
+        TSIM.make_sim_step(tsph.physics, scfg, pencil, axis_name=axes,
+                           slab_axis=1)
     serial = TSIM.make_sim_step(tmd.physics, tcfg)
     for kw in (dict(overlap=False), dict(n_hops=2)):
         assert TSIM.make_sim_step(tmd.physics, tcfg, **kw) is serial
     assert TSIM.Reduce("shards").distributed
+    assert TSIM.Reduce(axes).distributed
 
 
 def test_with_ids_and_serial_state():

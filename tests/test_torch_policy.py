@@ -207,7 +207,7 @@ def test_lm_sharding_ctx_raises():
                lambda: S.make_prefill_step(cfg, 8, ctx),
                lambda: S.make_decode_step(cfg, ctx),
                lambda: S.greedy_generate(cfg, params, toks, 2, 8, ctx)):
-        with pytest.raises(NotImplementedError, match="A14"):
+        with pytest.raises(NotImplementedError, match="A16f"):
             fn()
 
 
