@@ -86,7 +86,22 @@ Phases, each of which raises (non-zero exit) on failure:
      the first greedy tokens equal wherever the plain top-2 margin exceeds
      twice that gap; prefill and decode ms and tokens/s, the decode
      step's device time, host enqueue and bound, device breakdowns by
-     kernel (torch.profiler), peak memory.
+     kernel (torch.profiler), peak memory; (d) qwen2-moe-a2.7b FULL
+     (``kind="moe"``, 60 routed experts padded to 64 and 4 shared; the MoE
+     FFN is the dense oracle, every expert on every token, as repro with
+     no mesh) and (e) mamba2-780m FULL (``kind="ssm"``, the chunked SSD),
+     after 10c's weights are freed: each first as a 2-layer cut at full
+     width, prefill logits through B5 against the plain path (<= 1e-4 in
+     fp32, <= 5e-2 in bf16), then the FULL model in bf16 with seeded
+     weights through ``greedy_generate`` of 10c's prompt and tokens —
+     exactly one B5 launch per attention layer in the prefill (24 for
+     qwen2-moe, none for mamba2), none in decode — with prefill and
+     decode tokens/s, the decode step's device time, idle share, kernel
+     launches and host enqueue; (f) jamba-1.5-large-398b REDUCED in fp32
+     (``kind="hybrid"``; its FULL period does not fit one card) through
+     the kernel path and the plain path: one B5 launch per prefill, the
+     prefill logits <= 1e-4, the first tokens equal where the plain top-2
+     margin holds.
  11. the serial reuse engine (``reuse="skin"``) at full width: the MD
      positions after 10 steps against the every-step path (<= 1e-5),
      then ``md.run(reuse="skin")`` for 100 steps at 216,000 particles
@@ -192,13 +207,24 @@ Phases, each of which raises (non-zero exit) on failure:
      20 steps within 1e-4 of ``md_step`` by id, one B1 launch a step,
      ms/step beside ``md_step`` and (c)'s, idle share; the pencil Poisson
      solve at 800 x 200 x 200 within 2e-5 of the slab solve; 2 pencil VIC
-     steps within 1e-4 of (f)'s field. The ``kernels`` line's
+     steps within 1e-4 of (f)'s field; (o) the collective ledger
+     (``runtime.count_collectives``, ``launch/comm_analysis``) around one
+     step of each form above with its torch.profiler trace — the MD slab
+     step with overlap and blocking, one MD reuse slab step of each
+     branch (the cold full step, an update step), the slab and pencil
+     Poisson solves at 800 x 200 x 200, one MD pencil step — printing
+     ``collective_bytes``, the all-to-all and collective-permute reports
+     and the overlap report (the ledger's B1 launches and the trace's B1
+     kernels issued while the ghost exchange is in flight must be 1 with
+     overlap and 0 blocking); at world 1 no byte reaches a peer (printed,
+     and checked 0). The ``kernels`` line's
      ``cell_pair_lj``, ``_sph``, ``_dem``, ``m4_p2m`` and ``m4_m2p``
      entries carry ``launches_dist`` (their launches in (c)-(f)) and
      ``launches_dist_reuse`` (in (g)-(j): LJ in (g), DEM in (h), SPH in
      (i), M'4 in (j)); the three B1 entries carry ``launches_dist_fleet``
-     ((k) and (l)) and ``launches_pencil`` ((n)). The process group is
-     destroyed before the last line.
+     ((k) and (l)) and ``launches_pencil`` ((n)); B5's entry carries
+     ``launches_moe`` (10d) and ``launches_hybrid`` (10f). The process
+     group is destroyed before the last line.
 
 It prints a ``{"kernels": [...]}`` line and, as its last line,
 ``{"ok": true, "device": {...}}``. It exits non-zero without a result when
@@ -315,6 +341,13 @@ B5_SPLIT_FRAC = 0.5
 B5_SPLIT_SHAPE = (8, 32, 4, 64, 16, 128)     # B, H, K, Sq, Sk, hd; all keys
 LM_FP32_TOL = 1e-4    # 10b prefill logits, kernel path vs plain path
 LM_BF16_TOL = 5e-2    # 10c prefill logits (bf16, 40 layers), same
+# 10d-10f: the moe and ssm kinds served at full width in bf16 (the prompt
+# and new tokens of 10c), each held first on a 2-layer cut at full width
+# in fp32 and bf16; the hybrid kind at its REDUCED config in fp32 (one
+# period of jamba's FULL 8 layers is 44e9 parameters, 88 GB in bf16)
+KIND_SERVE = (("10d", "qwen2-moe-a2.7b"), ("10e", "mamba2-780m"))
+HYBRID_ARCH = "jamba-1.5-large-398b"
+KIND_DECODE_ITERS = 5
 # Phase 11: the reuse engine at the MD and DEM card sizes. The skin grid
 # of the MD lattice (cells >= r_cut + r_cut / 2: 15^3 cells of 1/15) holds
 # exactly 64 particles a cell at t = 0, above phase 3's cell_cap of 48.
@@ -1579,7 +1612,7 @@ def device_breakdown(name, fn, wall_ms, n=1):
               f"{g} {ms:.3f} ({ms / total:.1%})" for g, ms in groups.items()))
     for key, ms, cnt in sorted(rows, key=lambda r: -r[1])[:6]:
         print(f"  {ms:9.3f} ms  {cnt:6.0f} calls  {key[:90]}")
-    return total, groups
+    return total, groups, launches
 
 
 def serve_phase(cfg, TT, TS, FA):
@@ -1687,7 +1720,8 @@ def serve_phase(cfg, TT, TS, FA):
     # the step's kernels alone, from the profiler: the sleep-kernel timing
     # of the other phases fails here, since a step's ~3,000 launches fill
     # the launch queue and hold the host back
-    busy_ms, _ = device_breakdown("10c decode step", one_step, dec_ms, n=5)
+    busy_ms, _, _ = device_breakdown("10c decode step", one_step, dec_ms,
+                                     n=5)
     print(f"10c decode: {dec_ms:.3f} ms/step, {LM_BATCH / dec_ms * 1e3:.1f} "
           f"tokens/s (batch {LM_BATCH}, position {LM_PROMPT}); device "
           f"{busy_ms:.3f} ms/step, idle share {1 - busy_ms / dec_ms:.3f}; "
@@ -1699,10 +1733,228 @@ def serve_phase(cfg, TT, TS, FA):
     return launches
 
 
+def n_attention(cfg, TT) -> int:
+    """Attention layers of a config: B5's launches per prefill."""
+    return sum(k in TT.ATTN_KINDS for k in cfg.block_pattern()) \
+        * cfg.n_groups()
+
+
+def kind_cut_check(tag, cfg, TT, TS, FA):
+    """A 2-layer cut of a FULL config at full width, in fp32 and in bf16:
+    the prefill's last logits through B5 against the plain path
+    (``backend="torch"`` on the same CUDA tensors), LM_FP32_TOL and
+    LM_BF16_TOL of the plain max-abs, as 10b holds the dense kind."""
+    for dtype, tol in (("float32", LM_FP32_TOL), ("bfloat16", LM_BF16_TOL)):
+        c = dataclasses.replace(cfg, n_layers=LM_FP32_LAYERS,
+                                param_dtype=dtype, compute_dtype=dtype)
+        params = TT.init_params(
+            c, torch.Generator(device="cuda").manual_seed(1), device="cuda")
+        prompt = torch.randint(0, c.vocab, (LM_BATCH, LM_PROMPT),
+                               device="cuda", generator=torch.Generator(
+                                   device="cuda").manual_seed(2))
+        n0 = FA.LAUNCHES
+        lk, _ = TS.make_prefill_step(c, LM_S_MAX)(params, {"tokens": prompt})
+        n_k = FA.LAUNCHES - n0
+        lp, _ = TS.make_prefill_step(c, LM_S_MAX, backend="torch")(
+            params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        err = rel_err(lk, lp)
+        want = n_attention(c, TT)
+        print(f"{tag} cut: {c.name} width {c.d_model}, {c.n_layers} layers, "
+              f"{dtype}, {LM_BATCH} x {LM_PROMPT} prompt: prefill logits "
+              f"kernel vs plain rel {err:.3e} (tol {tol:g}), {n_k} B5 "
+              f"launches (want {want})")
+        if n_k != want or FA.LAUNCHES - n0 != n_k:
+            raise RuntimeError(f"{tag} cut: {n_k} B5 launches, want {want}")
+        if not (bool(torch.isfinite(lk).all()) and err <= tol):
+            raise RuntimeError(f"{tag} cut ({dtype}): kernel path disagrees: "
+                               f"rel {err}")
+        del params, lk, lp
+        torch.cuda.empty_cache()
+
+
+def decode_step_bytes(cfg, params, caches, pos, TT):
+    """The bytes one decode step of LM_BATCH tokens at position ``pos``
+    must move, as ``(needed, dense_oracle)``. Needed: every weight but the
+    embedding table (its LM_BATCH rows instead), of each MoE layer's
+    routed experts only the min(E, LM_BATCH * top_k) a batch can reach,
+    the KV cache read to ``pos`` and one row written, the SSM caches read
+    and written. The dense oracle reads every real expert instead."""
+    esz = params["embed"].element_size()
+    weights = sum(t.numel() * t.element_size() for t in TT.leaves(params)) \
+        - params["embed"].numel() * esz + LM_BATCH * cfg.d_model * esz
+    need = oracle = weights
+    if cfg.n_experts:
+        n_moe = sum("moe" in k for k in cfg.block_pattern()) \
+            * cfg.n_groups()
+        expert = 3 * cfg.d_model * cfg.d_expert * esz
+        reach = min(cfg.n_experts, LM_BATCH * cfg.top_k)
+        need -= n_moe * (cfg.n_experts_eff - reach) * expert
+        oracle -= n_moe * (cfg.n_experts_eff - cfg.n_experts) * expert
+    cache = 0
+    for blk in caches["blocks"].values():
+        for t in blk.get("attn", {}).values():      # (n, B, s_max, K, hd)
+            cache += t.numel() // t.shape[2] * (pos + 2) * t.element_size()
+        for t in blk.get("ssm", {}).values():
+            cache += 2 * t.numel() * t.element_size()
+    return need + cache, oracle + cache
+
+
+def kind_serve_phase(tag, arch, TT, TS, FA):
+    """10d / 10e: ``arch`` FULL in bf16 (weights from a seeded
+    torch.Generator on the card) after its 2-layer cut checks:
+    ``greedy_generate`` of LM_NEW tokens for LM_BATCH prompts of
+    LM_PROMPT tokens (one B5 launch per attention layer in the prefill,
+    none in decode), then prefill and decode ms and tokens/s, the decode
+    step's device time, idle share, launches and host enqueue. The MoE
+    layers run the dense oracle (every expert on every token, as repro
+    with no mesh). Returns the main path's B5 launches."""
+    from repro_torch.configs import registry as TR
+    cfg = TR.get_config(arch)
+    t_phase = time.perf_counter()
+    kind_cut_check(tag, cfg, TT, TS, FA)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = TT.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+    torch.cuda.synchronize()
+    print(f"{tag}: {cfg.name} ({cfg.kind}): {TT.count_params(params)} "
+          f"parameters in {cfg.param_dtype}, {cfg.n_layers} layers, init "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    prompt = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(3))
+    want = n_attention(cfg, TT)
+    FA.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = TS.greedy_generate(cfg, params, prompt, LM_NEW, LM_S_MAX)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = FA.LAUNCHES
+    print(f"{tag} main path: greedy_generate {LM_BATCH} x {LM_PROMPT} "
+          f"prompt, {LM_NEW} new tokens, s_max {LM_S_MAX}: {gen_s:.3f} s "
+          f"wall, {launches} B5 launches (want {want})")
+    if launches != want:
+        raise RuntimeError(f"{tag}: {launches} B5 launches; want {want}")
+    if not (tokens.shape == (LM_BATCH, LM_NEW) and int(tokens.min()) >= 0
+            and int(tokens.max()) < cfg.vocab):
+        raise RuntimeError(f"{tag}: bad tokens {tokens.shape}")
+    prefill = TS.make_prefill_step(cfg, LM_S_MAX)
+    decode = TS.make_decode_step(cfg)
+    batch = {"tokens": prompt}
+    n0 = FA.LAUNCHES
+    lk, caches = prefill(params, batch)
+    if FA.LAUNCHES - n0 != want:
+        raise RuntimeError(f"{tag}: {FA.LAUNCHES - n0} B5 launches in one "
+                           "prefill")
+    if not bool(torch.isfinite(lk).all()):
+        raise RuntimeError(f"{tag}: prefill logits not finite")
+    if not torch.equal(lk[:, -1].argmax(-1), tokens[:, 0]):
+        raise RuntimeError(f"{tag}: the prefill's token is not greedy's")
+    pre_ms = time_cuda(lambda: prefill(params, batch), iters=2, warmup=0)
+    n_tok = LM_BATCH * LM_PROMPT
+    print(f"{tag} prefill: {pre_ms:.3f} ms, {n_tok / pre_ms * 1e3:.1f} "
+          f"tokens/s ({LM_BATCH} x {LM_PROMPT})")
+    state = {"caches": caches, "pos": LM_PROMPT}
+
+    def one_step():
+        pos = torch.full((LM_BATCH,), state["pos"], dtype=torch.int64,
+                         device="cuda")
+        _, state["caches"] = decode(params, state["caches"],
+                                    {"tokens": tokens[:, :1],
+                                     "position": pos})
+
+    n0 = FA.LAUNCHES
+    one_step()
+    if FA.LAUNCHES != n0:
+        raise RuntimeError(f"{tag}: a decode step launched B5")
+    dec_ms = time_cuda(one_step, iters=KIND_DECODE_ITERS, warmup=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_step()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    need_bytes, oracle_bytes = decode_step_bytes(cfg, params,
+                                                 state["caches"], LM_PROMPT,
+                                                 TT)
+    device_breakdown(f"{tag} prefill", lambda: prefill(params, batch), pre_ms)
+    busy_ms, _, n_launch = device_breakdown(f"{tag} decode step", one_step,
+                                            dec_ms)
+    print(f"{tag} decode: {dec_ms:.3f} ms/step, {LM_BATCH / dec_ms * 1e3:.2f} "
+          f"tokens/s (batch {LM_BATCH}, position {LM_PROMPT}); device "
+          f"{busy_ms:.3f} ms/step, idle share {1 - busy_ms / dec_ms:.3f}, "
+          f"{n_launch:.0f} kernel launches a step; host enqueue "
+          f"{host_ms:.3f} ms/step; bound {need_bytes / HBM_BYTES_PER_S * 1e3:.3f}"
+          f" ms (the {need_bytes / 1e9:.2f} GB a step needs: the weights "
+          f"with at most min(E, batch x top_k) routed experts a MoE layer, "
+          f"the KV cache to position {LM_PROMPT}, the SSM state); the dense "
+          f"oracle's reads {oracle_bytes / 1e9:.2f} GB, "
+          f"{oracle_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    print(f"{tag}: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB of {torch.cuda.mem_get_info()[1] / 2**30:.2f}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    del params, caches, state, lk
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hybrid_phase(TT, TS, FA):
+    """10f: jamba-1.5-large-398b REDUCED in fp32 (its FULL period does not
+    fit one card): ``greedy_generate`` of LM_NEW tokens for the LM_BATCH x
+    LM_PROMPT prompt through the kernel path (B5 on the attention layer,
+    once per prefill) and the plain path; the prefill's last logits within
+    LM_FP32_TOL, the first tokens equal where the plain top-2 margin
+    exceeds twice the gap. Returns the kernel path's B5 launches."""
+    from repro_torch.configs import registry as TR
+    cfg = TR.get_config(HYBRID_ARCH, reduced=True)
+    t_phase = time.perf_counter()
+    params = TT.init_params(cfg, torch.Generator(device="cuda").manual_seed(4),
+                            device="cuda")
+    prompt = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(5))
+    want = n_attention(cfg, TT)
+    FA.LAUNCHES = 0
+    tokens = TS.greedy_generate(cfg, params, prompt, LM_NEW, LM_S_MAX)
+    launches = FA.LAUNCHES
+    plain = TS.greedy_generate(cfg, params, prompt, LM_NEW, LM_S_MAX,
+                               backend="torch")
+    lk, _ = TS.make_prefill_step(cfg, LM_S_MAX)(params, {"tokens": prompt})
+    lp, _ = TS.make_prefill_step(cfg, LM_S_MAX, backend="torch")(
+        params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    lk, lp = lk[:, -1], lp[:, -1]
+    err = rel_err(lk, lp)
+    gap = float((lk - lp).abs().max())
+    top2 = torch.topk(lp, 2, dim=-1).values
+    held = (top2[:, 0] - top2[:, 1]) > 2 * gap
+    same = float((tokens == plain).float().mean())
+    print(f"10f: {cfg.name} REDUCED ({cfg.kind}, pattern "
+          f"{cfg.block_pattern()}), fp32, {LM_BATCH} x {LM_PROMPT} prompt, "
+          f"{LM_NEW} tokens: {launches} B5 launches (want {want}), prefill "
+          f"logits kernel vs plain rel {err:.3e} (tol {LM_FP32_TOL:g}), "
+          f"first tokens {tokens[:, 0].tolist()} / plain "
+          f"{plain[:, 0].tolist()} (held {held.tolist()}), share of the "
+          f"{LM_NEW} greedy tokens equal {same:.4f}; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if launches != want:
+        raise RuntimeError(f"10f: {launches} B5 launches; want {want}")
+    if not (bool(torch.isfinite(lk).all()) and err <= LM_FP32_TOL):
+        raise RuntimeError(f"10f: kernel path disagrees: rel {err}")
+    if bool(((tokens[:, 0] != plain[:, 0]) & held).any()):
+        raise RuntimeError("10f: first greedy tokens differ")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def lm_phase():
     """Phase 10: the serve path of the LM stack (10a B5 alone, 10b full
-    width in fp32, 10c the full model in bf16). Returns B5's entry for
-    the ``kernels`` line."""
+    width in fp32, 10c the full model in bf16; 10d qwen2-moe-a2.7b and 10e
+    mamba2-780m FULL in bf16, 10f jamba REDUCED in fp32). Returns B5's
+    entry for the ``kernels`` line, with the launches of 10d and 10f."""
     from repro_torch.configs import registry as TR
     from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.models import transformer as TT
@@ -1716,6 +1968,12 @@ def lm_phase():
     entry["launches_per_prefill"] = entry["launches"]
     entry["launches_per_decode_step"] = 0
     torch.cuda.empty_cache()
+    # 10d-10f: the moe, ssm and hybrid kinds, after 10c's weights are freed
+    for tag, arch in KIND_SERVE:
+        n = kind_serve_phase(tag, arch, TT, TS, FA)
+        if arch == "qwen2-moe-a2.7b":
+            entry["launches_moe"] = n
+    entry["launches_hybrid"] = hybrid_phase(TT, TS, FA)
     return entry
 
 
@@ -3623,6 +3881,143 @@ def pencil_phase(md, SIM, RT, CP, G, PS, V, cfg, mesh, vcfg, ms17c, w17f):
     return launches
 
 
+def comm_line(CA, name, led, trace, n_steps=1):
+    """17o: one form's reports (``launch/comm_analysis``) on one line each,
+    per step. At world 1 no byte reaches a peer: the permutes are
+    self-edge copies and a 1-rank all-reduce or all-to-all sends nothing,
+    so the peer bytes are printed beside the logical ones."""
+    per = CA.per_step(led, n_steps)
+    a2a = CA.all_to_all_report(led)
+    cp = CA.collective_permute_report(led)
+    ov = CA.overlap_report(led, trace)
+    tr = ov["trace"]
+    counts = {k: n for k, n in per["_counts"].items() if n}
+    print(f"17o {name}: collective_bytes a step (ring model) "
+          + ", ".join(f"{k} {per[k]:.0f}" for k in counts)
+          + f" ({sum(counts.values()):.0f} collectives: "
+          + ", ".join(f"{k} {n:.0f}" for k, n in counts.items())
+          + f"); bytes to a peer {per['peer']:.0f} (world 1)")
+    print(f"17o {name}: all_to_all_report {a2a['n_all_to_all']} ops, wire "
+          f"{a2a['total_wire_bytes']:.0f} (max {a2a['max_wire_bytes']:.0f}, "
+          f"groups {sorted({o['group_size'] for o in a2a['ops']})}); "
+          f"collective_permute_report {cp['n_collective_permute']} ops, wire "
+          f"{cp['total_wire_bytes']:.0f} (unconditional "
+          f"{cp['unconditional_wire_bytes']:.0f}, conditional "
+          f"{cp['conditional_wire_bytes']:.0f})")
+    print(f"17o {name}: overlap_report {len(ov['exchanges'])} exchanges, "
+          f"ledger: pair passes in flight {ov['pair_passes_in_flight']}, B1 "
+          f"launches in flight {ov['b1_launches_in_flight']}; trace: "
+          f"{tr['in_flight_ranges']} in-flight ranges, {tr['ops_in_flight']} "
+          f"ops and {tr['kernels_in_flight']} kernels issued in flight "
+          f"({tr['b1_kernels_in_flight']} B1, {tr['kernel_ms_in_flight']:.4f} "
+          f"ms); {tr['nccl_kernels']} NCCL kernels {tr['nccl_ms']:.4f} ms, "
+          f"compute inside them {tr['compute_in_nccl_ms']:.4f} ms of "
+          f"{tr['compute_ms']:.4f}; {tr['collective_ranges']} collective "
+          f"ranges on the device {tr['collective_ms']:.4f} ms (at world 1 "
+          "a copy each, no NCCL kernel)")
+    if per["peer"] != 0:
+        raise RuntimeError(f"17o {name}: {per['peer']} bytes to a peer at "
+                           "world 1")
+    return ov
+
+
+def comm_phase(md, SIM, RT, PS, cfg, mesh, vcfg):
+    """17o: the collective ledger (``runtime.count_collectives``) and its
+    reports (``launch/comm_analysis``) around one step of each
+    distributed form of phase 17 at world 1, with that step's
+    torch.profiler trace: the MD slab step with overlap and blocking, one
+    MD reuse slab step of each branch (the cold full step, then an update
+    step), the slab and pencil Poisson solves at the VIC mesh, and one MD
+    pencil step (1 x 1). The ledger and the trace must each tell the two
+    slab schedules apart: B1's interior pass in flight with overlap, none
+    blocking."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import comm_analysis as CA
+    t_phase = time.perf_counter()
+    m11 = RT.make_mesh((1, 1), PENCIL, device_type="cuda")
+    rc = float(md.physics(cfg).r_cut)
+    ps0, _ = md.run(cfg, 0, thermal_v=THERMAL_V, seed=0)
+    ps0 = SIM.with_ids(ps0)
+    g_cap = ghost_cap_for(ps0, rc, 0.0, cfg.box)
+
+    def measured(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with CA.ledger() as led:
+                out = fn()
+            torch.cuda.synchronize()
+        return out, led, prof
+
+    reps = {}
+    for overlap in (True, False):
+        st = SIM.distribute(ps0, md.physics, cfg, mesh,
+                            cap_per_dev=ps0.capacity)
+        step = SIM.make_sim_step(md.physics, cfg, mesh, overlap=overlap,
+                                 ghost_cap=g_cap)
+        st, _, _ = step(st, {})
+        _, led, prof = measured(lambda: step(st, {}))
+        reps[overlap] = comm_line(
+            CA, f"MD slab step ({'overlap' if overlap else 'blocking'})",
+            led, prof)
+    ov, bl = reps[True], reps[False]
+    print(f"17o: overlap vs blocking, ledger B1 in flight "
+          f"{ov['b1_launches_in_flight']} / {bl['b1_launches_in_flight']}, "
+          f"trace B1 kernels in flight {ov['trace']['b1_kernels_in_flight']}"
+          f" / {bl['trace']['b1_kernels_in_flight']}")
+    if not (ov["b1_launches_in_flight"] == 1
+            and bl["b1_launches_in_flight"] == 0
+            and ov["trace"]["b1_kernels_in_flight"] >= 1
+            and bl["trace"]["b1_kernels_in_flight"] == 0):
+        raise RuntimeError("17o: the reports do not tell the overlap "
+                           "schedule from the blocking one")
+
+    rcfg = dataclasses.replace(cfg, cell_cap=MD_REUSE_CELL_CAP)
+    g_r = ghost_cap_for(ps0, rcfg.r_cut * 1.5, 0.0, cfg.box)
+    st0 = SIM.distribute(ps0, md.physics, rcfg, mesh,
+                         cap_per_dev=ps0.capacity)
+    step = SIM.make_sim_step(md.physics, rcfg, mesh, reuse="skin",
+                             ghost_cap=g_r)
+    box = {"rs": SIM.reuse_state(st0, md.physics, rcfg, mesh, ghost_cap=g_r)}
+    for branch in ("full", "update"):
+        def one():
+            box["rs"], flags, _ = step(box["rs"], {})
+            return flags
+        flags, led, prof = measured(one)
+        if int(flags.stale) != (branch == "full"):
+            raise RuntimeError(f"17o reuse: stale {int(flags.stale)} on the "
+                               f"{branch} step")
+        comm_line(CA, f"MD reuse slab step ({branch})", led, prof)
+    del box, st0
+
+    rhs = torch.randn(VIC_SHAPE, generator=torch.Generator(
+        device="cuda").manual_seed(6), device="cuda")
+    rhs -= rhs.mean()
+    for name, fn, m, names in (
+            ("slab Poisson", PS.fft_poisson_slab_local, mesh, (AXIS,)),
+            ("pencil Poisson (1 x 1)", PS.fft_poisson_pencil_local, m11,
+             PENCIL)):
+        def solve():
+            with RT.on_mesh(m):
+                return fn(rhs, vcfg.lengths, *names)
+        solve()
+        _, led, prof = measured(solve)
+        comm_line(CA, f"{name} at {VIC_SHAPE}", led, prof)
+    del rhs
+
+    st = SIM.distribute(ps0, md.physics, cfg, m11, axis_name=PENCIL,
+                        cap_per_dev=ps0.capacity)
+    xy = ps0.x[ps0.valid][:, 1]
+    n_col = max(int((xy < rc).sum()), int((xy >= cfg.box - rc).sum()))
+    g_p = max(g_cap, int(GHOST_MARGIN * n_col * (1 + 2 * rc / cfg.box)) + 64)
+    step = SIM._make_sim_step_2d(md.physics, cfg, m11, *PENCIL, 0, None, g_p,
+                                 None)
+    st, _, _ = step(st, {})
+    _, led, prof = measured(lambda: step(st, {}))
+    comm_line(CA, "MD pencil step (1 x 1)", led, prof)
+    phase_mark("17o (collective ledger)", t_phase)
+
+
 def slab_phase(md, cfg, md_ps, vcfg, md_reuse_ms, fleet):
     """Phase 17: the 1-D slab layer on the card at world 1 over NCCL, then
     (17k-17n) the sharded fleet and the pencil forms. Returns the
@@ -3685,6 +4080,8 @@ def slab_phase(md, cfg, md_ps, vcfg, md_reuse_ms, fleet):
     n_pencil = pencil_phase(md, SIM, RT, CP, G, PS, V, cfg, mesh, vcfg,
                             ms17c, w17f)
     phase_mark("17n (pencil forms)", t_phase)
+    torch.cuda.empty_cache()
+    comm_phase(md, SIM, RT, PS, cfg, mesh, vcfg)
     fl = {"cell_pair_lj": n_fleet}
     pen = {"cell_pair_lj": n_pencil}
     dist.destroy_process_group()

@@ -104,6 +104,7 @@ def physics(cfg: MDConfig) -> SIM.PhysicsSpec:
         pair_out={"f": "radial"},
         make_body=lambda: lj_pair_body(cfg.sigma, cfg.epsilon),
         ghost_props=(),                  # ghosts carry positions only
+        finish_writes=("f",),
         advance=advance, finish=finish,
         backend=cfg.backend, precision=cfg.precision,
         bucket_cap=512, ghost_cap=1024)

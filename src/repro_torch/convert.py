@@ -67,7 +67,9 @@ def lm_params_from_numpy(tree, device="cuda") -> Dict[str, Any]:
     """The port's LM parameter dict on ``device`` from ``repro``'s
     ``models.transformer.init_params`` pytree with numpy leaves (copied;
     bf16 leaves keep their bits). The two share names and layouts
-    (blocks stacked ``(n_groups, ...)``), so this is a map of the tree."""
+    (blocks stacked ``(n_groups, ...)``; the MoE router and experts, the
+    Mamba SSM's projections, conv taps and ``A_log``/``D``/``dt_bias``/
+    ``norm`` too), so this is a map of the tree."""
     dev = resolve_device(device)
 
     def walk(t):

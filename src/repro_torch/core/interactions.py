@@ -162,6 +162,13 @@ def as_torch_kernel(body, out, r_cut: float,
     return kernel
 
 
+#: Pair passes run by :func:`apply_pair_kernel` in this process, on either
+#: path (B1's own counter, ``cell_pair.LAUNCHES``, counts kernel launches
+#: only); ``launch/comm_analysis.overlap_report`` reads how many ran while a
+#: ghost exchange was in flight.
+PAIR_PASSES = 0
+
+
 def apply_pair_kernel(ps: ParticleSet, cl: CellList, body, *, out,
                       r_cut: float, prop_names=(), backend: str = "auto",
                       cell_batch: int = 256, cells=None,
@@ -179,6 +186,8 @@ def apply_pair_kernel(ps: ParticleSet, cl: CellList, body, *, out,
     selected cells equal the full evaluation's and the others are 0 — the
     primitive of split-phase interior/boundary stepping (DESIGN.md §12).
     """
+    global PAIR_PASSES
+    PAIR_PASSES += 1
     if backend == "auto":
         backend = "cuda" if ps.x.is_cuda else "torch"
     if backend == "torch":

@@ -80,11 +80,15 @@ def owner_of(x_axis: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
 
 
 def map_particles_local(ps: ParticleSet, bounds: torch.Tensor,
-                        axis_name: str, bucket_cap: int, slab_axis: int = 0):
+                        axis_name: str, bucket_cap: int, slab_axis: int = 0,
+                        drop_props: Tuple[str, ...] = ()):
     """The ``map()`` mapping, per rank. Returns ``(new_ps, overflow)``:
     overflow (0-d int32, the same on every rank) is the larger of the
     bucket overflow and the slot overflow; nonzero means capacities must
-    be re-provisioned (retained particles stay consistent)."""
+    be re-provisioned (retained particles stay consistent).
+    ``drop_props`` stay out of the messages, and the particles that
+    arrive carry zeros there: props the caller overwrites before it reads
+    them (``repro``'s compiled step drops their all-to-alls as unread)."""
     ndev = RT.axis_size(axis_name)
     me = RT.axis_index(axis_name)
     dest = owner_of(ps.x[:, slab_axis], bounds)
@@ -92,7 +96,8 @@ def map_particles_local(ps: ParticleSet, bounds: torch.Tensor,
     stay = ps.valid & (dest == me)
     leaving = torch.where(ps.valid & ~stay, dest,
                           torch.full_like(dest, ndev))
-    payload = {"x": ps.x, **{"p." + k: v for k, v in ps.props.items()}}
+    payload = {"x": ps.x, **{"p." + k: v for k, v in ps.props.items()
+                             if k not in drop_props}}
     buckets, slot_valid, ovf = bucket_pack(leaving, payload, ndev,
                                            bucket_cap)
     names = list(buckets)
@@ -100,9 +105,13 @@ def map_particles_local(ps: ParticleSet, bounds: torch.Tensor,
                               axis_name)
     flat = {k: a.reshape((ndev * bucket_cap,) + tuple(a.shape[2:]))
             for k, a in zip(names, recv)}
+    n_in = ndev * bucket_cap
     incoming = ParticleSet(
-        x=flat["x"], props={k: flat["p." + k] for k in ps.props},
-        valid=recv[-1].reshape(ndev * bucket_cap))
+        x=flat["x"],
+        props={k: (v.new_zeros((n_in,) + tuple(v.shape[1:]))
+                   if k in drop_props else flat["p." + k])
+               for k, v in ps.props.items()},
+        valid=recv[-1].reshape(n_in))
     merged, add_ovf = ps.where(stay).add_count(incoming)
     total = RT.pmax(torch.maximum(ovf, add_ovf.to(torch.int32)), axis_name)
     return merged, total
@@ -118,12 +127,13 @@ class GhostLayer:
     ``(2K, ghost_cap, ...)`` for a K-hop exchange: rows ``0..K-1`` came
     from the left neighbours at hops ``1..K``, rows ``K..2K-1`` from the
     right ones. ``src_slot`` is the slot in the source rank's set, the
-    provenance ``ghost_put`` routes contributions home by."""
+    provenance ``ghost_put`` routes contributions home by (None when the
+    exchange did not ship it: ``ghost_get_start(src_slots=False)``)."""
 
     x: torch.Tensor                    # (2K, ghost_cap, dim)
     props: Dict[str, torch.Tensor]     # (2K, ghost_cap, ...)
     valid: torch.Tensor                # (2K, ghost_cap)
-    src_slot: torch.Tensor             # (2K, ghost_cap) int32
+    src_slot: Optional[torch.Tensor]   # (2K, ghost_cap) int32
 
     @property
     def ghost_cap(self) -> int:
@@ -205,10 +215,14 @@ def ghost_get_start(ps: ParticleSet, bounds: torch.Tensor, r_ghost: float,
                     axis_name: str, ghost_cap: int, *, periodic: bool,
                     box_len: float, slab_axis: int = 0,
                     prop_names: Optional[Tuple[str, ...]] = None,
-                    n_hops: int = 1) -> RT.InFlight:
+                    n_hops: int = 1, src_slots: bool = True) -> RT.InFlight:
     """First half of :func:`ghost_get_local`: pack and issue every hop's
     shifts as one batch. ``.wait()`` on the result yields ``(GhostLayer,
-    overflow)``; work scheduled in between overlaps the exchange."""
+    overflow)``; work scheduled in between overlaps the exchange.
+    ``src_slots=False`` leaves the source slots out of the messages (the
+    layer's ``src_slot`` is None): a step that never sends contributions
+    home needs none, and ``repro``'s compiled step drops that exchange as
+    unread."""
     ndev = RT.axis_size(axis_name)
     me = RT.axis_index(axis_name)
     xs = ps.x[:, slab_axis]
@@ -223,9 +237,10 @@ def ghost_get_start(ps: ParticleSet, bounds: torch.Tensor, r_ghost: float,
         hi_x, hi_p, hi_v, hi_s, ovf_hi = _pack_side(ps_send, near_hi,
                                                     ghost_cap)
         right, left = RT.shift_perms(ndev, h)
+        hi_s, lo_s = ([hi_s], [lo_s]) if src_slots else ([], [])
         # what I receive from my hop-h LEFT neighbour it sent rightwards
-        sends.append(([hi_x, hi_v, hi_s] + [hi_p[k] for k in names], right))
-        sends.append(([lo_x, lo_v, lo_s] + [lo_p[k] for k in names], left))
+        sends.append(([hi_x, hi_v] + hi_s + [hi_p[k] for k in names], right))
+        sends.append(([lo_x, lo_v] + lo_s + [lo_p[k] for k in names], left))
         overflows.append(torch.maximum(ovf_lo, ovf_hi))
     ovf = overflows[0]
     for o in overflows[1:]:
@@ -240,16 +255,18 @@ def ghost_get_start(ps: ParticleSet, bounds: torch.Tensor, r_ghost: float,
             for got, shift, keep, out in (
                     (received[2 * h - 2], shift_l, keep_l, sides_l),
                     (received[2 * h - 1], shift_r, keep_r, sides_r)):
-                x, v, s = got[:3]
+                x, v = got[:2]
+                s = got[2] if src_slots else None
                 out.append((_shift_slab(x, slab_axis, shift),
                             v if keep else torch.zeros_like(v), s,
-                            dict(zip(names, got[3:]))))
+                            dict(zip(names, got[2 + src_slots:]))))
         sides = sides_l + sides_r        # rows 0..K-1 left, K..2K-1 right
         ghosts = GhostLayer(
             x=torch.stack([s[0] for s in sides]),
             props={k: torch.stack([s[3][k] for s in sides]) for k in names},
             valid=torch.stack([s[1] for s in sides]),
-            src_slot=torch.stack([s[2] for s in sides]))
+            src_slot=torch.stack([s[2] for s in sides]) if src_slots
+            else None)
         return ghosts, overflow
 
     return RT.ppermute_many_start(sends, axis_name).then(assemble)
@@ -259,7 +276,8 @@ def ghost_get_local(ps: ParticleSet, bounds: torch.Tensor, r_ghost: float,
                     axis_name: str, ghost_cap: int, *, periodic: bool,
                     box_len: float, slab_axis: int = 0,
                     prop_names: Optional[Tuple[str, ...]] = None,
-                    n_hops: int = 1) -> Tuple[GhostLayer, torch.Tensor]:
+                    n_hops: int = 1, src_slots: bool = True
+                    ) -> Tuple[GhostLayer, torch.Tensor]:
     """The ``ghost_get`` mapping, per rank: send particles within
     ``r_ghost`` of each slab face to the respective neighbour. Ghosts that
     cross the periodic seam are shifted by ±L, so downstream kernels need
@@ -269,11 +287,12 @@ def ghost_get_local(ps: ParticleSet, bounds: torch.Tensor, r_ghost: float,
     ring, what the h-distant slab needs for its ghost window; hop windows
     are disjoint and cover the window while ``n_hops >= ceil(r_ghost /
     min slab width)``. Returns ``(GhostLayer, overflow)``, overflow the
-    largest per-side excess over ``ghost_cap``, the same on every rank."""
+    largest per-side excess over ``ghost_cap``, the same on every rank.
+    ``src_slots`` as in :func:`ghost_get_start`."""
     return ghost_get_start(ps, bounds, r_ghost, axis_name, ghost_cap,
                            periodic=periodic, box_len=box_len,
                            slab_axis=slab_axis, prop_names=prop_names,
-                           n_hops=n_hops).wait()
+                           n_hops=n_hops, src_slots=src_slots).wait()
 
 
 def _pack_payload(tree: Dict[str, torch.Tensor], sel: torch.Tensor,

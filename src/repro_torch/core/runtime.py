@@ -41,14 +41,25 @@ port. Nothing here reads a device tensor on the host.
 
 Messages go as their bytes' dtype where the backends differ: bool as
 uint8, complex as its real view.
+
+Accounting (``repro``'s ``launch/hlo_analysis.py`` reads collectives out
+of compiled HLO; the port has none): inside :func:`count_collectives`
+every collective above appends a :class:`Collective` to the open
+:class:`CollectiveLedger`, with its kind spelled as in HLO, its group
+size and its result bytes counted from the caller's tensor as HLO counts
+them (bool 1 byte, complex64 8). Sizes are host integers from shapes: an
+open ledger reads no device tensor and syncs nothing, and with none open
+a collective pays one context-variable lookup.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 import math
 import os
-from typing import Callable, List, Optional, Sequence, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -154,6 +165,120 @@ def _group(axis_name: str):
 
 
 # --------------------------------------------------------------------------
+# The collective ledger
+# --------------------------------------------------------------------------
+
+#: The ledger open in this context (None: nothing is recorded).
+_LEDGER: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_ledger", default=None)
+#: Whether the collectives issued now sit in a branch picked on the host
+#: (:func:`conditional`).
+_CONDITIONAL: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_conditional", default=False)
+
+#: The profiler range a split-phase exchange is in flight under, from its
+#: start to its wait (only while a ledger is open).
+IN_FLIGHT_RANGE = "repro_torch::in_flight"
+
+
+@dataclasses.dataclass
+class Collective:
+    """One collective as this rank issued it.
+
+    ``result_bytes`` is the logical payload of the result on this rank,
+    counted from the caller's tensor as ``repro``'s HLO counts it (bool
+    1 byte, complex64 8), whatever the message carries. ``peer_bytes``
+    are the bytes this rank sends to other ranks: a permute's message
+    unless its edge is a self-edge (a local copy), ``(g-1)/g`` of an
+    all-to-all, ``2 (g-1)/g`` of an all-reduce's message (ring), ``g-1``
+    times an all-gather's input, a broadcast root's ``g-1`` copies.
+    ``conditional``: issued inside :func:`conditional`. ``batch`` groups
+    the permutes one :func:`ppermute_many_start` issued; ``t_start`` /
+    ``t_wait`` (``time.perf_counter``) and ``work_start`` / ``work_wait``
+    (the ledger's work counters) bracket the time it was in flight (equal
+    for a blocking collective)."""
+
+    seq: int
+    kind: str                      # HLO spelling
+    axis: str
+    group_size: int
+    result_bytes: int
+    peer_bytes: int
+    conditional: bool = False
+    batch: Optional[int] = None
+    t_start: float = 0.0
+    t_wait: Optional[float] = None
+    work_start: Dict[str, int] = dataclasses.field(default_factory=dict)
+    work_wait: Optional[Dict[str, int]] = None
+
+
+class CollectiveLedger:
+    """The collectives issued while it is open (:func:`count_collectives`)
+    in ``entries``, in issue order. ``work`` maps a name to a callable
+    returning a host int (a launch counter); each entry snapshots them at
+    its start and its wait."""
+
+    def __init__(self, work: Optional[Dict[str, Callable[[], int]]] = None):
+        self.entries: List[Collective] = []
+        self.work = dict(work or {})
+        self._batches = 0
+
+    def _snapshot(self) -> Dict[str, int]:
+        return {k: int(f()) for k, f in self.work.items()}
+
+
+@contextlib.contextmanager
+def count_collectives(work: Optional[Dict[str, Callable[[], int]]] = None):
+    """Open a :class:`CollectiveLedger` for the block: every collective
+    issued inside it (on any mesh) is appended to it."""
+    led = CollectiveLedger(work)
+    token = _LEDGER.set(led)
+    try:
+        yield led
+    finally:
+        _LEDGER.reset(token)
+
+
+@contextlib.contextmanager
+def conditional():
+    """Mark the collectives issued inside the block as conditional: a
+    branch the host picked (the reuse step's rebuild), which ``repro``
+    compiles into a ``lax.cond`` branch."""
+    token = _CONDITIONAL.set(True)
+    try:
+        yield
+    finally:
+        _CONDITIONAL.reset(token)
+
+
+def _logical_bytes(x: torch.Tensor) -> int:
+    """Bytes of ``x`` as HLO counts them: bool 1, complex64 8."""
+    return x.numel() * x.element_size()
+
+
+def _record(led: CollectiveLedger, kind: str, axis: str, group_size: int,
+            result_bytes: int, peer_bytes: int,
+            batched: bool = False) -> Collective:
+    """Append one entry to ``led`` and return it. ``batched``: the entry
+    belongs to the ledger's current permute batch."""
+    e = Collective(seq=len(led.entries), kind=kind, axis=str(axis),
+                   group_size=int(group_size), result_bytes=int(result_bytes),
+                   peer_bytes=int(peer_bytes),
+                   conditional=_CONDITIONAL.get(),
+                   batch=led._batches if batched else None,
+                   t_start=time.perf_counter(), work_start=led._snapshot())
+    led.entries.append(e)
+    return e
+
+
+def _blocking(led: CollectiveLedger, *args) -> None:
+    """Record a collective that returns its result: waited when issued."""
+    e = _record(led, *args)
+    e.t_wait = e.t_start
+    e.work_wait = dict(e.work_start)
+
+
+# --------------------------------------------------------------------------
 # Axis queries: host integers, no device read
 # --------------------------------------------------------------------------
 
@@ -212,22 +337,33 @@ class InFlight:
     for them (on NCCL it makes the current stream wait, without blocking
     the host) and returns ``then(received)``. Objects made by ``then``
     share the messages, and each message is waited for once (a gloo send
-    waited for twice blocks until its timeout)."""
+    waited for twice blocks until its timeout). Under an open ledger the
+    first wait stamps the batch's entries and closes its profiler range
+    (:data:`IN_FLIGHT_RANGE`)."""
 
-    def __init__(self, works: List, value, then: Optional[Callable] = None):
+    def __init__(self, works: List, value, then: Optional[Callable] = None,
+                 acct: Optional[List] = None):
         self._works = works
         self._value = value
         self._then = then
+        self._acct = [] if acct is None else acct
 
     def then(self, fn: Callable) -> "InFlight":
         """The same messages, yielding ``fn`` of what this one yields."""
         prev = self._then
         return InFlight(self._works, self._value,
-                        fn if prev is None else (lambda v: fn(prev(v))))
+                        fn if prev is None else (lambda v: fn(prev(v))),
+                        self._acct)
 
     def wait(self):
         while self._works:          # the list is shared: empty it in place
             self._works.pop(0).wait()
+        if self._acct:              # shared too: stamped once
+            led, entries, rf = self._acct.pop(0)
+            t, work = time.perf_counter(), led._snapshot()
+            for e in entries:
+                e.t_wait, e.work_wait = t, work
+            rf.__exit__(None, None, None)
         return self._value if self._then is None else self._then(
             self._value)
 
@@ -248,7 +384,8 @@ def ppermute_many_start(sends: Sequence[Tuple[Sequence[torch.Tensor],
     (the two directions of a 2-rank ring) cannot swap."""
     me = axis_index(axis_name)
     group = _group(axis_name)
-    ops, out = [], []
+    led = _LEDGER.get()
+    ops, out, entries = [], [], []
     tag = 0
     for tensors, perm in sends:
         dst = [d for s, d in perm if s == me]
@@ -258,6 +395,12 @@ def ppermute_many_start(sends: Sequence[Tuple[Sequence[torch.Tensor],
         got = []
         for x in tensors:
             wire = _wire(x)
+            if led is not None:
+                to_peer = bool(dst) and dst[0] != me
+                entries.append(_record(
+                    led, "collective-permute", axis_name,
+                    axis_size(axis_name), _logical_bytes(x),
+                    _logical_bytes(wire) if to_peer else 0, batched=True))
             if dst and dst[0] == me:              # a self-edge: a copy
                 got.append(_unwire(wire.clone(), x))
                 tag += 1
@@ -276,13 +419,19 @@ def ppermute_many_start(sends: Sequence[Tuple[Sequence[torch.Tensor],
                 got.append(torch.zeros_like(x))
             tag += 1
         out.append(got)
+    acct = []
+    if entries:
+        led._batches += 1
+        rf = torch.autograd.profiler.record_function(IN_FLIGHT_RANGE)
+        rf.__enter__()
+        acct.append((led, entries, rf))
     works = dist.batch_isend_irecv(ops) if ops else []
 
     def unpack(received):
         return [[_unwire(*g) if isinstance(g, tuple) else g for g in row]
                 for row in received]
 
-    return InFlight(works, out, unpack)
+    return InFlight(works, out, unpack, acct)
 
 
 def ppermute(x: torch.Tensor, axis_name: str, perm) -> torch.Tensor:
@@ -318,6 +467,10 @@ def all_to_all(x: torch.Tensor, axis_name: str, *, split_axis: int = 0,
     chunked = x.reshape(shp[:split_axis] + [ndev, n // ndev]
                         + shp[split_axis + 1:]).movedim(split_axis, 0)
     wire = _wire(chunked)
+    led = _LEDGER.get()
+    if led is not None:
+        _blocking(led, "all-to-all", axis_name, ndev, _logical_bytes(x),
+                  _peer_share(wire, ndev))
     out = torch.empty_like(wire)
     dist.all_to_all_single(out, wire, group=_group(axis_name))
     got = _unwire(out, x)                        # (ndev, ...chunk...)
@@ -342,6 +495,11 @@ def all_to_all_many(xs: Sequence[torch.Tensor],
         if x.shape[0] != ndev:
             raise ValueError(f"leading axis {x.shape[0]} is not the axis "
                              f"size {ndev}")
+    led = _LEDGER.get()
+    if led is not None:          # an entry per tensor, as repro issues them
+        for x in xs:
+            _blocking(led, "all-to-all", axis_name, ndev, _logical_bytes(x),
+                      _peer_share(x, ndev))
     parts = [x.contiguous().view(torch.uint8).reshape(ndev, -1)
              for x in xs]
     wire = torch.cat(parts, 1)
@@ -350,10 +508,18 @@ def all_to_all_many(xs: Sequence[torch.Tensor],
     got, at = [], 0
     for x, p in zip(xs, parts):
         w = p.shape[1]
-        got.append(out[:, at:at + w].contiguous().view(x.dtype)
+        # a fresh copy: at world 1 the (1, w) slice counts as contiguous
+        # with its row stride, and a dtype view of it would fail
+        got.append(out[:, at:at + w].clone(
+            memory_format=torch.contiguous_format).view(x.dtype)
                    .reshape(x.shape))
         at += w
     return got
+
+
+def _peer_share(x: torch.Tensor, ndev: int) -> int:
+    """The bytes of ``x`` an all-to-all sends away: (ndev - 1) / ndev."""
+    return x.numel() * x.element_size() * (ndev - 1) // ndev
 
 
 def _names(axis_name) -> Tuple[str, ...]:
@@ -363,8 +529,14 @@ def _names(axis_name) -> Tuple[str, ...]:
 def _reduce(x, axis_name, op) -> torch.Tensor:
     t = torch.as_tensor(x)
     buf = t.to(torch.int32) if t.dtype == torch.bool else t.clone()
-    # a tuple of axes reduces over each axis in turn
+    # a tuple of axes reduces over each axis in turn: one all-reduce per
+    # axis (repro's HLO has one over the product group)
+    led = _LEDGER.get()
     for name in _names(axis_name):
+        if led is not None:
+            g = axis_size(name)
+            _blocking(led, "all-reduce", name, g, _logical_bytes(t),
+                      2 * (g - 1) * _logical_bytes(buf) // g)
         dist.all_reduce(buf, op=op, group=_group(name))
     return buf.to(torch.bool) if t.dtype == torch.bool else buf
 
@@ -387,6 +559,13 @@ def broadcast(x: torch.Tensor, axis_name: str, src: int) -> torch.Tensor:
     tensor of the same shape and dtype; only ``src``'s values count)."""
     wire = _wire(x).clone()
     group = _group(axis_name)
+    led = _LEDGER.get()
+    if led is not None:
+        g = axis_size(axis_name)
+        root = axis_index(axis_name) == int(src)
+        _blocking(led, "collective-broadcast", axis_name, g,
+                  _logical_bytes(x),
+                  (g - 1) * _logical_bytes(wire) if root else 0)
     dist.broadcast(wire, src=dist.get_global_rank(group, int(src)),
                    group=group)
     return _unwire(wire, x)
@@ -400,7 +579,12 @@ _ALL_GATHER = getattr(dist, "all_gather_single", None) \
 def _gather_stacked(wire: torch.Tensor, axis_name) -> torch.Tensor:
     """Every rank's ``wire`` stacked on a new leading axis, in rank order
     (row-major over a tuple of axes: the last axis gathered first)."""
+    led = _LEDGER.get()
     for name in reversed(_names(axis_name)):
+        if led is not None:
+            g, nbytes = axis_size(name), _logical_bytes(wire)
+            _blocking(led, "all-gather", name, g, g * nbytes,
+                      (g - 1) * nbytes)
         # the backends take the output as the inputs concatenated on dim 0
         src = wire.reshape((1,) + tuple(wire.shape))
         out = torch.empty((axis_size(name),) + tuple(wire.shape),

@@ -186,6 +186,10 @@ class PhysicsSpec:
     ``ghost_get`` per-side capacities of a mesh step. ``update_props`` are
     the ghost props a reuse update step on a mesh refreshes (default
     ``pair_props``); the other ghost props come from the cached layer.
+    ``finish_writes`` are the props ``finish`` overwrites before anything
+    reads them (MD's force): a mesh step's ``map()`` leaves them out of
+    its messages, as ``repro``'s compiled step drops their all-to-alls as
+    unread.
     """
 
     name: str
@@ -208,6 +212,7 @@ class PhysicsSpec:
     mesh_props: Tuple[str, ...] = ()         # mesh fields in state.fields
     update_props: Optional[Tuple[str, ...]] = None  # ghost props refreshed
     #                                          on reuse update steps
+    finish_writes: Tuple[str, ...] = ()      # props finish overwrites unread
     cache_keys: Tuple[str, ...] = ()         # finish scalars carried as
     #                                          reuse-engine physics cache
     cache_scalars: Tuple[str, ...] = ()      # cache_keys that are scalars
@@ -546,12 +551,12 @@ def _make_sim_step_1d(physics, cfg, mesh, axis_name: str, slab_axis: int,
             ps = spec.advance(ps, red, extras)
         # map(): migrate to the owners under the (replicated) bounds
         ps, ovf_bucket = M.map_particles_local(ps, bounds, axis_name, b_cap,
-                                               slab_axis)
+                                               slab_axis, spec.finish_writes)
         contract = _hop_excess(bounds, rc, k_hops)
         pending = M.ghost_get_start(
             ps, bounds, rc, axis_name, g_cap, periodic=per_slab,
             box_len=box_len, slab_axis=slab_axis,
-            prop_names=spec.ghost_props, n_hops=k_hops)
+            prop_names=spec.ghost_props, n_hops=k_hops, src_slots=False)
         win_ovf = _z32(dev)
         if overlap:
             # the interior pass while the ghosts fly: a locals-only cell
@@ -645,9 +650,9 @@ def _make_sim_step_2d(physics, cfg, mesh, row_axis: str, col_axis: str,
         # two-stage map(): rows re-own along slab_axis within each mesh
         # column, then columns along col_space_axis within each row
         ps, ovf_r = M.map_particles_local(ps, bounds, row_axis, b_cap,
-                                          slab_axis)
+                                          slab_axis, spec.finish_writes)
         ps, ovf_c = M.map_particles_local(ps, cbounds, col_axis, b_cap,
-                                          col_space_axis)
+                                          col_space_axis, spec.finish_writes)
         contract = torch.maximum(_hop_excess(bounds, rc, k_row),
                                  _hop_excess(cbounds, rc, k_col))
         # two-stage ghost_get: rows first; the column exchange ships
@@ -656,12 +661,12 @@ def _make_sim_step_2d(physics, cfg, mesh, row_axis: str, col_axis: str,
         ghosts_r, ovf_gr = M.ghost_get_local(
             ps, bounds, rc, row_axis, g_cap, periodic=per_row,
             box_len=box_len_r, slab_axis=slab_axis,
-            prop_names=spec.ghost_props, n_hops=k_row)
+            prop_names=spec.ghost_props, n_hops=k_row, src_slots=False)
         combo_r = _combo_of(ps, ghosts_r, spec.ghost_props)
         ghosts_c, ovf_gc = M.ghost_get_local(
             combo_r, cbounds, rc, col_axis, g_cap, periodic=per_col,
             box_len=box_len_c, slab_axis=col_space_axis,
-            prop_names=spec.ghost_props, n_hops=k_col)
+            prop_names=spec.ghost_props, n_hops=k_col, src_slots=False)
         combo = _combo_of(combo_r, ghosts_c, spec.ghost_props)
         cl = CL.build_cell_list(combo, **cl_kw)
         pair = I.apply_pair_kernel(combo, cl, body, **pair_kw)
@@ -866,11 +871,15 @@ def _make_reuse_step_1d(physics, cfg, mesh, axis_name: str, slab_axis: int,
             my_lo, my_hi = bounds[me], bounds[me + 1]
             int_cells, win_ovf = _interior_cells(g, my_lo, my_hi)
         if take_full:
-            ps, ovf_bucket = M.map_particles_local(ps, bounds, axis_name,
-                                                   b_cap, slab_axis)
-            ghosts, ovf_ghost = M.ghost_get_local(
-                ps, bounds, r_g, axis_name, g_cap,
-                prop_names=spec.ghost_props, **gkw)
+            # the rebuild branch's collectives are conditional: repro's
+            # sit in a lax.cond branch (launch/comm_analysis.py)
+            with RT.conditional():
+                ps, ovf_bucket = M.map_particles_local(
+                    ps, bounds, axis_name, b_cap, slab_axis,
+                    spec.finish_writes)
+                ghosts, ovf_ghost = M.ghost_get_local(
+                    ps, bounds, r_g, axis_name, g_cap,
+                    prop_names=spec.ghost_props, **gkw)
             combo = _combo_of(ps, ghosts, spec.ghost_props)
             cl = CL.build_cell_list(combo, **cl_kw)
             pair = I.apply_pair_kernel(combo, cl, body, **pair_kw)

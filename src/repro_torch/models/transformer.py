@@ -1,14 +1,22 @@
-"""Model assembly of the LM stack (``repro``'s ``models/transformer.py``),
-dense kind only: the pre-norm GQA decoder of starcoder2, llama3.2,
-minitron and gemma.
+"""Model assembly of the LM stack (``repro``'s ``models/transformer.py``)
+for four of its six kinds:
+  dense  — pre-norm GQA transformer (starcoder2, llama3.2, minitron, gemma)
+  moe    — GQA attention + (shared + routed top-k) MoE FFN (qwen2, qwen3)
+  ssm    — a pure Mamba2 SSD stack (mamba2-780m)
+  hybrid — jamba: period-8 groups [M Md M A(MoE) M Md M Md], MoE on every
+           2nd layer
 
 Parameters keep ``repro``'s names and layouts: a dict of tensors whose
 blocks are stacked ``(n_groups, ...)``, as ``repro``'s ``init_params``
 builds them, so ``convert.lm_params_from_numpy`` is a map of names. The
-layer stack is a Python loop over groups where ``repro`` scans.
+layer stack is a Python loop over groups where ``repro`` scans. With no
+``ctx`` the MoE FFN is the dense oracle (``models/moe.moe_dense``), as in
+``repro``; the expert-parallel map path (``moe.moe_map_local``) runs per
+rank on a ``runtime.make_mesh`` mesh.
 
-The other kinds raise NotImplementedError naming their ROADMAP item, and
-so does a sharding ``ctx`` (the port runs on one device).
+The ``encdec`` and ``vlm`` kinds raise NotImplementedError naming their
+ROADMAP item (A16d), and so does a sharding ``ctx`` (A16f: the port runs
+the LM on one device).
 """
 from __future__ import annotations
 
@@ -20,15 +28,18 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.particles import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
 
 #: What each kind that the port does not run yet waits for.
 KIND_ITEMS = {
-    "moe": "ROADMAP A16b (models/moe.py)",
-    "ssm": "ROADMAP A16c (models/mamba.py)",
-    "hybrid": "ROADMAP A16b and A16c (models/moe.py, models/mamba.py)",
     "encdec": "ROADMAP A16d (the encoder and cross-attention)",
     "vlm": "ROADMAP A16d (the image projection and cross-attention)",
 }
+
+#: Block kinds by their parts.
+ATTN_KINDS = ("attn", "attn_moe", "attn_moe_shared")
+MAMBA_KINDS = ("mamba", "mamba_dense", "mamba_moe")
 
 
 def _check(cfg: ModelConfig, ctx=None) -> None:
@@ -36,11 +47,12 @@ def _check(cfg: ModelConfig, ctx=None) -> None:
         raise NotImplementedError(
             "a sharding ctx needs the sharded LM stack (ROADMAP A16f); the "
             "port runs the LM on one device, pass ctx=None")
-    if cfg.kind != "dense":
+    if cfg.kind in KIND_ITEMS or cfg.kind not in ("dense", "moe", "ssm",
+                                                  "hybrid"):
         item = KIND_ITEMS.get(cfg.kind, "ROADMAP A16")
         raise NotImplementedError(
             f"{cfg.name}: kind {cfg.kind!r} is not ported yet ({item}); "
-            "the port runs the dense kind")
+            "the port runs the dense, moe, ssm and hybrid kinds")
 
 
 # ==========================================================================
@@ -77,8 +89,9 @@ def _attn_params(cfg, dt, gen, dev, n):
     }
 
 
-def _mlp_params(cfg, dt, gen, dev, n):
-    D, F = cfg.d_model, cfg.d_ff
+def _mlp_params(cfg, dt, gen, dev, n, d_ff=None):
+    D = cfg.d_model
+    F = d_ff if d_ff is not None else cfg.d_ff
     s = 1.0 / math.sqrt(D)
     so = 1.0 / math.sqrt(F)
     p = {"wi": _init((D, F), s, dt, gen, dev, n),
@@ -88,24 +101,90 @@ def _mlp_params(cfg, dt, gen, dev, n):
     return p
 
 
+def _moe_params(cfg, dt, gen, dev, n):
+    D, E, Fe = cfg.d_model, cfg.n_experts_eff, cfg.d_expert
+    s = 1.0 / math.sqrt(D)
+    so = 1.0 / math.sqrt(Fe)
+    return {
+        "router": _init((D, E), s, torch.float32, gen, dev, n),
+        "wi": _init((E, D, Fe), s, dt, gen, dev, n),
+        "wg": _init((E, D, Fe), s, dt, gen, dev, n),
+        "wo": _init((E, Fe, D), so, dt, gen, dev, n),
+    }
+
+
+def _const(shape, value, dtype, dev, n):
+    """A tensor of ``value`` (a float or a 1-D tensor broadcast over the
+    last axis), stacked ``(n, *shape)``."""
+    full = shape if n is None else (n, *shape)
+    out = torch.empty(full, dtype=dtype, device=dev)
+    if not out.is_meta:
+        out.copy_(torch.as_tensor(value, dtype=dtype).expand(full))
+    return out
+
+
+def _mamba_params(cfg, dt, gen, dev, n):
+    D = cfg.d_model
+    di, nh, N, G = M.ssm_sizes(cfg)
+    Kc = cfg.ssm_conv
+    s = 1.0 / math.sqrt(D)
+    so = 1.0 / math.sqrt(di)
+    sc = 0.5 / math.sqrt(Kc)
+    f32 = torch.float32
+    return {
+        "w_z": _init((D, di), s, dt, gen, dev, n),
+        "w_x": _init((D, di), s, dt, gen, dev, n),
+        "w_B": _init((D, G * N), s, dt, gen, dev, n),
+        "w_C": _init((D, G * N), s, dt, gen, dev, n),
+        "w_dt": _init((D, nh), s, dt, gen, dev, n),
+        "conv_x": _init((di, Kc), sc, dt, gen, dev, n),
+        "conv_bx": _const((di,), 0.0, dt, dev, n),
+        "conv_B": _init((G * N, Kc), sc, dt, gen, dev, n),
+        "conv_bB": _const((G * N,), 0.0, dt, dev, n),
+        "conv_C": _init((G * N, Kc), sc, dt, gen, dev, n),
+        "conv_bC": _const((G * N,), 0.0, dt, dev, n),
+        "A_log": _const((nh,), torch.log(torch.linspace(1.0, 16.0, nh)),
+                        f32, dev, n),
+        "D": _const((nh,), 1.0, f32, dev, n),
+        "dt_bias": _const((nh,), 0.0, f32, dev, n),
+        "norm": _const((di,), 0.0, f32, dev, n),
+        "w_out": _init((di, D), so, dt, gen, dev, n),
+    }
+
+
 def _norm(cfg, dev, n=None):
     shape = (cfg.d_model,) if n is None else (n, cfg.d_model)
     return torch.zeros(shape, dtype=torch.float32, device=dev)
 
 
 def _block_params(kind: str, cfg, dt, gen, dev, n):
-    if kind != "attn":
+    """One block kind's parameters, stacked over ``n`` groups (``repro``'s
+    ``_block_params`` for the kinds of the dense, moe, ssm and hybrid
+    patterns)."""
+    p = {"ln1": _norm(cfg, dev, n)}
+    if kind in ATTN_KINDS:
+        p["attn"] = _attn_params(cfg, dt, gen, dev, n)
+    elif kind in MAMBA_KINDS:
+        p["mamba"] = _mamba_params(cfg, dt, gen, dev, n)
+    else:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet "
-                                  "(ROADMAP A16)")
-    return {"ln1": _norm(cfg, dev, n), "attn": _attn_params(cfg, dt, gen,
-                                                            dev, n),
-            "ln2": _norm(cfg, dev, n), "mlp": _mlp_params(cfg, dt, gen, dev,
-                                                          n)}
+                                  "(ROADMAP A16d)")
+    if kind == "mamba":
+        return p
+    p["ln2"] = _norm(cfg, dev, n)
+    if kind in ("attn", "mamba_dense"):
+        p["mlp"] = _mlp_params(cfg, dt, gen, dev, n)
+    else:
+        p["moe"] = _moe_params(cfg, dt, gen, dev, n)
+    if kind == "attn_moe_shared":
+        p["shared"] = _mlp_params(cfg, dt, gen, dev, n,
+                                  d_ff=cfg.n_shared_experts * cfg.d_expert)
+    return p
 
 
 def init_params(cfg: ModelConfig, generator,
                 device="cuda") -> Dict[str, Any]:
-    """Random parameters of a dense model on ``device``, drawn from the
+    """Random parameters of a model on ``device``, drawn from the
     torch.Generator ``generator`` (on that device; ``device="meta"`` takes
     None and builds shapes only, allocating nothing)."""
     _check(cfg)
@@ -141,34 +220,86 @@ def count_params(params) -> int:
 
 
 def active_params(cfg: ModelConfig) -> int:
-    """Active-per-token non-embedding params (the dense kind has no
-    inactive experts)."""
-    return count_params(init_params(cfg, None, device="meta")) \
-        - cfg.vocab * cfg.d_model * 2
+    """Active-per-token non-embedding params: MoE layers count ``top_k``
+    of their ``n_experts_eff`` routed experts (``repro``'s count)."""
+    total = count_params(init_params(cfg, None, device="meta"))
+    emb = cfg.vocab * cfg.d_model * 2
+    inactive = 0
+    if cfg.n_experts:
+        per_expert = cfg.d_model * cfg.d_expert * 3
+        n_moe = sum("moe" in kind for kind in cfg.block_pattern()) \
+            * cfg.n_groups()
+        inactive = n_moe * (cfg.n_experts_eff - cfg.top_k) * per_expert
+    return total - emb - inactive
 
 
 # ==========================================================================
 # Forward pass
 # ==========================================================================
 
+def _apply_moe(p_moe, x, cfg, ctx=None):
+    """The MoE FFN: ``repro`` takes the map path on a mesh with a ``model``
+    axis and the dense oracle otherwise; with no ctx (the port's LM runs
+    on one device, ROADMAP A16f) that is :func:`moe.moe_dense`. Returns
+    ``(out, aux, dropped)``."""
+    _check(cfg, ctx)
+    B, S, D = x.shape
+    out, aux, dropped = MOE.moe_dense(x.reshape(B * S, D), p_moe, cfg=cfg)
+    return out.reshape(B, S, D), aux, dropped
+
+
+def _mamba_part(p, h, cfg, cache):
+    """The SSM half of a Mamba block on normed ``h``: the O(1) decode step
+    for one token against a cache, else the chunked prefill, whose final
+    state and conv inputs (the last K-1 pre-activation projections) fill
+    the cache. The cache is written in place."""
+    ssm = None if cache is None else cache.get("ssm")
+    if ssm is not None and h.shape[1] == 1:
+        a, new = M.mamba_decode(p["mamba"], h, ssm, cfg=cfg)
+        for k, v in new.items():
+            ssm[k].copy_(v)
+        return a
+    a, h_final = M.mamba_prefill(p["mamba"], h, cfg=cfg)
+    if ssm is not None:
+        ct = h.dtype
+        Kc = cfg.ssm_conv
+        ssm["h"].copy_(h_final)
+        for name, w in (("conv_x", "w_x"), ("conv_B", "w_B"),
+                        ("conv_C", "w_C")):
+            ssm[name].copy_((h @ p["mamba"][w].to(ct))[:, -(Kc - 1):])
+    return a
+
+
 def apply_block(kind: str, p, x, *, cfg, ctx=None, positions=None,
                 cache=None, cache_len=None, backend: str = "auto"):
-    """One pre-norm block: attention, then the MLP, each added to the
-    residual. Returns ``(x, cache, aux_loss)``: the cache is updated in
-    place, and the dense kind has no auxiliary loss (0.0)."""
+    """One pre-norm block: attention or the Mamba SSM, then the MLP or the
+    MoE FFN (``mamba`` has none), each added to the residual. Returns
+    ``(x, cache, aux_loss)``: the cache is updated in place; the aux loss
+    is the MoE router's, 0.0 without one."""
     _check(cfg, ctx)
-    if kind != "attn":
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet "
-                                  "(ROADMAP A16)")
+    aux = 0.0
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    a, _ = L.attention_layer(
-        p["attn"], h, cfg=cfg, positions=positions,
-        cache=None if cache is None else cache.get("attn"),
-        cache_len=cache_len, causal=True, backend=backend)
+    if kind in ATTN_KINDS:
+        a, _ = L.attention_layer(
+            p["attn"], h, cfg=cfg, positions=positions,
+            cache=None if cache is None else cache.get("attn"),
+            cache_len=cache_len, causal=True, backend=backend)
+    elif kind in MAMBA_KINDS:
+        a = _mamba_part(p, h, cfg, cache)
+    else:
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet "
+                                  "(ROADMAP A16d)")
     x = x + a
+    if kind == "mamba":
+        return x, cache, aux
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + L.mlp_layer(p["mlp"], h, act=cfg.act)
-    return x, cache, 0.0
+    if kind in ("attn", "mamba_dense"):
+        return x + L.mlp_layer(p["mlp"], h, act=cfg.act), cache, aux
+    o, aux, _ = _apply_moe(p["moe"], h, cfg, ctx)
+    x = x + o
+    if kind == "attn_moe_shared":
+        x = x + L.mlp_layer(p["shared"], h, act=cfg.act)
+    return x, cache, aux
 
 
 def _group(tree, g):
@@ -211,7 +342,8 @@ def forward(params, batch, cfg: ModelConfig, ctx=None, caches=None,
     """Forward pass. batch: ``{"tokens": (B, S)}``, with ``"position"``
     ``(B,)`` for decode (the first token's position). Returns ``(hidden,
     aux, caches)``: the final-normed hidden states ``(B, S, D)``, the
-    auxiliary loss (0.0) and the caches, updated in place.
+    summed MoE auxiliary loss (0.0 without MoE layers) and the caches,
+    updated in place.
     ``backend`` as in ``layers.attention_layer``."""
     _check(cfg, ctx)
     tokens = batch["tokens"]
@@ -236,18 +368,38 @@ def logits_from_hidden(params, x, cfg, ctx=None):
 
 
 # ==========================================================================
-# KV cache construction
+# KV / SSM cache construction
 # ==========================================================================
 
 def init_caches(cfg: ModelConfig, B: int, s_max: int, ctx=None,
                 device="cuda"):
-    """Zeroed KV caches ``(n_groups, B, s_max, K, hd)`` in the compute
-    dtype, one ``attn`` entry per block of the group."""
+    """Zeroed caches matching the stacked block structure: an attention
+    block's ``attn`` KV cache ``(n_groups, B, s_max, K, hd)`` in the
+    compute dtype, a Mamba block's ``ssm`` cache (``h`` ``(n_groups, B,
+    nh, hd, N)`` in fp32; ``conv_x``, ``conv_B``, ``conv_C`` ``(n_groups,
+    B, K-1, C)`` in the compute dtype)."""
     _check(cfg, ctx)
     dev = resolve_device(device)
-    shape = (cfg.n_groups(), B, s_max, cfg.n_kv_heads, cfg.hd)
+    n = cfg.n_groups()
     cdt = getattr(torch, cfg.compute_dtype)
-    return {"blocks": {
-        f"b{i}": {"attn": {"k": torch.zeros(shape, dtype=cdt, device=dev),
-                           "v": torch.zeros(shape, dtype=cdt, device=dev)}}
-        for i, _ in enumerate(cfg.block_pattern())}}
+
+    def zeros(*shape, dtype=cdt):
+        return torch.zeros((n, B) + shape, dtype=dtype, device=dev)
+
+    def one(kind):
+        c = {}
+        if kind in ATTN_KINDS:
+            c["attn"] = {"k": zeros(s_max, cfg.n_kv_heads, cfg.hd),
+                         "v": zeros(s_max, cfg.n_kv_heads, cfg.hd)}
+        if kind in MAMBA_KINDS:
+            di, nh, N, G = M.ssm_sizes(cfg)
+            Kc = cfg.ssm_conv
+            c["ssm"] = {"h": zeros(nh, cfg.ssm_head_dim, N,
+                                   dtype=torch.float32),
+                        "conv_x": zeros(Kc - 1, di),
+                        "conv_B": zeros(Kc - 1, G * N),
+                        "conv_C": zeros(Kc - 1, G * N)}
+        return c
+
+    return {"blocks": {f"b{i}": one(kind)
+                       for i, kind in enumerate(cfg.block_pattern())}}

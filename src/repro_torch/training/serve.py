@@ -1,6 +1,7 @@
 """Serving steps (``repro``'s ``training/serve.py``): prefill (build the KV
-caches for a batch of prompts) and decode (one token for every sequence
-against the caches), and the greedy loop over both.
+and SSM caches for a batch of prompts) and decode (one token for every
+sequence against the caches), and the greedy loop over both, for the
+dense, moe, ssm and hybrid kinds.
 
 They run where their inputs are: the card unless the caller passes CPU
 tensors. ``backend`` is ``layers.attention_layer``'s: ``"auto"`` sends the

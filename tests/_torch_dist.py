@@ -1182,6 +1182,328 @@ def repro_pencil_reference(md_in: str, rb_in: str, rhs_in: str,
     np.savez(out, **{k: np.asarray(v) for k, v in res.items()})
 
 
+# --------------------------------------------------------------------------
+# Collective accounting (launch/comm_analysis.py against repro's HLO)
+# --------------------------------------------------------------------------
+
+COMM_MD_CAP = 750       # slots per rank of the MD slab step (1000 particles)
+COMM_REUSE_CAP = 160    # slots per rank of the MD reuse step (216)
+COMM_RHS = (32, 16, 16)
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_TOKENS = (2, 12)    # (B, S) of the moe_map_local input
+MOE_TP = 4
+
+
+def _reports_json(cp, a2a, cb):
+    """The numbers of the three reports that the comm test compares."""
+    return {
+        "cp_total": float(cp["total_wire_bytes"]),
+        "cp_uncond": float(cp["unconditional_wire_bytes"]),
+        "cp_cond": float(cp["conditional_wire_bytes"]),
+        "cp_n": int(cp["n_collective_permute"]),
+        "a2a_total": float(a2a["total_wire_bytes"]),
+        "a2a_max": float(a2a["max_wire_bytes"]),
+        "a2a_n": int(a2a["n_all_to_all"]),
+        "a2a_groups": sorted({int(o["group_size"]) for o in a2a["ops"]}),
+        "bytes": {k: float(cb[k]) for k in cb if not k.startswith("_")},
+        "counts": {k: int(v) for k, v in cb["_counts"].items()},
+    }
+
+
+def moe_test_config(cfg, capacity_factor=None):
+    """MOE_ARCH's REDUCED config (either package's), capacity factor
+    ``capacity_factor`` when given."""
+    if capacity_factor is None:
+        return cfg
+    return dataclasses.replace(cfg, capacity_factor=float(capacity_factor))
+
+
+def moe_inputs(seed: int = 3, n_tokens: int = MOE_TOKENS[0] * MOE_TOKENS[1]):
+    """numpy ``(x2d (n_tokens, D), {router, wi, wg, wo})`` of MOE_ARCH's
+    REDUCED width (d_model 64, 8 experts of 64) from a fixed seed."""
+    rng = np.random.default_rng(seed)
+    T, D, E, F = n_tokens, 64, 8, 64
+    f = lambda *s, sc: (sc * rng.standard_normal(s)).astype(np.float32)
+    w = {"router": f(D, E, sc=0.3), "wi": f(E, D, F, sc=D ** -0.5),
+         "wg": f(E, D, F, sc=D ** -0.5), "wo": f(E, F, D, sc=F ** -0.5)}
+    return f(T, D, sc=1.0), w
+
+
+def comm(mesh, rank, world, moe_in):
+    """The ledgers (``launch/comm_analysis``) of repro_comm_reference's
+    cases on 4 ranks: one MD slab step blocking and one with overlap,
+    the MD reuse step's cold (full) step and its next (update) step, the
+    slab and 2×2 pencil Poisson solves and ``moe_map_local`` at tp
+    MOE_TP on ``moe_in``. Returns each case's report numbers as JSON
+    bytes (``json``) and the overlap reports' in-flight counts."""
+    import torch
+    from repro_torch.apps import md
+    from repro_torch.configs import registry as TR
+    from repro_torch.core import runtime as RT
+    from repro_torch.core import simulation as SIM
+    from repro_torch.launch import comm_analysis as CA
+    from repro_torch.models import moe as TMOE
+    from repro_torch.numerics import poisson as PS
+
+    def reports(led):
+        return _reports_json(CA.collective_permute_report(led),
+                             CA.all_to_all_report(led),
+                             CA.collective_bytes(led))
+
+    def md_start(cfg, cap):
+        ps0 = md.init_particles(cfg, capacity=cfg.n_particles)
+        v = np.random.default_rng(0).standard_normal(
+            (cfg.n_particles, 3)).astype(np.float32)
+        ps0 = ps0.with_prop("v", torch.from_numpy(0.3 * v))
+        return SIM.distribute(ps0, md.physics, cfg, mesh, cap_per_dev=cap)
+
+    res, out = {}, {}
+    cfg = md_repro_config(md)
+    for overlap in (False, True):
+        st = md_start(cfg, COMM_MD_CAP)
+        step = SIM.make_sim_step(md.physics, cfg, mesh, overlap=overlap)
+        with CA.ledger() as led:
+            st, flags, _ = step(st, {})
+        assert int(flags.any()) == 0
+        ov = CA.overlap_report(led)
+        name = "md_overlap" if overlap else "md"
+        res[name] = reports(led)
+        out[f"{name}_pairs_in_flight"] = np.int32(
+            ov["pair_passes_in_flight"])
+        out[f"{name}_n_independent"] = np.int32(len(ov["independent"]))
+        out[f"{name}_n_dependent"] = np.int32(len(ov["dependent"]))
+    rcfg = md_reuse_config(md)
+    overlap, skin = MD_REUSE_CASES["ov1"]
+    rs = SIM.reuse_state(md_start(rcfg, COMM_REUSE_CAP), md.physics, rcfg,
+                         mesh, overlap=overlap, skin=skin)
+    step = SIM.make_sim_step(md.physics, rcfg, mesh, reuse="skin",
+                             overlap=overlap, skin=skin)
+    for name in ("reuse_full", "reuse_update"):
+        with CA.ledger() as led:
+            rs, flags, _ = step(rs, {})
+        out[f"{name}_stale"] = np.int32(int(flags.stale))
+        res[name] = reports(led)
+    rhs = np.random.default_rng(0).standard_normal(COMM_RHS).astype(
+        np.float32)
+    n0 = COMM_RHS[0] // world
+    solve = PS.make_fft_poisson_slab(mesh, AXIS, POISSON_LENGTHS)
+    with CA.ledger() as led:
+        solve(torch.from_numpy(rhs[rank * n0:(rank + 1) * n0]))
+    res["poisson_slab"] = reports(led)
+    m22 = RT.make_mesh((2, 2), PENCIL, device_type="cpu")
+    i, j = divmod(rank, 2)
+    blk = rhs[i * COMM_RHS[0] // 2:(i + 1) * COMM_RHS[0] // 2,
+              j * COMM_RHS[1] // 2:(j + 1) * COMM_RHS[1] // 2]
+    solve = PS.make_fft_poisson_pencil(m22, PENCIL, POISSON_LENGTHS)
+    with CA.ledger() as led:
+        solve(torch.from_numpy(np.ascontiguousarray(blk)))
+    res["poisson_pencil"] = reports(led)
+    mm = RT.make_mesh((MOE_TP,), ("model",), device_type="cpu")
+    mcfg = TR.get_config(MOE_ARCH, reduced=True)
+    z = dict(np.load(moe_in))
+    el = z["wi"].shape[0] // MOE_TP
+    w = {k: torch.from_numpy(z[k] if k == "router"
+                             else z[k][rank * el:(rank + 1) * el])
+         for k in ("router", "wi", "wg", "wo")}
+    with CA.ledger() as led, RT.on_mesh(mm):
+        TMOE.moe_map_local(torch.from_numpy(z["x"]), w, cfg=mcfg,
+                           axis_name="model")
+    res["moe"] = reports(led)
+    out["json"] = np.frombuffer(json.dumps(res).encode(), np.uint8)
+    return out
+
+
+#: moe_map_local's capacity factors on 4 ranks: no drops (the dense
+#: oracle's result) and one that drops (MOE_DROP_TOKENS tokens, 8-slot
+#: sub-buckets for 8 assignments each on average)
+MOE_CAPACITIES = {"cap8": 8.0, "drop": 1.0}
+MOE_DROP_TOKENS = 128
+MAMBA_ARCH = "mamba2-780m"
+MAMBA_SHAPE = (2, 64)    # (B, S): 4 shards of 16, two 8-chunks each
+SEQ = "seq"
+
+
+def moe_mamba(mesh, rank, world, moe_in, mamba_in):
+    """``moe_map_local`` at tp MOE_TP for each of MOE_CAPACITIES on
+    ``moe_in`` (this rank's experts of the whole ``wi``, ``wg``, ``wo``),
+    and ``mamba_prefill_seq_sharded`` of ``mamba_in``'s layer on this
+    rank's shard of its sequence."""
+    import torch
+    from repro_torch.configs import registry as TR
+    from repro_torch.core import runtime as RT
+    from repro_torch.models import mamba as TM
+    from repro_torch.models import moe as TMOE
+    out = {}
+    mm = RT.make_mesh((MOE_TP,), ("model",), device_type="cpu")
+    z = dict(np.load(moe_in))
+    el = z["wi"].shape[0] // MOE_TP
+    w = {k: torch.from_numpy(z[k] if k == "router"
+                             else z[k][rank * el:(rank + 1) * el])
+         for k in ("router", "wi", "wg", "wo")}
+    base = TR.get_config(MOE_ARCH, reduced=True)
+    with RT.on_mesh(mm):
+        for name, cf in MOE_CAPACITIES.items():
+            o, aux, dropped = TMOE.moe_map_local(
+                torch.from_numpy(z["x"]), w,
+                cfg=moe_test_config(base, cf), axis_name="model")
+            out.update({f"{name}_out": _np(o), f"{name}_aux": _np(aux),
+                        f"{name}_dropped": _np(dropped)})
+    sm = RT.make_mesh((world,), (SEQ,), device_type="cpu")
+    z = dict(np.load(mamba_in))
+    p = {k[2:]: torch.from_numpy(v) for k, v in z.items()
+         if k.startswith("p_")}
+    n = z["x"].shape[1] // world
+    x = torch.from_numpy(np.ascontiguousarray(
+        z["x"][:, rank * n:(rank + 1) * n]))
+    with RT.on_mesh(sm):
+        y, h = TM.mamba_prefill_seq_sharded(
+            p, x, cfg=TR.get_config(MAMBA_ARCH, reduced=True), axis_name=SEQ)
+    out.update({"mamba_y": _np(y), "mamba_h": _np(h)})
+    return out
+
+
+def repro_moe_mamba_reference(moe_in: str, mamba_in: str, out: str) -> None:
+    """On 4 of the forced host devices: repro's ``moe_map_local`` at tp
+    MOE_TP for each of MOE_CAPACITIES on ``moe_in``, and its
+    ``mamba_prefill_seq_sharded`` over a 4-device "seq" axis on
+    ``mamba_in`` (``mamba_error`` holds the message if it does not run)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+    from repro.configs import registry as JR
+    from repro.core import runtime as JRT
+    from repro.models import mamba as JM
+    from repro.models import moe as JMOE
+    res = {}
+    mm = JRT.make_mesh((MOE_TP,), ("model",), devices=jax.devices()[:4])
+    z = dict(np.load(moe_in))
+    base = JR.get_config(MOE_ARCH, reduced=True)
+    wspec = {"router": P(), "wi": P("model"), "wg": P("model"),
+             "wo": P("model")}
+    w = {k: jnp.asarray(z[k]) for k in wspec}
+    for name, cf in MOE_CAPACITIES.items():
+        cfg = moe_test_config(base, cf)
+        fn = jax.jit(JRT.shard_map(
+            lambda x2d, wl, cfg=cfg: JMOE.moe_map_local(
+                x2d, wl, cfg=cfg, axis_name="model"),
+            mm, in_specs=(P(), wspec), out_specs=(P(), P(), P()),
+            check_vma=False))
+        o, aux, dropped = fn(jnp.asarray(z["x"]), w)
+        res.update({f"{name}_out": o, f"{name}_aux": aux,
+                    f"{name}_dropped": dropped})
+    z = dict(np.load(mamba_in))
+    p = {k[2:]: jnp.asarray(v) for k, v in z.items() if k.startswith("p_")}
+    cfg = JR.get_config(MAMBA_ARCH, reduced=True)
+    try:
+        sm = JRT.make_mesh((4,), (SEQ,), devices=jax.devices()[:4])
+        fn = jax.jit(JRT.shard_map(
+            lambda xs: tuple(a if i == 0 else a[None] for i, a in enumerate(
+                JM.mamba_prefill_seq_sharded(p, xs, cfg=cfg,
+                                             axis_name=SEQ))),
+            sm, in_specs=(P(None, SEQ),), out_specs=(P(None, SEQ), P(SEQ)),
+            check_vma=False))
+        y, h = fn(jnp.asarray(z["x"]))
+        res.update({"mamba_y": y, "mamba_h": h})
+    except Exception as e:          # recorded: the test reports it
+        res["mamba_error"] = np.frombuffer(
+            f"{type(e).__name__}: {e}"[:2000].encode(), np.uint8)
+    np.savez(out, **{k: np.asarray(v) for k, v in res.items()})
+
+
+def repro_comm_reference(out: str) -> None:
+    """On 4 of the forced host devices: repro's HLO reports
+    (``launch/hlo_analysis``, ``launch/dryrun.collective_bytes``) of the
+    compiled MD slab step (blocking), both branches of the MD reuse slab
+    step (MD_REUSE_CASES' "ov1"), the slab and 2×2 pencil Poisson solves
+    and ``moe_map_local`` at tp MOE_TP; JSON to ``out``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+    sys.path.insert(0, str(ROOT))
+    from benchmarks import dist_common as DC
+    from repro.apps import md
+    from repro.configs import registry as JR
+    from repro.core import runtime as JRT
+    from repro.core import simulation as SIM
+    from repro.launch import dryrun as DR
+    from repro.launch import hlo_analysis as HA
+    from repro.models import moe as JMOE
+    from repro.numerics import poisson as PS
+
+    def reports(text):
+        return _reports_json(HA.collective_permute_report(text),
+                             HA.all_to_all_report(text),
+                             DR.collective_bytes(text))
+
+    res = {}
+    mesh = DC.make_submesh(4)
+    cfg = md_repro_config(md)
+    st = DC.md_distributed_start(mesh, cfg, 4, cap_per_dev=COMM_MD_CAP)
+    step = SIM.make_sim_step(md.physics, cfg, mesh, axis_name=AXIS,
+                             overlap=False)
+    res["md"] = reports(step.lower(st, {}).compile().as_text())
+    rcfg = md_reuse_config(md)
+    overlap, skin = MD_REUSE_CASES["ov1"]
+    st = DC.md_distributed_start(mesh, rcfg, 4, cap_per_dev=COMM_REUSE_CAP)
+    rs = SIM.reuse_state(st, md.physics, rcfg, mesh, axis_name=AXIS,
+                         overlap=overlap, skin=skin)
+    step = SIM.make_sim_step(md.physics, rcfg, mesh, axis_name=AXIS,
+                             reuse="skin", overlap=overlap, skin=skin)
+    res["reuse"] = reports(step.lower(rs, {}).compile().as_text())
+    rhs = jnp.zeros(COMM_RHS, jnp.float32)
+    solve = PS.make_fft_poisson_slab(mesh, AXIS, POISSON_LENGTHS)
+    res["poisson_slab"] = reports(solve.lower(rhs).compile().as_text())
+    m22 = JRT.make_mesh((2, 2), PENCIL, devices=jax.devices()[:4])
+    solve = PS.make_fft_poisson_pencil(m22, PENCIL, POISSON_LENGTHS)
+    res["poisson_pencil"] = reports(solve.lower(rhs).compile().as_text())
+    mm = JRT.make_mesh((MOE_TP,), ("model",), devices=jax.devices()[:4])
+    mcfg = JR.get_config(MOE_ARCH, reduced=True)
+    x, w = moe_inputs()
+    wspec = {"router": P(), "wi": P("model"), "wg": P("model"),
+             "wo": P("model")}
+    fn = jax.jit(JRT.shard_map(
+        lambda x2d, wl: JMOE.moe_map_local(x2d, wl, cfg=mcfg,
+                                           axis_name="model"),
+        mm, in_specs=(P(), wspec), out_specs=(P(), P(), P()),
+        check_vma=False))
+    res["moe"] = reports(fn.lower(jnp.asarray(x), {
+        k: jnp.asarray(v) for k, v in w.items()}).compile().as_text())
+    pathlib.Path(out).write_text(json.dumps(res, indent=1))
+
+
+def exchange_cost(step, st, n: int, what: str):
+    """``n`` steps of ``step`` under the collective ledger
+    (``launch/comm_analysis``) and torch.profiler, on every rank: each
+    rank prints the bytes it issues a step by kind (the ring model), the
+    bytes it sent to other ranks a step, and the NCCL kernels' device ms
+    a step with the compute inside them. Returns the state."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import comm_analysis as CA
+    rank = torch.distributed.get_rank()
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with CA.ledger() as led:
+            for _ in range(n):
+                st, flags, _ = step(st, {})
+        torch.cuda.synchronize()
+    assert int(flags.any()) == 0, flags
+    per = CA.per_step(led, n)
+    tr = CA.trace_overlap(prof)
+    print(f"rank {rank}, {what}: bytes a step "
+          + ", ".join(f"{k} {per[k]:.0f}" for k, n in per["_counts"].items()
+                      if n)
+          + f"; sent to other ranks {per['peer']:.0f} B/step; NCCL kernels "
+          f"{tr['nccl_kernels'] / n:.0f} a step, {tr['nccl_ms'] / n:.4f} "
+          f"ms/step, compute inside them {tr['compute_in_nccl_ms'] / n:.4f} "
+          f"ms/step of {tr['compute_ms'] / n:.4f}; collective ranges on the "
+          f"device {tr['collective_ms'] / n:.4f} ms/step (torch.profiler)",
+          flush=True)
+    return st
+
+
 def nccl_md(n_steps: int = 10) -> None:
     """The MD slab step over NCCL on every rank of the process group (one
     card per rank: world 1 in this process, or torchrun's ranks), against
@@ -1257,6 +1579,8 @@ def nccl_md(n_steps: int = 10) -> None:
                       f"particles, overlap={overlap}: "
                       f"{t0.elapsed_time(t1) / 20:.4f} ms/step "
                       f"(rank 0, CUDA events)", flush=True)
+            st = exchange_cost(step, st, 5, f"{world} cards, MD slab step "
+                               f"at {big.n_particles}, overlap={overlap}")
     torch.distributed.destroy_process_group()
 
 
@@ -1447,6 +1771,8 @@ def nccl_fleet_pencil() -> None:
     assert int(flags.any()) == 0, flags
     say(f"4 cards, MD pencil step (2×2) at {big.n_particles} particles: "
         f"{t0.elapsed_time(t1) / 20:.4f} ms/step (rank 0, CUDA events)")
+    st = exchange_cost(step, st, 5, f"4 cards, MD pencil step (2×2) at "
+                       f"{big.n_particles}")
 
     vcfg = V.VortexConfig(shape=(64, 32, 32), lengths=(8.0, 4.0, 4.0),
                           dt=0.02, interp="scatter", device="cuda")
@@ -1474,6 +1800,10 @@ if __name__ == "__main__":
         repro_fleet_reference(*sys.argv[2:4])
     elif sys.argv[1] == "--repro-pencil":
         repro_pencil_reference(*sys.argv[2:6])
+    elif sys.argv[1] == "--repro-comm":
+        repro_comm_reference(sys.argv[2])
+    elif sys.argv[1] == "--repro-moe-mamba":
+        repro_moe_mamba_reference(*sys.argv[2:5])
     elif sys.argv[1] == "--nccl-md":
         nccl_md()
     elif sys.argv[1] == "--nccl-reuse":

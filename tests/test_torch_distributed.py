@@ -377,7 +377,7 @@ def _nccl_md(launcher, timeout, what="--nccl-md"):
     r = subprocess.run(launcher + [TD.__file__, what], cwd=TD.ROOT,
                        env=env, capture_output=True, text=True,
                        timeout=timeout)
-    print(r.stdout[-3000:])
+    print(r.stdout[-8000:])
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
 
 
@@ -397,7 +397,8 @@ def test_four_card_nccl_md_step_matches_serial():
     """The same on 4 cards, one NCCL rank each under torchrun (the ghost
     exchange as batch_isend_irecv between cards, the map's all_to_all,
     the gathered state checked on every rank), and the slab step's
-    ms/step at 216,000 particles printed."""
+    ms/step at 216,000 particles printed, with each rank's bytes a step
+    (the collective ledger) and NCCL kernel time a step (torch.profiler)."""
     if torch.cuda.device_count() < 4:
         pytest.skip("needs 4 CUDA cards (torch.cuda.device_count() is "
                     f"{torch.cuda.device_count()})")
@@ -425,9 +426,9 @@ def test_four_card_nccl_fleet_and_pencil_match_serial():
     NCCL rank each under torchrun: the meshed fleet step against the
     members' serial runs, the sharded PS-CMA-ES best against the serial
     run's, and on a 2×2 mesh the MD pencil step (by id within 1e-4 of
-    md_step; its ms/step at 216,000 particles printed) and the pencil VIC
-    step (within 1e-4 of vic_step) (tests/_torch_dist.py
-    --nccl-fleet-pencil)."""
+    md_step; its ms/step at 216,000 particles printed, with each rank's
+    bytes a step and NCCL kernel time a step) and the pencil VIC step
+    (within 1e-4 of vic_step) (tests/_torch_dist.py --nccl-fleet-pencil)."""
     if torch.cuda.device_count() < 4:
         pytest.skip("needs 4 CUDA cards (torch.cuda.device_count() is "
                     f"{torch.cuda.device_count()})")

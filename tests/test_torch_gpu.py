@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card
 (B1 with the LJ, SPH and DEM functors, B2, B3, B4; fp32 and bf16x; B5,
-the flash attention, in fp32 and bf16, and the dense LM path through it;
+the flash attention, in fp32 and bf16, and the dense, moe, ssm and
+hybrid LM paths through it;
 the block legs of B3/B4, the MD reuse step and the mesh-field step).
 Imports neither jax nor repro, so it runs on the GPU machine:
 
@@ -705,6 +706,38 @@ def test_lm_backends_on_the_card(card):
     n1 = FA.LAUNCHES
     out = TS.greedy_generate(cfg, params, toks, 5, s_max=48)
     assert FA.LAUNCHES == n1 + cfg.n_layers        # the prefill only
+    ref = TS.greedy_generate(cfg, params, toks, 5, s_max=48,
+                             backend="torch")
+    assert out.shape == (2, 5) and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen3-moe-235b-a22b",
+                                  "mamba2-780m", "jamba-1.5-large-398b"])
+def test_lm_kinds_on_the_card(card, arch):
+    """The moe, ssm and hybrid kinds (REDUCED, fp32) on CUDA tensors: B5
+    once per attention layer of the prefill and never in decode; the
+    kernel path's forward within 1e-4 of the plain path's and the same
+    greedy tokens."""
+    from repro_torch.configs import registry as TR
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.models import transformer as TT
+    from repro_torch.training import serve as TS
+    cfg = TR.get_config(arch, reduced=True)
+    n_attn = sum(k in TT.ATTN_KINDS for k in cfg.block_pattern()) \
+        * cfg.n_groups()
+    params = TT.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                            device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, size=(2, 40))).cuda()
+    plain, _, _ = TT.forward(params, {"tokens": toks}, cfg, backend="torch")
+    n0 = FA.LAUNCHES
+    got, _, _ = TT.forward(params, {"tokens": toks}, cfg)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == n0 + n_attn
+    assert rel(got, plain) <= 1e-4
+    n1 = FA.LAUNCHES
+    out = TS.greedy_generate(cfg, params, toks, 5, s_max=48)
+    assert FA.LAUNCHES == n1 + n_attn              # the prefill only
     ref = TS.greedy_generate(cfg, params, toks, 5, s_max=48,
                              backend="torch")
     assert out.shape == (2, 5) and torch.equal(out, ref)
