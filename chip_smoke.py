@@ -76,7 +76,11 @@ Phases, each of which raises (non-zero exit) on failure:
      beside the plain version and PyTorch's SDPA, with the bound; in bf16
      the share of outputs unequal to plain held under half that of plain
      with only the first term of p (and, at few keys, the first two: the
-     three-term split must be exact); (b) full
+     three-term split must be exact); non-causal too, at the whisper
+     encoder's self-attention (4 x 16 heads, 1500 x 1500, hd 64) and at
+     llama-vision's cross-attention (4 x 32 heads over 8, 2048 queries
+     against 1601 image tokens, hd 128), in fp32 and bf16, beside plain,
+     SDPA and the bound of every pair visible; (b) full
      width, 2 layers, fp32: prefill logits through B5 against the plain
      path <= 1e-4; (c) the full 40-layer model in bf16 (weights from a
      seeded ``torch.Generator`` on the card): ``greedy_generate`` of 64
@@ -101,7 +105,20 @@ Phases, each of which raises (non-zero exit) on failure:
      (``kind="hybrid"``; its FULL period does not fit one card) through
      the kernel path and the plain path: one B5 launch per prefill, the
      prefill logits <= 1e-4, the first tokens equal where the plain top-2
-     margin holds.
+     margin holds; (g) whisper-medium FULL (``kind="encdec"``: 24 encoder
+     + 24 decoder layers, d 1024, the 1500 stub frame embeddings) and (h)
+     llama-3.2-vision-11b FULL (``kind="vlm"``: 40 layers, a
+     cross-attention layer every 5th over 1601 stub patch embeddings of
+     1280), each first as a cut at full width (2 + 2 layers; one 5-layer
+     period) in fp32 and bf16 against the plain path, then in bf16 with
+     seeded weights and seeded non-zero stubs (0.1·N(0, 1)): a greedy run
+     of 64 tokens through ``make_prefill_step`` and ``make_decode_step``
+     (whisper: four 384-token prompts into a 448-deep cache; vision:
+     10c's prompts and cache) — exactly 72 (24 encoder and 24 cross
+     non-causal, 24 causal) and 40 (32 causal, 8 cross) B5 launches in the
+     prefill, none in decode — the prefill logits against the plain path
+     <= 5e-2, tokens in range, prefill and decode tokens/s, the decode
+     step's device time, idle share and launches.
  11. the serial reuse engine (``reuse="skin"``) at full width: the MD
      positions after 10 steps against the every-step path (<= 1e-5),
      then ``md.run(reuse="skin")`` for 100 steps at 216,000 particles
@@ -223,8 +240,25 @@ Phases, each of which raises (non-zero exit) on failure:
      ``launches_dist_reuse`` (in (g)-(j): LJ in (g), DEM in (h), SPH in
      (i), M'4 in (j)); the three B1 entries carry ``launches_dist_fleet``
      ((k) and (l)) and ``launches_pencil`` ((n)); B5's entry carries
-     ``launches_moe`` (10d) and ``launches_hybrid`` (10f). The process
-     group is destroyed before the last line.
+     ``launches_moe`` (10d), ``launches_hybrid`` (10f),
+     ``launches_encdec`` (10g), ``launches_vlm`` (10h) and, under
+     ``noncausal``, 10a's non-causal times. The process group is
+     destroyed before phase 18.
+ 18. training (B5 never launches: it is forward only, and training
+     differentiates the plain attention): (a) llama3.2-3b at full width
+     cut to 2 layers in fp32, one ``make_grad_fn`` on the card against
+     the CPU from the same weights and synthetic batch (loss and every
+     gradient within 1e-4 of the max-abs gradient), remat ``none`` and
+     ``dots`` against ``full`` on the card; (b) llama3.2-3b FULL in bf16
+     (fp32 Adam moments, remat ``full``, 512-token loss chunks), 10
+     ``make_train_step`` steps on 4 x 1024 synthetic tokens — a finite
+     loss that falls, a finite gradient norm — step ms, tokens/s, the
+     model-flops share against 989 TFLOP/s, peak memory, a device
+     breakdown of one step; (c) ``python -m repro_torch.launch.train``
+     at REDUCED on the card, 10 steps, beside a run killed by
+     ``--simulate-failure 5`` and resumed from its newest checkpoint
+     (under ``build/train_launch``, removed after): both end with the
+     same parameters and optimizer state, bit for bit.
 
 It prints a ``{"kernels": [...]}`` line and, as its last line,
 ``{"ok": true, "device": {...}}``. It exits non-zero without a result when
@@ -348,6 +382,36 @@ LM_BF16_TOL = 5e-2    # 10c prefill logits (bf16, 40 layers), same
 KIND_SERVE = (("10d", "qwen2-moe-a2.7b"), ("10e", "mamba2-780m"))
 HYBRID_ARCH = "jamba-1.5-large-398b"
 KIND_DECODE_ITERS = 5
+# 10a, non-causal: B5 at the whisper encoder's self-attention (B, H, K,
+# Sq, Sk, hd) and at llama-vision's cross-attention over its image tokens
+B5_NONCAUSAL = (("encoder", (4, 16, 16, 1500, 1500, 64)),
+                ("cross", (4, 32, 8, 2048, 1601, 128)))
+# 10g-10h: the encdec and vlm kinds FULL in bf16, each first as a cut at
+# full width (whisper 2 encoder + 2 decoder layers, llama-vision one
+# 5-layer period) in fp32 and bf16; stub embeddings 0.1·N(0, 1) from a
+# seed (zeros make whisper's encoder output and every cross-attention
+# exactly zero). Whisper: four 384-token prompts into its 448-token text
+# context; llama-vision: 10c's prompts, cache and new tokens.
+CROSS_SERVE = (("10g", "whisper-medium", 384, 448, dict(n_layers=2,
+                                                        n_enc_layers=2)),
+               ("10h", "llama-3.2-vision-11b", LM_PROMPT, LM_S_MAX,
+                dict(n_layers=5)))
+STUB_SCALE = 0.1
+# Phase 18: training. (a) llama3.2-3b at full width cut to 2 layers in
+# fp32, one step's loss and gradients on the card against the CPU (1e-4
+# of the max-abs gradient), remat full against none; (b) the FULL model
+# in bf16 on synthetic batches; (c) the launcher at REDUCED, killed and
+# resumed against an uninterrupted run.
+TRAIN_ARCH = "llama3.2-3b"
+TRAIN_CUT = dict(n_layers=2, param_dtype="float32", compute_dtype="float32")
+TRAIN_CUT_BATCH = (2, 64)
+TRAIN_TOL = 1e-4
+TRAIN_BATCH = 4
+TRAIN_SEQ = 1024
+TRAIN_STEPS = 10
+TRAIN_LR = 3e-4
+LAUNCH_STEPS = 10
+LAUNCH_FAIL = 5
 # Phase 11: the reuse engine at the MD and DEM card sizes. The skin grid
 # of the MD lattice (cells >= r_cut + r_cut / 2: 15^3 cells of 1/15) holds
 # exactly 64 particles a cell at t = 0, above phase 3's cell_cap of 48.
@@ -1411,13 +1475,15 @@ def rel_err(got, ref) -> float:
     return float((got - ref).abs().max()) / (float(ref.abs().max()) + 1e-9)
 
 
-def b5_bound(B, H, K, Sq, Sk, hd, itemsize, flop_per_s):
-    """(bound ms, bound_by, operations, bytes) of causal B5 on these
-    shapes: 4 hd operations per visible (q, k) pair, query i seeing keys
-    0..i (start-aligned); bytes: q and o once, the visible prefix of k and
-    v once per KV head."""
-    n = min(Sq, Sk)
-    pairs = B * H * (n * (n + 1) // 2 + (Sq - n) * Sk)
+def b5_bound(B, H, K, Sq, Sk, hd, itemsize, flop_per_s, causal=True):
+    """(bound ms, bound_by, operations, bytes) of B5 on these shapes: 4 hd
+    operations per visible (q, k) pair, causal query i seeing keys 0..i
+    (start-aligned), non-causal every key; bytes: q and o once, the
+    visible prefix of k and v (all of them non-causal) once per KV
+    head."""
+    n = min(Sq, Sk) if causal else Sk
+    pairs = (B * H * (n * (n + 1) // 2 + (Sq - n) * Sk) if causal
+             else B * H * Sq * Sk)
     ops = 4 * hd * pairs
     n_bytes = itemsize * hd * (2 * B * H * Sq + 2 * B * K * n)
     ops_ms = ops / flop_per_s * 1e3
@@ -1733,12 +1799,6 @@ def serve_phase(cfg, TT, TS, FA):
     return launches
 
 
-def n_attention(cfg, TT) -> int:
-    """Attention layers of a config: B5's launches per prefill."""
-    return sum(k in TT.ATTN_KINDS for k in cfg.block_pattern()) \
-        * cfg.n_groups()
-
-
 def kind_cut_check(tag, cfg, TT, TS, FA):
     """A 2-layer cut of a FULL config at full width, in fp32 and in bf16:
     the prefill's last logits through B5 against the plain path
@@ -1759,7 +1819,7 @@ def kind_cut_check(tag, cfg, TT, TS, FA):
             params, {"tokens": prompt})
         torch.cuda.synchronize()
         err = rel_err(lk, lp)
-        want = n_attention(c, TT)
+        want = TT.n_attention_layers(c)
         print(f"{tag} cut: {c.name} width {c.d_model}, {c.n_layers} layers, "
               f"{dtype}, {LM_BATCH} x {LM_PROMPT} prompt: prefill logits "
               f"kernel vs plain rel {err:.3e} (tol {tol:g}), {n_k} B5 "
@@ -1775,14 +1835,18 @@ def kind_cut_check(tag, cfg, TT, TS, FA):
 
 def decode_step_bytes(cfg, params, caches, pos, TT):
     """The bytes one decode step of LM_BATCH tokens at position ``pos``
-    must move, as ``(needed, dense_oracle)``. Needed: every weight but the
-    embedding table (its LM_BATCH rows instead), of each MoE layer's
+    must move, as ``(needed, dense_oracle)``. Needed: the decoder's
+    weights (not the encoder's or the image projection's, which decode
+    never runs), the embedding table's LM_BATCH rows, of each MoE layer's
     routed experts only the min(E, LM_BATCH * top_k) a batch can reach,
-    the KV cache read to ``pos`` and one row written, the SSM caches read
-    and written. The dense oracle reads every real expert instead."""
+    the KV caches read to ``pos`` and one row written, the
+    cross-attention caches read, the SSM caches read and written. The
+    dense oracle reads every real expert instead."""
     esz = params["embed"].element_size()
-    weights = sum(t.numel() * t.element_size() for t in TT.leaves(params)) \
-        - params["embed"].numel() * esz + LM_BATCH * cfg.d_model * esz
+    nbytes = lambda tree: sum(t.numel() * t.element_size()
+                              for t in TT.leaves(tree))
+    weights = nbytes(params["blocks"]) + nbytes(params["final_norm"]) \
+        + nbytes(params["unembed"]) + LM_BATCH * cfg.d_model * esz
     need = oracle = weights
     if cfg.n_experts:
         n_moe = sum("moe" in k for k in cfg.block_pattern()) \
@@ -1795,9 +1859,57 @@ def decode_step_bytes(cfg, params, caches, pos, TT):
     for blk in caches["blocks"].values():
         for t in blk.get("attn", {}).values():      # (n, B, s_max, K, hd)
             cache += t.numel() // t.shape[2] * (pos + 2) * t.element_size()
+        for name in ("cross_k", "cross_v"):
+            if name in blk:
+                cache += nbytes(blk[name])
         for t in blk.get("ssm", {}).values():
             cache += 2 * t.numel() * t.element_size()
     return need + cache, oracle + cache
+
+
+def decode_timings(tag, cfg, params, caches, tokens, pos, decode, TT, FA,
+                   t_phase):
+    """The decode step at position ``pos`` (LM_BATCH tokens): no B5
+    launch, ms/step (CUDA events), host enqueue, device time, idle share
+    and launches (torch.profiler), the bytes bound; then the phase's peak
+    memory and wall time."""
+    state = {"caches": caches}
+
+    def one_step():
+        p = torch.full((LM_BATCH,), pos, dtype=torch.int64, device="cuda")
+        _, state["caches"] = decode(params, state["caches"],
+                                    {"tokens": tokens[:, :1],
+                                     "position": p})
+
+    n0 = FA.LAUNCHES
+    one_step()
+    if FA.LAUNCHES != n0:
+        raise RuntimeError(f"{tag}: a decode step launched B5")
+    dec_ms = time_cuda(one_step, iters=KIND_DECODE_ITERS, warmup=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_step()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    need_bytes, oracle_bytes = decode_step_bytes(cfg, params,
+                                                 state["caches"], pos, TT)
+    busy_ms, _, n_launch = device_breakdown(f"{tag} decode step", one_step,
+                                            dec_ms)
+    print(f"{tag} decode: {dec_ms:.3f} ms/step, {LM_BATCH / dec_ms * 1e3:.2f} "
+          f"tokens/s (batch {LM_BATCH}, position {pos}); device "
+          f"{busy_ms:.3f} ms/step, idle share {1 - busy_ms / dec_ms:.3f}, "
+          f"{n_launch:.0f} kernel launches a step; host enqueue "
+          f"{host_ms:.3f} ms/step; bound {need_bytes / HBM_BYTES_PER_S * 1e3:.3f}"
+          f" ms (the {need_bytes / 1e9:.2f} GB a step needs: the decoder's "
+          f"weights with at most min(E, batch x top_k) routed experts a MoE "
+          f"layer, the KV caches to position {pos}, the cross-attention "
+          f"and SSM caches)" + (
+              f"; the dense oracle's reads {oracle_bytes / 1e9:.2f} GB, "
+              f"{oracle_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms"
+              if cfg.n_experts else ""))
+    print(f"{tag}: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB of {torch.cuda.mem_get_info()[1] / 2**30:.2f}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def kind_serve_phase(tag, arch, TT, TS, FA):
@@ -1825,7 +1937,7 @@ def kind_serve_phase(tag, arch, TT, TS, FA):
     prompt = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), device="cuda",
                            generator=torch.Generator(device="cuda")
                            .manual_seed(3))
-    want = n_attention(cfg, TT)
+    want = TT.n_attention_layers(cfg)
     FA.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1857,45 +1969,10 @@ def kind_serve_phase(tag, arch, TT, TS, FA):
     n_tok = LM_BATCH * LM_PROMPT
     print(f"{tag} prefill: {pre_ms:.3f} ms, {n_tok / pre_ms * 1e3:.1f} "
           f"tokens/s ({LM_BATCH} x {LM_PROMPT})")
-    state = {"caches": caches, "pos": LM_PROMPT}
-
-    def one_step():
-        pos = torch.full((LM_BATCH,), state["pos"], dtype=torch.int64,
-                         device="cuda")
-        _, state["caches"] = decode(params, state["caches"],
-                                    {"tokens": tokens[:, :1],
-                                     "position": pos})
-
-    n0 = FA.LAUNCHES
-    one_step()
-    if FA.LAUNCHES != n0:
-        raise RuntimeError(f"{tag}: a decode step launched B5")
-    dec_ms = time_cuda(one_step, iters=KIND_DECODE_ITERS, warmup=1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    one_step()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    need_bytes, oracle_bytes = decode_step_bytes(cfg, params,
-                                                 state["caches"], LM_PROMPT,
-                                                 TT)
     device_breakdown(f"{tag} prefill", lambda: prefill(params, batch), pre_ms)
-    busy_ms, _, n_launch = device_breakdown(f"{tag} decode step", one_step,
-                                            dec_ms)
-    print(f"{tag} decode: {dec_ms:.3f} ms/step, {LM_BATCH / dec_ms * 1e3:.2f} "
-          f"tokens/s (batch {LM_BATCH}, position {LM_PROMPT}); device "
-          f"{busy_ms:.3f} ms/step, idle share {1 - busy_ms / dec_ms:.3f}, "
-          f"{n_launch:.0f} kernel launches a step; host enqueue "
-          f"{host_ms:.3f} ms/step; bound {need_bytes / HBM_BYTES_PER_S * 1e3:.3f}"
-          f" ms (the {need_bytes / 1e9:.2f} GB a step needs: the weights "
-          f"with at most min(E, batch x top_k) routed experts a MoE layer, "
-          f"the KV cache to position {LM_PROMPT}, the SSM state); the dense "
-          f"oracle's reads {oracle_bytes / 1e9:.2f} GB, "
-          f"{oracle_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
-    print(f"{tag}: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-          f" GiB of {torch.cuda.mem_get_info()[1] / 2**30:.2f}; phase "
-          f"{time.perf_counter() - t_phase:.1f} s")
-    del params, caches, state, lk
+    decode_timings(tag, cfg, params, caches, tokens, LM_PROMPT, decode, TT,
+                   FA, t_phase)
+    del params, caches, lk
     torch.cuda.empty_cache()
     return launches
 
@@ -1915,7 +1992,7 @@ def hybrid_phase(TT, TS, FA):
     prompt = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), device="cuda",
                            generator=torch.Generator(device="cuda")
                            .manual_seed(5))
-    want = n_attention(cfg, TT)
+    want = TT.n_attention_layers(cfg)
     FA.LAUNCHES = 0
     tokens = TS.greedy_generate(cfg, params, prompt, LM_NEW, LM_S_MAX)
     launches = FA.LAUNCHES
@@ -1950,11 +2027,232 @@ def hybrid_phase(TT, TS, FA):
     return launches
 
 
+def b5_noncausal_phase():
+    """Phase 10a, non-causal: B5 against its plain version at the whisper
+    encoder's self-attention and at llama-vision's cross-attention
+    (B5_NONCAUSAL), fp32 and bf16, each timed with CUDA events beside its
+    plain version and PyTorch's ``scaled_dot_product_attention``
+    (``is_causal=False, enable_gqa=True``; checked against the plain
+    output first; the port never calls it), with the bound of every pair
+    visible. Returns ``{shape name: {"shape", "float32", "bfloat16"}}``."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for name, (B, H, K, Sq, Sk, hd) in B5_NONCAUSAL:
+        q32, k32, v32 = (torch.randn(shape, generator=gen, device="cuda")
+                         for shape in ((B, H, Sq, hd), (B, K, Sk, hd),
+                                       (B, K, Sk, hd)))
+        res = {"shape": [B, H, K, Sq, Sk, hd]}
+        for dtype, tol, peak in ((torch.float32, B5_FP32_TOL,
+                                  FP32_FLOP_PER_S),
+                                 (torch.bfloat16, B5_BF16_TOL,
+                                  BF16_FLOP_PER_S)):
+            dname = str(dtype).split(".")[1]
+            q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            got = FA.flash_attention(q, k, v, causal=False)
+            ref = flash_attention_ref(q, k, v, causal=False)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                raise RuntimeError(f"B5 {name} {dname}: output not finite")
+            err = rel_err(got, ref)
+            max_abs = float((got.float() - ref.float()).abs().max())
+            print(f"B5 non-causal {name} {dname}: q {tuple(q.shape)}, k/v "
+                  f"{tuple(k.shape)}, kernel vs plain max abs {max_abs:.3e},"
+                  f" rel {err:.3e} (tol {tol:g})")
+            if not err <= tol:
+                raise RuntimeError(f"B5 non-causal {name} {dname} disagrees "
+                                   f"with plain: rel {err}")
+            sdpa = lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=False, enable_gqa=True)
+            lib_err = rel_err(sdpa(), ref)
+            same = lib_err <= B5_BF16_TOL
+            del got, ref
+            kernel_ms = time_cuda(lambda: FA.flash_attention(
+                q, k, v, causal=False), iters=10)
+            plain_ms = time_cuda(lambda: flash_attention_ref(
+                q, k, v, causal=False), iters=3, warmup=1)
+            lib_ms = time_cuda(sdpa, iters=10) if same else None
+            bound_ms, bound_by, ops, n_bytes = b5_bound(
+                B, H, K, Sq, Sk, hd, q.element_size(), peak, causal=False)
+            print(f"B5 non-causal {name} {dname}: {kernel_ms:.4f} ms kernel, "
+                  f"{plain_ms:.3f} ms plain, {lib_ms} ms SDPA (vs plain rel "
+                  f"{lib_err:.3e}); {ops:.4e} operations, "
+                  f"{n_bytes / 1e6:.1f} MB, bound {bound_ms:.4f} ms "
+                  f"({bound_by}, {peak / 1e12:g} TFLOP/s), "
+                  f"{ops / kernel_ms / 1e9:.2f} TFLOP/s achieved")
+            res[dname] = dict(max_abs_err=max_abs, rel_err=err,
+                              ms=kernel_ms, plain_ms=plain_ms,
+                              library_ms=lib_ms, bound_ms=bound_ms,
+                              bound_by=bound_by)
+            del q, k, v
+        out[name] = res
+        del q32, k32, v32
+        torch.cuda.empty_cache()
+    return out
+
+
+def stub_batch(cfg, S: int, seed: int):
+    """LM_BATCH prompts of S tokens and the kind's stub embeddings
+    (``enc_embed`` or ``img_embed``), STUB_SCALE·N(0, 1) in the compute
+    dtype, from a seeded generator on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (LM_BATCH, S),
+                                     device="cuda", generator=gen)}
+    if cfg.kind == "encdec":
+        key, shape = "enc_embed", (LM_BATCH, cfg.enc_seq, cfg.d_model)
+    else:
+        key, shape = "img_embed", (LM_BATCH, cfg.n_img_tokens,
+                                   cfg.vision_dim)
+    batch[key] = (STUB_SCALE * torch.randn(shape, device="cuda",
+                                           generator=gen)).to(
+        getattr(torch, cfg.compute_dtype))
+    return batch
+
+
+def cross_cut_check(tag, cfg, cut, prompt, s_max, TT, TS, FA):
+    """The cut of a FULL encdec or vlm config at full width (``cut``), in
+    fp32 and bf16: the prefill's last logits through B5 (one launch per
+    attention layer, the non-causal ones included) against the plain path
+    on the same CUDA tensors, LM_FP32_TOL and LM_BF16_TOL of the plain
+    max-abs."""
+    for dtype, tol in (("float32", LM_FP32_TOL), ("bfloat16", LM_BF16_TOL)):
+        c = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype,
+                                **cut)
+        params = TT.init_params(
+            c, torch.Generator(device="cuda").manual_seed(1), device="cuda")
+        batch = stub_batch(c, prompt, seed=2)
+        n0 = FA.LAUNCHES
+        lk, _ = TS.make_prefill_step(c, s_max)(params, batch)
+        n_k = FA.LAUNCHES - n0
+        lp, _ = TS.make_prefill_step(c, s_max, backend="torch")(params,
+                                                                batch)
+        torch.cuda.synchronize()
+        err = rel_err(lk, lp)
+        want = TT.n_attention_layers(c)
+        print(f"{tag} cut: {c.name} width {c.d_model}, {c.n_layers} layers"
+              + (f" + {c.n_enc_layers} encoder" if c.kind == "encdec"
+                 else "") + f", {dtype}, {LM_BATCH} x {prompt} prompt: "
+              f"prefill logits kernel vs plain rel {err:.3e} (tol {tol:g}), "
+              f"{n_k} B5 launches (want {want})")
+        if n_k != want or FA.LAUNCHES - n0 != n_k:
+            raise RuntimeError(f"{tag} cut: {n_k} B5 launches, want {want}")
+        if not (bool(torch.isfinite(lk).all()) and err <= tol):
+            raise RuntimeError(f"{tag} cut ({dtype}): kernel path disagrees: "
+                               f"rel {err}")
+        del params, lk, lp
+        torch.cuda.empty_cache()
+
+
+def cross_kind_phase(tag, arch, prompt, s_max, cut, TT, TS, FA):
+    """10g / 10h: ``arch`` (encdec or vlm) FULL in bf16 after its cut
+    checks, weights from a seeded generator and seeded non-zero stub
+    embeddings: the main path is a greedy run of LM_NEW tokens for
+    LM_BATCH prompts of ``prompt`` tokens through ``make_prefill_step``
+    and ``make_decode_step`` (``greedy_generate`` feeds zero stubs), with
+    one B5 launch per attention layer in the prefill (the encoder's and
+    the cross-attention's non-causal) and none in decode; then the
+    prefill's last logits against the plain path, prefill and decode ms
+    and tokens/s, the decode step's device time, idle share, launches
+    and host enqueue. Returns the main path's B5 launches."""
+    from repro_torch.configs import registry as TR
+    cfg = TR.get_config(arch)
+    t_phase = time.perf_counter()
+    cross_cut_check(tag, cfg, cut, prompt, s_max, TT, TS, FA)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = TT.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+    torch.cuda.synchronize()
+    print(f"{tag}: {cfg.name} ({cfg.kind}): {TT.count_params(params)} "
+          f"parameters in {cfg.param_dtype}, {cfg.n_layers} layers"
+          + (f" + {cfg.n_enc_layers} encoder" if cfg.kind == "encdec"
+             else "") + f", init {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    batch = stub_batch(cfg, prompt, seed=3)
+    prefill = TS.make_prefill_step(cfg, s_max)
+    decode = TS.make_decode_step(cfg)
+    want = TT.n_attention_layers(cfg)
+
+    # the main path, once: the greedy loop of greedy_generate, through the
+    # steps a user calls, with the seeded stubs
+    FA.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, batch)
+    n_prefill = FA.LAUNCHES
+    tok = torch.argmax(logits[:, -1], dim=-1)
+    out = [tok]
+    pos = torch.full((LM_BATCH,), prompt, dtype=torch.int64, device="cuda")
+    for _ in range(LM_NEW - 1):
+        logits, caches = decode(params, caches,
+                                {"tokens": tok[:, None], "position": pos})
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        out.append(tok)
+        pos = pos + 1
+    tokens = torch.stack(out, dim=1)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = FA.LAUNCHES
+    print(f"{tag} main path: prefill + {LM_NEW - 1} decode steps, "
+          f"{LM_BATCH} x {prompt} prompt, {LM_NEW} new tokens, s_max "
+          f"{s_max}: {gen_s:.3f} s wall, {n_prefill} B5 launches in the "
+          f"prefill (want {want}), {launches - n_prefill} in decode")
+    if n_prefill != want or launches != want:
+        raise RuntimeError(f"{tag}: {n_prefill} B5 launches in the prefill, "
+                           f"{launches - n_prefill} in decode; want {want}"
+                           " and 0")
+    if not (tokens.shape == (LM_BATCH, LM_NEW) and int(tokens.min()) >= 0
+            and int(tokens.max()) < cfg.vocab):
+        raise RuntimeError(f"{tag}: bad tokens {tokens.shape}")
+    del caches
+    n0 = FA.LAUNCHES
+    lk, caches = prefill(params, batch)
+    if FA.LAUNCHES - n0 != want:
+        raise RuntimeError(f"{tag}: {FA.LAUNCHES - n0} B5 launches in one "
+                           "prefill")
+    lp, _ = TS.make_prefill_step(cfg, s_max, backend="torch")(params, batch)
+    torch.cuda.synchronize()
+    lk, lp = lk[:, -1].float(), lp[:, -1].float()
+    if not bool(torch.isfinite(lk).all()):
+        raise RuntimeError(f"{tag}: prefill logits not finite")
+    gap = float((lk - lp).abs().max())
+    scale = float(lp.abs().max())
+    top2 = torch.topk(lp, 2, dim=-1).values
+    held = (top2[:, 0] - top2[:, 1]) > 2 * gap
+    first_k, first_p = lk.argmax(-1), lp.argmax(-1)
+    print(f"{tag}: prefill last logits, kernel vs plain path: max abs gap "
+          f"{gap:.4e}, plain max abs {scale:.4e}, rel {gap / scale:.4e} "
+          f"(tol {LM_BF16_TOL:g}); first tokens kernel {first_k.tolist()}, "
+          f"plain {first_p.tolist()}, greedy {tokens[:, 0].tolist()}, held "
+          f"where the plain top-2 margin > {2 * gap:.4f}: {held.tolist()}")
+    if not gap <= LM_BF16_TOL * scale:
+        raise RuntimeError(f"{tag}: prefill logits gap {gap} > "
+                           f"{LM_BF16_TOL} x {scale}")
+    if bool(((first_k != first_p) & held).any()) or \
+            not torch.equal(first_k, tokens[:, 0]):
+        raise RuntimeError(f"{tag}: first greedy tokens differ")
+    del lp
+    pre_ms = time_cuda(lambda: prefill(params, batch), iters=2, warmup=0)
+    n_tok = LM_BATCH * prompt
+    print(f"{tag} prefill: {pre_ms:.3f} ms, {n_tok / pre_ms * 1e3:.1f} "
+          f"tokens/s ({LM_BATCH} x {prompt})")
+    device_breakdown(f"{tag} prefill", lambda: prefill(params, batch), pre_ms)
+    decode_timings(tag, cfg, params, caches, tokens, prompt, decode, TT, FA,
+                   t_phase)
+    del params, caches, lk, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
 def lm_phase():
-    """Phase 10: the serve path of the LM stack (10a B5 alone, 10b full
-    width in fp32, 10c the full model in bf16; 10d qwen2-moe-a2.7b and 10e
-    mamba2-780m FULL in bf16, 10f jamba REDUCED in fp32). Returns B5's
-    entry for the ``kernels`` line, with the launches of 10d and 10f."""
+    """Phase 10: the serve path of the LM stack (10a B5 alone, causal and
+    non-causal; 10b full width in fp32, 10c the full model in bf16; 10d
+    qwen2-moe-a2.7b and 10e mamba2-780m FULL in bf16, 10f jamba REDUCED
+    in fp32; 10g whisper-medium and 10h llama-3.2-vision-11b FULL in
+    bf16). Returns B5's entry for the ``kernels`` line, with the launches
+    of 10d, 10f, 10g and 10h and the non-causal shapes' times."""
     from repro_torch.configs import registry as TR
     from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.models import transformer as TT
@@ -1962,6 +2260,7 @@ def lm_phase():
     cfg = TR.get_config(LM_ARCH)
     entry = b5_phase(cfg)
     torch.cuda.empty_cache()
+    entry["noncausal"] = b5_noncausal_phase()
     lm_fp32_phase(cfg, TT, TS, FA)
     torch.cuda.empty_cache()
     entry["launches"] = serve_phase(cfg, TT, TS, FA)
@@ -1974,6 +2273,11 @@ def lm_phase():
         if arch == "qwen2-moe-a2.7b":
             entry["launches_moe"] = n
     entry["launches_hybrid"] = hybrid_phase(TT, TS, FA)
+    # 10g-10h: the encdec and vlm kinds
+    for (tag, arch, prompt, s_max, cut), key in zip(
+            CROSS_SERVE, ("launches_encdec", "launches_vlm")):
+        entry[key] = cross_kind_phase(tag, arch, prompt, s_max, cut, TT, TS,
+                                      FA)
     return entry
 
 
@@ -4088,6 +4392,211 @@ def slab_phase(md, cfg, md_ps, vcfg, md_reuse_ms, fleet):
     return out, reuse, fl, pen
 
 
+# --------------------------------------------------------------------------
+# Phase 18: training
+# --------------------------------------------------------------------------
+
+def grad_gap(got, ref):
+    """max over leaves of max |got - ref|, both moved to the CPU, and the
+    max-abs of ``ref``."""
+    from repro_torch import tree as TREE
+    pairs = list(zip(TREE.flatten(got)[0], TREE.flatten(ref)[0]))
+    gap = max(float((a.cpu().float() - b.cpu().float()).abs().max())
+              for a, b in pairs)
+    scale = max(float(b.float().abs().max()) for _, b in pairs)
+    return gap, scale
+
+
+def train_cut_check(TT, TTR, TD, FA):
+    """18a: TRAIN_ARCH at full width cut to 2 layers in fp32, one
+    ``make_grad_fn`` on the card against the same on the CPU (the same
+    weights, the same synthetic batch): the loss and every gradient within
+    TRAIN_TOL of the CPU's (of the max-abs gradient); remat ``none`` and
+    ``dots`` against ``full`` on the card."""
+    from repro_torch.configs import registry as TR
+    cfg = dataclasses.replace(TR.get_config(TRAIN_ARCH), **TRAIN_CUT)
+    params = TT.init_params(cfg, torch.Generator(device="cuda").manual_seed(7),
+                            device="cuda")
+    B, S = TRAIN_CUT_BATCH
+    batch = TD.synthetic_batch(TD.DataConfig(cfg.vocab, S, B, seed=1), 0,
+                               device="cuda")
+    from repro_torch import tree as TREE
+    host_params = TREE.tree_map(lambda t: t.cpu(), params)
+    host_batch = {k: v.cpu() for k, v in batch.items()}
+    t0 = time.perf_counter()
+    (lc, mc), gc = TTR.make_grad_fn(cfg)(params, batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (lh, mh), gh = TTR.make_grad_fn(cfg)(host_params, host_batch)
+    host_s = time.perf_counter() - t0
+    gap, scale = grad_gap(gc, gh)
+    loss_gap = abs(float(lc) - float(lh))
+    print(f"18a: {cfg.name} width {cfg.d_model}, {cfg.n_layers} layers, fp32,"
+          f" {TT.count_params(params)} parameters, batch {B} x {S}: loss card "
+          f"{float(lc):.6f}, CPU {float(lh):.6f} (gap {loss_gap:.3e}); "
+          f"gradients max abs gap {gap:.3e} of max-abs {scale:.3e}, rel "
+          f"{gap / scale:.3e} (tol {TRAIN_TOL:g}); {card_s:.2f} s card, "
+          f"{host_s:.2f} s CPU")
+    if not (loss_gap <= TRAIN_TOL * abs(float(lh)) and gap <= TRAIN_TOL
+            * scale):
+        raise RuntimeError(f"18a: the card's step disagrees with the CPU's: "
+                           f"loss gap {loss_gap}, gradient gap {gap}")
+    del host_params, gh
+    for policy in ("none", "dots"):
+        c = dataclasses.replace(cfg, remat_policy=policy)
+        (lr_, _), gr = TTR.make_grad_fn(c)(params, batch)
+        g2, _ = grad_gap(gr, gc)
+        print(f"18a: remat {policy} against full on the card: loss "
+              f"{float(lr_):.6f}, gradients max abs gap {g2:.3e}")
+        if not (float(lr_) == float(lc) and g2 <= 1e-6 * scale):
+            raise RuntimeError(f"18a: remat {policy} differs from full: "
+                               f"{g2}")
+        del gr
+    del params, gc
+    torch.cuda.empty_cache()
+
+
+def train_full_phase(TT, TTR, TO, TD, FA):
+    """18b: TRAIN_ARCH FULL in bf16 (fp32 Adam moments), TRAIN_STEPS
+    steps of ``make_train_step`` on TRAIN_BATCH x TRAIN_SEQ synthetic
+    batches: a finite loss that falls, a finite gradient norm; step ms,
+    tokens/s, the model-flops share, peak memory and a device breakdown
+    of one step. Returns the step's ms."""
+    from repro_torch.configs import registry as TR
+    cfg = TR.get_config(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = TT.init_params(cfg, torch.Generator(device="cuda").manual_seed(8),
+                            device="cuda")
+    opt = TO.OptConfig(lr=TRAIN_LR, warmup_steps=max(TRAIN_STEPS // 20, 1),
+                       total_steps=TRAIN_STEPS, opt_dtype=cfg.opt_dtype)
+    state = TO.init_opt_state(params, opt)
+    torch.cuda.synchronize()
+    n_params = TT.count_params(params)
+    print(f"18b: {cfg.name}: {n_params} parameters in {cfg.param_dtype}, "
+          f"moments in {opt.opt_dtype}, remat {cfg.remat_policy}, loss "
+          f"chunk {cfg.loss_chunk}; init {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    dcfg = TD.DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    step = TTR.make_train_step(cfg, opt)
+    losses, gnorms, wall = [], [], []
+    n0 = FA.LAUNCHES
+    for i in range(TRAIN_STEPS):
+        batch = TD.synthetic_batch(dcfg, i, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    step_ms = float(np.median(wall[1:]))
+    n_tok = TRAIN_BATCH * TRAIN_SEQ
+    # 6 N D, N the parameters a token's products touch: all but the
+    # embedding table (the unembedding's product counted)
+    n_model = TT.active_params(cfg) + cfg.vocab * cfg.d_model
+    mfu = 6 * n_model * n_tok / (step_ms / 1e3) / BF16_FLOP_PER_S
+    print(f"18b: losses {[round(x, 4) for x in losses]}; grad norms "
+          f"{[round(x, 4) for x in gnorms]}")
+    print(f"18b train step: {step_ms:.3f} ms (median of steps 2-"
+          f"{TRAIN_STEPS}; the first {wall[0]:.1f} ms), "
+          f"{n_tok / step_ms * 1e3:.1f} tokens/s ({TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}); model flops 6 x {n_model:.4e} x {n_tok} a step, "
+          f"share of {BF16_FLOP_PER_S / 1e12:g} TFLOP/s {mfu:.4f}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB of "
+          f"{torch.cuda.mem_get_info()[1] / 2**30:.2f}")
+    if FA.LAUNCHES != n0:
+        raise RuntimeError(f"18b: {FA.LAUNCHES - n0} B5 launches in training")
+    if not (all(np.isfinite(losses)) and all(np.isfinite(gnorms))
+            and losses[-1] < losses[0]):
+        raise RuntimeError(f"18b: the loss does not fall or is not finite: "
+                           f"{losses}, grad norms {gnorms}")
+    batch = TD.synthetic_batch(dcfg, TRAIN_STEPS, device="cuda")
+    device_breakdown("18b train step", lambda: step(params, state, batch),
+                     step_ms)
+    del params, state, batch, m
+    torch.cuda.empty_cache()
+    return step_ms
+
+
+def launcher_phase(TT, TO):
+    """18c: ``python -m repro_torch.launch.train`` at TRAIN_ARCH REDUCED on
+    the card: an uninterrupted LAUNCH_STEPS-step run beside one killed by
+    ``--simulate-failure LAUNCH_FAIL`` (exit 42), which is then resumed
+    from its newest checkpoint; both end with the same parameters and
+    optimizer state, bit for bit."""
+    import os
+    import shutil
+    from repro_torch.configs import registry as TR
+    from repro_torch.io import checkpoint as CK
+    root = ROOT / "build" / "train_launch"
+    shutil.rmtree(root, ignore_errors=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           TRAIN_ARCH, "--reduced", "--steps", str(LAUNCH_STEPS), "--batch",
+           "8", "--seq", "128", "--lr", "3e-3", "--ckpt-every", "2",
+           "--log-every", "1"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def start(name, *extra):
+        return subprocess.Popen(cmd + ["--ckpt-dir", str(root / name),
+                                       *extra], cwd=ROOT, env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+
+    t0 = time.perf_counter()
+    procs = [start("whole"), start("broken", "--simulate-failure",
+                                   str(LAUNCH_FAIL))]
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    rcs = [p.returncode for p in procs]
+    resumed = start("broken")
+    out_r = resumed.communicate(timeout=600)[0]
+    wall = time.perf_counter() - t0
+    if rcs != [0, 42] or resumed.returncode != 0 or \
+            "[restore] resumed" not in out_r:
+        raise RuntimeError(f"18c: exit codes {rcs} and {resumed.returncode}:"
+                           f"\n{outs[0]}\n{outs[1]}\n{out_r}")
+    losses = [float(line.split()[3]) for line in outs[0].splitlines()
+              if line.startswith("step ")]
+    cfg = TR.get_config(TRAIN_ARCH, reduced=True)
+    example = TT.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    example = {"params": example,
+               "opt": TO.init_opt_state(example, TO.OptConfig())}
+    a, step_a, _ = CK.load(CK.latest_step(root / "whole"), example)
+    b, step_b, _ = CK.load(CK.latest_step(root / "broken"), example)
+    same = [torch.equal(x, y) for x, y in zip(TT.leaves(a), TT.leaves(b))]
+    restore = [line for line in out_r.splitlines() if "[restore]" in line]
+    print(f"18c: launcher {cfg.name} REDUCED on the card, {LAUNCH_STEPS} "
+          f"steps: losses {losses[0]:.4f} -> {losses[-1]:.4f}; killed after "
+          f"step {LAUNCH_FAIL} (exit {rcs[1]}), {restore[0]}; final steps "
+          f"{step_a} / {step_b}, {sum(same)} of {len(same)} leaves equal bit "
+          f"for bit; {wall:.1f} s for the three runs")
+    if not (step_a == step_b == LAUNCH_STEPS and all(same)
+            and losses[-1] < losses[0]):
+        raise RuntimeError("18c: the resumed run differs from the "
+                           "uninterrupted one, or the loss does not fall")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def train_phase():
+    """Phase 18: training on the card (18a the 2-layer fp32 step against
+    the CPU and the remat forms, 18b the FULL model, 18c the launcher).
+    B5 never launches: training differentiates the plain attention."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.models import transformer as TT
+    from repro_torch.training import data as TD
+    from repro_torch.training import optimizer as TO
+    from repro_torch.training import train as TTR
+    n0 = FA.LAUNCHES
+    train_cut_check(TT, TTR, TD, FA)
+    step_ms = train_full_phase(TT, TTR, TO, TD, FA)
+    launcher_phase(TT, TO)
+    if FA.LAUNCHES != n0:
+        raise RuntimeError(f"18: {FA.LAUNCHES - n0} B5 launches in training")
+    return step_ms
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA "
                                  "port on one GPU.")
@@ -4351,6 +4860,13 @@ def main() -> int:
         entry["launches_pencil"] = pencil_launches.get(entry["name"], 0)
     phase_mark("phase 17 (slab layer, sharded fleet, pencil; NCCL world 1)",
                t_phase)
+    torch.cuda.empty_cache()
+
+    # -- phase 18: training ------------------------------------------------------
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    train_phase()
+    phase_mark("phase 18 (training)", t_phase)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, build "
           "included")
 

@@ -2,10 +2,9 @@
 ``configs/base.py``, copied: plain dataclasses).
 
 One ``ModelConfig`` describes any of the 10 assigned architectures (dense /
-MoE / SSM / hybrid / enc-dec / VLM backbones); the port runs the dense,
-MoE, SSM and hybrid kinds (``models/transformer.py``; enc-dec and VLM wait
-for ROADMAP A16d). ``ShapeConfig`` describes the four assigned input
-shapes. ``repro``'s ``input_specs`` (the dry-run's input stand-ins) is
+MoE / SSM / hybrid / enc-dec / VLM backbones); the port runs all six
+kinds (``models/transformer.py``). ``ShapeConfig`` describes the four
+assigned input shapes. ``repro``'s ``input_specs`` (the dry-run's input stand-ins) is
 not ported yet (ROADMAP A16f).
 """
 from __future__ import annotations

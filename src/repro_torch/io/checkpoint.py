@@ -25,6 +25,7 @@ import hashlib
 import json
 import os
 import pathlib
+import re
 import shutil
 import threading
 from typing import Any, Dict, Iterator, Optional, Tuple
@@ -180,12 +181,16 @@ def load(path, example_tree) -> Tuple[Any, int, Dict]:
 
 
 def latest_step(root) -> Optional[pathlib.Path]:
-    """The newest step directory under ``root`` (``step_%08d`` layout)."""
+    """The newest published step directory under ``root`` (``step_%08d``
+    layout). A ``step_*.tmp`` left by a process that died mid-write is
+    skipped (``repro``'s would return it, and its load would fail), as is
+    a directory with no manifest."""
     root = pathlib.Path(root)
     if not root.exists():
         return None
     steps = sorted(p for p in root.iterdir()
-                   if p.is_dir() and p.name.startswith("step_"))
+                   if p.is_dir() and re.fullmatch(r"step_\d+", p.name)
+                   and (p / "manifest.json").is_file())
     return steps[-1] if steps else None
 
 

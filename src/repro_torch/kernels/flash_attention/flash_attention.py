@@ -1,5 +1,7 @@
-"""Causal GQA flash attention, forward only (port of
-``repro.kernels.flash_attention.flash_attention``; the LM stack's hot spot).
+"""GQA flash attention, causal or not, forward only (port of
+``repro.kernels.flash_attention.flash_attention``; the LM stack's hot spot:
+the prefill's causal self-attention, the encoder's non-causal
+self-attention and every cross-attention).
 
 :func:`flash_attention` launches the hand-written CUDA kernel
 ``csrc/flash_attention.cu`` for CUDA tensors and runs the plain version
@@ -15,7 +17,9 @@ q's dtype. :data:`LAUNCHES` counts kernel launches.
 
 Unlike ``repro``'s, the kernel takes any ``Sq`` and ``Sk`` (the ragged
 edge is masked inside) and strided inputs, so ``ops.mha``'s transposed
-views go in without a copy.
+views go in without a copy. Like ``repro``'s it has no backward: a
+launch on tensors that require grad (with grad mode on) raises
+RuntimeError, so a loss can never silently lose attention's gradient.
 """
 from __future__ import annotations
 
@@ -78,8 +82,23 @@ def _check_cuda(q, k, v):
                              f"strides {t.stride()}")
 
 
+def _check_no_grad(q, k, v):
+    """B5 is forward only, as ``repro``'s Pallas kernel: its output has no
+    ``grad_fn``, so a loss through it would give q, k and v no gradient
+    and raise nothing. Raise instead, before any build."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention (B5) is forward only, as repro's Pallas kernel: "
+            "it has no backward, so its output would carry no gradient to "
+            "q, k or v. Differentiate the plain attention instead "
+            "(backend=\"torch\", which training passes, as repro "
+            "differentiates blocked_attention), or call B5 under "
+            "torch.no_grad()")
+
+
 def _launch(q, k, v, causal: bool):
     global LAUNCHES
+    _check_no_grad(q, k, v)
     _check_cuda(q, k, v)
     B, H, Sq, hd = q.shape
     K, Sk = k.shape[1], k.shape[2]

@@ -1,3 +1,4 @@
-"""Analysis tools of the port (``repro``'s ``launch/``): the collective
-accounting of a distributed step (``comm_analysis``) and the roofline
-pricing of dry-run records against the H100 (``roofline``)."""
+"""Launchers and analysis tools of the port (``repro``'s ``launch/``): the
+training launcher (``train``), the collective accounting of a distributed
+step (``comm_analysis``) and the roofline pricing of dry-run records
+against the H100 (``roofline``)."""

@@ -1,13 +1,17 @@
 """Transformer building blocks (``repro``'s ``models/layers.py``): norms,
 RoPE, blocked (flash-style) attention, the attention layer with its KV
-cache, gated MLPs.
+cache and its cross-attention forms (``kv_override``, ``kv_static``),
+gated MLPs.
 
 ``repro`` computes attention blockwise with an online softmax in plain
 JAX; :func:`blocked_attention` is the same function in plain PyTorch. On
-the prefill and in a one-shot forward (no ``kv_len``, causal, more than 8
-queries, positions from 0) :func:`attention_layer` sends CUDA tensors to
-the hand-written kernel B5 instead (``kernels/flash_attention``), which
-computes that function too.
+the prefill and in a one-shot forward (no ``kv_len``, more than 8
+queries; causal with positions from 0, or non-causal: the encoder's
+self-attention and cross-attention) :func:`attention_layer` sends CUDA
+tensors to the hand-written kernel B5 instead (``kernels/flash_attention``),
+which computes that function too. B5 is forward only, as ``repro``'s
+Pallas kernel: training passes ``backend="torch"`` and differentiates
+:func:`blocked_attention`, as ``repro`` differentiates its own.
 
 ``repro``'s ``cons`` sharding callbacks have no counterpart here: the port
 runs the LM on one device (ROADMAP A16f: the LM's sharding).
@@ -217,23 +221,30 @@ def resolve_backend(backend: str, x) -> str:
 
 
 def attention_layer(params, x, *, cfg, positions=None, cache=None,
-                    cache_len=None, causal: bool = True,
-                    backend: str = "auto"):
-    """Self-attention layer: projections, RoPE, attention, output
-    projection.
+                    cache_len=None, kv_override=None, kv_static=None,
+                    causal: bool = True, backend: str = "auto"):
+    """Attention layer: projections, RoPE, attention, output projection.
 
     params: ``{wq (D, H, hd), wk (D, K, hd), wv, wo (H, hd, D)}``.
     positions: ``(B, S)``, or None for ``arange(S)`` in every row (the
-    prefill and a one-shot forward; only then can the kernel take the
+    prefill and a one-shot forward; only then can the kernel take a causal
     attention, since B5 counts positions from 0).
     cache: optional ``{k: (B, S_max, K, hd), v: ...}``: the new k and v are
     written into it at ``positions`` IN PLACE (``repro`` builds a new
     cache; the port updates the caller's tensors) and attention runs over
     the whole cache, ``cache_len`` entries of it valid.
+    kv_override: cross-attention's source ``(B, Sk, D)`` (the encoder's
+    output, the projected image tokens): k and v are projected from it in
+    the compute dtype, RoPE is skipped and the attention is non-causal.
+    kv_static: a precomputed ``(k, v)`` pair ``(B, Sk, K, hd)``, cast to
+    the compute dtype (cross-attention's decode reads the projections
+    cached at prefill); RoPE is skipped.
     backend: ``"auto"`` (B5 for CUDA tensors), ``"torch"`` (the plain
     path everywhere) or ``"cuda"`` (B5; raises on CPU tensors). B5 takes
-    the attention when ``kv_len`` is None, ``causal`` and ``Sq > 8``;
-    otherwise the plain :func:`blocked_attention` does.
+    the attention when ``kv_len`` is None and ``Sq > 8``, if it is
+    non-causal or ``positions`` is None; otherwise the plain
+    :func:`blocked_attention` does (``repro``'s ``Sq <= 8`` dense pass at
+    decode).
     Returns ``(out (B, S, D), cache)``.
     """
     backend = resolve_backend(backend, x)
@@ -241,9 +252,17 @@ def attention_layer(params, x, *, cfg, positions=None, cache=None,
     ct = x.dtype
     pos = (torch.arange(S, device=x.device).expand(B, S)
            if positions is None else positions)
-    q = apply_rope(_proj(x, params["wq"].to(ct)), pos, cfg.rope_theta)
-    k = apply_rope(_proj(x, params["wk"].to(ct)), pos, cfg.rope_theta)
-    v = _proj(x, params["wv"].to(ct))
+    q = _proj(x, params["wq"].to(ct))
+    if kv_static is not None:
+        k, v = kv_static[0].to(ct), kv_static[1].to(ct)
+    else:
+        src = x if kv_override is None else kv_override.to(ct)
+        k = _proj(src, params["wk"].to(ct))
+        v = _proj(src, params["wv"].to(ct))
+    if kv_override is None and kv_static is None:
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    causal = causal and kv_override is None
 
     kv_len = None
     if cache is not None:
@@ -253,10 +272,11 @@ def attention_layer(params, x, *, cfg, positions=None, cache=None,
         k, v = cache["k"].to(ct), cache["v"].to(ct)
         kv_len = cache_len
 
-    if (backend == "cuda" and kv_len is None and causal and S > 8
-            and positions is None):
+    # positions matter only to a causal mask
+    if (backend == "cuda" and kv_len is None and S > 8
+            and (not causal or positions is None)):
         from repro_torch.kernels.flash_attention import ops
-        o = ops.mha(q, k, v, causal=True)
+        o = ops.mha(q, k, v, causal=causal)
     else:
         o = blocked_attention(q, k, v, causal=causal, q_positions=pos,
                               kv_len=kv_len, block_q=cfg.attn_block_q,

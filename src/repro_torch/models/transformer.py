@@ -1,21 +1,27 @@
 """Model assembly of the LM stack (``repro``'s ``models/transformer.py``)
-for four of its six kinds:
+for its six kinds:
   dense  — pre-norm GQA transformer (starcoder2, llama3.2, minitron, gemma)
   moe    — GQA attention + (shared + routed top-k) MoE FFN (qwen2, qwen3)
   ssm    — a pure Mamba2 SSD stack (mamba2-780m)
   hybrid — jamba: period-8 groups [M Md M A(MoE) M Md M Md], MoE on every
            2nd layer
+  encdec — whisper backbone: a non-causal encoder over stub frame
+           embeddings, then decoder blocks with cross-attention to it
+  vlm    — llama-vision backbone: a cross-attention layer to the projected
+           stub patch embeddings every 5th layer
 
 Parameters keep ``repro``'s names and layouts: a dict of tensors whose
-blocks are stacked ``(n_groups, ...)``, as ``repro``'s ``init_params``
-builds them, so ``convert.lm_params_from_numpy`` is a map of names. The
-layer stack is a Python loop over groups where ``repro`` scans. With no
-``ctx`` the MoE FFN is the dense oracle (``models/moe.moe_dense``), as in
-``repro``; the expert-parallel map path (``moe.moe_map_local``) runs per
-rank on a ``runtime.make_mesh`` mesh.
+blocks are stacked ``(n_groups, ...)`` (the encoder's ``(n_enc_layers,
+...)``), as ``repro``'s ``init_params`` builds them, so
+``convert.lm_params_from_numpy`` is a map of names. The layer stack is a
+Python loop over groups where ``repro`` scans; with ``cfg.remat`` a
+differentiated group is wrapped in ``torch.utils.checkpoint`` as
+``repro`` wraps its scan body in ``jax.checkpoint``. With no ``ctx`` the
+MoE FFN is the dense oracle (``models/moe.moe_dense``), as in ``repro``;
+the expert-parallel map path (``moe.moe_map_local``) runs per rank on a
+``runtime.make_mesh`` mesh.
 
-The ``encdec`` and ``vlm`` kinds raise NotImplementedError naming their
-ROADMAP item (A16d), and so does a sharding ``ctx`` (A16f: the port runs
+A sharding ``ctx`` raises NotImplementedError naming A16f (the port runs
 the LM on one device).
 """
 from __future__ import annotations
@@ -31,15 +37,16 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 
-#: What each kind that the port does not run yet waits for.
-KIND_ITEMS = {
-    "encdec": "ROADMAP A16d (the encoder and cross-attention)",
-    "vlm": "ROADMAP A16d (the image projection and cross-attention)",
-}
+KINDS = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
-#: Block kinds by their parts.
-ATTN_KINDS = ("attn", "attn_moe", "attn_moe_shared")
+#: Block kinds by their parts: self-attention, a self-attention KV cache,
+#: cross-attention (with its ``cross_k``/``cross_v`` cache), the Mamba SSM,
+#: the MLP.
+ATTN_KINDS = ("attn", "attn_moe", "attn_moe_shared", "self", "enc", "dec")
+CACHE_KINDS = ("attn", "attn_moe", "attn_moe_shared", "self", "dec")
+CROSS_KINDS = ("cross", "dec")
 MAMBA_KINDS = ("mamba", "mamba_dense", "mamba_moe")
+MLP_KINDS = ("attn", "self", "cross", "enc", "dec", "mamba_dense")
 
 
 def _check(cfg: ModelConfig, ctx=None) -> None:
@@ -47,12 +54,26 @@ def _check(cfg: ModelConfig, ctx=None) -> None:
         raise NotImplementedError(
             "a sharding ctx needs the sharded LM stack (ROADMAP A16f); the "
             "port runs the LM on one device, pass ctx=None")
-    if cfg.kind in KIND_ITEMS or cfg.kind not in ("dense", "moe", "ssm",
-                                                  "hybrid"):
-        item = KIND_ITEMS.get(cfg.kind, "ROADMAP A16")
-        raise NotImplementedError(
-            f"{cfg.name}: kind {cfg.kind!r} is not ported yet ({item}); "
-            "the port runs the dense, moe, ssm and hybrid kinds")
+    if cfg.kind not in KINDS:
+        raise ValueError(f"{cfg.name}: unknown kind {cfg.kind!r}; want one "
+                         f"of {KINDS}")
+
+
+def block_pattern(cfg: ModelConfig):
+    """The block kinds of one group of the decoder stack: an encdec
+    model's is ``dec`` for each entry of ``cfg.block_pattern()``."""
+    if cfg.kind == "encdec":
+        return ("dec",) * len(cfg.block_pattern())
+    return tuple(cfg.block_pattern())
+
+
+def n_attention_layers(cfg: ModelConfig) -> int:
+    """Attention layers a prefill runs, self and cross (the encoder's
+    included): B5's launches per prefill on the card."""
+    per_group = sum((k in ATTN_KINDS) + (k in CROSS_KINDS)
+                    for k in block_pattern(cfg))
+    return per_group * cfg.n_groups() + (
+        cfg.n_enc_layers if cfg.kind == "encdec" else 0)
 
 
 # ==========================================================================
@@ -159,20 +180,21 @@ def _norm(cfg, dev, n=None):
 
 def _block_params(kind: str, cfg, dt, gen, dev, n):
     """One block kind's parameters, stacked over ``n`` groups (``repro``'s
-    ``_block_params`` for the kinds of the dense, moe, ssm and hybrid
-    patterns)."""
+    ``_block_params``)."""
     p = {"ln1": _norm(cfg, dev, n)}
-    if kind in ATTN_KINDS:
+    if kind in ATTN_KINDS or kind == "cross":
         p["attn"] = _attn_params(cfg, dt, gen, dev, n)
     elif kind in MAMBA_KINDS:
         p["mamba"] = _mamba_params(cfg, dt, gen, dev, n)
     else:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet "
-                                  "(ROADMAP A16d)")
+        raise ValueError(f"unknown block kind {kind!r}")
+    if kind == "dec":
+        p["lnx"] = _norm(cfg, dev, n)
+        p["xattn"] = _attn_params(cfg, dt, gen, dev, n)
     if kind == "mamba":
         return p
     p["ln2"] = _norm(cfg, dev, n)
-    if kind in ("attn", "mamba_dense"):
+    if kind in MLP_KINDS:
         p["mlp"] = _mlp_params(cfg, dt, gen, dev, n)
     else:
         p["moe"] = _moe_params(cfg, dt, gen, dev, n)
@@ -195,14 +217,26 @@ def init_params(cfg: ModelConfig, generator,
                          "parameters' device")
     dt = getattr(torch, cfg.param_dtype)
     n = cfg.n_groups()
-    return {
+    params = {
         "embed": _init((cfg.vocab, cfg.d_model), 1.0, dt, generator, dev),
         "unembed": _init((cfg.d_model, cfg.vocab),
                          1.0 / math.sqrt(cfg.d_model), dt, generator, dev),
         "final_norm": _norm(cfg, dev),
         "blocks": {f"b{i}": _block_params(kind, cfg, dt, generator, dev, n)
-                   for i, kind in enumerate(cfg.block_pattern())},
+                   for i, kind in enumerate(block_pattern(cfg))},
     }
+    if cfg.kind == "encdec":
+        if cfg.n_enc_layers <= 0:
+            raise ValueError(f"{cfg.name}: an encdec model needs "
+                             "n_enc_layers > 0")
+        params["enc_blocks"] = {"b0": _block_params(
+            "enc", cfg, dt, generator, dev, cfg.n_enc_layers)}
+        params["enc_norm"] = _norm(cfg, dev)
+    if cfg.kind == "vlm":
+        params["img_proj"] = _init((cfg.vision_dim, cfg.d_model),
+                                   1.0 / math.sqrt(cfg.vision_dim), dt,
+                                   generator, dev)
+    return params
 
 
 def leaves(tree):
@@ -270,12 +304,35 @@ def _mamba_part(p, h, cfg, cache):
     return a
 
 
+def _cross_part(p_attn, h, src, cfg, positions, cache, backend):
+    """Cross-attention of normed ``h`` to ``src`` (the encoder's output or
+    the projected image tokens; RoPE skipped, non-causal). At decode
+    (``src`` None, a cache) it reads the projections cached at prefill;
+    at prefill it writes them, projected from the un-normed ``src`` in the
+    compute dtype and rounded to the cache's, IN PLACE."""
+    if cache is not None and src is None:
+        a, _ = L.attention_layer(
+            p_attn, h, cfg=cfg, positions=positions, causal=False,
+            kv_static=(cache["cross_k"], cache["cross_v"]), backend=backend)
+        return a
+    a, _ = L.attention_layer(p_attn, h, cfg=cfg, positions=positions,
+                             kv_override=src, causal=False, backend=backend)
+    if cache is not None:
+        ct = h.dtype
+        for name, w in (("cross_k", "wk"), ("cross_v", "wv")):
+            cache[name].copy_(L._proj(src.to(ct), p_attn[w].to(ct)))
+    return a
+
+
 def apply_block(kind: str, p, x, *, cfg, ctx=None, positions=None,
-                cache=None, cache_len=None, backend: str = "auto"):
-    """One pre-norm block: attention or the Mamba SSM, then the MLP or the
-    MoE FFN (``mamba`` has none), each added to the residual. Returns
-    ``(x, cache, aux_loss)``: the cache is updated in place; the aux loss
-    is the MoE router's, 0.0 without one."""
+                cache=None, cache_len=None, enc_out=None, img_tokens=None,
+                backend: str = "auto"):
+    """One pre-norm block: self-attention (causal, but for ``enc``), a
+    cross-attention (``cross`` to ``img_tokens`` in place of
+    self-attention; ``dec`` to ``enc_out`` after it) or the Mamba SSM,
+    then the MLP or the MoE FFN (``mamba`` has none), each added to the
+    residual. Returns ``(x, cache, aux_loss)``: the cache is updated in
+    place; the aux loss is the MoE router's, 0.0 without one."""
     _check(cfg, ctx)
     aux = 0.0
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -283,17 +340,23 @@ def apply_block(kind: str, p, x, *, cfg, ctx=None, positions=None,
         a, _ = L.attention_layer(
             p["attn"], h, cfg=cfg, positions=positions,
             cache=None if cache is None else cache.get("attn"),
-            cache_len=cache_len, causal=True, backend=backend)
+            cache_len=cache_len, causal=kind != "enc", backend=backend)
+        x = x + a
+        if kind == "dec":
+            h = L.rms_norm(x, p["lnx"], cfg.norm_eps)
+            x = x + _cross_part(p["xattn"], h, enc_out, cfg, positions,
+                                cache, backend)
+    elif kind == "cross":
+        x = x + _cross_part(p["attn"], h, img_tokens, cfg, positions, cache,
+                            backend)
     elif kind in MAMBA_KINDS:
-        a = _mamba_part(p, h, cfg, cache)
+        x = x + _mamba_part(p, h, cfg, cache)
     else:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet "
-                                  "(ROADMAP A16d)")
-    x = x + a
+        raise ValueError(f"unknown block kind {kind!r}")
     if kind == "mamba":
         return x, cache, aux
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    if kind in ("attn", "mamba_dense"):
+    if kind in MLP_KINDS:
         return x + L.mlp_layer(p["mlp"], h, act=cfg.act), cache, aux
     o, aux, _ = _apply_moe(p["moe"], h, cfg, ctx)
     x = x + o
@@ -302,28 +365,80 @@ def apply_block(kind: str, p, x, *, cfg, ctx=None, positions=None,
     return x, cache, aux
 
 
-def _group(tree, g):
-    """Group ``g``'s slice of a stacked tree (views)."""
+def _groups(tree):
+    """The groups' slices of a stacked tree, one ``unbind`` per leaf
+    (views). Under autograd each leaf then has one backward node that
+    stacks its groups' gradients; indexing a group at a time would add a
+    gradient of the whole stack per group."""
     if isinstance(tree, dict):
-        return {k: _group(v, g) for k, v in tree.items()}
-    return tree[g]
+        parts = {k: _groups(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[g] for k, v in parts.items()} for g in range(n)]
+    return tree.unbind(0)
+
+
+def _save_matmuls():
+    """``repro``'s ``dots_with_no_batch_dims_saveable`` for
+    ``torch.utils.checkpoint``: keep the 2-D matrix products (``_proj``,
+    ``mlp_layer``, the Mamba projections are ``mm``s), recompute the
+    rest."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    mm = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in mm
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return create_selective_checkpoint_contexts(policy)
+
+
+def _remat(cfg, gp, caches) -> bool:
+    """Whether a group is recomputed in the backward: ``cfg.remat`` with a
+    policy other than ``none``, while a graph is being recorded for
+    parameters that require grad (never in serving, which writes caches
+    in place)."""
+    return (cfg.remat and cfg.remat_policy != "none" and caches is None
+            and torch.is_grad_enabled()
+            and any(t.requires_grad for t in leaves(gp)))
 
 
 def _scan_blocks(params_blocks, x, *, cfg, ctx=None, positions=None,
-                 caches=None, cache_len=None, backend: str = "auto"):
-    """The layer stack: a loop over groups (``repro`` scans). Caches are
-    updated in place; returns ``(x, aux, caches)``."""
+                 caches=None, cache_len=None, enc_out=None, img_tokens=None,
+                 pattern=None, backend: str = "auto"):
+    """The layer stack: a loop over the stacked groups (``repro`` scans)
+    of ``pattern`` (default: the decoder's :func:`block_pattern`). Caches
+    are updated in place; returns ``(x, aux, caches)``. A differentiated
+    group runs under ``torch.utils.checkpoint`` as ``cfg.remat_policy``
+    says: ``full`` saves nothing inside it, ``dots`` saves its 2-D matrix
+    products (:func:`_save_matmuls`), ``none`` (or ``remat=False``) does
+    not checkpoint."""
     _check(cfg, ctx)
+    pattern = block_pattern(cfg) if pattern is None else tuple(pattern)
+    groups = _groups(params_blocks)
+    gcaches = [None] * len(groups) if caches is None else _groups(caches)
     aux = 0.0
-    for g in range(cfg.n_groups()):
-        gp = _group(params_blocks, g)
-        gcache = None if caches is None else _group(caches, g)
-        for i, kind in enumerate(cfg.block_pattern()):
-            x, _, a = apply_block(
-                kind, gp[f"b{i}"], x, cfg=cfg, positions=positions,
-                cache=None if gcache is None else gcache[f"b{i}"],
-                cache_len=cache_len, backend=backend)
-            aux = aux + a
+    for gp, gcache in zip(groups, gcaches):
+
+        def body(x, gp=gp, gcache=gcache):
+            aux = 0.0
+            for i, kind in enumerate(pattern):
+                x, _, a = apply_block(
+                    kind, gp[f"b{i}"], x, cfg=cfg, positions=positions,
+                    cache=None if gcache is None else gcache[f"b{i}"],
+                    cache_len=cache_len, enc_out=enc_out,
+                    img_tokens=img_tokens, backend=backend)
+                aux = aux + a
+            return x, aux
+
+        if _remat(cfg, gp, caches):
+            from torch.utils.checkpoint import checkpoint
+            kw = ({"context_fn": _save_matmuls}
+                  if cfg.remat_policy == "dots" else {})
+            x, a = checkpoint(body, x, use_reentrant=False, **kw)
+        else:
+            x, a = body(x)
+        aux = aux + a
     return x, aux, caches
 
 
@@ -337,14 +452,36 @@ def embed_tokens(params, tokens, cfg, ctx=None):
                           device=x.device)
 
 
+def encode(params, enc_embed, cfg, ctx=None, *, backend: str = "auto"):
+    """The whisper encoder over stub frame embeddings ``(B, enc_seq, D)``:
+    the ``enc`` blocks (positions ``arange``, RoPE on, non-causal), then
+    ``enc_norm``."""
+    _check(cfg, ctx)
+    x = enc_embed.to(getattr(torch, cfg.compute_dtype))
+    x, _, _ = _scan_blocks(params["enc_blocks"], x, cfg=cfg,
+                           pattern=("enc",), backend=backend)
+    return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def project_images(params, img_embed, cfg, ctx=None):
+    """Stub patch embeddings ``(B, n_img_tokens, vision_dim)`` projected to
+    ``d_model`` in the compute dtype (no norm)."""
+    _check(cfg, ctx)
+    ct = getattr(torch, cfg.compute_dtype)
+    return img_embed.to(ct) @ params["img_proj"].to(ct)
+
+
 def forward(params, batch, cfg: ModelConfig, ctx=None, caches=None,
             cache_len=None, *, backend: str = "auto"):
     """Forward pass. batch: ``{"tokens": (B, S)}``, with ``"position"``
-    ``(B,)`` for decode (the first token's position). Returns ``(hidden,
-    aux, caches)``: the final-normed hidden states ``(B, S, D)``, the
-    summed MoE auxiliary loss (0.0 without MoE layers) and the caches,
-    updated in place.
-    ``backend`` as in ``layers.attention_layer``."""
+    ``(B,)`` for decode (the first token's position); an encdec model also
+    takes ``"enc_embed"`` ``(B, enc_seq, D)`` and a vlm ``"img_embed"``
+    ``(B, n_img_tokens, vision_dim)``, which the encoder or the image
+    projection reads unless ``S == 1`` with caches (decode reads the
+    cross-attention caches instead). Returns ``(hidden, aux, caches)``:
+    the final-normed hidden states ``(B, S, D)``, the summed MoE
+    auxiliary loss (0.0 without MoE layers) and the caches, updated in
+    place. ``backend`` as in ``layers.attention_layer``."""
     _check(cfg, ctx)
     tokens = batch["tokens"]
     L.resolve_backend(backend, tokens)
@@ -353,11 +490,19 @@ def forward(params, batch, cfg: ModelConfig, ctx=None, caches=None,
     if "position" in batch:
         positions = batch["position"].to(torch.int64)[:, None] \
             + torch.arange(S, device=tokens.device)
+    enc_out = img_tokens = None
+    if not (S == 1 and caches is not None):
+        if cfg.kind == "encdec":
+            enc_out = encode(params, batch["enc_embed"], cfg,
+                             backend=backend)
+        if cfg.kind == "vlm":
+            img_tokens = project_images(params, batch["img_embed"], cfg)
     x = embed_tokens(params, tokens, cfg)
     blk_caches = None if caches is None else caches["blocks"]
     x, aux, _ = _scan_blocks(params["blocks"], x, cfg=cfg,
                              positions=positions, caches=blk_caches,
-                             cache_len=cache_len, backend=backend)
+                             cache_len=cache_len, enc_out=enc_out,
+                             img_tokens=img_tokens, backend=backend)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux, caches
 
@@ -373,11 +518,13 @@ def logits_from_hidden(params, x, cfg, ctx=None):
 
 def init_caches(cfg: ModelConfig, B: int, s_max: int, ctx=None,
                 device="cuda"):
-    """Zeroed caches matching the stacked block structure: an attention
-    block's ``attn`` KV cache ``(n_groups, B, s_max, K, hd)`` in the
-    compute dtype, a Mamba block's ``ssm`` cache (``h`` ``(n_groups, B,
-    nh, hd, N)`` in fp32; ``conv_x``, ``conv_B``, ``conv_C`` ``(n_groups,
-    B, K-1, C)`` in the compute dtype)."""
+    """Zeroed caches matching the stacked block structure: a
+    self-attention block's ``attn`` KV cache ``(n_groups, B, s_max, K,
+    hd)`` in the compute dtype; a cross-attention block's ``cross_k`` and
+    ``cross_v`` ``(n_groups, B, Sk, K, hd)`` (``Sk`` ``enc_seq`` or
+    ``n_img_tokens``) in the compute dtype; a Mamba block's ``ssm`` cache
+    (``h`` ``(n_groups, B, nh, hd, N)`` in fp32; ``conv_x``, ``conv_B``,
+    ``conv_C`` ``(n_groups, B, K-1, C)`` in the compute dtype)."""
     _check(cfg, ctx)
     dev = resolve_device(device)
     n = cfg.n_groups()
@@ -388,9 +535,13 @@ def init_caches(cfg: ModelConfig, B: int, s_max: int, ctx=None,
 
     def one(kind):
         c = {}
-        if kind in ATTN_KINDS:
+        if kind in CACHE_KINDS:
             c["attn"] = {"k": zeros(s_max, cfg.n_kv_heads, cfg.hd),
                          "v": zeros(s_max, cfg.n_kv_heads, cfg.hd)}
+        if kind in CROSS_KINDS:
+            sk = cfg.enc_seq if kind == "dec" else cfg.n_img_tokens
+            c["cross_k"] = zeros(sk, cfg.n_kv_heads, cfg.hd)
+            c["cross_v"] = zeros(sk, cfg.n_kv_heads, cfg.hd)
         if kind in MAMBA_KINDS:
             di, nh, N, G = M.ssm_sizes(cfg)
             Kc = cfg.ssm_conv
@@ -402,4 +553,4 @@ def init_caches(cfg: ModelConfig, B: int, s_max: int, ctx=None,
         return c
 
     return {"blocks": {f"b{i}": one(kind)
-                       for i, kind in enumerate(cfg.block_pattern())}}
+                       for i, kind in enumerate(block_pattern(cfg))}}

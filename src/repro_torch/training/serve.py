@@ -18,8 +18,9 @@ from repro_torch.models import transformer as T
 def make_prefill_step(cfg: ModelConfig, s_max: int, ctx=None, *,
                       backend: str = "auto"):
     """prefill(params, batch) -> (last_logits (B, 1, vocab), caches).
-    ``batch["tokens"]`` is (B, S); the caches are zeroed inside, on the
-    tokens' device. Raises ValueError when ``S > s_max`` (the prompt does
+    ``batch["tokens"]`` is (B, S), with ``"enc_embed"`` (encdec) or
+    ``"img_embed"`` (vlm); the caches are zeroed inside, on the tokens'
+    device. Raises ValueError when ``S > s_max`` (the prompt does
     not fit the cache), before any cache is written."""
     T._check(cfg, ctx)
 
@@ -61,19 +62,38 @@ def make_decode_step(cfg: ModelConfig, ctx=None, *, backend: str = "auto"):
     return decode
 
 
+def stub_embeddings(cfg: ModelConfig, batch):
+    """``batch`` with zero ``enc_embed`` ``(B, enc_seq, d_model)`` (encdec)
+    or ``img_embed`` ``(B, n_img_tokens, vision_dim)`` (vlm) in the
+    compute dtype on the tokens' device, as ``repro``'s ``greedy_generate``
+    and training launcher give the stubbed frontends."""
+    tokens = batch["tokens"]
+    B, dt = tokens.shape[0], getattr(torch, cfg.compute_dtype)
+    if cfg.kind == "encdec":
+        batch = dict(batch, enc_embed=torch.zeros(
+            (B, cfg.enc_seq, cfg.d_model), dtype=dt, device=tokens.device))
+    if cfg.kind == "vlm":
+        batch = dict(batch, img_embed=torch.zeros(
+            (B, cfg.n_img_tokens, cfg.vision_dim), dtype=dt,
+            device=tokens.device))
+    return batch
+
+
 def greedy_generate(cfg, params, prompt, n_steps: int, s_max: int, ctx=None,
                     *, backend: str = "auto"):
     """Prefill ``prompt`` (B, S), then greedy-decode: returns the
     ``n_steps`` new tokens (B, n_steps), the first from the prefill. The
     last decode step writes cache position ``S + n_steps − 2``, so
-    ``S + n_steps − 1 > s_max`` raises ValueError before any work."""
+    ``S + n_steps − 1 > s_max`` raises ValueError before any work. An
+    encdec or vlm model gets zero frame or patch embeddings in the compute
+    dtype, as ``repro``'s loop (its frontends are stubs)."""
     S = prompt.shape[1]
     _check_fits(S + max(n_steps, 1) - 1, s_max,
                 f"{n_steps} new tokens after a {S}-token prompt")
     prefill = make_prefill_step(cfg, s_max, ctx, backend=backend)
     decode = make_decode_step(cfg, ctx, backend=backend)
-    logits, caches = prefill(params, {"tokens": prompt})
     B = prompt.shape[0]
+    logits, caches = prefill(params, stub_embeddings(cfg, {"tokens": prompt}))
     tok = torch.argmax(logits[:, -1], dim=-1)
     out = [tok]
     pos = torch.full((B,), S, dtype=torch.int64, device=prompt.device)

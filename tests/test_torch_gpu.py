@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card
 (B1 with the LJ, SPH and DEM functors, B2, B3, B4; fp32 and bf16x; B5,
-the flash attention, in fp32 and bf16, and the dense, moe, ssm and
-hybrid LM paths through it;
+the flash attention, in fp32 and bf16, and the dense, moe, ssm, hybrid,
+encdec and vlm LM paths through it; B5's guard under autograd and the
+training step on the card against the CPU;
 the block legs of B3/B4, the MD reuse step and the mesh-field step).
 Imports neither jax nor repro, so it runs on the GPU machine:
 
@@ -741,6 +742,99 @@ def test_lm_kinds_on_the_card(card, arch):
     ref = TS.greedy_generate(cfg, params, toks, 5, s_max=48,
                              backend="torch")
     assert out.shape == (2, 5) and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "llama-3.2-vision-11b"])
+def test_encdec_vlm_on_the_card(card, arch):
+    """The encdec and vlm kinds (REDUCED, fp32) on CUDA tensors with
+    non-zero stub embeddings: B5 once per attention layer of the prefill
+    (the encoder's and the cross-attention's non-causal), never in
+    decode; the kernel path's prefill within 1e-4 of the plain path's and
+    the same greedy tokens over 4 decode steps; greedy_generate's tokens
+    equal too."""
+    from repro_torch.configs import registry as TR
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.models import transformer as TT
+    from repro_torch.training import serve as TS
+    cfg = TR.get_config(arch, reduced=True)
+    params = TT.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                            device="cuda")
+    rng = np.random.default_rng(3)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, size=(2, 40))).cuda()}
+    if cfg.kind == "encdec":
+        shape, key = (2, cfg.enc_seq, cfg.d_model), "enc_embed"
+    else:
+        shape, key = (2, cfg.n_img_tokens, cfg.vision_dim), "img_embed"
+    batch[key] = torch.from_numpy(
+        (0.1 * rng.standard_normal(shape)).astype(np.float32)).cuda()
+    want = TT.n_attention_layers(cfg)
+    toks = {}
+    for backend in ("torch", "auto"):
+        n0 = FA.LAUNCHES
+        logits, caches = TS.make_prefill_step(cfg, 48, backend=backend)(
+            params, batch)
+        assert FA.LAUNCHES - n0 == (want if backend == "auto" else 0)
+        toks[backend] = [logits[:, -1].argmax(-1)]
+        decode = TS.make_decode_step(cfg, backend=backend)
+        for t in range(4):
+            logits, caches = decode(params, caches, {
+                "tokens": toks[backend][-1][:, None],
+                "position": torch.full((2,), 40 + t, device="cuda")})
+            toks[backend].append(logits[:, -1].argmax(-1))
+        assert FA.LAUNCHES - n0 == (want if backend == "auto" else 0)
+        toks[backend + "_logits"] = logits
+    torch.cuda.synchronize()
+    assert rel(toks["auto_logits"], toks["torch_logits"]) <= 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(toks["auto"],
+                                                  toks["torch"]))
+    out = TS.greedy_generate(cfg, params, batch["tokens"], 5, s_max=48)
+    ref = TS.greedy_generate(cfg, params, batch["tokens"], 5, s_max=48,
+                             backend="torch")
+    assert torch.equal(out, ref)
+
+
+def test_flash_attention_raises_under_grad_on_the_card(card):
+    """ROADMAP C9: B5 has no backward, so on tensors that require grad it
+    raises (naming backend="torch") instead of returning an output with no
+    grad_fn; under no_grad it launches."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    q = torch.randn(1, 4, 32, 64, device="cuda", requires_grad=True)
+    k = torch.randn(1, 2, 32, 64, device="cuda")
+    n0 = FA.LAUNCHES
+    with pytest.raises(RuntimeError, match="forward only"):
+        FA.flash_attention(q, k, k)
+    assert FA.LAUNCHES == n0
+    with torch.no_grad():
+        out = FA.flash_attention(q, k, k)
+    assert FA.LAUNCHES == n0 + 1 and out.grad_fn is None
+
+
+def test_train_step_on_the_card_matches_cpu(card):
+    """One make_grad_fn of llama3.2-3b REDUCED (fp32) on the card against
+    the CPU from the same weights and batch: the loss and the gradients
+    within 1e-4 of the max-abs gradient, and no B5 launch (training
+    differentiates the plain attention)."""
+    from repro_torch.configs import registry as TR
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.models import transformer as TT
+    from repro_torch.training import data as TD
+    from repro_torch.training import train as TTR
+    cfg = TR.get_config("llama3.2-3b", reduced=True)
+    params = TT.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                            device="cuda")
+    batch = TD.synthetic_batch(TD.DataConfig(cfg.vocab, 32, 4), 0,
+                               device="cuda")
+    n0 = FA.LAUNCHES
+    (lc, _), gc = TTR.make_grad_fn(cfg)(params, batch)
+    host = lambda tree: {k: host(v) if isinstance(v, dict) else v.cpu()
+                         for k, v in tree.items()}
+    (lh, _), gh = TTR.make_grad_fn(cfg)(host(params), host(batch))
+    assert FA.LAUNCHES == n0
+    assert abs(float(lc) - float(lh)) <= 1e-4 * abs(float(lh))
+    pairs = list(zip(TT.leaves(host(gc)), TT.leaves(gh)))
+    scale = max(float(b.abs().max()) for _, b in pairs)
+    assert max(float((a - b).abs().max()) for a, b in pairs) <= 1e-4 * scale
 
 
 # --------------------------------------------------------------------------

@@ -166,45 +166,33 @@ def test_lm_modules_are_checked_for_imports():
     for mod in ("configs/base.py", "configs/registry.py",
                 "configs/starcoder2_15b.py", "models/layers.py",
                 "models/transformer.py", "training/serve.py",
+                "training/optimizer.py", "training/train.py",
+                "training/data.py", "launch/train.py",
                 "kernels/flash_attention/flash_attention.py",
                 "kernels/flash_attention/ops.py",
                 "kernels/flash_attention/ref.py"):
         assert f"src/repro_torch/{mod}" in rel_paths, mod
 
 
-NOT_DENSE = [("whisper-medium", "A16d"), ("llama-3.2-vision-11b", "A16d")]
 PORTED_KINDS = ("qwen2-moe-a2.7b", "qwen3-moe-235b-a22b", "mamba2-780m",
-                "jamba-1.5-large-398b")
-
-
-@pytest.mark.parametrize("arch,item", NOT_DENSE)
-def test_lm_kinds_not_ported_raise(arch, item):
-    from repro_torch.configs import registry
-    from repro_torch.models import transformer as T
-    cfg = registry.get_config(arch, reduced=True)
-    assert cfg.kind != "dense"
-    with pytest.raises(NotImplementedError, match=item):
-        T.init_params(cfg, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        T.forward({}, {"tokens": torch.zeros(1, 4, dtype=torch.int64)}, cfg)
-    with pytest.raises(NotImplementedError, match=item):
-        T.init_caches(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        cfg.params_count()
+                "jamba-1.5-large-398b", "whisper-medium",
+                "llama-3.2-vision-11b")
 
 
 @pytest.mark.parametrize("arch", PORTED_KINDS)
 def test_lm_kinds_ported_run(arch):
-    """The moe, ssm and hybrid kinds (ROADMAP A16b, A16c) build, count and
-    run a forward on the CPU; their caches build."""
+    """The moe, ssm, hybrid, encdec and vlm kinds (ROADMAP A16b, A16c,
+    A16d) build, count and run a forward on the CPU (encdec and vlm with
+    their stub embeddings); their caches build."""
     from repro_torch.configs import registry
     from repro_torch.models import transformer as T
+    from repro_torch.training import serve as S
     cfg = registry.get_config(arch, reduced=True)
     params = T.init_params(cfg, torch.Generator().manual_seed(0),
                            device="cpu")
-    h, _, _ = T.forward(params, {"tokens": torch.zeros(1, 4,
-                                                       dtype=torch.int64)},
-                        cfg)
+    batch = S.stub_embeddings(cfg, {"tokens": torch.zeros(
+        1, 4, dtype=torch.int64)})
+    h, _, _ = T.forward(params, batch, cfg)
     assert h.shape == (1, 4, cfg.d_model) and bool(torch.isfinite(h).all())
     assert T.init_caches(cfg, 1, 8, device="cpu")["blocks"]
     assert cfg.params_count() == T.count_params(params)
