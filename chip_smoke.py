@@ -259,6 +259,26 @@ Phases, each of which raises (non-zero exit) on failure:
      ``--simulate-failure 5`` and resumed from its newest checkpoint
      (under ``build/train_launch``, removed after): both end with the
      same parameters and optimizer state, bit for bit.
+ 19. the sharded LM stack at world 1 over NCCL, mesh (1, 1) of
+     ``("data", "model")`` (the process group made anew): (a)
+     llama3.2-3b FULL in bf16 served with a sharding ctx (the dry-run's
+     decode rules) beside ctx=None, 10c's prompts and 64 tokens — the
+     greedy tokens equal, the prefill logits bit for bit (the
+     arithmetic is the same: every collective is over one rank), 28 B5
+     launches a prefill on the ctx path (``launches_sharded``), prefill
+     and decode tokens/s of both, the ctx decode step's collectives (the
+     ledger's count by kind) and the host time inside their NCCL calls
+     beside the ctx - none gap; (b) one training step of its 2-layer
+     full-width fp32 cut with a ctx (FSDP weights) against ctx=None:
+     loss and gradients within 1e-4 of the max-abs gradient, the AdamW
+     update from the same gradients within 1e-6; (c) ``run_cell`` of
+     one dry-run cell per kind (the shape-only 16 x 16 mesh, ``meta``
+     tensors; records under ``artifacts/dryrun_torch``), each record's
+     H100 roofline terms printed. The process group is destroyed after.
+     (d) B5 in bf16 on the rows a sequence-parallel prefill gives one of
+     four ranks (``q_offset`` 1024) against its plain version, timed
+     beside it and beside SDPA with the same mask (the entry's
+     ``q_offset`` record; not counted among the main path's launches).
 
 It prints a ``{"kernels": [...]}`` line and, as its last line,
 ``{"ok": true, "device": {...}}``. It exits non-zero without a result when
@@ -402,6 +422,16 @@ STUB_SCALE = 0.1
 # of the max-abs gradient), remat full against none; (b) the FULL model
 # in bf16 on synthetic batches; (c) the launcher at REDUCED, killed and
 # resumed against an uninterrupted run.
+SHARD_ARCH = "llama3.2-3b"
+SHARD_MESH = (1, 1)
+#: phase 19c: one dry-run cell per kind (cheap shapes)
+SHARD_DRY_CELLS = (("llama3.2-3b", "decode_32k"),
+                   ("qwen2-moe-a2.7b", "decode_32k"),
+                   ("mamba2-780m", "long_500k"),
+                   ("jamba-1.5-large-398b", "decode_32k"),
+                   ("whisper-medium", "decode_32k"),
+                   ("llama-3.2-vision-11b", "decode_32k"),
+                   ("gemma-2b", "train_4k"))
 TRAIN_ARCH = "llama3.2-3b"
 TRAIN_CUT = dict(n_layers=2, param_dtype="float32", compute_dtype="float32")
 TRAIN_CUT_BATCH = (2, 64)
@@ -4597,6 +4627,267 @@ def train_phase():
     return step_ms
 
 
+def sharded_serve_check(cfg, mesh, TT, TS, FA):
+    """19a: SHARD_ARCH FULL in bf16 through ``greedy_generate`` with a ctx
+    (the main path of this phase: the launches are counted here) and
+    without; the tokens equal, the prefill logits bit for bit, the
+    prefill and decode times of both. Returns the ctx path's B5
+    launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.sharding import specs as SP
+    ctx = SP.ShardingContext.create(mesh, DR.effective_rules(
+        cfg, mesh, ShapeConfig("decode", LM_S_MAX, LM_BATCH, "decode")))
+    t0 = time.perf_counter()
+    params = TT.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+    # at (1, 1) every block is the whole leaf: the blocks are the params
+    lp = SP.shard_tree(params, TT.params_logical(cfg), ctx,
+                       TT.param_specs(cfg, ctx)[0])
+    del params
+    torch.cuda.synchronize()
+    prompt = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(3))
+    print(f"19a: {cfg.name} FULL {cfg.param_dtype}, mesh {SHARD_MESH} "
+          f"(kv_seq {ctx.rules_dict['kv_seq']!r}), {LM_BATCH} x {LM_PROMPT} "
+          f"prompt, {LM_NEW} tokens; init {time.perf_counter() - t0:.2f} s")
+    FA.LAUNCHES = 0
+    with torch.no_grad():
+        tok_ctx = TS.greedy_generate(cfg, lp, prompt, LM_NEW, LM_S_MAX, ctx)
+    torch.cuda.synchronize()
+    launches = FA.LAUNCHES
+    with torch.no_grad():
+        tok = TS.greedy_generate(cfg, lp, prompt, LM_NEW, LM_S_MAX)
+    torch.cuda.synchronize()
+    if launches != cfg.n_layers:
+        raise RuntimeError(f"19a: {launches} B5 launches on the ctx path; "
+                           f"want {cfg.n_layers}")
+    pre_c = TS.make_prefill_step(cfg, LM_S_MAX, ctx)
+    pre_n = TS.make_prefill_step(cfg, LM_S_MAX)
+    batch = {"tokens": prompt}
+    with torch.no_grad():
+        lc, cc = pre_c(lp, batch)
+        ln, cn = pre_n(lp, batch)
+    torch.cuda.synchronize()
+    same_tok = bool(torch.equal(tok_ctx, tok))
+    bits = bool(torch.equal(lc, ln))
+    gap = rel_err(lc[:, -1].float(), ln[:, -1].float())
+    print(f"19a: greedy tokens with ctx == without: {same_tok} "
+          f"({float((tok_ctx == tok).float().mean()):.4f} equal); prefill "
+          f"logits bit for bit: {bits}, rel {gap:.3e}; {launches} B5 "
+          "launches on the ctx path's prefill")
+    if not bits:
+        print("19a: the logits differ where the arithmetic differs: a "
+              "collective over one rank does not round, so a gap means "
+              "the ctx path runs other kernels")
+    if not (same_tok and (bits or gap <= LM_BF16_TOL)):
+        raise RuntimeError(f"19a: the ctx path disagrees: tokens equal "
+                           f"{same_tok}, logits rel {gap}")
+    n_tok = LM_BATCH * LM_PROMPT
+    dec_c = TS.make_decode_step(cfg, ctx)
+    dec_n = TS.make_decode_step(cfg)
+    pos = torch.full((LM_BATCH,), LM_PROMPT, dtype=torch.int64,
+                     device="cuda")
+    step_in = {"tokens": tok[:, :1], "position": pos}
+    dec_times = {}
+    with torch.no_grad():
+        for name, pre, dec, caches in (("ctx", pre_c, dec_c, cc),
+                                       ("none", pre_n, dec_n, cn)):
+            pre_ms = time_cuda(lambda: pre(lp, batch), iters=3, warmup=1)
+            dec_ms = time_cuda(lambda: dec(lp, caches, step_in), iters=10,
+                               warmup=2)
+            print(f"19a {name}: prefill {pre_ms:.3f} ms, "
+                  f"{n_tok / pre_ms * 1e3:.1f} tokens/s; decode "
+                  f"{dec_ms:.3f} ms/step, {LM_BATCH / dec_ms * 1e3:.1f} "
+                  "tokens/s")
+            dec_times[name] = dec_ms
+        host_ms, kinds = collective_host_ms(
+            lambda: dec_c(lp, cc, step_in), iters=10)
+    print(f"19a ctx decode: {sum(kinds.values())} collectives a step "
+          f"(ledger: {kinds}); {host_ms:.3f} ms a step of host time inside "
+          "the NCCL calls (each call timed on the host clock, 10 steps), "
+          f"against a ctx - none decode gap of "
+          f"{dec_times['ctx'] - dec_times['none']:.3f} ms")
+    del lp, cc, cn
+    torch.cuda.empty_cache()
+    return launches
+
+
+def collective_host_ms(step, iters: int):
+    """(host ms a step spent inside the NCCL calls of ``step``, the
+    ledger's count of its collectives by kind): one step under
+    ``count_collectives``, then ``iters`` steps with every all-reduce and
+    all-gather call timed on the host clock around the call."""
+    import collections
+    import torch.distributed as dist
+    from repro_torch.core import runtime as RT
+    with RT.count_collectives() as led:
+        step()
+    kinds = dict(collections.Counter(e.kind for e in led.entries))
+    torch.cuda.synchronize()
+    spent = [0.0]
+    real_ar, real_ag = dist.all_reduce, RT._ALL_GATHER
+
+    def timed(fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[0] += time.perf_counter() - t0
+        return call
+
+    dist.all_reduce, RT._ALL_GATHER = timed(real_ar), timed(real_ag)
+    try:
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+    finally:
+        dist.all_reduce, RT._ALL_GATHER = real_ar, real_ag
+    return spent[0] / iters * 1e3, kinds
+
+
+def b5_offset_check(cfg, FA):
+    """19d: B5 on the rows a sequence-parallel prefill gives one of four
+    ranks (``attn_q_parallel``; the third 512-row block of LM_BATCH x
+    LM_PROMPT queries, ``q_offset`` 1024, against LM_S_MAX keys) at
+    SHARD_ARCH's heads in bf16, against its plain version on the same
+    inputs; timed beside it and beside SDPA with the same mask as a
+    boolean ``attn_mask`` (never called by the port). A comparison: not
+    counted among the main path's launches. Returns the entry's
+    ``q_offset`` record."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    B, H, K, hd = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    n, off, Sk = LM_PROMPT // 4, LM_PROMPT // 2, LM_S_MAX
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               .to(torch.bfloat16) for shape in ((B, H, n, hd),
+                                                 (B, K, Sk, hd),
+                                                 (B, K, Sk, hd)))
+    kernel = lambda: FA.flash_attention(q, k, v, q_offset=off)
+    plain = lambda: flash_attention_ref(q, k, v, q_offset=off)
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    err = rel_err(got, ref)
+    max_abs = float((got.float() - ref.float()).abs().max())
+    mask = (torch.arange(Sk, device="cuda")[None, :]
+            <= off + torch.arange(n, device="cuda")[:, None])
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+    lib_err = rel_err(sdpa(), ref)
+    del got, ref
+    ms = time_cuda(kernel, iters=10)
+    plain_ms = time_cuda(plain, iters=3, warmup=1)
+    lib_ms = time_cuda(sdpa, iters=10) if lib_err <= B5_BF16_TOL else None
+    # pairs: row i (position off + i) sees keys 0 .. off + i
+    pairs = B * H * (n * (off + 1) + n * (n - 1) // 2)
+    ops = 4 * hd * pairs
+    n_bytes = 2 * hd * (2 * B * H * n + 2 * B * K * (off + n))
+    ops_ms = ops / BF16_FLOP_PER_S * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    rec = {"shape": [B, H, K, n, Sk, hd], "q_offset": off,
+           "max_abs_err": max_abs, "rel_err": err, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    print(f"19d: B5 bfloat16 on rows [{off}, {off + n}) (q_offset {off}), "
+          f"q {tuple(q.shape)}, k/v {tuple(k.shape)}: kernel vs plain max "
+          f"abs {max_abs:.3e}, rel {err:.3e} (tol {B5_BF16_TOL:g}); SDPA "
+          f"with the mask vs plain rel {lib_err:.3e}; {ms:.4f} ms kernel, "
+          f"{plain_ms:.3f} ms plain, {lib_ms} ms SDPA, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    if not err <= B5_BF16_TOL:
+        raise RuntimeError(f"19d: B5 at q_offset {off} disagrees with plain: "
+                           f"rel {err}")
+    return rec
+
+
+def sharded_train_check(mesh, TT):
+    """19b: SHARD_ARCH's 2-layer full-width fp32 cut, one step with a ctx
+    (FSDP weights, the dry-run's train rules) against ctx=None."""
+    from repro_torch import tree as TREE
+    from repro_torch.configs import registry as TR
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.sharding import specs as SP
+    from repro_torch.training import data as TD
+    from repro_torch.training import optimizer as TO
+    from repro_torch.training import train as TTR
+    cfg = dataclasses.replace(TR.get_config(SHARD_ARCH), **TRAIN_CUT)
+    B, S = TRAIN_CUT_BATCH
+    ctx = SP.ShardingContext.create(mesh, DR.effective_rules(
+        cfg, mesh, ShapeConfig("train", S, B, "train")), fsdp=True)
+    params = TT.init_params(cfg, torch.Generator(device="cuda").manual_seed(7),
+                            device="cuda")
+    batch = TD.synthetic_batch(TD.DataConfig(cfg.vocab, S, B, seed=1), 0,
+                               device="cuda")
+    (l0, _), g0 = TTR.make_grad_fn(cfg)(params, batch)
+    (l1, _), g1 = TTR.make_grad_fn(cfg, ctx)(params, batch)
+    gap, scale = grad_gap(g1, g0)
+    opt = TO.OptConfig(lr=1e-3, warmup_steps=0)
+    specs = TT.param_specs(cfg, ctx)[0]
+    upd = []
+    for c, sp in ((None, None), (ctx, specs)):
+        p = TREE.tree_map(torch.clone, params)
+        g, _ = TO.clip_by_global_norm(TREE.tree_map(torch.clone, g0),
+                                      opt.clip_norm, specs=sp, ctx=c)
+        TO.adamw_update(p, g, TO.init_opt_state(p, opt), opt)
+        upd.append(p)
+    ugap, _ = grad_gap(upd[1], upd[0])
+    lgap = abs(float(l1) - float(l0))
+    print(f"19b: {cfg.name} {cfg.n_layers} layers fp32, batch {B} x {S}, "
+          f"ctx (FSDP) vs none: loss {float(l1):.6f} / {float(l0):.6f} "
+          f"(gap {lgap:.3e}), gradients max abs gap {gap:.3e} of max-abs "
+          f"{scale:.3e} (tol {TRAIN_TOL:g} of it), AdamW update from the "
+          f"same gradients max gap {ugap:.3e} (tol 1e-6)")
+    if not (lgap <= TRAIN_TOL * abs(float(l0)) and gap <= TRAIN_TOL * scale
+            and ugap <= 1e-6):
+        raise RuntimeError(f"19b: the sharded step disagrees: loss {lgap}, "
+                           f"gradients {gap}, update {ugap}")
+    del params, g0, g1, upd
+    torch.cuda.empty_cache()
+
+
+def dry_run_check():
+    """19c: one dry-run cell per kind on the shape-only 16 x 16 mesh, each
+    record's H100 roofline terms (the data sheet's peaks, not a
+    measurement)."""
+    from repro_torch.launch import dryrun as DR
+    for arch, shape in SHARD_DRY_CELLS:
+        r = DR.run_cell(arch, shape, "single", force=True)
+        if not r.get("ok"):
+            raise RuntimeError(f"19c: {arch} {shape}: {r.get('error')}")
+        roof = r["roofline"]
+        print(f"19c: {arch} {shape} single (16 x 16, a rank's step): "
+              f"t_compute {roof['t_compute']:.4e} s, t_memory "
+              f"{roof['t_memory']:.4e} s (ideal {roof['t_memory_ideal']:.4e}),"
+              f" t_collective {roof['t_collective']:.4e} s, dominant "
+              f"{roof['dominant']}, peak "
+              f"{r['memory_per_device']['peak_memory_in_bytes'] / 2**30:.2f} "
+              f"GiB; {r['wall_seconds']:.1f} s")
+
+
+def sharded_phase():
+    """Phase 19: the sharded LM stack at world 1 over NCCL. Returns the
+    ctx path's B5 launches of 19a and 19d's record of B5 at a query
+    offset."""
+    import torch.distributed as dist
+    from repro_torch.configs import registry as TR
+    from repro_torch.core import runtime as RT
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.models import transformer as TT
+    from repro_torch.training import serve as TS
+    mesh = RT.make_mesh(SHARD_MESH, ("data", "model"), device_type="cuda")
+    cfg = TR.get_config(SHARD_ARCH)
+    launches = sharded_serve_check(cfg, mesh, TT, TS, FA)
+    sharded_train_check(mesh, TT)
+    dry_run_check()
+    dist.destroy_process_group()
+    return launches, b5_offset_check(cfg, FA)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA "
                                  "port on one GPU.")
@@ -4867,6 +5158,13 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     train_phase()
     phase_mark("phase 18 (training)", t_phase)
+    torch.cuda.empty_cache()
+
+    # -- phase 19: the sharded LM stack at world 1 over NCCL --------------------
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    fa_entry["launches_sharded"], fa_entry["q_offset"] = sharded_phase()
+    phase_mark("phase 19 (sharded LM stack; NCCL world 1)", t_phase)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, build "
           "included")
 

@@ -4,13 +4,15 @@
 One ``ModelConfig`` describes any of the 10 assigned architectures (dense /
 MoE / SSM / hybrid / enc-dec / VLM backbones); the port runs all six
 kinds (``models/transformer.py``). ``ShapeConfig`` describes the four
-assigned input shapes. ``repro``'s ``input_specs`` (the dry-run's input stand-ins) is
-not ported yet (ROADMAP A16f).
+assigned input shapes; :func:`input_specs` gives a cell's inputs as
+``meta`` tensors (``repro``'s ``ShapeDtypeStruct`` stand-ins).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,3 +156,31 @@ def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> bool:
     if shape.name == "long_500k":
         return cfg.name in SUBQUADRATIC
     return True
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, device="meta"):
+    """Every model input of this cell as an empty tensor (``meta``: shapes
+    and dtypes only), with ``repro``'s shapes and dtypes: ``tokens`` (and
+    ``targets`` for train) ``(B, S)`` int32; decode one new token against
+    a ``seq_len``-deep cache (``tokens`` ``(B, 1)``, ``position`` ``(B,)``);
+    the stub ``enc_embed`` / ``img_embed`` in the compute dtype, except at
+    decode (which reads the cached cross projections)."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    f = getattr(torch, cfg.compute_dtype)
+    e = lambda shp, dt: torch.empty(shp, dtype=dt, device=device)
+    specs = {}
+    if shape.mode == "train":
+        specs["tokens"] = e((B, S), i32)
+        specs["targets"] = e((B, S), i32)
+    elif shape.mode == "prefill":
+        specs["tokens"] = e((B, S), i32)
+    else:
+        specs["tokens"] = e((B, 1), i32)
+        specs["position"] = e((B,), i32)
+    if shape.mode != "decode":
+        if cfg.kind == "encdec":
+            specs["enc_embed"] = e((B, cfg.enc_seq, cfg.d_model), f)
+        if cfg.kind == "vlm":
+            specs["img_embed"] = e((B, cfg.n_img_tokens, cfg.vision_dim), f)
+    return specs

@@ -80,6 +80,27 @@ def lm_params_from_numpy(tree, device="cuda") -> Dict[str, Any]:
     return walk(tree)
 
 
+def lm_params_sharded_from_numpy(tree, cfg, ctx, device="cuda"
+                                 ) -> Dict[str, Any]:
+    """This rank's blocks of ``repro``'s LM parameter pytree (numpy
+    leaves) under the sharding ``ctx``: :func:`lm_params_from_numpy`
+    after ``sharding.specs.shard_tree``'s cut, each leaf sliced on the
+    host before it is copied to ``device`` (the layout
+    ``models/transformer.param_specs`` gives, FSDP included)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import specs as SP
+    from repro_torch.core import runtime as RT
+    dev = resolve_device(device)
+    specs = T.param_specs(cfg, ctx)[0]
+
+    def one(sp, a):
+        with RT.on_mesh(ctx.mesh):
+            return _tensor(np.asarray(a)[SP.local_slices(np.shape(a), sp,
+                                                         ctx.mesh)], dev)
+
+    return SP.tree_map2(one, specs, tree, is_leaf=SP.is_spec)
+
+
 def ensemble_from_numpy(ens, device="cuda"):
     """The port's ``fleet.batch.EnsembleState`` on ``device`` from
     ``repro``'s (``jax.tree.map(np.asarray, ens)``: an object with

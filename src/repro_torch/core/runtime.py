@@ -140,6 +140,37 @@ def device_count() -> int:
     return int(os.environ.get("WORLD_SIZE", 1))
 
 
+@dataclasses.dataclass(frozen=True)
+class DryMesh:
+    """A mesh of shapes only: axis names and sizes, no process group.
+    Collectives on it are recorded and return tensors of their result's
+    shape (:func:`make_dry_mesh`); this rank is index 0 on every axis."""
+
+    shape: Tuple[int, ...]
+    mesh_dim_names: Tuple[str, ...]
+
+    def size(self, dim: Optional[int] = None) -> int:
+        return math.prod(self.shape) if dim is None else self.shape[dim]
+
+    def get_local_rank(self, axis_name: str) -> int:
+        return 0
+
+
+def make_dry_mesh(shape: Sequence[int], names: Sequence[str]) -> DryMesh:
+    """A :class:`DryMesh` of ``shape`` with axis ``names`` (the dry-run's
+    stand-in for a production mesh of 256 or 512 ranks)."""
+    shape = tuple(int(s) for s in shape)
+    names = tuple(names)
+    if len(shape) != len(names):
+        raise ValueError(f"mesh shape {shape} and names {names} differ in "
+                         "length")
+    return DryMesh(shape, names)
+
+
+def _is_dry(axis_name) -> bool:
+    return isinstance(_mesh_of(_names(axis_name)[0]), DryMesh)
+
+
 @contextlib.contextmanager
 def on_mesh(mesh):
     """Resolve axis names against ``mesh`` inside the block (the per-rank
@@ -161,7 +192,11 @@ def _mesh_of(axis_name: str):
 
 
 def _group(axis_name: str):
-    return _mesh_of(axis_name).get_group(axis_name)
+    mesh = _mesh_of(axis_name)
+    if isinstance(mesh, DryMesh):
+        raise RuntimeError(f"axis {axis_name!r} is on a shape-only mesh; "
+                           "this collective has no dry form")
+    return mesh.get_group(axis_name)
 
 
 # --------------------------------------------------------------------------
@@ -445,6 +480,47 @@ def ppermute(x: torch.Tensor, axis_name: str, perm) -> torch.Tensor:
 # Collectives
 # --------------------------------------------------------------------------
 
+def _wants_grad(x) -> bool:
+    return (torch.is_grad_enabled() and isinstance(x, torch.Tensor)
+            and x.requires_grad)
+
+
+def _scope():
+    """The mesh and ledger in scope, for a backward to run under: the
+    autograd engine runs a CUDA backward on its own thread, and any
+    backward after the forward's ``on_mesh`` block has closed."""
+    return _CURRENT.get(), _LEDGER.get()
+
+
+@contextlib.contextmanager
+def _in_scope(scope):
+    mesh, led = scope
+    t1 = _CURRENT.set(mesh)
+    t2 = _LEDGER.set(_LEDGER.get() or led)
+    try:
+        yield
+    finally:
+        _LEDGER.reset(t2)
+        _CURRENT.reset(t1)
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`all_to_all` with its inverse as the backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name, split_axis, concat_axis, tiled):
+        ctx.args = (axis_name, split_axis, concat_axis, tiled)
+        ctx.scope = _scope()
+        return _all_to_all(x, axis_name, split_axis, concat_axis, tiled)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis_name, split_axis, concat_axis, tiled = ctx.args
+        with _in_scope(ctx.scope):
+            return (_all_to_all(g.contiguous(), axis_name, concat_axis,
+                                split_axis, tiled), None, None, None, None)
+
+
 def all_to_all(x: torch.Tensor, axis_name: str, *, split_axis: int = 0,
                concat_axis: int = 0, tiled: bool = False) -> torch.Tensor:
     """``jax.lax.all_to_all``: split ``x`` along ``split_axis`` into one
@@ -452,7 +528,13 @@ def all_to_all(x: torch.Tensor, axis_name: str, *, split_axis: int = 0,
     rank ``i`` sent at position ``i`` along ``concat_axis`` (a new axis
     of size ndev in place of the split one when ``tiled`` is False, and
     then ``split_axis == concat_axis`` and ``x.shape[split_axis] ==
-    ndev``)."""
+    ndev``). Differentiable: the backward is the inverse exchange."""
+    if _wants_grad(x):
+        return _AllToAll.apply(x, axis_name, split_axis, concat_axis, tiled)
+    return _all_to_all(x, axis_name, split_axis, concat_axis, tiled)
+
+
+def _all_to_all(x, axis_name, split_axis, concat_axis, tiled):
     ndev = axis_size(axis_name)
     n = x.shape[split_axis]
     if n % ndev:
@@ -472,7 +554,8 @@ def all_to_all(x: torch.Tensor, axis_name: str, *, split_axis: int = 0,
         _blocking(led, "all-to-all", axis_name, ndev, _logical_bytes(x),
                   _peer_share(wire, ndev))
     out = torch.empty_like(wire)
-    dist.all_to_all_single(out, wire, group=_group(axis_name))
+    if not _is_dry(axis_name):
+        dist.all_to_all_single(out, wire, group=_group(axis_name))
     got = _unwire(out, x)                        # (ndev, ...chunk...)
     if not tiled:
         return got.movedim(0, split_axis).reshape(x.shape)
@@ -537,17 +620,43 @@ def _reduce(x, axis_name, op) -> torch.Tensor:
             g = axis_size(name)
             _blocking(led, "all-reduce", name, g, _logical_bytes(t),
                       2 * (g - 1) * _logical_bytes(buf) // g)
-        dist.all_reduce(buf, op=op, group=_group(name))
+        if not _is_dry(name):
+            dist.all_reduce(buf, op=op, group=_group(name))
     return buf.to(torch.bool) if t.dtype == torch.bool else buf
 
 
+class _PSum(torch.autograd.Function):
+    """:func:`psum` with a ``psum`` of the cotangents as the backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name):
+        ctx.axis_name = axis_name
+        ctx.scope = _scope()
+        return _reduce(x, axis_name, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        with _in_scope(ctx.scope):
+            return _reduce(g, ctx.axis_name, dist.ReduceOp.SUM), None
+
+
 def psum(x, axis_name) -> torch.Tensor:
-    """The sum over the axis (a name, or a tuple of names)."""
+    """The sum over the axis (a name, or a tuple of names).
+    Differentiable: the backward sums the cotangents over the axis."""
+    if _wants_grad(x):
+        return _PSum.apply(x, axis_name)
     return _reduce(x, axis_name, dist.ReduceOp.SUM)
 
 
 def pmax(x, axis_name) -> torch.Tensor:
+    """The maximum over the axis (no gradient: callers pass detached
+    values, as a softmax's shift)."""
     return _reduce(x, axis_name, dist.ReduceOp.MAX)
+
+
+def pmin(x, axis_name) -> torch.Tensor:
+    """The minimum over the axis (``-pmax(-x)``; no gradient)."""
+    return -_reduce(-torch.as_tensor(x), axis_name, dist.ReduceOp.MAX)
 
 
 def pmean(x, axis_name) -> torch.Tensor:
@@ -589,17 +698,79 @@ def _gather_stacked(wire: torch.Tensor, axis_name) -> torch.Tensor:
         src = wire.reshape((1,) + tuple(wire.shape))
         out = torch.empty((axis_size(name),) + tuple(wire.shape),
                           dtype=wire.dtype, device=wire.device)
-        _ALL_GATHER(out, src, group=_group(name))
+        if not _is_dry(name):
+            _ALL_GATHER(out, src, group=_group(name))
         wire = out
     n_ax = len(_names(axis_name))
     return wire.reshape((-1,) + tuple(wire.shape[n_ax:]))
+
+
+class _AllGather(torch.autograd.Function):
+    """:func:`all_gather` with :func:`reduce_scatter` as the backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name, axis, tiled):
+        ctx.args = (axis_name, axis, tiled)
+        ctx.scope = _scope()
+        return _all_gather(x, axis_name, axis, tiled)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis_name, axis, tiled = ctx.args
+        with _in_scope(ctx.scope):
+            if not tiled:            # the stacked axis: one slot per rank
+                out = reduce_scatter(g.movedim(axis, 0).contiguous(),
+                                     axis_name)
+                return out[0], None, None, None
+            return (reduce_scatter(g.contiguous(), axis_name, axis=axis),
+                    None, None, None)
 
 
 def all_gather(x, axis_name, *, axis: int = 0,
                tiled: bool = False) -> torch.Tensor:
     """``jax.lax.all_gather``: every rank's ``x`` in rank order, stacked on
     a new ``axis`` (``tiled``: concatenated along it). A tuple of axes
-    gathers in their row-major rank order."""
+    gathers in their row-major rank order. Differentiable: the backward
+    is a :func:`reduce_scatter` of the cotangents."""
+    if _wants_grad(x):
+        return _AllGather.apply(x, axis_name, axis, tiled)
+    return _all_gather(x, axis_name, axis, tiled)
+
+
+def reduce_scatter(x: torch.Tensor, axis_name, *, axis: int = 0
+                   ) -> torch.Tensor:
+    """The sum over the axis of ``x``, of which this rank keeps its block
+    along ``axis`` (``x.shape[axis]`` split in rank order, row-major over
+    a tuple of axes): ``jax.lax.psum_scatter(..., tiled=True)``, the
+    adjoint of a tiled :func:`all_gather`. NCCL reduces and scatters in
+    one call; gloo, which has no such call, all-reduces and slices."""
+    names = _names(axis_name)
+    n = axis_size(axis_name)
+    if x.shape[axis] % n:
+        raise ValueError(f"axis {axis} ({x.shape[axis]}) does not split "
+                         f"over {n} ranks")
+    blk = x.shape[axis] // n
+    led = _LEDGER.get()
+    if led is not None:
+        g = axis_size(axis_name)
+        nbytes = _logical_bytes(x) // g
+        _blocking(led, "reduce-scatter", "+".join(names), g, nbytes,
+                  (g - 1) * nbytes)
+    if _is_dry(axis_name):
+        return x.narrow(axis, 0, blk).clone()
+    if len(names) == 1 and dist.get_backend(_group(names[0])) == "nccl":
+        src = x.movedim(axis, 0).contiguous()
+        out = torch.empty((blk,) + tuple(src.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        dist.reduce_scatter_tensor(out, src, group=_group(names[0]))
+        return out.movedim(0, axis)
+    buf = x.clone()
+    for name in names:
+        dist.all_reduce(buf, group=_group(name))
+    return buf.narrow(axis, axis_index(axis_name) * blk, blk).clone()
+
+
+def _all_gather(x, axis_name, axis, tiled):
     t = torch.as_tensor(x)
     wire = _wire(t.movedim(axis, 0) if tiled and t.dim() else t)
     out = _gather_stacked(wire, axis_name)

@@ -5,7 +5,7 @@
 // `flash_attention`, reached through `ops.mha`). It computes that function:
 //
 //   s    = (q . k^T) * (1/sqrt(hd))                  fp32 (inputs cast)
-//   s    = NEG_INF = -1e30 where kpos > qpos         (causal; both from 0)
+//   s    = NEG_INF = -1e30 where kpos > q_off + qpos (causal; both from 0)
 //   m, l, acc: the online softmax over key tiles, fp32
 //   acc += exp(s - m) . v                           p and v in fp32
 //   o    = acc / max(l, 1e-30)                       in q's type
@@ -14,7 +14,11 @@
 // The mask is aligned to the START, as the Pallas kernel's: query i sees
 // keys 0..i whatever Sk is, which is the prefill's attention over a deeper
 // zeroed cache (repro's oracle `attention_ref` aligns it to the end; the
-// two agree only at Sq == Sk). Both forms take any Sq and Sk (the ragged
+// two agree only at Sq == Sk). q_off shifts the query rows' positions:
+// row i sits at position q_off + i, so a causal call on rows [q_off,
+// q_off + Sq) of a longer sequence sees what those rows see in the whole
+// call (the sequence-parallel prefill's rows; 0 everywhere else). Both
+// forms take any Sq and Sk (the ragged
 // edge is masked inside), causal or not, any rep, hd a multiple of 8 up
 // to 256, and strided q, k, v (the head axis contiguous, every other
 // stride a multiple of 8 elements, 16-byte aligned pointers); o has q's
@@ -143,8 +147,8 @@ __global__ void __launch_bounds__(THREADS)
                            const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
                            int rep, int Sq, int Sk, int hd, int causal,
-                           float scale, Strides sq, Strides sk, Strides sv,
-                           Strides so) {
+                           int q_off, float scale, Strides sq, Strides sk,
+                           Strides sv, Strides so) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int ldq = hd + PAD;
@@ -173,8 +177,9 @@ __global__ void __launch_bounds__(THREADS)
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
   }
 
-  // the last key the causal mask leaves visible to this tile is q0 + 63
-  const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
+  // the last key the causal mask leaves visible to this tile is
+  // q_off + q0 + 63
+  const int k_end = causal ? min(Sk, q_off + q0 + BQ) : Sk;
   for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();  // Q staged; the previous tile's p and V reads done
     stage(KVs, kb, sk.s, k0, Sk, hd);
@@ -213,7 +218,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        const bool ok = kpos < Sk && (!causal || kpos <= qpos);
+        const bool ok = kpos < Sk && (!causal || kpos <= q_off + qpos);
         s[i][j] = ok ? s[i][j] * scale : NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -291,8 +296,8 @@ size_t smem_bytes(int hd) {
 
 template <int NJ>
 int launch_nj(const void* q, const void* k, const void* v, void* o, int B,
-              int H, int K, int Sq, int Sk, int hd, int causal, float scale,
-              Strides sq, Strides sk, Strides sv, Strides so,
+              int H, int K, int Sq, int Sk, int hd, int causal, int q_off,
+              float scale, Strides sq, Strides sk, Strides sv, Strides so,
               cudaStream_t stream) {
   const size_t smem = smem_bytes(hd);
   cudaError_t err = cudaFuncSetAttribute(
@@ -303,21 +308,21 @@ int launch_nj(const void* q, const void* k, const void* v, void* o, int B,
   flash_attention_kernel<NJ><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), H / K, Sq, Sk, hd,
-      causal, scale, sq, sk, sv, so);
+      causal, q_off, scale, sq, sk, sv, so);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int K, int Sq, int Sk, int hd, int causal, float scale,
-           const Strides* st, cudaStream_t s) {
+           int H, int K, int Sq, int Sk, int hd, int causal, int q_off,
+           float scale, const Strides* st, cudaStream_t s) {
   if (hd <= 64)
-    return launch_nj<1>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, scale,
-                        st[0], st[1], st[2], st[3], s);
+    return launch_nj<1>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, q_off,
+                        scale, st[0], st[1], st[2], st[3], s);
   if (hd <= 128)
-    return launch_nj<2>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, scale,
-                        st[0], st[1], st[2], st[3], s);
-  return launch_nj<4>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, scale,
-                      st[0], st[1], st[2], st[3], s);
+    return launch_nj<2>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, q_off,
+                        scale, st[0], st[1], st[2], st[3], s);
+  return launch_nj<4>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, q_off,
+                      scale, st[0], st[1], st[2], st[3], s);
 }
 
 }  // namespace simt
@@ -600,7 +605,8 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
                           const __grid_constant__ CUtensorMap tv,
                           __nv_bfloat16* __restrict__ o, Strides so,
                           Order oq, Order ok, Order ov, int rep, int Sq,
-                          int Sk, int hd, int causal, float scale) {
+                          int Sk, int hd, int causal, int q_off,
+                          float scale) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sQ = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -613,7 +619,7 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * (NWG * ROWS);
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / rep;
-  const int k_end = causal ? min(Sk, q0 + NWG * ROWS) : Sk;
+  const int k_end = causal ? min(Sk, q_off + q0 + NWG * ROWS) : Sk;
   const int n_tiles = (k_end + ROWS - 1) / ROWS;
   const int tid = threadIdx.x;
 
@@ -660,7 +666,8 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
   const int wg = tid / 128, lane = tid % 32;
   const int wq0 = q0 + wg * ROWS;
   const int r0 = wq0 + (tid % 128) / 32 * 16 + lane / 4;
-  const int my_end = wq0 >= Sq ? 0 : (causal ? min(Sk, wq0 + ROWS) : Sk);
+  const int my_end =
+      wq0 >= Sq ? 0 : (causal ? min(Sk, q_off + wq0 + ROWS) : Sk);
   const int my_tiles = (my_end + ROWS - 1) / ROWS;
   const int ksteps = (hd + 15) / 16;
   const uint8_t* myQ = sQ + wg * NC * CHUNK;
@@ -681,7 +688,8 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
     issue_qk(sc, myQ, sK + s * NC * CHUNK, ksteps);
     wgmma_wait();
     fence_regs(sc);
-    softmax(sc, m, l, corr, t * ROWS, r0, wq0, lane, Sk, causal, scale);
+    softmax(sc, m, l, corr, t * ROWS, q_off + r0, q_off + wq0, lane, Sk,
+            causal, scale);
     split(sc, pa);
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
@@ -783,8 +791,8 @@ constexpr int kMapError = 10000;
 
 template <int NC, int NWG>
 int launch_nc(const void* q, const void* k, const void* v, void* o, int B,
-              int H, int K, int Sq, int Sk, int hd, int causal, float scale,
-              const Strides* st, cudaStream_t stream) {
+              int H, int K, int Sq, int Sk, int hd, int causal, int q_off,
+              float scale, const Strides* st, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   Order oq, ok, ov;
   CUresult r = make_map(&tq, &oq, q, B, H, Sq, hd, st[0]);
@@ -800,24 +808,24 @@ int launch_nc(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((Sq + NWG * ROWS - 1) / (NWG * ROWS), H, B);
   flash_attention_wgmma<NC, NWG><<<grid, NWG * 128 + 32, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), st[3], oq, ok, ov, H / K,
-      Sq, Sk, hd, causal, scale);
+      Sq, Sk, hd, causal, q_off, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int K, int Sq, int Sk, int hd, int causal, float scale,
-           const Strides* st, cudaStream_t s) {
+           int H, int K, int Sq, int Sk, int hd, int causal, int q_off,
+           float scale, const Strides* st, cudaStream_t s) {
   if (hd <= 64)
-    return launch_nc<1, 2>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, scale,
-                           st, s);
+    return launch_nc<1, 2>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, q_off,
+                           scale, st, s);
   if (hd <= 128)
-    return launch_nc<2, 2>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, scale,
-                           st, s);
+    return launch_nc<2, 2>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, q_off,
+                           scale, st, s);
   if (hd <= 192)
-    return launch_nc<3, 1>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, scale,
-                           st, s);
-  return launch_nc<4, 1>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, scale, st,
-                         s);
+    return launch_nc<3, 1>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, q_off,
+                           scale, st, s);
+  return launch_nc<4, 1>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, q_off,
+                         scale, st, s);
 }
 
 }  // namespace hopper
@@ -825,9 +833,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 namespace {
 
 // strides: 12 element strides, (b, h, s) of q, k, v and o in that order
-int check_args(int B, int H, int K, int Sq, int Sk, int hd) {
+int check_args(int B, int H, int K, int Sq, int Sk, int hd, int q_off) {
   if (B < 1 || H < 1 || K < 1 || H % K != 0 || Sq < 1 || Sk < 1 ||
-      hd < 8 || hd > 256 || hd % 8 != 0 || B > 65535 || H > 65535)
+      q_off < 0 || hd < 8 || hd > 256 || hd % 8 != 0 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }
@@ -845,29 +853,30 @@ extern "C" {
 // four. strides: 12 element strides, (b, h, s) of q, k, v and o in that
 // order; the head axis is contiguous, every stride a multiple of 8 and
 // every pointer 16-byte aligned (the wrapper checks). 8 <= hd <= 256,
-// hd % 8 == 0, H % K == 0. Returns cudaGetLastError() after the launch (or
+// hd % 8 == 0, H % K == 0; q_off >= 0 is query row 0's position for the
+// causal mask. Returns cudaGetLastError() after the launch (or
 // the error of a refused argument or attribute; for bf16, 10000 + the
 // CUresult of a refused tensor map).
 int flash_attention_f32(const void* q, const void* k, const void* v,
                         void* o, int B, int H, int K, int Sq, int Sk, int hd,
-                        int causal, float scale, const long long* strides,
-                        void* stream) {
-  if (const int e = check_args(B, H, K, Sq, Sk, hd)) return e;
+                        int causal, int q_off, float scale,
+                        const long long* strides, void* stream) {
+  if (const int e = check_args(B, H, K, Sq, Sk, hd, q_off)) return e;
   Strides st[4];
   unpack(strides, st);
-  return simt::launch(q, k, v, o, B, H, K, Sq, Sk, hd, causal, scale, st,
-                      static_cast<cudaStream_t>(stream));
+  return simt::launch(q, k, v, o, B, H, K, Sq, Sk, hd, causal, q_off, scale,
+                      st, static_cast<cudaStream_t>(stream));
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* o, int B, int H, int K, int Sq, int Sk,
-                         int hd, int causal, float scale,
+                         int hd, int causal, int q_off, float scale,
                          const long long* strides, void* stream) {
-  if (const int e = check_args(B, H, K, Sq, Sk, hd)) return e;
+  if (const int e = check_args(B, H, K, Sq, Sk, hd, q_off)) return e;
   Strides st[4];
   unpack(strides, st);
-  return hopper::launch(q, k, v, o, B, H, K, Sq, Sk, hd, causal, scale, st,
-                        static_cast<cudaStream_t>(stream));
+  return hopper::launch(q, k, v, o, B, H, K, Sq, Sk, hd, causal, q_off,
+                        scale, st, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

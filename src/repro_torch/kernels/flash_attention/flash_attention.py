@@ -12,7 +12,9 @@ kernel, both counted in :data:`LAUNCHES`: bf16 runs on the tensor cores
 be TF32, another function). Both compute the Pallas
 kernel's function: fp32 scores, the causal mask ``kpos <= qpos`` counted
 from 0 (aligned to the start, unlike ``repro``'s oracle
-``attention_ref``), online softmax in fp32, ``p·v`` in fp32, the output in
+``attention_ref``; ``q_offset`` moves the query rows to positions
+``q_offset, q_offset + 1, …``, the rows of a sequence-parallel prefill),
+online softmax in fp32, ``p·v`` in fp32, the output in
 q's dtype. :data:`LAUNCHES` counts kernel launches.
 
 Unlike ``repro``'s, the kernel takes any ``Sq`` and ``Sk`` (the ragged
@@ -52,7 +54,7 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name in _ENTRIES.values():
         fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, f, p, p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, f, p, p]
         fn.restype = i
     return lib
 
@@ -96,7 +98,7 @@ def _check_no_grad(q, k, v):
             "torch.no_grad()")
 
 
-def _launch(q, k, v, causal: bool):
+def _launch(q, k, v, causal: bool, q_offset: int = 0):
     global LAUNCHES
     _check_no_grad(q, k, v)
     _check_cuda(q, k, v)
@@ -113,15 +115,16 @@ def _launch(q, k, v, causal: bool):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, _ENTRIES[q.dtype])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, K,
-            Sq, Sk, hd, int(causal), 1.0 / math.sqrt(hd),
+            Sq, Sk, hd, int(causal), int(q_offset), 1.0 / math.sqrt(hd),
             ctypes.cast(strides, ctypes.c_void_p), stream)
     _build.check(err, _ENTRIES[q.dtype])
     LAUNCHES += 1
     return o
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
+def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
     """q: ``(B, H, Sq, hd)``; k, v: ``(B, K, Sk, hd)``; ``H = K·rep``.
+    ``q_offset`` (>= 0): the causal mask's position of query row 0.
     Returns ``(B, H, Sq, hd)`` in q's dtype: the kernel for CUDA tensors
     (fp32 or bf16, hd a multiple of 8 up to 256; TypeError or ValueError
     otherwise), the plain version for CPU tensors."""
@@ -135,6 +138,8 @@ def flash_attention(q, k, v, *, causal: bool = True):
                          f"{tuple(q.shape)} (same B and hd, H % K == 0)")
     if Sq < 1 or k.shape[2] < 1:
         raise ValueError(f"empty sequence: Sq={Sq}, Sk={k.shape[2]}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     if q.is_cuda:
-        return _launch(q, k, v, causal)
-    return flash_attention_ref(q, k, v, causal=causal)
+        return _launch(q, k, v, causal, q_offset)
+    return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)

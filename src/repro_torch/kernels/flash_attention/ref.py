@@ -70,9 +70,11 @@ def split_bf16x3(p):
     return p1, p2, p3
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, p_terms: int = 3):
+def flash_attention_ref(q, k, v, *, causal: bool = True, p_terms: int = 3,
+                        q_offset: int = 0):
     """B5's own function: scores ``(q·kᵀ)·(1/√hd)`` in fp32, the causal
-    mask ``kpos <= qpos`` counted from 0 (aligned to the start), masked
+    mask ``kpos <= qpos`` counted from 0 (aligned to the start; query row
+    ``i`` at position ``q_offset + i``), masked
     scores ``NEG_INF``, ``p = exp(s − max)``, ``(p·v) / max(Σp, 1e-30)``
     in fp32, the output in q's dtype. Whole rows at once where the kernel
     sweeps them tile by tile, so only the summation order differs.
@@ -86,7 +88,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, p_terms: int = 3):
     B, H, Sq, hd = q.shape
     s = _scores(q, k).mul_(1.0 / math.sqrt(hd))
     if causal:
-        qpos = torch.arange(Sq, device=s.device).repeat(s.shape[2] // Sq)
+        qpos = (q_offset + torch.arange(Sq, device=s.device)).repeat(
+            s.shape[2] // Sq)
         kpos = torch.arange(k.shape[2], device=s.device)
         s.masked_fill_(kpos[None, :] > qpos[:, None], NEG_INF)
     p = s.sub_(s.amax(dim=-1, keepdim=True)).exp_()

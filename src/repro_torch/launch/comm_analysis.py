@@ -24,8 +24,8 @@ Where the two differ:
   issues each tensor's collective as the code asks for it;
 * a ``psum`` over a tuple of axes is one all-reduce over the product
   group in HLO and one per axis in the port;
-* ``analyze`` and ``parse_hlo`` read XLA text and are not ported (their
-  use is the LM dry-run, ROADMAP A16f).
+* ``analyze`` and ``parse_hlo`` read XLA text; the dry-run's
+  counterpart measures the step itself (``launch/cost_analysis.py``).
 """
 from __future__ import annotations
 

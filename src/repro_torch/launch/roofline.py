@@ -1,15 +1,17 @@
 """Roofline reporting from dry-run records (``repro``'s
 ``launch/roofline.py``), priced against the H100.
 
-Reads ``artifacts/dryrun/<mesh>/*.json`` records in ``repro``'s format
-and emits the per-(arch × shape × mesh) table: three roofline terms
-(seconds), dominant bottleneck, MODEL_FLOPS (6·N·D / 6·N_active·D), the
-MODEL/HLO flops ratio, and the step-time bound with roofline fraction.
-The port has no dry-run yet (ROADMAP A16f), so :func:`load` returns []
-and every consumer prints :func:`skip_message`.
+Reads the records ``launch/dryrun.py`` writes under
+``artifacts/dryrun_torch/<mesh>/*.json`` (``repro``'s format) and emits
+the per-(arch × shape × mesh) table: three roofline terms (seconds),
+dominant bottleneck, MODEL_FLOPS (6·N·D / 6·N_active·D), the MODEL/HLO
+flops ratio (the port's "HLO" figures are its measured per-rank step,
+``launch/cost_analysis.py``), and the step-time bound with roofline
+fraction. With no records, :func:`load` returns [] and every consumer
+prints :func:`skip_message`.
 
 Usage: PYTHONPATH=src python -m repro_torch.launch.roofline
-       [--mesh single] [--format md|csv]
+       [--mesh single|multi] [--format md|csv]
 """
 from __future__ import annotations
 
@@ -53,8 +55,9 @@ def load(mesh: str, tag: str = "") -> List[Dict]:
 
 
 def skip_message(mesh: str) -> str:
-    return (f"no dry-run artifacts under {ARTIFACTS / mesh}: the port has "
-            "no dry-run yet (ROADMAP A16f, launch/dryrun.py)")
+    return (f"no dry-run artifacts under {ARTIFACTS / mesh}: run "
+            "PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh both "
+            "--all")
 
 
 def model_flops_for(r: Dict) -> float:

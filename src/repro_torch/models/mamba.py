@@ -12,6 +12,15 @@ The state handoff across chunks is the in-device form of OpenFPM's
 ``ghost_get``: :func:`mamba_prefill_seq_sharded` shards the sequence over
 a mesh axis and passes the chunk-boundary state between ranks with
 ``runtime.ppermute`` (a ring sweep of ghost states, DESIGN.md §4).
+
+Tensor-parallel (``tp_axis``, the LM under a sharding ctx): this rank
+holds its ``ssm_heads`` and the matching ``mlp`` columns of ``d_inner``
+(``w_z``, ``w_x``, ``w_dt``, the x conv, ``A_log``/``D``/``dt_bias``,
+``norm``, ``w_out``'s rows); B and C stay whole (``w_B``/``w_C`` are
+``("embed", None)``) and each local head reads its group by its global
+index. The gated norm's variance over the whole ``d_inner`` is a
+``psum`` of the local sums of squares, and ``w_out``'s product ends in a
+``psum``.
 """
 from __future__ import annotations
 
@@ -45,17 +54,53 @@ def _causal_conv(x, w, b, cache=None):
     return F.silu(y), new_cache
 
 
-def _gated_norm(y, z, params, eps: float, ct):
+def _gated_norm(y, z, params, eps: float, ct, tp_axis=None,
+                d_inner: int = 0):
     """``repro``'s gated RMS norm: ``y·silu(z)`` normed in fp32 with the
-    ``1 + norm`` scale, back to the compute dtype."""
+    ``1 + norm`` scale, back to the compute dtype. With ``tp_axis`` y is
+    this rank's columns of ``d_inner`` and the variance a ``psum``."""
     y = y * F.silu(z)
     yf = y.to(torch.float32)
-    var = torch.mean(yf * yf, dim=-1, keepdim=True)
+    if tp_axis is None:
+        var = torch.mean(yf * yf, dim=-1, keepdim=True)
+    else:
+        var = RT.psum(torch.sum(yf * yf, dim=-1, keepdim=True),
+                      tp_axis) / d_inner
     return (yf * torch.rsqrt(var + eps)
             * (1.0 + params["norm"].to(torch.float32))).to(ct)
 
 
-def mamba_prefill(params, x, *, cfg, state_in=None, conv_ctx=None):
+def _local(params, cfg, tp_axis):
+    """``(d_inner, n_heads, head0, group index per head (a tensor or
+    None))`` of this rank's block: the whole layer without ``tp_axis``."""
+    d_inner, nh, N, G = ssm_sizes(cfg)
+    if tp_axis is None:
+        return d_inner, nh, 0, None
+    nh_l = params["A_log"].shape[0]
+    di_l = params["w_x"].shape[1]
+    if di_l != nh_l * cfg.ssm_head_dim:
+        raise ValueError(
+            f"{cfg.name}: the 'mlp' and 'ssm_heads' rules disagree: "
+            f"{di_l} local d_inner columns for {nh_l} local heads of "
+            f"{cfg.ssm_head_dim}")
+    head0 = RT.axis_index(tp_axis) * nh_l
+    gidx = (head0 + torch.arange(nh_l, device=params["A_log"].device)) \
+        // (nh // G)
+    return di_l, nh_l, head0, gidx
+
+
+def _by_head(a, G: int, N: int, hpg: int, gidx, dim: int):
+    """Per-head B or C from the ``G·N`` wide projection ``a`` (its last
+    axis): groups repeated ``hpg`` times, or (sharded) the local heads'
+    groups by index."""
+    a = a.reshape(a.shape[:-1] + (G, N))
+    if gidx is None:
+        return a.repeat_interleave(hpg, dim=dim)
+    return a.index_select(dim, gidx)
+
+
+def mamba_prefill(params, x, *, cfg, state_in=None, conv_ctx=None,
+                  tp_axis=None):
     """The whole-sequence pass. x: ``(B, S, D)``. ``state_in``: the SSM
     state the sequence starts from (``(B, nh, hd, N)``; zeros by default).
     ``conv_ctx``: the K-1 pre-activation conv inputs before the sequence
@@ -65,11 +110,13 @@ def mamba_prefill(params, x, *, cfg, state_in=None, conv_ctx=None):
     As ``repro``: S is padded to a whole number of chunks with dt = 0 on
     the padding (an identity update); softplus of ``dt + dt_bias`` and
     ``A = -exp(A_log)`` in fp32; inside a chunk the causal decay is masked
-    to -inf in log space before ``exp``."""
+    to -inf in log space before ``exp``. ``tp_axis``: the mesh axis this
+    rank's heads are sharded over (module docstring)."""
     B, S0, D = x.shape
     ct = x.dtype
     dev = x.device
-    d_inner, nh, N, G = ssm_sizes(cfg)
+    d_full, nh_full, N, G = ssm_sizes(cfg)
+    d_inner, nh, _, gidx = _local(params, cfg, tp_axis)
     hd = cfg.ssm_head_dim
     Q = min(cfg.ssm_chunk, S0)
     pad = (-S0) % Q
@@ -100,12 +147,12 @@ def mamba_prefill(params, x, *, cfg, state_in=None, conv_ctx=None):
     la = A[None, None, :] * dt                              # log decay
 
     nc = S // Q
-    hpg = nh // G
+    hpg = nh_full // G
     xh = xs.reshape(B, nc, Q, nh, hd).to(torch.float32)
-    Bh = Bm.reshape(B, nc, Q, G, N).to(torch.float32).repeat_interleave(
-        hpg, dim=3)                                         # (B,nc,Q,nh,N)
-    Ch = Cm.reshape(B, nc, Q, G, N).to(torch.float32).repeat_interleave(
-        hpg, dim=3)
+    Bh = _by_head(Bm.reshape(B, nc, Q, G * N).to(torch.float32), G, N, hpg,
+                  gidx, 3)                                  # (B,nc,Q,nh,N)
+    Ch = _by_head(Cm.reshape(B, nc, Q, G * N).to(torch.float32), G, N, hpg,
+                  gidx, 3)
     dtc = dt.reshape(B, nc, Q, nh)
     lac = la.reshape(B, nc, Q, nh)
 
@@ -135,22 +182,26 @@ def mamba_prefill(params, x, *, cfg, state_in=None, conv_ctx=None):
     y = y + xh.reshape(B, S, nh, hd) \
         * params["D"].to(torch.float32)[None, None, :, None]
     y = _gated_norm(y.reshape(B, S, d_inner).to(ct), z, params,
-                    cfg.norm_eps, ct)
+                    cfg.norm_eps, ct, tp_axis, d_full)
     out = y @ params["w_out"].to(ct)
+    if tp_axis is not None:
+        out = RT.psum(out, tp_axis)
     if pad:
         out = out[:, :S0]
     return out, h
 
 
-def mamba_decode(params, x, cache, *, cfg):
+def mamba_decode(params, x, cache, *, cfg, tp_axis=None):
     """One token. x: ``(B, 1, D)``; cache: ``{"h": (B, nh, hd, N),
     "conv_x"/"conv_B"/"conv_C": (B, K-1, C)}``. Returns ``(y, new_cache)``
-    (new tensors; the caller's cache is not written)."""
+    (new tensors; the caller's cache is not written). ``tp_axis`` as in
+    :func:`mamba_prefill`."""
     B, S, D = x.shape
     if S != 1:
         raise ValueError(f"mamba_decode takes one token, got {S}")
     ct = x.dtype
-    d_inner, nh, N, G = ssm_sizes(cfg)
+    d_full, nh_full, N, G = ssm_sizes(cfg)
+    d_inner, nh, _, gidx = _local(params, cfg, tp_axis)
     hd = cfg.ssm_head_dim
 
     z = x @ params["w_z"].to(ct)
@@ -169,10 +220,10 @@ def mamba_decode(params, x, cache, *, cfg):
                     + params["dt_bias"].to(torch.float32))[:, 0]  # (B, nh)
     A = -torch.exp(params["A_log"].to(torch.float32))
     a = torch.exp(A[None] * dt)                                    # (B, nh)
-    hpg = nh // G
+    hpg = nh_full // G
     xq = xs.reshape(B, nh, hd).to(torch.float32)
-    Bq = Bm.reshape(B, G, N).repeat_interleave(hpg, dim=1)         # (B,nh,N)
-    Cq = Cm.reshape(B, G, N).repeat_interleave(hpg, dim=1)
+    Bq = _by_head(Bm.reshape(B, G * N), G, N, hpg, gidx, 1)        # (B,nh,N)
+    Cq = _by_head(Cm.reshape(B, G * N), G, N, hpg, gidx, 1)
     h = cache["h"].to(torch.float32)
     h = (h * a[:, :, None, None]
          + torch.einsum("bhd,bhn->bhdn", xq * dt[..., None],
@@ -180,8 +231,10 @@ def mamba_decode(params, x, cache, *, cfg):
     y = torch.einsum("bhdn,bhn->bhd", h, Cq.to(torch.float32))
     y = y + xq * params["D"].to(torch.float32)[None, :, None]
     y = _gated_norm(y.reshape(B, 1, d_inner).to(ct), z, params,
-                    cfg.norm_eps, ct)
+                    cfg.norm_eps, ct, tp_axis, d_full)
     out = y @ params["w_out"].to(ct)
+    if tp_axis is not None:
+        out = RT.psum(out, tp_axis)
     new_cache = {"h": h.to(cache["h"].dtype), "conv_x": cx, "conv_B": cB,
                  "conv_C": cC}
     return out, new_cache

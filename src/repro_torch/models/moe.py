@@ -54,17 +54,26 @@ def router_probs(x2d, w_router, *, top_k: int, n_real: Optional[int] = None):
     return gates, experts.to(torch.int32), probs
 
 
-def load_balance_loss(probs, experts, n_experts: int):
+def load_balance_loss(probs, experts, n_experts: int, batch_axes=()):
     """Switch's auxiliary loss: ``E · Σ_e f_e · P_e`` over the real
-    experts."""
+    experts. ``batch_axes``: mesh axes the tokens are split over (equal
+    shares); the occupancy and the mean probability are then the whole
+    batch's (``psum``'d), so the loss is the unsharded one."""
     E = probs.shape[-1]
     idx = experts.reshape(-1).to(torch.int64)
     occupancy = torch.zeros(E, dtype=torch.float32,
                             device=probs.device).index_add(
         0, idx, torch.ones(idx.shape, dtype=torch.float32,
                            device=probs.device))
-    f = occupancy / max(experts.numel(), 1)
-    P = probs.mean(dim=0)
+    if batch_axes:
+        n = RT.axis_size(tuple(batch_axes))
+        f = RT.psum(occupancy, tuple(batch_axes)) / max(experts.numel() * n,
+                                                        1)
+        P = RT.psum(probs.sum(dim=0), tuple(batch_axes)) / (
+            probs.shape[0] * n)
+    else:
+        f = occupancy / max(experts.numel(), 1)
+        P = probs.mean(dim=0)
     return n_experts * torch.sum(f[:n_experts] * P[:n_experts])
 
 
@@ -122,7 +131,8 @@ def _pack_by(dest, payload: Dict[str, torch.Tensor], n_buckets: int,
     return packed, slot_src, dropped
 
 
-def moe_map_local(x2d, w, *, cfg, axis_name: str = "model"):
+def moe_map_local(x2d, w, *, cfg, axis_name: str = "model",
+                  batch_axes=()):
     """The expert-parallel MoE, per rank (``repro`` calls it inside
     ``shard_map``). x2d: ``(T, D)``, the same tokens on every rank of
     ``axis_name``; the experts of ``w`` (``wi``, ``wg``, ``wo``) are this
@@ -136,7 +146,10 @@ def moe_map_local(x2d, w, *, cfg, axis_name: str = "model"):
     bring the weighted rows, token ids and the slot mask home; a
     scatter-add into the token rows and a ``psum`` over the axis combine
     them. Returns ``(out (T, D), aux, n_dropped)``, the last two the same
-    on every rank (``aux`` this rank's router loss, as ``repro``)."""
+    on every rank (``aux`` this rank's router loss, as ``repro``; over
+    the whole batch with ``batch_axes``, as :func:`load_balance_loss`).
+    Differentiable: the exchanges carry their adjoints
+    (``core/runtime.py``)."""
     tp = RT.axis_size(axis_name)
     me = RT.axis_index(axis_name)
     T, D = x2d.shape
@@ -147,7 +160,7 @@ def moe_map_local(x2d, w, *, cfg, axis_name: str = "model"):
 
     gates, experts, probs = router_probs(x2d, w["router"], top_k=k,
                                          n_real=cfg.n_experts)
-    aux = load_balance_loss(probs, experts, cfg.n_experts)
+    aux = load_balance_loss(probs, experts, cfg.n_experts, batch_axes)
 
     n_total = T * k
     n_mine = -(-n_total // tp)
@@ -220,21 +233,25 @@ def moe_map_local(x2d, w, *, cfg, axis_name: str = "model"):
     return out, aux, n_dropped
 
 
-def moe_dense(x2d, w, *, cfg):
+def moe_dense(x2d, w, *, cfg, first: int = 0, batch_axes=()):
     """The dropless dense oracle: every real expert runs on every token,
     weighted by its gate (0 where it is not in the token's top-k).
-    Returns ``(out, aux, 0)``."""
+    Returns ``(out, aux, 0)``. ``first``: the global index of ``w``'s
+    first expert when ``w`` holds a block of them (``router`` whole);
+    ``out`` is then this block's share. ``batch_axes`` as in
+    :func:`load_balance_loss`."""
     E = cfg.n_experts
     k = cfg.top_k
     gates, experts, probs = router_probs(x2d, w["router"], top_k=k,
                                          n_real=E)
-    aux = load_balance_loss(probs, experts, E)
+    aux = load_balance_loss(probs, experts, E, batch_axes)
     out = torch.zeros_like(x2d)
-    for e in range(E):
-        h = expert_ffn({"wi": w["wi"][e:e + 1],
+    for j in range(min(w["wi"].shape[0], E - first)):
+        e = first + j
+        h = expert_ffn({"wi": w["wi"][j:j + 1],
                         "wg": None if w.get("wg") is None
-                        else w["wg"][e:e + 1],
-                        "wo": w["wo"][e:e + 1]}, x2d[None], cfg.act)[0]
+                        else w["wg"][j:j + 1],
+                        "wo": w["wo"][j:j + 1]}, x2d[None], cfg.act)[0]
         gate_e = torch.where(experts == e, gates,
                              torch.zeros((), device=gates.device)).sum(-1)
         out = out + h * gate_e[:, None].to(h.dtype)

@@ -7,8 +7,12 @@ XLA fuses it. Here the update runs leaf by leaf and, within a leaf, in
 flat chunks of :data:`CHUNK` elements, writing the parameters and the
 moments IN PLACE: the stacked ``wi`` of llama3.2-3b alone is 704M
 elements, and fp32 temporaries of the whole tree would take many GB of
-the card. Every element sees ``repro``'s arithmetic. ``repro``'s ZeRO
-sharding of the moments waits for the sharded stack (ROADMAP A16f).
+the card. Every element sees ``repro``'s arithmetic.
+
+Sharded (a ctx in ``training/train.py``): the moments are local like
+their parameters (``repro``'s ``o_shard = p_shard``), the update is
+local, and :func:`global_norm` sums each leaf's squares over the mesh
+axes that shard it, so a replicated leaf counts once.
 """
 from __future__ import annotations
 
@@ -65,22 +69,50 @@ def _chunks(t):
     return t.view(-1).split(CHUNK)
 
 
-def global_norm(tree):
-    """sqrt of the sum of squares of every leaf, each squared in fp32."""
+def global_norm(tree, specs=None, ctx=None):
+    """sqrt of the sum of squares of every leaf, each squared in fp32.
+    With ``specs`` (a tree of the leaves' specs) and a ctx the leaves are
+    this rank's blocks: the squares of the leaves sharded over the same
+    axes are summed, then ``psum``'d over those axes (one ``psum`` per
+    set of axes), so each element counts once."""
+    leaves = TREE.flatten(tree)[0]
+    if ctx is None or specs is None:
+        groups = {(): leaves}
+    else:
+        from repro_torch.sharding import specs as SP
+        groups = {}
+        for leaf, spec in zip(leaves, _spec_leaves(specs)):
+            axes = tuple(a for e in spec for a in SP.flat_axes(e))
+            groups.setdefault(axes, []).append(leaf)
     total = None
-    for leaf in TREE.flatten(tree)[0]:
-        s = sum((c.to(torch.float32).square().sum()
-                 for c in leaf.reshape(-1).split(CHUNK)),
-                torch.zeros((), device=leaf.device))
-        total = s if total is None else total + s
+    for axes, group in groups.items():
+        part = None
+        for leaf in group:
+            s = sum((c.to(torch.float32).square().sum()
+                     for c in leaf.reshape(-1).split(CHUNK)),
+                    torch.zeros((), device=leaf.device))
+            part = s if part is None else part + s
+        if axes:
+            from repro_torch.core import runtime as RT
+            with ctx.active():
+                part = RT.psum(part, axes)
+        total = part if total is None else total + part
     return torch.sqrt(total)
 
 
+def _spec_leaves(specs):
+    """The specs of a spec tree in ``tree.flatten`` order (sorted keys)."""
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in _spec_leaves(specs[k])]
+    return [specs]
+
+
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, specs=None, ctx=None):
     """Scale every gradient by ``min(1, max_norm / max(norm, 1e-9))`` in
-    fp32, back in its dtype, IN PLACE. Returns ``(grads, norm)``."""
-    norm = global_norm(grads)
+    fp32, back in its dtype, IN PLACE. Returns ``(grads, norm)``
+    (``specs``, ``ctx`` as in :func:`global_norm`)."""
+    norm = global_norm(grads, specs, ctx)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in TREE.flatten(grads)[0]:
         for c in (_chunks(g) if g.is_contiguous() else [g]):

@@ -6,13 +6,30 @@ dense, moe, ssm and hybrid kinds.
 They run where their inputs are: the card unless the caller passes CPU
 tensors. ``backend`` is ``layers.attention_layer``'s: ``"auto"`` sends the
 prefill's attention to kernel B5 for CUDA tensors.
+
+With a sharding ``ctx`` they run SPMD on every rank of its mesh: params,
+caches and batch are this rank's blocks (``models/transformer.py``), and
+so are the logits (its batch rows and ``vocab`` columns,
+``transformer.logits_spec``). The greedy pick over a sharded vocab is
+the first index of the maximum over the whole row, as ``torch.argmax``
+gives it: a ``pmax`` of the local maxima, then a ``pmin`` of the global
+indices that reach it.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import runtime as RT
 from repro_torch.models import transformer as T
+from repro_torch.sharding import specs as SP
+
+
+def _batch_shards(ctx) -> int:
+    return 1 if ctx is None else math.prod(
+        ctx.sizes[a] for a in ctx.batch_axes())
 
 
 def make_prefill_step(cfg: ModelConfig, s_max: int, ctx=None, *,
@@ -21,17 +38,18 @@ def make_prefill_step(cfg: ModelConfig, s_max: int, ctx=None, *,
     ``batch["tokens"]`` is (B, S), with ``"enc_embed"`` (encdec) or
     ``"img_embed"`` (vlm); the caches are zeroed inside, on the tokens'
     device. Raises ValueError when ``S > s_max`` (the prompt does
-    not fit the cache), before any cache is written."""
+    not fit the cache), before any cache is written. With a ctx the
+    caches are this rank's blocks for the whole batch."""
     T._check(cfg, ctx)
 
     def prefill(params, batch):
         tokens = batch["tokens"]
         _check_fits(tokens.shape[1], s_max, "the prompt")
-        caches = T.init_caches(cfg, tokens.shape[0], s_max,
-                               device=tokens.device)
-        hidden, _, caches = T.forward(params, batch, cfg, caches=caches,
+        caches = T.init_caches(cfg, tokens.shape[0] * _batch_shards(ctx),
+                               s_max, ctx, device=tokens.device)
+        hidden, _, caches = T.forward(params, batch, cfg, ctx, caches=caches,
                                       backend=backend)
-        logits = T.logits_from_hidden(params, hidden[:, -1:], cfg)
+        logits = T.logits_from_hidden(params, hidden[:, -1:], cfg, ctx)
         return logits, caches
 
     return prefill
@@ -55,11 +73,29 @@ def make_decode_step(cfg: ModelConfig, ctx=None, *, backend: str = "auto"):
 
     def decode(params, caches, batch):
         cache_len = batch["position"] + 1
-        hidden, _, caches = T.forward(params, batch, cfg, caches=caches,
+        hidden, _, caches = T.forward(params, batch, cfg, ctx, caches=caches,
                                       cache_len=cache_len, backend=backend)
-        return T.logits_from_hidden(params, hidden, cfg), caches
+        return T.logits_from_hidden(params, hidden, cfg, ctx), caches
 
     return decode
+
+
+def greedy_pick(logits, cfg: ModelConfig, ctx=None):
+    """The greedy token of each row of ``logits`` ``(B, V)``: its argmax,
+    the first index of the maximum. With a ctx, the logits are this
+    rank's ``vocab`` columns and the pick is over the whole row."""
+    if ctx is None:
+        return torch.argmax(logits, dim=-1)
+    v_ax = T.logits_spec(cfg, ctx)[2]
+    if v_ax is None:
+        return torch.argmax(logits, dim=-1)
+    axes = SP.flat_axes(v_ax)
+    with ctx.active():
+        val, idx = logits.amax(dim=-1), torch.argmax(logits, dim=-1)
+        top = RT.pmax(val, axes)
+        idx = idx + SP.block_index(v_ax) * logits.shape[-1]
+        cand = torch.where(val == top, idx, torch.full_like(idx, cfg.vocab))
+        return RT.pmin(cand, axes)
 
 
 def stub_embeddings(cfg: ModelConfig, batch):
@@ -86,7 +122,8 @@ def greedy_generate(cfg, params, prompt, n_steps: int, s_max: int, ctx=None,
     last decode step writes cache position ``S + n_steps − 2``, so
     ``S + n_steps − 1 > s_max`` raises ValueError before any work. An
     encdec or vlm model gets zero frame or patch embeddings in the compute
-    dtype, as ``repro``'s loop (its frontends are stubs)."""
+    dtype, as ``repro``'s loop (its frontends are stubs). With a ctx,
+    ``prompt`` is this rank's batch rows and so are the tokens."""
     S = prompt.shape[1]
     _check_fits(S + max(n_steps, 1) - 1, s_max,
                 f"{n_steps} new tokens after a {S}-token prompt")
@@ -94,13 +131,13 @@ def greedy_generate(cfg, params, prompt, n_steps: int, s_max: int, ctx=None,
     decode = make_decode_step(cfg, ctx, backend=backend)
     B = prompt.shape[0]
     logits, caches = prefill(params, stub_embeddings(cfg, {"tokens": prompt}))
-    tok = torch.argmax(logits[:, -1], dim=-1)
+    tok = greedy_pick(logits[:, -1], cfg, ctx)
     out = [tok]
     pos = torch.full((B,), S, dtype=torch.int64, device=prompt.device)
     for _ in range(n_steps - 1):
         logits, caches = decode(params, caches,
                                 {"tokens": tok[:, None], "position": pos})
-        tok = torch.argmax(logits[:, -1], dim=-1)
+        tok = greedy_pick(logits[:, -1], cfg, ctx)
         out.append(tok)
         pos = pos + 1
     return torch.stack(out, dim=1)

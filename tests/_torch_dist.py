@@ -1471,6 +1471,373 @@ def repro_comm_reference(out: str) -> None:
     pathlib.Path(out).write_text(json.dumps(res, indent=1))
 
 
+# --- the sharded LM stack (tests/test_torch_dist_lm.py) -------------------
+LM_ARCHS = ("llama3.2-3b", "gemma-2b", "qwen2-moe-a2.7b", "mamba2-780m",
+            "jamba-1.5-large-398b", "whisper-medium", "llama-3.2-vision-11b")
+LM_MESHES = ((1, 4), (2, 2))
+#: batch, prompt, cache rows, new tokens: gemma's 16 rows are 4 a rank at
+#: tp 4, and 6 + 8 tokens cross the shard boundaries at rows 8 and 12
+LM_B, LM_S, LM_SMAX, LM_NEW = 4, 6, 16, 8
+LM_TRAIN = ("llama3.2-3b", "qwen2-moe-a2.7b")
+LM_TRAIN_MESH = (2, 2)
+LM_TRAIN_S = 8
+LM_SEQ_MESH = (1, 4)     # the sequence-parallel attention's mesh
+LM_AXES = ("data", "model")
+
+
+def lm_case(arch: str):
+    """``(cfg, params, prompt, stubs, train_batch)`` of ``arch``'s REDUCED
+    model, all torch on the CPU from seeded generators: the parameters,
+    an ``(LM_B, LM_S)`` prompt, seeded 0.1·N(0, 1) stub embeddings (zeros
+    would make every cross-attention zero) and a training batch of
+    ``LM_TRAIN_S`` tokens and their targets."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    cfg = registry.get_config(arch, reduced=True)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    g = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (LM_B, LM_S), generator=g)
+    stubs = {}
+    if cfg.kind == "encdec":
+        stubs["enc_embed"] = 0.1 * torch.randn(
+            (LM_B, cfg.enc_seq, cfg.d_model), generator=g)
+    if cfg.kind == "vlm":
+        stubs["img_embed"] = 0.1 * torch.randn(
+            (LM_B, cfg.n_img_tokens, cfg.vision_dim), generator=g)
+    toks = torch.randint(0, cfg.vocab, (LM_B, LM_TRAIN_S + 1), generator=g)
+    train = dict(stubs, tokens=toks[:, :-1], targets=toks[:, 1:])
+    return cfg, params, prompt, stubs, train
+
+
+def lm_ctx(cfg, mesh, mode: str, seq_len: int, *, fsdp: bool = False):
+    """A ShardingContext with the dry-run's rules for a ``mode`` cell of
+    ``LM_B`` rows and ``seq_len`` positions on ``mesh``."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.sharding import specs as SP
+    shape = ShapeConfig(mode, seq_len, LM_B, mode)
+    return SP.ShardingContext.create(
+        mesh, DR.effective_rules(cfg, mesh, shape), fsdp=fsdp)
+
+
+def lm_serve_run(cfg, params, prompt, stubs, ctx=None):
+    """The serve path of one model, sharded (``ctx``: this rank's blocks
+    in, the whole results out) or not: the one-shot forward's logits
+    ``fwd`` (B, S, V), the prefill's last logits ``pre``, the greedy
+    tokens ``tok`` of prefill + LM_NEW - 1 decode steps from the seeded
+    stubs with each step's logits ``dec`` (steps, B, V), and
+    ``greedy_generate``'s tokens ``gen`` (zero stubs, as ``repro``)."""
+    import torch
+    from repro_torch.core import runtime as RT
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import specs as SP
+    from repro_torch.training import serve as S
+    rows = slice(None)
+    lp = params
+    if ctx is not None:
+        with ctx.active():
+            rows = SP.local_slices((LM_B,), (ctx.axis("batch"),),
+                                   ctx.mesh)[0]
+        lp = SP.shard_tree(params, T.params_logical(cfg), ctx,
+                           T.param_specs(cfg, ctx)[0])
+
+    def whole(logits):
+        if ctx is None:
+            return logits
+        with ctx.active():
+            return SP.gather_block(logits, T.logits_spec(cfg, ctx))
+
+    def whole_rows(t):
+        if ctx is None or ctx.axis("batch") is None:
+            return t
+        with ctx.active():
+            return RT.all_gather(t, SP.flat_axes(ctx.axis("batch")), axis=0,
+                                 tiled=True)
+
+    batch = {k: v[rows] for k, v in dict(stubs, tokens=prompt).items()}
+    with torch.no_grad():
+        hidden, _, _ = T.forward(lp, batch, cfg, ctx, backend="torch")
+        out = {"fwd": whole(T.logits_from_hidden(lp, hidden, cfg, ctx))}
+        logits, caches = S.make_prefill_step(cfg, LM_SMAX, ctx)(lp, batch)
+        out["pre"] = whole(logits)[:, -1]
+        decode = S.make_decode_step(cfg, ctx)
+        tok = S.greedy_pick(logits[:, -1], cfg, ctx)
+        toks, decs = [tok], []
+        pos = torch.full((tok.shape[0],), LM_S, dtype=torch.int64)
+        for _ in range(LM_NEW - 1):
+            logits, caches = decode(lp, caches, {"tokens": tok[:, None],
+                                                 "position": pos})
+            decs.append(whole(logits)[:, -1])
+            tok = S.greedy_pick(logits[:, -1], cfg, ctx)
+            toks.append(tok)
+            pos = pos + 1
+        out["tok"] = whole_rows(torch.stack(toks, 1))
+        out["dec"] = torch.stack(decs)
+        out["gen"] = whole_rows(S.greedy_generate(
+            cfg, lp, prompt[rows], LM_NEW, LM_SMAX, ctx))
+    return {k: v.numpy() for k, v in out.items()}
+
+
+LM_OPT = dict(lr=1e-3, warmup_steps=0)
+
+
+def lm_train_run(cfg, params, batch, ctx=None, grads=None):
+    """One training step, sharded or not: the gradients ``g/<path>`` and
+    the parameters after one AdamW step ``p/<path>`` (whole), the loss
+    and the gradient norm. With ``grads`` (whole, the same on every
+    rank): the parameters after the clip and one AdamW update from those
+    gradients, ``u/<path>``, and their norm ``u_norm``: the update alone,
+    free of the gradients' last-bit differences (Adam's first step
+    divides a gradient by its own magnitude)."""
+    import torch
+    from repro_torch import tree as TREE
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import specs as SP
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train as TR
+    lp, rows, specs = params, slice(None), None
+    if ctx is not None:
+        specs = T.param_specs(cfg, ctx)[0]
+        with ctx.active():
+            rows = SP.local_slices((LM_B,), (ctx.axis("batch"),),
+                                   ctx.mesh)[0]
+        lp = SP.shard_tree(params, T.params_logical(cfg), ctx, specs)
+    batch = {k: v[rows] for k, v in batch.items()}
+
+    def whole(tree):
+        if ctx is None:
+            return tree
+        with ctx.active():
+            return SP.tree_map2(lambda sp, x: SP.gather_block(x, sp),
+                                specs, tree, is_leaf=SP.is_spec)
+
+    (loss, _), got = TR.make_grad_fn(cfg, ctx)(lp, batch)
+    out = {f"g{k}": v for k, v in TREE.flatten_with_path(whole(got))[0]}
+    opt = O.OptConfig(**LM_OPT)
+    p1 = TREE.tree_map(torch.clone, lp)
+    p1, _, m = TR.make_train_step(cfg, opt, ctx)(p1, O.init_opt_state(p1,
+                                                                     opt),
+                                                 batch)
+    out.update({f"p{k}": v for k, v in
+                TREE.flatten_with_path(whole(p1))[0]})
+    out.update(loss=loss, grad_norm=m["grad_norm"], step_loss=m["loss"])
+    if grads is not None:
+        g = grads if ctx is None else SP.shard_tree(
+            grads, T.params_logical(cfg), ctx, specs)
+        p2 = TREE.tree_map(torch.clone, lp)
+        g, norm = O.clip_by_global_norm(TREE.tree_map(torch.clone, g),
+                                        opt.clip_norm, specs=specs, ctx=ctx)
+        O.adamw_update(p2, g, O.init_opt_state(p2, opt), opt)
+        out.update({f"u{k}": v for k, v in
+                    TREE.flatten_with_path(whole(p2))[0]})
+        out["u_norm"] = norm
+    return {k: v.detach().numpy() for k, v in out.items()}
+
+
+def lm_shard(mesh, rank, world, archs, meshes):
+    """The serve path of every arch of ``archs`` on each mesh shape of
+    ``meshes`` (dry-run rules of a prefill cell and of a decode cell of
+    LM_SMAX rows), and one training step of LM_TRAIN on LM_TRAIN_MESH
+    with FSDP weights; keys ``serve/<arch>/<mesh>/<mode>/<name>``,
+    ``train/<arch>/<name>``, and ``moe/<mesh>/<mode>/{calls,dropped}``
+    (the ``moe_map_local`` calls of qwen2-moe's serve run)."""
+    from repro_torch.core import runtime as RT
+    from repro_torch.models import moe as TMOE
+    calls = []
+    real = TMOE.moe_map_local
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        calls.append(int(out[2]))
+        return out
+
+    TMOE.moe_map_local = spy
+    out = {}
+    for shape in meshes:
+        m = RT.make_mesh(tuple(shape), LM_AXES, device_type="cpu")
+        tag = "x".join(map(str, shape))
+        for arch in archs:
+            cfg, params, prompt, stubs, _ = lm_case(arch)
+            for mode, seq in (("prefill", LM_S), ("decode", LM_SMAX)):
+                calls.clear()
+                got = lm_serve_run(cfg, params, prompt, stubs,
+                                   lm_ctx(cfg, m, mode, seq))
+                out.update({f"serve/{arch}/{tag}/{mode}/{k}": v
+                            for k, v in got.items()})
+                if cfg.kind == "moe":
+                    out[f"moe/{tag}/{mode}/calls"] = np.int64(len(calls))
+                    out[f"moe/{tag}/{mode}/dropped"] = np.int64(sum(calls))
+    m = RT.make_mesh(LM_TRAIN_MESH, LM_AXES, device_type="cpu")
+    for arch in LM_TRAIN:
+        cfg, params, _, _, batch = lm_case(arch)
+        from repro_torch.training import train as TR
+        _, grads = TR.make_grad_fn(cfg)(params, batch)
+        got = lm_train_run(cfg, params, batch,
+                           lm_ctx(cfg, m, "train", LM_TRAIN_S, fsdp=True),
+                           grads)
+        out.update({f"train/{arch}/{k}": v for k, v in got.items()})
+    # repro's sequence-parallel schedule: attention's queries over "model"
+    cfg, params, _, _, batch = lm_case(LM_TRAIN[0])
+    qcfg = dataclasses.replace(cfg, attn_q_parallel=True, attn_block_q=4)
+    m = RT.make_mesh(LM_SEQ_MESH, LM_AXES, device_type="cpu")
+    # the heads stay whole, as where repro sets the rule (heads % tp)
+    rules = dict(lm_ctx(qcfg, m, "train", LM_TRAIN_S).rules_dict,
+                 attn_seq="model", heads=None, kv_heads=None)
+    from repro_torch.sharding import specs as SP
+    got = lm_train_run(qcfg, params, batch, SP.ShardingContext.create(
+        m, rules))
+    out.update({f"qpar/{k}": v for k, v in got.items()})
+    out.update(qpar_prefill_b5(qcfg, params, batch["tokens"],
+                               SP.ShardingContext.create(m, rules)))
+    TMOE.moe_map_local = real
+    return out
+
+
+def qpar_prefill_b5(cfg, params, tokens, ctx):
+    """The sequence-parallel schedule's prefill on the card's route, shown
+    on the CPU: the layer's backend forced to "cuda" and B5's wrapper
+    (its plain version on these CPU tensors) spied on. Keys ``qpar/pre``
+    (the whole last logits) and ``qpar/b5`` (one ``(causal, q_offset,
+    rows)`` row per B5 call on this rank)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import ops as FOPS
+    from repro_torch.models import layers as TL
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import specs as SP
+    from repro_torch.training import serve as S
+    calls, real_mha, real_backend = [], FOPS.mha, TL.resolve_backend
+
+    def mha_spy(q, k, v, *, causal=True, q_offset=0):
+        calls.append((int(causal), int(q_offset), q.shape[1]))
+        return real_mha(q, k, v, causal=causal, q_offset=q_offset)
+
+    FOPS.mha = mha_spy
+    TL.resolve_backend = lambda backend, x: ("cuda" if backend == "auto"
+                                             else real_backend(backend, x))
+    try:
+        with ctx.active():
+            rows = SP.local_slices((LM_B,), (ctx.axis("batch"),),
+                                   ctx.mesh)[0]
+        lp = SP.shard_tree(params, T.params_logical(cfg), ctx,
+                           T.param_specs(cfg, ctx)[0])
+        with torch.no_grad():
+            logits, _ = S.make_prefill_step(cfg, LM_SMAX, ctx)(
+                lp, {"tokens": tokens[rows]})
+        with ctx.active():
+            pre = SP.gather_block(logits, T.logits_spec(cfg, ctx))
+    finally:
+        FOPS.mha, TL.resolve_backend = real_mha, real_backend
+    return {"qpar/pre": pre.numpy(),
+            "qpar/b5": np.array(calls, np.int64).reshape(-1, 3)}
+
+
+def repro_lm_reference(out: str) -> None:
+    """repro's one-shot forward logits (B, S, V) of the dense and moe
+    archs of LM_TRAIN under a ShardingContext on 4 of the forced host
+    devices, for each of LM_MESHES (the prefill rules of the port's
+    dry-run, which are repro's), on the port's parameters as numpy."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import registry as JR
+    from repro.core import runtime as JRT
+    from repro.models import transformer as JT
+    from repro.sharding import specs as JSP
+    from repro_torch.core import runtime as RT
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.configs.base import ShapeConfig
+
+    def np_tree(t):
+        if isinstance(t, dict):
+            return {k: np_tree(v) for k, v in t.items()}
+        return jnp.asarray(t.numpy())
+
+    res = {}
+    for arch in LM_TRAIN:
+        _, params, prompt, _, _ = lm_case(arch)
+        cfg = JR.get_config(arch, reduced=True)
+        jp = np_tree(params)
+        for shape in LM_MESHES:
+            mesh = JRT.make_mesh(shape, LM_AXES, devices=jax.devices()[:4])
+            rules = DR.effective_rules(
+                cfg, RT.make_dry_mesh(shape, LM_AXES),
+                ShapeConfig("prefill", LM_S, LM_B, "prefill"))
+            ctx = JSP.ShardingContext.create(mesh, rules)
+
+            def fwd(p, toks, ctx=ctx, cfg=cfg):
+                h, _, _ = JT.forward(p, {"tokens": toks}, cfg, ctx)
+                return JT.logits_from_hidden(p, h, cfg, ctx)
+
+            tag = "x".join(map(str, shape))
+            res[f"{arch}/{tag}"] = np.asarray(jax.jit(fwd)(
+                jp, jnp.asarray(prompt.numpy().astype(np.int32))))
+    np.savez(out, **res)
+
+
+def repro_spec_dump(out: str) -> None:
+    """repro's layout of every ``registry.cells()`` cell on both
+    production meshes, as ``launch/dryrun.build_cell`` makes it (its
+    rules, its FSDP choice): each parameter's and (prefill, decode) each
+    cache leaf's PartitionSpec, shape and itemsize, and the inputs'
+    shapes and itemsizes; JSON to ``out``. Importing repro's dryrun
+    forces 512 host devices: run only in a process of its own."""
+    from repro.launch import dryrun as DR
+    import jax
+    from repro.configs import registry
+    from repro.configs.base import SHAPES, input_specs
+    from repro.launch.mesh import make_production_mesh
+    from repro.models import transformer as JT
+
+    def spec(sh):
+        return [None if e is None else (e if isinstance(e, str) else list(e))
+                for e in tuple(sh.spec)]
+
+    def leaves(shard_tree, shape_tree):
+        out = {}
+        for path, sh in jax.tree_util.tree_leaves_with_path(shard_tree):
+            sds = shape_tree
+            for k in path:
+                sds = sds[k.key]
+            out[jax.tree_util.keystr(path)] = {
+                "spec": spec(sh), "shape": list(sds.shape),
+                "itemsize": int(sds.dtype.itemsize)}
+        return out
+
+    res = {}
+    p_shapes = {}
+    for kind in ("single", "multi"):
+        mesh = make_production_mesh(multi_pod=(kind == "multi"))
+        tp = dict(zip(mesh.axis_names, mesh.devices.shape)).get("model", 1)
+        for arch, shape_name in registry.cells():
+            cfg = registry.get_config(arch)
+            shape = SHAPES[shape_name]
+            rules = DR.effective_rules(cfg, mesh, shape)
+            if arch not in p_shapes:
+                p_shapes[arch] = jax.eval_shape(
+                    lambda: JT.init_params(cfg, jax.random.PRNGKey(0)))
+            ps = p_shapes[arch]
+            pbytes = sum(int(np.prod(x.shape)) * x.dtype.itemsize
+                         for x in jax.tree.leaves(ps))
+            fsdp = not (shape.mode == "decode" and pbytes / tp <= 4 * 2 ** 30)
+            rec = {"fsdp": fsdp, "rules": {k: v if not isinstance(v, tuple)
+                                           else list(v)
+                                           for k, v in rules.items()},
+                   "params": leaves(DR.param_shardings(cfg, mesh, rules, ps,
+                                                       fsdp=fsdp), ps),
+                   "inputs": {k: {"shape": list(v.shape),
+                                  "itemsize": int(v.dtype.itemsize)}
+                              for k, v in input_specs(cfg, shape).items()}}
+            if shape.mode != "train":
+                cs = jax.eval_shape(lambda: JT.init_caches(
+                    cfg, shape.global_batch, shape.seq_len))
+                rec["caches"] = leaves(DR.cache_shardings(cfg, mesh, rules,
+                                                          cs), cs)
+            res[f"{kind}/{arch}/{shape_name}"] = rec
+    pathlib.Path(out).write_text(json.dumps(res))
+
+
 def exchange_cost(step, st, n: int, what: str):
     """``n`` steps of ``step`` under the collective ledger
     (``launch/comm_analysis``) and torch.profiler, on every rank: each
@@ -1791,6 +2158,312 @@ def nccl_fleet_pencil() -> None:
     torch.distributed.destroy_process_group()
 
 
+def _device_ms(fn, n: int) -> float:
+    """Device time a call of ``fn`` (torch.profiler: every kernel's
+    self time, NCCL's included), over ``n`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    tot = 0.0
+    for e in prof.key_averages():
+        tot += getattr(e, "self_device_time_total", None) \
+            or getattr(e, "self_cuda_time_total", 0.0)
+    return tot / 1e3 / n
+
+
+def nccl_lm() -> None:
+    """The sharded LM stack on every rank of the process group (one card a
+    rank, NCCL; 4 under torchrun), each part against one card (every
+    rank runs the one-card reference on its own card from the same seeded
+    generator): llama3.2-3b FULL fp32 at (1, world) (prefill logits within
+    1e-4 relative, 16 greedy tokens equal), and again under repro's
+    sequence-parallel attention (``attn_q_parallel``, the queries over
+    "model": B5 on each rank's rows at their offset); gemma-2b FULL fp32
+    at (1, world), s_max 1024, decoding past its first cache shard (each
+    step's
+    logits within 1e-4); qwen2-moe-a2.7b FULL bf16 through
+    ``moe_map_local`` at capacity factor 8 against the dense oracle (the
+    logits within 5e-2, nothing dropped, the share of equal tokens, and
+    the decode step's device time); jamba-1.5-large's 2-layer
+    full-width cut against one card, then one FULL 8-layer period, too big
+    for one card, drawn as blocks on each rank: prefill and 16 decode
+    steps; one training step of llama3.2-3b's 2-layer fp32 cut at (2,
+    world / 2) with FSDP weights (gradients within 1e-4, the AdamW update
+    from the same gradients within 1e-6). Each serving part counts one
+    B5 launch per attention layer on a rank's prefill. Raises on a
+    mismatch."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import registry as R
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import runtime as RT
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import specs as SP
+    from repro_torch.training import serve as S
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = RT.device_count()
+    m1w = RT.make_mesh((1, world), LM_AXES, device_type="cuda")
+    m22 = RT.make_mesh((2, world // 2) if world % 2 == 0 else (1, world),
+                       LM_AXES, device_type="cuda")
+    rank = dist.get_rank()
+
+    def say(msg):
+        if rank == 0:
+            print(msg, flush=True)
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    def ctx_for(cfg, mesh, mode, seq, B, fsdp=False):
+        return SP.ShardingContext.create(mesh, DR.effective_rules(
+            cfg, mesh, ShapeConfig(mode, seq, B, mode)), fsdp=fsdp)
+
+    def stream(cfg, params, prompt, toks, s_max, ctx=None):
+        """Prefill logits and each decode step's, feeding ``toks``."""
+        with torch.no_grad():
+            lg, caches = S.make_prefill_step(cfg, s_max, ctx)(
+                params, {"tokens": prompt})
+            out = [lg[:, -1]]
+            dec = S.make_decode_step(cfg, ctx)
+            pos = torch.full((prompt.shape[0],), prompt.shape[1],
+                             dtype=torch.int64, device="cuda")
+            for i in range(toks.shape[1] - 1):
+                lg, caches = dec(params, caches, {"tokens": toks[:, i:i + 1],
+                                                  "position": pos + i})
+                out.append(lg[:, -1])
+        if ctx is not None:
+            spec = T.logits_spec(cfg, ctx)
+            with ctx.active():
+                out = [SP.gather_block(o, spec[:1] + spec[2:]) for o in out]
+        return torch.stack(out, 1).float()
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    b5 = {}
+
+    def compare(tag, arch, mesh, B, S0, s_max, n_new, tol, rules=None,
+                **over):
+        """``arch`` with ``over`` sharded on ``mesh`` (the decode rules,
+        ``rules`` over them) against one card; ``b5["n"]``: the B5
+        launches of a rank's prefill."""
+        cfg = dataclasses.replace(R.get_config(arch), **over)
+        params = T.init_params(cfg, gen(0), "cuda")
+        prompt = torch.randint(0, cfg.vocab, (B, S0), device="cuda",
+                               generator=gen(1))
+        with torch.no_grad():
+            ref_tok = S.greedy_generate(cfg, params, prompt, n_new, s_max)
+        ref = stream(cfg, params, prompt, ref_tok, s_max)
+        ctx = ctx_for(cfg, mesh, "decode", s_max, B)
+        if rules:
+            ctx = SP.ShardingContext.create(mesh, dict(ctx.rules_dict,
+                                                       **rules))
+        lp = SP.shard_tree(params, T.params_logical(cfg), ctx,
+                           T.param_specs(cfg, ctx)[0])
+        del params
+        torch.cuda.empty_cache()
+        FA.LAUNCHES = 0
+        with torch.no_grad():
+            tok = S.greedy_generate(cfg, lp, prompt, n_new, s_max, ctx)
+        b5["n"] = FA.LAUNCHES
+        got = stream(cfg, lp, prompt, ref_tok, s_max, ctx)
+        err = rel(got, ref)
+        same = float((tok == ref_tok).float().mean())
+        say(f"{tag}: {arch} {cfg.param_dtype} at {tuple(mesh.shape)}, "
+            f"{B} x {S0} prompt, s_max {s_max}, {n_new} tokens: logits "
+            f"(prefill and every decode step) rel {err:.3e} of one card "
+            f"(tol {tol:g}); greedy tokens equal {same:.4f}; {b5['n']} B5 "
+            f"launches on a rank's prefill (rules kv_seq "
+            f"{ctx.rules_dict['kv_seq']!r})")
+        return cfg, lp, ctx, prompt, ref_tok, tok, err, same
+
+    # llama3.2-3b FULL fp32 at (1, world)
+    cfg, *_, err, same = compare("lm-a", "llama3.2-3b", m1w, 4, 256, 288,
+                                 16, 1e-4, param_dtype="float32",
+                                 compute_dtype="float32")
+    assert err <= 1e-4 and same == 1.0 and b5["n"] == \
+        T.n_attention_layers(cfg), (err, same, b5)
+    torch.cuda.empty_cache()
+    # the same with repro's sequence-parallel attention (attn_q_parallel,
+    # the queries over "model", the heads whole): B5 takes each rank's
+    # 64 rows at their offset
+    cfg, *_, err, same = compare(
+        "lm-g", "llama3.2-3b", m1w, 4, 256, 288, 16, 1e-4,
+        rules=dict(attn_seq="model", heads=None, kv_heads=None),
+        param_dtype="float32", compute_dtype="float32",
+        attn_q_parallel=True, attn_block_q=64)
+    assert err <= 1e-4 and same == 1.0 and b5["n"] == \
+        T.n_attention_layers(cfg), (err, same, b5)
+    torch.cuda.empty_cache()
+    # gemma-2b FULL fp32, 256 cache rows a rank: decode crosses row 256
+    cfg, *_, err, same = compare("lm-b", "gemma-2b", m1w, 4, 250, 1024, 16,
+                                 1e-4, param_dtype="float32",
+                                 compute_dtype="float32")
+    assert err <= 1e-4 and same == 1.0 and b5["n"] == \
+        T.n_attention_layers(cfg), (err, same, b5)
+    torch.cuda.empty_cache()
+
+    # qwen2-moe FULL bf16 through moe_map_local, against the dense oracle
+    calls = []
+    real = MOE.moe_map_local
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        calls.append(out[2])
+        return out
+
+    MOE.moe_map_local = spy
+    # capacity 8 (repro's own map-vs-oracle test): the dropless oracle's
+    # function; at the config's 1.25 the prefill drops a few assignments
+    cfg, lp, ctx, prompt, ref_tok, tok, err, same = compare(
+        "lm-c", "qwen2-moe-a2.7b", m1w, 4, 32, 64, 16, 5e-2,
+        capacity_factor=8.0)
+    MOE.moe_map_local = real
+    dropped = int(sum(int(c) for c in calls))
+    # at world 1 the expert axis has one rank: repro's dense oracle
+    assert (bool(calls) == (world > 1) and dropped == 0 and err <= 5e-2
+            and b5["n"] == T.n_attention_layers(cfg)), (len(calls), dropped,
+                                                        err, b5)
+    say(f"lm-c: {len(calls)} moe_map_local calls, {dropped} dropped")
+    dec = S.make_decode_step(cfg, ctx)
+    with torch.no_grad():
+        _, caches = S.make_prefill_step(cfg, 64, ctx)(lp, {"tokens": prompt})
+    pos = torch.full((4,), 32, dtype=torch.int64, device="cuda")
+
+    def one():
+        with torch.no_grad():
+            dec(lp, caches, {"tokens": tok[:, :1], "position": pos})
+
+    one()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    dist.barrier()
+    t0.record()
+    for _ in range(5):
+        one()
+    t1.record()
+    torch.cuda.synchronize()
+    wall = t0.elapsed_time(t1) / 5
+    busy = _device_ms(one, 3)
+    say(f"lm-c: decode step at tp {world}, batch 4, position 32: "
+        f"{wall:.3f} ms (CUDA events, rank 0), device {busy:.3f} ms a step "
+        f"(profiler, rank 0; NCCL kernels waiting for peers included)")
+    del lp, caches
+    torch.cuda.empty_cache()
+
+    # jamba: the 2-layer full-width cut against one card, then one period
+    cfg, lp, *_, err, same = compare("lm-d", "jamba-1.5-large-398b", m1w, 4,
+                                     64, 96, 16, 5e-2, n_layers=2,
+                                     attn_every=2)
+    assert err <= 5e-2 and b5["n"] == T.n_attention_layers(cfg), (err, b5)
+    del lp
+    torch.cuda.empty_cache()
+    cfg = R.get_config("jamba-1.5-large-398b")
+    cfg = dataclasses.replace(cfg, n_layers=len(cfg.block_pattern()))
+    if world < 4:
+        say(f"lm-e: skipped: one FULL jamba period is 88 GB in bf16, "
+            f"{88 / world:.0f} GB a card on {world}")
+    else:
+        _jamba_period(cfg, m1w, ctx_for, gen, say, rank)
+    _lm_train_check(m22, ctx_for, gen, say)
+    dist.destroy_process_group()
+
+
+def _jamba_period(cfg, mesh, ctx_for, gen, say, rank):
+    """nccl_lm's lm-e: one FULL jamba period drawn as blocks, served."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.training import serve as S
+    ctx = ctx_for(cfg, mesh, "decode", 96, 4)
+    t_init = time.perf_counter()
+    lp = T.init_params(cfg, gen(2 + rank), "cuda", ctx=ctx)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t_init
+    nbytes = sum(t.numel() * t.element_size() for t in T.leaves(lp))
+    prompt = torch.randint(0, cfg.vocab, (4, 64), device="cuda",
+                           generator=gen(1))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        tok = S.greedy_generate(cfg, lp, prompt, 16, 96, ctx)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    assert tok.shape == (4, 16) and int(tok.min()) >= 0 \
+        and int(tok.max()) < cfg.vocab
+    say(f"lm-e: jamba-1.5-large FULL period ({cfg.n_layers} layers, "
+        f"{cfg.block_pattern()}), {cfg.param_dtype} at {tuple(mesh.shape)}: "
+        f"{nbytes / 1e9:.2f} GB of blocks a rank (drawn in {t_init:.1f} s), "
+        f"4 x 64 prompt + 16 tokens in {gen_s:.2f} s; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on rank 0")
+    del lp
+    torch.cuda.empty_cache()
+
+
+def _lm_train_check(m22, ctx_for, gen, say):
+    """nccl_lm's lm-f: llama3.2-3b's 2-layer fp32 cut at (2, world / 2)
+    with FSDP weights against one card."""
+    import dataclasses
+    import torch
+    from repro_torch import tree as TREE
+    from repro_torch.configs import registry as R
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import specs as SP
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train as TR
+    cfg = dataclasses.replace(R.get_config("llama3.2-3b"), n_layers=2,
+                              param_dtype="float32", compute_dtype="float32")
+    params = T.init_params(cfg, gen(7), "cuda")
+    toks = torch.randint(0, cfg.vocab, (4, 65), device="cuda",
+                         generator=gen(8))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    (loss, _), g = TR.make_grad_fn(cfg)(params, batch)
+    ctx = ctx_for(cfg, m22, "train", 64, 4, fsdp=True)
+    specs = T.param_specs(cfg, ctx)[0]
+    lp = SP.shard_tree(params, T.params_logical(cfg), ctx, specs)
+    with ctx.active():
+        rows = SP.local_slices((4,), (ctx.axis("batch"),), ctx.mesh)[0]
+    (loss_s, _), gs = TR.make_grad_fn(cfg, ctx)({k: v for k, v in lp.items()},
+                                              {k: v[rows] for k, v in
+                                               batch.items()})
+    with ctx.active():
+        gs = SP.tree_map2(lambda sp, x: SP.gather_block(x, sp), specs, gs,
+                          is_leaf=SP.is_spec)
+    pairs = list(zip(TREE.flatten(gs)[0], TREE.flatten(g)[0]))
+    gap = max(float((a - b).abs().max()) for a, b in pairs)
+    scale = max(float(b.abs().max()) for _, b in pairs)
+    opt = O.OptConfig(lr=1e-3, warmup_steps=0)
+    p_ref = TREE.tree_map(torch.clone, params)
+    g_ref, n_ref = O.clip_by_global_norm(TREE.tree_map(torch.clone, g),
+                                         opt.clip_norm)
+    O.adamw_update(p_ref, g_ref, O.init_opt_state(p_ref, opt), opt)
+    g_loc = SP.shard_tree(g, T.params_logical(cfg), ctx, specs)
+    g_loc, n_loc = O.clip_by_global_norm(g_loc, opt.clip_norm, specs=specs,
+                                         ctx=ctx)
+    O.adamw_update(lp, g_loc, O.init_opt_state(lp, opt), opt)
+    with ctx.active():
+        lp = SP.tree_map2(lambda sp, x: SP.gather_block(x, sp), specs, lp,
+                          is_leaf=SP.is_spec)
+    upd = max(float((a - b).abs().max()) for a, b in
+              zip(TREE.flatten(lp)[0], TREE.flatten(p_ref)[0]))
+    say(f"lm-f: training {cfg.name} 2-layer fp32 cut at "
+        f"{tuple(m22.shape)}, FSDP, batch 4 x 64: loss {float(loss_s):.6f} "
+        f"vs {float(loss):.6f}; gradients max abs gap {gap:.3e} of "
+        f"{scale:.3e} (tol 1e-4 of it); norm {float(n_loc):.6f} vs "
+        f"{float(n_ref):.6f}; AdamW update from the same gradients max "
+        f"gap {upd:.3e} (tol 1e-6)")
+    assert gap <= 1e-4 * scale and upd <= 1e-6, (gap, upd)
+    assert abs(float(loss_s) - float(loss)) <= 1e-4 * abs(float(loss))
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "--repro":
         repro_reference(*sys.argv[2:5])
@@ -1802,8 +2475,20 @@ if __name__ == "__main__":
         repro_pencil_reference(*sys.argv[2:6])
     elif sys.argv[1] == "--repro-comm":
         repro_comm_reference(sys.argv[2])
+    elif sys.argv[1] == "--repro-specs":
+        repro_spec_dump(sys.argv[2])
+    elif sys.argv[1] == "--repro-lm":
+        repro_lm_reference(sys.argv[2])
     elif sys.argv[1] == "--repro-moe-mamba":
         repro_moe_mamba_reference(*sys.argv[2:5])
+    elif sys.argv[1] == "--nccl-lm":
+        try:
+            nccl_lm()
+        except BaseException:
+            import traceback
+            traceback.print_exc(file=sys.stdout)
+            sys.stdout.flush()
+            raise
     elif sys.argv[1] == "--nccl-md":
         nccl_md()
     elif sys.argv[1] == "--nccl-reuse":

@@ -314,7 +314,8 @@ def test_roofline_without_artifacts(tmp_path, monkeypatch):
     monkeypatch.setattr(TRF, "ARTIFACTS", tmp_path / "none")
     assert TRF.load("single") == []
     assert TRF.pick_hillclimb("single") == []
-    assert "A16f" in TRF.skip_message("single")
+    assert "python -m repro_torch.launch.dryrun" in TRF.skip_message(
+        "single")
     assert TRF.table("single").startswith("(skipped: ")
     d = tmp_path / "dry" / "single"
     d.mkdir(parents=True)

@@ -118,6 +118,28 @@ def test_ragged_lengths_on_the_plain_path():
     np.testing.assert_allclose(np_(got), np_(tr(want)), rtol=0, atol=2e-5)
 
 
+@pytest.mark.parametrize("q_offset", [0, 23, 64])
+def test_q_offset_rows_match_repro_positions(q_offset):
+    """A run of query rows at ``q_offset`` (the sequence-parallel
+    prefill's rows): the plain version against repro's blocked_attention
+    with the rows' global positions, and against the same rows of one
+    call on every row; a negative offset raises."""
+    q, k, v = _qkv(2, 6, 3, q_offset + 40, 128, 16, seed=7 + q_offset)
+    _, ts = _both((q, k, v), False)
+    rows = ts[0][:, :, q_offset:]
+    got = TK.flash_attention(rows, ts[1], ts[2], q_offset=q_offset)
+    tr = lambda a: jnp.transpose(jnp.asarray(a), (0, 2, 1, 3))
+    pos = jnp.arange(q_offset, q_offset + 40)[None].repeat(2, 0)
+    want = JL.blocked_attention(tr(q[:, :, q_offset:]), tr(k), tr(v),
+                                causal=True, q_positions=pos, block_q=16,
+                                block_k=32)
+    np.testing.assert_allclose(np_(got), np_(tr(want)), rtol=0, atol=2e-5)
+    whole = TK.flash_attention(*ts)[:, :, q_offset:]
+    np.testing.assert_allclose(np_(got), np_(whole), rtol=0, atol=2e-6)
+    with pytest.raises(ValueError, match="q_offset"):
+        TK.flash_attention(rows, ts[1], ts[2], q_offset=-1)
+
+
 def test_wrapper_contract():
     q = torch.zeros(1, 4, 8, 16)
     with pytest.raises(ValueError, match="do not fit"):

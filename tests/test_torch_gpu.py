@@ -601,6 +601,37 @@ def test_cuda_flash_attention_matches_plain(card, B, H, K, Sq, Sk, hd,
                                              else B5_BF16_TOL)
 
 
+@pytest.mark.parametrize("q_offset,Sq,Sk,hd", [
+    (64, 64, 256, 128),      # one tile's rows, tile-aligned
+    (37, 100, 300, 128),     # unaligned rows, ragged keys
+    (192, 64, 256, 64),      # the last quarter of a 256-row prompt
+    (500, 77, 600, 256),     # the widest head, one warpgroup
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_q_offset(card, q_offset, Sq, Sk, hd, dtype):
+    """B5 on a run of query rows at ``q_offset`` (a sequence-parallel
+    prefill's rows): against its plain version with the same offset, and
+    against the same rows of one call on every row from 0."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    B, H, K = 2, 8, 2
+    rng = np.random.default_rng(q_offset + Sq + hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .cuda().to(dtype) for s in ((B, H, q_offset + Sq, hd),
+                                           (B, K, Sk, hd), (B, K, Sk, hd)))
+    rows = q[:, :, q_offset:]
+    n0 = FA.LAUNCHES
+    got = FA.flash_attention(rows, k, v, q_offset=q_offset)
+    whole = FA.flash_attention(q, k, v)[:, :, q_offset:]
+    assert FA.LAUNCHES == n0 + 2
+    ref = flash_attention_ref(rows, k, v, q_offset=q_offset)
+    torch.cuda.synchronize()
+    tol = TOL if dtype == torch.float32 else B5_BF16_TOL
+    assert bool(torch.isfinite(got).all())
+    assert rel(got.float(), ref.float()) <= tol
+    assert rel(got.float(), whole.float()) <= tol
+
+
 @pytest.mark.parametrize("B,H,K,Sq,Sk,hd,causal", [
     (2, 4, 2, 77, 77, 8, True),          # the narrowest head, ragged
     (1, 6, 3, 130, 200, 24, True),       # product depth 24: padded to 32
@@ -958,3 +989,35 @@ def test_mesh_field_step_on_the_card(card, monkeypatch):
     assert len(seen) == 8 and all(d.type == "cuda" for d in seen)
     assert float(out["auto"].sum()) > cfg.n * 3.99
     assert rel(out["auto"], out["torch"]) <= TOL
+
+
+def test_four_card_sharded_lm_matches_one_card():
+    """The sharded LM stack on 4 cards, one NCCL rank each under torchrun
+    (tests/_torch_dist.py --nccl-lm): llama3.2-3b and gemma-2b FULL fp32
+    at (1, 4) against one card (gemma decoding past its first 256-row
+    cache shard), llama3.2-3b again under repro's sequence-parallel
+    attention (B5 on each rank's rows at their offset; every part counts
+    one B5 launch per attention layer on a rank's prefill),
+    qwen2-moe-a2.7b FULL bf16 through moe_map_local
+    (capacity factor 8: nothing dropped) against the dense oracle, with
+    its decode step's device time,
+    jamba-1.5-large's 2-layer cut against one card and one FULL 8-layer
+    period (88 GB in bf16) served as 22 GB blocks, and a training step of
+    llama3.2-3b's 2-layer cut at (2, 2) with FSDP weights."""
+    import os
+    import subprocess
+    import sys
+    import _torch_dist as TD
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA cards (torch.cuda.device_count() is "
+                    f"{torch.cuda.device_count()})")
+    env = dict(os.environ, PYTHONPATH=str(TD.ROOT / "src"))
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    r = subprocess.run([sys.executable, "-m", "torch.distributed.run",
+                        "--standalone", "--nproc_per_node=4", TD.__file__,
+                        "--nccl-lm"], cwd=TD.ROOT, env=env,
+                       capture_output=True, text=True, timeout=1500)
+    print(r.stdout[-20000:])
+    assert r.returncode == 0, r.stdout[-6000:] + r.stderr[-12000:]

@@ -168,6 +168,8 @@ def test_lm_modules_are_checked_for_imports():
                 "models/transformer.py", "training/serve.py",
                 "training/optimizer.py", "training/train.py",
                 "training/data.py", "launch/train.py",
+                "sharding/specs.py", "launch/mesh.py", "launch/dryrun.py",
+                "launch/cost_analysis.py",
                 "kernels/flash_attention/flash_attention.py",
                 "kernels/flash_attention/ops.py",
                 "kernels/flash_attention/ref.py"):
@@ -199,21 +201,35 @@ def test_lm_kinds_ported_run(arch):
 
 
 def test_lm_sharding_ctx_raises():
+    """A ctx that is not a ShardingContext raises TypeError at every LM
+    entry point; a ShardingContext on a 1 × 1 gloo mesh serves as no ctx
+    does (tests/test_torch_dist_lm.py holds the 4-rank meshes)."""
     from repro_torch.configs import registry
+    from repro_torch.core import runtime as RT
     from repro_torch.models import transformer as T
+    from repro_torch.sharding import specs as SP
     from repro_torch.training import serve as S
     cfg = registry.get_config("starcoder2-15b", reduced=True)
     params = T.init_params(cfg, torch.Generator().manual_seed(0),
                            device="cpu")
-    toks = torch.zeros(2, 4, dtype=torch.int64)
+    toks = torch.randint(0, cfg.vocab, (2, 4),
+                         generator=torch.Generator().manual_seed(1))
     ctx = object()
     for fn in (lambda: T.forward(params, {"tokens": toks}, cfg, ctx),
                lambda: T.init_caches(cfg, 2, 8, ctx, device="cpu"),
                lambda: S.make_prefill_step(cfg, 8, ctx),
                lambda: S.make_decode_step(cfg, ctx),
                lambda: S.greedy_generate(cfg, params, toks, 2, 8, ctx)):
-        with pytest.raises(NotImplementedError, match="A16f"):
+        with pytest.raises(TypeError, match="ShardingContext"):
             fn()
+    mesh = RT.make_mesh((1, 1), ("data", "model"), device_type="cpu")
+    sctx = SP.ShardingContext.create(mesh)
+    assert T.init_caches(cfg, 2, 8, sctx, device="cpu")["blocks"]["b0"][
+        "attn"]["k"].shape == (cfg.n_groups(), 2, 8, cfg.n_kv_heads, cfg.hd)
+    with torch.no_grad():
+        got = S.greedy_generate(cfg, params, toks, 4, 8, sctx)
+        want = S.greedy_generate(cfg, params, toks, 4, 8)
+    assert torch.equal(got, want)
 
 
 def test_lm_cuda_backend_and_device_without_card_raise(monkeypatch):

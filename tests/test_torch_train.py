@@ -216,10 +216,35 @@ def test_microbatch_matches_repro():
 
 
 def test_train_step_ctx_raises():
+    """A ctx that is not a ShardingContext raises TypeError; on a 1 × 1
+    gloo mesh the sharded step (vocab-parallel loss, gradient sums over
+    the mesh, the mesh-aware norm) gives the unsharded step's loss, norm
+    and parameters (tests/test_torch_dist_lm.py holds 2 × 2)."""
+    from repro_torch.core import runtime as RT
+    from repro_torch.models import transformer as TT
+    from repro_torch.sharding import specs as SP
+    from repro_torch import tree as TREE
     cfg = TR.get_config("llama3.2-3b", reduced=True)
     for fn in (lambda: TTR.make_train_step(cfg, TO.OptConfig(), object()),
                lambda: TTR.make_loss_fn(cfg, object())):
-        with pytest.raises(NotImplementedError, match="A16f"):
+        with pytest.raises(TypeError, match="ShardingContext"):
             fn()
+    mesh = RT.make_mesh((1, 1), ("data", "model"), device_type="cpu")
+    ctx = SP.ShardingContext.create(mesh, fsdp=True)
+    _, params, batch = _model("llama3.2-3b")
+    batch = _map(_t, _half(batch))
+    opt = TO.OptConfig()
+    out = []
+    for c in (None, ctx):
+        p = _map(_t, params)
+        p, _, m = TTR.make_train_step(cfg, opt, c)(
+            p, TO.init_opt_state(p, opt), batch)
+        out.append((p, m))
+    (p0, m0), (p1, m1) = out
+    for k in ("loss", "grad_norm"):
+        assert abs(float(m1[k]) - float(m0[k])) <= \
+            LOSS_TOL * max(1.0, abs(float(m0[k]))), k
+    for a, b in zip(TREE.flatten(p0)[0], TREE.flatten(p1)[0]):
+        assert float((a - b).abs().max()) <= OPT_TOL
 
 
