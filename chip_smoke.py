@@ -279,6 +279,26 @@ Phases, each of which raises (non-zero exit) on failure:
      four ranks (``q_offset`` 1024) against its plain version, timed
      beside it and beside SDPA with the same mask (the entry's
      ``q_offset`` record; not counted among the main path's launches).
+ 20. B1's generated functors and 2-D LJ: (a) the hand LJ functor at DIM
+     2 against its plain version on the tiles of a 480^2 lattice
+     (230,400 particles, phase 3's sigma-to-spacing ratio, after 10
+     steps) in fp32 and bf16x (<= 1e-5, bf16x unlike fp32), timed beside
+     its bytes bound, then ``md.run(dim=2)`` 100 steps there: one B1
+     launch per force evaluation, zero flags, drift < 0.05, ms/step and
+     particle-steps/s; (b) a user's body, ``repro``'s Gaussian pair body
+     (per-particle ``q``, radial ``f`` and scalar ``rho``; no
+     ``cuda_kind``), defined here: its generated functor (built with
+     the other sources in phase 1, its nvcc seconds printed) against
+     plain on phase 3's tiles in fp32, bf16x and bf16x:rho (<= 1e-5),
+     timed; 20 steps of ``make_sim_step`` through the kernel at 216,000
+     particles against the plain path (<= 1e-4), one launch a step; 8
+     members through ``make_fleet_step``: one launch a fleet step, the
+     sampled members equal to their serial steps bit for bit; (c) the LJ
+     body with its ``cuda_kind`` hidden, through its generated functor,
+     against plain (<= 1e-5) and timed in the same call as the hand LJ
+     functor on phase 2's tiles, and 10 ``make_sim_step`` steps through
+     it against the hand functor's (<= 1e-4); (d) the ``kernels`` line
+     gains ``B1-LJ-d2``, ``B1-gen`` and ``B1-gen-LJ``.
 
 It prints a ``{"kernels": [...]}`` line and, as its last line,
 ``{"ok": true, "device": {...}}``. It exits non-zero without a result when
@@ -310,7 +330,8 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.core.interactions import parse_precision  # noqa: E402
+from repro_torch.core.interactions import (  # noqa: E402
+    Radial, parse_precision)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate and fp32 outside the
 # tensor cores.
@@ -432,6 +453,19 @@ SHARD_DRY_CELLS = (("llama3.2-3b", "decode_32k"),
                    ("whisper-medium", "decode_32k"),
                    ("llama-3.2-vision-11b", "decode_32k"),
                    ("gemma-2b", "train_4k"))
+#: phase 20: 2-D LJ on a 480^2 lattice (phase 3's sigma- and
+#: dt-to-spacing ratios: at phase 3's DT, 8x its dt/sigma, the 2-D run
+#: blows up within 100 steps); a user's Gaussian body (repro's
+#: tests/test_cell_pair.py body with its width scaled from that test's
+#: r_cut 0.26 to the MD r_cut) on phase 3's state, through make_sim_step
+#: and an 8-member fleet.
+MD2_SIDE = 480
+MD2_DT = DT * N_PER_SIDE / MD2_SIDE
+GAUSS_STEPS = 20
+GAUSS_FLEET_B = 8
+GAUSS_FLEET_STEPS = 5
+GAUSS_FLEET_SAMPLES = (0, 3, 7)
+GEN_LJ_STEPS = 10
 TRAIN_ARCH = "llama3.2-3b"
 TRAIN_CUT = dict(n_layers=2, param_dtype="float32", compute_dtype="float32")
 TRAIN_CUT_BATCH = (2, 64)
@@ -643,7 +677,8 @@ def b1_check(name, CP, t, body, out, r_cut, eval_flops, cell_batch,
     bad = {k: r for k, (_, r) in errors.items() if not r <= tol}
     if bad:
         raise RuntimeError(f"{name} disagrees with plain: {bad}")
-    kind, prec = CP._kind_of(body, out, precision)
+    kind, prec, params = CP._kind_of(body, out, precision,
+                                     t.cell_x.shape[-1], t.props_i)
     if fp32_out is not None:
         _, sel = parse_precision(precision, out)
         gaps = {}
@@ -659,9 +694,9 @@ def b1_check(name, CP, t, body, out, r_cut, eval_flops, cell_batch,
     names = CP.KINDS[kind].props
     pi = CP.pack_props(t.props_i, names) if names else None
     pj = CP.pack_props(t.props_j, names) if names else None
-    kernel_ms = time_cuda(lambda: CP._launch(kind, body, t.cell_x, t.nbr_x,
-                                             t.cell_mask, t.nbr_mask, pi,
-                                             pj, r_cut, prec), iters=iters)
+    kernel_ms = time_cuda(lambda: CP._launch_params(
+        kind, params, t.cell_x, t.nbr_x, t.cell_mask, t.nbr_mask, pi, pj,
+        r_cut, prec), iters=iters)
     width = CP.KINDS[kind].width(t.cell_x.shape[-1]) if names else 0
     n_bytes, n_ops, tests, inside, bound_ms, bound_by = b1_bound(
         t, width, r_cut * r_cut, eval_flops, list(got.values()))
@@ -672,9 +707,16 @@ def b1_check(name, CP, t, body, out, r_cut, eval_flops, cell_batch,
           f"({bound_by}); design: {design['threads']} threads a cell, "
           f"tiles of {design['tile']} candidates, chunks of "
           f"{design['chunk']} rows, {design['smem_bytes']} B shared")
+    gen = CP.KINDS[kind].gen
     return {
         "name": name, "route": "cuda",
-        "source": "src/repro_torch/kernels/cell_pair/csrc/cell_pair.cu",
+        "source": "src/repro_torch/kernels/cell_pair/csrc/cell_pair.cu"
+        if gen is None else "src/repro_torch/kernels/cell_pair/codegen.py",
+        **({} if gen is None else {
+            "generated": str(CP.codegen.source_file(gen)
+                             .relative_to(ROOT)),
+            "engine": "src/repro_torch/kernels/cell_pair/csrc/"
+                      "cell_pair_engine.cuh"}),
         "replaces": "src/repro/kernels/cell_pair/cell_pair.py:106",
         "max_abs_err": max(a for a, _ in errors.values()),
         "max_rel_err": max(r for _, r in errors.values()),
@@ -4888,6 +4930,332 @@ def sharded_phase():
     return launches, b5_offset_check(cfg, FA)
 
 
+# --------------------------------------------------------------------------
+# Phase 20: B1's generated functors (a user's body on the card) and 2-D LJ
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GaussBody:
+    """``repro``'s Gaussian pair body (tests/test_cell_pair.py), a user's
+    body with no ``cuda_kind``: w = q_i q_j exp(-k r2), radial ``f`` and
+    scalar ``rho``."""
+
+    k: float
+
+    def __call__(self, dx, r2, ok, wi, wj):
+        w = wi["q"] * wj["q"] * torch.exp(-self.k * r2)
+        return {"f": Radial(w), "rho": w}
+
+
+GAUSS_OUT = {"f": "radial", "rho": "scalar"}
+
+
+@dataclasses.dataclass(frozen=True)
+class HiddenKind:
+    """A pair body with its ``cuda_kind`` hidden: it runs through the
+    functor generated from its plain form."""
+
+    body: object
+
+    def __call__(self, dx, r2, ok, wi, wj):
+        return self.body(dx, r2, ok, wi, wj)
+
+
+@dataclasses.dataclass(frozen=True)
+class GaussCfg:
+    """The Gaussian body's workload: leapfrog on phase 3's lattice (unit
+    periodic box), its force ``f`` and density ``rho`` from the body."""
+
+    r_cut: float
+    k: float
+    dt: float
+    cell_cap: int = 48
+    backend: str = "auto"
+
+
+def gauss_physics(cfg: GaussCfg):
+    from repro_torch.core import simulation as SIM
+    from repro_torch.numerics import integrators as TI
+    lo, hi = (0.0,) * 3, (1.0,) * 3
+
+    def advance(ps, red, extras):
+        return TI.wrap_periodic(TI.leapfrog(ps, cfg.dt), lo, hi,
+                                (True,) * 3)
+
+    def finish(ctx):
+        ps = ctx.ps
+        m = ps.valid
+        f = ctx.pair["f"][: ps.capacity]
+        rho = ctx.pair["rho"][: ps.capacity]
+        ps = ps.with_prop("f", torch.where(m[:, None], f, 0.0)) \
+            .with_prop("rho", torch.where(m, rho, 0.0))
+        return ps, {}, 0
+
+    return SIM.PhysicsSpec(
+        name="gauss", box_lo=lo, box_hi=hi, periodic=(True,) * 3,
+        r_cut=cfg.r_cut, cell_cap=cfg.cell_cap, pair_out=GAUSS_OUT,
+        make_body=lambda: GaussBody(cfg.k), pair_props=("q",),
+        ghost_props=("q",), finish_writes=("f", "rho"), advance=advance,
+        finish=finish, backend=cfg.backend)
+
+
+def md_gen_physics(cfg):
+    """MD with the LJ body's ``cuda_kind`` hidden (phase 20c)."""
+    from repro_torch.apps import md
+    spec = md.physics(cfg)
+    return dataclasses.replace(spec, make_body=lambda: HiddenKind(
+        md.lj_pair_body(cfg.sigma, cfg.epsilon)))
+
+
+def gauss_k(r_cut: float) -> float:
+    """repro's exp(-8 r2) at its test's r_cut 0.26, scaled to ``r_cut``."""
+    return 8.0 * (0.26 / r_cut) ** 2
+
+
+def generated_sources(md, cfg):
+    """Phase 1's share of phase 20: the sources of the functors generated
+    from the Gaussian body (dim 3, scalar prop q) and from the LJ body
+    with its kind hidden (dim 3, no props), written under
+    ``build/repro_torch/gen/`` to be built with the others."""
+    from repro_torch.kernels.cell_pair import codegen
+    gens = (codegen.generate(GaussBody(gauss_k(cfg.r_cut)), GAUSS_OUT, 3,
+                             {"q": False}),
+            codegen.generate(HiddenKind(md.lj_pair_body(cfg.sigma,
+                                                        cfg.epsilon)),
+                             {"f": "radial"}, 3, {}))
+    return [codegen.source_path(g) for g in gens]
+
+
+def md2d_phase(md, CL, CP):
+    """20a: 2-D LJ at MD2_SIDE^2 particles. Returns the B1-LJ-d2 entry."""
+    side = MD2_SIDE
+    cfg = md.MDConfig(dim=2, n_per_side=side, sigma=0.85 / side, dt=MD2_DT,
+                      cell_cap=48, device="cuda", backend="auto")
+    gs = md._cl_kw(cfg)["grid_shape"]
+    print(f"2-D MD: {cfg.n_particles} particles, r_cut {cfg.r_cut:.6f}, "
+          f"grid {gs}, cell_cap {cfg.cell_cap}, dt {cfg.dt:.6e}")
+    ps, _ = md.run(cfg, 10, thermal_v=THERMAL_V, seed=1)
+    t = CP.gather_cell_tiles(ps, CL.build_cell_list(ps, **md._cl_kw(cfg)))
+    body = md.lj_pair_body(cfg.sigma, cfg.epsilon)
+    # 13 flops per in-cutoff 2-D LJ evaluation (body 9, accumulation 4)
+    entry, f32_out = b1_check("B1-LJ-d2", CP, t, body, {"f": "radial"},
+                              cfg.r_cut, eval_flops=13, cell_batch=512,
+                              iters=50)
+    e16, _ = b1_check("B1-LJ-d2 bf16x", CP, t, body, {"f": "radial"},
+                      cfg.r_cut, eval_flops=13, cell_batch=512, iters=50,
+                      precision="bf16x", fp32_out=f32_out)
+    entry["bf16x"] = {k: e16[k] for k in ("ms", "max_abs_err",
+                                          "max_rel_err", "fp32_gap_rel",
+                                          "plain_ms", "bound_ms")}
+    del t, f32_out, ps
+    reset_b1_counts(CP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ps, log = md.run(cfg, STEPS, thermal_v=THERMAL_V, seed=0,
+                     log_every=STEPS - 1)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    check_b1_launches(CP, "lj", STEPS + 1)
+    launches = CP.LAUNCHES_BY_KIND["lj"]
+    v = ps.props["v"][ps.valid]
+    if not (bool(torch.isfinite(ps.x[ps.valid]).all())
+            and bool(torch.isfinite(v).all())):
+        raise RuntimeError("2-D MD: positions or velocities are not finite")
+    e = [k + p for _, k, p in log]
+    drift = abs(e[-1] - e[0]) / (abs(e[0]) + 1e-9)
+    box = {"ps": ps}
+
+    def one_step():
+        box["ps"], _ = md.md_step(box["ps"], cfg)
+
+    step_ms = time_cuda(one_step, iters=20)
+    busy_ms = time_device(one_step, iters=10)
+    print(f"2-D MD main path: md.run {STEPS} steps, {cfg.n_particles} "
+          f"particles, {run_s:.3f} s wall, E_tot {e[0]:.6e} -> {e[-1]:.6e}, "
+          f"drift {drift:.3e} (tol {DRIFT_TOL:g}), {launches} B1-LJ-d2 "
+          f"launches; md_step {step_ms:.4f} ms/step, "
+          f"{cfg.n_particles / step_ms * 1e3:.4e} particle-steps/s, device "
+          f"busy {busy_ms:.4f} ms, idle share {1 - busy_ms / step_ms:.3f}")
+    if not drift < DRIFT_TOL:
+        raise RuntimeError(f"2-D MD energy drift {drift:.3e}")
+    entry.update(launches=launches, launches_per_step=(launches - 1) / STEPS,
+                 step_ms=step_ms)
+    return entry
+
+
+def gauss_phase(md, CL, CP, SIM, FB, ps0, build_s):
+    """20b: the Gaussian body (no cuda_kind) on phase 3's state through
+    its generated functor. Returns the B1-gen entry."""
+    from repro_torch.kernels.cell_pair import codegen
+    cfg_md = md.MDConfig(n_per_side=N_PER_SIDE, sigma=SIGMA, dt=DT,
+                         cell_cap=48, device="cuda")
+    gcfg = GaussCfg(r_cut=cfg_md.r_cut, k=gauss_k(cfg_md.r_cut), dt=DT)
+    body = GaussBody(gcfg.k)
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    q = 1.0 + 0.5 * torch.rand(ps0.capacity, generator=gen, device="cuda")
+    ps = ps0.with_prop("q", torch.where(ps0.valid, q, 0.0)) \
+        .with_prop("rho", torch.zeros_like(q))
+    cl = CL.build_cell_list(ps, **md._cl_kw(cfg_md))
+    t = CP.gather_cell_tiles(ps, cl, ("q",))
+    kind, _, _ = CP._kind_of(body, GAUSS_OUT, "fp32", 3, t.props_i)
+    src = codegen.source_file(CP.KINDS[kind].gen)
+    print(f"B1-gen: the Gaussian body's functor {kind} ({src.name}, "
+          f"precisions {CP.KINDS[kind].precs}); nvcc {build_s:.2f} s in "
+          "phase 1's parallel build")
+    # 12 flops per in-cutoff evaluation: q q, k r2, exp, the product (4),
+    # the radial and scalar accumulations (4 + 4: 3 fma and one add)
+    entry, f32_out = b1_check("B1-gen", CP, t, body, GAUSS_OUT, gcfg.r_cut,
+                              eval_flops=12, cell_batch=512, iters=50)
+    mixed = {}
+    for prec in ("bf16x", "bf16x:rho"):
+        e16, _ = b1_check(f"B1-gen {prec}", CP, t, body, GAUSS_OUT,
+                          gcfg.r_cut, eval_flops=12, cell_batch=512,
+                          iters=50, precision=prec, fp32_out=f32_out)
+        mixed[prec] = {k: e16[k] for k in ("ms", "max_abs_err",
+                                           "max_rel_err", "fp32_gap_rel",
+                                           "plain_ms", "bound_ms")}
+    entry.update(precisions=mixed, build_s=build_s, kind=kind)
+    del t, f32_out, cl
+
+    # -- 20 steps of make_sim_step, kernel path against plain path ----------
+    state0 = SIM.serial_state(ps, gauss_physics, gcfg)
+    key = CP.launch_key(kind, "f32")
+    step = SIM.make_sim_step(gauss_physics, gcfg)
+    reset_b1_counts(CP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, worst = state0, None
+    for _ in range(GAUSS_STEPS):
+        st, flags, _ = step(st, {})
+        worst = flags.any() if worst is None \
+            else torch.maximum(worst, flags.any())
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    check_b1_launches(CP, key, GAUSS_STEPS)
+    launches = CP.LAUNCHES_BY_KIND[key]
+    if int(worst) != 0:
+        raise RuntimeError(f"Gaussian body step flags {int(worst)}")
+    plain = serial_run(SIM, gauss_physics,
+                       dataclasses.replace(gcfg, backend="torch"), state0,
+                       GAUSS_STEPS)
+    got, ref = st.ps, plain.ps
+    small_run_check("B1-gen 20 steps", (
+        ("x", got.x[got.valid], ref.x[ref.valid]),
+        ("v", got.props["v"][got.valid], ref.props["v"][ref.valid]),
+        ("rho", got.props["rho"][got.valid], ref.props["rho"][ref.valid])))
+    box = {"st": st}
+
+    def one_step():
+        box["st"], _, _ = step(box["st"], {})
+
+    step_ms = time_cuda(one_step, iters=10)
+    print(f"B1-gen path: {GAUSS_STEPS} make_sim_step steps at "
+          f"{int(ps.valid.sum())} particles, {run_s:.3f} s wall, {launches} "
+          f"launches; {step_ms:.4f} ms/step, "
+          f"{int(ps.valid.sum()) / step_ms * 1e3:.4e} particle-steps/s")
+    del box, st, plain, got, ref
+
+    # -- an 8-member fleet: one launch a fleet step, bits of the serial ------
+    members = []
+    for b in range(GAUSS_FLEET_B):
+        g = torch.Generator(device="cuda").manual_seed(200 + b)
+        qb = 1.0 + 0.5 * torch.rand(ps.capacity, generator=g, device="cuda")
+        members.append(SIM.serial_state(
+            ps.with_prop("q", torch.where(ps.valid, qb, 0.0)), gauss_physics,
+            gcfg))
+    ens = FB.stack_members(members)
+    fstep = FB.make_fleet_step(gauss_physics, gcfg)
+    reset_b1_counts(CP)
+    for _ in range(GAUSS_FLEET_STEPS):
+        ens, flags, _ = fstep(ens, {})
+    torch.cuda.synchronize()
+    check_b1_launches(CP, key, GAUSS_FLEET_STEPS)
+    fleet_launches = CP.LAUNCHES_BY_KIND[key]
+    if int(flags.any().max()) != 0:
+        raise RuntimeError("Gaussian fleet step flags")
+    for b in GAUSS_FLEET_SAMPLES:
+        ref = serial_run(SIM, gauss_physics, gcfg, members[b],
+                         GAUSS_FLEET_STEPS)
+        m = FB.member_at(ens, b)
+        held_equal(f"B1-gen fleet member {b} x", m.ps.x, ref.ps.x)
+        held_equal(f"B1-gen fleet member {b} v", m.ps.props["v"],
+                   ref.ps.props["v"])
+        held_equal(f"B1-gen fleet member {b} rho", m.ps.props["rho"],
+                   ref.ps.props["rho"])
+    fbox = {"ens": ens}
+
+    def fleet_step():
+        fbox["ens"], _, _ = fstep(fbox["ens"], {})
+
+    fleet_ms = time_cuda(fleet_step, iters=3, warmup=1)
+    print(f"B1-gen fleet: {GAUSS_FLEET_B} members x {int(ps.valid.sum())} "
+          f"particles, {GAUSS_FLEET_STEPS} steps, {fleet_launches} launches "
+          f"(one a fleet step), members {GAUSS_FLEET_SAMPLES} equal to their "
+          f"serial runs bit for bit in x, v and rho; {fleet_ms:.4f} ms a "
+          f"fleet step; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          "GiB")
+    entry.update(launches=launches, launches_per_step=launches / GAUSS_STEPS,
+                 launches_fleet=fleet_launches, step_ms=step_ms,
+                 fleet_step_ms=fleet_ms)
+    return entry
+
+
+def gen_lj_phase(md, CL, CP, SIM, ps, build_s):
+    """20c: the LJ body with its kind hidden, through its generated
+    functor, on phase 2's tiles against plain and in the same call as the
+    hand LJ functor; then GEN_LJ_STEPS make_sim_step steps through it
+    against the hand functor's. Returns the B1-gen-LJ entry."""
+    cfg = md.MDConfig(n_per_side=N_PER_SIDE, sigma=SIGMA, dt=DT, cell_cap=48,
+                      device="cuda", backend="auto")
+    lj = md.lj_pair_body(cfg.sigma, cfg.epsilon)
+    hidden = HiddenKind(lj)
+    t = CP.gather_cell_tiles(ps, CL.build_cell_list(ps, **md._cl_kw(cfg)))
+    out = {"f": "radial"}
+    entry, got = b1_check("B1-gen-LJ", CP, t, hidden, out, cfg.r_cut,
+                          eval_flops=15, cell_batch=512, iters=50)
+    hand, want = b1_check("cell_pair_lj (beside B1-gen-LJ)", CP, t, lj, out,
+                          cfg.r_cut, eval_flops=15, cell_batch=512,
+                          iters=50)
+    same = bool(torch.equal(got["f"], want["f"]))
+    gap = float((got["f"] - want["f"]).abs().max())
+    kind, _, _ = CP._kind_of(hidden, out, "fp32", 3, {})
+    print(f"B1-gen-LJ {entry['ms']:.4f} ms beside the hand LJ functor's "
+          f"{hand['ms']:.4f} ms in this call (PR 17 run 6: 0.4809 ms); "
+          f"outputs bit-equal: {same} (max gap {gap:.3e})")
+    del t, got, want
+    state0 = SIM.serial_state(ps, md.physics, cfg)
+    key = CP.launch_key(kind, "f32")
+    reset_b1_counts(CP)
+    gst = serial_run(SIM, md_gen_physics, cfg, state0, GEN_LJ_STEPS)
+    torch.cuda.synchronize()
+    check_b1_launches(CP, key, GEN_LJ_STEPS)
+    launches = CP.LAUNCHES_BY_KIND[key]
+    hst = serial_run(SIM, md.physics, cfg, state0, GEN_LJ_STEPS)
+    small_run_check(f"B1-gen-LJ {GEN_LJ_STEPS} steps vs the hand functor", (
+        ("x", gst.ps.x[gst.ps.valid], hst.ps.x[hst.ps.valid]),
+        ("v", gst.ps.props["v"][gst.ps.valid],
+         hst.ps.props["v"][hst.ps.valid])))
+    entry.update(launches=launches, hand_ms=hand["ms"],
+                 bit_equal_to_hand=same, build_s=build_s, kind=kind)
+    return entry
+
+
+def generated_phase(md, CL, CP, gen_build_s):
+    """Phase 20: (a) 2-D LJ, (b) the Gaussian body, (c) LJ through the
+    generated route. Returns their ``kernels`` entries."""
+    from repro_torch.core import simulation as SIM
+    from repro_torch.fleet import batch as FB
+    entries = [md2d_phase(md, CL, CP)]
+    torch.cuda.empty_cache()
+    cfg = md.MDConfig(n_per_side=N_PER_SIDE, sigma=SIGMA, dt=DT, cell_cap=48,
+                      device="cuda", backend="auto")
+    ps, _ = md.run(cfg, 10, thermal_v=THERMAL_V, seed=1)   # phase 2's state
+    entries.append(gauss_phase(md, CL, CP, SIM, FB, ps, gen_build_s[0]))
+    torch.cuda.empty_cache()
+    entries.append(gen_lj_phase(md, CL, CP, SIM, ps, gen_build_s[1]))
+    return entries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA "
                                  "port on one GPU.")
@@ -4924,17 +5292,25 @@ def main() -> int:
     if args.dem_paper_size:
         dem_paper_size()
         return 0
+    cfg = md.MDConfig(n_per_side=N_PER_SIDE, sigma=SIGMA, dt=DT, cell_cap=48,
+                      device="cuda", backend="auto")
     t0 = time.perf_counter()
-    libs = _build.build_all()
+    gen_srcs = generated_sources(md, cfg)     # phase 20's functors
+    print(f"phase 20's functors generated in {time.perf_counter() - t0:.2f} "
+          "s: " + ", ".join(str(p.relative_to(ROOT)) for p in gen_srcs))
+    t0 = time.perf_counter()
+    libs = _build.build_all(_build.sources() + gen_srcs)
     print(f"kernel build {time.perf_counter() - t0:.2f} s: "
           + ", ".join(str(p.relative_to(ROOT)) for p in libs.values()))
+    print("nvcc seconds per source: " + ", ".join(
+        f"{src.name} {sec:.2f}" for src, sec in
+        _build.BUILD_SECONDS.items()))
+    gen_build_s = [_build.BUILD_SECONDS.get(src, 0.0) for src in gen_srcs]
     for lib in libs.values():
         log = lib.with_suffix(".log")
         if log.exists():
             print(log.read_text().strip())
 
-    cfg = md.MDConfig(n_per_side=N_PER_SIDE, sigma=SIGMA, dt=DT, cell_cap=48,
-                      device="cuda", backend="auto")
     print(f"MD: {cfg.n_particles} particles, r_cut {cfg.r_cut:.6f}, grid "
           f"{md._cl_kw(cfg)['grid_shape']}, cell_cap {cfg.cell_cap}")
 
@@ -5165,12 +5541,20 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     fa_entry["launches_sharded"], fa_entry["q_offset"] = sharded_phase()
     phase_mark("phase 19 (sharded LM stack; NCCL world 1)", t_phase)
+    torch.cuda.empty_cache()
+
+    # -- phase 20: B1's generated functors and 2-D LJ ---------------------------
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gen_entries = generated_phase(md, CL, CP, gen_build_s)
+    phase_mark("phase 20 (2-D LJ, generated functors)", t_phase)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, build "
           "included")
 
     print(json.dumps({"kernels": [md_entry, sph_entry, dem_entry]
                       + m4_entries + [gs_entry, lj16_entry] + sph16_entries
-                      + [dem16_entry] + m4_16_entries + [fa_entry]}))
+                      + [dem16_entry] + m4_16_entries + [fa_entry]
+                      + gen_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,10 +8,12 @@ own shared library with a plain C interface and loaded with ``ctypes``:
 
 (no ``--use_fast_math``: the kernels stay within the stated tolerance of
 their plain PyTorch versions). Libraries go to ``build/repro_torch/`` at
-the repository root, named by a hash of the source and the flags, so a
-changed source is rebuilt and an unchanged one is reused. The build runs
-at first use; :func:`build_all` compiles every source at once, one
-``nvcc`` process per source, all started together. ``ptxas``'s report of
+the repository root, named by a hash of the source, of every local header
+it includes (``#include "..."``, followed recursively) and of the flags,
+so a changed source or header is rebuilt and an unchanged one is reused.
+The build runs at first use; :func:`build_all` compiles every source at
+once, one ``nvcc`` process per source, all started together, and keeps
+each one's seconds in :data:`BUILD_SECONDS`. ``ptxas``'s report of
 registers and shared memory is kept beside each library as ``<lib>.log``.
 
 A failed build raises :class:`RuntimeError` with nvcc's stderr. Nothing
@@ -24,14 +26,23 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
+import threading
+import time
 from typing import Dict, List
 
 KERNELS_DIR = pathlib.Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: Wall seconds of each source's nvcc in this process's builds, {source:
+#: seconds} (a source whose library was already built is not listed).
+BUILD_SECONDS: Dict[pathlib.Path, float] = {}
+
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def sources() -> List[pathlib.Path]:
@@ -52,9 +63,28 @@ def _nvcc() -> str:
     return str(path)
 
 
+def local_headers(src: pathlib.Path) -> List[pathlib.Path]:
+    """The headers that ``src`` includes with ``#include "..."``, each
+    resolved against the folder of the file that includes it, followed
+    recursively; each once, in the order first reached."""
+    seen: List[pathlib.Path] = []
+    todo = [src.resolve()]
+    while todo:
+        path = todo.pop(0)
+        for name in _LOCAL_INCLUDE.findall(path.read_text()):
+            header = (path.parent / name).resolve()
+            if header not in seen:
+                seen.append(header)
+                todo.append(header)
+    return seen
+
+
 def lib_path(src: pathlib.Path) -> pathlib.Path:
-    """Where the library of ``src`` lives: keyed by source text + flags."""
+    """Where the library of ``src`` lives: keyed by the text of the source
+    and of its local headers, and by the flags."""
     h = hashlib.sha256(src.read_bytes())
+    for header in local_headers(src):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
@@ -72,14 +102,29 @@ def build_all(srcs: List[pathlib.Path] | None = None
         return out
     nvcc = _nvcc()
     procs = []
+    t0 = time.perf_counter()
     for src in todo:
         tmp = out[src].with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
         procs.append((src, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    results = {}
+
+    def wait(src, proc):
+        # each process's pipes are drained by its own thread, so the time
+        # it finished is its own
+        results[src] = proc.communicate()
+        BUILD_SECONDS[src] = time.perf_counter() - t0
+
+    waiters = [threading.Thread(target=wait, args=(src, proc))
+               for src, _, proc in procs]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     errors = []
     for src, tmp, proc in procs:
-        stdout, stderr = proc.communicate()
+        stdout, stderr = results[src]
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             errors.append(f"nvcc failed on {src} (exit {proc.returncode}):\n"

@@ -11,27 +11,37 @@ functor's per-particle terms formed once per staged candidate); per-slot
 sums are scattered back to particles (:func:`scatter_slots`).
 
 :func:`cell_pair` is the tile-level entry. For CUDA tensors it launches the
-kernel, or raises if the body or precision has no CUDA form; for CPU
-tensors it runs :func:`cell_pair_torch`, the plain PyTorch version of the
-same function (the Pallas ``_pair_kernel`` rule: self-pairs are excluded by
-``r2 > 1e-12``). Both take ``precision`` ``"fp32"``, ``"bf16x"`` or
+kernel, or raises if the body cannot run there; for CPU tensors it runs
+:func:`cell_pair_torch`, the plain PyTorch version of the same function
+(the Pallas ``_pair_kernel`` rule: self-pairs are excluded by ``r2 >
+1e-12``). Both take ``precision`` ``"fp32"``, ``"bf16x"`` or
 ``"bf16x:<names>"``. :data:`LAUNCHES` counts kernel launches. The
 launch is the PyTorch operator ``repro_torch::cell_pair``, whose batching
 rule lets ``torch.func.vmap`` (the fleet step) fold many members' tiles
 into one launch.
 
-The body protocol is that of ``repro_torch.core.interactions``. A body the
-kernel can run carries ``cuda_kind`` (the C++ functor it maps to, one of
-:data:`KINDS`) and ``cuda_params`` (the functor's float fields, in its
-order). The kernel takes the props a functor reads as one packed fp32
-tensor per side, in the order :data:`KINDS` lists; under ``bf16x`` it
-rounds them to bf16 where it uses them.
+The body protocol is that of ``repro_torch.core.interactions``. A body
+that carries ``cuda_kind`` (one of the hand-written functors of
+``csrc/cell_pair.cu``) and ``cuda_params`` (the functor's float fields,
+in its order) runs that functor. Any other body runs a functor generated
+from its plain form (:mod:`codegen`: traced at the call's dim, props and
+outputs, emitted as C++ against the same engine, ``csrc/
+cell_pair_engine.cuh``, and built at its first launch); a body with an op
+the generator does not take raises NotImplementedError naming it. Either
+way the functor is a :class:`Kind` of the registry :data:`KINDS`. The
+kernel takes the props a functor reads as one packed fp32 tensor per
+side, in the order its :class:`Kind` lists; under ``bf16x`` it rounds
+them to bf16 where it uses them. A functor has any number of radial and
+scalar outputs, which the kernel writes packed, ``(N_RADIAL, C, cc,
+dim)`` and ``(N_SCALAR, C, cc)``, each kind in ``repro``'s sorted name
+order.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import pathlib
+import sys
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -41,6 +51,7 @@ from repro_torch.core.interactions import (_mask0, cast_bf16, check_out_kind,
                                            parse_precision)
 from repro_torch.core.particles import ParticleSet
 from repro_torch.kernels import _build
+from repro_torch.kernels.cell_pair import codegen
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "cell_pair.cu"
 
@@ -49,7 +60,8 @@ LAUNCHES = 0
 
 
 class Kind(NamedTuple):
-    """What one CUDA functor of ``csrc/cell_pair.cu`` computes."""
+    """What one CUDA functor computes: a hand-written one of
+    ``csrc/cell_pair.cu`` (``gen`` None) or one generated from a body."""
 
     out: Dict[str, str]           # its outputs, name -> "radial" | "scalar"
     props: Tuple[str, ...]        # the props it reads, in packed order
@@ -57,18 +69,27 @@ class Kind(NamedTuple):
     dims: Tuple[int, ...]         # the DIMs it is built for
     n_params: int                 # its float params (``body.cuda_params``)
     precs: Tuple[str, ...]        # its precisions, as in the C entry names
+    gen: Optional[codegen.Generated] = None   # a generated functor's code
 
     def width(self, dim: int) -> int:
         """Floats per particle in the packed props."""
         return sum(dim if vec else 1 for vec in self.vector)
 
+    def names(self) -> Tuple[List[str], List[str]]:
+        """(radial, scalar) output names in the kernel's order: sorted."""
+        items = sorted(self.out.items())
+        return ([n for n, k in items if k == "radial"],
+                [n for n, k in items if k == "scalar"])
 
-#: The CUDA functors: ``cuda_kind`` -> :class:`Kind`. Vector props pack
-#: as their components, scalar props as one float (SPH: v_0 .. v_{d-1},
-#: rho). A precision names its C entry ``cell_pair_<kind>_<prec>_d<dim>``:
-#: ``f32``, ``bf16x``, and ``bf16x_<names>`` for ``"bf16x:<names>"``.
+
+#: The CUDA functors: ``cuda_kind`` (or a generated ``gen_<hash>``) ->
+#: :class:`Kind`. Vector props pack as their components, scalar props as
+#: one float (SPH: v_0 .. v_{d-1}, rho). A precision names its C entry
+#: ``cell_pair_<kind>_<prec>_d<dim>``: ``f32``, ``bf16x``, and
+#: ``bf16x_<names>`` for ``"bf16x:<names>"``. A generated functor is added
+#: at its body's first launch (:func:`_generated_kind`).
 KINDS = {
-    "lj": Kind({"f": "radial"}, (), (), (3,), 2, ("f32", "bf16x")),
+    "lj": Kind({"f": "radial"}, (), (), (2, 3), 2, ("f32", "bf16x")),
     "sph": Kind({"a": "radial", "drho": "scalar"}, ("v", "rho"),
                 (True, False), (2, 3), 12,
                 ("f32", "bf16x", "bf16x_drho", "bf16x_a")),
@@ -82,8 +103,9 @@ def launch_key(kind: str, prec: str) -> str:
     return kind if prec == "f32" else f"{kind}_{prec}"
 
 
-#: Launches per functor and precision (keys from :func:`launch_key`);
-#: they add up to :data:`LAUNCHES`.
+#: Launches per functor and precision (keys from :func:`launch_key`; a
+#: generated functor's are added with it); they add up to
+#: :data:`LAUNCHES`.
 LAUNCHES_BY_KIND = {launch_key(kind, prec): 0
                     for kind, spec in KINDS.items() for prec in spec.precs}
 
@@ -216,11 +238,27 @@ def cell_pair_torch(cell_x, nbr_x, cell_mask, nbr_mask, props_i=None,
     return res
 
 
+def _source(kind: str) -> pathlib.Path:
+    """The CUDA source of functor ``kind`` (a generated one's is written
+    under ``build/repro_torch/gen/`` first)."""
+    gen = KINDS[kind].gen
+    return SOURCE if gen is None else codegen.source_path(gen)
+
+
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
+def _lib_of(src: pathlib.Path) -> ctypes.CDLL:
+    """The library of ``src`` with its entries' C signatures set (built at
+    first use; a generated functor's build prints its seconds)."""
+    known = src in _build.BUILD_SECONDS
+    lib = _build.load(src)
+    if not known and src in _build.BUILD_SECONDS and src != SOURCE:
+        print(f"repro_torch: built the cell-pair functor {src.name} in "
+              f"{_build.BUILD_SECONDS[src]:.1f} s", file=sys.stderr)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for kind, spec in KINDS.items():
+    for kind, spec in list(KINDS.items()):
+        if (SOURCE if spec.gen is None
+                else codegen.source_file(spec.gen)) != src:
+            continue
         for prec in spec.precs:
             for dim in spec.dims:
                 fn = getattr(lib, f"cell_pair_{kind}_{prec}_d{dim}")
@@ -232,6 +270,13 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _lib(kind: str) -> ctypes.CDLL:
+    """The library of functor ``kind`` (built at first use; looked up
+    once, since a generated kind's source is written on the way)."""
+    return _lib_of(_source(kind))
+
+
 def plan(kind: str, prec: str, dim: int, cc: int) -> dict:
     """The launch plan of functor ``kind`` in precision ``prec`` (as in
     its C entry's name) for cell capacity ``cc``: threads per block,
@@ -239,7 +284,7 @@ def plan(kind: str, prec: str, dim: int, cc: int) -> dict:
     memory of a block in bytes (builds the library)."""
     out = (ctypes.c_int * 4)()
     entry = f"cell_pair_{kind}_{prec}_d{dim}_plan"
-    _build.check(getattr(_lib(), entry)(cc, out), entry)
+    _build.check(getattr(_lib(kind), entry)(cc, out), entry)
     return dict(zip(("threads", "tile", "chunk", "smem_bytes"), out))
 
 
@@ -274,45 +319,77 @@ def _check_packed(name, t, shape, device):
                          f"{tuple(t.shape)} on {t.device}")
 
 
-def _kind_of(body, out, precision) -> Tuple[str, str]:
-    """(functor, precision of its C entry) for the body, checked against
-    ``out`` and ``precision``; raises for anything the kernel does not
-    run."""
+def _generated_kind(body, out, dim: int, props) -> Tuple[str, tuple]:
+    """(kind, params) of the functor generated from ``body`` for these
+    prop tiles ({name: (C, n) or (C, n, dim) tensor}), registered in
+    :data:`KINDS` and :data:`LAUNCHES_BY_KIND` at its first use."""
+    widths = {}
+    for k, t in props.items():
+        if not t.is_floating_point():
+            raise NotImplementedError(
+                f"prop {k!r} is {t.dtype}: a generated functor reads "
+                "floating-point props (packed as fp32)")
+        if t.dim() == 3 and t.shape[-1] != dim:
+            raise NotImplementedError(
+                f"prop {k!r} has {t.shape[-1]} components per particle; a "
+                f"generated functor reads scalars and ({dim},) vectors")
+        widths[k] = t.dim() == 3
+    gen = codegen.generate(body, dict(out), dim, widths)
+    if gen.kind not in KINDS:
+        KINDS[gen.kind] = Kind(dict(gen.out), gen.props, gen.vector,
+                               (gen.dim,), len(gen.params), gen.precs, gen)
+        for prec in gen.precs:
+            LAUNCHES_BY_KIND.setdefault(launch_key(gen.kind, prec), 0)
+    return gen.kind, gen.params
+
+
+def _kind_of(body, out, precision, dim: int,
+             props=None) -> Tuple[str, str, tuple]:
+    """(functor, precision of its C entry, its float params) for the body
+    at ``dim`` with the prop tiles ``props``, checked against ``out`` and
+    ``precision``: the body's hand-written functor if it names one
+    (``cuda_kind``), else the one generated from it. Raises for anything
+    the kernel does not run."""
     kind = getattr(body, "cuda_kind", None)
-    if kind is None:
-        raise NotImplementedError(
-            "this pair body has no CUDA functor (no cuda_kind); the CUDA "
-            f"cell-pair kernel runs the {sorted(KINDS)} bodies — use "
-            "backend='torch' for other bodies")
     mode, sel = parse_precision(precision, out)
-    if kind not in KINDS:
-        raise NotImplementedError(f"unknown cuda_kind {kind!r}")
-    if dict(out) != KINDS[kind].out:
-        raise ValueError(f"the {kind} functor has outputs "
-                         f"{KINDS[kind].out}; got out={dict(out)!r}")
+    if kind is None:
+        kind, params = _generated_kind(body, out, dim, dict(props or {}))
+    else:
+        if kind not in KINDS:
+            raise NotImplementedError(f"unknown cuda_kind {kind!r}")
+        params = tuple(float(v) for v in body.cuda_params)
+    spec = KINDS[kind]
+    if dict(out) != spec.out:
+        raise ValueError(f"the {kind} functor has outputs {spec.out}; got "
+                         f"out={dict(out)!r}")
+    if dim not in spec.dims:
+        raise ValueError(f"the {kind} functor is built for dim in "
+                         f"{spec.dims}, got {dim}")
     prec = "f32" if mode == "fp32" \
         else "_".join(["bf16x", *sorted(sel or ())])
-    if prec not in KINDS[kind].precs:
+    if prec not in spec.precs:
         raise NotImplementedError(
             f"precision {precision!r} has no {kind} entry in the CUDA "
-            f"cell-pair kernel (it has {KINDS[kind].precs}); use "
-            "backend='torch'")
-    return kind, prec
+            f"cell-pair kernel (it has {spec.precs}; a generated functor "
+            f"of more than {codegen.MAX_MIXED_OUTPUTS} outputs takes fp32 "
+            "and bf16x); use backend='torch'")
+    return kind, prec, params
 
 
 def _launch(kind, body, cell_x, nbr_x, cell_mask, nbr_mask, packed_i,
             packed_j, r_cut, prec="f32"):
-    """Launch functor ``kind`` in precision ``prec`` (one of its
-    :data:`KINDS` precisions) on PyTorch's current stream (no sync) with
-    the props already packed; returns {name: (C, cc[, dim])}."""
+    """Launch hand-written functor ``kind`` in precision ``prec`` (one of
+    its :data:`KINDS` precisions) on PyTorch's current stream (no sync)
+    with the props already packed; returns {name: (C, cc[, dim])}."""
     return _launch_params(kind, body.cuda_params, cell_x, nbr_x, cell_mask,
                           nbr_mask, packed_i, packed_j, r_cut, prec)
 
 
-def _launch_params(kind, params, cell_x, nbr_x, cell_mask, nbr_mask,
+def _launch_packed(kind, params, cell_x, nbr_x, cell_mask, nbr_mask,
                    packed_i, packed_j, r_cut, prec="f32"):
-    """:func:`_launch` with the functor's float params given as they are
-    (``body.cuda_params``)."""
+    """One launch of functor ``kind`` with its float params given as they
+    are: the packed outputs (radial ``(N_RADIAL, C, cc, dim)`` or None,
+    scalar ``(N_SCALAR, C, cc)`` or None)."""
     global LAUNCHES
     spec = KINDS[kind]
     _check_tiles(cell_x, nbr_x, cell_mask, nbr_mask)
@@ -330,17 +407,15 @@ def _launch_params(kind, params, cell_x, nbr_x, cell_mask, nbr_mask,
     if len(params) != spec.n_params:
         raise ValueError(f"the {kind} functor takes {spec.n_params} params, "
                          f"the body gives {len(params)}")
-    res = {name: torch.empty((C, cc, dim) if k == "radial" else (C, cc),
-                             dtype=torch.float32, device=dev)
-           for name, k in spec.out.items()}
-    radial = next((res[n] for n, k in spec.out.items() if k == "radial"),
-                  None)
-    scalar = next((res[n] for n, k in spec.out.items() if k == "scalar"),
-                  None)
+    radial_names, scalar_names = spec.names()
+    radial = torch.empty((len(radial_names), C, cc, dim), dtype=torch.float32,
+                         device=dev) if radial_names else None
+    scalar = torch.empty((len(scalar_names), C, cc), dtype=torch.float32,
+                         device=dev) if scalar_names else None
     ptr = lambda t: None if t is None else t.data_ptr()
-    c_params = (ctypes.c_float * len(params))(*params)
+    c_params = (ctypes.c_float * max(len(params), 1))(*params)
     entry = f"cell_pair_{kind}_{prec}_d{dim}"
-    lib = _lib()
+    lib = _lib(kind)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, entry)(
@@ -350,7 +425,24 @@ def _launch_params(kind, params, cell_x, nbr_x, cell_mask, nbr_mask,
     _build.check(err, entry)
     LAUNCHES += 1
     LAUNCHES_BY_KIND[launch_key(kind, prec)] += 1
+    return radial, scalar
+
+
+def _split(kind: str, radial, scalar) -> Dict[str, torch.Tensor]:
+    """{name: (C, cc[, dim])} of the packed outputs of functor ``kind``."""
+    radial_names, scalar_names = KINDS[kind].names()
+    res = {n: radial[k] for k, n in enumerate(radial_names)}
+    res.update({n: scalar[k] for k, n in enumerate(scalar_names)})
     return res
+
+
+def _launch_params(kind, params, cell_x, nbr_x, cell_mask, nbr_mask,
+                   packed_i, packed_j, r_cut, prec="f32"):
+    """:func:`_launch` with the functor's float params given as they are
+    (``body.cuda_params``, or a generated functor's)."""
+    return _split(kind, *_launch_packed(kind, params, cell_x, nbr_x,
+                                        cell_mask, nbr_mask, packed_i,
+                                        packed_j, r_cut, prec))
 
 
 # --------------------------------------------------------------------------
@@ -363,7 +455,7 @@ def _launch_params(kind, params, cell_x, nbr_x, cell_mask, nbr_mask,
 # the cell axis, (B, C, ...) -> (B·C, ...), and ONE launch serves all B
 # members — the kernel gives each cell its own block and indexes in
 # size_t, so the folded launch computes each member's cells exactly as
-# its own launch would. The outputs unfold to (B, C, cc[, dim]).
+# its own launch would. The outputs unfold to (B, N·C, cc[, dim]).
 
 #: The folded tiles' elements must stay below 2^31 (the C entry takes the
 #: cell count as an int; every index inside is size_t).
@@ -378,13 +470,17 @@ def _cell_pair_op(cell_x: torch.Tensor, nbr_x: torch.Tensor,
                   packed_j: Optional[torch.Tensor], kind: str, prec: str,
                   params: List[float], r_cut: float
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of functor ``kind``: (radial, scalar) per-slot sums; an
-    output the functor lacks is an empty tensor."""
-    res = _launch_params(kind, params, cell_x, nbr_x, cell_mask, nbr_mask,
-                         packed_i, packed_j, r_cut, prec)
-    by_kind = {k: res[n] for n, k in KINDS[kind].out.items()}
-    return (by_kind.get("radial", cell_x.new_empty((0,))),
-            by_kind.get("scalar", cell_x.new_empty((0,))))
+    """One launch of functor ``kind``: its (radial, scalar) per-slot sums,
+    the outputs of a kind stacked along the cell axis as the kernel writes
+    them, ``(N_RADIAL·C, cc, dim)`` and ``(N_SCALAR·C, cc)`` (rows k·C ..
+    (k+1)·C - 1 hold output k); a kind the functor lacks is an empty
+    tensor."""
+    radial, scalar = _launch_packed(kind, params, cell_x, nbr_x, cell_mask,
+                                    nbr_mask, packed_i, packed_j, r_cut,
+                                    prec)
+    empty = cell_x.new_empty((0,))
+    return (empty if radial is None else radial.view(-1, *radial.shape[2:]),
+            empty if scalar is None else scalar.view(-1, scalar.shape[2]))
 
 
 def _fold(t, bdim, batch: int):
@@ -402,7 +498,8 @@ def _cell_pair_vmap(info, in_dims, cell_x, nbr_x, cell_mask, nbr_mask,
                     packed_i, packed_j, kind, prec, params, r_cut):
     """The batching rule: fold, launch once, unfold. ``kind``, ``prec``,
     ``params`` and ``r_cut`` are the same for every member (one ``cfg``
-    per fleet)."""
+    per fleet). A kind's N outputs come back (N, B, C, ...) and each
+    member's (N·C, ...) rows are gathered (a view for N = 1)."""
     B = info.batch_size
     tiles = [_fold(t, d, B) for t, d in zip(
         (cell_x, nbr_x, cell_mask, nbr_mask, packed_i, packed_j),
@@ -413,9 +510,11 @@ def _cell_pair_vmap(info, in_dims, cell_x, nbr_x, cell_mask, nbr_mask,
             f"{tiles[1].numel()} elements, above the kernel's 2^31")
     outs = _cell_pair_op(*tiles, kind, prec, params, r_cut)
     res, dims = [], []
-    for t in outs:
+    for t, names in zip(outs, KINDS[kind].names()):
         if t.numel():
-            res.append(t.view((B, -1) + tuple(t.shape[1:])))
+            n = len(names)
+            t = t.view((n, B, -1) + tuple(t.shape[1:])).transpose(0, 1)
+            res.append(t.reshape((B, -1) + tuple(t.shape[3:])))
             dims.append(0)
         else:
             res.append(t)
@@ -427,28 +526,41 @@ def _cell_pair_cuda(cell_x, nbr_x, cell_mask, nbr_mask, props_i, props_j,
                     *, body, out, r_cut, precision):
     """Pack the tile props in the functor's order and launch it through
     ``repro_torch::cell_pair``."""
-    kind, prec = _kind_of(body, out, precision)
-    names = KINDS[kind].props
-    if sorted(props_i) != sorted(names) or sorted(props_j) != sorted(names):
+    kind, prec, params = _kind_of(body, out, precision, cell_x.shape[-1],
+                                  props_i)
+    spec = KINDS[kind]
+    names = spec.props
+    if spec.gen is None and (sorted(props_i) != sorted(names)
+                             or sorted(props_j) != sorted(names)):
         raise ValueError(f"the {kind} functor reads props {names}; got "
                          f"{sorted(props_i)} / {sorted(props_j)}")
+    missing = [k for k in names if k not in props_i or k not in props_j]
+    if missing:
+        raise ValueError(f"the {kind} functor reads props {missing}, which "
+                         "the tiles do not carry")
     packed_i = pack_props(props_i, names) if names else None
     packed_j = pack_props(props_j, names) if names else None
     radial, scalar = _cell_pair_op(
         cell_x, nbr_x, cell_mask, nbr_mask, packed_i, packed_j, kind, prec,
-        [float(v) for v in body.cuda_params], float(r_cut))
-    return {name: radial if k == "radial" else scalar
-            for name, k in KINDS[kind].out.items()}
+        [float(v) for v in params], float(r_cut))
+    C = cell_x.shape[0]
+    radial_names, scalar_names = spec.names()
+    if radial_names:
+        radial = radial.view((len(radial_names), C) + tuple(radial.shape[1:]))
+    if scalar_names:
+        scalar = scalar.view((len(scalar_names), C) + tuple(scalar.shape[1:]))
+    return _split(kind, radial, scalar)
 
 
 def cell_pair(cell_x, nbr_x, cell_mask, nbr_mask, props_i=None,
               props_j=None, *, body, out, r_cut: float,
               precision: str = "fp32"):
     """Tile-level engine entry (``repro``'s ``cell_pair_pallas``). CUDA
-    tensors launch the kernel (NotImplementedError for a body without a
-    CUDA functor or a precision it has no entry for — never a quiet
-    fallback); CPU tensors run :func:`cell_pair_torch`. Returns
-    {name: (C, cc[, dim])}."""
+    tensors launch the kernel: the body's hand-written functor
+    (``cuda_kind``) or the one generated from it (NotImplementedError for
+    a body with an op the generator does not take, or a precision without
+    an entry — never a quiet fallback); CPU tensors run
+    :func:`cell_pair_torch`. Returns {name: (C, cc[, dim])}."""
     if cell_x.is_cuda:
         return _cell_pair_cuda(cell_x, nbr_x, cell_mask, nbr_mask,
                                dict(props_i or {}), dict(props_j or {}),
@@ -457,7 +569,6 @@ def cell_pair(cell_x, nbr_x, cell_mask, nbr_mask, props_i=None,
     return cell_pair_torch(cell_x, nbr_x, cell_mask, nbr_mask, props_i,
                            props_j, body=body, out=out, r_cut=r_cut,
                            precision=precision)
-
 
 #: Dump rows past ``cap`` that :func:`scatter_slots` spreads sentinel slots
 #: over. One dump row would take every sentinel's atomic add at a single

@@ -185,8 +185,9 @@ def test_bf16x_plain_matches_jax_bf16x():
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_on_card():
     """The CUDA kernel against cell_pair_torch on md_case's tiles, on the
-    card, in fp32 and in bf16x; and a body without a CUDA functor raises
-    there."""
+    card, in fp32 and in bf16x; a body without a hand functor (the
+    Gaussian) launches the functor generated from it and matches plain,
+    and a body with an op the generator does not take raises there."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the GPU machine)")
     cfg, _, tt = _md_tiles()
@@ -200,8 +201,25 @@ def test_cuda_kernel_matches_plain_on_card():
                               r_cut=cfg.r_cut)["f"]
     torch.cuda.synchronize()
     assert rel(got, ref) <= 1e-5
-    with pytest.raises(NotImplementedError):
-        TCP.cell_pair(*args, body=_gauss_torch, out=LJ_OUT, r_cut=cfg.r_cut)
+    q = torch.linspace(1.0, 2.0, tt.cell_x.shape[0] * tt.cell_x.shape[1]
+                       ).reshape(tt.cell_mask.shape).cuda()
+    qj = torch.linspace(1.0, 2.0, tt.nbr_x.shape[0] * tt.nbr_x.shape[1]
+                        ).reshape(tt.nbr_mask.shape).cuda()
+    gkw = dict(body=_gauss_torch, out={"f": "radial", "rho": "scalar"},
+               r_cut=cfg.r_cut)
+    n0 = TCP.LAUNCHES
+    gen = TCP.cell_pair(*args, {"q": q}, {"q": qj}, **gkw)
+    assert TCP.LAUNCHES == n0 + 1
+    gref = TCP.cell_pair_torch(*args, {"q": q}, {"q": qj}, **gkw)
+    torch.cuda.synchronize()
+    assert rel(gen["f"], gref["f"]) <= 1e-5
+    assert rel(gen["rho"], gref["rho"]) <= 1e-5
+
+    def cum(dx, r2, ok, wi, wj):
+        return {"f": TI.Radial(torch.cumsum(r2, -1))}
+
+    with pytest.raises(NotImplementedError, match="aten.cumsum"):
+        TCP.cell_pair(*args, body=cum, out=LJ_OUT, r_cut=cfg.r_cut)
     n0 = TCP.LAUNCHES_BY_KIND["lj_bf16x"]
     got16 = TCP.cell_pair(*args, body=body, out=LJ_OUT, r_cut=cfg.r_cut,
                           precision="bf16x")["f"]

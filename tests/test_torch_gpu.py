@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card
-(B1 with the LJ, SPH and DEM functors, B2, B3, B4; fp32 and bf16x; B5,
+(B1 with the LJ (DIM 2 and 3), SPH and DEM functors and with functors
+generated from bodies without cuda_kind, B2, B3, B4; fp32 and bf16x; B5,
 the flash attention, in fp32 and bf16, and the dense, moe, ssm, hybrid,
 encdec and vlm LM paths through it; B5's guard under autograd and the
 training step on the card against the CPU;
@@ -270,6 +271,112 @@ def test_cuda_cell_pair_matches_plain(card):
     ref = CP.cell_pair_torch(*args, **kw)["f"]
     torch.cuda.synchronize()
     assert rel(got, ref) <= TOL
+
+
+def _gauss_body(dx, r2, ok, wi, wj):
+    """``repro``'s Gaussian body (tests/test_cell_pair.py): no
+    cuda_kind."""
+    from repro_torch.core.interactions import Radial
+    w = wi["q"] * wj["q"] * torch.exp(-8.0 * r2)
+    return {"f": Radial(w), "rho": w}
+
+
+@dataclasses.dataclass(frozen=True)
+class _Hidden:
+    """A body with its cuda_kind hidden: the generated route."""
+
+    body: object
+
+    def __call__(self, dx, r2, ok, wi, wj):
+        return self.body(dx, r2, ok, wi, wj)
+
+
+def _gauss_tiles(dim, n, r_cut, seed):
+    """Tiles of n seeded particles with a per-particle q in a periodic
+    unit box, on the card."""
+    from repro_torch.core import cell_list as CL
+    from repro_torch.core import particles as P
+    from repro_torch.kernels.cell_pair import cell_pair as CP
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.uniform(0.0, 1.0, (n, dim)).astype(np.float32))
+    q = torch.from_numpy(rng.uniform(1.0, 2.0, n).astype(np.float32))
+    ps = P.from_positions(x.cuda(), capacity=n + 6, props={"q": q.cuda()})
+    gs = CL.grid_shape_for((0.0,) * dim, (1.0,) * dim, r_cut)
+    cl = CL.build_cell_list(ps, box_lo=(0.0,) * dim, box_hi=(1.0,) * dim,
+                            grid_shape=gs, periodic=(True,) * dim,
+                            cell_cap=64)
+    return CP.gather_cell_tiles(ps, cl, ("q",))
+
+
+@pytest.mark.parametrize("dim,n,r_cut", [(2, 400, 0.26), (3, 900, 0.3)])
+@pytest.mark.parametrize("prec", ["fp32", "bf16x", "bf16x:rho"])
+def test_cuda_generated_gauss_functor_matches_plain(card, dim, n, r_cut,
+                                                    prec):
+    """A body without cuda_kind launches the functor generated from it
+    (one launch, counted under its own key) and matches cell_pair_torch on
+    the card in every precision; bf16x is unlike fp32."""
+    from repro_torch.kernels.cell_pair import cell_pair as CP
+    t = _gauss_tiles(dim, n, r_cut, seed=dim)
+    args = (t.cell_x, t.nbr_x, t.cell_mask, t.nbr_mask, t.props_i,
+            t.props_j)
+    out = {"f": "radial", "rho": "scalar"}
+    kw = dict(body=_gauss_body, out=out, r_cut=r_cut)
+    kind, key_prec, _ = CP._kind_of(_gauss_body, out, prec, dim, t.props_i)
+    assert kind.startswith("gen_")
+    key = CP.launch_key(kind, key_prec)
+    n0, k0 = CP.LAUNCHES, CP.LAUNCHES_BY_KIND[key]
+    got = CP.cell_pair(*args, precision=prec, **kw)
+    assert CP.LAUNCHES == n0 + 1 and CP.LAUNCHES_BY_KIND[key] == k0 + 1
+    ref = CP.cell_pair_torch(*args, precision=prec, **kw)
+    f32 = CP.cell_pair(*args, **kw)
+    torch.cuda.synchronize()
+    for k in out:
+        assert rel(got[k], ref[k]) <= TOL, k
+    if prec != "fp32":
+        assert rel(got["rho"], f32["rho"]) > 0      # bf16 really used
+
+
+@pytest.mark.parametrize("prec", ["fp32", "bf16x"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_cuda_lj_hand_and_generated_match_plain(card, dim, prec):
+    """LJ at DIM 2 and 3 through its hand functor and, with its cuda_kind
+    hidden, through the generated one: both match cell_pair_torch."""
+    from repro_torch.apps import md
+    from repro_torch.core import cell_list as CL
+    from repro_torch.kernels.cell_pair import cell_pair as CP
+    side = 20 if dim == 2 else 6
+    cfg = md.MDConfig(n_per_side=side, sigma=0.85 / side, dim=dim,
+                      dt=0.005 / side, device="cuda")
+    ps, _ = md.run(cfg, 5, thermal_v=0.4, seed=3)
+    t = CP.gather_cell_tiles(ps, CL.build_cell_list(ps, **md._cl_kw(cfg)))
+    args = (t.cell_x, t.nbr_x, t.cell_mask, t.nbr_mask)
+    body = md.lj_pair_body(cfg.sigma, cfg.epsilon)
+    kw = dict(out={"f": "radial"}, r_cut=cfg.r_cut, precision=prec)
+    ref = CP.cell_pair_torch(*args, body=body, **kw)["f"]
+    n0 = CP.LAUNCHES_BY_KIND[CP.launch_key("lj", "f32" if prec == "fp32"
+                                           else "bf16x")]
+    hand = CP.cell_pair(*args, body=body, **kw)["f"]
+    assert CP.LAUNCHES_BY_KIND[CP.launch_key(
+        "lj", "f32" if prec == "fp32" else "bf16x")] == n0 + 1
+    gen = CP.cell_pair(*args, body=_Hidden(body), **kw)["f"]
+    torch.cuda.synchronize()
+    assert rel(hand, ref) <= TOL and rel(gen, ref) <= TOL
+
+
+def test_cuda_generated_body_with_unsupported_op_raises(card):
+    """A body with an op the generator does not take raises on CUDA
+    tensors, naming the op; nothing falls back to the plain version."""
+    from repro_torch.kernels.cell_pair import cell_pair as CP
+    t = _gauss_tiles(3, 200, 0.3, seed=5)
+
+    def cum(dx, r2, ok, wi, wj):
+        return {"n": torch.cumsum(r2, -1)}
+
+    n0 = CP.LAUNCHES
+    with pytest.raises(NotImplementedError, match="aten.cumsum"):
+        CP.cell_pair(t.cell_x, t.nbr_x, t.cell_mask, t.nbr_mask,
+                     body=cum, out={"n": "scalar"}, r_cut=0.3)
+    assert CP.LAUNCHES == n0
 
 
 def _pair_tiles(dim, C, cc, K, box, seed):
