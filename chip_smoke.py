@@ -68,19 +68,24 @@ Phases, each of which raises (non-zero exit) on failure:
      ms, node-updates per second, the bytes bound.
 
  10. the LM stack's serve path (starcoder2-15b, ``configs/
-     starcoder2_15b.py``): (a) B5, the flash-attention kernel (bf16 on
-     tensor cores with TMA, fp32 on the SIMT pipes), against its
-     plain version at the prefill's shapes (4 x 48 heads over 4 KV heads,
-     2048 queries against a 2176-deep cache, hd 128, causal): <= 1e-5 in
-     fp32 and <= 1e-2 in bf16 (max-abs error over the plain max), timed
-     beside the plain version and PyTorch's SDPA, with the bound; in bf16
-     the share of outputs unequal to plain held under half that of plain
-     with only the first term of p (and, at few keys, the first two: the
+     starcoder2_15b.py``): (a) B5, the flash-attention kernel (bf16 and
+     fp32 on tensor cores with TMA; fp32 as six products of three exact
+     bf16 terms of q, k, v and p; the fp32 form's launch plan printed),
+     against its plain version at the prefill's shapes (4 x 48 heads
+     over 4 KV heads, 2048 queries against a 2176-deep cache, hd 128,
+     causal): <= 1e-5 in fp32 and <= 1e-2 in bf16 (max-abs error over the
+     plain max), timed beside the plain version and PyTorch's SDPA (timed
+     only where it is within the same tolerance of plain), with the
+     bound (4 hd operations a visible pair at 989 TFLOP/s) and each
+     form's floor; in fp32 the error held under half that of a control
+     with only the three products of order <= 1; in bf16 the share of
+     outputs unequal to plain held under half that of plain with only
+     the first term of p (and, at few keys, the first two: the
      three-term split must be exact); non-causal too, at the whisper
      encoder's self-attention (4 x 16 heads, 1500 x 1500, hd 64) and at
      llama-vision's cross-attention (4 x 32 heads over 8, 2048 queries
-     against 1601 image tokens, hd 128), in fp32 and bf16, beside plain,
-     SDPA and the bound of every pair visible; (b) full
+     against 1601 image tokens, hd 128), in fp32 (with its control) and
+     bf16, beside plain, SDPA and the bound of every pair visible; (b) full
      width, 2 layers, fp32: prefill logits through B5 against the plain
      path <= 1e-4; (c) the full 40-layer model in bf16 (weights from a
      seeded ``torch.Generator`` on the card): ``greedy_generate`` of 64
@@ -414,6 +419,14 @@ B5_BF16_TOL = 1e-2
 # control is held; at few keys (B5_SPLIT_SHAPE) the two-term one too.
 B5_SPLIT_FRAC = 0.5
 B5_SPLIT_SHAPE = (8, 32, 4, 64, 16, 128)     # B, H, K, Sq, Sk, hd; all keys
+# B5 fp32 (three bf16 terms of q, k, v and p, six products of order <= 2
+# on the tensor cores): its rel error against plain is held under
+# B5_SPLIT_FRAC of a control's that sums only the three of order <= 1
+# (``split_terms=3``), so the order-2 products are shown to be computed.
+# Both forms' bound is the function's 4 hd operations a visible pair at
+# the tensor-core rate; each form's own floor counts what it issues:
+# 8 hd (bf16: q.k^T and three p.v terms) or 24 hd (fp32: six of each).
+B5_FLOOR_OPS_PER_HD = {"bfloat16": 8, "float32": 24}
 LM_FP32_TOL = 1e-4    # 10b prefill logits, kernel path vs plain path
 LM_BF16_TOL = 5e-2    # 10c prefill logits (bf16, 40 layers), same
 # 10d-10f: the moe and ssm kinds served at full width in bf16 (the prompt
@@ -1590,17 +1603,102 @@ def b5_split_check(q, k, v, *, causal, controls):
     return shares
 
 
+def b5_fp32_control_check(q, k, v, ref, err, *, causal, tag):
+    """B5's fp32 form against plain beside the three-term control (plain
+    with q·kᵀ and p·v from only the products of order <= 1 of the bf16
+    terms, ``split_terms=3``). Raises unless the kernel's rel error
+    ``err`` is under B5_SPLIT_FRAC of the control's. Returns the two
+    errors and their ratio."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    ctl = rel_err(flash_attention_ref(q, k, v, causal=causal, split_terms=3),
+                  ref)
+    rec = {"kernel": err, "split_terms_3": ctl, "share": err / ctl}
+    print(f"B5 float32 {tag}: kernel vs plain rel {err:.3e}, three-term "
+          f"control (order <= 1) {ctl:.3e}, share {rec['share']:.4f} (held "
+          f"under {B5_SPLIT_FRAC:g})")
+    if not err < B5_SPLIT_FRAC * ctl:
+        raise RuntimeError(f"B5 fp32 {tag}: rel {err:.3e} is not under "
+                           f"{B5_SPLIT_FRAC:g} x the three-term control's "
+                           f"{ctl:.3e}")
+    return rec
+
+
+def b5_case(label, q, k, v, *, causal, tol):
+    """B5 on these inputs against its plain version (finite, rel <= tol;
+    fp32 also beside its three-term control), then its ms beside plain's
+    and PyTorch's SDPA's (timed only where it is within ``tol``, the
+    dtype's tolerance, of plain; the port never calls it), the bound and
+    the form's floor. Returns the record."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    import torch.nn.functional as F
+    dname = str(q.dtype).split(".")[1]
+    kind = "causal" if causal else "non-causal"
+    got = FA.flash_attention(q, k, v, causal=causal)
+    ref = flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"B5 {label} {dname}: output not finite")
+    err = rel_err(got, ref)
+    max_abs = float((got.float() - ref.float()).abs().max())
+    del got
+    print(f"B5 {label} {dname}: q {tuple(q.shape)}, k/v {tuple(k.shape)}, "
+          f"{kind}, kernel vs plain max abs {max_abs:.3e}, rel {err:.3e} "
+          f"(tol {tol:g})")
+    if not err <= tol:
+        raise RuntimeError(f"B5 {label} {dname} disagrees with plain: rel "
+                           f"{err}")
+    rec = dict(max_abs_err=max_abs, rel_err=err)
+    if q.dtype == torch.float32:
+        rec["control"] = b5_fp32_control_check(q, k, v, ref, err,
+                                               causal=causal, tag=label)
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                  enable_gqa=True)
+    lib_err = rel_err(sdpa(), ref)
+    del ref
+    same = lib_err <= tol
+    kernel_ms = time_cuda(lambda: FA.flash_attention(q, k, v, causal=causal),
+                          iters=10)
+    plain_ms = time_cuda(lambda: flash_attention_ref(q, k, v, causal=causal),
+                         iters=3, warmup=1)
+    lib_ms = time_cuda(sdpa, iters=10) if same else None
+    B, H, Sq, hd = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    bound_ms, bound_by, ops, n_bytes = b5_bound(
+        B, H, K, Sq, Sk, hd, q.element_size(), BF16_FLOP_PER_S,
+        causal=causal)
+    per_hd = B5_FLOOR_OPS_PER_HD[dname]
+    floor_ms = per_hd / 4 * ops / BF16_FLOP_PER_S * 1e3
+    simt = ("" if q.dtype != torch.float32 else
+            f"; at the fp32 SIMT peak ({FP32_FLOP_PER_S / 1e12:g} TFLOP/s, "
+            f"the bound before the tensor-core form) "
+            f"{ops / FP32_FLOP_PER_S * 1e3:.4f} ms")
+    print(f"B5 {label} {dname}: {kernel_ms:.4f} ms kernel, {plain_ms:.3f} "
+          f"ms plain, {lib_ms} ms SDPA (vs plain rel {lib_err:.3e}: "
+          + ("the same function" if same else
+             "another function: no library time")
+          + f" at {tol:g}); {ops:.4e} operations, {n_bytes / 1e6:.1f} MB, "
+          f"bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{BF16_FLOP_PER_S / 1e12:g} TFLOP/s), "
+          f"{ops / kernel_ms / 1e9:.2f} TFLOP/s achieved; the design's "
+          f"floor ({per_hd} hd per pair) {floor_ms:.4f} ms" + simt)
+    rec.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=lib_ms,
+               library_rel_err=lib_err, bound_ms=bound_ms, bound_by=bound_by,
+               floor_ms=floor_ms)
+    return rec
+
+
 def b5_phase(cfg):
     """Phase 10a: B5 against its plain version at the prefill's shapes
     (LM_BATCH x H over K heads, LM_PROMPT queries against LM_S_MAX keys,
     causal), fp32 and bf16, each timed with CUDA events beside its plain
     version and PyTorch's ``scaled_dot_product_attention`` (start-aligned
-    ``is_causal`` like B5; checked against the plain output first; the
-    port never calls it). Returns the entry for the ``kernels`` line
-    (bf16, the serve path's type) without the main path's launches."""
+    ``is_causal`` like B5; checked against the plain output first at the
+    dtype's tolerance; the port never calls it); fp32 beside its
+    three-term control. Returns the entry for the ``kernels`` line (bf16,
+    the serve path's type, with fp32's record under ``fp32``) without the
+    main path's launches."""
     from repro_torch.kernels.flash_attention import flash_attention as FA
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    import torch.nn.functional as F
     B, H, K, hd = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     Sq, Sk = LM_PROMPT, LM_S_MAX
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -1608,52 +1706,12 @@ def b5_phase(cfg):
                      for shape in ((B, H, Sq, hd), (B, K, Sk, hd),
                                    (B, K, Sk, hd)))
     res = {}
-    for dtype, tol, peak in ((torch.float32, B5_FP32_TOL, FP32_FLOP_PER_S),
-                             (torch.bfloat16, B5_BF16_TOL,
-                              BF16_FLOP_PER_S)):
+    print(f"B5 float32 launch plan at hd {hd}: {FA.plan(hd)}")
+    for dtype, tol in ((torch.float32, B5_FP32_TOL),
+                       (torch.bfloat16, B5_BF16_TOL)):
         name = str(dtype).split(".")[1]
         q, k, v = (t.to(dtype) for t in (q32, k32, v32))
-        got = FA.flash_attention(q, k, v, causal=True)
-        ref = flash_attention_ref(q, k, v, causal=True)
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(got).all()):
-            raise RuntimeError(f"B5 {name}: output not finite")
-        err = rel_err(got, ref)
-        max_abs = float((got.float() - ref.float()).abs().max())
-        print(f"B5 {name}: q {tuple(q.shape)}, k/v {tuple(k.shape)}, causal, "
-              f"kernel vs plain max abs {max_abs:.3e}, rel {err:.3e} (tol "
-              f"{tol:g})")
-        if not err <= tol:
-            raise RuntimeError(f"B5 {name} disagrees with plain: rel {err}")
-        sdpa = lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)
-        lib_err = rel_err(sdpa(), ref)
-        same = lib_err <= B5_BF16_TOL
-        print(f"B5 {name}: SDPA vs plain rel {lib_err:.3e} ("
-              + ("the same function" if same else
-                 "another function: no library time") + f" at "
-              f"{B5_BF16_TOL:g})")
-        del got, ref
-        kernel_ms = time_cuda(lambda: FA.flash_attention(q, k, v), iters=10)
-        plain_ms = time_cuda(lambda: flash_attention_ref(q, k, v), iters=3,
-                             warmup=1)
-        lib_ms = time_cuda(sdpa, iters=10) if same else None
-        bound_ms, bound_by, ops, n_bytes = b5_bound(
-            B, H, K, Sq, Sk, hd, q.element_size(), peak)
-        # the bf16 form's own floor: q.k^T (2 hd) and three p.v terms
-        # (3 x 2 hd) on the tensor cores, twice the function's 4 hd
-        floor_ms = 2 * ops / peak * 1e3 if dtype == torch.bfloat16 \
-            else None
-        print(f"B5 {name}: {kernel_ms:.4f} ms kernel, {plain_ms:.3f} ms "
-              f"plain, {lib_ms} ms SDPA; {ops:.4e} operations, "
-              f"{n_bytes / 1e6:.1f} MB, bound {bound_ms:.4f} ms ({bound_by}, "
-              f"{peak / 1e12:g} TFLOP/s), {ops / kernel_ms / 1e9:.2f} "
-              f"TFLOP/s achieved" + (f"; the design's floor (8 hd per "
-                                     f"pair) {floor_ms:.4f} ms"
-                                     if floor_ms else ""))
-        res[name] = dict(max_abs_err=max_abs, rel_err=err, ms=kernel_ms,
-                         plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms, bound_by=bound_by)
+        res[name] = b5_case("prefill", q, k, v, causal=True, tol=tol)
         if dtype == torch.bfloat16:
             res[name]["split"] = b5_split_check(q, k, v, causal=True,
                                                 controls=(1,))
@@ -2105,11 +2163,10 @@ def b5_noncausal_phase():
     (B5_NONCAUSAL), fp32 and bf16, each timed with CUDA events beside its
     plain version and PyTorch's ``scaled_dot_product_attention``
     (``is_causal=False, enable_gqa=True``; checked against the plain
-    output first; the port never calls it), with the bound of every pair
-    visible. Returns ``{shape name: {"shape", "float32", "bfloat16"}}``."""
+    output first at the dtype's tolerance; the port never calls it), with
+    the bound of every pair visible; fp32 beside its three-term control.
+    Returns ``{shape name: {"shape", "float32", "bfloat16"}}``."""
     from repro_torch.kernels.flash_attention import flash_attention as FA
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(6)
     out = {}
     for name, (B, H, K, Sq, Sk, hd) in B5_NONCAUSAL:
@@ -2117,47 +2174,12 @@ def b5_noncausal_phase():
                          for shape in ((B, H, Sq, hd), (B, K, Sk, hd),
                                        (B, K, Sk, hd)))
         res = {"shape": [B, H, K, Sq, Sk, hd]}
-        for dtype, tol, peak in ((torch.float32, B5_FP32_TOL,
-                                  FP32_FLOP_PER_S),
-                                 (torch.bfloat16, B5_BF16_TOL,
-                                  BF16_FLOP_PER_S)):
-            dname = str(dtype).split(".")[1]
+        print(f"B5 float32 launch plan at hd {hd}: {FA.plan(hd)}")
+        for dtype, tol in ((torch.float32, B5_FP32_TOL),
+                           (torch.bfloat16, B5_BF16_TOL)):
             q, k, v = (t.to(dtype) for t in (q32, k32, v32))
-            got = FA.flash_attention(q, k, v, causal=False)
-            ref = flash_attention_ref(q, k, v, causal=False)
-            torch.cuda.synchronize()
-            if not bool(torch.isfinite(got).all()):
-                raise RuntimeError(f"B5 {name} {dname}: output not finite")
-            err = rel_err(got, ref)
-            max_abs = float((got.float() - ref.float()).abs().max())
-            print(f"B5 non-causal {name} {dname}: q {tuple(q.shape)}, k/v "
-                  f"{tuple(k.shape)}, kernel vs plain max abs {max_abs:.3e},"
-                  f" rel {err:.3e} (tol {tol:g})")
-            if not err <= tol:
-                raise RuntimeError(f"B5 non-causal {name} {dname} disagrees "
-                                   f"with plain: rel {err}")
-            sdpa = lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=False, enable_gqa=True)
-            lib_err = rel_err(sdpa(), ref)
-            same = lib_err <= B5_BF16_TOL
-            del got, ref
-            kernel_ms = time_cuda(lambda: FA.flash_attention(
-                q, k, v, causal=False), iters=10)
-            plain_ms = time_cuda(lambda: flash_attention_ref(
-                q, k, v, causal=False), iters=3, warmup=1)
-            lib_ms = time_cuda(sdpa, iters=10) if same else None
-            bound_ms, bound_by, ops, n_bytes = b5_bound(
-                B, H, K, Sq, Sk, hd, q.element_size(), peak, causal=False)
-            print(f"B5 non-causal {name} {dname}: {kernel_ms:.4f} ms kernel, "
-                  f"{plain_ms:.3f} ms plain, {lib_ms} ms SDPA (vs plain rel "
-                  f"{lib_err:.3e}); {ops:.4e} operations, "
-                  f"{n_bytes / 1e6:.1f} MB, bound {bound_ms:.4f} ms "
-                  f"({bound_by}, {peak / 1e12:g} TFLOP/s), "
-                  f"{ops / kernel_ms / 1e9:.2f} TFLOP/s achieved")
-            res[dname] = dict(max_abs_err=max_abs, rel_err=err,
-                              ms=kernel_ms, plain_ms=plain_ms,
-                              library_ms=lib_ms, bound_ms=bound_ms,
-                              bound_by=bound_by)
+            res[str(dtype).split(".")[1]] = b5_case(name, q, k, v,
+                                                    causal=False, tol=tol)
             del q, k, v
         out[name] = res
         del q32, k32, v32

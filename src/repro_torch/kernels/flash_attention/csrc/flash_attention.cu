@@ -1,4 +1,4 @@
-// Causal GQA flash attention, forward only, for Hopper (sm_90a).
+// GQA flash attention, causal or not, forward only, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_kernel` in
 // src/repro/kernels/flash_attention/flash_attention.py (launched by
@@ -52,30 +52,62 @@
 //   * Cost: 8 hd tensor-core operations per visible pair (2 hd for q.k^T,
 //     3 x 2 hd for p.v) against the function's 4 hd; p.v runs in 64-column
 //     chunks of hd (zero columns past hd).
-// fp32 (flash_attention_f32): the first version's SIMT kernel (fp32 inputs
-// on tensor cores would be TF32, another function). One block of 256
-// threads per (64-row query tile, head, batch row); K and V staged in
-// shared memory as fp32; each thread forms a 4 x 4 patch of scores with
-// fp32 FMAs and accumulates p . v for its 4 rows in registers.
+//
+// fp32 (flash_attention_f32): the same pipeline on three exact bf16 terms
+// of every operand.
+//   * A split pass (split_planes, launched by the same entry) writes q, k
+//     and v once each as three bf16 planes, x1 = bf16(x), x2 = bf16(x -
+//     x1), x3 = bf16(x - x1 - x2), into the caller's scratch (3 (|q| + |k|
+//     + |v|) bf16 elements). x1 + x2 + x3 == x for every normal x: fp32's
+//     24-bit significand fits in three 8-bit ones. The main kernel
+//     (flash_attention_split3) loads the planes by TMA as the bf16 form
+//     loads q, k and v; p is split in registers as there.
+//   * q.k^T and p.v each sum the six products x_a . y_b of order a + b <=
+//     2 of the terms, on bf16 wgmma (each product exact in fp32). The
+//     dropped x2 y3, x3 y2 and x3 y3 are under ~2^-24 |x y|, so this is
+//     the fp32 function up to the summation order; with only the three of
+//     order <= 1 it is not (ref.flash_attention_ref(split_terms=3), the
+//     control that chip_smoke.py holds the kernel's error under).
+//   * The tensor core's fp32 accumulation is not IEEE's. Modelled as one
+//     truncation per 16 products (tools/b5_fp32_accum_model.py), a tile's
+//     p.v issued into the running output is 2.18e-05 of plain away, over
+//     fp32's 1e-5. So the products go smallest first (q1 k1 last, after
+//     every correction over the whole depth), and each tile's p.v, one
+//     64-column box at a time, goes into a fresh accumulator that fp32
+//     adds then fold into the output (1.23e-06 in the model).
+//   * Shared memory is the limit: a plane of one 64-row tile is 8 KB per
+//     64 columns of hd. Each consumer warpgroup keeps its three Q planes;
+//     a ring of slots holds the K and V tiles in turn (K0, V0, K1, ...),
+//     and a K slot is released as soon as its q.k^T is read. Per hd
+//     bucket (with_shape): hd <= 64 two warpgroups, Q 48 KB + 4 slots of
+//     24 KB; <= 128 two, Q 96 KB + 2 slots of 48 KB; <= 192 one, Q 72 KB +
+//     2 slots of 72 KB; <= 256 one, Q 96 KB + 1 slot of 96 KB (K and V
+//     through one slot, their loads not overlapped with the products).
+//   * Cost: 24 hd tensor-core operations per visible pair (6 x 2 hd for
+//     q.k^T, 6 x 2 hd for p.v) against the function's 4 hd.
 //
 // What bounds it on the H100: operations. At the prefill's shapes (B 4,
 // H 48 over K 4, Sq 2048, Sk 2176, hd 128) the visible (q, k) pairs are
 // B.H.sum_i(i+1) = 4.03e8, 4.hd operations each: 2.06e11, 0.21 ms at
 // 989 TFLOP/s bf16; its bytes (q, the visible k and v prefix once per KV
-// head, o) are 1.3e8 B in bf16, 0.04 ms at 3.35 TB/s. The bf16 design's
-// own floor (8 hd per pair) is ~0.42 ms. Measured on an H100 80GB HBM3
-// (700 W) at those shapes (chip_smoke.py phase 10a): the first version
-// (SIMT for both types) 7.70 ms in bf16 and 7.87 ms in fp32; PyTorch's
-// SDPA 0.37 ms for the same bf16 call. Prediction for this bf16 design,
-// written before its first timed run: 1.0-2.0 ms (the 64 x 64 wgmmas at
-// ~40-50% of the bf16 peak, the softmax and the p split not overlapped
-// with the tensor cores within a warpgroup, only across the two).
-// Measured: 1.24 ms (chip_smoke.py phase 10a; PERF.md), 3.0x the design's
-// floor, 3.3x SDPA. What holds it back: inside a warpgroup the softmax
-// and the split run between the two products. Issuing the next tile's
-// q.k^T and softmax beside this tile's p.v needs a second score tile in
-// registers; under the 168-register cap that ptxas gives two consumer
-// warpgroups it spilled and ran slower, so it is not taken here.
+// head, o) are 1.3e8 B in bf16, 0.04 ms at 3.35 TB/s, and 4.4e8 B in fp32,
+// 0.13 ms. The bf16 design's own floor (8 hd per pair) is ~0.42 ms, the
+// fp32 design's (24 hd) ~1.25 ms. Measured on an H100 80GB HBM3 (700 W)
+// at those shapes (chip_smoke.py phase 10a): the first version (SIMT for
+// both types) 7.70 ms in bf16 and 7.87 ms in fp32; PyTorch's SDPA 0.37 ms
+// for the same bf16 call. Prediction for the bf16 design, written before
+// its first timed run: 1.0-2.0 ms (the 64 x 64 wgmmas at ~40-50% of the
+// bf16 peak, the softmax and the p split not overlapped with the tensor
+// cores within a warpgroup, only across the two). Measured: 1.24 ms
+// (chip_smoke.py phase 10a; PERF.md), 3.0x the design's floor, 3.3x
+// SDPA. What holds it back: inside a warpgroup the softmax and the split
+// run between the two products. Issuing the next tile's q.k^T and
+// softmax beside this tile's p.v needs a second score tile in registers;
+// under the 168-register cap that ptxas gives two consumer warpgroups it
+// spilled and ran slower, so it is not taken here. The fp32 design,
+// predicted at 2.4-4.0 ms, measured 2.4584 and 2.4484 ms beside the SIMT
+// kernel's 7.8236 and 7.7321 in one process (H100 80GB HBM3, 700 W;
+// PERF.md): 51% of its floor, where SDPA's fp32 call took 22.2554 ms.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -93,242 +125,7 @@ struct Strides {
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// fp32: the SIMT kernel
-// ---------------------------------------------------------------------------
-
-namespace simt {
-
-constexpr int BQ = 64;         // query rows per block
-constexpr int BK = 64;         // keys per tile
-constexpr int THREADS = 256;   // 16 x 16: ty picks rows, tx columns
-constexpr int PAD = 4;         // floats of padding per staged row
-constexpr int LDP = BK + PAD;  // row stride of the p tile
-// 8 consecutive fp32 elements
-__device__ __forceinline__ void load8(const float* p, float4& a, float4& b) {
-  a = __ldg(reinterpret_cast<const float4*>(p));
-  b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-}
-
-// rows [row0, row0 + 64) of a (rows, hd) matrix with row stride `ld`
-// into shared memory as fp32 (row stride hd + PAD); rows >= n as zeros
-__device__ __forceinline__ void stage(float* dst, const float* src,
-                                      long long ld, int row0, int n,
-                                      int hd) {
-  const int ldq = hd + PAD;
-  const int chunks = hd / 8;
-  for (int c = threadIdx.x; c < 64 * chunks; c += THREADS) {
-    const int r = c / chunks;
-    const int d = (c - r * chunks) * 8;
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-    if (row0 + r < n) load8(src + (row0 + r) * ld + d, a, b);
-    float4* out = reinterpret_cast<float4*>(dst + r * ldq + d);
-    out[0] = a;
-    out[1] = b;
-  }
-}
-
-__device__ __forceinline__ float row_max16(float x) {
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum16(float x) {
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// NJ: float4 column groups per thread; columns 4 tx + 64 j (j < NJ), so
-// hd <= 64 NJ
-template <int NJ>
-__global__ void __launch_bounds__(THREADS)
-    flash_attention_kernel(const float* __restrict__ q,
-                           const float* __restrict__ k,
-                           const float* __restrict__ v, float* __restrict__ o,
-                           int rep, int Sq, int Sk, int hd, int causal,
-                           int q_off, float scale, Strides sq, Strides sk,
-                           Strides sv, Strides so) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int ldq = hd + PAD;
-  float* Qs = smem;              // BQ x ldq
-  float* KVs = Qs + BQ * ldq;    // BK x ldq: the K tile, then the V tile
-  float* Ps = KVs + BK * ldq;    // BQ x LDP
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / rep;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float* qb = q + b * sq.b + h * sq.h;
-  const float* kb = k + b * sk.b + kvh * sk.h;
-  const float* vb = v + b * sv.b + kvh * sv.h;
-
-  stage(Qs, qb, sq.s, q0, Sq, hd);
-
-  float m[4], l[4], acc[4][NJ][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  }
-
-  // the last key the causal mask leaves visible to this tile is
-  // q_off + q0 + 63
-  const int k_end = causal ? min(Sk, q_off + q0 + BQ) : Sk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // Q staged; the previous tile's p and V reads done
-    stage(KVs, kb, sk.s, k0, Sk, hd);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < hd; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * ldq + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] =
-            *reinterpret_cast<const float4*>(KVs + (tx + 16 * j) * ldq + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const int qpos = q0 + r;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const bool ok = kpos < Sk && (!causal || kpos <= q_off + qpos);
-        s[i][j] = ok ? s[i][j] * scale : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max16(mx));
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        Ps[r * LDP + tx + 16 * j] = p;
-        rs += p;
-      }
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + row_sum16(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] *= corr;
-    }
-    __syncthreads();  // every K read done, every p written
-    stage(KVs, vb, sv.s, k0, Sk, hd);
-    __syncthreads();
-
-    for (int c = 0; c < BK; c += 4) {
-      float4 pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * LDP + c);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int d = 4 * tx + 64 * j;
-        if (d < hd) {
-#pragma unroll
-          for (int cc = 0; cc < 4; ++cc) {
-            const float4 vv =
-                *reinterpret_cast<const float4*>(KVs + (c + cc) * ldq + d);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float p = cc == 0   ? pv[i].x
-                              : cc == 1 ? pv[i].y
-                              : cc == 2 ? pv[i].z
-                                        : pv[i].w;
-              acc[i][j][0] = fmaf(p, vv.x, acc[i][j][0]);
-              acc[i][j][1] = fmaf(p, vv.y, acc[i][j][1]);
-              acc[i][j][2] = fmaf(p, vv.z, acc[i][j][2]);
-              acc[i][j][3] = fmaf(p, vv.w, acc[i][j][3]);
-            }
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty + 16 * i;
-    if (qpos >= Sq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    float* orow = o + b * so.b + h * so.h + qpos * so.s;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = 4 * tx + 64 * j;
-      if (d < hd) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) orow[d + e] = acc[i][j][e] / den;
-      }
-    }
-  }
-}
-
-size_t smem_bytes(int hd) {
-  return sizeof(float) *
-         (static_cast<size_t>(BQ + BK) * (hd + PAD) + BQ * LDP);
-}
-
-template <int NJ>
-int launch_nj(const void* q, const void* k, const void* v, void* o, int B,
-              int H, int K, int Sq, int Sk, int hd, int causal, int q_off,
-              float scale, Strides sq, Strides sk, Strides sv, Strides so,
-              cudaStream_t stream) {
-  const size_t smem = smem_bytes(hd);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<NJ>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attention_kernel<NJ><<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H / K, Sq, Sk, hd,
-      causal, q_off, scale, sq, sk, sv, so);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int K, int Sq, int Sk, int hd, int causal, int q_off,
-           float scale, const Strides* st, cudaStream_t s) {
-  if (hd <= 64)
-    return launch_nj<1>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, q_off,
-                        scale, st[0], st[1], st[2], st[3], s);
-  if (hd <= 128)
-    return launch_nj<2>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, q_off,
-                        scale, st[0], st[1], st[2], st[3], s);
-  return launch_nj<4>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, q_off,
-                      scale, st[0], st[1], st[2], st[3], s);
-}
-
-}  // namespace simt
-
-// ---------------------------------------------------------------------------
-// bf16: wgmma and TMA
+// wgmma and TMA: the shared pieces and the bf16 form
 // ---------------------------------------------------------------------------
 
 namespace hopper {
@@ -459,7 +256,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
 // shared-memory descriptor.
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4],
-                                         uint64_t db) {
+                                         uint64_t db, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -474,7 +271,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
         "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 __device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
@@ -557,23 +354,27 @@ __device__ __forceinline__ void softmax(float (&sc)[32], float (&m)[2],
   }
 }
 
+// x as three bf16 terms, t[0] = bf16(x), t[1] = bf16(x - t[0]), t[2] =
+// bf16(x - t[0] - t[1]), each difference exact in fp32 (ref.split_bf16x3).
+__device__ __forceinline__ void split3(float x, __nv_bfloat16 (&t)[3]) {
+  t[0] = __float2bfloat16_rn(x);
+  const float rem = __fsub_rn(x, __bfloat162float(t[0]));
+  t[1] = __float2bfloat16_rn(rem);
+  t[2] = __float2bfloat16_rn(__fsub_rn(rem, __bfloat162float(t[1])));
+}
+
 // p split into three bf16 terms, packed as the A fragments of the four
 // 16-key steps of p.v: pa[term][step][reg].
 __device__ __forceinline__ void split(const float (&p)[32],
                                       uint32_t (&pa)[3][4][4]) {
 #pragma unroll
   for (int r = 0; r < 32; r += 2) {
-    __nv_bfloat16 t1[2], t2[2], t3[2];
+    __nv_bfloat16 t[2][3];
+    split3(p[r], t[0]);
+    split3(p[r + 1], t[1]);
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      t1[e] = __float2bfloat16_rn(p[r + e]);
-      const float rem = __fsub_rn(p[r + e], __bfloat162float(t1[e]));
-      t2[e] = __float2bfloat16_rn(rem);
-      t3[e] = __float2bfloat16_rn(__fsub_rn(rem, __bfloat162float(t2[e])));
-    }
-    pa[0][r >> 3][(r >> 1) & 3] = pack(t1[0], t1[1]);
-    pa[1][r >> 3][(r >> 1) & 3] = pack(t2[0], t2[1]);
-    pa[2][r >> 3][(r >> 1) & 3] = pack(t3[0], t3[1]);
+    for (int term = 0; term < 3; ++term)
+      pa[term][r >> 3][(r >> 1) & 3] = pack(t[0][term], t[1][term]);
   }
 }
 
@@ -828,6 +629,307 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
                          scale, st, s);
 }
 
+// ---------------------------------------------------------------------------
+// fp32: three exact bf16 terms of q, k and v on wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int PLANES = 3;  // bf16 terms of each fp32 operand
+
+// The split pass: x (B, n, S, hd) fp32, strided with the head axis
+// contiguous, into three contiguous bf16 planes (B, n, S, hd), plane t at
+// out + t * plane, by split3. One thread per 8 elements of a row; grid
+// (ceil(S hd / 8 / 256), n, B).
+__global__ void __launch_bounds__(256)
+    split_planes(const float* __restrict__ x, __nv_bfloat16* __restrict__ out,
+                 int n, int S, int hd, Strides st, long long plane) {
+  const int per_row = hd / 8;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= S * per_row) return;
+  const int s = i / per_row, d = (i - s * per_row) * 8;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const float4* src = reinterpret_cast<const float4*>(
+      x + b * st.b + h * st.h + s * st.s + d);
+  const float4 lo = __ldg(src), hi = __ldg(src + 1);
+  const float e[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  uint32_t w[PLANES][4];
+#pragma unroll
+  for (int j = 0; j < 8; j += 2) {
+    __nv_bfloat16 t[2][3];
+    split3(e[j], t[0]);
+    split3(e[j + 1], t[1]);
+#pragma unroll
+    for (int term = 0; term < PLANES; ++term)
+      w[term][j / 2] = pack(t[0][term], t[1][term]);
+  }
+  __nv_bfloat16* dst =
+      out + ((static_cast<long long>(b) * n + h) * S + s) * hd + d;
+#pragma unroll
+  for (int term = 0; term < PLANES; ++term)
+    *reinterpret_cast<uint4*>(dst + term * plane) =
+        make_uint4(w[term][0], w[term][1], w[term][2], w[term][3]);
+}
+
+// The six products x_a . y_b of order a + b <= 2, smallest first:
+// t = 0..5 is (a, b) = (2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0).
+__device__ __forceinline__ int term_order(int t) {
+  return t < 3 ? 2 : t < 5 ? 1 : 0;
+}
+__device__ __forceinline__ int term_b(int t) {
+  return t < 3 ? t : t < 5 ? t - 3 : 0;
+}
+
+// sc = q.k^T of one 64-key tile from the six products of the planes at q
+// (this warpgroup's Q planes) and k (the slot's K planes), each plane NC
+// boxes, in term order: every correction over the whole depth, then
+// q1.k1 (one wgmma group).
+template <int NC>
+__device__ __forceinline__ void issue_qk3(float (&sc)[32], const uint8_t* q,
+                                          const uint8_t* k, int ksteps) {
+  constexpr int PLANE = NC * CHUNK;
+#pragma unroll
+  for (int r = 0; r < 32; ++r) sc[r] = 0.0f;
+  fence_regs(sc);
+  wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < 6; ++t) {
+    const int b = term_b(t), a = term_order(t) - b;
+    for (int kk = 0; kk < ksteps; ++kk) {
+      const int off = (kk >> 2) * CHUNK + (kk & 3) * 32;
+      wgmma_ss(sc, desc_k(q + a * PLANE + off), desc_k(k + b * PLANE + off),
+               t > 0 || kk > 0);
+    }
+  }
+  wgmma_commit();
+}
+
+// d = p.v over the 64 columns of box j of the slot's V planes at v, from
+// the six products of p's terms (pa) and v's planes, in term order, into
+// a fresh accumulator (one wgmma group).
+template <int NC>
+__device__ __forceinline__ void issue_pv3(float (&d)[32],
+                                          const uint32_t (&pa)[3][4][4],
+                                          const uint8_t* v, int j) {
+  constexpr int PLANE = NC * CHUNK;
+  wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < 6; ++t) {
+    const int b = term_b(t), a = term_order(t) - b;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(d, pa[a][kk], desc_mn(v + b * PLANE + j * CHUNK + kk * 16 * 128),
+               t > 0 || kk > 0);
+  }
+  wgmma_commit();
+}
+
+// The PLANES x NC boxes of rows row0.. of one (head, batch row) of a
+// planes map into dst ([plane][box]); plane t is batch row t * B + b.
+__device__ __forceinline__ void load_planes(uint8_t* dst,
+                                            const CUtensorMap* map,
+                                            const Order& o, int nc, int row0,
+                                            int h, int b, int B,
+                                            uint64_t* bar) {
+  int c[4];
+  for (int t = 0; t < PLANES; ++t)
+    for (int j = 0; j < nc; ++j) {
+      coords(c, o, j * COLS, row0, h, t * B + b);
+      tma_load(dst + (t * nc + j) * CHUNK, map, c, bar);
+    }
+}
+
+// NC: 64-column boxes of hd; NWG: consumer warpgroups; SLOTS: the ring of
+// shared-memory slots, each the PLANES x NC boxes of one K or one V tile.
+// The producer fills the slots in the order K0, V0, K1, V1, ...; a
+// consumer releases a K slot as soon as its q.k^T is read.
+template <int NC, int NWG, int SLOTS>
+__global__ void __launch_bounds__(NWG * 128 + 32, 1)
+    flash_attention_split3(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           float* __restrict__ o, Strides so, Order oq,
+                           Order ok, Order ov, int B, int rep, int Sq, int Sk,
+                           int hd, int causal, int q_off, float scale) {
+  constexpr int PLANE = NC * CHUNK, SLOT = PLANES * PLANE;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sKV = sQ + NWG * SLOT;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sKV + SLOTS * SLOT);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + SLOTS;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * (NWG * ROWS);
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / rep;
+  const int k_end = causal ? min(Sk, q_off + q0 + NWG * ROWS) : Sk;
+  const int n_items = 2 * ((k_end + ROWS - 1) / ROWS);  // K and V tiles
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < SLOTS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, NWG * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= NWG * 128) {  // the producer warp: one thread issues the TMA
+    if (tid == NWG * 128) {
+      mbar_expect_tx(q_full, NWG * SLOT);
+      for (int w = 0; w < NWG; ++w)
+        load_planes(sQ + w * SLOT, &tq, oq, NC, q0 + w * ROWS, h, b, B,
+                    q_full);
+      for (int i = 0; i < n_items; ++i) {
+        const int s = i % SLOTS;
+        mbar_wait(empty + s, ((i / SLOTS) & 1) ^ 1);
+        mbar_expect_tx(full + s, SLOT);
+        if (i & 1)
+          load_planes(sKV + s * SLOT, &tv, ov, NC, (i >> 1) * ROWS, kvh, b, B,
+                      full + s);
+        else
+          load_planes(sKV + s * SLOT, &tk, ok, NC, (i >> 1) * ROWS, kvh, b, B,
+                      full + s);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows wq0 .. wq0 + 63; this thread's two rows
+  // are r0 and r0 + 8 (the wgmma accumulator layout)
+  const int wg = tid / 128, lane = tid % 32;
+  const int wq0 = q0 + wg * ROWS;
+  const int r0 = wq0 + (tid % 128) / 32 * 16 + lane / 4;
+  const int my_end =
+      wq0 >= Sq ? 0 : (causal ? min(Sk, q_off + wq0 + ROWS) : Sk);
+  const int my_items = 2 * ((my_end + ROWS - 1) / ROWS);
+  const int ksteps = (hd + 15) / 16;
+  const uint8_t* myQ = sQ + wg * SLOT;
+
+  float acc[NC][32];
+#pragma unroll
+  for (int j = 0; j < NC; ++j)
+#pragma unroll
+    for (int r = 0; r < 32; ++r) acc[j][r] = 0.0f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+
+  // sc holds the scores, then each box's p.v
+  float sc[32], corr[2];
+  uint32_t pa[3][4][4];
+  mbar_wait(q_full, 0);
+  for (int i = 0; i < my_items; i += 2) {
+    int s = i % SLOTS;
+    mbar_wait(full + s, (i / SLOTS) & 1);
+    issue_qk3<NC>(sc, myQ, sKV + s * SLOT, ksteps);
+    wgmma_wait();
+    fence_regs(sc);
+    mbar_arrive(empty + s);
+    softmax(sc, m, l, corr, (i >> 1) * ROWS, q_off + r0, q_off + wq0, lane,
+            Sk, causal, scale);
+    split(sc, pa);
+    s = (i + 1) % SLOTS;
+    mbar_wait(full + s, ((i + 1) / SLOTS) & 1);
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      issue_pv3<NC>(sc, pa, sKV + s * SLOT, j);
+      wgmma_wait();
+      fence_regs(sc);
+#pragma unroll
+      for (int r = 0; r < 32; ++r)
+        acc[j][r] = acc[j][r] * corr[(r >> 1) & 1] + sc[r];
+    }
+    mbar_arrive(empty + s);
+  }
+  for (int i = my_items; i < n_items; ++i) {  // tiles no row here sees
+    const int s = i % SLOTS;
+    mbar_wait(full + s, (i / SLOTS) & 1);
+    mbar_arrive(empty + s);
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qpos = r0 + 8 * half;
+    if (qpos >= Sq) continue;
+    const float den = fmaxf(l[half], 1e-30f);
+    float* orow = o + b * so.b + h * so.h + qpos * so.s;
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int g = 0; g < 8; ++g) {
+        const int col = j * COLS + g * 8 + (lane & 3) * 2;
+        if (col < hd)
+          *reinterpret_cast<float2*>(orow + col) =
+              make_float2(acc[j][4 * g + 2 * half] / den,
+                          acc[j][4 * g + 2 * half + 1] / den);
+      }
+  }
+}
+
+// x's planes into `planes` (the split pass, one launch), then its tensor
+// map over them as (PLANES B, n, S, hd).
+int split_and_map(CUtensorMap* map, Order* order, const void* x,
+                  __nv_bfloat16* planes, int B, int n, int S, int hd,
+                  const Strides& st, cudaStream_t stream) {
+  const long long plane = static_cast<long long>(B) * n * S * hd;
+  const dim3 grid((S * (hd / 8) + 255) / 256, n, B);
+  split_planes<<<grid, 256, 0, stream>>>(static_cast<const float*>(x),
+                                         planes, n, S, hd, st, plane);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Strides dense{static_cast<long long>(n) * S * hd,
+                      static_cast<long long>(S) * hd, hd};
+  const CUresult r =
+      make_map(map, order, planes, PLANES * B, n, S, hd, dense);
+  return r == CUDA_SUCCESS ? 0 : kMapError + static_cast<int>(r);
+}
+
+// One hd bucket's shape: NC 64-column boxes of hd, NWG consumer
+// warpgroups, a ring of SLOTS slots; its threads and dynamic shared memory.
+template <int NC_, int NWG_, int SLOTS_>
+struct Shape {
+  static constexpr int NC = NC_, NWG = NWG_, SLOTS = SLOTS_;
+  static constexpr int THREADS = NWG * 128 + 32;
+  static constexpr size_t SMEM =
+      static_cast<size_t>(NWG + SLOTS) * PLANES * NC * CHUNK +
+      (1 + 2 * SLOTS) * sizeof(uint64_t) + 1024;
+};
+
+// f(shape) for the shape of hd's bucket: every consumer warpgroup's Q
+// planes and the K/V ring within the 227 KB a block may use.
+template <class F>
+int with_shape(int hd, F&& f) {
+  if (hd <= 64) return f(Shape<1, 2, 4>());   // Q 48 KB + 4 slots of 24 KB
+  if (hd <= 128) return f(Shape<2, 2, 2>());  // Q 96 KB + 2 slots of 48 KB
+  if (hd <= 192) return f(Shape<3, 1, 2>());  // Q 72 KB + 2 slots of 72 KB
+  return f(Shape<4, 1, 1>());  // Q 96 KB + 1 slot of 96 KB: K, V in turn
+}
+
+template <class S>
+int launch_split3(const void* q, const void* k, const void* v, void* o,
+                  void* work, int B, int H, int K, int Sq, int Sk, int hd,
+                  int causal, int q_off, float scale, const Strides* st,
+                  cudaStream_t stream) {
+  __nv_bfloat16* wq = static_cast<__nv_bfloat16*>(work);
+  __nv_bfloat16* wk = wq + PLANES * static_cast<long long>(B) * H * Sq * hd;
+  __nv_bfloat16* wv = wk + PLANES * static_cast<long long>(B) * K * Sk * hd;
+  CUtensorMap tq, tk, tv;
+  Order oq, ok, ov;
+  int err = split_and_map(&tq, &oq, q, wq, B, H, Sq, hd, st[0], stream);
+  if (!err) err = split_and_map(&tk, &ok, k, wk, B, K, Sk, hd, st[1], stream);
+  if (!err) err = split_and_map(&tv, &ov, v, wv, B, K, Sk, hd, st[2], stream);
+  if (err) return err;
+  auto* kernel = flash_attention_split3<S::NC, S::NWG, S::SLOTS>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(S::SMEM));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((Sq + S::NWG * ROWS - 1) / (S::NWG * ROWS), H, B);
+  kernel<<<grid, S::THREADS, S::SMEM, stream>>>(
+      tq, tk, tv, static_cast<float*>(o), st[3], oq, ok, ov, B, H / K, Sq,
+      Sk, hd, causal, q_off, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace hopper
 
 namespace {
@@ -854,18 +956,36 @@ extern "C" {
 // order; the head axis is contiguous, every stride a multiple of 8 and
 // every pointer 16-byte aligned (the wrapper checks). 8 <= hd <= 256,
 // hd % 8 == 0, H % K == 0; q_off >= 0 is query row 0's position for the
-// causal mask. Returns cudaGetLastError() after the launch (or
-// the error of a refused argument or attribute; for bf16, 10000 + the
-// CUresult of a refused tensor map).
+// causal mask. fp32 also takes work, the scratch of the split planes
+// (3 (B H Sq + 2 B K Sk) hd bf16 elements, 16-byte aligned). Returns
+// cudaGetLastError() after the launch (or the error of a refused argument
+// or attribute; 10000 + the CUresult of a refused tensor map).
 int flash_attention_f32(const void* q, const void* k, const void* v,
-                        void* o, int B, int H, int K, int Sq, int Sk, int hd,
-                        int causal, int q_off, float scale,
+                        void* o, void* work, int B, int H, int K, int Sq,
+                        int Sk, int hd, int causal, int q_off, float scale,
                         const long long* strides, void* stream) {
   if (const int e = check_args(B, H, K, Sq, Sk, hd, q_off)) return e;
   Strides st[4];
   unpack(strides, st);
-  return simt::launch(q, k, v, o, B, H, K, Sq, Sk, hd, causal, q_off, scale,
-                      st, static_cast<cudaStream_t>(stream));
+  return hopper::with_shape(hd, [&](auto shape) {
+    return hopper::launch_split3<decltype(shape)>(
+        q, k, v, o, work, B, H, K, Sq, Sk, hd, causal, q_off, scale, st,
+        static_cast<cudaStream_t>(stream));
+  });
+}
+
+// The fp32 form's launch plan for head dim hd: out[0..4] = threads per
+// block, consumer warpgroups, K/V ring slots, 64-column boxes of hd,
+// dynamic shared-memory bytes. Returns the error of a refused hd.
+int flash_attention_f32_plan(int hd, int* out) {
+  if (const int e = check_args(1, 1, 1, 1, 1, hd, 0)) return e;
+  return hopper::with_shape(hd, [&](auto shape) {
+    using S = decltype(shape);
+    const int plan[5] = {S::THREADS, S::NWG, S::SLOTS, S::NC,
+                         static_cast<int>(S::SMEM)};
+    for (int i = 0; i < 5; ++i) out[i] = plan[i];
+    return 0;
+  });
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v,

@@ -6,16 +6,24 @@ self-attention and every cross-attention).
 :func:`flash_attention` launches the hand-written CUDA kernel
 ``csrc/flash_attention.cu`` for CUDA tensors and runs the plain version
 (``ref.flash_attention_ref``) for CPU tensors. The dtype picks the
-kernel, both counted in :data:`LAUNCHES`: bf16 runs on the tensor cores
-(``wgmma``, tiles by TMA, ``p`` split into three bf16 terms,
-``ref.split_bf16x3``), fp32 on the SIMT pipes (fp32 on tensor cores would
-be TF32, another function). Both compute the Pallas
-kernel's function: fp32 scores, the causal mask ``kpos <= qpos`` counted
-from 0 (aligned to the start, unlike ``repro``'s oracle
-``attention_ref``; ``q_offset`` moves the query rows to positions
-``q_offset, q_offset + 1, …``, the rows of a sequence-parallel prefill),
-online softmax in fp32, ``p·v`` in fp32, the output in
-q's dtype. :data:`LAUNCHES` counts kernel launches.
+kernel's form; both run on the tensor cores (bf16 ``wgmma``, tiles by
+TMA) and both are counted in :data:`LAUNCHES`. bf16 splits ``p`` into
+three exact bf16 terms (``ref.split_bf16x3``). fp32 first splits q, k
+and v the same way, in a pass that writes their bf16 planes into scratch
+the wrapper allocates, and sums the six products of order <= 2 of the
+terms for ``q·kᵀ`` and for ``p·v`` (``ref.flash_attention_ref(
+split_terms=6)``): each product is exact, and only the dropped ones,
+under ~2⁻²⁴ of a product, and the summation order differ from fp32. At
+the prefill's shapes it takes 2.4584 ms where the SIMT kernel it
+replaced took 7.8236 (H100 80GB HBM3, 700 W; PERF.md). :func:`plan`
+gives the fp32 form's launch geometry for a head dim.
+
+Both forms compute the Pallas kernel's function: fp32 scores, the causal
+mask ``kpos <= qpos`` counted from 0 (aligned to the start, unlike
+``repro``'s oracle ``attention_ref``; ``q_offset`` moves the query rows
+to positions ``q_offset, q_offset + 1, …``, the rows of a
+sequence-parallel prefill), online softmax in fp32, ``p·v`` in fp32, the
+output in q's dtype.
 
 Unlike ``repro``'s, the kernel takes any ``Sq`` and ``Sk`` (the ragged
 edge is masked inside) and strided inputs, so ``ops.mha``'s transposed
@@ -54,9 +62,25 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name in _ENTRIES.values():
         fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, f, p, p]
+        # fp32 takes one more pointer after o: the scratch of the planes
+        n_ptr = 5 if name == _ENTRIES[torch.float32] else 4
+        fn.argtypes = [p] * n_ptr + [i, i, i, i, i, i, i, i, f, p, p]
         fn.restype = i
+    lib.flash_attention_f32_plan.argtypes = [i, p]
+    lib.flash_attention_f32_plan.restype = i
     return lib
+
+
+def plan(hd: int) -> dict:
+    """The fp32 form's launch plan for head dim ``hd`` (builds the
+    library): threads per block, consumer warpgroups, slots of the K/V
+    ring, 64-column boxes of hd and the dynamic shared memory of a block
+    in bytes."""
+    out = (ctypes.c_int * 5)()
+    _build.check(_lib().flash_attention_f32_plan(hd, out),
+                 "flash_attention_f32_plan")
+    return dict(zip(("threads", "warpgroups", "slots", "boxes",
+                     "smem_bytes"), out))
 
 
 def _check_cuda(q, k, v):
@@ -110,13 +134,19 @@ def _launch(q, k, v, causal: bool, q_offset: int = 0):
     o = torch.empty_like(q)
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, o) for s in t.stride()[:3]))
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr()]
+    if q.dtype == torch.float32:
+        # the split pass's scratch: three bf16 planes each of q, k and v
+        work = torch.empty(3 * (q.numel() + 2 * k.numel()),
+                           dtype=torch.bfloat16, device=q.device)
+        ptrs.append(work.data_ptr())
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, _ENTRIES[q.dtype])(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, K,
-            Sq, Sk, hd, int(causal), int(q_offset), 1.0 / math.sqrt(hd),
-            ctypes.cast(strides, ctypes.c_void_p), stream)
+            *ptrs, B, H, K, Sq, Sk, hd, int(causal), int(q_offset),
+            1.0 / math.sqrt(hd), ctypes.cast(strides, ctypes.c_void_p),
+            stream)
     _build.check(err, _ENTRIES[q.dtype])
     LAUNCHES += 1
     return o

@@ -1,6 +1,8 @@
 """repro_torch's flash attention (B5) on the CPU against repro's: the
 plain version against repro's Pallas kernel in interpret mode at
-tests/test_kernels.py's five shapes, the start-aligned causal mask at
+tests/test_kernels.py's five shapes, the fp32 form's six split products
+(and the three-term control at large scores) against the same kernel,
+the start-aligned causal mask at
 Sq < Sk (the prefill's case) against the kernel and blocked_attention and
 unlike repro's end-aligned oracle, ops.mha against repro's ops.mha, and
 the wrapper's contract. The CUDA kernel itself is held against the plain
@@ -195,3 +197,61 @@ def test_flash_attention_ref_p_terms_controls():
     assert 0 < gap[2] < gap[1] <= 2.0 ** -7 * float(full.abs().max())
     with pytest.raises(ValueError, match="p_terms"):
         TREF.flash_attention_ref(q, k, v, p_terms=0)
+
+
+@pytest.mark.parametrize("B,H,K,Sq,Sk,hd,causal,q_offset,sigma,block", [
+    (1, 4, 2, 128, 128, 64, True, 0, 1.0, 64),
+    (2, 4, 2, 128, 128, 64, False, 0, 1.0, 64),
+    (1, 4, 2, 96, 160, 128, True, 0, 1.0, 32),     # ragged, Sq < Sk
+    (1, 4, 2, 40, 128, 128, True, 24, 1.0, 32),    # rows at q_offset 24
+    (1, 2, 1, 64, 64, 256, True, 0, 1.0, 64),      # the widest head
+    (1, 4, 2, 64, 128, 64, True, 0, 10.0, 64),     # |s| up to ~49
+])
+def test_fp32_split_products_match_repro_pallas_kernel(
+        B, H, K, Sq, Sk, hd, causal, q_offset, sigma, block):
+    """B5's fp32 form sums the six products of order <= 2 of the bf16
+    terms of q and k, then of p and v (``split_terms=6``): against
+    repro's Pallas kernel (interpret; on every row from 0, so the rows at
+    ``q_offset`` are its last ones) within the fp32 ATOL. With scores up
+    to ~49 the three-term control (order <= 1) is over that ATOL, so the
+    order-2 products are what holds the form to fp32."""
+    rng = np.random.default_rng(Sq + Sk + hd)
+    n = q_offset + Sq
+    q = (rng.standard_normal((B, H, n, hd)) * sigma).astype(np.float32)
+    k, v = (rng.standard_normal((B, K, Sk, hd)).astype(np.float32)
+            for _ in range(2))
+    js, ts = _both((q, k, v), False)
+    want = np_(j_flash(*js, causal=causal, block_q=block, block_k=block,
+                       interpret=True))[:, :, q_offset:]
+    rows = ts[0][:, :, q_offset:]
+    got = {n: np_(TREF.flash_attention_ref(rows, ts[1], ts[2], causal=causal,
+                                            q_offset=q_offset,
+                                            split_terms=n))
+           for n in (6, 3)}
+    atol = ATOL[np.float32]
+    np.testing.assert_allclose(got[6], want, rtol=0, atol=atol)
+    gap3 = float(np.abs(got[3] - want).max())
+    assert gap3 > float(np.abs(got[6] - want).max())
+    if sigma > 1:
+        assert float(TREF._scores(ts[0], ts[1]).abs().max()) / hd ** 0.5 \
+            > 40
+        assert gap3 > atol
+
+
+def test_flash_attention_ref_split_terms_controls():
+    """``split_terms`` 9 is fp32 itself; 6 and 3 sum the fp32 form's
+    products and the control's, 3 farther from fp32 than 6; other counts,
+    and both controls at once, raise."""
+    rng = np.random.default_rng(18)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((2, 4, 40, 32), (2, 2, 48, 32), (2, 2, 48, 32)))
+    full = TREF.flash_attention_ref(q, k, v)
+    assert torch.equal(TREF.flash_attention_ref(q, k, v, split_terms=9),
+                       full)
+    gap = {n: float((TREF.flash_attention_ref(q, k, v, split_terms=n) - full)
+                    .abs().max()) for n in (3, 6)}
+    assert 0 < gap[6] < gap[3] < 1e-4
+    with pytest.raises(ValueError, match="split_terms"):
+        TREF.flash_attention_ref(q, k, v, split_terms=4)
+    with pytest.raises(ValueError, match="one"):
+        TREF.flash_attention_ref(q, k, v, split_terms=6, p_terms=2)

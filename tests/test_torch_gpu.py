@@ -1,9 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions, on the card
 (B1 with the LJ (DIM 2 and 3), SPH and DEM functors and with functors
 generated from bodies without cuda_kind, B2, B3, B4; fp32 and bf16x; B5,
-the flash attention, in fp32 and bf16, and the dense, moe, ssm, hybrid,
-encdec and vlm LM paths through it; B5's guard under autograd and the
-training step on the card against the CPU;
+the flash attention, in fp32 (its split products against a three-term
+control, a launch plan per head-dim bucket) and bf16, and the dense, moe,
+ssm, hybrid, encdec and vlm LM paths through it; B5's guard under
+autograd and the training step on the card against the CPU;
 the block legs of B3/B4, the MD reuse step and the mesh-field step).
 Imports neither jax nor repro, so it runs on the GPU machine:
 
@@ -792,6 +793,66 @@ def test_cuda_flash_attention_bf16_split_is_exact(card, B, H, K, Sq, Sk, hd,
         control = share(flash_attention_ref(q, k, v, causal=causal,
                                             p_terms=n))
         assert got < B5_SPLIT_FRAC * control, (n, got, control)
+
+
+# B5's fp32 form sums six products of three exact bf16 terms of q, k, v
+# and p; a control that keeps only the three of order <= 1 is farther from
+# plain (fp32). The kernel's error stays under B5_SPLIT_FRAC of the
+# control's, and at scores up to ~40-50 the control is over TOL while the
+# kernel is within it.
+@pytest.mark.parametrize("B,H,K,Sq,Sk,hd,causal,sigma", [
+    (2, 8, 2, 192, 320, 128, True, 1.0),
+    (1, 12, 4, 150, 150, 64, False, 1.0),
+    (1, 8, 2, 256, 512, 64, True, 10.0),
+    (1, 8, 2, 256, 512, 128, False, 8.0),
+    (1, 4, 2, 128, 256, 256, True, 6.0),
+])
+def test_cuda_flash_attention_fp32_split_products(card, B, H, K, Sq, Sk, hd,
+                                                  causal, sigma):
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    rng = np.random.default_rng(Sq + Sk + hd)
+    q = torch.from_numpy((rng.standard_normal((B, H, Sq, hd)) * sigma)
+                         .astype(np.float32)).cuda()
+    k, v = (torch.from_numpy(rng.standard_normal((B, K, Sk, hd))
+                             .astype(np.float32)).cuda() for _ in range(2))
+    got = FA.flash_attention(q, k, v, causal=causal)
+    ref = flash_attention_ref(q, k, v, causal=causal)
+    control = flash_attention_ref(q, k, v, causal=causal, split_terms=3)
+    torch.cuda.synchronize()
+    err, err3 = rel(got, ref), rel(control, ref)
+    assert bool(torch.isfinite(got).all())
+    assert err <= TOL and err < B5_SPLIT_FRAC * err3, (err, err3)
+    if sigma > 1:
+        assert err3 > TOL, err3
+
+
+@pytest.mark.parametrize("hd,want", [
+    (64, dict(threads=288, warpgroups=2, slots=4, boxes=1)),
+    (128, dict(threads=288, warpgroups=2, slots=2, boxes=2)),
+    (192, dict(threads=160, warpgroups=1, slots=2, boxes=3)),
+    (256, dict(threads=160, warpgroups=1, slots=1, boxes=4)),
+])
+def test_cuda_flash_attention_fp32_plan(card, hd, want):
+    """Each hd bucket of the fp32 form: its launch plan (the Q planes of
+    every consumer warpgroup and the K/V ring within the 227 KB a block
+    may use), then a ragged causal call at the bucket's widest head
+    against plain."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    plan = FA.plan(hd)
+    assert {key: plan[key] for key in want} == want
+    assert plan["smem_bytes"] <= 232448
+    rng = np.random.default_rng(hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .cuda() for s in ((2, 6, 70, hd), (2, 3, 140, hd),
+                                 (2, 3, 140, hd)))
+    got = FA.flash_attention(q, k, v, causal=True)
+    ref = flash_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert rel(got, ref) <= TOL
+    with pytest.raises(RuntimeError, match="plan"):
+        FA.plan(hd + 4)
 
 
 def test_cuda_mha_takes_strided_views(card):
