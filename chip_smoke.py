@@ -9,7 +9,10 @@ Phases, each of which raises (non-zero exit) on failure:
      versions, and the build of every CUDA kernel from the sources in the
      checkout (``nvcc``, at first use, into ``build/repro_torch/``);
   2. the cell-pair kernel (compacted, chunked candidates; its launch
-     geometry printed) against its plain PyTorch version on the tiles
+     geometry printed, and beside every B1 time the tiles' homes per
+     cell and the share of the pair walk's lanes busy, one lane per home
+     slot against the engine's stripes: ``lane_shares``) against its
+     plain PyTorch version on the tiles
      of the paper's MD state (216,000 particles, after 10 steps):
      max-abs relative error <= 1e-5 in fp32 and in bf16x (which must
      differ from fp32; the relative gap is printed), both timed with CUDA events; plus small
@@ -661,6 +664,54 @@ def b1_bound(t, width: int, rc2: float, eval_flops: int, outs):
             "bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def lane_shares(CP, cell_mask, nbr_mask, threads: int) -> dict:
+    """How B1's pair walk fills a block's lanes on these tiles, counted on
+    the host from the masks (no device measurement). Each cell's walking
+    warps are those holding a busy lane; a warp issues one step per row
+    its lanes walk (chunk ends ignored). Under one lane per home slot
+    (slot t on lane t) a cell's warps with a valid slot each walk all its
+    valid candidates; under the engine's stripes (``cell_pair.stripes``)
+    its n_home homes take n_home·G lanes, each walking every G-th row.
+    Returns the homes-per-cell histogram {n: cells} and, per mapping,
+    the share of the walking warps' lanes that are busy, that share
+    weighted by the warp-steps, and the warp-steps."""
+    homes = cell_mask.sum(1)
+    rows = nbr_mask.sum(1)
+    busy = homes > 0
+    hist = torch.bincount(homes, minlength=cell_mask.shape[1] + 1)
+    pad = torch.nn.functional.pad(cell_mask.to(torch.uint8),
+                                  (0, threads - cell_mask.shape[1]))
+    warps_slot = pad.view(pad.shape[0], -1, 32).any(-1).sum(1)
+    g = CP.stripes(homes.clamp(min=1), threads)
+    warps_stripe = torch.where(busy, (homes * g + 31) // 32, 0)
+    steps_stripe = (rows + g - 1) // g
+    pair_steps = float((homes * rows).sum())       # (home, row) pairs walked
+    res = {"homes_hist": {int(n): int(k) for n, k in
+                          enumerate(hist.tolist()) if k}}
+    for name, warps, steps, lanes in (
+            ("slot", warps_slot, rows, homes),
+            ("stripe", warps_stripe, steps_stripe, homes * g)):
+        warp_steps = float((warps * steps).sum())
+        res[name] = {
+            "lane_share": float(lanes[busy].sum())
+            / max(float(32 * warps.sum()), 1.0),
+            "step_share": pair_steps / max(32 * warp_steps, 1.0),
+            "warp_steps": warp_steps}
+    return res
+
+
+def print_lanes(name, CP, t, threads: int) -> dict:
+    """Prints :func:`lane_shares` of tiles ``t`` on one line."""
+    s = lane_shares(CP, t.cell_mask, t.nbr_mask, threads)
+    print(f"{name}: homes per cell {s['homes_hist']}; walking lanes busy, "
+          f"one lane per slot {s['slot']['lane_share']:.3f} (by warp-steps "
+          f"{s['slot']['step_share']:.3f}, {s['slot']['warp_steps']:.4e} "
+          f"warp-steps), striped {s['stripe']['lane_share']:.3f} (by "
+          f"warp-steps {s['stripe']['step_share']:.3f}, "
+          f"{s['stripe']['warp_steps']:.4e} warp-steps)")
+    return s
+
+
 def b1_check(name, CP, t, body, out, r_cut, eval_flops, cell_batch,
              iters, precision="fp32", fp32_out=None):
     """B1 with ``body``'s functor in ``precision`` against
@@ -720,6 +771,7 @@ def b1_check(name, CP, t, body, out, r_cut, eval_flops, cell_batch,
           f"({bound_by}); design: {design['threads']} threads a cell, "
           f"tiles of {design['tile']} candidates, chunks of "
           f"{design['chunk']} rows, {design['smem_bytes']} B shared")
+    print_lanes(name, CP, t, design["threads"])
     gen = CP.KINDS[kind].gen
     return {
         "name": name, "route": "cuda",
@@ -3611,8 +3663,7 @@ def dist_md_stages(md, SIM, M, RT, CL, I, cfg, st, mesh, g_cap, b_cap):
         return run
 
     def combine():
-        return SIM._combine(ps, p_int, p_bnd, st.bounds[0], st.bounds[1],
-                            rc, 0)
+        return SIM._combine(ps, cl, p_int, p_bnd, boundary)
 
     return {
         "map": (on_mesh(lambda: M.map_particles_local(

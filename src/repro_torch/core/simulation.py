@@ -384,13 +384,20 @@ def _boundary_cells(g, my_lo, my_hi, width: float):
                       g["rows_to_cells"](hi_rows, hi_ok)])
 
 
-def _combine(ps, pair_int, pair_bnd, my_lo, my_hi, width: float,
-             slab_axis: int):
-    """Per particle, the boundary pass's sums within ``width`` of a face
-    (and for every ghost row), the interior pass's elsewhere."""
-    xs = ps.x[:, slab_axis]
-    bnd = (xs < my_lo + width) | (xs >= my_hi - width)
+def _combine(ps, cl, pair_int, pair_bnd, bnd_cells):
+    """Per particle, the boundary pass's sums where its home cell in
+    ``cl`` (the combined cell list) is one of ``bnd_cells`` (and for every
+    ghost row), the interior pass's elsewhere. The boundary cells hold
+    every particle within the combine width of a face and every cell whose
+    neighbourhood holds ghost slots, so elsewhere the interior pass ran
+    the blocking pass's very tile: the same sums, bit for bit, on an
+    engine whose summation order follows the tile's valid candidates."""
     n_loc = ps.capacity
+    mark = torch.zeros(cl.n_cells + 1, dtype=torch.bool,
+                       device=bnd_cells.device)
+    mark[bnd_cells.long()] = True
+    mark[cl.n_cells] = False             # the inactive sentinel's row
+    bnd = mark[cl.cell_id[:n_loc].long()]
     return {k: torch.cat([torch.where(I._bmask(bnd, v[:n_loc]), v[:n_loc],
                                       pair_int[k]), v[n_loc:]])
             for k, v in pair_bnd.items()}
@@ -574,11 +581,10 @@ def _make_sim_step_1d(physics, cfg, mesh, axis_name: str, slab_axis: int,
         cl = CL.build_cell_list(combo, **cl_kw)
         if overlap:
             # the boundary pass against the arrived ghosts
-            pair_bnd = I.apply_pair_kernel(
-                combo, cl, body, cells=_boundary_cells(g, my_lo, my_hi, rc),
-                **pair_kw)
-            pair = _combine(ps, pair_int, pair_bnd, my_lo, my_hi, rc,
-                            slab_axis)
+            bnd_cells = _boundary_cells(g, my_lo, my_hi, rc)
+            pair_bnd = I.apply_pair_kernel(combo, cl, body, cells=bnd_cells,
+                                           **pair_kw)
+            pair = _combine(ps, cl, pair_int, pair_bnd, bnd_cells)
             cl_ovf = torch.maximum(cl.overflow, cl_loc.overflow)
         else:
             pair = I.apply_pair_kernel(combo, cl, body, **pair_kw)
@@ -904,11 +910,10 @@ def _make_reuse_step_1d(physics, cfg, mesh, axis_name: str, slab_axis: int,
             if overlap:
                 # the combine band widens by the skin: cached ghosts may
                 # have drifted up to skin/2 into the slab since the build
-                pair_bnd = I.apply_pair_kernel(
-                    combo, cl, body,
-                    cells=_boundary_cells(g, my_lo, my_hi, r_g), **pair_kw)
-                pair = _combine(ps, pair_int, pair_bnd, my_lo, my_hi, r_g,
-                                slab_axis)
+                bnd_cells = _boundary_cells(g, my_lo, my_hi, r_g)
+                pair_bnd = I.apply_pair_kernel(combo, cl, body,
+                                               cells=bnd_cells, **pair_kw)
+                pair = _combine(ps, cl, pair_int, pair_bnd, bnd_cells)
             else:
                 pair = I.apply_pair_kernel(combo, cl, body, **pair_kw)
             ovf_bucket = ovf_ghost = _z32(dev)

@@ -288,6 +288,15 @@ def plan(kind: str, prec: str, dim: int, cc: int) -> dict:
     return dict(zip(("threads", "tile", "chunk", "smem_bytes"), out))
 
 
+def stripes(n_home, threads: int):
+    """Stripes per home of a cell with ``n_home`` >= 1 valid home slots in
+    a block of ``threads`` lanes (an int, or a tensor of counts): the
+    engine's ``stripes``, G = min(32, threads // n_home). Lane t walks
+    stripe t % G of home t // G."""
+    g = threads // n_home
+    return torch.clamp(g, max=32) if torch.is_tensor(g) else min(g, 32)
+
+
 def _check_tiles(cell_x, nbr_x, cell_mask, nbr_mask):
     C, cc, dim = cell_x.shape
     kcc = nbr_x.shape[1]

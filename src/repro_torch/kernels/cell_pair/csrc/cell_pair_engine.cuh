@@ -8,16 +8,18 @@
 // sources that kernels/cell_pair/codegen.py writes for a pair body traced
 // from its plain PyTorch form.
 //
-// Outside nvcc (no __CUDACC__) only the operand types, Ops<P> and
-// MixedBody are defined, so that a host compiler can evaluate a functor
-// against a small shim of the CUDA intrinsics (tests/cell_pair_host_shim.h).
+// Outside nvcc (no __CUDACC__) only the operand types, Ops<P>, MixedBody
+// and the pair walk's lane map (lane_of, stripes, reduce_stripes) are
+// defined, so that a host compiler can evaluate a functor and check the
+// lane map against a small shim of the CUDA intrinsics
+// (tests/cell_pair_host_shim.h).
 //
 // Design (redesigned for the card; the first version staged all K*cc
 // candidates of a cell and let every home lane walk all of them):
 //   * one thread block per home cell, cc rounded up to a warp multiple
-//     (64 threads for cc = 48, 128 for cc = 128); thread t owns home
-//     slot t; a cell with no particle writes zeros and exits after one
-//     vote (__syncthreads_or), before reading any candidate;
+//     (64 threads for cc = 48, 128 for cc = 128); a cell with no particle
+//     writes zeros and exits after one vote (__syncthreads_or), before
+//     reading any candidate;
 //   * compacted staging: the block reads the candidates' masks a tile at a
 //     time (rep x blockDim candidates, rep = 4, 2 or 1: the most whose
 //     chunk, below, stays within 20 KB), and a stable block-wide prefix (warp
@@ -37,11 +39,22 @@
 //     once per precision it evaluates). They are formed once per staged
 //     candidate and once per home slot, by the same explicitly rounded
 //     operations as before, so the pair body sees bit-equal values;
-//   * each home lane walks the chunk's rows in order (a broadcast read
-//     per row), tests the cutoff and evaluates the body on the rows inside
-//     it. The chunks follow the candidate order, so each slot's fp32 sum
-//     adds its terms in the same order as the first version (the two give
-//     bit-equal outputs on the card tiles of every functor and precision);
+//   * the striped pair walk: the vote's warp ballots also compact the
+//     cell's n_home valid home slots, in slot order, to h = 0 .. n_home - 1
+//     (a map from h to slot in shared memory; the cell list need not fill
+//     a prefix), and each home gets G = min(32, blockDim / n_home) lanes
+//     (lane_of): lane t serves home t / G and walks rows t % G, +G, +2G,
+//     ... of every chunk, tests the cutoff and evaluates the body on the
+//     rows inside it. The lanes of one stripe read one row (a broadcast);
+//     a warp reads at most G <= 32 consecutive rows, in distinct banks as
+//     the row stride is odd. After the last chunk each lane leaves its
+//     partial sums in shared memory (the chunk's rows, sized for the
+//     body's outputs too) and each home's stripe-0 lane adds stripes 1 ..
+//     G - 1 onto its own, in that order (reduce_stripes). G depends on the
+//     cell's home count and the block size only, so a cell's outputs are
+//     the same bits in the fleet's folded launch and in a cells= subset as
+//     in its own launch. With G = 1 (more homes than half the block) a
+//     home's sum runs in candidate order, as in the first version;
 //   * dx and r2 are computed with explicitly rounded operations
 //     (__fmul_rn/__fadd_rn, never contracted into an FMA) in the same order
 //     as the plain PyTorch version, so the cutoff and self-exclusion tests
@@ -87,6 +100,30 @@
 // (0.466 against 0.479): the lanes' lists differ in length, and the list
 // reads hit shared-memory banks at random, so divergence is not what
 // bounds the body here.
+//
+// The striped walk replaced one lane per home slot (thread t walking for
+// slot t, the other lanes idle). Of the walking warps' lanes, one lane per
+// slot kept busy 20% at 2-D MD's ~6.5 particles a cell, 56% at 3-D MD's
+// ~18, 70% in the SPH tank and 5% in DEM's sparse box; striped, 97%, 87%,
+// 90% and 100% (chip_smoke.py's lane shares). Measured with
+// tools/b1_ab.py against the one-lane walk, in turns on the same tiles, on
+// an H100 80GB HBM3 at 700 W: 2-D LJ 0.102 ms against 0.214 (bf16x 0.125
+// against 0.435), LJ 0.267 against 0.484 (bf16x 0.488 against 1.016), the
+// generated Gaussian body 0.231 against 0.402, SPH 2.27 against 3.20
+// (bf16x 4.70 against 6.60, bf16x:drho 4.27 against 6.06), DEM 0.367
+// against 0.416 (bf16x 0.384 against 0.471). The outputs differ from the
+// one-lane walk's in the fp32 summation order only (max rel 4e-6). That
+// order now follows the positions of all the valid candidates in a tile,
+// not only of those inside the cutoff: two tiles of a cell that differ in
+// an out-of-range candidate may sum in different orders (the slab step's
+// combine, core/simulation.py, takes each cell's sums from one tile).
+//
+// ptxas holds the 2-D LJ entries to 32 registers (64 warps an SM) and
+// spills 11-12 values around the staging loop, none inside the pair walk
+// (a 48-byte stack frame; the one-lane walk had 32 bytes). Kept: a variant
+// that ptxas compiled at 52 registers without spills (the home slot as a
+// 32-bit index) ran 2-D LJ 2% slower in the same call, and the other
+// entries have no frame.
 
 #ifdef __CUDACC__
 #include <cuda_bf16.h>
@@ -251,6 +288,44 @@ struct MixedBody {
   }
 };
 
+// The pair walk's lane map. A block of `threads` lanes serves a cell's
+// n_home >= 1 valid home slots, compacted in slot order to h = 0 ..
+// n_home - 1, with G stripes each: lane t takes home h = t / G and stripe
+// s = t % G, and walks rows s, s + G, s + 2G, ... of every chunk; a lane
+// with h >= n_home walks nothing. G depends on the cell's home count and
+// the block size only, so a cell's outputs are the same bits in any launch
+// that holds it (the fleet's folded launch, a cells= subset).
+struct Lane {
+  int h, s, G;
+};
+
+__host__ __device__ __forceinline__ int stripes(int n_home, int threads) {
+  const int g = threads / n_home;
+  return g < 32 ? g : 32;
+}
+
+__host__ __device__ __forceinline__ Lane lane_of(int n_home, int threads,
+                                                 int t) {
+  const int G = stripes(n_home, threads);
+  return Lane{t / G, t % G, G};
+}
+
+// The lane that holds stripe s of home h.
+__host__ __device__ __forceinline__ int stripe_lane(int h, int s, int G) {
+  return h * G + s;
+}
+
+// Home h's reduction, run by its stripe-0 lane on its own sums: add(lane)
+// for the lanes of stripes 1 .. G - 1, in that order.
+#ifdef __CUDACC__
+#pragma nv_exec_check_disable    // the kernel passes a device lambda
+#endif
+template <class Add>
+__host__ __device__ __forceinline__ void reduce_stripes(int h, int G,
+                                                        Add add) {
+  for (int s = 1; s < G; ++s) add(stripe_lane(h, s, G));
+}
+
 #ifdef __CUDACC__
 
 template <int N>
@@ -273,6 +348,17 @@ struct Row {
   static constexpr int S = (Body::DIM + NPROP + Body::N_HOOK) | 1;
 };
 
+// Floats of the shared area that holds, in turn, the home map, a chunk's
+// rows and the lanes' partial sums (one per output float and lane).
+template <class Body, int NPROP>
+__host__ __device__ __forceinline__ size_t rows_floats(int chunk,
+                                                       int threads) {
+  constexpr int NOUT = Body::N_RADIAL * Body::DIM + Body::N_SCALAR;
+  const size_t rows = static_cast<size_t>(chunk) * Row<Body, NPROP>::S;
+  const size_t parts = static_cast<size_t>(threads) * NOUT;
+  return rows > parts ? rows : parts;
+}
+
 // The launch geometry of a cell capacity cc: threads, sub-tiles per tile
 // (the most, up to MAX_REP, whose chunk of 2 x tile rows fits
 // CHUNK_BYTES), chunk rows and dynamic shared memory.
@@ -291,9 +377,26 @@ Plan plan_for(int cc) {
     p.rep /= 2;
   p.chunk = 2 * p.rep * p.threads;
   const int warps = p.threads / 32;
-  p.smem = sizeof(float) * static_cast<size_t>(p.chunk) * Row<Body, NPROP>::S
+  p.smem = sizeof(float) * rows_floats<Body, NPROP>(p.chunk, p.threads)
            + sizeof(int) * 2 * MAX_REP * warps;
   return p;
+}
+
+// Writes one slot's sums (the zeros of a slot that holds no particle).
+template <class Body, int NR, int NS>
+__device__ __forceinline__ void store(float* __restrict__ out_radial,
+                                      float* __restrict__ out_scalar,
+                                      size_t n_slots, size_t slot,
+                                      const float (&acc_r)[NR][Body::DIM],
+                                      const float (&acc_s)[NS]) {
+#pragma unroll
+  for (int k = 0; k < Body::N_RADIAL; ++k)
+#pragma unroll
+    for (int d = 0; d < Body::DIM; ++d)
+      out_radial[(k * n_slots + slot) * Body::DIM + d] = acc_r[k][d];
+#pragma unroll
+  for (int k = 0; k < Body::N_SCALAR; ++k)
+    out_scalar[k * n_slots + slot] = acc_s[k];
 }
 
 // dx = xi - xj and r2 with explicitly rounded operations, in the plain
@@ -335,11 +438,14 @@ __global__ void __launch_bounds__(1024) cell_pair_kernel(
   const int t = threadIdx.x;
   const int T = blockDim.x;
   const int warps = T / 32, warp = t / 32, lane = t % 32;
-  float* s_rows = smem;                                    // chunk x S
-  int* s_cnt = reinterpret_cast<int*>(smem + static_cast<size_t>(chunk) * S);
-  const size_t slot = static_cast<size_t>(c) * cc + t;
+  // the home map, then a chunk's rows (chunk x S), then the partial sums
+  float* s_rows = smem;
+  int* s_cnt = reinterpret_cast<int*>(
+      smem + rows_floats<Body, NPROP>(chunk, T));
+  const size_t cell0 = static_cast<size_t>(c) * cc;
   const size_t n_slots = static_cast<size_t>(C) * cc;
-  const bool home = t < cc && cell_mask[slot];
+  const bool home = t < cc && cell_mask[cell0 + t];
+  const unsigned below = (1u << lane) - 1u;
 
   float acc_r[NR][DIM];
   float acc_s[NS];
@@ -350,19 +456,39 @@ __global__ void __launch_bounds__(1024) cell_pair_kernel(
 #pragma unroll
   for (int k = 0; k < NS; ++k) acc_s[k] = 0.0f;
 
-  // A cell with no particle reads no candidate and writes zeros (most
-  // cells of the SPH tank's air and of the DEM box are empty).
-  if (__syncthreads_or(home)) {
+  // A slot without a particle gets zeros, and a cell with no particle
+  // reads no candidate (most cells of the SPH tank's air and of the DEM
+  // box are empty).
+  const unsigned home_bits = __ballot_sync(FULL, home);
+  if (lane == 0) s_cnt[warp] = __popc(home_bits);
+  if (t < cc && !home)
+    store<Body>(out_radial, out_scalar, n_slots, cell0 + t, acc_r, acc_s);
+  if (!__syncthreads_or(home)) return;
+
+  // -- the valid homes, compacted in slot order, and this lane's one ------
+  int n_home = 0, h0 = 0;
+  for (int w = 0; w < warps; ++w) {
+    if (w == warp) h0 = n_home;
+    n_home += s_cnt[w];
+  }
+  int* s_home = reinterpret_cast<int*>(s_rows);
+  if (home) s_home[h0 + __popc(home_bits & below)] = t;
+  __syncthreads();
+  const Lane L = lane_of(n_home, T, t);
+  const bool walks = L.h < n_home;
+  // read before the first tile's __syncthreads, after which rows are written
+  const size_t slot = cell0 + (walks ? s_home[L.h] : 0);
+  {  // the staging and the walk, chunk by chunk
     float xi[DIM], wi[NP], hi[NHP];
 #pragma unroll
-    for (int d = 0; d < DIM; ++d) xi[d] = home ? cell_x[slot * DIM + d] : 0.0f;
+    for (int d = 0; d < DIM; ++d)
+      xi[d] = walks ? cell_x[slot * DIM + d] : 0.0f;
 #pragma unroll
     for (int p = 0; p < NPROP; ++p)
-      wi[p] = home ? props_i[slot * NPROP + p] : 0.0f;
-    if (home) body.hook(wi, hi);
+      wi[p] = walks ? props_i[slot * NPROP + p] : 0.0f;
+    if (walks) body.hook(wi, hi);
     const bool* nm = nbr_mask + static_cast<size_t>(c) * kcc;
     const size_t cand0 = static_cast<size_t>(c) * kcc;
-    const unsigned below = (1u << lane) - 1u;
 
     int n = 0, parity = 0;
     const int tile = rep * T;
@@ -412,10 +538,10 @@ __global__ void __launch_bounds__(1024) cell_pair_kernel(
       parity ^= 1;
       if (n <= chunk - tile && base + tile < kcc) continue;
 
-      // -- the chunk: each home lane walks its rows in order -------------
+      // -- the chunk: each lane walks its home's stripe, in row order ----
       __syncthreads();
-      if (home) {
-        for (int jj = 0; jj < n; ++jj) {
+      if (walks) {
+        for (int jj = L.s; jj < n; jj += L.G) {
           const float* cj = s_rows + jj * S;
           float dx[DIM];
           const float r2 = geometry<DIM>(xi, cj, dx);
@@ -435,16 +561,35 @@ __global__ void __launch_bounds__(1024) cell_pair_kernel(
       n = 0;
     }
   }
-  if (t >= cc) return;
 
+  // -- each home's G partial sums, added in stripe order (G = 1: the
+  // lane's own sums, as walked) ---------------------------------------------
+  if (L.G > 1) {
+    // the last chunk ended with __syncthreads: its rows are free
+    float* s_part = s_rows;                                 // NOUT x T
 #pragma unroll
-  for (int k = 0; k < Body::N_RADIAL; ++k)
+    for (int k = 0; k < Body::N_RADIAL; ++k)
 #pragma unroll
-    for (int d = 0; d < DIM; ++d)
-      out_radial[(k * n_slots + slot) * DIM + d] = acc_r[k][d];
+      for (int d = 0; d < DIM; ++d) s_part[(k * DIM + d) * T + t] = acc_r[k][d];
 #pragma unroll
-  for (int k = 0; k < Body::N_SCALAR; ++k)
-    out_scalar[k * n_slots + slot] = acc_s[k];
+    for (int k = 0; k < Body::N_SCALAR; ++k)
+      s_part[(Body::N_RADIAL * DIM + k) * T + t] = acc_s[k];
+    __syncthreads();
+    if (walks && L.s == 0) {
+      reduce_stripes(L.h, L.G, [&](int lane_s) {
+        const float* p = s_part + lane_s;
+#pragma unroll
+        for (int k = 0; k < Body::N_RADIAL; ++k)
+#pragma unroll
+          for (int d = 0; d < DIM; ++d) acc_r[k][d] += p[(k * DIM + d) * T];
+#pragma unroll
+        for (int k = 0; k < Body::N_SCALAR; ++k)
+          acc_s[k] += p[(Body::N_RADIAL * DIM + k) * T];
+      });
+    }
+  }
+  if (walks && L.s == 0)
+    store<Body>(out_radial, out_scalar, n_slots, slot, acc_r, acc_s);
 }
 
 template <class Body, int NPROP>

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card
 (B1 with the LJ (DIM 2 and 3), SPH and DEM functors and with functors
-generated from bodies without cuda_kind, B2, B3, B4; fp32 and bf16x; B5,
+generated from bodies without cuda_kind, its striped pair walk at every
+home count, the fleet's folded launch and cells= subsets bit for bit,
+B2, B3, B4; fp32 and bf16x; B5,
 the flash attention, in fp32 (its split products against a three-term
 control, a launch plan per head-dim bucket) and bf16, and the dense, moe,
 ssm, hybrid, encdec and vlm LM paths through it; B5's guard under
@@ -502,6 +504,154 @@ def test_cuda_dem_functor_matches_plain(card):
     torch.cuda.synchronize()
     assert rel(got16, ref16) <= BF16_TOL
     assert rel(got16, got) > 0          # bf16 really used
+
+
+# homes per cell for the lane-map tiles (cc = LANE_CC, 64 lanes a block):
+# none, one (32 stripes), a few, 17 (3 stripes), 33 (one stripe), full
+LANE_CC = 48
+LANE_HOMES = (0, 1, 3, 7, 17, 33, LANE_CC)
+
+
+def _lane_tiles(dim, homes, a, seed):
+    """Tiles whose cell c holds ``homes[c]`` valid home slots at seeded,
+    scattered slots (a cell with 0 < n < LANE_CC holds no prefix): each
+    cell's 3^dim·LANE_CC candidates on a jittered lattice of spacing
+    ``a`` (±0.15a), about 80% valid; its home slots at candidates'
+    positions (so self-pairs are met and excluded); a vector prop v ~
+    N(0, 1) and a scalar q in [1, 2) per slot. Returns the tile dict and
+    each cell's home slots."""
+    rng = np.random.default_rng(seed)
+    cc, kcc = LANE_CC, 3 ** dim * LANE_CC
+    C = len(homes)
+    side = int(np.ceil(kcc ** (1.0 / dim)))
+    grid = np.stack(np.meshgrid(*[np.arange(side)] * dim, indexing="ij"),
+                    -1).reshape(-1, dim)
+    nbr_x = np.empty((C, kcc, dim), np.float32)
+    cell_x = np.empty((C, cc, dim), np.float32)
+    cell_mask = np.zeros((C, cc), bool)
+    slots = []
+    for c in range(C):
+        pts = (grid[rng.permutation(len(grid))[:kcc]]
+               + rng.uniform(-0.15, 0.15, (kcc, dim))) * a
+        nbr_x[c] = pts
+        cell_x[c] = pts[rng.choice(kcc, cc, replace=False)]
+        s = np.sort(rng.choice(cc, homes[c], replace=False))
+        cell_mask[c, s] = True
+        slots.append(s)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).cuda()
+    f32 = lambda *s: rng.uniform(1.0, 2.0, s).astype(np.float32)
+    return dict(
+        cell_x=t(cell_x), nbr_x=t(nbr_x), cell_mask=t(cell_mask),
+        nbr_mask=t(rng.uniform(size=(C, kcc)) < 0.8),
+        props_i={"v": t(rng.normal(size=(C, cc, dim)).astype(np.float32)),
+                 "q": t(f32(C, cc))},
+        props_j={"v": t(rng.normal(size=(C, kcc, dim)).astype(np.float32)),
+                 "q": t(f32(C, kcc))}), slots
+
+
+def _lane_case(name, dim):
+    """(body, out, r_cut, lattice spacing, the props it reads) of a lane
+    test: LJ at sigma 0.85a, DEM's default grains (2R = 0.12) at spacing
+    0.1 so that neighbours overlap, the Gaussian body at repro's 0.26."""
+    from repro_torch.apps import dem, md
+    if name == "lj":
+        a = 0.01
+        return (md.lj_pair_body(0.85 * a, 1.0), {"f": "radial"},
+                2.5 * 0.85 * a, a, ())
+    if name == "dem":
+        cfg = dem.DEMConfig(device="cuda")
+        return dem.dem_normal_body(cfg), {"f": "radial"}, cfg.r_cut, 0.1, \
+            ("v",)
+    return _gauss_body, {"f": "radial", "rho": "scalar"}, 0.26, 0.1, ("q",)
+
+
+@pytest.mark.parametrize("name,dim,prec", [
+    ("lj", 2, "fp32"), ("lj", 2, "bf16x"), ("lj", 3, "fp32"),
+    ("lj", 3, "bf16x"), ("dem", 3, "fp32"), ("dem", 3, "bf16x"),
+    ("gauss", 2, "fp32"), ("gauss", 3, "fp32"), ("gauss", 3, "bf16x")])
+def test_cuda_cell_pair_home_counts(card, name, dim, prec):
+    """B1's striped walk on cells of 0, 1, 3, 7, 17, 33 and cc valid homes
+    (1 to 32 stripes a home, homes scattered over the slots) against
+    cell_pair_torch: each cell within TOL of its own largest output, the
+    slots without a particle and the empty cell exactly zero; for the LJ
+    and DEM hand functors and the generated Gaussian one."""
+    from repro_torch.kernels.cell_pair import cell_pair as CP
+    body, out, r_cut, a, props = _lane_case(name, dim)
+    tl, slots = _lane_tiles(dim, LANE_HOMES, a, seed=40 + dim)
+    assert any(len(s) and s[-1] >= len(s) for s in slots)   # no prefix
+    pi = {k: tl["props_i"][k] for k in props}
+    pj = {k: tl["props_j"][k] for k in props}
+    args = (tl["cell_x"], tl["nbr_x"], tl["cell_mask"], tl["nbr_mask"], pi,
+            pj)
+    kw = dict(body=body, out=out, r_cut=r_cut, precision=prec)
+    n0 = CP.LAUNCHES
+    got = CP.cell_pair(*args, **kw)
+    assert CP.LAUNCHES == n0 + 1
+    ref = CP.cell_pair_torch(*args, **kw)
+    torch.cuda.synchronize()
+    off = ~tl["cell_mask"]
+    for k in out:
+        assert float(ref[k].abs().max()) > 0, k
+        assert bool((got[k][off] == 0).all()), k
+        for c, n in enumerate(LANE_HOMES):
+            assert rel(got[k][c], ref[k][c]) <= TOL, (k, c, n)
+
+
+@pytest.mark.parametrize("name,dim", [("lj", 2), ("gauss", 3)])
+def test_cuda_cell_pair_fleet_fold_is_bit_equal(card, name, dim):
+    """Four members' tiles of the lane test through one folded launch
+    (torch.func.vmap over cell_pair) give each member the bits of its own
+    launch: a cell's stripe count depends on that cell alone."""
+    from repro_torch.kernels.cell_pair import cell_pair as CP
+    body, out, r_cut, a, props = _lane_case(name, dim)
+    members = [_lane_tiles(dim, LANE_HOMES, a, seed=60 + b)[0]
+               for b in range(4)]
+    stack = lambda f: torch.stack([f(m) for m in members])
+    cols = ("cell_x", "nbr_x", "cell_mask", "nbr_mask")
+    batched = [stack(lambda m, k=k: m[k]) for k in cols]
+    pi = {k: stack(lambda m, k=k: m["props_i"][k]) for k in props}
+    pj = {k: stack(lambda m, k=k: m["props_j"][k]) for k in props}
+    kw = dict(body=body, out=out, r_cut=r_cut)
+    n0 = CP.LAUNCHES
+    folded = torch.func.vmap(lambda cx, nx, cm, nm, wi, wj: CP.cell_pair(
+        cx, nx, cm, nm, wi, wj, **kw))(*batched, pi, pj)
+    assert CP.LAUNCHES == n0 + 1
+    for b, m in enumerate(members):
+        own = CP.cell_pair(*[m[k] for k in cols],
+                           {k: m["props_i"][k] for k in props},
+                           {k: m["props_j"][k] for k in props}, **kw)
+        for k in out:
+            assert torch.equal(folded[k][b], own[k]), (b, k)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_cuda_cells_subset_is_bit_equal(card, dim):
+    """apply_kernel_cuda with ``cells=`` (a few cells, the last an inactive
+    sentinel) gives the particles of those cells the bits of the full
+    launch, and every other particle zero."""
+    from repro_torch.apps import md
+    from repro_torch.core import cell_list as CL
+    from repro_torch.kernels.cell_pair import cell_pair as CP
+    side = 20 if dim == 2 else 8
+    cfg = md.MDConfig(n_per_side=side, sigma=0.85 / side, dim=dim,
+                      dt=0.005 / side, device="cuda")
+    ps, _ = md.run(cfg, 5, thermal_v=0.4, seed=3)
+    cl = CL.build_cell_list(ps, **md._cl_kw(cfg))
+    kw = dict(body=md.lj_pair_body(cfg.sigma, cfg.epsilon),
+              out={"f": "radial"}, r_cut=cfg.r_cut)
+    full = CP.apply_kernel_cuda(ps, cl, **kw)["f"]
+    n_cells = cl.n_cells
+    pick = [0, 3, n_cells // 2, n_cells - 1]
+    cells = torch.tensor(pick + [n_cells], dtype=torch.int32, device="cuda")
+    sub = CP.apply_kernel_cuda(ps, cl, cells=cells, **kw)["f"]
+    rows = cl.cells[pick].reshape(-1).long()
+    rows = rows[rows < ps.capacity]
+    assert rows.numel() > 0
+    assert torch.equal(sub[rows], full[rows])
+    inside = torch.zeros(ps.capacity, dtype=torch.bool, device="cuda")
+    inside[rows] = True
+    assert bool((sub[~inside] == 0).all())
+    assert float(full[rows].abs().max()) > 0
 
 
 def test_sph_and_dem_kernel_path_match_plain_path(card):
