@@ -307,6 +307,26 @@ Phases, each of which raises (non-zero exit) on failure:
      functor on phase 2's tiles, and 10 ``make_sim_step`` steps through
      it against the hand functor's (<= 1e-4); (d) the ``kernels`` line
      gains ``B1-LJ-d2``, ``B1-gen`` and ``B1-gen-LJ``.
+ 21. B1's generated route on the forms it gained (the bodies defined
+     here, none with ``cuda_kind``; their functors generated and built
+     with the other sources in phase 1): (a) the Kob–Andersen 80:20
+     binary LJ mixture at 216,000 particles (phase 3's lattice and box at
+     1.2 sigma_AA^-3, an int32 ``species`` with B on a seeded 20% of the
+     sites, eps and sigma looked up from constant tables, each pair cut
+     at 2.5 sigma_ab): 20 ``make_sim_step`` steps through its functor in
+     fp32 and in bf16x, each against the plain path on the card (<= 1e-4,
+     bf16x <= 1e-2), one launch a step, zero flags, the species counts
+     unchanged; the kernel against plain on the fp32 run's tiles in both
+     precisions (<= 1e-5, bf16x unlike fp32), timed, with its bytes
+     bound; then 8 members through ``make_fleet_step``, each with its own
+     species: one launch a fleet step, members 0, 3 and 7 equal to their
+     serial runs bit for bit; (b) on phase 2's state, damped
+     shifted-force electrostatics (erfc; a seeded +-1 charge of zero
+     sum) and a five-output body of width-4 unit quaternions under
+     ``bf16x:dens,twist`` (and fp32): each against plain (<= 1e-5),
+     timed, with its bytes bound, and 5 ``make_sim_step`` steps through
+     it against the plain path (<= 1e-4); (c) the ``kernels`` line gains
+     ``B1-gen-KA``, ``B1-gen-KA bf16x``, ``B1-gen-DSF`` and ``B1-gen-w4``.
 
 It prints a ``{"kernels": [...]}`` line and, as its last line,
 ``{"ok": true, "device": {...}}``. It exits non-zero without a result when
@@ -327,6 +347,7 @@ per axis: 699,600 grains).
 import argparse
 import dataclasses
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -482,6 +503,24 @@ GAUSS_FLEET_B = 8
 GAUSS_FLEET_STEPS = 5
 GAUSS_FLEET_SAMPLES = (0, 3, 7)
 GEN_LJ_STEPS = 10
+#: phase 21: the Kob–Andersen 80:20 binary LJ mixture (Kob & Andersen,
+#: Phys. Rev. E 51, 4626, 1995) on phase 3's lattice and box at number
+#: density 1.2 sigma_AA^-3 (sigma_AA 1.0627 lattice spacings; phase 3's
+#: sigma is 0.85), dt at phase 3's dt-to-sigma ratio, the engine's cutoff
+#: 2.5 sigma_AA; damped shifted-force electrostatics (Fennell & Gezelter,
+#: J. Chem. Phys. 124, 234104, 2006; alpha 0.2 / sigma, R_c phase 3's
+#: r_cut) and a five-output body of a width-4 prop on phase 2's state.
+KA_SIGMA = (1.2 / N_PER_SIDE ** 3) ** (1 / 3)
+KA_DT = DT / SIGMA * KA_SIGMA
+KA_B_SHARE = 0.2
+KA_SEED = 2100
+KA_STEPS = 20
+KA_FLEET_B = 8
+KA_FLEET_STEPS = 5
+KA_FLEET_SAMPLES = (0, 3, 7)
+DSF_ALPHA = 0.2 / SIGMA
+TYPED_STEPS = 5
+QUAT_PREC = "bf16x:dens,twist"
 TRAIN_ARCH = "llama3.2-3b"
 TRAIN_CUT = dict(n_layers=2, param_dtype="float32", compute_dtype="float32")
 TRAIN_CUT_BATCH = (2, 64)
@@ -5087,12 +5126,14 @@ def gauss_k(r_cut: float) -> float:
 
 def generated_sources(md, cfg):
     """Phase 1's share of phase 20: the sources of the functors generated
-    from the Gaussian body (dim 3, scalar prop q) and from the LJ body
-    with its kind hidden (dim 3, no props), written under
-    ``build/repro_torch/gen/`` to be built with the others."""
+    from the Gaussian body (dim 3, scalar prop q; with its bf16x:rho
+    entry) and from the LJ body with its kind hidden (dim 3, no props),
+    written under ``build/repro_torch/gen/`` to be built with the
+    others."""
     from repro_torch.kernels.cell_pair import codegen
     gens = (codegen.generate(GaussBody(gauss_k(cfg.r_cut)), GAUSS_OUT, 3,
-                             {"q": False}),
+                             {"q": codegen.Prop(0, torch.float32)})
+            .with_mixed("bf16x_rho", ("rho",)),
             codegen.generate(HiddenKind(md.lj_pair_body(cfg.sigma,
                                                         cfg.epsilon)),
                              {"f": "radial"}, 3, {}))
@@ -5170,7 +5211,8 @@ def gauss_phase(md, CL, CP, SIM, FB, ps0, build_s):
         .with_prop("rho", torch.zeros_like(q))
     cl = CL.build_cell_list(ps, **md._cl_kw(cfg_md))
     t = CP.gather_cell_tiles(ps, cl, ("q",))
-    kind, _, _ = CP._kind_of(body, GAUSS_OUT, "fp32", 3, t.props_i)
+    # bf16x:rho first, so that every precision loads phase 1's library
+    kind, _, _ = CP._kind_of(body, GAUSS_OUT, "bf16x:rho", 3, t.props_i)
     src = codegen.source_file(CP.KINDS[kind].gen)
     print(f"B1-gen: the Gaussian body's functor {kind} ({src.name}, "
           f"precisions {CP.KINDS[kind].precs}); nvcc {build_s:.2f} s in "
@@ -5329,6 +5371,385 @@ def generated_phase(md, CL, CP, gen_build_s):
     return entries
 
 
+# --------------------------------------------------------------------------
+# Phase 21: B1's generated route on integer props, wider props and more
+# outputs
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class KABody:
+    """The Kob–Andersen binary LJ pair body, a user's body with no
+    ``cuda_kind``: the int32 ``species`` (its value mod 2: A = 0, B = 1)
+    of both particles looks up eps_ab and sigma_ab from constant 2 x 2
+    tables (eps_AA 1, eps_AB 1.5, eps_BB 0.5; sigma_AA 1, sigma_AB 0.8,
+    sigma_BB 0.88, times ``sigma``, sigma_AA in the box's units), and each
+    pair is truncated at 2.5 sigma_ab; radial ``f``."""
+
+    sigma: float
+    eps: tuple = ((1.0, 1.5), (1.5, 0.5))
+    sig: tuple = ((1.0, 0.8), (0.8, 0.88))
+
+    def tables(self):
+        """(eps, sigma_ab^2, (2.5 sigma_ab)^2) as nested tuples."""
+        s2 = tuple(tuple((self.sigma * s) ** 2 for s in row)
+                   for row in self.sig)
+        return self.eps, s2, tuple(tuple(6.25 * v for v in row)
+                                   for row in s2)
+
+    def __call__(self, dx, r2, ok, wi, wj):
+        si = torch.remainder(wi["species"], 2)
+        sj = torch.remainder(wj["species"], 2)
+        eps, s2, rc2 = (torch.tensor(t, device=r2.device).to(r2.dtype)[si, sj]
+                        for t in self.tables())
+        r2s = torch.clamp(r2, min=1e-12)
+        inv3 = (s2 / r2s) ** 3
+        mag = 24.0 * eps * (2.0 * inv3 * inv3 - inv3) / r2s
+        return {"f": Radial(torch.where(r2 < rc2, mag, torch.zeros_like(mag)))}
+
+
+@dataclasses.dataclass(frozen=True)
+class DSFBody:
+    """Damped shifted-force electrostatics: charges ``q``, damping
+    ``alpha``, cutoff ``rc``; radial force ``f`` and the pair energy ``u``
+    (halved: each pair is met from both sides)."""
+
+    alpha: float
+    rc: float
+
+    def __call__(self, dx, r2, ok, wi, wj):
+        a, rc = self.alpha, self.rc
+        g0 = 2.0 * a / math.sqrt(math.pi)
+        e_rc = math.erfc(a * rc) / rc
+        f_rc = (e_rc + g0 * math.exp(-a * a * rc * rc)) / rc
+        qq = wi["q"] * wj["q"]
+        r = torch.sqrt(torch.clamp(r2, min=1e-12))
+        e = torch.erfc(a * r) / r
+        fr = (e + g0 * torch.exp(-(a * a) * r2)) / r - f_rc
+        u = e - e_rc + f_rc * (r - rc)
+        return {"f": Radial(qq * fr / r), "u": 0.5 * qq * u}
+
+
+@dataclasses.dataclass(frozen=True)
+class QuatBody:
+    """Five outputs of a width-4 prop: unit quaternions ``q4`` weight a
+    Gaussian kernel exp(-k r2) by their alignment; ``dens`` and ``twist``
+    read single components only (the outputs ``QUAT_PREC`` lowers)."""
+
+    k: float
+
+    def __call__(self, dx, r2, ok, wi, wj):
+        qi, qj = wi["q4"], wj["q4"]
+        w = torch.exp(-self.k * r2)
+        dot = (qi * qj).sum(-1)
+        return {"f": Radial(w * (1.0 + 0.5 * dot * dot)),
+                "align": w * dot * dot, "dens": w,
+                "twist": Radial(w * (qi[..., 0] * qj[..., 3]
+                                     - qi[..., 3] * qj[..., 0])),
+                "spin": w * torch.tanh((qi[..., 1:] * qj[..., 1:]).sum(-1))}
+
+
+KA_OUT = {"f": "radial"}
+DSF_OUT = {"f": "radial", "u": "scalar"}
+QUAT_OUT = {"f": "radial", "align": "scalar", "dens": "scalar",
+            "twist": "radial", "spin": "scalar"}
+
+
+@dataclasses.dataclass(frozen=True)
+class TypedCfg:
+    """MD around a body without ``cuda_kind`` (phase 3's box, velocity
+    Verlet on the body's ``f``): its outputs as sorted (name, kind)
+    pairs, the props it reads, sigma (for the lattice), dt, the engine's
+    cutoff and precision."""
+
+    body: object
+    out: tuple
+    props: tuple
+    sigma: float
+    dt: float
+    r_cut: float
+    precision: str = "fp32"
+    backend: str = "auto"
+    cell_cap: int = 48
+
+
+def typed_physics(cfg: TypedCfg):
+    from repro_torch.apps import md
+    spec = md.physics(md.MDConfig(
+        n_per_side=N_PER_SIDE, sigma=cfg.sigma, dt=cfg.dt,
+        cell_cap=cfg.cell_cap, device="cuda", backend=cfg.backend,
+        precision=cfg.precision))
+    return dataclasses.replace(
+        spec, name="typed", r_cut=cfg.r_cut, pair_out=dict(cfg.out),
+        make_body=lambda: cfg.body, pair_props=cfg.props,
+        ghost_props=cfg.props)
+
+
+def typed_cl_kw(CL, cfg: TypedCfg) -> dict:
+    return dict(box_lo=(0.0,) * 3, box_hi=(1.0,) * 3,
+                grid_shape=CL.grid_shape_for((0.0,) * 3, (1.0,) * 3,
+                                             cfg.r_cut),
+                periodic=(True,) * 3, cell_cap=cfg.cell_cap)
+
+
+def ka_cfg() -> TypedCfg:
+    return TypedCfg(KABody(KA_SIGMA), tuple(sorted(KA_OUT.items())),
+                    ("species",), KA_SIGMA, KA_DT, 2.5 * KA_SIGMA)
+
+
+def dsf_cfg() -> TypedCfg:
+    rc = 3.0 * SIGMA
+    return TypedCfg(DSFBody(DSF_ALPHA, rc), tuple(sorted(DSF_OUT.items())),
+                    ("q",), SIGMA, DT, rc)
+
+
+def quat_cfg() -> TypedCfg:
+    rc = 3.0 * SIGMA
+    return TypedCfg(QuatBody(gauss_k(rc)), tuple(sorted(QUAT_OUT.items())),
+                    ("q4",), SIGMA, DT, rc, precision=QUAT_PREC)
+
+
+def typed_sources():
+    """Phase 1's share of phase 21: the Kob–Andersen functor (an int32
+    scalar prop), the DSF functor and the width-4 functor with its
+    ``QUAT_PREC`` entry."""
+    from repro_torch.kernels.cell_pair import codegen
+    gens = []
+    for cfg, props in ((ka_cfg(), {"species": codegen.Prop(0, torch.int32)}),
+                       (dsf_cfg(), {"q": codegen.Prop(0, torch.float32)}),
+                       (quat_cfg(), {"q4": codegen.Prop(4, torch.float32)})):
+        gen = codegen.generate(cfg.body, dict(cfg.out), 3, props)
+        if cfg.precision != "fp32":
+            _, sel = parse_precision(cfg.precision, dict(cfg.out))
+            gen = gen.with_mixed("_".join(["bf16x", *sorted(sel)]), sel)
+        gens.append(gen)
+    return [codegen.source_path(g) for g in gens]
+
+
+def ka_state(md, cfg: TypedCfg, seed: int):
+    """Phase 3's lattice with THERMAL_V velocities (seeded and of zero
+    momentum, as ``md.run(seed=0)`` draws them) and an int32 species: B
+    (1) on a seeded KA_B_SHARE of the sites, A (0) elsewhere."""
+    ps = md.init_particles(md.MDConfig(n_per_side=N_PER_SIDE,
+                                       sigma=cfg.sigma, device="cuda"))
+    gen = torch.Generator().manual_seed(0)
+    v = (THERMAL_V * torch.randn(tuple(ps.props["v"].shape), generator=gen)
+         ).cuda()
+    vm = ps.valid[:, None]
+    v = torch.where(vm, v, 0.0)
+    v = torch.where(vm, v - v.sum(0, keepdim=True) / ps.count(), 0.0)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b = torch.rand(ps.capacity, generator=g, device="cuda") < KA_B_SHARE
+    species = (ps.valid & b).to(torch.int32)
+    return ps.with_prop("v", v).with_prop("species", species)
+
+
+def species_counts(ps) -> tuple:
+    """(A, B) particles among the valid ones."""
+    s = ps.props["species"][ps.valid]
+    return int((s == 0).sum()), int((s == 1).sum())
+
+
+def typed_run(CP, SIM, cfg: TypedCfg, state0, n: int, key: str, name: str,
+              tol: float):
+    """``n`` make_sim_step steps of ``cfg`` through the kernel (exactly
+    one ``key`` launch a step, zero flags), then the same steps on the
+    plain path on the card, held to ``tol``. Returns (the kernel path's
+    state, its launches, its wall seconds, the step's ms)."""
+    step = SIM.make_sim_step(typed_physics, cfg)
+    reset_b1_counts(CP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, worst = state0, None
+    for _ in range(n):
+        st, flags, _ = step(st, {})
+        worst = flags.any() if worst is None \
+            else torch.maximum(worst, flags.any())
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    check_b1_launches(CP, key, n)
+    launches = CP.LAUNCHES_BY_KIND[key]
+    if int(worst) != 0:
+        raise RuntimeError(f"{name}: step flags {int(worst)}")
+    got = st.ps
+    if not (bool(torch.isfinite(got.x[got.valid]).all())
+            and bool(torch.isfinite(got.props["v"][got.valid]).all())):
+        raise RuntimeError(f"{name}: positions or velocities not finite")
+    ref = serial_run(SIM, typed_physics,
+                     dataclasses.replace(cfg, backend="torch"), state0, n).ps
+    small_run_check(f"{name} {n} steps", (
+        ("x", got.x[got.valid], ref.x[ref.valid]),
+        ("v", got.props["v"][got.valid], ref.props["v"][ref.valid])),
+        tol=tol)
+    box = {"st": st}
+
+    def one_step():
+        box["st"], _, _ = step(box["st"], {})
+
+    return st, launches, run_s, time_cuda(one_step, iters=10)
+
+
+def ka_phase(md, CL, CP, SIM, FB, build_s):
+    """21a: the Kob–Andersen mixture at 216,000 particles through its
+    generated functor: KA_STEPS make_sim_step steps in fp32 and in bf16x,
+    each against the plain path, the kernel against plain on the fp32
+    run's tiles in both precisions, then a KA_FLEET_B-member fleet (each
+    member its own species) against serial runs bit for bit. Returns the
+    ``B1-gen-KA`` entries (fp32, bf16x)."""
+    cfg = ka_cfg()
+    ps0 = ka_state(md, cfg, KA_SEED)
+    counts0 = species_counts(ps0)
+    state0 = SIM.serial_state(ps0, typed_physics, cfg)
+    sample = {"species": ps0.props["species"][None]}
+    kind, _, _ = CP._kind_of(cfg.body, KA_OUT, "fp32", 3, sample)
+    print(f"B1-gen-KA: {int(ps0.valid.sum())} particles (A, B) {counts0}, "
+          f"sigma_AA {KA_SIGMA:.6f}, r_cut {cfg.r_cut:.6f}, grid "
+          f"{typed_cl_kw(CL, cfg)['grid_shape']}, dt {KA_DT:.6e}; functor "
+          f"{kind} ({CP.codegen.source_file(CP.KINDS[kind].gen).name}); "
+          f"nvcc {build_s:.2f} s in phase 1's parallel build")
+    entries, runs = [], {}
+    for prec, tol in (("fp32", SMALL_TOL), ("bf16x", BF16_SMALL_TOL)):
+        pcfg = dataclasses.replace(cfg, precision=prec)
+        _, kprec, _ = CP._kind_of(cfg.body, KA_OUT, prec, 3, sample)
+        name = "B1-gen-KA" + ("" if prec == "fp32" else f" {prec}")
+        st, launches, run_s, step_ms = typed_run(
+            CP, SIM, pcfg, state0, KA_STEPS, CP.launch_key(kind, kprec),
+            name, tol)
+        if species_counts(st.ps) != counts0:
+            raise RuntimeError(f"{name}: species counts "
+                               f"{species_counts(st.ps)} after the run, "
+                               f"{counts0} before")
+        print(f"{name} path: {KA_STEPS} make_sim_step steps, {run_s:.3f} s "
+              f"wall, {launches} launches, species (A, B) {counts0} "
+              f"unchanged; {step_ms:.4f} ms/step, "
+              f"{sum(counts0) / step_ms * 1e3:.4e} particle-steps/s")
+        runs[prec] = dict(launches=launches, step_ms=step_ms, st=st)
+    # the kernel against plain on the fp32 run's final tiles
+    ps = runs["fp32"]["st"].ps
+    t = CP.gather_cell_tiles(ps, CL.build_cell_list(ps, **typed_cl_kw(CL, cfg)),
+                             ("species",))
+    # 18 flops per in-cutoff evaluation: the body 12 (three lookups, a
+    # division, the powers, the products), the cut's compare, the 3-D
+    # accumulation 6
+    f32_out = None
+    for prec in ("fp32", "bf16x"):
+        name = "B1-gen-KA" + ("" if prec == "fp32" else f" {prec}")
+        entry, got = b1_check(name, CP, t, cfg.body, KA_OUT, cfg.r_cut,
+                              eval_flops=18, cell_batch=512, iters=50,
+                              precision=prec, fp32_out=f32_out)
+        f32_out = got if f32_out is None else f32_out
+        entry.update(launches=runs[prec]["launches"],
+                     launches_per_step=runs[prec]["launches"] / KA_STEPS,
+                     step_ms=runs[prec]["step_ms"], build_s=build_s,
+                     kind=kind)
+        entries.append(entry)
+    del t, f32_out, runs, ps
+
+    # -- a fleet: one launch a fleet step, each member the bits of its own
+    members = [SIM.serial_state(ka_state(md, cfg, KA_SEED + 1 + b),
+                                typed_physics, cfg)
+               for b in range(KA_FLEET_B)]
+    ens = FB.stack_members(members)
+    fstep = FB.make_fleet_step(typed_physics, cfg)
+    key = CP.launch_key(kind, "f32")
+    reset_b1_counts(CP)
+    for _ in range(KA_FLEET_STEPS):
+        ens, flags, _ = fstep(ens, {})
+    torch.cuda.synchronize()
+    check_b1_launches(CP, key, KA_FLEET_STEPS)
+    fleet_launches = CP.LAUNCHES_BY_KIND[key]
+    if int(flags.any().max()) != 0:
+        raise RuntimeError("Kob–Andersen fleet step flags")
+    for b in KA_FLEET_SAMPLES:
+        ref = serial_run(SIM, typed_physics, cfg, members[b], KA_FLEET_STEPS)
+        m = FB.member_at(ens, b)
+        held_equal(f"B1-gen-KA fleet member {b} x", m.ps.x, ref.ps.x)
+        held_equal(f"B1-gen-KA fleet member {b} v", m.ps.props["v"],
+                   ref.ps.props["v"])
+        held_equal(f"B1-gen-KA fleet member {b} species",
+                   m.ps.props["species"], members[b].ps.props["species"])
+    fbox = {"ens": ens}
+
+    def fleet_step():
+        fbox["ens"], _, _ = fstep(fbox["ens"], {})
+
+    fleet_ms = time_cuda(fleet_step, iters=3, warmup=1)
+    print(f"B1-gen-KA fleet: {KA_FLEET_B} members x {sum(counts0)} "
+          f"particles, each its own species, {KA_FLEET_STEPS} steps, "
+          f"{fleet_launches} launches (one a fleet step), members "
+          f"{KA_FLEET_SAMPLES} equal to their serial runs bit for bit in x, "
+          f"v and species; {fleet_ms:.4f} ms a fleet step")
+    entries[0].update(launches_fleet=fleet_launches, fleet_step_ms=fleet_ms)
+    return entries
+
+
+def typed_tiles_phase(md, CL, CP, SIM, build_s):
+    """21b: on phase 2's state, damped shifted-force electrostatics (a
+    seeded +-1 charge of zero sum) and the five-output body of width-4
+    unit quaternions under QUAT_PREC: each kernel against its plain
+    version (the width-4 body in fp32 too), timed, with its bytes bound,
+    then TYPED_STEPS make_sim_step steps through it against the plain
+    path. Returns the ``B1-gen-DSF`` and ``B1-gen-w4`` entries."""
+    cfg_md = md.MDConfig(n_per_side=N_PER_SIDE, sigma=SIGMA, dt=DT,
+                         cell_cap=48, device="cuda", backend="auto")
+    ps, _ = md.run(cfg_md, 10, thermal_v=THERMAL_V, seed=1)
+    idx = torch.nonzero(ps.valid).squeeze(1)
+    g = torch.Generator(device="cuda").manual_seed(2101)
+    n = idx.shape[0]
+    sign = torch.where(torch.randperm(n, generator=g, device="cuda")
+                       < n // 2, 1.0, -1.0)
+    q = torch.zeros(ps.capacity, device="cuda").index_put((idx,), sign)
+    q4 = torch.randn((ps.capacity, 4), generator=g, device="cuda")
+    q4 = torch.where(ps.valid[:, None],
+                     q4 / q4.norm(dim=1, keepdim=True), 0.0)
+    ps = ps.with_prop("q", q).with_prop("q4", q4)
+    print(f"21b: charges sum {float(q.sum()):.1f} over {n} particles; DSF "
+          f"alpha {DSF_ALPHA:.4f}, R_c {3.0 * SIGMA:.6f}")
+    entries = []
+    # flops per in-cutoff evaluation (sqrt, division, exp, erfc, tanh one
+    # each): DSF 26 (q q, the distance, erfc, exp and the shifted force
+    # 14, the energy 6, the accumulations 6); the width-4 body 40 (exp 2,
+    # the 4-term dot 7, the five outputs 16, the accumulations 15)
+    for name, cfg, flops, bs in (("B1-gen-DSF", dsf_cfg(), 26, build_s[0]),
+                                 ("B1-gen-w4", quat_cfg(), 40, build_s[1])):
+        out = dict(cfg.out)
+        sample = {k: ps.props[k][None] for k in cfg.props}
+        # the mixed entry first, so every precision loads one library
+        kind, kprec, _ = CP._kind_of(cfg.body, out, cfg.precision, 3, sample)
+        t = CP.gather_cell_tiles(
+            ps, CL.build_cell_list(ps, **typed_cl_kw(CL, cfg)), cfg.props)
+        entry, f32_out = b1_check(name, CP, t, cfg.body, out, cfg.r_cut,
+                                  eval_flops=flops, cell_batch=512, iters=50)
+        if cfg.precision != "fp32":
+            e16, _ = b1_check(f"{name} {cfg.precision}", CP, t, cfg.body,
+                              out, cfg.r_cut, eval_flops=flops,
+                              cell_batch=512, iters=50,
+                              precision=cfg.precision, fp32_out=f32_out)
+            e16["fp32"] = {k: entry[k] for k in (
+                "ms", "max_abs_err", "max_rel_err", "plain_ms", "bound_ms")}
+            e16["name"], entry = name, e16
+        del t, f32_out
+        _, launches, run_s, step_ms = typed_run(
+            CP, SIM, cfg, SIM.serial_state(ps, typed_physics, cfg),
+            TYPED_STEPS, CP.launch_key(kind, kprec), name, SMALL_TOL)
+        print(f"{name} path: {TYPED_STEPS} make_sim_step steps in "
+              f"{cfg.precision}, {run_s:.3f} s wall, {launches} launches; "
+              f"{step_ms:.4f} ms/step")
+        entry.update(launches=launches, step_ms=step_ms, build_s=bs,
+                     kind=kind, precision=cfg.precision)
+        entries.append(entry)
+    return entries
+
+
+def typed_phase(md, CL, CP, build_s):
+    """Phase 21: (a) the Kob–Andersen mixture, (b) DSF and the width-4
+    body. Returns their ``kernels`` entries."""
+    from repro_torch.core import simulation as SIM
+    from repro_torch.fleet import batch as FB
+    entries = ka_phase(md, CL, CP, SIM, FB, build_s[0])
+    torch.cuda.empty_cache()
+    return entries + typed_tiles_phase(md, CL, CP, SIM, build_s[1:])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA "
                                  "port on one GPU.")
@@ -5368,9 +5789,11 @@ def main() -> int:
     cfg = md.MDConfig(n_per_side=N_PER_SIDE, sigma=SIGMA, dt=DT, cell_cap=48,
                       device="cuda", backend="auto")
     t0 = time.perf_counter()
-    gen_srcs = generated_sources(md, cfg)     # phase 20's functors
-    print(f"phase 20's functors generated in {time.perf_counter() - t0:.2f} "
-          "s: " + ", ".join(str(p.relative_to(ROOT)) for p in gen_srcs))
+    # phase 20's functors, then phase 21's
+    gen_srcs = generated_sources(md, cfg) + typed_sources()
+    print(f"phases 20 and 21's functors generated in "
+          f"{time.perf_counter() - t0:.2f} s: "
+          + ", ".join(str(p.relative_to(ROOT)) for p in gen_srcs))
     t0 = time.perf_counter()
     libs = _build.build_all(_build.sources() + gen_srcs)
     print(f"kernel build {time.perf_counter() - t0:.2f} s: "
@@ -5619,8 +6042,15 @@ def main() -> int:
     # -- phase 20: B1's generated functors and 2-D LJ ---------------------------
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    gen_entries = generated_phase(md, CL, CP, gen_build_s)
+    gen_entries = generated_phase(md, CL, CP, gen_build_s[:2])
     phase_mark("phase 20 (2-D LJ, generated functors)", t_phase)
+    torch.cuda.empty_cache()
+
+    # -- phase 21: integer props, wider props, more outputs -----------------------
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gen_entries += typed_phase(md, CL, CP, gen_build_s[2:])
+    phase_mark("phase 21 (Kob–Andersen, DSF, width-4 props)", t_phase)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, build "
           "included")
 

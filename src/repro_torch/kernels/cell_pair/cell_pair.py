@@ -30,8 +30,10 @@ cell_pair_engine.cuh``, and built at its first launch); a body with an op
 the generator does not take raises NotImplementedError naming it. Either
 way the functor is a :class:`Kind` of the registry :data:`KINDS`. The
 kernel takes the props a functor reads as one packed fp32 tensor per
-side, in the order its :class:`Kind` lists; under ``bf16x`` it rounds
-them to bf16 where it uses them. A functor has any number of radial and
+side, in the order its :class:`Kind` lists (:func:`pack_props`: a
+floating prop as fp32, which ``bf16x`` rounds to bf16 where it uses it;
+an integer or bool prop as the bits of its int32 value, which no
+arithmetic of the engine touches). A functor has any number of radial and
 scalar outputs, which the kernel writes packed, ``(N_RADIAL, C, cc,
 dim)`` and ``(N_SCALAR, C, cc)``, each kind in ``repro``'s sorted name
 order.
@@ -65,7 +67,9 @@ class Kind(NamedTuple):
 
     out: Dict[str, str]           # its outputs, name -> "radial" | "scalar"
     props: Tuple[str, ...]        # the props it reads, in packed order
-    vector: Tuple[bool, ...]      # per prop: a (dim,) vector or a scalar
+    # per prop: its floats in a packed row, None for DIM (a (dim,) vector),
+    # 0 for a (C, n) scalar (one float) or w for a (C, n, w) vector
+    widths: Tuple[Optional[int], ...]
     dims: Tuple[int, ...]         # the DIMs it is built for
     n_params: int                 # its float params (``body.cuda_params``)
     precs: Tuple[str, ...]        # its precisions, as in the C entry names
@@ -73,7 +77,7 @@ class Kind(NamedTuple):
 
     def width(self, dim: int) -> int:
         """Floats per particle in the packed props."""
-        return sum(dim if vec else 1 for vec in self.vector)
+        return sum(dim if w is None else max(w, 1) for w in self.widths)
 
     def names(self) -> Tuple[List[str], List[str]]:
         """(radial, scalar) output names in the kernel's order: sorted."""
@@ -87,13 +91,14 @@ class Kind(NamedTuple):
 #: one float (SPH: v_0 .. v_{d-1}, rho). A precision names its C entry
 #: ``cell_pair_<kind>_<prec>_d<dim>``: ``f32``, ``bf16x``, and
 #: ``bf16x_<names>`` for ``"bf16x:<names>"``. A generated functor is added
-#: at its body's first launch (:func:`_generated_kind`).
+#: at its body's first launch (:func:`_generated_kind`), and gains a
+#: ``bf16x_<names>`` entry at the first launch that asks for it.
 KINDS = {
     "lj": Kind({"f": "radial"}, (), (), (2, 3), 2, ("f32", "bf16x")),
     "sph": Kind({"a": "radial", "drho": "scalar"}, ("v", "rho"),
-                (True, False), (2, 3), 12,
+                (None, 0), (2, 3), 12,
                 ("f32", "bf16x", "bf16x_drho", "bf16x_a")),
-    "dem": Kind({"f": "radial"}, ("v",), (True,), (3,), 4, ("f32", "bf16x")),
+    "dem": Kind({"f": "radial"}, ("v",), (None,), (3,), 4, ("f32", "bf16x")),
 }
 
 
@@ -160,19 +165,44 @@ def gather_cell_tiles(ps: ParticleSet, cl: CellList, prop_names=(),
         props_j={k: ps.props[k][safe_c] for k in prop_names})
 
 
+@torch.library.custom_op("repro_torch::int32_bits", mutates_args=())
+def _int32_bits(t: torch.Tensor) -> torch.Tensor:
+    """The bits of an int32 tensor as a float32 one (a copy). An operator,
+    so that its batching rule below carries it through torch.func.vmap
+    (the fleet step): ``Tensor.view(dtype)`` has none in some PyTorch
+    versions (2.11)."""
+    return t.view(torch.float32).clone()
+
+
+@_int32_bits.register_vmap
+def _int32_bits_vmap(info, in_dims, t):
+    return _int32_bits(t), in_dims[0]
+
+
+def _as_fp32(name: str, t: torch.Tensor) -> torch.Tensor:
+    """A prop tile as the fp32 words the kernel stages: a floating one
+    converted, an integer or bool one widened to int32 and its bits
+    reinterpreted (never a value conversion)."""
+    codegen.check_prop_dtype(name, t.dtype)
+    if t.is_floating_point():
+        return t.to(torch.float32)
+    return _int32_bits(t.to(torch.int32))
+
+
 def pack_props(props: Dict[str, torch.Tensor], names) -> torch.Tensor:
     """One contiguous fp32 ``(C, n, width)`` tile of the ``(C, n)`` scalar
-    and ``(C, n, dim)`` vector prop tiles ``names``, in that order. A
-    single vector prop that is already fp32 and contiguous is returned as
-    it is. (The props are gathered one by one and packed here, as tiles:
-    gathering packed 16-byte SPH rows per particle takes PyTorch's
-    ``vectorized_gather_kernel`` path, which is many times slower on the
-    H100; PERF.md §6.)"""
-    parts = [props[k] if props[k].dim() == 3 else props[k][..., None]
-             for k in names]
+    and ``(C, n, w)`` vector prop tiles ``names``, in that order: floating
+    props as fp32 values, integer and bool props as the bits of their
+    int32 values. A single fp32 vector prop that is already contiguous is
+    returned as it is. (The props are gathered one by one and packed here,
+    as tiles: gathering packed 16-byte SPH rows per particle takes
+    PyTorch's ``vectorized_gather_kernel`` path, which is many times
+    slower on the H100; PERF.md §6.)"""
+    parts = [_as_fp32(k, props[k] if props[k].dim() == 3
+                      else props[k][..., None]) for k in names]
     if len(parts) == 1:
-        return parts[0].to(torch.float32).contiguous()
-    return torch.cat([p.to(torch.float32) for p in parts], dim=-1)
+        return parts[0].contiguous()
+    return torch.cat(parts, dim=-1)
 
 
 def cell_pair_torch(cell_x, nbr_x, cell_mask, nbr_mask, props_i=None,
@@ -270,10 +300,16 @@ def _lib_of(src: pathlib.Path) -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
 def _lib(kind: str) -> ctypes.CDLL:
-    """The library of functor ``kind`` (built at first use; looked up
-    once, since a generated kind's source is written on the way)."""
+    """The library of functor ``kind`` with its current entries."""
+    return _lib_at(kind, KINDS[kind].precs)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_at(kind: str, precs: Tuple[str, ...]) -> ctypes.CDLL:
+    """The library of functor ``kind`` with entries ``precs`` (built at
+    first use; looked up once per set of entries, since a generated
+    kind's source is written on the way)."""
     return _lib_of(_source(kind))
 
 
@@ -330,26 +366,23 @@ def _check_packed(name, t, shape, device):
 
 def _generated_kind(body, out, dim: int, props) -> Tuple[str, tuple]:
     """(kind, params) of the functor generated from ``body`` for these
-    prop tiles ({name: (C, n) or (C, n, dim) tensor}), registered in
+    prop tiles ({name: (C, n) or (C, n, w) tensor}), registered in
     :data:`KINDS` and :data:`LAUNCHES_BY_KIND` at its first use."""
-    widths = {}
-    for k, t in props.items():
-        if not t.is_floating_point():
-            raise NotImplementedError(
-                f"prop {k!r} is {t.dtype}: a generated functor reads "
-                "floating-point props (packed as fp32)")
-        if t.dim() == 3 and t.shape[-1] != dim:
-            raise NotImplementedError(
-                f"prop {k!r} has {t.shape[-1]} components per particle; a "
-                f"generated functor reads scalars and ({dim},) vectors")
-        widths[k] = t.dim() == 3
-    gen = codegen.generate(body, dict(out), dim, widths)
+    gen = codegen.generate(body, dict(out), dim,
+                           {k: codegen.prop_of(k, t) for k, t in
+                            props.items()})
     if gen.kind not in KINDS:
-        KINDS[gen.kind] = Kind(dict(gen.out), gen.props, gen.vector,
-                               (gen.dim,), len(gen.params), gen.precs, gen)
-        for prec in gen.precs:
-            LAUNCHES_BY_KIND.setdefault(launch_key(gen.kind, prec), 0)
+        _register(gen)
     return gen.kind, gen.params
+
+
+def _register(gen: codegen.Generated) -> None:
+    """Put (or put back, with more entries) a generated functor in
+    :data:`KINDS`, with a :data:`LAUNCHES_BY_KIND` key per entry."""
+    KINDS[gen.kind] = Kind(dict(gen.out), gen.props, gen.widths, (gen.dim,),
+                           len(gen.params), gen.precs, gen)
+    for prec in gen.precs:
+        LAUNCHES_BY_KIND.setdefault(launch_key(gen.kind, prec), 0)
 
 
 def _kind_of(body, out, precision, dim: int,
@@ -377,11 +410,13 @@ def _kind_of(body, out, precision, dim: int,
     prec = "f32" if mode == "fp32" \
         else "_".join(["bf16x", *sorted(sel or ())])
     if prec not in spec.precs:
-        raise NotImplementedError(
-            f"precision {precision!r} has no {kind} entry in the CUDA "
-            f"cell-pair kernel (it has {spec.precs}; a generated functor "
-            f"of more than {codegen.MAX_MIXED_OUTPUTS} outputs takes fp32 "
-            "and bf16x); use backend='torch'")
+        if spec.gen is None:
+            raise NotImplementedError(
+                f"precision {precision!r} has no {kind} entry in the CUDA "
+                f"cell-pair kernel (it has {spec.precs}); use "
+                "backend='torch'")
+        # a new selection: its entry joins the source, built at launch
+        _register(spec.gen.with_mixed(prec, sel))
     return kind, prec, params
 
 

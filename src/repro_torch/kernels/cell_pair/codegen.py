@@ -5,45 +5,59 @@ the same for the hand-written CUDA engine, ``csrc/cell_pair_engine.cuh``).
 A pair body (the protocol of ``repro_torch.core.interactions``) is traced
 with ``torch.fx.experimental.proxy_tensor.make_fx`` on small fake CPU
 tensors, once with fp32 operands and once with bf16 operands (the
-``bf16x`` evaluation), at the call's ``dim``, prop widths and ``out``
-spec. Each traced graph is emitted as one specialization of ``template
-<class P> struct GenBody_<hash>``, a functor to the engine's body
-interface: every arithmetic result goes through the engine's ``Ops<T>``
-for the node's dtype, so a bf16 result is rounded as PyTorch's bf16
-elementwise ops round it on the card, and vector props and radial outputs
-unroll over DIM. ``ok`` is true for every pair the engine evaluates, so
-``where(ok, a, b)`` is ``a``.
+``bf16x`` evaluation: floating props become bf16, integer props keep
+their dtype, as ``interactions.cast_bf16`` does), at the call's ``dim``,
+prop layouts and ``out`` spec. Each traced graph is emitted as one
+specialization of ``template <class P> struct GenBody_<hash>``, a functor
+to the engine's body interface: every floating result goes through the
+engine's ``Ops<T>`` for the node's dtype, so a bf16 result is rounded as
+PyTorch's bf16 elementwise ops round it on the card; integer results go
+through ``Int`` (wrapping two's-complement arithmetic) and are narrowed
+to their dtype; vector values unroll over their components. ``ok`` is
+true for every pair the engine evaluates, so ``where(ok, a, b)`` is
+``a``.
 
 The ops taken (aten names): add, sub, rsub, mul, div, neg, abs; clamp,
 clamp_min, clamp_max, maximum, minimum; where, eq/ne/lt/le/gt/ge, the
-logical and bitwise and/or/xor/not of booleans; exp, log, sqrt, rsqrt,
-reciprocal, pow (a tensor exponent or a number); full, full_like,
-zeros_like, ones_like, scalar_tensor and other constants; select of one
-vector component and sum over the components; ``_to_copy`` between fp32
-and bf16, and the view ops that keep a value's components. Any other op
-raises :class:`NotImplementedError` naming it, when the body is traced
-(on the CPU too), as does Python control flow on a traced value.
+logical ops, and the bitwise and/or/xor/not of booleans and integers;
+exp, log, sqrt, rsqrt, reciprocal, pow (a tensor exponent or a number),
+tanh, sin, cos, erf, erfc, log1p, expm1, floor, ceil, round, trunc, sign,
+sigmoid and atan2; remainder, floor_divide and ``div`` with a rounding
+mode on integers; full, full_like, zeros_like, ones_like, scalar_tensor
+and other constants; select and slice of a vector's components and sum
+over them; ``index`` and ``select`` of a closed-over float table (1-D or
+2-D, at most :data:`MAX_TABLE` per axis) by integer values; ``_to_copy``
+between fp32, bf16, bool and the integer dtypes, and the view ops that
+keep a value's components. The values are per-pair scalars and vectors
+of any width (a ``(C, n, w)`` prop is read component by component); the
+dtypes are float32, bfloat16, bool, int32, int16, int8 and uint8. Any
+other op or dtype (int64 among them) raises :class:`NotImplementedError`
+naming it, when the body is traced (on the CPU too), as does Python
+control flow on a traced value.
 
-The body's numbers (Python floats in the graph, scalars it closes over,
-0-d constant tensors) are not in the emitted text: each occurrence is a
-slot of the functor's float ``params``, so that a body with other
-constants reuses the library. What the card does with them is followed:
-a Python divisor is reciprocal-then-multiply (``div_true_kernel_cuda``),
-a Python operand of an arithmetic op stays fp32 beside a bf16 tensor, the
-bound of a clamp, the other side of a comparison and a filled constant
-are rounded to the tensor's dtype, and ``pow``'s exponents 0, 1, 2, 3,
--2, +-0.5 and -1 take ATen's special cases
-(``aten/src/ATen/native/cuda/PowKernel.cu``), every other exponent
-``powf`` with the exponent rounded to the tensor's dtype.
+The body's floating numbers (Python floats in the graph, scalars it
+closes over, 0-d constant tensors, the entries of a table) are not in the
+emitted text: each is a slot of the functor's float ``params``, so that a
+body with other constants reuses the library (its integer numbers are
+literals). What the card does with them is followed: a Python divisor is
+reciprocal-then-multiply (``div_true_kernel_cuda``), a Python operand of
+an arithmetic op stays fp32 beside a bf16 tensor, the bound of a clamp,
+the other side of a comparison and a filled constant are rounded to the
+tensor's dtype, ``pow``'s exponents 0, 1, 2, 3, -2, +-0.5 and -1 take
+ATen's special cases (``aten/src/ATen/native/cuda/PowKernel.cu``), every
+other exponent ``powf`` with the exponent rounded to the tensor's dtype,
+and an integer converted to bf16 goes through fp32 first (c10's
+``BFloat16(float)``).
 
 :func:`generate` returns the body's :class:`Generated` functor: its kind
-name, its params, the props it reads (packed in sorted name order) and
-the C++ source, which :func:`source_path` writes under
+name, its params, the props it reads (packed in sorted name order, with
+their widths) and the C++ source, which :func:`source_path` writes under
 ``build/repro_torch/gen/`` (listed in ``.gitignore``) with one
-``CELL_PAIR_ENTRY`` per precision: ``f32``, ``bf16x`` and, for a body of
-up to three outputs, ``bf16x_<names>`` for every proper subset of them
-(``MixedBody``). The library is built from it by ``_build`` at first
-launch, keyed by its text and flags.
+``CELL_PAIR_ENTRY`` per precision: ``f32``, ``bf16x`` and one
+``bf16x_<names>`` (``MixedBody``) for each selection a launch has asked
+for (:meth:`Generated.with_mixed`; a new selection names a new source
+file, built at its first launch). The library is built from it by
+``_build`` at first launch, keyed by its text and flags.
 """
 from __future__ import annotations
 
@@ -63,15 +77,67 @@ ENGINE = pathlib.Path(__file__).resolve().parent / "csrc" \
     / "cell_pair_engine.cuh"
 GEN_DIR = _build.BUILD_DIR / "gen"
 
-#: Bodies of up to this many outputs get a ``bf16x:<names>`` entry for
-#: every proper subset of their outputs.
-MAX_MIXED_OUTPUTS = 3
+#: The precisions of every generated functor; ``bf16x_<names>`` entries
+#: are added as launches ask for them (:meth:`Generated.with_mixed`).
+BASE_PRECS = ("f32", "bf16x")
 
-#: The pair axis of the traced tensors (any size that is not a DIM).
-_N = 7
+#: The largest closed-over table the generator reads, per axis.
+MAX_TABLE = 16
 
-_DT = {torch.float32: "f32", torch.bfloat16: "bf16", torch.bool: "bool"}
+#: A table lookup that can reach at most this many entries is a chain of
+#: selects over them (each read at one address for the whole warp); a
+#: larger one indexes the params at run time, which the card serializes
+#: over a warp's distinct addresses (B1-gen-KA's three 2 x 2 lookups:
+#: 0.9617 ms so, 0.4181 ms as selects, on an H100; PERF.md §6).
+SELECT_MAX = 16
+
+_DT = {torch.float32: "f32", torch.bfloat16: "bf16", torch.bool: "bool",
+       torch.int32: "i32", torch.int16: "i16", torch.int8: "i8",
+       torch.uint8: "u8"}
+_TORCH = {v: k for k, v in _DT.items()}
+_INTS = ("i32", "i16", "i8", "u8")
+_FLOATS = ("f32", "bf16")
 _TYPE = {"f32": "F32", "bf16": "BF16"}
+_CTYPE = {"f32": "float", "bf16": "float", "bool": "bool",
+          **dict.fromkeys(_INTS, "int")}
+# an integer value of a narrower dtype, held as an int, wrapped to it
+_NARROW = {"i32": "{}", "i16": "static_cast<int>(static_cast<short>({}))",
+           "i8": "static_cast<int>(static_cast<signed char>({}))",
+           "u8": "(({}) & 0xff)"}
+
+#: Prop dtypes that travel as the bits of their int32 value.
+INT_PROP_DTYPES = (torch.int32, torch.int16, torch.int8, torch.uint8,
+                   torch.bool)
+
+
+class Prop(NamedTuple):
+    """How a prop tile reaches a functor: ``width`` 0 for a ``(C, n)``
+    scalar, w for a ``(C, n, w)`` vector; ``dtype`` float32 for every
+    floating prop (packed as fp32) or its own integer or bool dtype
+    (packed as the bits of its int32 value)."""
+
+    width: int
+    dtype: torch.dtype
+
+
+def check_prop_dtype(name: str, dtype: torch.dtype) -> None:
+    """Raise NotImplementedError naming a prop dtype the kernel cannot
+    carry (int64, complex)."""
+    if not (dtype.is_floating_point or dtype in INT_PROP_DTYPES):
+        raise NotImplementedError(
+            f"prop {name!r} is {dtype}: the CUDA cell-pair kernel carries "
+            "floating props as fp32 and int32, int16, int8, uint8 and bool "
+            "props as the bits of their int32 value")
+
+
+def prop_of(name: str, t: torch.Tensor) -> Prop:
+    """The :class:`Prop` of a ``(C, n)`` or ``(C, n, w)`` prop tile."""
+    if t.dim() not in (2, 3):
+        raise ValueError(f"prop {name!r} has shape {tuple(t.shape)}; a "
+                         "prop tile is (C, n) or (C, n, w)")
+    check_prop_dtype(name, t.dtype)
+    width = 0 if t.dim() == 2 else int(t.shape[-1])
+    return Prop(width, torch.float32 if t.is_floating_point() else t.dtype)
 
 
 class Generated(NamedTuple):
@@ -81,20 +147,40 @@ class Generated(NamedTuple):
     dim: int
     out: Tuple[Tuple[str, str], ...]     # sorted (name, "radial"|"scalar")
     props: Tuple[str, ...]        # the props it reads, in packed order
-    vector: Tuple[bool, ...]      # per prop: a (dim,) vector or a scalar
+    widths: Tuple[int, ...]       # per prop: 0 (a scalar) or its width
     params: Tuple[float, ...]     # the body's numbers, fp32 slots first
-    precs: Tuple[str, ...]        # its C entries' precisions
     code: str                     # the functor (both specializations)
+    # (precision, its bf16 outputs) of each bf16x:<names> entry
+    mixed: Tuple[Tuple[str, Tuple[str, ...]], ...] = ()
+
+    @property
+    def precs(self) -> Tuple[str, ...]:
+        """Its C entries' precisions."""
+        return BASE_PRECS + tuple(p for p, _ in self.mixed)
 
     @property
     def width(self) -> int:
         """Floats per particle in the packed props."""
-        return sum(self.dim if v else 1 for v in self.vector)
+        return sum(max(w, 1) for w in self.widths)
 
     @property
     def functor(self) -> str:
         """The C++ template's name, ``GenBody_<hash>``."""
         return f"GenBody_{self.kind[4:]}"
+
+    def with_mixed(self, prec: str, sel) -> "Generated":
+        """This functor with a ``bf16x:<names>`` entry named ``prec`` that
+        takes outputs ``sel`` from the bf16 evaluation (itself if it has
+        one)."""
+        sel = tuple(sorted(sel))
+        for p, s in self.mixed:
+            if p == prec:
+                if s != sel:
+                    raise ValueError(
+                        f"the bf16x selections {s} and {sel} both name the "
+                        f"C entry {prec!r}; rename an output")
+                return self
+        return self._replace(mixed=tuple(sorted(self.mixed + ((prec, sel),))))
 
     def source(self) -> str:
         """The whole ``.cu``: the engine header, the functor, the C
@@ -108,22 +194,17 @@ class Generated(NamedTuple):
                  self.code]
         radial = [n for n, k in self.out if k == "radial"]
         scalar = [n for n, k in self.out if k == "scalar"]
-        entries = []
-        for prec in self.precs:
-            if prec == "f32":
-                body = f"{name}<F32>"
-            elif prec == "bf16x":
-                body = f"{name}<BF16>"
-            else:
-                sel = set(prec.split("_")[1:])
-                rad = sum(1 << k for k, n in enumerate(radial) if n in sel)
-                sca = sum(1 << k for k, n in enumerate(scalar) if n in sel)
-                alias = f"Mixed_{prec}"
-                lines.append(f"using {alias} = MixedBody<{name}<F32>, "
-                             f"{name}<BF16>, {rad}u, {sca}u>;")
-                body = alias
-            entries.append(f"CELL_PAIR_ENTRY(cell_pair_{self.kind}_{prec}_"
-                           f"d{self.dim}, {body}, {self.width})")
+        bodies = {"f32": f"{name}<F32>", "bf16x": f"{name}<BF16>"}
+        for prec, sel in self.mixed:
+            rad = sum(1 << k for k, n in enumerate(radial) if n in sel)
+            sca = sum(1 << k for k, n in enumerate(scalar) if n in sel)
+            alias = f"Mixed_{prec}"
+            lines.append(f"using {alias} = MixedBody<{name}<F32>, "
+                         f"{name}<BF16>, {rad}u, {sca}u>;")
+            bodies[prec] = alias
+        entries = [f"CELL_PAIR_ENTRY(cell_pair_{self.kind}_{prec}_d"
+                   f"{self.dim}, {bodies[prec]}, {self.width})"
+                   for prec in self.precs]
         lines += ["", "}  // namespace", "", 'extern "C" {', *entries,
                   "}", ""]
         return "\n".join(lines)
@@ -133,10 +214,22 @@ class Generated(NamedTuple):
 # Tracing
 # --------------------------------------------------------------------------
 
-def _trace(body, out, dim: int, props: Dict[str, bool], dtype):
+def _pair_axis(dim: int, props: Dict[str, Prop]) -> int:
+    """The traced pair axis: a size that is no DIM and no prop width, so
+    that a value's shape tells its components."""
+    sizes = {1, dim} | {p.width for p in props.values()}
+    n = 7
+    while n in sizes:
+        n += 1
+    return n
+
+
+def _trace(body, out, dim: int, props: Dict[str, Prop], dtype, n: int):
     """The body's aten graph at operand dtype ``dtype``: placeholders dx
-    (N, dim), r2 (N,), ok (N,), then wi[k], wj[k] per prop in sorted
-    order; outputs the sorted ``out`` values (radial: the magnitude)."""
+    (n, dim), r2 (n,), ok (n,), then wi[k], wj[k] per prop in sorted
+    order ((n,) or (n, w); floating props in ``dtype``, integer ones in
+    their own); outputs the sorted ``out`` values (radial: the
+    magnitude)."""
     from torch.fx.experimental.proxy_tensor import make_fx
     from torch.fx.experimental.symbolic_shapes import \
         GuardOnDataDependentSymNode
@@ -149,12 +242,13 @@ def _trace(body, out, dim: int, props: Dict[str, bool], dtype):
         return [check_out_kind(k, kind, vals[k])
                 for k, kind in sorted(out.items())]
 
-    args = [torch.zeros((_N, dim), dtype=dtype), torch.zeros(_N, dtype=dtype),
-            torch.ones(_N, dtype=torch.bool)]
+    args = [torch.zeros((n, dim), dtype=dtype), torch.zeros(n, dtype=dtype),
+            torch.ones(n, dtype=torch.bool)]
     for k in names:
-        shape = (_N, dim) if props[k] else (_N,)
-        args += [torch.zeros(shape, dtype=dtype),
-                 torch.zeros(shape, dtype=dtype)]
+        p = props[k]
+        shape = (n, p.width) if p.width else (n,)
+        pdt = dtype if p.dtype.is_floating_point else p.dtype
+        args += [torch.zeros(shape, dtype=pdt), torch.zeros(shape, dtype=pdt)]
     try:
         return make_fx(torch.func.functionalize(fn),
                        tracing_mode="fake")(*args)
@@ -170,9 +264,20 @@ def _trace(body, out, dim: int, props: Dict[str, bool], dtype):
 # --------------------------------------------------------------------------
 
 class _Val(NamedTuple):
-    c: List[str]       # C expression per component (1 or DIM)
-    dtype: str         # "f32" | "bf16" | "bool"
+    c: List[str]       # C expression per component (1 or the width)
+    dtype: str         # "f32" | "bf16" | "bool" | "i32" | "i16" | ...
     ndim: int          # the traced tensor's ndim (0: a 0-d constant)
+
+
+class _Table(NamedTuple):
+    """A closed-over float table: its entries are params from slot
+    ``off``, read at ``off + sum(i_k * strides[k])``; ``dtypes`` is the
+    stored dtype and each conversion applied since."""
+
+    off: int
+    shape: Tuple[int, ...]
+    strides: Tuple[int, ...]
+    dtypes: Tuple[str, ...]
 
 
 def _meta(node):
@@ -183,22 +288,22 @@ def _meta(node):
     if val.dtype not in _DT:
         raise NotImplementedError(
             f"{node.target}: dtype {val.dtype} (the CUDA cell-pair kernel's "
-            "generated bodies compute in float32, bfloat16 and bool)")
+            "generated bodies compute in float32, bfloat16, bool, int32, "
+            "int16, int8 and uint8)")
     return val
 
 
-def _ncomp(shape, dim: int, what) -> int:
+def _ncomp(shape, n: int, what) -> int:
     """Components of a traced value: 1 for a per-pair scalar (shapes (),
-    (N,), (1,), (N, 1), (1, 1)), DIM for a vector (N, DIM) / (1, DIM)."""
+    (n,), (1,)), w for a vector (n, w) / (1, w)."""
     shape = tuple(shape)
-    if len(shape) == 0 or shape in ((_N,), (1,)):
+    if len(shape) == 0 or shape in ((n,), (1,)):
         return 1
-    if len(shape) == 2 and shape[0] in (_N, 1) and shape[1] in (1, dim):
+    if len(shape) == 2 and shape[0] in (n, 1):
         return shape[1]
     raise NotImplementedError(
-        f"{what}: a value of shape {shape} (the traced pair axis is {_N}, "
-        f"dim {dim}); a body's values are per-pair scalars or (dim,) "
-        "vectors")
+        f"{what}: a value of shape {shape} (the traced pair axis is {n}); "
+        "a body's values are per-pair scalars or vectors")
 
 
 def _needed(gm) -> set:
@@ -212,12 +317,28 @@ def _needed(gm) -> set:
     return need
 
 
+def _int_literal(value, dtype: str) -> str:
+    """A Python number as a C int of integer dtype ``dtype`` (wrapped as
+    PyTorch converts a number to that dtype)."""
+    v = int(torch.tensor(int(value)).to(_TORCH[dtype]))
+    return "(-2147483647 - 1)" if v == -2 ** 31 else str(v)
+
+
+_UNARY = ("neg", "abs", "exp", "log", "sqrt", "rsqrt", "reciprocal", "tanh",
+          "sin", "cos", "erf", "erfc", "log1p", "expm1", "floor", "ceil",
+          "round", "trunc", "sign", "sigmoid")
+_VIEWS = ("_to_copy", "clone", "alias", "detach", "lift_fresh_copy", "view",
+          "_unsafe_view", "reshape", "unsqueeze", "squeeze", "expand",
+          "view_copy", "expand_copy", "unsqueeze_copy", "squeeze_copy",
+          "alias_copy", "detach_copy")
+
+
 class _Emitter:
     """One traced graph as the body of one ``GenBody<P>`` specialization."""
 
-    def __init__(self, gm, dim: int, prec: str, props: Dict[str, bool],
-                 out, used: set):
-        self.gm, self.dim, self.prec = gm, dim, prec
+    def __init__(self, gm, dim: int, prec: str, props: Dict[str, Prop],
+                 out, used: set, n: int):
+        self.gm, self.dim, self.prec, self.n = gm, dim, prec, n
         self.P = _TYPE[prec]
         self.props = props
         self.used = used
@@ -235,33 +356,50 @@ class _Emitter:
     def let(self, dtype: str, expr: str) -> str:
         name = f"v{self.n_tmp}"
         self.n_tmp += 1
-        ctype = "bool" if dtype == "bool" else "float"
-        self.lines.append(f"    const {ctype} {name} = {expr};")
+        self.lines.append(f"    const {_CTYPE[dtype]} {name} = {expr};")
         return name
 
     @staticmethod
-    def cvt(expr: str, src: str, dst: str) -> str:
-        """A value of dtype ``src`` converted to ``dst``."""
+    def narrow(expr: str, dtype: str) -> str:
+        return _NARROW[dtype].format(expr)
+
+    @classmethod
+    def cvt(cls, expr: str, src: str, dst: str) -> str:
+        """A value of dtype ``src`` converted to ``dst``, as PyTorch's
+        ``_to_copy`` converts it."""
         if src == dst or (src == "bf16" and dst == "f32"):
             return expr
         if dst == "bool":
-            return f"({expr} != 0.0f)"
+            return f"({expr} != 0)" if src in _INTS else f"({expr} != 0.0f)"
         if src == "bool":
-            return f"({expr} ? 1.0f : 0.0f)"
-        return f"BF16::r({expr})"            # f32 -> bf16
+            return f"({expr} ? 1 : 0)" if dst in _INTS \
+                else f"({expr} ? 1.0f : 0.0f)"
+        if dst in _INTS:
+            e = expr if src in _INTS else f"static_cast<int>({expr})"
+            return cls.narrow(e, dst)
+        if src in _INTS:
+            expr = f"static_cast<float>({expr})"
+        return expr if dst == "f32" else f"BF16::r({expr})"
 
     def rounded_const(self, value, dtype: str) -> str:
         """A number as a value of ``dtype`` (a filled tensor, a clamp
-        bound, the other side of a comparison)."""
+        bound, the other side of a comparison, an integer op's operand)."""
         if dtype == "bool":
             return "true" if value else "false"
+        if dtype in _INTS:
+            return _int_literal(value, dtype)
         c = self.const(value)
         return c if dtype == "f32" else f"BF16::r({c})"
 
     def val(self, a) -> _Val:
-        if isinstance(a, torch.fx.Node):
-            return self.vals[a]
-        raise NotImplementedError(f"unexpected operand {a!r}")
+        if not isinstance(a, torch.fx.Node):
+            raise NotImplementedError(f"unexpected operand {a!r}")
+        v = self.vals[a]
+        if isinstance(v, _Table):
+            raise NotImplementedError(
+                f"{a.target}: a closed-over table is read only by indexing "
+                "it with integer values")
+        return v
 
     @staticmethod
     def is_num(a) -> bool:
@@ -276,9 +414,7 @@ class _Emitter:
                 args.append(a)
             else:
                 v = self.val(a)
-                dt = {"f32": torch.float32, "bf16": torch.bfloat16,
-                      "bool": torch.bool}[v.dtype]
-                args.append(torch.zeros((1,) * v.ndim, dtype=dt))
+                args.append(torch.zeros((1,) * v.ndim, dtype=_TORCH[v.dtype]))
         res = args[0]
         for b in args[1:]:
             dt = torch.result_type(res, b)
@@ -292,10 +428,11 @@ class _Emitter:
 
     def operand(self, a, T: str, n: int, *, scalar_as: str = "opmath"):
         """Operand ``a`` as ``n`` component expressions of type ``T``. A
-        number is an fp32 param (``opmath``, as an arithmetic op takes it
-        on the card) or rounded to ``T`` (``rounded``)."""
+        number is an fp32 param (``opmath``, as a floating arithmetic op
+        takes it on the card) or a value of ``T`` (``rounded``; integer
+        and bool types always)."""
         if self.is_num(a):
-            e = self.const(a) if scalar_as == "opmath" \
+            e = self.const(a) if scalar_as == "opmath" and T in _FLOATS \
                 else self.rounded_const(a, T)
             return [e] * n
         v = self.val(a)
@@ -330,49 +467,76 @@ class _Emitter:
             if nd.op in ("placeholder", "output") or nd not in need:
                 continue
             if nd.op == "get_attr":
-                t = getattr(self.gm, nd.target)
-                if not isinstance(t, torch.Tensor) or t.dim() != 0 \
-                        or t.dtype not in _DT:
-                    raise NotImplementedError(
-                        f"a tensor the pair body closes over ({nd.target}, "
-                        f"shape {tuple(getattr(t, 'shape', ()))}): only 0-d "
-                        "float32, bfloat16 or bool constants are taken")
-                dt = _DT[t.dtype]
-                self.vals[nd] = _Val([self.rounded_const(t.item(), dt)], dt,
-                                     0)
+                self.vals[nd] = self.constant(nd)
                 continue
             if nd.op != "call_function":
                 raise NotImplementedError(f"graph node {nd.op} {nd.target}")
             self.vals[nd] = self.emit(nd)
         return self.outputs(nodes[-1])
 
+    def constant(self, nd):
+        """A tensor the body closes over: a 0-d number, or a float table
+        whose entries become params."""
+        t = getattr(self.gm, nd.target)
+        shape = tuple(getattr(t, "shape", ()))
+        if isinstance(t, torch.Tensor) and t.dim() == 0 and t.dtype in _DT:
+            dt = _DT[t.dtype]
+            return _Val([self.rounded_const(t.item(), dt)], dt, 0)
+        if isinstance(t, torch.Tensor) and t.dim() in (1, 2) \
+                and _DT.get(t.dtype) in _FLOATS \
+                and max(shape) <= MAX_TABLE:
+            off = len(self.consts)
+            for v in t.detach().float().reshape(-1).tolist():
+                self.const(v)
+            strides = (shape[1], 1) if t.dim() == 2 else (1,)
+            return _Table(off, shape, strides, (_DT[t.dtype],))
+        raise NotImplementedError(
+            f"a tensor the pair body closes over ({nd.target}, shape "
+            f"{shape}, {getattr(t, 'dtype', type(t).__name__)}): only 0-d "
+            "numbers and float32 or bfloat16 tables of 1 or 2 axes of at "
+            f"most {MAX_TABLE} are taken")
+
     def load_prop(self, k: str, side: str) -> _Val:
         """Prop ``k`` of one side (``wi_in`` / ``wj_in``) from its packed
-        row: the props the body reads, in sorted order."""
-        off = sum(self.dim if self.props[name] else 1
+        row: the props the body reads, in sorted order. An integer prop
+        travels as its int32 value's bits."""
+        p = self.props[k]
+        off = sum(max(self.props[name].width, 1)
                   for name in sorted(self.used) if name < k)
-        n = self.dim if self.props[k] else 1
-        c = [self.let(self.prec, f"{self.P}::r({side}[{off + d}])")
-             for d in range(n)]
-        return _Val(c, self.prec, 2 if self.props[k] else 1)
+        if p.dtype.is_floating_point:
+            dt, read = self.prec, f"{self.P}::r({{}})"
+        elif p.dtype == torch.bool:
+            dt, read = "bool", "(__float_as_int({}) != 0)"
+        else:
+            dt, read = _DT[p.dtype], "__float_as_int({})"
+        c = [self.let(dt, read.format(f"{side}[{off + d}]"))
+             for d in range(max(p.width, 1))]
+        return _Val(c, dt, 2 if p.width else 1)
 
     def emit(self, nd) -> _Val:
         tgt = nd.target
         what = str(tgt)
         packet = getattr(getattr(tgt, "overloadpacket", None), "__name__",
                          None)
-        meta = _meta(nd)
-        T = _DT[meta.dtype]
-        n = _ncomp(meta.shape, self.dim, what)
         args = list(nd.args)
         kw = dict(nd.kwargs)
+        if isinstance(self.vals.get(args[0]) if args and isinstance(
+                args[0], torch.fx.Node) else None, _Table):
+            return self.table_op(nd, packet, args, kw)
+        meta = _meta(nd)
+        T = _DT[meta.dtype]
+        n = _ncomp(meta.shape, self.n, what)
         ndim = meta.dim()
 
         def make(comps, dtype=T):
             return _Val([self.let(dtype, e) for e in comps], dtype, ndim)
 
+        if T in _INTS:
+            res = self.emit_int(nd, packet, args, kw, T, n, make)
+            if res is not None:
+                return res
         O = f"Ops<{_TYPE.get(T, 'F32')}>"
-        if packet in ("add", "sub", "mul", "div", "rsub"):
+        if packet in ("add", "sub", "mul", "div", "rsub") and T in _FLOATS:
             a, b = args[0], args[1]
             alpha = kw.get("alpha", 1)
             if packet == "rsub":
@@ -380,7 +544,8 @@ class _Emitter:
                 packet = "sub"
             if packet == "div" and kw.get("rounding_mode") is not None:
                 raise NotImplementedError(f"{what} with rounding_mode "
-                                          f"{kw['rounding_mode']!r}")
+                                          f"{kw['rounding_mode']!r} on "
+                                          "floating values")
             if packet == "div" and self.is_num(b):
                 inv = np.float32(1.0) / np.float32(b)
                 xa = self.operand(a, T, n)
@@ -400,23 +565,21 @@ class _Emitter:
                 return make([f"{O}::add_alpha({x}, {y}, {c})"
                              for x, y in zip(xa, xb)])
             return make([f"{O}::{packet}({x}, {y})" for x, y in zip(xa, xb)])
-        if packet in ("maximum", "minimum"):
+        if packet in ("maximum", "minimum") and T in _FLOATS:
             xa, xb = (self.operand(a, T, n) for a in args[:2])
             return make([f"{O}::{packet}({x}, {y})" for x, y in zip(xa, xb)])
-        if packet in ("neg", "abs", "exp", "log", "sqrt", "rsqrt",
-                      "reciprocal"):
+        if packet in _UNARY and T in _FLOATS:
+            if packet == "round" and kw.get("decimals", 0) != 0:
+                raise NotImplementedError(f"{what} with decimals")
             fn = {"reciprocal": "recip"}.get(packet, packet)
             return make([f"{O}::{fn}({x})"
                          for x in self.operand(args[0], T, n)])
-        if packet in ("clamp", "clamp_min", "clamp_max"):
+        if packet == "atan2" and T in _FLOATS:
+            xa, xb = (self.operand(a, T, n) for a in args[:2])
+            return make([f"{O}::atan2({x}, {y})" for x, y in zip(xa, xb)])
+        if packet in ("clamp", "clamp_min", "clamp_max") and T in _FLOATS:
             x = self.operand(args[0], T, n)
-            if packet == "clamp":
-                lo = args[1] if len(args) > 1 else kw.get("min")
-                hi = args[2] if len(args) > 2 else kw.get("max")
-            elif packet == "clamp_min":
-                lo, hi = args[1], None
-            else:
-                lo, hi = None, args[1]
+            lo, hi = self.clamp_bounds(packet, args, kw)
             if lo is not None:
                 if self.is_num(lo):
                     c = self.rounded_const(lo, T)
@@ -432,7 +595,7 @@ class _Emitter:
                     x = [f"{O}::minimum({e}, {f})" for e, f in
                          zip(x, self.operand(hi, T, n))]
             return make(x)
-        if packet == "pow":
+        if packet == "pow" and T in _FLOATS:
             return self.pow(nd, args, T, n, O, make)
         if packet in ("eq", "ne", "lt", "le", "gt", "ge"):
             op = {"eq": "==", "ne": "!=", "lt": "<", "le": "<=", "gt": ">",
@@ -441,20 +604,21 @@ class _Emitter:
             xa = self.operand(args[0], C, n, scalar_as="rounded")
             xb = self.operand(args[1], C, n, scalar_as="rounded")
             return make([f"{x} {op} {y}" for x, y in zip(xa, xb)], "bool")
-        if packet in ("logical_and", "logical_or", "logical_xor",
-                      "bitwise_and", "bitwise_or", "bitwise_xor"):
-            if T != "bool":
-                raise NotImplementedError(f"{what} on {T} values (bitwise "
-                                          "ops are taken on booleans only)")
+        if packet in ("logical_and", "logical_or", "logical_xor") or (
+                packet in ("bitwise_and", "bitwise_or", "bitwise_xor")
+                and T == "bool"):
             op = {"and": "&&", "or": "||", "xor": "!="}[packet.split("_")[1]]
             xa, xb = (self.operand(a, "bool", n, scalar_as="rounded")
                       for a in args[:2])
             return make([f"({x} {op} {y})" for x, y in zip(xa, xb)], "bool")
-        if packet in ("logical_not", "bitwise_not"):
-            if packet == "bitwise_not" and self.val(args[0]).dtype != "bool":
-                raise NotImplementedError(f"{what} on a non-boolean value")
+        if packet == "logical_not" or (packet == "bitwise_not"
+                                       and T == "bool"):
             return make([f"!{x}" for x in
                          self.operand(args[0], "bool", n)], "bool")
+        if packet in ("bitwise_and", "bitwise_or", "bitwise_xor",
+                      "bitwise_not"):
+            raise NotImplementedError(f"{what} on {T} values (bitwise ops "
+                                      "are taken on booleans and integers)")
         if packet == "where":
             cond = self.operand(args[0], "bool", n)
             xa = self.operand(args[1], T, n, scalar_as="rounded")
@@ -469,14 +633,10 @@ class _Emitter:
         if packet in ("zeros_like", "ones_like", "zeros", "ones",
                       "new_zeros", "new_ones"):
             one = packet.startswith(("ones", "new_ones"))
-            lit = ("true" if one else "false") if T == "bool" \
-                else ("1.0f" if one else "0.0f")
+            lit = {"bool": ("false", "true"), "f32": ("0.0f", "1.0f"),
+                   "bf16": ("0.0f", "1.0f")}.get(T, ("0", "1"))[one]
             return _Val([lit] * n, T, ndim)
-        if packet in ("_to_copy", "clone", "alias", "detach",
-                      "lift_fresh_copy", "view", "_unsafe_view", "reshape",
-                      "unsqueeze", "squeeze", "expand", "view_copy",
-                      "expand_copy", "unsqueeze_copy", "squeeze_copy",
-                      "alias_copy", "detach_copy"):
+        if packet in _VIEWS:
             src = self.val(args[0])
             if len(src.c) not in (1, n):
                 raise NotImplementedError(
@@ -485,35 +645,215 @@ class _Emitter:
             if src.dtype == T:
                 return _Val(comps, T, ndim)
             return make([self.cvt(e, src.dtype, T) for e in comps])
-        if packet in ("select", "select_copy"):
+        if packet in ("select", "select_copy", "slice", "slice_copy"):
             src = self.val(args[0])
             src_meta = _meta(args[0])
-            axis, idx = args[1], args[2]
+            axis = args[1] if len(args) > 1 else kw.get("dim", 0)
             if src_meta.dim() != 2 or axis not in (1, -1):
                 raise NotImplementedError(
-                    f"{what}: a select of axis {axis} of a value of shape "
+                    f"{what}: a {packet} of axis {axis} of a value of shape "
                     f"{tuple(src_meta.shape)} (only a vector's component "
                     "axis is taken)")
-            comps = src.c if len(src.c) > 1 else src.c * self.dim
-            return _Val([comps[idx % len(comps)]], src.dtype, ndim)
+            width = src_meta.shape[1]
+            comps = src.c if len(src.c) == width else src.c * width
+            if packet.startswith("select"):
+                return _Val([comps[args[2] % width]], src.dtype, ndim)
+            start, end, step = (list(args[2:]) + [None, None, 1])[:3]
+            return _Val(comps[slice(start, end, step)], src.dtype, ndim)
         if packet == "sum":
-            src_meta = _meta(args[0])
-            dims = args[1] if len(args) > 1 else kw.get("dim")
-            if tgt._overloadname != "dim_IntList" or src_meta.dim() != 2 \
-                    or list(dims or ()) not in ([1], [-1]):
-                raise NotImplementedError(
-                    f"{what} over {dims} of a value of shape "
-                    f"{tuple(src_meta.shape)} (only a sum over a vector's "
-                    "components is taken)")
-            src = self.val(args[0])
+            src = self.sum_operand(nd, args, kw)
             comps = [self.cvt(e, src.dtype, "f32") for e in src.c]
             acc = comps[0]
             for e in comps[1:]:
                 acc = f"__fadd_rn({acc}, {e})"
             return make([f"{O}::cvt({acc})"])
+        if packet == "index":
+            raise NotImplementedError(
+                f"{what} of a value the body computes (only a closed-over "
+                "table is indexed)")
         raise NotImplementedError(
             f"{what} is not an op the CUDA cell-pair kernel's generated "
-            "bodies take (codegen.py lists them)")
+            f"bodies take on {T} values (codegen.py lists them)")
+
+    def sum_operand(self, nd, args, kw) -> _Val:
+        """The vector a ``sum`` adds up: only a sum over its components
+        is taken."""
+        src_meta = _meta(args[0])
+        dims = args[1] if len(args) > 1 else kw.get("dim")
+        if nd.target._overloadname != "dim_IntList" or src_meta.dim() != 2 \
+                or list(dims or ()) not in ([1], [-1]):
+            raise NotImplementedError(
+                f"{nd.target} over {dims} of a value of shape "
+                f"{tuple(src_meta.shape)} (only a sum over a vector's "
+                "components is taken)")
+        return self.val(args[0])
+
+    @staticmethod
+    def clamp_bounds(packet, args, kw):
+        if packet == "clamp":
+            return (args[1] if len(args) > 1 else kw.get("min"),
+                    args[2] if len(args) > 2 else kw.get("max"))
+        if packet == "clamp_min":
+            return args[1], None
+        return None, args[1]
+
+    def emit_int(self, nd, packet, args, kw, T, n, make):
+        """An op with an integer result, or None where it is a
+        dtype-neutral op (comparison operands, where, constants, views,
+        select) that :meth:`emit` handles for every dtype."""
+        what = str(nd.target)
+        wrap = lambda e: self.narrow(e, T)
+        if packet in ("add", "sub", "mul", "rsub"):
+            a, b = args[0], args[1]
+            if packet == "rsub":
+                a, b, packet = b, a, "sub"
+            xa = self.operand(a, T, n)
+            xb = self.operand(b, T, n)
+            alpha = kw.get("alpha", 1)
+            if alpha != 1:
+                c = _int_literal(alpha, T)
+                xb = [f"Int::mul({c}, {y})" for y in xb]
+            return make([wrap(f"Int::{packet}({x}, {y})")
+                         for x, y in zip(xa, xb)])
+        if packet in ("div", "floor_divide", "remainder"):
+            mode = kw.get("rounding_mode") if packet == "div" else None
+            if packet == "div" and mode not in ("floor", "trunc"):
+                raise NotImplementedError(f"{what} with rounding_mode "
+                                          f"{mode!r} on integers")
+            fn = {"floor": "floor_div", "trunc": "div_trunc",
+                  None: {"floor_divide": "floor_div",
+                         "remainder": "rem"}.get(packet)}[mode]
+            xa, xb = (self.operand(a, T, n) for a in args[:2])
+            return make([wrap(f"Int::{fn}({x}, {y})")
+                         for x, y in zip(xa, xb)])
+        if packet in ("maximum", "minimum"):
+            op = ">" if packet == "maximum" else "<"
+            xa, xb = (self.operand(a, T, n) for a in args[:2])
+            return make([f"({x} {op} {y} ? {x} : {y})"
+                         for x, y in zip(xa, xb)])
+        if packet in ("clamp", "clamp_min", "clamp_max"):
+            x = self.operand(args[0], T, n)
+            lo, hi = self.clamp_bounds(packet, args, kw)
+            if lo is not None:
+                x = [f"({e} < {f} ? {f} : {e})" for e, f in
+                     zip(x, self.operand(lo, T, n))]
+            if hi is not None:
+                x = [f"({e} > {f} ? {f} : {e})" for e, f in
+                     zip(x, self.operand(hi, T, n))]
+            return make(x)
+        if packet in ("neg", "abs", "sign"):
+            return make([wrap(f"Int::{packet}({x})")
+                         for x in self.operand(args[0], T, n)])
+        if packet in ("floor", "ceil", "round", "trunc"):
+            return make(self.operand(args[0], T, n))
+        if packet in ("bitwise_and", "bitwise_or", "bitwise_xor"):
+            op = {"and": "&", "or": "|", "xor": "^"}[packet.split("_")[1]]
+            xa, xb = (self.operand(a, T, n) for a in args[:2])
+            return make([wrap(f"({x} {op} {y})") for x, y in zip(xa, xb)])
+        if packet == "bitwise_not":
+            return make([wrap(f"(~{x})")
+                         for x in self.operand(args[0], T, n)])
+        if packet == "sum":
+            src = self.sum_operand(nd, args, kw)
+            comps = [self.cvt(e, src.dtype, T) for e in src.c]
+            acc = comps[0]
+            for e in comps[1:]:
+                acc = wrap(f"Int::add({acc}, {e})")
+            return make([acc])
+        if packet in ("where", "full", "full_like", "new_full",
+                      "scalar_tensor", "zeros_like", "ones_like", "zeros",
+                      "ones", "new_zeros", "new_ones", "select",
+                      "select_copy", "slice", "slice_copy", "index",
+                      *_VIEWS):
+            return None
+        raise NotImplementedError(
+            f"{what} is not an op the CUDA cell-pair kernel's generated "
+            f"bodies take on {T} values (codegen.py lists them)")
+
+    def table_op(self, nd, packet, args, kw):
+        """An op on a closed-over table: a conversion, a select of a
+        constant row or column, or an index by integer values."""
+        what = str(nd.target)
+        tab = self.vals[args[0]]
+        if packet in _VIEWS and packet not in (
+                "view", "_unsafe_view", "reshape", "unsqueeze", "squeeze",
+                "expand", "view_copy", "expand_copy", "unsqueeze_copy",
+                "squeeze_copy"):
+            dst = _DT[_meta(nd).dtype] if packet == "_to_copy" \
+                else tab.dtypes[-1]
+            if dst not in _FLOATS:
+                raise NotImplementedError(f"{what}: a table as {dst}")
+            return tab if dst == tab.dtypes[-1] \
+                else tab._replace(dtypes=tab.dtypes + (dst,))
+        if packet in ("select", "select_copy"):
+            axis, idx = args[1] % len(tab.shape), args[2]
+            idx %= tab.shape[axis]
+            tab = _Table(tab.off + idx * tab.strides[axis],
+                         tab.shape[:axis] + tab.shape[axis + 1:],
+                         tab.strides[:axis] + tab.strides[axis + 1:],
+                         tab.dtypes)
+            return self.entry(tab, "0", [0]) if not tab.shape else tab
+        if packet == "index":
+            return self.index(nd, tab, args[1])
+        raise NotImplementedError(
+            f"{what} of a closed-over table (a table is read only by "
+            "indexing it with integer values)")
+
+    def entry(self, tab: _Table, flat: str, offsets, extra: int = 0) -> _Val:
+        """The table entry at offset ``flat`` + ``extra``, as a value;
+        ``offsets`` lists the values ``flat`` can take."""
+        if len(offsets) <= SELECT_MAX:
+            e = f"c[{tab.off + offsets[-1] + extra}]"
+            for o in reversed(offsets[:-1]):
+                e = f"({flat} == {o} ? c[{tab.off + o + extra}] : {e})"
+        else:
+            e = f"c[{tab.off + extra} + {flat}]"
+        for src, dst in zip(tab.dtypes, tab.dtypes[1:]):
+            e = self.cvt(e, src, dst)
+        return _Val([self.let(tab.dtypes[-1], e)], tab.dtypes[-1], 1)
+
+    def index(self, nd, tab: _Table, indices) -> _Val:
+        """``table[i0, i1]`` (or ``table[i0]``, a row per pair) by integer
+        values; a negative index counts from the end, as in PyTorch, and
+        an index out of range is clamped to it (PyTorch raises there)."""
+        what = str(nd.target)
+        meta = _meta(nd)
+        n = _ncomp(meta.shape, self.n, what)
+        if any(i is None for i in indices) or len(indices) > len(tab.shape) \
+                or len(tab.shape) - len(indices) > 1:
+            raise NotImplementedError(
+                f"{what}: a table of shape {tab.shape} indexed by "
+                f"{len(indices)} values (each axis, or all but the last, by "
+                "an integer value)")
+        idx = []
+        for i in indices:
+            v = self.val(i)
+            if v.dtype not in _INTS:
+                raise NotImplementedError(
+                    f"{what}: a table indexed by a {v.dtype} value")
+            idx.append(v)
+        rest = len(tab.shape) - len(indices)
+        m = 1 if rest else n
+        if any(len(v.c) not in (1, m) for v in idx):
+            raise NotImplementedError(f"{what}: index widths "
+                                      f"{[len(v.c) for v in idx]}")
+        flats = []
+        for d in range(m):
+            terms = []
+            for v, size, stride in zip(idx, tab.shape, tab.strides):
+                e = f"Int::at({v.c[d % len(v.c)]}, {size})"
+                terms.append(e if stride == 1 else f"{e} * {stride}")
+            flats.append(self.let("i32", " + ".join(terms)))
+        offsets = sorted({sum(i * st for i, st in zip(ix, tab.strides))
+                          for ix in itertools.product(
+                              *(range(n) for n in tab.shape[:len(idx)]))})
+        if rest:
+            comps = [self.entry(tab, flats[0], offsets,
+                                k * tab.strides[-1]).c[0]
+                     for k in range(tab.shape[-1])]
+        else:
+            comps = [self.entry(tab, f, offsets).c[0] for f in flats]
+        return _Val(comps, tab.dtypes[-1], meta.dim())
 
     def pow(self, nd, args, T, n, O, make):
         what = str(nd.target)
@@ -554,7 +894,7 @@ class _Emitter:
             if not isinstance(nd, torch.fx.Node):
                 raise NotImplementedError(
                     f"pair-body output {name!r} is not a tensor")
-            v = self.vals[nd]
+            v = self.val(nd)
             if len(v.c) != 1:
                 raise NotImplementedError(
                     f"pair-body output {name!r} has {len(v.c)} components "
@@ -565,15 +905,16 @@ class _Emitter:
                 if dx is None:
                     dx = [self.let(self.prec, f"{self.P}::r(dx_in[{d}])")
                           for d in range(self.dim)]
-                mt = "f32" if v.dtype == "bool" else v.dtype
-                m = self.cvt(m, v.dtype, mt)
                 for d in range(self.dim):
-                    if mt == "bf16" and self.prec == "bf16":
-                        term = f"BF16::term({m}, {dx[d]})"
-                    elif self.prec == "f32":
-                        term = f"F32::term({m}, {dx[d]})"
-                    else:
+                    # mag * dx in PyTorch's result dtype of the product
+                    if self.prec == "f32":
+                        term = f"F32::term({self.cvt(m, v.dtype, 'f32')}, " \
+                               f"{dx[d]})"
+                    elif v.dtype == "f32":
                         term = f"__fmul_rn({m}, {dx[d]})"
+                    else:
+                        term = f"BF16::term({self.cvt(m, v.dtype, 'bf16')}, " \
+                               f"{dx[d]})"
                     stmts.append(f"    radial[{k_rad * self.dim + d}] = "
                                  f"{term};")
                 k_rad += 1
@@ -584,9 +925,9 @@ class _Emitter:
         return stmts
 
 
-def _specialization(gm, dim, prec, props, out, used):
+def _specialization(gm, dim, prec, props, out, used, n):
     """(the emitter, after its run: its consts; the operator's lines)."""
-    em = _Emitter(gm, dim, prec, props, out, used)
+    em = _Emitter(gm, dim, prec, props, out, used, n)
     stmts = em.run()
     return em, em.lines + stmts
 
@@ -651,12 +992,13 @@ _CACHE_SIZE = 256
 
 
 def generate(body, out: Dict[str, str], dim: int,
-             props: Dict[str, bool]) -> Generated:
+             props: Dict[str, Prop]) -> Generated:
     """The generated functor of ``body`` at ``dim`` with props ``props``
-    ({name: is a (dim,) vector}) and outputs ``out``. Traces the body in
-    fp32 and in bf16 and emits both specializations; raises
-    NotImplementedError naming an op it does not take. Cached on the body
-    (when hashable), ``out``, ``dim`` and ``props``."""
+    ({name: :class:`Prop`}) and outputs ``out``. Traces the body in fp32
+    and in bf16 and emits both specializations, with the entries of
+    :data:`BASE_PRECS`; raises NotImplementedError naming an op or dtype
+    it does not take. Cached on the body (when hashable), ``out``,
+    ``dim`` and ``props``."""
     key = _key(body, out, dim, props)
     if key is not None and key in _CACHE:
         _CACHE.move_to_end(key)
@@ -666,18 +1008,20 @@ def generate(body, out: Dict[str, str], dim: int,
             raise ValueError(f"pair output {name!r}: {kind!r} (a generated "
                              "functor takes identifier names, 'radial' or "
                              "'scalar')")
-    gm32 = _trace(body, out, dim, props, torch.float32)
-    gm16 = _trace(body, out, dim, props, torch.bfloat16)
+    n = _pair_axis(dim, props)
+    gm32 = _trace(body, out, dim, props, torch.float32, n)
+    gm16 = _trace(body, out, dim, props, torch.bfloat16, n)
     used = _used_props(gm32, props) | _used_props(gm16, props)
     n_rad = sum(k == "radial" for k in out.values())
     n_sca = len(out) - n_rad
-    em32, lines32 = _specialization(gm32, dim, "f32", props, out, used)
-    em16, lines16 = _specialization(gm16, dim, "bf16", props, out, used)
+    em32, lines32 = _specialization(gm32, dim, "f32", props, out, used, n)
+    em16, lines16 = _specialization(gm16, dim, "bf16", props, out, used, n)
     names = tuple(sorted(used))
     outs = tuple(sorted(out.items()))
+    layout = [(k, props[k].width, str(props[k].dtype)) for k in names]
     placeholder = "GenBody"
     code = "\n".join([
-        f"// outputs {outs}; props {[(k, props[k]) for k in names]}",
+        f"// outputs {outs}; props (name, width, dtype) {layout}",
         f"template <class P>\nstruct {placeholder};", "",
         _struct(placeholder, "f32", dim, n_rad, n_sca, 0, em32.consts,
                 lines32), "",
@@ -685,15 +1029,9 @@ def generate(body, out: Dict[str, str], dim: int,
                 em16.consts, lines16), ""])
     digest = hashlib.sha256(code.encode()).hexdigest()[:16]
     code = code.replace(placeholder, f"GenBody_{digest}")
-    precs = ["f32", "bf16x"]
-    if 1 < len(outs) <= MAX_MIXED_OUTPUTS:
-        for r in range(1, len(outs)):
-            for sel in itertools.combinations([n for n, _ in outs], r):
-                precs.append("_".join(["bf16x", *sel]))
     gen = Generated(kind=f"gen_{digest}", dim=dim, out=outs, props=names,
-                    vector=tuple(props[k] for k in names),
-                    params=tuple(em32.consts + em16.consts),
-                    precs=tuple(precs), code=code)
+                    widths=tuple(props[k].width for k in names),
+                    params=tuple(em32.consts + em16.consts), code=code)
     if key is not None:
         _CACHE[key] = gen
         if len(_CACHE) > _CACHE_SIZE:
@@ -702,8 +1040,11 @@ def generate(body, out: Dict[str, str], dim: int,
 
 
 def source_file(gen: Generated) -> pathlib.Path:
-    """Where ``gen``'s ``.cu`` goes: ``build/repro_torch/gen/``."""
-    return GEN_DIR / f"cell_pair_{gen.kind}_d{gen.dim}.cu"
+    """Where ``gen``'s ``.cu`` goes: ``build/repro_torch/gen/``; a functor
+    with ``bf16x:<names>`` entries has a file per set of entries."""
+    tag = "" if not gen.mixed else "_" + hashlib.sha256(
+        ",".join(gen.precs).encode()).hexdigest()[:8]
+    return GEN_DIR / f"cell_pair_{gen.kind}_d{gen.dim}{tag}.cu"
 
 
 def source_path(gen: Generated) -> pathlib.Path:

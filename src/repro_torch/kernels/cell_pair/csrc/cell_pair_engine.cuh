@@ -8,11 +8,11 @@
 // sources that kernels/cell_pair/codegen.py writes for a pair body traced
 // from its plain PyTorch form.
 //
-// Outside nvcc (no __CUDACC__) only the operand types, Ops<P>, MixedBody
-// and the pair walk's lane map (lane_of, stripes, reduce_stripes) are
-// defined, so that a host compiler can evaluate a functor and check the
-// lane map against a small shim of the CUDA intrinsics
-// (tests/cell_pair_host_shim.h).
+// Outside nvcc (no __CUDACC__) only the operand types, Ops<P>, Int,
+// MixedBody and the pair walk's lane map (lane_of, stripes,
+// reduce_stripes) are defined, so that a host compiler can evaluate a
+// functor and check the lane map against a small shim of the CUDA
+// intrinsics (tests/cell_pair_host_shim.h).
 //
 // Design (redesigned for the card; the first version staged all K*cc
 // candidates of a cell and let every home lane walk all of them):
@@ -235,6 +235,96 @@ struct Ops {
   }
   __device__ __forceinline__ static float minimum(float a, float b) {
     return a != a ? a : (b != b ? b : fminf(a, b));
+  }
+  // ATen's CUDA unary ops take the CUDA math library's function of the
+  // fp32 operand (a bf16 one converted), the result rounded to P once
+  __device__ __forceinline__ static float tanh(float a) {
+    return P::r(tanhf(a));
+  }
+  __device__ __forceinline__ static float sin(float a) {
+    return P::r(sinf(a));
+  }
+  __device__ __forceinline__ static float cos(float a) {
+    return P::r(cosf(a));
+  }
+  __device__ __forceinline__ static float erf(float a) {
+    return P::r(erff(a));
+  }
+  __device__ __forceinline__ static float erfc(float a) {
+    return P::r(erfcf(a));
+  }
+  __device__ __forceinline__ static float log1p(float a) {
+    return P::r(log1pf(a));
+  }
+  __device__ __forceinline__ static float expm1(float a) {
+    return P::r(expm1f(a));
+  }
+  __device__ __forceinline__ static float atan2(float a, float b) {
+    return P::r(atan2f(a, b));
+  }
+  // floor, ceil, round and trunc of a P value are P values; round is
+  // std::nearbyint (ties to even)
+  __device__ __forceinline__ static float floor(float a) { return floorf(a); }
+  __device__ __forceinline__ static float ceil(float a) { return ceilf(a); }
+  __device__ __forceinline__ static float round(float a) { return rintf(a); }
+  __device__ __forceinline__ static float trunc(float a) { return truncf(a); }
+  // sign_kernel_cuda: (0 < a) - (a < 0), so sign(NaN) and sign(-0) are 0
+  __device__ __forceinline__ static float sign(float a) {
+    return static_cast<float>((0.0f < a) - (a < 0.0f));
+  }
+  // sigmoid_kernel_cuda: 1 / (1 + exp(-a)) in fp32
+  __device__ __forceinline__ static float sigmoid(float a) {
+    return P::r(__fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-a))));
+  }
+};
+
+// A generated body's integer arithmetic, as PyTorch's int32 kernels do it:
+// add, sub, mul and neg wrap (two's complement, through unsigned), floor
+// division and remainder round towards minus infinity (c10's
+// div_floor_integer, remainder_kernel_cuda; a divisor of -1 cannot
+// overflow), and a narrower dtype's result is wrapped to it where it is
+// formed (codegen.py). An integer prop travels through the staged fp32
+// rows as its int32 value's bits and is read back with __float_as_int.
+struct Int {
+  __host__ __device__ __forceinline__ static int add(int a, int b) {
+    return static_cast<int>(static_cast<unsigned>(a) +
+                            static_cast<unsigned>(b));
+  }
+  __host__ __device__ __forceinline__ static int sub(int a, int b) {
+    return static_cast<int>(static_cast<unsigned>(a) -
+                            static_cast<unsigned>(b));
+  }
+  __host__ __device__ __forceinline__ static int mul(int a, int b) {
+    return static_cast<int>(static_cast<unsigned>(a) *
+                            static_cast<unsigned>(b));
+  }
+  __host__ __device__ __forceinline__ static int neg(int a) {
+    return sub(0, a);
+  }
+  __host__ __device__ __forceinline__ static int abs(int a) {
+    return a < 0 ? neg(a) : a;
+  }
+  __host__ __device__ __forceinline__ static int sign(int a) {
+    return (0 < a) - (a < 0);
+  }
+  __host__ __device__ __forceinline__ static int div_trunc(int a, int b) {
+    return b == -1 ? neg(a) : a / b;
+  }
+  __host__ __device__ __forceinline__ static int floor_div(int a, int b) {
+    if (b == -1) return neg(a);
+    const int q = a / b;
+    return ((a < 0) != (b < 0)) && a % b != 0 ? q - 1 : q;
+  }
+  __host__ __device__ __forceinline__ static int rem(int a, int b) {
+    if (b == -1) return 0;
+    const int r = a % b;
+    return r != 0 && ((r < 0) != (b < 0)) ? r + b : r;
+  }
+  // a table index: negative counts from the end, as in PyTorch; one out
+  // of range is clamped to it (PyTorch raises there)
+  __host__ __device__ __forceinline__ static int at(int i, int n) {
+    i = i < 0 ? i + n : i;
+    return i < 0 ? 0 : (i >= n ? n - 1 : i);
   }
 };
 

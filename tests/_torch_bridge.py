@@ -2,12 +2,16 @@
 ``repro`` (JAX) particle state into ``repro_torch`` through numpy, pull the
 workload states out of benchmarks/backend_compare.py, and measure
 divergence the way that module does, build the M'4 interpolation cases
-of tests/test_kernels.py from numpy draws, and the port's copies of two
+of tests/test_kernels.py from numpy draws, the port's copies of two
 test physics: the reuse probe of tests/_reuse_probe.py (which imports
 jax) and the toy mesh-field physics of tests/distributed/
-test_dist_field.py. Imports neither jax nor repro."""
+test_dist_field.py, and the pair bodies that hold B1's generated route
+to integer props, wider props, more outputs and the newer ops (on the
+CPU in test_torch_pair_codegen.py, on the card in test_torch_gpu.py).
+Imports neither jax nor repro."""
 import dataclasses
 import inspect
+import math
 import pathlib
 import sys
 
@@ -175,3 +179,123 @@ def toy_physics(cfg: ToyCfg) -> TSIM.PhysicsSpec:
         pair_out={"f": "radial"}, make_body=make_body,
         advance=advance, finish=finish, backend=cfg.backend,
         mesh_props=("rho",))
+
+
+# --------------------------------------------------------------------------
+# Pair bodies of B1's generated route
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class KABody:
+    """The Kob–Andersen 80:20 binary LJ mixture (Kob & Andersen, Phys.
+    Rev. E 51, 4626, 1995): a species per particle (its int32 id mod 2, A
+    = 0, B = 1), eps and sigma looked up from constant 2 x 2 tables by the
+    two species, each pair truncated at 2.5 sigma_ab; ``sigma`` is
+    sigma_AA in the box's units."""
+
+    sigma: float
+    eps: tuple = ((1.0, 1.5), (1.5, 0.5))
+    sig: tuple = ((1.0, 0.8), (0.8, 0.88))
+
+    def tables(self):
+        """(eps, sigma_ab^2, (2.5 sigma_ab)^2) as nested tuples."""
+        s2 = tuple(tuple((self.sigma * s) ** 2 for s in row)
+                   for row in self.sig)
+        return self.eps, s2, tuple(tuple(6.25 * v for v in row)
+                                   for row in s2)
+
+    def __call__(self, dx, r2, ok, wi, wj):
+        si = torch.remainder(wi["species"], 2)
+        sj = torch.remainder(wj["species"], 2)
+        eps, s2, rc2 = (torch.tensor(t, device=r2.device).to(r2.dtype)[si, sj]
+                        for t in self.tables())
+        r2s = torch.clamp(r2, min=1e-12)
+        inv3 = (s2 / r2s) ** 3
+        mag = 24.0 * eps * (2.0 * inv3 * inv3 - inv3) / r2s
+        return {"f": TI.Radial(torch.where(r2 < rc2, mag,
+                                           torch.zeros_like(mag)))}
+
+
+@dataclasses.dataclass(frozen=True)
+class DSFBody:
+    """Damped shifted-force electrostatics (Fennell & Gezelter, J. Chem.
+    Phys. 124, 234104, 2006): charges q, damping alpha, cutoff rc; the
+    radial force f and the pair energy u (halved: each pair is met from
+    both sides)."""
+
+    alpha: float
+    rc: float
+
+    def __call__(self, dx, r2, ok, wi, wj):
+        a, rc = self.alpha, self.rc
+        g0 = 2.0 * a / math.sqrt(math.pi)
+        e_rc = math.erfc(a * rc) / rc
+        f_rc = (math.erfc(a * rc) / rc + g0 * math.exp(-a * a * rc * rc)) / rc
+        qq = wi["q"] * wj["q"]
+        r = torch.sqrt(torch.clamp(r2, min=1e-12))
+        e = torch.erfc(a * r) / r
+        fr = (e + g0 * torch.exp(-(a * a) * r2)) / r - f_rc
+        u = e - e_rc + f_rc * (r - rc)
+        return {"f": TI.Radial(qq * fr / r), "u": 0.5 * qq * u}
+
+
+DSF_OUT = {"f": "radial", "u": "scalar"}
+
+
+@dataclasses.dataclass(frozen=True)
+class QuatBody:
+    """Five outputs of a width-4 prop: unit quaternions ``q4`` weight a
+    Gaussian kernel exp(-k r2) by their alignment (a toy anisotropic
+    body). ``dens`` and ``twist`` read single components only, so they
+    are the ones a ``bf16x:`` run lowers."""
+
+    k: float
+
+    def __call__(self, dx, r2, ok, wi, wj):
+        qi, qj = wi["q4"], wj["q4"]
+        w = torch.exp(-self.k * r2)
+        dot = (qi * qj).sum(-1)
+        return {"f": TI.Radial(w * (1.0 + 0.5 * dot * dot)),
+                "align": w * dot * dot, "dens": w,
+                "twist": TI.Radial(w * (qi[..., 0] * qj[..., 3]
+                                        - qi[..., 3] * qj[..., 0])),
+                "spin": w * torch.tanh((qi[..., 1:] * qj[..., 1:]).sum(-1))}
+
+
+QUAT_OUT = {"f": "radial", "align": "scalar", "dens": "scalar",
+            "twist": "radial", "spin": "scalar"}
+
+@dataclasses.dataclass(frozen=True)
+class OpsBody:
+    """Every op the generator takes on integers and every elementwise
+    float op it gained with them, in one body: an int32 prop ``kind``
+    through remainder, abs, floor division, the bitwise ops, a comparison
+    and where; a 3 x 3 table looked up by two of its values and by one (a
+    row per pair), a 5 x 5 one (more entries than a select chain takes);
+    and tanh, sin, cos, erf, erfc, log1p, expm1, sigmoid, atan2, floor,
+    ceil, round, trunc and sign of the geometry."""
+
+    k: float
+
+    def __call__(self, dx, r2, ok, wi, wj):
+        si, sj = wi["kind"], wj["kind"]
+        tab = torch.tensor(((0.5, 1.0, 1.5), (2.0, 2.5, 3.0),
+                            (3.5, 4.0, 4.5)), device=r2.device).to(r2.dtype)
+        big = torch.tensor(tuple(tuple(1.0 + 0.25 * i - 0.125 * j
+                                       for j in range(5)) for i in range(5)),
+                           device=r2.device).to(r2.dtype)
+        a = tab[torch.remainder(si, 3), torch.abs(sj) % 3] \
+            + big[torch.remainder(si, 5), torch.remainder(sj, 5)] \
+            - tab[torch.remainder(sj, 3)].sum(-1)
+        m = (si * 7 - sj) // 3 + (si ^ sj) - (si & 3) + (sj | 1)
+        w = torch.where(m > 4, m, -m).to(r2.dtype)
+        x = torch.sqrt(r2) * self.k
+        s = torch.tanh(x) + torch.sin(x) * torch.cos(x) + torch.erf(x) \
+            - torch.erfc(x) + torch.log1p(x) + torch.expm1(-x) \
+            + torch.sigmoid(x - 1.0) + torch.atan2(dx(0), dx(1))
+        g = torch.floor(4.0 * x) + torch.ceil(4.0 * x) \
+            + torch.round(4.0 * x) + torch.trunc(-4.0 * x) + torch.sign(dx(2))
+        return {"e": a * s + 0.01 * w, "g": TI.Radial(g * a)}
+
+
+OPS_OUT = {"e": "scalar", "g": "radial"}

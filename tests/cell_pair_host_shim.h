@@ -3,8 +3,9 @@
 // cell_pair_engine.cuh), so that g++ can evaluate a body functor pair by
 // pair: __device__ and __forceinline__ are empty, the __f*_rn operations
 // are plain IEEE float operations (g++ on x86-64 neither contracts nor
-// widens them), and bfloat16 rounds to nearest even. Included before the
-// engine header (tests/test_torch_pair_codegen.py).
+// widens them), bfloat16 rounds to nearest even and __float_as_int reads a
+// float's bits as an int. Included before the engine header
+// (tests/test_torch_pair_codegen.py).
 #pragma once
 
 #include <math.h>
@@ -43,3 +44,8 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fsqrt_rn(float a) { return std::sqrt(a); }
 inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
 inline float rsqrtf(float a) { return 1.0f / std::sqrt(a); }
+inline int __float_as_int(float x) {
+  int i;
+  std::memcpy(&i, &x, 4);
+  return i;
+}

@@ -436,9 +436,10 @@ def cpu_stand_in():
 
         def unpack(p):
             out, o = {}, 0
-            for name, vec in zip(spec.props, spec.vector):
-                out[name] = p[..., o:o + dim] if vec else p[..., o]
-                o += dim if vec else 1
+            for name, w in zip(spec.props, spec.widths):
+                w = dim if w is None else w
+                out[name] = p[..., o:o + w] if w else p[..., o]
+                o += max(w, 1)
             return out
 
         res = TCP.cell_pair_torch(

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card
 (B1 with the LJ (DIM 2 and 3), SPH and DEM functors and with functors
-generated from bodies without cuda_kind, its striped pair walk at every
+generated from bodies without cuda_kind, integer and width-4 props, five
+outputs under bf16x:<names> and every newer op among them, its striped
+pair walk at every
 home count, the fleet's folded launch and cells= subsets bit for bit,
 B2, B3, B4; fp32 and bf16x; B5,
 the flash attention, in fp32 (its split products against a three-term
@@ -19,7 +21,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_bridge import ToyCfg, interp_case, rel, toy_physics
+from _torch_bridge import (DSF_OUT, OPS_OUT, QUAT_OUT, DSFBody, KABody,
+                           OpsBody, QuatBody, ToyCfg, interp_case, rel,
+                           toy_physics)
 
 from repro_torch.apps import vortex as TV
 from repro_torch.kernels.m4_interp import m4_interp as TK
@@ -337,6 +341,74 @@ def test_cuda_generated_gauss_functor_matches_plain(card, dim, n, r_cut,
         assert rel(got[k], ref[k]) <= TOL, k
     if prec != "fp32":
         assert rel(got["rho"], f32["rho"]) > 0      # bf16 really used
+
+
+def _typed_tiles(n, r_cut, seed):
+    """Tiles of n seeded particles in a periodic unit box on the card,
+    with an int32 ``species`` (ids up to 2^26), an int32 ``kind`` in
+    [-50, 50), a +-1 charge ``q`` of zero sum and unit quaternions
+    ``q4`` (width 4)."""
+    from repro_torch.core import cell_list as CL
+    from repro_torch.core import particles as P
+    from repro_torch.kernels.cell_pair import cell_pair as CP
+    rng = np.random.default_rng(seed)
+    q4 = rng.normal(size=(n, 4))
+    props = {"species": rng.integers(0, 2 ** 26, n).astype(np.int32),
+             "kind": rng.integers(-50, 50, n).astype(np.int32),
+             "q": rng.permutation(np.repeat([-1.0, 1.0], n // 2)).astype(
+                 np.float32),
+             "q4": (q4 / np.linalg.norm(q4, axis=1, keepdims=True)).astype(
+                 np.float32)}
+    x = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+    ps = P.from_positions(torch.from_numpy(x).cuda(), capacity=n + 6,
+                          props={k: torch.from_numpy(v).cuda()
+                                 for k, v in props.items()})
+    gs = CL.grid_shape_for((0.0,) * 3, (1.0,) * 3, r_cut)
+    cl = CL.build_cell_list(ps, box_lo=(0.0,) * 3, box_hi=(1.0,) * 3,
+                            grid_shape=gs, periodic=(True,) * 3,
+                            cell_cap=64)
+    return CP.gather_cell_tiles(ps, cl, tuple(props))
+
+
+_TYPED = {"ka": (KABody(0.06), {"f": "radial"}, ("species",)),
+          "dsf": (DSFBody(0.2 / 0.06, 0.18), DSF_OUT, ("q",)),
+          "w4": (QuatBody(60.0), QUAT_OUT, ("q4",)),
+          "ops": (OpsBody(20.0), OPS_OUT, ("kind",))}
+
+
+@pytest.mark.parametrize("case,prec", [
+    ("ka", "fp32"), ("ka", "bf16x"), ("dsf", "fp32"), ("dsf", "bf16x"),
+    ("w4", "fp32"), ("w4", "bf16x:twist,dens"), ("ops", "fp32"),
+    ("ops", "bf16x")])
+def test_cuda_generated_typed_bodies_match_plain(card, case, prec):
+    """Bodies the generated route gained, through their generated
+    functors (one launch each, under their own key): the Kob–Andersen
+    mixture (int32 species, table lookups), damped shifted-force
+    electrostatics (erfc), five outputs of a width-4 prop (bf16x on two
+    of them) and a body of every integer op and newer float op; each
+    within TOL of cell_pair_torch on the card, bf16x unlike fp32."""
+    from repro_torch.kernels.cell_pair import cell_pair as CP
+    body, out, names = _TYPED[case]
+    t = _typed_tiles(1500, 0.18, seed=len(case))
+    pi = {k: t.props_i[k] for k in names}
+    pj = {k: t.props_j[k] for k in names}
+    args = (t.cell_x, t.nbr_x, t.cell_mask, t.nbr_mask, pi, pj)
+    kw = dict(body=body, out=out, r_cut=0.18)
+    kind, key_prec, _ = CP._kind_of(body, out, prec, 3, pi)
+    assert kind.startswith("gen_")
+    key = CP.launch_key(kind, key_prec)
+    n0, k0 = CP.LAUNCHES, CP.LAUNCHES_BY_KIND[key]
+    got = CP.cell_pair(*args, precision=prec, **kw)
+    assert CP.LAUNCHES == n0 + 1 and CP.LAUNCHES_BY_KIND[key] == k0 + 1
+    ref = CP.cell_pair_torch(*args, precision=prec, **kw)
+    f32 = CP.cell_pair(*args, **kw)
+    torch.cuda.synchronize()
+    for k in out:
+        assert float(ref[k].abs().max()) > 0.0, k
+        assert rel(got[k], ref[k]) <= TOL, k
+    if prec != "fp32":
+        lowered = ("twist", "dens") if ":" in prec else tuple(out)
+        assert all(rel(got[k], f32[k]) > 0 for k in lowered)
 
 
 @pytest.mark.parametrize("prec", ["fp32", "bf16x"])

@@ -170,7 +170,9 @@ def md3_workloads(CP, CL, md):
     ps = ps.with_prop("q", torch.where(ps.valid, q, 0.0))
     t = CP.gather_cell_tiles(ps, CL.build_cell_list(ps, **md._cl_kw(cfg)),
                              ("q",))
-    kind, _, params = CP._kind_of(gauss, CS.GAUSS_OUT, "fp32", 3, t.props_i)
+    # bf16x:rho registers the entry that phase 1's source carries
+    kind, _, params = CP._kind_of(gauss, CS.GAUSS_OUT, "bf16x:rho", 3,
+                                  t.props_i)
     yield "MD d3, Gaussian", t, [
         ("B1-gen", kind, "f32", params),
         ("B1-gen bf16x", kind, "bf16x", params),
