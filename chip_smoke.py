@@ -450,7 +450,7 @@ B5_SPLIT_SHAPE = (8, 32, 4, 64, 16, 128)     # B, H, K, Sq, Sk, hd; all keys
 # Both forms' bound is the function's 4 hd operations a visible pair at
 # the tensor-core rate; each form's own floor counts what it issues:
 # 8 hd (bf16: q.k^T and three p.v terms) or 24 hd (fp32: six of each).
-B5_FLOOR_OPS_PER_HD = {"bfloat16": 8, "float32": 24}
+B5_FLOOR_OPS_PER_HD = {"bfloat16": 8, "float32": 24, "float16": 18}
 LM_FP32_TOL = 1e-4    # 10b prefill logits, kernel path vs plain path
 LM_BF16_TOL = 5e-2    # 10c prefill logits (bf16, 40 layers), same
 # 10d-10f: the moe and ssm kinds served at full width in bf16 (the prompt
@@ -521,6 +521,27 @@ KA_FLEET_SAMPLES = (0, 3, 7)
 DSF_ALPHA = 0.2 / SIGMA
 TYPED_STEPS = 5
 QUAT_PREC = "bf16x:dens,twist"
+# Phase 22: the inputs repro's Pallas kernels take that the port's kernels
+# took last. (a) B1's generated route on a body of every remaining
+# elementwise op (NEW_OPS, one scalar output each, and a Gaussian force in
+# base 2 that mixes them in) on phase 3's lattice with props a, b, k:
+# NEW_STEPS make_sim_step steps in fp32 and bf16x against the plain path,
+# the kernel against plain on their tiles, a NEW_FLEET_B-member fleet;
+# (b) B2 in bf16 and fp16 at phase 9's 256^3 (bit for bit); (c) B5 in fp16
+# at 10a's causal prefill and the whisper encoder's non-causal shapes
+# (within B5_F16_TOL of plain: the output's fp16 rounding is 2^-11
+# relative), then a 2-layer full-width fp16 prefill through it.
+NEW_SEED = 2200
+NEW_STEPS = 5
+NEW_FLEET_B = 8
+NEW_FLEET_STEPS = 5
+NEW_FLEET_SAMPLES = (0, 7)
+# flops per in-cutoff evaluation (each elementwise op, a math-library call
+# among them, one): the 34 ops 90, the force 41 (exp2, the mean of 34, the
+# factor), the radial accumulation 6, the 34 scalar accumulations 34
+NEW_FLOPS = 171
+B5_F16_TOL = 1e-3
+LM_F16_TOL = 1e-2     # 22c prefill logits (fp16, 2 layers), kernel vs plain
 TRAIN_ARCH = "llama3.2-3b"
 TRAIN_CUT = dict(n_layers=2, param_dtype="float32", compute_dtype="float32")
 TRAIN_CUT_BATCH = (2, 64)
@@ -5525,22 +5546,28 @@ def typed_sources():
     return [codegen.source_path(g) for g in gens]
 
 
-def ka_state(md, cfg: TypedCfg, seed: int):
+def lattice_state(md, sigma: float):
     """Phase 3's lattice with THERMAL_V velocities (seeded and of zero
-    momentum, as ``md.run(seed=0)`` draws them) and an int32 species: B
-    (1) on a seeded KA_B_SHARE of the sites, A (0) elsewhere."""
-    ps = md.init_particles(md.MDConfig(n_per_side=N_PER_SIDE,
-                                       sigma=cfg.sigma, device="cuda"))
+    momentum, as ``md.run(seed=0)`` draws them)."""
+    ps = md.init_particles(md.MDConfig(n_per_side=N_PER_SIDE, sigma=sigma,
+                                       device="cuda"))
     gen = torch.Generator().manual_seed(0)
     v = (THERMAL_V * torch.randn(tuple(ps.props["v"].shape), generator=gen)
          ).cuda()
     vm = ps.valid[:, None]
     v = torch.where(vm, v, 0.0)
     v = torch.where(vm, v - v.sum(0, keepdim=True) / ps.count(), 0.0)
+    return ps.with_prop("v", v)
+
+
+def ka_state(md, cfg: TypedCfg, seed: int):
+    """``lattice_state`` with an int32 species: B (1) on a seeded
+    KA_B_SHARE of the sites, A (0) elsewhere."""
+    ps = lattice_state(md, cfg.sigma)
     g = torch.Generator(device="cuda").manual_seed(seed)
     b = torch.rand(ps.capacity, generator=g, device="cuda") < KA_B_SHARE
     species = (ps.valid & b).to(torch.int32)
-    return ps.with_prop("v", v).with_prop("species", species)
+    return ps.with_prop("species", species)
 
 
 def species_counts(ps) -> tuple:
@@ -5750,6 +5777,380 @@ def typed_phase(md, CL, CP, build_s):
     return entries + typed_tiles_phase(md, CL, CP, SIM, build_s[1:])
 
 
+
+# --------------------------------------------------------------------------
+# Phase 22: the inputs repro's Pallas kernels take that the port's kernels
+# took last: B1's generated route on the remaining elementwise ops, B2 in
+# bf16 and fp16, B5 in fp16
+# --------------------------------------------------------------------------
+
+def _stack(*vals):
+    """torch.stack of per-pair values (the plain path's props are columns
+    beside the pairs' tiles: broadcast first)."""
+    return torch.stack(torch.broadcast_tensors(*vals))
+
+
+#: Each elementwise op B1's generated route took last, as a function of
+#: NewOpsBody's per-pair values (r2, dx, u, v, k): well-conditioned there,
+#: continuous in the positions, the rounding ops' operands props alone (u
+#: = 0.7 (m + f), f in [0.15, 0.85]: away from every discontinuity). The
+#: same table as tests/_torch_bridge.py's, which the gpu tests use.
+NEW_OPS = {
+    "remainder": lambda r2, dx, u, v, k: torch.remainder(u, v),
+    "remainder_s": lambda r2, dx, u, v, k: torch.remainder(u, 0.7),
+    "fmod": lambda r2, dx, u, v, k: torch.fmod(u, v),
+    "fmod_s": lambda r2, dx, u, v, k: torch.fmod(u, -0.7),
+    "floordiv": lambda r2, dx, u, v, k: u // v,
+    "floordiv_s": lambda r2, dx, u, v, k: u // 0.7,
+    "div_floor_s": lambda r2, dx, u, v, k: torch.div(
+        u, -0.7, rounding_mode="floor"),
+    "div_trunc": lambda r2, dx, u, v, k: torch.div(u, v,
+                                                   rounding_mode="trunc"),
+    "div_trunc_s": lambda r2, dx, u, v, k: torch.div(
+        u, 0.7, rounding_mode="trunc"),
+    "round_2": lambda r2, dx, u, v, k: torch.round(u * v, decimals=2),
+    "round_m1": lambda r2, dx, u, v, k: torch.round(3.7 * u, decimals=-1),
+    "ipow": lambda r2, dx, u, v, k: (k ** 3 - k ** 2 + k ** 0).to(
+        r2.dtype) * 1e-4,
+    "hypot": lambda r2, dx, u, v, k: torch.hypot(dx(0), dx(1)),
+    "copysign": lambda r2, dx, u, v, k: torch.copysign(r2, u),
+    "copysign_s": lambda r2, dx, u, v, k: torch.copysign(r2, -1.0),
+    "log2": lambda r2, dx, u, v, k: torch.log2(r2),
+    "exp2": lambda r2, dx, u, v, k: torch.exp2(-3.0 * r2),
+    "log10": lambda r2, dx, u, v, k: torch.log10(r2),
+    "tan": lambda r2, dx, u, v, k: torch.tan(r2),
+    "asin": lambda r2, dx, u, v, k: torch.asin(0.9 * r2 - 0.45),
+    "acos": lambda r2, dx, u, v, k: torch.acos(0.9 * r2 - 0.45),
+    "atan": lambda r2, dx, u, v, k: torch.atan(3.0 * r2),
+    "sinh": lambda r2, dx, u, v, k: torch.sinh(2.0 * r2),
+    "cosh": lambda r2, dx, u, v, k: torch.cosh(2.0 * r2),
+    "asinh": lambda r2, dx, u, v, k: torch.asinh(3.0 * r2 - 1.0),
+    "acosh": lambda r2, dx, u, v, k: torch.acosh(1.0 + 3.0 * r2),
+    "atanh": lambda r2, dx, u, v, k: torch.atanh(0.9 * r2 - 0.4),
+    "lgamma": lambda r2, dx, u, v, k: torch.lgamma(5.0 * r2 + 0.1),
+    "amax": lambda r2, dx, u, v, k: _stack(r2, 0.05 * u, 0.5 * v).amax(0),
+    "amin": lambda r2, dx, u, v, k: _stack(r2, 0.05 * u, 0.5 * v).amin(0),
+    "ssum": lambda r2, dx, u, v, k: _stack(r2, u, v).sum(0),
+    "sprod": lambda r2, dx, u, v, k: _stack(r2, u, v).prod(0),
+    "maxdim": lambda r2, dx, u, v, k: torch.max(_stack(r2, 0.5 * v),
+                                                0).values,
+    "iamax": lambda r2, dx, u, v, k: _stack(k, 3 - k).amax(0).to(r2.dtype),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class NewOpsBody:
+    """A user's body with no ``cuda_kind``: one scalar output per op of
+    NEW_OPS and the radial force ``f`` = exp2(-k_f r2) (2 + 0.01
+    mean(ops)), so that every op moves the trajectory; props ``a`` (u),
+    ``b`` (v) and the int32 ``k`` (k_i - k_j)."""
+
+    k_f: float
+
+    def __call__(self, dx, r2, ok, wi, wj):
+        u, v, k = wi["a"], wj["b"], wi["k"] - wj["k"]
+        out = {name: fn(r2, dx, u, v, k) for name, fn in NEW_OPS.items()}
+        mean = sum(out.values()) * (0.01 / len(out))
+        out["f"] = Radial(torch.exp2(-self.k_f * r2) * (2.0 + mean))
+        return out
+
+
+NEW_OUT = {**{name: "scalar" for name in NEW_OPS}, "f": "radial"}
+NEW_PROPS = ("a", "b", "k")
+
+
+def new_ops_cfg() -> TypedCfg:
+    """Phase 2's box at DSF's cutoff (3 sigma) with phase 20's Gaussian
+    in base 2."""
+    rc = 3.0 * SIGMA
+    return TypedCfg(NewOpsBody(gauss_k(rc) / math.log(2.0)),
+                    tuple(sorted(NEW_OUT.items())), NEW_PROPS, SIGMA, DT, rc)
+
+
+def new_ops_sources():
+    """Phase 1's share of phase 22: the new-op body's functor (f32 and
+    bf16x)."""
+    from repro_torch.kernels.cell_pair import codegen
+    cfg = new_ops_cfg()
+    props = {"a": codegen.Prop(0, torch.float32),
+             "b": codegen.Prop(0, torch.float32),
+             "k": codegen.Prop(0, torch.int32)}
+    gen = codegen.generate(cfg.body, dict(cfg.out), 3, props)
+    return [codegen.source_path(gen)]
+
+
+def new_ops_state(md, seed: int):
+    """``lattice_state`` with the props of NewOpsBody from a seeded
+    generator on the card: a = 0.7 (m + f), m an integer in [-20, 20), f
+    in [0.15, 0.85]; b in [0.5, 1.5]; k an int32 in [-50, 50)."""
+    ps = lattice_state(md, SIGMA)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = ps.capacity
+    m = torch.randint(-20, 20, (n,), generator=g, device="cuda")
+    f = 0.15 + 0.7 * torch.rand(n, generator=g, device="cuda")
+    props = {"a": 0.7 * (m + f),
+             "b": 0.5 + torch.rand(n, generator=g, device="cuda"),
+             "k": torch.randint(-50, 50, (n,), generator=g, device="cuda",
+                                dtype=torch.int32)}
+    for k, v in props.items():
+        ps = ps.with_prop(k, torch.where(ps.valid, v, torch.zeros_like(v)))
+    return ps
+
+
+def new_ops_b1_phase(md, CL, CP, SIM, FB, build_s):
+    """22a: NewOpsBody at 216,000 particles through its generated functor:
+    NEW_STEPS make_sim_step steps in fp32 and bf16x against the plain
+    path, the kernel against plain on the fp32 run's tiles in both
+    precisions (each output within REL_TOL / BF16_TOL; no fp32 gap is
+    asked of bf16x, whose integer outputs equal fp32's), then a
+    NEW_FLEET_B-member fleet (each member its own props) against serial
+    runs bit for bit. Returns the ``B1-gen-ops`` entries (fp32,
+    bf16x)."""
+    cfg = new_ops_cfg()
+    out = dict(cfg.out)
+    ps0 = new_ops_state(md, NEW_SEED)
+    state0 = SIM.serial_state(ps0, typed_physics, cfg)
+    sample = {k: ps0.props[k][None] for k in NEW_PROPS}
+    kind, _, _ = CP._kind_of(cfg.body, out, "fp32", 3, sample)
+    print(f"B1-gen-ops: {int(ps0.valid.sum())} particles, {len(NEW_OPS)} "
+          f"ops ({', '.join(NEW_OPS)}), r_cut {cfg.r_cut:.6f}, k_f "
+          f"{cfg.body.k_f:.4f}; functor {kind} "
+          f"({CP.codegen.source_file(CP.KINDS[kind].gen).name}); nvcc "
+          f"{build_s:.2f} s in phase 1's parallel build")
+    runs = {}
+    for prec, tol in (("fp32", SMALL_TOL), ("bf16x", BF16_SMALL_TOL)):
+        pcfg = dataclasses.replace(cfg, precision=prec)
+        _, kprec, _ = CP._kind_of(cfg.body, out, prec, 3, sample)
+        name = "B1-gen-ops" + ("" if prec == "fp32" else f" {prec}")
+        st, launches, run_s, step_ms = typed_run(
+            CP, SIM, pcfg, state0, NEW_STEPS, CP.launch_key(kind, kprec),
+            name, tol)
+        print(f"{name} path: {NEW_STEPS} make_sim_step steps, {run_s:.3f} "
+              f"s wall, {launches} launches; {step_ms:.4f} ms/step")
+        runs[prec] = dict(launches=launches, step_ms=step_ms, st=st)
+    ps = runs["fp32"]["st"].ps
+    t = CP.gather_cell_tiles(
+        ps, CL.build_cell_list(ps, **typed_cl_kw(CL, cfg)), NEW_PROPS)
+    entries = []
+    for prec in ("fp32", "bf16x"):
+        name = "B1-gen-ops" + ("" if prec == "fp32" else f" {prec}")
+        entry, _ = b1_check(name, CP, t, cfg.body, out, cfg.r_cut,
+                            eval_flops=NEW_FLOPS, cell_batch=128, iters=20,
+                            precision=prec)
+        entry.update(launches=runs[prec]["launches"],
+                     launches_per_step=runs[prec]["launches"] / NEW_STEPS,
+                     step_ms=runs[prec]["step_ms"], build_s=build_s,
+                     kind=kind)
+        entries.append(entry)
+    del t, runs, ps
+
+    members = [SIM.serial_state(new_ops_state(md, NEW_SEED + 1 + b),
+                                typed_physics, cfg)
+               for b in range(NEW_FLEET_B)]
+    ens = FB.stack_members(members)
+    fstep = FB.make_fleet_step(typed_physics, cfg)
+    key = CP.launch_key(kind, "f32")
+    reset_b1_counts(CP)
+    for _ in range(NEW_FLEET_STEPS):
+        ens, flags, _ = fstep(ens, {})
+    torch.cuda.synchronize()
+    check_b1_launches(CP, key, NEW_FLEET_STEPS)
+    fleet_launches = CP.LAUNCHES_BY_KIND[key]
+    if int(flags.any().max()) != 0:
+        raise RuntimeError("new-op fleet step flags")
+    for b in NEW_FLEET_SAMPLES:
+        ref = serial_run(SIM, typed_physics, cfg, members[b],
+                         NEW_FLEET_STEPS)
+        m = FB.member_at(ens, b)
+        held_equal(f"B1-gen-ops fleet member {b} x", m.ps.x, ref.ps.x)
+        held_equal(f"B1-gen-ops fleet member {b} v", m.ps.props["v"],
+                   ref.ps.props["v"])
+    print(f"B1-gen-ops fleet: {NEW_FLEET_B} members, {NEW_FLEET_STEPS} "
+          f"steps, {fleet_launches} launches (one a fleet step), members "
+          f"{NEW_FLEET_SAMPLES} equal to their serial runs bit for bit")
+    entries[0]["launches_fleet"] = fleet_launches
+    return entries
+
+
+def gray_scott_16bit_phase():
+    """22b: B2 in bfloat16 and float16 at phase 9's 256^3 nodes: one step
+    and GS_CHECK_STEPS ``ops.step`` steps against the plain step on the
+    card, bit for bit; times (the two-node form beside the one-node form,
+    run on the same fields at an odd offset, in turns, each bit-equal)
+    beside the plain ``gs_step`` and the bound;
+    then GS_STEPS steps at each of GS_PAIRS through ``ops.step`` (one
+    launch a step, finite fields within phase 9's bounds; the pattern
+    energy printed: at 2^-8 or 2^-11 resolution an explicit step's small
+    increments round away, so it is not held to fp32's ordering). Returns
+    the ``stencil7_bf16`` and ``stencil7_f16`` entries."""
+    from repro_torch.apps import gray_scott as GS
+    from repro_torch.kernels.stencil7 import ops as SOPS
+    from repro_torch.kernels.stencil7 import stencil7 as SK
+    from repro_torch.kernels.stencil7.ref import gray_scott_step_ref
+    cfg = GS.GSConfig(shape=GS_SHAPE, L=GS_L, dt=GS_DT, device="cuda")
+    inv_h2 = (cfg.shape[0] / cfg.L) ** 2
+    kw = dict(Du=cfg.Du, Dv=cfg.Dv, F=cfg.F, k=cfg.k, dt=cfg.dt,
+              inv_h2=inv_h2)
+    n_nodes = int(np.prod(cfg.shape))
+    u32, v32 = GS.init_fields(cfg, seed=0)
+    entries = []
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
+        name = f"stencil7_{tag}"
+        u0, v0 = u32.to(dtype), v32.to(dtype)
+        for f, g, r in zip("uv", SK.gray_scott_step(u0, v0, **kw),
+                           gray_scott_step_ref(u0, v0, **kw)):
+            held_equal(f"{name} one step {f}", g, r)
+        uk, vk, up, vp = u0, v0, u0, v0
+        for _ in range(GS_CHECK_STEPS):
+            uk, vk = SOPS.step(uk, vk, cfg)
+            up, vp = GS.gs_step(up, vp, cfg)
+        held_equal(f"{name} {GS_CHECK_STEPS} steps u", uk, up)
+        held_equal(f"{name} {GS_CHECK_STEPS} steps v", vk, vp)
+        moved = float((uk.float() - u0.float()).abs().max())
+        print(f"{name}: one step and {GS_CHECK_STEPS} ops.step steps equal "
+              f"the plain step on the card bit for bit (u moved by up to "
+              f"{moved:.4e})")
+        del uk, vk, up, vp
+        # the one-node form beside the two-node one: the same fields at an
+        # odd element offset, where the kernel takes one node a thread
+        us, vs = (torch.empty(n_nodes + 1, dtype=dtype, device="cuda")[1:]
+                  .view(cfg.shape).copy_(t) for t in (u0, v0))
+        for f, g, r in zip("uv", SK.gray_scott_step(us, vs, **kw),
+                           SK.gray_scott_step(u0, v0, **kw)):
+            held_equal(f"{name} one-node form {f}", g, r)
+        one_ms, kernel_ms = [], []
+        for form in ("one", "two", "two", "one"):
+            a, b = (us, vs) if form == "one" else (u0, v0)
+            (one_ms if form == "one" else kernel_ms).append(time_cuda(
+                lambda: SK.gray_scott_step(a, b, **kw), iters=100))
+        one_ms, kernel_ms = min(one_ms), min(kernel_ms)
+        del us, vs
+        plain_ms = time_cuda(lambda: GS.gs_step(u0, v0, cfg), iters=10)
+        n_bytes = 4 * n_nodes * u0.element_size()
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 31 * n_nodes / FP32_FLOP_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        print(f"{name}: {kernel_ms:.4f} ms kernel (two nodes a thread; "
+              f"one node a thread {one_ms:.4f}, in turns), {plain_ms:.4f} "
+              f"ms plain gs_step, {n_bytes} B, bound {bound_ms:.4f} ms "
+              f"({bound_by}), {n_bytes / kernel_ms / 1e6:.1f} GB/s")
+        SK.LAUNCHES = 0
+        for F, k in GS_PAIRS:
+            c = dataclasses.replace(cfg, F=F, k=k)
+            u, v = (t.to(dtype) for t in GS.init_fields(c, seed=0))
+            n0 = SK.LAUNCHES
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(GS_STEPS):
+                u, v = SOPS.step(u, v, c)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            if SK.LAUNCHES - n0 != GS_STEPS:
+                raise RuntimeError(f"{name}: {SK.LAUNCHES - n0} launches "
+                                   f"for {GS_STEPS} steps")
+            if not (bool(torch.isfinite(u).all())
+                    and bool(torch.isfinite(v).all())):
+                raise RuntimeError(f"{name} (F, k) = {(F, k)}: not finite")
+            umax, vmin = float(u.max()), float(v.min())
+            print(f"{name} main path: {GS_STEPS} ops.step steps at (F, k) "
+                  f"= {(F, k)}: {wall_s:.3f} s wall, u max {umax:.6f}, v "
+                  f"min {vmin:.6f}, pattern energy "
+                  f"{GS.pattern_energy(v.float()):.6e}")
+            if not (umax <= 1.5 and vmin >= -0.5):
+                raise RuntimeError(f"{name} {(F, k)} left its bounds: u max "
+                                   f"{umax}, v min {vmin}")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/stencil7/csrc/stencil7.cu",
+            "replaces": "src/repro/kernels/stencil7/stencil7.py:24",
+            "dtype": str(dtype).split(".")[1], "launches": SK.LAUNCHES,
+            "launches_per_step": SK.LAUNCHES / (len(GS_PAIRS) * GS_STEPS),
+            "max_abs_err": 0.0, "ms": kernel_ms, "kernel_ms": kernel_ms,
+            "one_node_ms": one_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+        del u0, v0
+    return entries
+
+
+def b5_f16_phase():
+    """22c: B5 in float16 at 10a's causal prefill shape and at the
+    whisper encoder's non-causal one (B5_NONCAUSAL): against its plain
+    version within B5_F16_TOL, timed beside plain and PyTorch's SDPA in
+    fp16 (held to plain at the same tolerance first); then its main path,
+    starcoder2-15b at full width cut to LM_FP32_LAYERS layers in fp16:
+    the prefill's logits through B5 (one launch a layer) against the
+    plain path. Returns the ``flash_attention_f16`` entry."""
+    from repro_torch.configs import registry as TR
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.models import transformer as TT
+    from repro_torch.training import serve as TS
+    cfg = TR.get_config(LM_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    recs = {}
+    shapes = (("prefill", (LM_BATCH, cfg.n_heads, cfg.n_kv_heads, LM_PROMPT,
+                           LM_S_MAX, cfg.hd), True),
+              (B5_NONCAUSAL[0][0], B5_NONCAUSAL[0][1], False))
+    for label, (B, H, K, Sq, Sk, hd), causal in shapes:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.float16) for shape in ((B, H, Sq, hd),
+                                                    (B, K, Sk, hd),
+                                                    (B, K, Sk, hd)))
+        recs[label] = b5_case(label, q, k, v, causal=causal, tol=B5_F16_TOL)
+        recs[label]["shape"] = [B, H, K, Sq, Sk, hd]
+        del q, k, v
+        torch.cuda.empty_cache()
+    c = dataclasses.replace(cfg, n_layers=LM_FP32_LAYERS,
+                            param_dtype="float16", compute_dtype="float16")
+    params = TT.init_params(c, torch.Generator(device="cuda").manual_seed(1),
+                            device="cuda")
+    prompt = torch.randint(0, c.vocab, (LM_BATCH, LM_PROMPT), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(2))
+    FA.LAUNCHES = 0
+    lk, _ = TS.make_prefill_step(c, LM_S_MAX)(params, {"tokens": prompt})
+    launches = FA.LAUNCHES
+    lp, _ = TS.make_prefill_step(c, LM_S_MAX, backend="torch")(
+        params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    err = rel_err(lk, lp)
+    print(f"22c: {c.name} width {c.d_model}, {c.n_layers} layers, fp16, "
+          f"{LM_BATCH} x {LM_PROMPT} prompt: prefill logits kernel vs plain "
+          f"rel {err:.3e} (tol {LM_F16_TOL:g}), {launches} B5 launches")
+    if launches != c.n_layers or FA.LAUNCHES != launches:
+        raise RuntimeError(f"22c: {launches} B5 launches for {c.n_layers} "
+                           "layers")
+    if not (bool(torch.isfinite(lk).all()) and err <= LM_F16_TOL):
+        raise RuntimeError(f"22c: fp16 kernel path disagrees: rel {err}")
+    del params, lk, lp
+    pre = recs["prefill"]
+    return {
+        "name": "flash_attention_f16", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:30",
+        "dtype": "float16", "launches": launches,
+        "max_abs_err": pre["max_abs_err"], "max_rel_err": pre["rel_err"],
+        "ms": pre["ms"], "kernel_ms": pre["ms"], "plain_ms": pre["plain_ms"],
+        "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
+        "library_ms": pre["library_ms"], "floor_ms": pre["floor_ms"],
+        "prefill_logits_rel_err": err, "noncausal": {
+            k: v for k, v in recs.items() if k != "prefill"}}
+
+
+def inputs_phase(md, CL, CP, build_s):
+    """Phase 22: (a) B1's generated route on the remaining elementwise
+    ops, (b) B2 in bf16 and fp16, (c) B5 in fp16. Returns their
+    ``kernels`` entries."""
+    from repro_torch.core import simulation as SIM
+    from repro_torch.fleet import batch as FB
+    entries = new_ops_b1_phase(md, CL, CP, SIM, FB, build_s)
+    torch.cuda.empty_cache()
+    entries += gray_scott_16bit_phase()
+    torch.cuda.empty_cache()
+    return entries + [b5_f16_phase()]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA "
                                  "port on one GPU.")
@@ -5789,9 +6190,10 @@ def main() -> int:
     cfg = md.MDConfig(n_per_side=N_PER_SIDE, sigma=SIGMA, dt=DT, cell_cap=48,
                       device="cuda", backend="auto")
     t0 = time.perf_counter()
-    # phase 20's functors, then phase 21's
-    gen_srcs = generated_sources(md, cfg) + typed_sources()
-    print(f"phases 20 and 21's functors generated in "
+    # phase 20's functors, then phase 21's and phase 22's
+    gen_srcs = generated_sources(md, cfg) + typed_sources() \
+        + new_ops_sources()
+    print(f"phases 20-22's functors generated in "
           f"{time.perf_counter() - t0:.2f} s: "
           + ", ".join(str(p.relative_to(ROOT)) for p in gen_srcs))
     t0 = time.perf_counter()
@@ -6049,8 +6451,16 @@ def main() -> int:
     # -- phase 21: integer props, wider props, more outputs -----------------------
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    gen_entries += typed_phase(md, CL, CP, gen_build_s[2:])
+    gen_entries += typed_phase(md, CL, CP, gen_build_s[2:5])
     phase_mark("phase 21 (Kob–Andersen, DSF, width-4 props)", t_phase)
+    torch.cuda.empty_cache()
+
+    # -- phase 22: B1's remaining ops, B2 in bf16/fp16, B5 in fp16 -------------
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gen_entries += inputs_phase(md, CL, CP, gen_build_s[5])
+    phase_mark("phase 22 (B1's remaining ops, B2 bf16/fp16, B5 fp16)",
+               t_phase)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, build "
           "included")
 

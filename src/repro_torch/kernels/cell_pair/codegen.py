@@ -20,13 +20,19 @@ true for every pair the engine evaluates, so ``where(ok, a, b)`` is
 The ops taken (aten names): add, sub, rsub, mul, div, neg, abs; clamp,
 clamp_min, clamp_max, maximum, minimum; where, eq/ne/lt/le/gt/ge, the
 logical ops, and the bitwise and/or/xor/not of booleans and integers;
-exp, log, sqrt, rsqrt, reciprocal, pow (a tensor exponent or a number),
-tanh, sin, cos, erf, erfc, log1p, expm1, floor, ceil, round, trunc, sign,
-sigmoid and atan2; remainder, floor_divide and ``div`` with a rounding
-mode on integers; full, full_like, zeros_like, ones_like, scalar_tensor
-and other constants; select and slice of a vector's components and sum
-over them; ``index`` and ``select`` of a closed-over float table (1-D or
-2-D, at most :data:`MAX_TABLE` per axis) by integer values; ``_to_copy``
+exp, log, sqrt, rsqrt, reciprocal, pow (a tensor exponent or a number;
+an integer base to an integer power), tanh, sin, cos, tan, asin, acos,
+atan, sinh, cosh, asinh, acosh, atanh, erf, erfc, log1p, expm1, log2,
+exp2, log10, lgamma, floor, ceil, round (with ``decimals`` too), trunc,
+sign, sigmoid, atan2, hypot and copysign; remainder, fmod, floor_divide
+and ``div`` with a rounding mode, on floats and integers; full,
+full_like, zeros_like, ones_like, scalar_tensor and other constants;
+select and slice of a vector's components; ``stack`` of per-pair values
+and ``amax``, ``amin``, ``sum`` and ``prod`` over its leading axis or
+over a vector's components (``max.dim`` / ``min.dim`` through their
+values), a chain in their order; ``index`` and ``select`` of a
+closed-over float table (1-D or 2-D, at most :data:`MAX_TABLE` per axis)
+by integer values; ``_to_copy``
 between fp32, bf16, bool and the integer dtypes, and the view ops that
 keep a value's components. The values are per-pair scalars and vectors
 of any width (a ``(C, n, w)`` prop is read component by component); the
@@ -40,10 +46,14 @@ closes over, 0-d constant tensors, the entries of a table) are not in the
 emitted text: each is a slot of the functor's float ``params``, so that a
 body with other constants reuses the library (its integer numbers are
 literals). What the card does with them is followed: a Python divisor is
-reciprocal-then-multiply (``div_true_kernel_cuda``), a Python operand of
-an arithmetic op stays fp32 beside a bf16 tensor, the bound of a clamp,
-the other side of a comparison and a filled constant are rounded to the
-tensor's dtype, ``pow``'s exponents 0, 1, 2, 3, -2, +-0.5 and -1 take
+reciprocal-then-multiply (``div_true_kernel_cuda``; a floor or trunc
+division by one too, ``div_floor_kernel_cuda`` and
+``div_trunc_kernel_cuda``, where a tensor divisor takes
+``c10::div_floor_floating``), a Python operand of an arithmetic op stays
+fp32 beside a bf16 tensor, the bound of a clamp, the other side of a
+comparison, an operand of remainder, fmod and copysign and a filled
+constant are rounded to the tensor's dtype, ``pow``'s exponents 0, 1, 2,
+3, -2, +-0.5 and -1 take
 ATen's special cases (``aten/src/ATen/native/cuda/PowKernel.cu``), every
 other exponent ``powf`` with the exponent rounded to the tensor's dtype,
 and an integer converted to bf16 goes through fp32 first (c10's
@@ -64,6 +74,7 @@ from __future__ import annotations
 import collections
 import hashlib
 import itertools
+import operator
 import pathlib
 from typing import Dict, List, NamedTuple, Tuple
 
@@ -257,6 +268,13 @@ def _trace(body, out, dim: int, props: Dict[str, Prop], dtype, n: int):
             "the pair body branches in Python on a traced value "
             "(data-dependent control flow); write it with torch.where for "
             "the CUDA cell-pair kernel") from e
+    except AssertionError as e:
+        if "FakeTensor" not in str(e):
+            raise
+        # as repro's pallas_call refuses a captured constant array
+        raise NotImplementedError(
+            "the pair body closes over a tensor made outside it; pass it as "
+            "a prop (a table of numbers written in the body is taken)") from e
 
 
 # --------------------------------------------------------------------------
@@ -278,6 +296,22 @@ class _Table(NamedTuple):
     shape: Tuple[int, ...]
     strides: Tuple[int, ...]
     dtypes: Tuple[str, ...]
+
+
+class _Stack(NamedTuple):
+    """A ``torch.stack`` along a new leading axis: each member's
+    components, in stack order, as values of ``dtype``. It is read only
+    by a reduction over that axis."""
+
+    members: List[List[str]]
+    dtype: str
+
+
+class _Reduced(NamedTuple):
+    """The (values, indices) of ``max.dim`` / ``min.dim``: only the
+    values are read."""
+
+    values: _Val
 
 
 def _meta(node):
@@ -326,7 +360,10 @@ def _int_literal(value, dtype: str) -> str:
 
 _UNARY = ("neg", "abs", "exp", "log", "sqrt", "rsqrt", "reciprocal", "tanh",
           "sin", "cos", "erf", "erfc", "log1p", "expm1", "floor", "ceil",
-          "round", "trunc", "sign", "sigmoid")
+          "round", "trunc", "sign", "sigmoid", "tan", "asin", "acos", "atan",
+          "sinh", "cosh", "asinh", "acosh", "atanh", "log2", "exp2", "log10",
+          "lgamma")
+_REDUCE = ("amax", "amin", "sum", "prod")
 _VIEWS = ("_to_copy", "clone", "alias", "detach", "lift_fresh_copy", "view",
           "_unsafe_view", "reshape", "unsqueeze", "squeeze", "expand",
           "view_copy", "expand_copy", "unsqueeze_copy", "squeeze_copy",
@@ -399,6 +436,11 @@ class _Emitter:
             raise NotImplementedError(
                 f"{a.target}: a closed-over table is read only by indexing "
                 "it with integer values")
+        if isinstance(v, (_Stack, _Reduced)):
+            raise NotImplementedError(
+                f"{a.target}: a stack is read only by amax, amin, sum or "
+                "prod over its leading axis, and max.dim / min.dim only "
+                "through their values")
         return v
 
     @staticmethod
@@ -523,8 +565,23 @@ class _Emitter:
         if isinstance(self.vals.get(args[0]) if args and isinstance(
                 args[0], torch.fx.Node) else None, _Table):
             return self.table_op(nd, packet, args, kw)
+        if tgt is operator.getitem:
+            src = self.vals.get(args[0])
+            if isinstance(src, _Reduced) and args[1] == 0:
+                return src.values
+            raise NotImplementedError(
+                f"{args[0].target}: item {args[1]} (only the values of "
+                "max.dim / min.dim are read; their indices are int64)")
+        if packet in ("max", "min") and tgt._overloadname == "dim":
+            val = nd.meta["val"][0]
+            return _Reduced(self.reduce(nd, "a" + packet, args, kw,
+                                        _DT[val.dtype], val.dim()))
         meta = _meta(nd)
         T = _DT[meta.dtype]
+        if packet == "stack":
+            return self.stack(nd, args, kw, meta, T)
+        if packet in _REDUCE:
+            return self.reduce(nd, packet, args, kw, T, meta.dim())
         n = _ncomp(meta.shape, self.n, what)
         ndim = meta.dim()
 
@@ -536,16 +593,20 @@ class _Emitter:
             if res is not None:
                 return res
         O = f"Ops<{_TYPE.get(T, 'F32')}>"
+        if T in _FLOATS and (packet == "floor_divide" or (
+                packet == "div" and kw.get("rounding_mode") is not None)):
+            return self.rounding_div(nd, packet, args, kw, T, n, O, make)
+        if packet in ("remainder", "fmod") and T in _FLOATS:
+            # a number operand is rounded to T (gpu_kernel_with_scalars)
+            xa, xb = (self.operand(a, T, n, scalar_as="rounded")
+                      for a in args[:2])
+            return make([f"{O}::{packet}({x}, {y})" for x, y in zip(xa, xb)])
         if packet in ("add", "sub", "mul", "div", "rsub") and T in _FLOATS:
             a, b = args[0], args[1]
             alpha = kw.get("alpha", 1)
             if packet == "rsub":
                 a, b = b, a
                 packet = "sub"
-            if packet == "div" and kw.get("rounding_mode") is not None:
-                raise NotImplementedError(f"{what} with rounding_mode "
-                                          f"{kw['rounding_mode']!r} on "
-                                          "floating values")
             if packet == "div" and self.is_num(b):
                 inv = np.float32(1.0) / np.float32(b)
                 xa = self.operand(a, T, n)
@@ -569,14 +630,23 @@ class _Emitter:
             xa, xb = (self.operand(a, T, n) for a in args[:2])
             return make([f"{O}::{packet}({x}, {y})" for x, y in zip(xa, xb)])
         if packet in _UNARY and T in _FLOATS:
-            if packet == "round" and kw.get("decimals", 0) != 0:
-                raise NotImplementedError(f"{what} with decimals")
+            xa = self.operand(args[0], T, n)
+            d = int(kw.get("decimals", 0)) if packet == "round" else 0
+            if d:
+                # round_decimals_kernel_cuda: t = 10^|d| in double, as T
+                with np.errstate(over="ignore"):
+                    t = self.rounded_const(np.float64(10.0) ** abs(d), T)
+                fn = "round_dec" if d > 0 else "round_dec_neg"
+                return make([f"{O}::{fn}({x}, {t})" for x in xa])
             fn = {"reciprocal": "recip"}.get(packet, packet)
-            return make([f"{O}::{fn}({x})"
-                         for x in self.operand(args[0], T, n)])
-        if packet == "atan2" and T in _FLOATS:
+            return make([f"{O}::{fn}({x})" for x in xa])
+        if packet in ("atan2", "hypot") and T in _FLOATS:
             xa, xb = (self.operand(a, T, n) for a in args[:2])
-            return make([f"{O}::atan2({x}, {y})" for x, y in zip(xa, xb)])
+            return make([f"{O}::{packet}({x}, {y})" for x, y in zip(xa, xb)])
+        if packet == "copysign" and T in _FLOATS:
+            xa, xb = (self.operand(a, T, n, scalar_as="rounded")
+                      for a in args[:2])
+            return make([f"{O}::copysign({x}, {y})" for x, y in zip(xa, xb)])
         if packet in ("clamp", "clamp_min", "clamp_max") and T in _FLOATS:
             x = self.operand(args[0], T, n)
             lo, hi = self.clamp_bounds(packet, args, kw)
@@ -660,13 +730,6 @@ class _Emitter:
                 return _Val([comps[args[2] % width]], src.dtype, ndim)
             start, end, step = (list(args[2:]) + [None, None, 1])[:3]
             return _Val(comps[slice(start, end, step)], src.dtype, ndim)
-        if packet == "sum":
-            src = self.sum_operand(nd, args, kw)
-            comps = [self.cvt(e, src.dtype, "f32") for e in src.c]
-            acc = comps[0]
-            for e in comps[1:]:
-                acc = f"__fadd_rn({acc}, {e})"
-            return make([f"{O}::cvt({acc})"])
         if packet == "index":
             raise NotImplementedError(
                 f"{what} of a value the body computes (only a closed-over "
@@ -675,18 +738,97 @@ class _Emitter:
             f"{what} is not an op the CUDA cell-pair kernel's generated "
             f"bodies take on {T} values (codegen.py lists them)")
 
-    def sum_operand(self, nd, args, kw) -> _Val:
-        """The vector a ``sum`` adds up: only a sum over its components
-        is taken."""
+    def rounding_div(self, nd, packet, args, kw, T, n, O, make):
+        """``floor_divide`` and ``div`` with a rounding mode on floating
+        values, as div_floor_kernel_cuda and div_trunc_kernel_cuda compute
+        them: a number divisor (a CPU scalar) through its fp32 reciprocal,
+        a number dividend rounded to T."""
+        mode = "floor" if packet == "floor_divide" else kw["rounding_mode"]
+        if mode not in ("floor", "trunc"):
+            raise NotImplementedError(f"{nd.target} with rounding_mode "
+                                      f"{mode!r}")
+        a, b = args[0], args[1]
+        if self.is_num(b):
+            xa = self.operand(a, T, n)
+            with np.errstate(divide="ignore"):
+                inv = self.const(np.float32(1.0) / np.float32(b))
+            if mode == "trunc":
+                return make([f"{O}::div_trunc_s({x}, {inv})" for x in xa])
+            if np.float32(b) == 0.0:       # div_true_kernel_cuda's a * inf
+                return make([f"{O}::mul({x}, {inv})" for x in xa])
+            c = self.const(b)
+            return make([f"{O}::floor_div_s({x}, {c}, {inv})" for x in xa])
+        xa = self.operand(a, T, n, scalar_as="rounded")
+        xb = self.operand(b, T, n)
+        fn = "floor_div" if mode == "floor" else "div_trunc"
+        return make([f"{O}::{fn}({x}, {y})" for x, y in zip(xa, xb)])
+
+    def stack(self, nd, args, kw, meta, T) -> "_Stack | _Val":
+        """``torch.stack`` of per-pair values: along a new leading axis a
+        :class:`_Stack` (read by a reduction over it); of scalars along
+        the last axis, a vector of them."""
+        dim = args[1] if len(args) > 1 else kw.get("dim", 0)
+        dim %= meta.dim()
+        vals = [self.val(a) for a in args[0]]
+        width = max(len(v.c) for v in vals)
+        members = [[self.cvt(e, v.dtype, T) for e in
+                    (v.c * width if len(v.c) == 1 else v.c)] for v in vals]
+        if dim == 0:
+            return _Stack(members, T)
+        if width == 1 and meta.dim() == 2:
+            return _Val([m[0] for m in members], T, 2)
+        raise NotImplementedError(
+            f"{nd.target} along axis {dim} into shape {tuple(meta.shape)} "
+            "(a stack is taken along a new leading axis, or of per-pair "
+            "scalars along the last)")
+
+    def reduce(self, nd, packet, args, kw, T, ndim) -> _Val:
+        """``amax``, ``amin``, ``sum`` or ``prod`` over the leading axis of
+        a stack or over a vector's components: a chain in their order; a
+        floating sum or product in fp32, rounded to T once, as PyTorch's
+        reductions accumulate; an integer one wrapping (an integer sum is
+        int64 unless given ``dtype``)."""
+        what = str(nd.target)
+        src = self.vals[args[0]]
         src_meta = _meta(args[0])
         dims = args[1] if len(args) > 1 else kw.get("dim")
-        if nd.target._overloadname != "dim_IntList" or src_meta.dim() != 2 \
-                or list(dims or ()) not in ([1], [-1]):
+        keep = args[2] if len(args) > 2 else kw.get("keepdim", False)
+        if isinstance(dims, int):
+            dims = [dims]
+        dims = [d % src_meta.dim() for d in (dims or [])]
+        if isinstance(src, _Stack) and dims == [0] and not keep:
+            lists, sdt = [list(c) for c in zip(*src.members)], src.dtype
+        elif isinstance(src, _Val) and src_meta.dim() == 2 and dims == [1] \
+                and not keep:
+            lists, sdt = [src.c], src.dtype
+        else:
             raise NotImplementedError(
-                f"{nd.target} over {dims} of a value of shape "
-                f"{tuple(src_meta.shape)} (only a sum over a vector's "
-                "components is taken)")
-        return self.val(args[0])
+                f"{what} over {dims} (keepdim {keep}) of a value of shape "
+                f"{tuple(src_meta.shape)} (a reduction is taken over a "
+                "stack's leading axis or a vector's components)")
+        if T == "bool":
+            raise NotImplementedError(f"{what} of bool values")
+        comps = []
+        for lst in lists:
+            xs = [self.cvt(e, sdt, T if T in _INTS else "f32") for e in lst]
+            acc = xs[0]
+            for e in xs[1:]:
+                if packet in ("amax", "amin") and T in _INTS:
+                    op = ">" if packet == "amax" else "<"
+                    acc = self.let(T, f"({acc} {op} {e} ? {acc} : {e})")
+                elif T in _INTS:
+                    fn = "add" if packet == "sum" else "mul"
+                    acc = self.let(T, self.narrow(f"Int::{fn}({acc}, {e})",
+                                                  T))
+                elif packet in ("amax", "amin"):
+                    fn = "maximum" if packet == "amax" else "minimum"
+                    acc = f"Ops<F32>::{fn}({acc}, {e})"
+                else:
+                    rn = "__fadd_rn" if packet == "sum" else "__fmul_rn"
+                    acc = f"{rn}({acc}, {e})"
+            comps.append(acc if T in _INTS else
+                         f"Ops<{_TYPE[T]}>::cvt({acc})")
+        return _Val([self.let(T, e) for e in comps], T, ndim)
 
     @staticmethod
     def clamp_bounds(packet, args, kw):
@@ -715,14 +857,24 @@ class _Emitter:
                 xb = [f"Int::mul({c}, {y})" for y in xb]
             return make([wrap(f"Int::{packet}({x}, {y})")
                          for x, y in zip(xa, xb)])
-        if packet in ("div", "floor_divide", "remainder"):
+        if packet == "pow":
+            base, e = args[0], args[1]
+            if self.is_num(base):
+                raise NotImplementedError(f"{what}: a number raised to a "
+                                          "tensor")
+            if self.is_num(e) and int(e) < 0:
+                raise NotImplementedError(f"{what}: an integer to the "
+                                          f"negative power {e}")
+            xa, xe = (self.operand(a, T, n) for a in (base, e))
+            return make([wrap(f"Int::pow({x}, {y})") for x, y in zip(xa, xe)])
+        if packet in ("div", "floor_divide", "remainder", "fmod"):
             mode = kw.get("rounding_mode") if packet == "div" else None
             if packet == "div" and mode not in ("floor", "trunc"):
                 raise NotImplementedError(f"{what} with rounding_mode "
                                           f"{mode!r} on integers")
             fn = {"floor": "floor_div", "trunc": "div_trunc",
-                  None: {"floor_divide": "floor_div",
-                         "remainder": "rem"}.get(packet)}[mode]
+                  None: {"floor_divide": "floor_div", "remainder": "rem",
+                         "fmod": "fmod"}.get(packet)}[mode]
             xa, xb = (self.operand(a, T, n) for a in args[:2])
             return make([wrap(f"Int::{fn}({x}, {y})")
                          for x, y in zip(xa, xb)])
@@ -753,13 +905,6 @@ class _Emitter:
         if packet == "bitwise_not":
             return make([wrap(f"(~{x})")
                          for x in self.operand(args[0], T, n)])
-        if packet == "sum":
-            src = self.sum_operand(nd, args, kw)
-            comps = [self.cvt(e, src.dtype, T) for e in src.c]
-            acc = comps[0]
-            for e in comps[1:]:
-                acc = wrap(f"Int::add({acc}, {e})")
-            return make([acc])
         if packet in ("where", "full", "full_like", "new_full",
                       "scalar_tensor", "zeros_like", "ones_like", "zeros",
                       "ones", "new_zeros", "new_ones", "select",

@@ -276,6 +276,108 @@ struct Ops {
   __device__ __forceinline__ static float sigmoid(float a) {
     return P::r(__fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-a))));
   }
+  __device__ __forceinline__ static float tan(float a) {
+    return P::r(tanf(a));
+  }
+  __device__ __forceinline__ static float asin(float a) {
+    return P::r(asinf(a));
+  }
+  __device__ __forceinline__ static float acos(float a) {
+    return P::r(acosf(a));
+  }
+  __device__ __forceinline__ static float atan(float a) {
+    return P::r(atanf(a));
+  }
+  __device__ __forceinline__ static float sinh(float a) {
+    return P::r(sinhf(a));
+  }
+  __device__ __forceinline__ static float cosh(float a) {
+    return P::r(coshf(a));
+  }
+  __device__ __forceinline__ static float asinh(float a) {
+    return P::r(asinhf(a));
+  }
+  __device__ __forceinline__ static float acosh(float a) {
+    return P::r(acoshf(a));
+  }
+  __device__ __forceinline__ static float atanh(float a) {
+    return P::r(atanhf(a));
+  }
+  __device__ __forceinline__ static float log2(float a) {
+    return P::r(log2f(a));
+  }
+  __device__ __forceinline__ static float exp2(float a) {
+    return P::r(exp2f(a));
+  }
+  __device__ __forceinline__ static float log10(float a) {
+    return P::r(log10f(a));
+  }
+  __device__ __forceinline__ static float lgamma(float a) {
+    return P::r(lgammaf(a));
+  }
+  __device__ __forceinline__ static float hypot(float a, float b) {
+    return P::r(hypotf(a, b));
+  }
+  // copysign and fmod of two P values are P values (fmod is exact)
+  __device__ __forceinline__ static float copysign(float a, float b) {
+    return copysignf(a, b);
+  }
+  __device__ __forceinline__ static float fmod(float a, float b) {
+    return fmodf(a, b);
+  }
+  // remainder_kernel_cuda: fmod, then + b where its sign differs from b's
+  __device__ __forceinline__ static float remainder(float a, float b) {
+    const float m = fmodf(a, b);
+    return m != 0.0f && ((b < 0.0f) != (m < 0.0f)) ? P::r(__fadd_rn(m, b))
+                                                     : m;
+  }
+  // c10::div_floor_floating after its quotient q = (a - fmod(a, b)) / b
+  // (fp32, unrounded: c10's BFloat16 minus a float is a float): one less
+  // where the fmod's sign differs from b's, floored into P, plus one where
+  // the floor fell more than a half below; a zero quotient takes the sign
+  // of a / b (s)
+  __device__ __forceinline__ static float floor_tail(float q, float m,
+                                                     float b, float s) {
+    if (m != 0.0f && ((b < 0.0f) != (m < 0.0f))) q = __fsub_rn(q, 1.0f);
+    if (q == 0.0f) return copysignf(0.0f, s);
+    float fl = P::r(floorf(q));
+    if (__fsub_rn(q, fl) > 0.5f) fl = P::r(__fadd_rn(fl, 1.0f));
+    return fl;
+  }
+  // floor_divide / div(rounding_mode="floor") of two tensors
+  // (div_floor_kernel_cuda: c10::div_floor_floating)
+  __device__ __forceinline__ static float floor_div(float a, float b) {
+    if (b == 0.0f) return P::r(__fdiv_rn(a, b));
+    const float m = fmodf(a, b);
+    return floor_tail(__fdiv_rn(__fsub_rn(a, m), b), m, b, __fdiv_rn(a, b));
+  }
+  // the same by a number b != 0 (a CPU scalar): div_floor_kernel_cuda
+  // multiplies by its fp32 reciprocal inv_b in place of dividing
+  __device__ __forceinline__ static float floor_div_s(float a, float b,
+                                                      float inv_b) {
+    const float m = fmodf(a, b);
+    return floor_tail(__fmul_rn(__fsub_rn(a, m), inv_b), m, b,
+                      __fmul_rn(a, inv_b));
+  }
+  // div(rounding_mode="trunc"): trunc of a / b rounded to P (c10's
+  // BFloat16 / BFloat16 is a BFloat16); by a number, trunc(a * inv_b)
+  __device__ __forceinline__ static float div_trunc(float a, float b) {
+    return truncf(P::r(__fdiv_rn(a, b)));
+  }
+  __device__ __forceinline__ static float div_trunc_s(float a, float inv_b) {
+    return P::r(truncf(__fmul_rn(a, inv_b)));
+  }
+  // round(decimals=d) as round_decimals_kernel_cuda computes it in the
+  // tensor's type: t = 10^|d| rounded to P, nearbyint(a * t) / t for d > 0
+  // and nearbyint(a / t) * t for d < 0, where the product and the quotient
+  // of two P values are rounded to P (c10's BFloat16 operators) and the
+  // result is rounded to P
+  __device__ __forceinline__ static float round_dec(float a, float t) {
+    return P::r(__fdiv_rn(rintf(mul(a, t)), t));
+  }
+  __device__ __forceinline__ static float round_dec_neg(float a, float t) {
+    return P::r(__fmul_rn(rintf(div(a, t)), t));
+  }
 };
 
 // A generated body's integer arithmetic, as PyTorch's int32 kernels do it:
@@ -319,6 +421,21 @@ struct Int {
     if (b == -1) return 0;
     const int r = a % b;
     return r != 0 && ((r < 0) != (b < 0)) ? r + b : r;
+  }
+  // fmod: the remainder of the truncating division
+  __host__ __device__ __forceinline__ static int fmod(int a, int b) {
+    return b == -1 ? 0 : a % b;
+  }
+  // ATen's powi: square and multiply, wrapping; a negative exponent gives
+  // 1 for a == 1, +-1 for a == -1 and 0 for any other a
+  __host__ __device__ __forceinline__ static int pow(int a, int b) {
+    if (b < 0) return a == 1 ? 1 : (a == -1 ? ((b & 1) ? -1 : 1) : 0);
+    int r = 1;
+    for (; b; b /= 2) {
+      if (b & 1) r = mul(r, a);
+      a = mul(a, a);
+    }
+    return r;
   }
   // a table index: negative counts from the end, as in PyTorch; one out
   // of range is clamped to it (PyTorch raises there)

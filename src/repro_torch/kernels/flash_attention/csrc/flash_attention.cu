@@ -86,6 +86,16 @@
 //   * Cost: 24 hd tensor-core operations per visible pair (6 x 2 hd for
 //     q.k^T, 6 x 2 hd for p.v) against the function's 4 hd.
 //
+// fp16 (flash_attention_f16): the fp32 form's pipeline. The split pass
+// reads fp16; every fp16 value is exactly hi + lo, hi = bf16(x) and lo =
+// x - hi (fp16's 11-bit significand; bf16's exponent range covers fp16's
+// subnormals), so its third plane is zero. q.k^T skips the two products of
+// a third plane (four remain: every non-zero one, so the scores are the
+// fp32 function's up to the summation order) and p.v the one of v's third
+// plane (five remain). p stays on its three exact bf16 terms: split into
+// fp16 terms, fp16's 5-bit exponent would drop small weights. The output
+// is rounded to fp16. Cost: 18 hd tensor-core operations per visible pair.
+//
 // What bounds it on the H100: operations. At the prefill's shapes (B 4,
 // H 48 over K 4, Sq 2048, Sk 2176, hd 128) the visible (q, k) pairs are
 // B.H.sum_i(i+1) = 4.03e8, 4.hd operations each: 2.06e11, 0.21 ms at
@@ -111,6 +121,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -635,22 +646,40 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 constexpr int PLANES = 3;  // bf16 terms of each fp32 operand
 
-// The split pass: x (B, n, S, hd) fp32, strided with the head axis
-// contiguous, into three contiguous bf16 planes (B, n, S, hd), plane t at
-// out + t * plane, by split3. One thread per 8 elements of a row; grid
-// (ceil(S hd / 8 / 256), n, B).
+// Eight consecutive elements of an operand (16-byte aligned), as fp32.
+__device__ __forceinline__ void load8(const float* p, float (&e)[8]) {
+  const float4 lo = __ldg(reinterpret_cast<const float4*>(p)),
+               hi = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  e[0] = lo.x, e[1] = lo.y, e[2] = lo.z, e[3] = lo.w;
+  e[4] = hi.x, e[5] = hi.y, e[6] = hi.z, e[7] = hi.w;
+}
+__device__ __forceinline__ void load8(const __half* p, float (&e)[8]) {
+  const uint4 w = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&u[i]));
+    e[2 * i] = f.x, e[2 * i + 1] = f.y;
+  }
+}
+
+// The split pass: x (B, n, S, hd) fp32 or fp16, strided with the head
+// axis contiguous, into three contiguous bf16 planes (B, n, S, hd), plane
+// t at out + t * plane, by split3 (of an fp16 value, exact in fp32: its
+// 11-bit significand is hi + lo, two bf16 terms, and the third plane is
+// zero). One thread per 8 elements of a row; grid (ceil(S hd / 8 / 256),
+// n, B).
+template <class In>
 __global__ void __launch_bounds__(256)
-    split_planes(const float* __restrict__ x, __nv_bfloat16* __restrict__ out,
+    split_planes(const In* __restrict__ x, __nv_bfloat16* __restrict__ out,
                  int n, int S, int hd, Strides st, long long plane) {
   const int per_row = hd / 8;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= S * per_row) return;
   const int s = i / per_row, d = (i - s * per_row) * 8;
   const int h = blockIdx.y, b = blockIdx.z;
-  const float4* src = reinterpret_cast<const float4*>(
-      x + b * st.b + h * st.h + s * st.s + d);
-  const float4 lo = __ldg(src), hi = __ldg(src + 1);
-  const float e[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  float e[8];
+  load8(x + b * st.b + h * st.h + s * st.s + d, e);
   uint32_t w[PLANES][4];
 #pragma unroll
   for (int j = 0; j < 8; j += 2) {
@@ -681,8 +710,10 @@ __device__ __forceinline__ int term_b(int t) {
 // sc = q.k^T of one 64-key tile from the six products of the planes at q
 // (this warpgroup's Q planes) and k (the slot's K planes), each plane NC
 // boxes, in term order: every correction over the whole depth, then
-// q1.k1 (one wgmma group).
-template <int NC>
+// q1.k1 (one wgmma group). TWO: q and k are fp16, their third planes zero,
+// so the two products of a third plane are not issued (sc starts at zero,
+// so the first one issued may accumulate).
+template <int NC, bool TWO>
 __device__ __forceinline__ void issue_qk3(float (&sc)[32], const uint8_t* q,
                                           const uint8_t* k, int ksteps) {
   constexpr int PLANE = NC * CHUNK;
@@ -693,6 +724,7 @@ __device__ __forceinline__ void issue_qk3(float (&sc)[32], const uint8_t* q,
 #pragma unroll
   for (int t = 0; t < 6; ++t) {
     const int b = term_b(t), a = term_order(t) - b;
+    if (TWO && (a == 2 || b == 2)) continue;
     for (int kk = 0; kk < ksteps; ++kk) {
       const int off = (kk >> 2) * CHUNK + (kk & 3) * 32;
       wgmma_ss(sc, desc_k(q + a * PLANE + off), desc_k(k + b * PLANE + off),
@@ -704,8 +736,10 @@ __device__ __forceinline__ void issue_qk3(float (&sc)[32], const uint8_t* q,
 
 // d = p.v over the 64 columns of box j of the slot's V planes at v, from
 // the six products of p's terms (pa) and v's planes, in term order, into
-// a fresh accumulator (one wgmma group).
-template <int NC>
+// a fresh accumulator (one wgmma group). TWO: v is fp16, and the product
+// of its zero third plane (t = 2, after the first) is not issued; p keeps
+// its three terms.
+template <int NC, bool TWO>
 __device__ __forceinline__ void issue_pv3(float (&d)[32],
                                           const uint32_t (&pa)[3][4][4],
                                           const uint8_t* v, int j) {
@@ -714,6 +748,7 @@ __device__ __forceinline__ void issue_pv3(float (&d)[32],
 #pragma unroll
   for (int t = 0; t < 6; ++t) {
     const int b = term_b(t), a = term_order(t) - b;
+    if (TWO && b == 2) continue;
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
       wgmma_rs(d, pa[a][kk], desc_mn(v + b * PLANE + j * CHUNK + kk * 16 * 128),
@@ -737,19 +772,30 @@ __device__ __forceinline__ void load_planes(uint8_t* dst,
     }
 }
 
+// The output's two adjacent columns of one row, from fp32.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+}
+
 // NC: 64-column boxes of hd; NWG: consumer warpgroups; SLOTS: the ring of
 // shared-memory slots, each the PLANES x NC boxes of one K or one V tile.
 // The producer fills the slots in the order K0, V0, K1, V1, ...; a
-// consumer releases a K slot as soon as its q.k^T is read.
-template <int NC, int NWG, int SLOTS>
+// consumer releases a K slot as soon as its q.k^T is read. Out: the
+// operands' and output's type, float or __half (fp16 operands have zero
+// third planes, whose products are skipped).
+template <int NC, int NWG, int SLOTS, class Out>
 __global__ void __launch_bounds__(NWG * 128 + 32, 1)
     flash_attention_split3(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
-                           float* __restrict__ o, Strides so, Order oq,
+                           Out* __restrict__ o, Strides so, Order oq,
                            Order ok, Order ov, int B, int rep, int Sq, int Sk,
                            int hd, int causal, int q_off, float scale) {
   constexpr int PLANE = NC * CHUNK, SLOT = PLANES * PLANE;
+  constexpr bool TWO = sizeof(Out) == 2;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sQ = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -820,7 +866,7 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
   for (int i = 0; i < my_items; i += 2) {
     int s = i % SLOTS;
     mbar_wait(full + s, (i / SLOTS) & 1);
-    issue_qk3<NC>(sc, myQ, sKV + s * SLOT, ksteps);
+    issue_qk3<NC, TWO>(sc, myQ, sKV + s * SLOT, ksteps);
     wgmma_wait();
     fence_regs(sc);
     mbar_arrive(empty + s);
@@ -831,7 +877,7 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
     mbar_wait(full + s, ((i + 1) / SLOTS) & 1);
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
-      issue_pv3<NC>(sc, pa, sKV + s * SLOT, j);
+      issue_pv3<NC, TWO>(sc, pa, sKV + s * SLOT, j);
       wgmma_wait();
       fence_regs(sc);
 #pragma unroll
@@ -851,29 +897,29 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
     const int qpos = r0 + 8 * half;
     if (qpos >= Sq) continue;
     const float den = fmaxf(l[half], 1e-30f);
-    float* orow = o + b * so.b + h * so.h + qpos * so.s;
+    Out* orow = o + b * so.b + h * so.h + qpos * so.s;
 #pragma unroll
     for (int j = 0; j < NC; ++j)
 #pragma unroll
       for (int g = 0; g < 8; ++g) {
         const int col = j * COLS + g * 8 + (lane & 3) * 2;
         if (col < hd)
-          *reinterpret_cast<float2*>(orow + col) =
-              make_float2(acc[j][4 * g + 2 * half] / den,
-                          acc[j][4 * g + 2 * half + 1] / den);
+          store2(orow + col, acc[j][4 * g + 2 * half] / den,
+                 acc[j][4 * g + 2 * half + 1] / den);
       }
   }
 }
 
 // x's planes into `planes` (the split pass, one launch), then its tensor
 // map over them as (PLANES B, n, S, hd).
+template <class In>
 int split_and_map(CUtensorMap* map, Order* order, const void* x,
                   __nv_bfloat16* planes, int B, int n, int S, int hd,
                   const Strides& st, cudaStream_t stream) {
   const long long plane = static_cast<long long>(B) * n * S * hd;
   const dim3 grid((S * (hd / 8) + 255) / 256, n, B);
-  split_planes<<<grid, 256, 0, stream>>>(static_cast<const float*>(x),
-                                         planes, n, S, hd, st, plane);
+  split_planes<In><<<grid, 256, 0, stream>>>(static_cast<const In*>(x),
+                                             planes, n, S, hd, st, plane);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const Strides dense{static_cast<long long>(n) * S * hd,
@@ -904,7 +950,7 @@ int with_shape(int hd, F&& f) {
   return f(Shape<4, 1, 1>());  // Q 96 KB + 1 slot of 96 KB: K, V in turn
 }
 
-template <class S>
+template <class S, class T>
 int launch_split3(const void* q, const void* k, const void* v, void* o,
                   void* work, int B, int H, int K, int Sq, int Sk, int hd,
                   int causal, int q_off, float scale, const Strides* st,
@@ -914,18 +960,20 @@ int launch_split3(const void* q, const void* k, const void* v, void* o,
   __nv_bfloat16* wv = wk + PLANES * static_cast<long long>(B) * K * Sk * hd;
   CUtensorMap tq, tk, tv;
   Order oq, ok, ov;
-  int err = split_and_map(&tq, &oq, q, wq, B, H, Sq, hd, st[0], stream);
-  if (!err) err = split_and_map(&tk, &ok, k, wk, B, K, Sk, hd, st[1], stream);
-  if (!err) err = split_and_map(&tv, &ov, v, wv, B, K, Sk, hd, st[2], stream);
+  int err = split_and_map<T>(&tq, &oq, q, wq, B, H, Sq, hd, st[0], stream);
+  if (!err)
+    err = split_and_map<T>(&tk, &ok, k, wk, B, K, Sk, hd, st[1], stream);
+  if (!err)
+    err = split_and_map<T>(&tv, &ov, v, wv, B, K, Sk, hd, st[2], stream);
   if (err) return err;
-  auto* kernel = flash_attention_split3<S::NC, S::NWG, S::SLOTS>;
+  auto* kernel = flash_attention_split3<S::NC, S::NWG, S::SLOTS, T>;
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(S::SMEM));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((Sq + S::NWG * ROWS - 1) / (S::NWG * ROWS), H, B);
   kernel<<<grid, S::THREADS, S::SMEM, stream>>>(
-      tq, tk, tv, static_cast<float*>(o), st[3], oq, ok, ov, B, H / K, Sq,
+      tq, tk, tv, static_cast<T*>(o), st[3], oq, ok, ov, B, H / K, Sq,
       Sk, hd, causal, q_off, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -968,7 +1016,26 @@ int flash_attention_f32(const void* q, const void* k, const void* v,
   Strides st[4];
   unpack(strides, st);
   return hopper::with_shape(hd, [&](auto shape) {
-    return hopper::launch_split3<decltype(shape)>(
+    return hopper::launch_split3<decltype(shape), float>(
+        q, k, v, o, work, B, H, K, Sq, Sk, hd, causal, q_off, scale, st,
+        static_cast<cudaStream_t>(stream));
+  });
+}
+
+// fp16 (repro's kernel casts fp16 q, k and v to fp32 and writes fp16): the
+// fp32 form's pipeline on the planes of the fp16 values, each hi + lo
+// exactly with a zero third plane, so q.k^T takes four products and p.v
+// five (p keeps its three terms: fp16's 5-bit exponent would drop small
+// weights); the output rounded to fp16. Arguments as flash_attention_f32.
+int flash_attention_f16(const void* q, const void* k, const void* v,
+                        void* o, void* work, int B, int H, int K, int Sq,
+                        int Sk, int hd, int causal, int q_off, float scale,
+                        const long long* strides, void* stream) {
+  if (const int e = check_args(B, H, K, Sq, Sk, hd, q_off)) return e;
+  Strides st[4];
+  unpack(strides, st);
+  return hopper::with_shape(hd, [&](auto shape) {
+    return hopper::launch_split3<decltype(shape), __half>(
         q, k, v, o, work, B, H, K, Sq, Sk, hd, causal, q_off, scale, st,
         static_cast<cudaStream_t>(stream));
   });

@@ -6,8 +6,8 @@ self-attention and every cross-attention).
 :func:`flash_attention` launches the hand-written CUDA kernel
 ``csrc/flash_attention.cu`` for CUDA tensors and runs the plain version
 (``ref.flash_attention_ref``) for CPU tensors. The dtype picks the
-kernel's form; both run on the tensor cores (bf16 ``wgmma``, tiles by
-TMA) and both are counted in :data:`LAUNCHES`. bf16 splits ``p`` into
+kernel's form; all run on the tensor cores (bf16 ``wgmma``, tiles by
+TMA) and all are counted in :data:`LAUNCHES`. bf16 splits ``p`` into
 three exact bf16 terms (``ref.split_bf16x3``). fp32 first splits q, k
 and v the same way, in a pass that writes their bf16 planes into scratch
 the wrapper allocates, and sums the six products of order <= 2 of the
@@ -15,8 +15,12 @@ terms for ``q·kᵀ`` and for ``p·v`` (``ref.flash_attention_ref(
 split_terms=6)``): each product is exact, and only the dropped ones,
 under ~2⁻²⁴ of a product, and the summation order differ from fp32. At
 the prefill's shapes it takes 2.4584 ms where the SIMT kernel it
-replaced took 7.8236 (H100 80GB HBM3, 700 W; PERF.md). :func:`plan`
-gives the fp32 form's launch geometry for a head dim.
+replaced took 7.8236 (H100 80GB HBM3, 700 W; PERF.md). fp16 runs the
+fp32 form's pipeline: each fp16 value is exactly two bf16 terms
+(``ref.split_bf16x3`` leaves its third zero), so the products of the
+zero planes are skipped, p keeps its three terms, and the output is
+rounded to fp16. :func:`plan` gives the fp32 and fp16 forms' launch
+geometry for a head dim.
 
 Both forms compute the Pallas kernel's function: fp32 scores, the causal
 mask ``kpos <= qpos`` counted from 0 (aligned to the start, unlike
@@ -53,17 +57,20 @@ LAUNCHES = 0
 MAX_HEAD_DIM = 256
 
 _ENTRIES = {torch.float32: "flash_attention_f32",
-            torch.bfloat16: "flash_attention_bf16"}
+            torch.bfloat16: "flash_attention_bf16",
+            torch.float16: "flash_attention_f16"}
+#: The forms that split q, k and v into bf16 planes first (scratch).
+_SPLIT = (torch.float32, torch.float16)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for name in _ENTRIES.values():
+    for dtype, name in _ENTRIES.items():
         fn = getattr(lib, name)
-        # fp32 takes one more pointer after o: the scratch of the planes
-        n_ptr = 5 if name == _ENTRIES[torch.float32] else 4
+        # the split forms take one more pointer after o: the planes' scratch
+        n_ptr = 5 if dtype in _SPLIT else 4
         fn.argtypes = [p] * n_ptr + [i, i, i, i, i, i, i, i, f, p, p]
         fn.restype = i
     lib.flash_attention_f32_plan.argtypes = [i, p]
@@ -72,8 +79,8 @@ def _lib() -> ctypes.CDLL:
 
 
 def plan(hd: int) -> dict:
-    """The fp32 form's launch plan for head dim ``hd`` (builds the
-    library): threads per block, consumer warpgroups, slots of the K/V
+    """The fp32 and fp16 forms' launch plan for head dim ``hd`` (builds
+    the library): threads per block, consumer warpgroups, slots of the K/V
     ring, 64-column boxes of hd and the dynamic shared memory of a block
     in bytes."""
     out = (ctypes.c_int * 5)()
@@ -92,8 +99,8 @@ def _check_cuda(q, k, v):
         raise ValueError(f"B and H must be <= 65535, got {q.shape[:2]}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in _ENTRIES:
-            raise TypeError(f"{name} must be float32 or bfloat16 on the "
-                            f"card, got {t.dtype}")
+            raise TypeError(f"{name} must be float32, bfloat16 or float16 "
+                            f"on the card, got {t.dtype}")
         if t.dtype != q.dtype:
             raise TypeError(f"q, k and v must share a dtype, got {q.dtype}, "
                             f"{k.dtype}, {v.dtype}")
@@ -135,7 +142,7 @@ def _launch(q, k, v, causal: bool, q_offset: int = 0):
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, o) for s in t.stride()[:3]))
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr()]
-    if q.dtype == torch.float32:
+    if q.dtype in _SPLIT:
         # the split pass's scratch: three bf16 planes each of q, k and v
         work = torch.empty(3 * (q.numel() + 2 * k.numel()),
                            dtype=torch.bfloat16, device=q.device)
@@ -156,8 +163,8 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
     """q: ``(B, H, Sq, hd)``; k, v: ``(B, K, Sk, hd)``; ``H = K·rep``.
     ``q_offset`` (>= 0): the causal mask's position of query row 0.
     Returns ``(B, H, Sq, hd)`` in q's dtype: the kernel for CUDA tensors
-    (fp32 or bf16, hd a multiple of 8 up to 256; TypeError or ValueError
-    otherwise), the plain version for CPU tensors."""
+    (fp32, bf16 or fp16, hd a multiple of 8 up to 256; TypeError or
+    ValueError otherwise), the plain version for CPU tensors."""
     if q.dim() != 4 or k.dim() != 4 or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"want q (B, H, Sq, hd) and k, v (B, K, Sk, hd), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "

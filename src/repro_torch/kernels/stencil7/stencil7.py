@@ -5,10 +5,12 @@ One call computes both species' periodic diffusion, the ``u·v²``
 reaction, the feed and kill terms and the explicit-Euler update.
 :func:`gray_scott_step` launches the hand-written CUDA kernel
 ``csrc/stencil7.cu`` for CUDA tensors and runs the plain version
-(``ref.gray_scott_step_ref``) for CPU tensors. The kernel repeats the
-plain version's operations in its order, each rounded as PyTorch rounds
-it, so on the card the two agree bit for bit. :data:`LAUNCHES` counts
-kernel launches.
+(``ref.gray_scott_step_ref``) for CPU tensors. The kernel takes
+float32, bfloat16 and float16 fields, as ``repro``'s kernel computes in
+the fields' dtype; it repeats the plain version's operations in its
+order, each rounded as PyTorch rounds it on the card (in fp32, the
+result rounded to the dtype), so on the card the two agree bit for bit.
+:data:`LAUNCHES` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -29,23 +31,33 @@ LAUNCHES = 0
 #: Largest extent of axes 0 and 1 (CUDA grid dimensions y and z).
 _MAX_GRID_YZ = 65535
 
+#: The kernel's C entry per field dtype (float64 stays on the plain
+#: version: the TPU kernel has no fp64 either).
+_ENTRIES = {torch.float32: "gray_scott_step_f32",
+            torch.bfloat16: "gray_scott_step_bf16",
+            torch.float16: "gray_scott_step_f16"}
+
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.gray_scott_step_f32.argtypes = [p, p, p, p, i, i, i, f, f, f, f, f,
-                                        f, p]
-    lib.gray_scott_step_f32.restype = i
+    for name in _ENTRIES.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, i, i, i, f, f, f, f, f, f, p]
+        fn.restype = i
     return lib
 
 
 def _step_cuda(u, v, *, Du, Dv, F, k, dt, inv_h2):
     global LAUNCHES
     for name, t in (("u", u), ("v", v)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32 on the card, got "
-                            f"{t.dtype}")
+        if t.dtype not in _ENTRIES:
+            raise TypeError(f"{name} must be float32, bfloat16 or float16 "
+                            f"on the card, got {t.dtype}")
+        if t.dtype != u.dtype:
+            raise TypeError(f"u and v must share a dtype, got {u.dtype} "
+                            f"and {v.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if v.device != u.device:
@@ -59,14 +71,13 @@ def _step_cuda(u, v, *, Du, Dv, F, k, dt, inv_h2):
     # each constant as the float PyTorch's scalar op uses; F + k summed in
     # double first, as the plain version's Python expression does
     consts = (Du, Dv, F, F + k, dt, inv_h2)
-    lib = _lib()
+    entry = _ENTRIES[u.dtype]
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gray_scott_step_f32(u.data_ptr(), v.data_ptr(),
-                                      un.data_ptr(), vn.data_ptr(), nx, ny,
-                                      nz, *(float(c) for c in consts),
-                                      stream)
-    _build.check(err, "gray_scott_step_f32")
+        err = getattr(_lib(), entry)(u.data_ptr(), v.data_ptr(),
+                                     un.data_ptr(), vn.data_ptr(), nx, ny,
+                                     nz, *(float(c) for c in consts), stream)
+    _build.check(err, entry)
     LAUNCHES += 1
     return un, vn
 
@@ -74,8 +85,9 @@ def _step_cuda(u, v, *, Du, Dv, F, k, dt, inv_h2):
 def gray_scott_step(u, v, *, Du: float, Dv: float, F: float, k: float,
                     dt: float, inv_h2: float, block_x: int = 8):
     """One fused explicit-Euler step on periodic ``(nx, ny, nz)`` fields;
-    returns new ``(u, v)``: the kernel for CUDA tensors (float32 only,
-    TypeError otherwise), the plain version for CPU tensors.
+    returns new ``(u, v)`` of their dtype: the kernel for CUDA tensors
+    (float32, bfloat16 or float16; TypeError otherwise), the plain
+    version for CPU tensors.
     ``nx % block_x == 0`` is ``repro``'s input contract (ValueError
     otherwise); the kernel tiles as it likes."""
     if u.dim() != 3 or tuple(v.shape) != tuple(u.shape):

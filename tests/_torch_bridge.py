@@ -299,3 +299,101 @@ class OpsBody:
 
 
 OPS_OUT = {"e": "scalar", "g": "radial"}
+
+
+def _stack(*vals):
+    """torch.stack of per-pair values (a plain path's props are columns
+    beside the pairs' tiles: broadcast first)."""
+    return torch.stack(torch.broadcast_tensors(*vals))
+
+
+#: The elementwise ops that repro's Pallas kernel takes and B1's generated
+#: route took last, each as a function of the per-pair values of
+#: :class:`NewOpsBody` (r2, dx, u, v, k): well-conditioned there, each
+#: continuous in the positions, and the rounding ops' operands (u = 0.7 (m
+#: + f) with f in [0.15, 0.85], and v: props alone) a way off every
+#: discontinuity.
+NEW_OPS = {
+    "remainder": lambda r2, dx, u, v, k: torch.remainder(u, v),
+    "remainder_s": lambda r2, dx, u, v, k: torch.remainder(u, 0.7),
+    "fmod": lambda r2, dx, u, v, k: torch.fmod(u, v),
+    "fmod_s": lambda r2, dx, u, v, k: torch.fmod(u, -0.7),
+    "floordiv": lambda r2, dx, u, v, k: u // v,
+    "floordiv_s": lambda r2, dx, u, v, k: u // 0.7,
+    "div_floor_s": lambda r2, dx, u, v, k: torch.div(
+        u, -0.7, rounding_mode="floor"),
+    "div_trunc": lambda r2, dx, u, v, k: torch.div(u, v,
+                                                   rounding_mode="trunc"),
+    "div_trunc_s": lambda r2, dx, u, v, k: torch.div(
+        u, 0.7, rounding_mode="trunc"),
+    "round_2": lambda r2, dx, u, v, k: torch.round(u * v, decimals=2),
+    "round_m1": lambda r2, dx, u, v, k: torch.round(3.7 * u, decimals=-1),
+    "ipow": lambda r2, dx, u, v, k: (k ** 3 - k ** 2 + k ** 0).to(
+        r2.dtype) * 1e-4,
+    "hypot": lambda r2, dx, u, v, k: torch.hypot(dx(0), dx(1)),
+    "copysign": lambda r2, dx, u, v, k: torch.copysign(r2, u),
+    "copysign_s": lambda r2, dx, u, v, k: torch.copysign(r2, -1.0),
+    "log2": lambda r2, dx, u, v, k: torch.log2(r2),
+    "exp2": lambda r2, dx, u, v, k: torch.exp2(-3.0 * r2),
+    "log10": lambda r2, dx, u, v, k: torch.log10(r2),
+    "tan": lambda r2, dx, u, v, k: torch.tan(r2),
+    "asin": lambda r2, dx, u, v, k: torch.asin(0.9 * r2 - 0.45),
+    "acos": lambda r2, dx, u, v, k: torch.acos(0.9 * r2 - 0.45),
+    "atan": lambda r2, dx, u, v, k: torch.atan(3.0 * r2),
+    "sinh": lambda r2, dx, u, v, k: torch.sinh(2.0 * r2),
+    "cosh": lambda r2, dx, u, v, k: torch.cosh(2.0 * r2),
+    "asinh": lambda r2, dx, u, v, k: torch.asinh(3.0 * r2 - 1.0),
+    "acosh": lambda r2, dx, u, v, k: torch.acosh(1.0 + 3.0 * r2),
+    "atanh": lambda r2, dx, u, v, k: torch.atanh(0.9 * r2 - 0.4),
+    "lgamma": lambda r2, dx, u, v, k: torch.lgamma(5.0 * r2 + 0.1),
+    "amax": lambda r2, dx, u, v, k: _stack(r2, 0.05 * u, 0.5 * v).amax(0),
+    "amin": lambda r2, dx, u, v, k: _stack(r2, 0.05 * u, 0.5 * v).amin(0),
+    "ssum": lambda r2, dx, u, v, k: _stack(r2, u, v).sum(0),
+    "sprod": lambda r2, dx, u, v, k: _stack(r2, u, v).prod(0),
+    "maxdim": lambda r2, dx, u, v, k: torch.max(_stack(r2, 0.5 * v),
+                                                0).values,
+    "iamax": lambda r2, dx, u, v, k: _stack(k, 3 - k).amax(0).to(r2.dtype),
+}
+
+#: The NEW_OPS outputs that are exact on both packages (integer results,
+#: rounding ops, and remainders of numbers away from their
+#: discontinuities), held bit for bit where both compute in fp32.
+NEW_OPS_EXACT = ("remainder", "remainder_s", "fmod", "fmod_s", "floordiv",
+                 "floordiv_s", "div_floor_s", "div_trunc", "div_trunc_s",
+                 "round_2", "round_m1", "ipow", "copysign", "copysign_s",
+                 "amax", "amin", "maxdim", "iamax")
+
+
+@dataclasses.dataclass(frozen=True)
+class NewOpsBody:
+    """One scalar output per op of ``ops`` (names of :data:`NEW_OPS`) and,
+    with ``k_f`` > 0, a soft Gaussian radial force ``f`` = exp2(-k_f r2)
+    (2 + 0.01 mean(ops)) that MD can integrate, so that every op moves
+    the trajectory; props ``a`` (u, the dividend of the rounding ops),
+    ``b`` (v, in [0.5, 1.5]) and the int32 ``k`` (k_i - k_j)."""
+
+    ops: tuple = tuple(NEW_OPS)
+    k_f: float = 0.0
+
+    def __call__(self, dx, r2, ok, wi, wj):
+        u, v, k = wi["a"], wj["b"], wi["k"] - wj["k"]
+        out = {name: NEW_OPS[name](r2, dx, u, v, k) for name in self.ops}
+        if self.k_f > 0.0:
+            mean = sum(out.values()) * (0.01 / len(out))
+            out["f"] = TI.Radial(torch.exp2(-self.k_f * r2) * (2.0 + mean))
+        return out
+
+    def out(self) -> dict:
+        return {**{name: "scalar" for name in self.ops},
+                **({"f": "radial"} if self.k_f > 0.0 else {})}
+
+
+def new_ops_props(rng, shape):
+    """The props of :class:`NewOpsBody` for particles of ``shape``, as
+    numpy: a = 0.7 (m + f), m an integer in [-20, 20), f in [0.15, 0.85];
+    b in [0.5, 1.5]; k an int32 in [-50, 50)."""
+    m = rng.integers(-20, 20, shape)
+    return {"a": (0.7 * (m + rng.uniform(0.15, 0.85, shape))).astype(
+                np.float32),
+            "b": rng.uniform(0.5, 1.5, shape).astype(np.float32),
+            "k": rng.integers(-50, 50, shape).astype(np.int32)}

@@ -4,8 +4,10 @@
 // pair: __device__ and __forceinline__ are empty, the __f*_rn operations
 // are plain IEEE float operations (g++ on x86-64 neither contracts nor
 // widens them), bfloat16 rounds to nearest even and __float_as_int reads a
-// float's bits as an int. Included before the engine header
-// (tests/test_torch_pair_codegen.py).
+// float's bits as an int. The math library's functions that Ops<P> calls
+// (tanf, asinhf, lgammaf, hypotf, fmodf, rintf, ...) are <math.h>'s, whose
+// results may differ from CUDA's in the last bit. Included before the
+// engine header (tests/test_torch_pair_codegen.py).
 #pragma once
 
 #include <math.h>

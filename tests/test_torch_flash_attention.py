@@ -23,8 +23,9 @@ from repro_torch.kernels.flash_attention import flash_attention as TK
 from repro_torch.kernels.flash_attention import ops as TOPS
 from repro_torch.kernels.flash_attention import ref as TREF
 
-# repro's own Pallas-vs-oracle bounds (tests/test_kernels.py)
-ATOL = {np.float32: 2e-5, "bfloat16": 2e-2}
+# repro's own Pallas-vs-oracle bounds (tests/test_kernels.py); fp16 two
+# ulps at the outputs' scale
+ATOL = {np.float32: 2e-5, "bfloat16": 2e-2, "fp16": 1e-3}
 
 
 def _qkv(B, H, K, Sq, Sk, hd, seed):
@@ -36,7 +37,10 @@ def _qkv(B, H, K, Sq, Sk, hd, seed):
 
 def _both(arrays, bf16):
     """(jax arrays, torch tensors) of numpy fp32 arrays, bf16-rounded
-    alike when ``bf16``."""
+    alike when ``bf16`` (fp16-rounded when it is "fp16")."""
+    if bf16 == "fp16":
+        return ([jnp.asarray(a).astype(jnp.float16) for a in arrays],
+                [torch.from_numpy(a).to(torch.float16) for a in arrays])
     if bf16:
         js = [jnp.asarray(a).astype(jnp.bfloat16) for a in arrays]
         ts = [torch.from_numpy(a).to(torch.bfloat16) for a in arrays]
@@ -56,6 +60,8 @@ def _f32(a):
     (2, 8, 2, 256, 32, True, False),
     (1, 2, 1, 384, 64, True, True),
     (1, 4, 2, 128, 256, True, False),   # gemma-style head_dim
+    (1, 4, 2, 256, 64, True, "fp16"),
+    (1, 4, 2, 256, 64, False, "fp16"),
 ])
 def test_plain_matches_repro_pallas_kernel(B, H, K, S, hd, causal, bf16):
     js, ts = _both(_qkv(B, H, K, S, S, hd, seed=S + hd), bf16)
@@ -64,7 +70,8 @@ def test_plain_matches_repro_pallas_kernel(B, H, K, S, hd, causal, bf16):
     assert got.dtype == ts[0].dtype and got.shape == ts[0].shape
     want = j_flash(*js, causal=causal, block_q=128, block_k=128,
                    interpret=True)
-    atol = ATOL["bfloat16" if bf16 else np.float32]
+    atol = ATOL["fp16" if bf16 == "fp16" else
+                "bfloat16" if bf16 else np.float32]
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=0, atol=atol)
 
 
@@ -255,3 +262,26 @@ def test_flash_attention_ref_split_terms_controls():
         TREF.flash_attention_ref(q, k, v, split_terms=4)
     with pytest.raises(ValueError, match="one"):
         TREF.flash_attention_ref(q, k, v, split_terms=6, p_terms=2)
+
+
+def test_fp16_values_split_into_two_exact_bf16_terms():
+    """B5's fp16 form splits q, k and v as its fp32 form does
+    (``ref.split_bf16x3``, the kernel's split3): for every finite fp16
+    value (subnormals, +-65504, 0 and -0 among them) the third term is
+    zero and hi + lo is the value, bit for bit (-0's sign stays on hi:
+    -0 + 0 is +0), so the products of the zero plane can be skipped."""
+    bits = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(torch.int16)
+    x = bits.view(torch.float16)
+    x = x[torch.isfinite(x)]
+    assert x.numel() == 2 ** 16 - 2 ** 11            # all but inf and NaN
+    for v in (65504.0, -65504.0, 2.0 ** -24, -(2.0 ** -24), 0.0):
+        assert bool((x == v).any()), v
+    hi, lo, third = TREF.split_bf16x3(x)
+    assert not bool(third.any())
+    whole = hi.float() + lo.float()
+    assert torch.equal(whole.to(torch.float16), x)  # values (0 == -0)
+    neg0 = torch.signbit(x) & (x == 0)
+    assert int(neg0.sum()) == 1 and bool(torch.signbit(hi[neg0]).all())
+    assert torch.equal(whole[~neg0].view(torch.int32),
+                       x[~neg0].float().view(torch.int32))
+    assert torch.equal(hi, x.to(torch.bfloat16))

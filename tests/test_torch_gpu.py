@@ -1,15 +1,15 @@
 """The CUDA kernels against their plain PyTorch versions, on the card
 (B1 with the LJ (DIM 2 and 3), SPH and DEM functors and with functors
 generated from bodies without cuda_kind, integer and width-4 props, five
-outputs under bf16x:<names> and every newer op among them, its striped
-pair walk at every
-home count, the fleet's folded launch and cells= subsets bit for bit,
-B2, B3, B4; fp32 and bf16x; B5,
-the flash attention, in fp32 (its split products against a three-term
-control, a launch plan per head-dim bucket) and bf16, and the dense, moe,
-ssm, hybrid, encdec and vlm LM paths through it; B5's guard under
-autograd and the training step on the card against the CPU;
-the block legs of B3/B4, the MD reuse step and the mesh-field step).
+outputs under bf16x:<names> and every newer op among them, every
+elementwise op repro's kernel takes, one output each, its striped pair
+walk at every home count, the fleet's folded launch and cells= subsets
+bit for bit, B2 in fp32, bf16 and fp16, B3, B4; fp32 and bf16x; B5, the
+flash attention, in fp32 (its split products against a three-term
+control, a launch plan per head-dim bucket), bf16 and fp16, and the
+dense, moe, ssm, hybrid, encdec and vlm LM paths through it; B5's guard
+under autograd and the training step on the card against the CPU; the
+block legs of B3/B4, the MD reuse step and the mesh-field step).
 Imports neither jax nor repro, so it runs on the GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -22,8 +22,8 @@ import pytest
 import torch
 
 from _torch_bridge import (DSF_OUT, OPS_OUT, QUAT_OUT, DSFBody, KABody,
-                           OpsBody, QuatBody, ToyCfg, interp_case, rel,
-                           toy_physics)
+                           NewOpsBody, OpsBody, QuatBody, ToyCfg,
+                           interp_case, new_ops_props, rel, toy_physics)
 
 from repro_torch.apps import vortex as TV
 from repro_torch.kernels.m4_interp import m4_interp as TK
@@ -409,6 +409,52 @@ def test_cuda_generated_typed_bodies_match_plain(card, case, prec):
     if prec != "fp32":
         lowered = ("twist", "dens") if ":" in prec else tuple(out)
         assert all(rel(got[k], f32[k]) > 0 for k in lowered)
+
+
+@pytest.mark.parametrize("prec", ["fp32", "bf16x"])
+def test_cuda_generated_new_ops_match_plain(card, prec):
+    """Every elementwise op the generated route took last (remainder,
+    fmod, floor and trunc division by tensors and by numbers, round with
+    decimals, integer pow, hypot, copysign, log2, exp2, log10, tan, asin,
+    acos, atan, sinh, cosh, asinh, acosh, atanh, lgamma, and amax, amin,
+    sum, prod and max.dim over stacks), one scalar output each, with a
+    radial force, through one generated functor (one launch) against
+    cell_pair_torch on the card: each output within TOL, in fp32 and in
+    bf16x (the card's bf16 ops, each rounded as the functor rounds it)."""
+    from repro_torch.core import cell_list as CL
+    from repro_torch.core import particles as P
+    from repro_torch.kernels.cell_pair import cell_pair as CP
+    n, r_cut = 1500, 0.18
+    rng = np.random.default_rng(30)
+    x = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+    props = {k: torch.from_numpy(v).cuda()
+             for k, v in new_ops_props(rng, (n,)).items()}
+    ps = P.from_positions(torch.from_numpy(x).cuda(), capacity=n + 6,
+                          props=props)
+    cl = CL.build_cell_list(ps, box_lo=(0.0,) * 3, box_hi=(1.0,) * 3,
+                            grid_shape=CL.grid_shape_for(
+                                (0.0,) * 3, (1.0,) * 3, r_cut),
+                            periodic=(True,) * 3, cell_cap=64)
+    t = CP.gather_cell_tiles(ps, cl, tuple(props))
+    body = NewOpsBody(k_f=60.0)
+    out = body.out()
+    args = (t.cell_x, t.nbr_x, t.cell_mask, t.nbr_mask, t.props_i,
+            t.props_j)
+    kind, key_prec, _ = CP._kind_of(body, out, prec, 3, t.props_i)
+    key = CP.launch_key(kind, key_prec)
+    n0, k0 = CP.LAUNCHES, CP.LAUNCHES_BY_KIND[key]
+    got = CP.cell_pair(*args, body=body, out=out, r_cut=r_cut,
+                       precision=prec)
+    assert CP.LAUNCHES == n0 + 1 and CP.LAUNCHES_BY_KIND[key] == k0 + 1
+    ref = CP.cell_pair_torch(*args, body=body, out=out, r_cut=r_cut,
+                             precision=prec)
+    torch.cuda.synchronize()
+    bad = {}
+    for k in out:
+        assert float(ref[k].abs().max()) > 0.0, k
+        if not rel(got[k], ref[k]) <= TOL:
+            bad[k] = rel(got[k], ref[k])
+    assert not bad, bad
 
 
 @pytest.mark.parametrize("prec", ["fp32", "bf16x"])
@@ -803,7 +849,9 @@ def test_bf16x_kernel_paths_match_plain_paths(card):
 @pytest.mark.parametrize("shape", [(16, 16, 16), (32, 16, 8), (8, 32, 40)])
 def test_cuda_stencil7_matches_plain(card, shape):
     """B2 against its plain version on the card, bit for bit, through
-    gray_scott_step and through ops.step against the app's gs_step."""
+    gray_scott_step and through ops.step against the app's gs_step; in
+    bf16 and fp16 too (two nodes a thread, and one where nz is odd or the
+    fields sit at an odd offset); float64 refused."""
     from repro_torch.apps import gray_scott as GS
     from repro_torch.kernels.stencil7 import ops as SOPS
     from repro_torch.kernels.stencil7 import stencil7 as SK
@@ -815,13 +863,36 @@ def test_cuda_stencil7_matches_plain(card, shape):
     n0 = SK.LAUNCHES
     got = SK.gray_scott_step(u, v, **args)
     assert SK.LAUNCHES == n0 + 1
-    ref = gray_scott_step_ref(u, v, **args)
+    ref = ref_f32 = gray_scott_step_ref(u, v, **args)
     torch.cuda.synchronize()
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
     cfg = GS.GSConfig(shape=shape, L=shape[0] / 3.0)
     for g, r in zip(SOPS.step(u, v, cfg), GS.gs_step(u, v, cfg)):
         assert torch.equal(g, r)
+    # bf16 and fp16 through their own entries, bit-equal to plain as well
+    for dtype in (torch.bfloat16, torch.float16):
+        u16, v16 = u.to(dtype), v.to(dtype)
+        n0 = SK.LAUNCHES
+        got = SK.gray_scott_step(u16, v16, **args)
+        assert SK.LAUNCHES == n0 + 1
+        ref = gray_scott_step_ref(u16, v16, **args)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            assert g.dtype == dtype and torch.equal(g, r), dtype
+        assert not torch.equal(got[0].float(), ref_f32[0])
+        # the one-node form: an odd nz, and fields at an odd element offset
+        odd = [t[..., :7].contiguous().to(dtype) for t in (u, v)]
+        shifted = []
+        for t in (u16, v16):
+            buf = torch.empty(t.numel() + 1, dtype=dtype, device="cuda")
+            shifted.append(buf[1:].view(t.shape).copy_(t))
+        assert shifted[0].data_ptr() % 4
+        for a, b in (odd, shifted):
+            for g, r in zip(SK.gray_scott_step(a, b, **args),
+                            gray_scott_step_ref(a, b, **args)):
+                assert torch.equal(g, r), (dtype, tuple(a.shape))
+    # float64 stays refused (the TPU kernel has no fp64)
     with pytest.raises(TypeError, match="float32"):
         SK.gray_scott_step(u.double(), v.double(), **args)
 
@@ -899,8 +970,9 @@ def test_bf16x_plain_on_card_equals_plain_on_cpu(card):
 # B5 against its plain version: fp32 within TOL (only the summation order
 # differs); bf16 within 1e-2 of the plain output's max-abs (one bf16
 # rounding of the output is 2^-8 relative, and another summation order can
-# flip it)
+# flip it); fp16 within 1e-3 (its output rounding is 2^-11 relative)
 B5_BF16_TOL = 1e-2
+B5_F16_TOL = 1e-3
 
 
 @pytest.mark.parametrize("B,H,K,Sq,Sk,hd,causal", [
@@ -911,7 +983,8 @@ B5_BF16_TOL = 1e-2
     (1, 24, 2, 65, 300, 64, False),      # rep 12, non-causal
     (3, 6, 3, 1, 9, 32, True),           # one query
 ])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_cuda_flash_attention_matches_plain(card, B, H, K, Sq, Sk, hd,
                                             causal, dtype):
     from repro_torch.kernels.flash_attention import flash_attention as FA
@@ -927,8 +1000,9 @@ def test_cuda_flash_attention_matches_plain(card, B, H, K, Sq, Sk, hd,
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
     assert bool(torch.isfinite(got).all())
-    assert rel(got.float(), ref.float()) <= (TOL if dtype == torch.float32
-                                             else B5_BF16_TOL)
+    assert rel(got.float(), ref.float()) <= {
+        torch.float32: TOL, torch.bfloat16: B5_BF16_TOL,
+        torch.float16: B5_F16_TOL}[dtype]
 
 
 @pytest.mark.parametrize("q_offset,Sq,Sk,hd", [
@@ -1099,8 +1173,16 @@ def test_cuda_mha_takes_strided_views(card):
         FA.flash_attention(q[..., :12].transpose(1, 2).contiguous(),
                            k[..., :12].transpose(1, 2).contiguous(),
                            v[..., :12].transpose(1, 2).contiguous())
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        FA.flash_attention(*(t.transpose(1, 2).half() for t in (q, k, v)))
+    # fp16 goes through the kernel (its fp32 form's pipeline) too
+    q16, k16, v16 = (t.transpose(1, 2).half() for t in (q, k, v))
+    n0 = FA.LAUNCHES
+    got16 = FA.flash_attention(q16, k16, v16)
+    assert FA.LAUNCHES == n0 + 1 and got16.dtype == torch.float16
+    ref16 = flash_attention_ref(q16, k16, v16)
+    torch.cuda.synchronize()
+    assert rel(got16.float(), ref16.float()) <= B5_F16_TOL
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        FA.flash_attention(*(t.transpose(1, 2).double() for t in (q, k, v)))
 
 
 def test_lm_backends_on_the_card(card):

@@ -24,8 +24,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_bridge import (DSF_OUT, OPS_OUT, QUAT_OUT, DSFBody, KABody,
-                           OpsBody, QuatBody, np_, rel, to_torch)
+from _torch_bridge import (DSF_OUT, NEW_OPS, NEW_OPS_EXACT, OPS_OUT,
+                           QUAT_OUT, DSFBody, KABody, NewOpsBody, OpsBody,
+                           QuatBody, new_ops_props, np_, rel, to_torch)
 
 import jax.numpy as jnp
 
@@ -136,6 +137,13 @@ CASES = {
             lambda rng, n: (_pairs(rng, n, 3, 0.05, 1.0), {
                 "kind": rng.integers(-50, 50, (2, n)).astype(np.int32)})),
 }
+NEW_PROPS = {"a": CG.Prop(0, F32), "b": CG.Prop(0, F32), "k": CG.Prop(0, I32)}
+# each op of NEW_OPS alone, and all of them beside a radial force
+for _name, _body in [(f"new_{op}", NewOpsBody((op,))) for op in NEW_OPS] \
+        + [("new_all", NewOpsBody(k_f=2.0))]:
+    CASES[_name] = (_body, _body.out(), 3, NEW_PROPS,
+                    lambda rng, n: (_pairs(rng, n, 3, 0.1, 1.0),
+                                    new_ops_props(rng, (2, n))))
 
 
 class _HostLib:
@@ -280,7 +288,12 @@ def test_generated_functor_matches_plain_body(host, name):
         assert rel(rad[:, k], ref) <= 1e-6, nm
     for k, nm in enumerate(scalar):
         assert rel(sca[:, k], want[nm]) <= 1e-6, nm
-    assert g.props == tuple(sorted(props))
+        if isinstance(body, NewOpsBody) and nm in NEW_OPS_EXACT:
+            assert np.array_equal(sca[:, k], np_(want[nm])), nm
+    # a one-op body reads the props its op reads
+    one_op = isinstance(body, NewOpsBody) and len(body.ops) == 1
+    assert set(g.props) <= set(props) if one_op \
+        else g.props == tuple(sorted(props))
 
 
 def _tiles(dim=3, n=60, seed=4):
@@ -355,9 +368,11 @@ def test_constants_are_params_not_text():
 
 
 def test_unsupported_op_raises():
-    """An op outside the generator's set raises NotImplementedError naming
-    the aten op, on the CPU too, as does Python control flow on a traced
-    value; a hand functor's body is not traced at all."""
+    """What neither package's kernel takes raises NotImplementedError on
+    the CPU too: an op outside the generator's set (cumsum along the pair
+    axis) naming the aten op, Python control flow on a traced value and a
+    closed-over array larger than a table; a hand functor's body is not
+    traced at all."""
     def cum(dx, r2, ok, wi, wj):
         return {"n": torch.cumsum(r2, 0)}
 
@@ -371,6 +386,16 @@ def test_unsupported_op_raises():
 
     with pytest.raises(NotImplementedError, match="control flow"):
         CG.generate(branchy, {"n": "scalar"}, 3, {})
+
+    table = torch.linspace(0.0, 1.0, 512)
+
+    def captured(dx, r2, ok, wi, wj):
+        return {"n": table.to(r2.dtype)[wi["k"] % 512] * r2}
+
+    # repro's pallas_call refuses a captured f32[512] too ("captures
+    # constants ... pass them as inputs")
+    with pytest.raises(NotImplementedError, match="closes over"):
+        CG.generate(captured, {"n": "scalar"}, 3, {"k": CG.Prop(0, I32)})
     kind, prec, params = TCP._kind_of(tmd.lj_pair_body(0.1, 1.0),
                                       {"f": "radial"}, "bf16x", 2)
     assert (kind, prec, params) == ("lj", "bf16x", (0.1 * 0.1, 24.0))
@@ -659,3 +684,126 @@ def test_ka_sim_step_matches_repro_pallas():
     assert float(np.abs(np_(ts.ps.props["f"])[valid]).max()) > 1.0
     assert np.array_equal(np.sort(np_(ts.ps.props["species"])[valid]),
                           np.sort(species))
+
+
+def _new_ops_jbody(k_f: float):
+    """:class:`NewOpsBody` (every op, with its force) in jnp, for
+    ``repro``'s Pallas kernel."""
+    import jax.scipy.special as jss
+
+    ops = {
+        "remainder": lambda r2, dx, u, v, k: jnp.remainder(u, v),
+        "remainder_s": lambda r2, dx, u, v, k: jnp.remainder(u, 0.7),
+        "fmod": lambda r2, dx, u, v, k: jnp.fmod(u, v),
+        "fmod_s": lambda r2, dx, u, v, k: jnp.fmod(u, -0.7),
+        "floordiv": lambda r2, dx, u, v, k: u // v,
+        "floordiv_s": lambda r2, dx, u, v, k: u // 0.7,
+        "div_floor_s": lambda r2, dx, u, v, k: jnp.floor_divide(u, -0.7),
+        "div_trunc": lambda r2, dx, u, v, k: jnp.trunc(u / v),
+        "div_trunc_s": lambda r2, dx, u, v, k: jnp.trunc(u / 0.7),
+        "round_2": lambda r2, dx, u, v, k: jnp.round(u * v, 2),
+        "round_m1": lambda r2, dx, u, v, k: jnp.round(3.7 * u, -1),
+        "ipow": lambda r2, dx, u, v, k: (k ** 3 - k ** 2 + k ** 0).astype(
+            r2.dtype) * 1e-4,
+        "hypot": lambda r2, dx, u, v, k: jnp.hypot(dx(0), dx(1)),
+        "copysign": lambda r2, dx, u, v, k: jnp.copysign(r2, u),
+        "copysign_s": lambda r2, dx, u, v, k: jnp.copysign(r2, -1.0),
+        "log2": lambda r2, dx, u, v, k: jnp.log2(r2),
+        "exp2": lambda r2, dx, u, v, k: jnp.exp2(-3.0 * r2),
+        "log10": lambda r2, dx, u, v, k: jnp.log10(r2),
+        "tan": lambda r2, dx, u, v, k: jnp.tan(r2),
+        "asin": lambda r2, dx, u, v, k: jnp.arcsin(0.9 * r2 - 0.45),
+        "acos": lambda r2, dx, u, v, k: jnp.arccos(0.9 * r2 - 0.45),
+        "atan": lambda r2, dx, u, v, k: jnp.arctan(3.0 * r2),
+        "sinh": lambda r2, dx, u, v, k: jnp.sinh(2.0 * r2),
+        "cosh": lambda r2, dx, u, v, k: jnp.cosh(2.0 * r2),
+        "asinh": lambda r2, dx, u, v, k: jnp.arcsinh(3.0 * r2 - 1.0),
+        "acosh": lambda r2, dx, u, v, k: jnp.arccosh(1.0 + 3.0 * r2),
+        "atanh": lambda r2, dx, u, v, k: jnp.arctanh(0.9 * r2 - 0.4),
+        "lgamma": lambda r2, dx, u, v, k: jss.gammaln(5.0 * r2 + 0.1),
+        "amax": lambda r2, dx, u, v, k: jnp.max(
+            jnp.stack([r2, 0.05 * u, 0.5 * v]), axis=0),
+        "amin": lambda r2, dx, u, v, k: jnp.min(
+            jnp.stack([r2, 0.05 * u, 0.5 * v]), axis=0),
+        "ssum": lambda r2, dx, u, v, k: jnp.sum(jnp.stack([r2, u, v]), 0),
+        "sprod": lambda r2, dx, u, v, k: jnp.prod(jnp.stack([r2, u, v]), 0),
+        "maxdim": lambda r2, dx, u, v, k: jnp.max(
+            jnp.stack([r2, 0.5 * v]), axis=0),
+        "iamax": lambda r2, dx, u, v, k: jnp.max(
+            jnp.stack([k, 3 - k]), axis=0).astype(r2.dtype),
+    }
+    assert tuple(ops) == tuple(NEW_OPS)
+
+    def body(dx, r2, ok, wi, wj):
+        # the kernel's wi are columns and its wj rows: stack full tiles
+        u, v, k = (jnp.broadcast_to(a, r2.shape) for a in
+                   (wi["a"], wj["b"], wi["k"] - wj["k"]))
+        vals = [ops[name](r2, dx, u, v, k) for name in NEW_OPS]
+        mean = sum(vals) * (0.01 / len(vals))
+        return {"f": JI.Radial(jnp.exp2(-k_f * r2) * (2.0 + mean))}
+
+    return body
+
+
+def _new_ops_phys(cfg: KACfg, k_f: float, repro: bool):
+    """MD (velocity Verlet) around the new-op body's force: the port's
+    spec, or ``repro``'s on its Pallas kernel in interpret mode."""
+    props = ("a", "b", "k")
+    if repro:
+        spec = jmd.physics(jmd.MDConfig(
+            n_per_side=cfg.n_per_side, sigma=cfg.sigma, dt=cfg.dt,
+            backend="pallas", interpret=cfg.interpret))
+        body = _new_ops_jbody(k_f)
+    else:
+        spec = tmd.physics(tmd.MDConfig(
+            n_per_side=cfg.n_per_side, sigma=cfg.sigma, dt=cfg.dt,
+            device="cpu", backend=cfg.backend))
+        body = NewOpsBody(k_f=k_f)
+    return dataclasses.replace(
+        spec, name="new_ops", r_cut=2.5 * cfg.sigma, make_body=lambda: body,
+        pair_out={"f": "radial"}, pair_props=props, ghost_props=props)
+
+
+def test_new_ops_sim_step_matches_repro_pallas():
+    """The force of every op B1's generated route gained last (remainder,
+    fmod, floor and trunc division by tensors and numbers, round with
+    decimals, integer pow, hypot, copysign, log2, exp2, log10, tan, the
+    inverse and hyperbolic functions, lgamma and reductions over stacks)
+    at 512 particles: 5 steps of the port's make_sim_step on the plain
+    path against repro's make_sim_step on its Pallas kernel in interpret
+    mode, x, v and f within 1e-5; the body's generated functor takes it
+    (no NotImplementedError)."""
+    cfg = KACfg()
+    k_f = 10.0 / (2.5 * cfg.sigma) ** 2
+    rng = np.random.default_rng(30)
+    n = cfg.n_per_side
+    g = (np.arange(n) + 0.5) / n
+    x = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    x = (x + rng.uniform(-0.05, 0.05, x.shape) / n).astype(np.float32)
+    m = x.shape[0]
+    props = {"v": rng.normal(0.0, 0.5, (m, 3)).astype(np.float32),
+             "f": np.zeros((m, 3), np.float32),
+             **new_ops_props(rng, (m,))}
+    jps = JP.from_positions(jnp.asarray(x), capacity=int(1.3 * m),
+                            props={k: jnp.asarray(v)
+                                   for k, v in props.items()})
+    jphys = lambda c: _new_ops_phys(c, k_f, True)
+    tphys = lambda c: _new_ops_phys(c, k_f, False)
+    js = JSIM.serial_state(jps, jphys, cfg)
+    ts = TSIM.serial_state(to_torch(jps), tphys, cfg)
+    kind, _, _ = TCP._kind_of(NewOpsBody(k_f=k_f), {"f": "radial"}, "fp32",
+                              3, {k: ts.ps.props[k][None] for k in "abk"})
+    assert kind.startswith("gen_")
+    j_step = JSIM.make_sim_step(jphys, cfg)
+    t_step = TSIM.make_sim_step(tphys, cfg)
+    for _ in range(5):
+        js, jf, _ = j_step(js, {})
+        ts, tf, _ = t_step(ts, {})
+        assert int(jf.any()) == int(tf.any()) == 0
+    valid = np_(js.ps.valid)
+    assert np.array_equal(np_(ts.ps.valid), valid)
+    for key in ("v", "f"):
+        assert rel(np_(ts.ps.props[key])[valid],
+                   np_(js.ps.props[key])[valid]) <= 1e-5, key
+    assert rel(np_(ts.ps.x)[valid], np_(js.ps.x)[valid]) <= 1e-5
+    assert float(np.abs(np_(ts.ps.props["f"])[valid]).max()) > 0.01

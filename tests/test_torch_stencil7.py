@@ -1,7 +1,8 @@
 """repro_torch's fused Gray–Scott stencil step (B2) on the CPU against
 repro's: the plain gray_scott_step and ops.step against repro's Pallas
 kernel (interpret mode) and its gray_scott_step_ref, at
-tests/test_kernels.py's three shapes and block sizes; and the wrapper's
+tests/test_kernels.py's three shapes and block sizes, and in bf16 and
+fp16 against that kernel on 16-bit fields; and the wrapper's
 contract (3-D fields, nx % block_x). The kernel itself
 is held against the plain version on the card (tests/test_torch_gpu.py,
 chip_smoke.py phase 9)."""
@@ -60,6 +61,30 @@ def test_ops_step_matches_repro(shape, block_x):
     got = TOPS.step(torch.from_numpy(u), torch.from_numpy(v), cfg)
     _close(got, JOPS.step(jnp.asarray(u), jnp.asarray(v), cfg))
     _close(got, j_ref(jnp.asarray(u), jnp.asarray(v), **ARGS))
+
+
+# two ulps of the dtype at 1.0 (the fields' scale)
+HALF_TOL = {torch.bfloat16: 8e-3, torch.float16: 1e-3}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape,block_x", CASES[:2])
+def test_plain_step_16bit_matches_repro_kernel(shape, block_x, dtype):
+    """The plain step in bf16 and fp16 (the kernel's 16-bit forms hold it
+    bit for bit on the card) against repro's Pallas kernel on the same
+    16-bit fields, interpret mode: within two ulps of the dtype at 1.0,
+    in the dtype."""
+    u, v = _fields(shape, seed=sum(shape) + 1)
+    tu, tv = (torch.from_numpy(a).to(dtype) for a in (u, v))
+    got = TK.gray_scott_step(tu, tv, block_x=block_x, **ARGS)
+    assert TK.LAUNCHES == 0 and got[0].dtype == dtype
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float16
+    ref = j_step(jnp.asarray(u).astype(jdt), jnp.asarray(v).astype(jdt),
+                 block_x=block_x, interpret=True, **ARGS)
+    for g, r in zip(got, ref):
+        assert r.dtype == jdt
+        gap = np.abs(np_(g.float()) - np.asarray(r, np.float32)).max()
+        assert gap <= HALF_TOL[dtype], (dtype, gap)
 
 
 def test_plain_step_takes_any_float():
