@@ -362,6 +362,9 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.core.interactions import (  # noqa: E402
     Radial, parse_precision)
 
+sys.path.insert(0, str(ROOT / "tests"))
+from _torch_bridge import NEW_OPS, NewOpsBody  # noqa: E402
+
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate and fp32 outside the
 # tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -447,10 +450,11 @@ B5_SPLIT_SHAPE = (8, 32, 4, 64, 16, 128)     # B, H, K, Sq, Sk, hd; all keys
 # on the tensor cores): its rel error against plain is held under
 # B5_SPLIT_FRAC of a control's that sums only the three of order <= 1
 # (``split_terms=3``), so the order-2 products are shown to be computed.
-# Both forms' bound is the function's 4 hd operations a visible pair at
+# Every form's bound is the function's 4 hd operations a visible pair at
 # the tensor-core rate; each form's own floor counts what it issues:
-# 8 hd (bf16: q.k^T and three p.v terms) or 24 hd (fp32: six of each).
-B5_FLOOR_OPS_PER_HD = {"bfloat16": 8, "float32": 24, "float16": 18}
+# 8 hd (bf16 and fp16: q.k^T and three p.v terms) or 24 hd (fp32: six of
+# each).
+B5_FLOOR_OPS_PER_HD = {"bfloat16": 8, "float32": 24, "float16": 8}
 LM_FP32_TOL = 1e-4    # 10b prefill logits, kernel path vs plain path
 LM_BF16_TOL = 5e-2    # 10c prefill logits (bf16, 40 layers), same
 # 10d-10f: the moe and ssm kinds served at full width in bf16 (the prompt
@@ -825,12 +829,17 @@ def b1_check(name, CP, t, body, out, r_cut, eval_flops, cell_batch,
     n_bytes, n_ops, tests, inside, bound_ms, bound_by = b1_bound(
         t, width, r_cut * r_cut, eval_flops, list(got.values()))
     design = CP.plan(kind, prec, t.cell_x.shape[-1], t.cell_x.shape[1])
+    regs = CP.attrs(kind, prec, t.cell_x.shape[-1], t.cell_x.shape[1])
     print(f"{name}: {kernel_ms:.4f} ms kernel, {plain_ms:.3f} ms plain, "
           f"{n_bytes / 1e6:.1f} MB, {tests:.4e} tests, {inside:.4e} in "
           f"cutoff, {n_ops:.4e} flops, bound {bound_ms:.4f} ms "
           f"({bound_by}); design: {design['threads']} threads a cell, "
           f"tiles of {design['tile']} candidates, chunks of "
-          f"{design['chunk']} rows, {design['smem_bytes']} B shared")
+          f"{design['chunk']} rows, {design['smem_bytes']} B shared; the "
+          f"kernel bounded to {regs['bound']} threads"
+          + (f", {regs['min_blocks']} blocks" if regs["min_blocks"] else "")
+          + f": {regs['registers']} registers, {regs['spill_bytes']} B "
+          "spilled a thread")
     print_lanes(name, CP, t, design["threads"])
     gen = CP.KINDS[kind].gen
     return {
@@ -850,6 +859,8 @@ def b1_check(name, CP, t, body, out, r_cut, eval_flops, cell_batch,
         **({"fp32_gap_rel": gaps} if fp32_out is not None else {}),
         "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
+        "registers": regs["registers"], "spill_bytes": regs["spill_bytes"],
+        "bound_threads": regs["bound"], "min_blocks": regs["min_blocks"],
         "library_ms": None}, got
 
 
@@ -5709,13 +5720,9 @@ def ka_phase(md, CL, CP, SIM, FB, build_s):
     return entries
 
 
-def typed_tiles_phase(md, CL, CP, SIM, build_s):
-    """21b: on phase 2's state, damped shifted-force electrostatics (a
-    seeded +-1 charge of zero sum) and the five-output body of width-4
-    unit quaternions under QUAT_PREC: each kernel against its plain
-    version (the width-4 body in fp32 too), timed, with its bytes bound,
-    then TYPED_STEPS make_sim_step steps through it against the plain
-    path. Returns the ``B1-gen-DSF`` and ``B1-gen-w4`` entries."""
+def typed_tiles_state(md):
+    """Phase 2's state (MD after 10 steps) with 21b's props: a seeded +-1
+    charge q of zero sum and width-4 unit quaternions q4."""
     cfg_md = md.MDConfig(n_per_side=N_PER_SIDE, sigma=SIGMA, dt=DT,
                          cell_cap=48, device="cuda", backend="auto")
     ps, _ = md.run(cfg_md, 10, thermal_v=THERMAL_V, seed=1)
@@ -5728,9 +5735,20 @@ def typed_tiles_phase(md, CL, CP, SIM, build_s):
     q4 = torch.randn((ps.capacity, 4), generator=g, device="cuda")
     q4 = torch.where(ps.valid[:, None],
                      q4 / q4.norm(dim=1, keepdim=True), 0.0)
-    ps = ps.with_prop("q", q).with_prop("q4", q4)
-    print(f"21b: charges sum {float(q.sum()):.1f} over {n} particles; DSF "
-          f"alpha {DSF_ALPHA:.4f}, R_c {3.0 * SIGMA:.6f}")
+    return ps.with_prop("q", q).with_prop("q4", q4)
+
+
+def typed_tiles_phase(md, CL, CP, SIM, build_s):
+    """21b: on phase 2's state, damped shifted-force electrostatics (a
+    seeded +-1 charge of zero sum) and the five-output body of width-4
+    unit quaternions under QUAT_PREC: each kernel against its plain
+    version (the width-4 body in fp32 too), timed, with its bytes bound,
+    then TYPED_STEPS make_sim_step steps through it against the plain
+    path. Returns the ``B1-gen-DSF`` and ``B1-gen-w4`` entries."""
+    ps = typed_tiles_state(md)
+    print(f"21b: charges sum {float(ps.props['q'].sum()):.1f} over "
+          f"{int(ps.valid.sum())} particles; DSF alpha {DSF_ALPHA:.4f}, R_c "
+          f"{3.0 * SIGMA:.6f}")
     entries = []
     # flops per in-cutoff evaluation (sqrt, division, exp, erfc, tanh one
     # each): DSF 26 (q q, the distance, erfc, exp and the shifted force
@@ -5784,78 +5802,12 @@ def typed_phase(md, CL, CP, build_s):
 # bf16 and fp16, B5 in fp16
 # --------------------------------------------------------------------------
 
-def _stack(*vals):
-    """torch.stack of per-pair values (the plain path's props are columns
-    beside the pairs' tiles: broadcast first)."""
-    return torch.stack(torch.broadcast_tensors(*vals))
-
-
-#: Each elementwise op B1's generated route took last, as a function of
-#: NewOpsBody's per-pair values (r2, dx, u, v, k): well-conditioned there,
-#: continuous in the positions, the rounding ops' operands props alone (u
-#: = 0.7 (m + f), f in [0.15, 0.85]: away from every discontinuity). The
-#: same table as tests/_torch_bridge.py's, which the gpu tests use.
-NEW_OPS = {
-    "remainder": lambda r2, dx, u, v, k: torch.remainder(u, v),
-    "remainder_s": lambda r2, dx, u, v, k: torch.remainder(u, 0.7),
-    "fmod": lambda r2, dx, u, v, k: torch.fmod(u, v),
-    "fmod_s": lambda r2, dx, u, v, k: torch.fmod(u, -0.7),
-    "floordiv": lambda r2, dx, u, v, k: u // v,
-    "floordiv_s": lambda r2, dx, u, v, k: u // 0.7,
-    "div_floor_s": lambda r2, dx, u, v, k: torch.div(
-        u, -0.7, rounding_mode="floor"),
-    "div_trunc": lambda r2, dx, u, v, k: torch.div(u, v,
-                                                   rounding_mode="trunc"),
-    "div_trunc_s": lambda r2, dx, u, v, k: torch.div(
-        u, 0.7, rounding_mode="trunc"),
-    "round_2": lambda r2, dx, u, v, k: torch.round(u * v, decimals=2),
-    "round_m1": lambda r2, dx, u, v, k: torch.round(3.7 * u, decimals=-1),
-    "ipow": lambda r2, dx, u, v, k: (k ** 3 - k ** 2 + k ** 0).to(
-        r2.dtype) * 1e-4,
-    "hypot": lambda r2, dx, u, v, k: torch.hypot(dx(0), dx(1)),
-    "copysign": lambda r2, dx, u, v, k: torch.copysign(r2, u),
-    "copysign_s": lambda r2, dx, u, v, k: torch.copysign(r2, -1.0),
-    "log2": lambda r2, dx, u, v, k: torch.log2(r2),
-    "exp2": lambda r2, dx, u, v, k: torch.exp2(-3.0 * r2),
-    "log10": lambda r2, dx, u, v, k: torch.log10(r2),
-    "tan": lambda r2, dx, u, v, k: torch.tan(r2),
-    "asin": lambda r2, dx, u, v, k: torch.asin(0.9 * r2 - 0.45),
-    "acos": lambda r2, dx, u, v, k: torch.acos(0.9 * r2 - 0.45),
-    "atan": lambda r2, dx, u, v, k: torch.atan(3.0 * r2),
-    "sinh": lambda r2, dx, u, v, k: torch.sinh(2.0 * r2),
-    "cosh": lambda r2, dx, u, v, k: torch.cosh(2.0 * r2),
-    "asinh": lambda r2, dx, u, v, k: torch.asinh(3.0 * r2 - 1.0),
-    "acosh": lambda r2, dx, u, v, k: torch.acosh(1.0 + 3.0 * r2),
-    "atanh": lambda r2, dx, u, v, k: torch.atanh(0.9 * r2 - 0.4),
-    "lgamma": lambda r2, dx, u, v, k: torch.lgamma(5.0 * r2 + 0.1),
-    "amax": lambda r2, dx, u, v, k: _stack(r2, 0.05 * u, 0.5 * v).amax(0),
-    "amin": lambda r2, dx, u, v, k: _stack(r2, 0.05 * u, 0.5 * v).amin(0),
-    "ssum": lambda r2, dx, u, v, k: _stack(r2, u, v).sum(0),
-    "sprod": lambda r2, dx, u, v, k: _stack(r2, u, v).prod(0),
-    "maxdim": lambda r2, dx, u, v, k: torch.max(_stack(r2, 0.5 * v),
-                                                0).values,
-    "iamax": lambda r2, dx, u, v, k: _stack(k, 3 - k).amax(0).to(r2.dtype),
-}
-
-
-@dataclasses.dataclass(frozen=True)
-class NewOpsBody:
-    """A user's body with no ``cuda_kind``: one scalar output per op of
-    NEW_OPS and the radial force ``f`` = exp2(-k_f r2) (2 + 0.01
-    mean(ops)), so that every op moves the trajectory; props ``a`` (u),
-    ``b`` (v) and the int32 ``k`` (k_i - k_j)."""
-
-    k_f: float
-
-    def __call__(self, dx, r2, ok, wi, wj):
-        u, v, k = wi["a"], wj["b"], wi["k"] - wj["k"]
-        out = {name: fn(r2, dx, u, v, k) for name, fn in NEW_OPS.items()}
-        mean = sum(out.values()) * (0.01 / len(out))
-        out["f"] = Radial(torch.exp2(-self.k_f * r2) * (2.0 + mean))
-        return out
-
-
-NEW_OUT = {**{name: "scalar" for name in NEW_OPS}, "f": "radial"}
+#: NewOpsBody (tests/_torch_bridge.py, shared with the gpu tests): one
+#: scalar output per op of NEW_OPS, each elementwise op B1's generated
+#: route took last, and a radial force f = exp2(-k_f r2) (2 + 0.01
+#: mean(ops)), so that every op moves the trajectory; props a (u), b (v)
+#: and the int32 k (k_i - k_j).
+NEW_OUT = NewOpsBody(k_f=1.0).out()
 NEW_PROPS = ("a", "b", "k")
 
 
@@ -5863,7 +5815,7 @@ def new_ops_cfg() -> TypedCfg:
     """Phase 2's box at DSF's cutoff (3 sigma) with phase 20's Gaussian
     in base 2."""
     rc = 3.0 * SIGMA
-    return TypedCfg(NewOpsBody(gauss_k(rc) / math.log(2.0)),
+    return TypedCfg(NewOpsBody(k_f=gauss_k(rc) / math.log(2.0)),
                     tuple(sorted(NEW_OUT.items())), NEW_PROPS, SIGMA, DT, rc)
 
 
@@ -6077,7 +6029,8 @@ def b5_f16_phase():
     """22c: B5 in float16 at 10a's causal prefill shape and at the
     whisper encoder's non-causal one (B5_NONCAUSAL): against its plain
     version within B5_F16_TOL, timed beside plain and PyTorch's SDPA in
-    fp16 (held to plain at the same tolerance first); then its main path,
+    fp16 (held to plain at the same tolerance first), its allocations held
+    to its output (no split pass, no scratch); then its main path,
     starcoder2-15b at full width cut to LM_FP32_LAYERS layers in fp16:
     the prefill's logits through B5 (one launch a layer) against the
     plain path. Returns the ``flash_attention_f16`` entry."""
@@ -6098,7 +6051,21 @@ def b5_f16_phase():
                                                     (B, K, Sk, hd)))
         recs[label] = b5_case(label, q, k, v, causal=causal, tol=B5_F16_TOL)
         recs[label]["shape"] = [B, H, K, Sq, Sk, hd]
-        del q, k, v
+        # no split pass: the call allocates its output and nothing else
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        o = FA.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - before
+        out_bytes = -(-o.numel() * o.element_size() // 512) * 512
+        print(f"22c: B5 float16 {label} allocates {extra} B on the card, its "
+              f"output {out_bytes} B")
+        if extra > out_bytes:
+            raise RuntimeError(f"22c: B5 float16 {label} allocated {extra} B, "
+                               f"more than its output's {out_bytes}")
+        recs[label]["allocated_bytes"] = extra
+        del q, k, v, o
         torch.cuda.empty_cache()
     c = dataclasses.replace(cfg, n_layers=LM_FP32_LAYERS,
                             param_dtype="float16", compute_dtype="float16")
@@ -6134,6 +6101,7 @@ def b5_f16_phase():
         "ms": pre["ms"], "kernel_ms": pre["ms"], "plain_ms": pre["plain_ms"],
         "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
         "library_ms": pre["library_ms"], "floor_ms": pre["floor_ms"],
+        "allocated_bytes": pre["allocated_bytes"],
         "prefill_logits_rel_err": err, "noncausal": {
             k: v for k, v in recs.items() if k != "prefill"}}
 

@@ -294,9 +294,11 @@ def _lib_of(src: pathlib.Path) -> ctypes.CDLL:
                 fn = getattr(lib, f"cell_pair_{kind}_{prec}_d{dim}")
                 fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, p, p]
                 fn.restype = i
-                fn = getattr(lib, f"cell_pair_{kind}_{prec}_d{dim}_plan")
-                fn.argtypes = [i, p]
-                fn.restype = i
+                for what in ("plan", "attrs"):
+                    fn = getattr(lib,
+                                 f"cell_pair_{kind}_{prec}_d{dim}_{what}")
+                    fn.argtypes = [i, p]
+                    fn.restype = i
     return lib
 
 
@@ -322,6 +324,22 @@ def plan(kind: str, prec: str, dim: int, cc: int) -> dict:
     entry = f"cell_pair_{kind}_{prec}_d{dim}_plan"
     _build.check(getattr(_lib(kind), entry)(cc, out), entry)
     return dict(zip(("threads", "tile", "chunk", "smem_bytes"), out))
+
+
+def attrs(kind: str, prec: str, dim: int, cc: int) -> dict:
+    """The kernel instantiation that a launch of functor ``kind`` in
+    precision ``prec`` at cell capacity ``cc`` takes (builds the library;
+    the card's ``cudaFuncGetAttributes``): its registers a thread, its
+    local (spill) bytes a thread and its ``__launch_bounds__``: at most
+    ``bound`` threads a block with ``min_blocks`` blocks resident on an
+    SM (0: none given). The wide bound is 1024 and 0; an entry fitted to
+    its block (``CELL_PAIR_ENTRY_FIT``) takes 256 and its count where the
+    block fits."""
+    out = (ctypes.c_int * 4)()
+    entry = f"cell_pair_{kind}_{prec}_d{dim}_attrs"
+    _build.check(getattr(_lib(kind), entry)(cc, out), entry)
+    return dict(zip(("registers", "spill_bytes", "bound", "min_blocks"),
+                    out))
 
 
 def stripes(n_home, threads: int):

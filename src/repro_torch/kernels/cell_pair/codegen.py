@@ -63,10 +63,12 @@ and an integer converted to bf16 goes through fp32 first (c10's
 name, its params, the props it reads (packed in sorted name order, with
 their widths) and the C++ source, which :func:`source_path` writes under
 ``build/repro_torch/gen/`` (listed in ``.gitignore``) with one
-``CELL_PAIR_ENTRY`` per precision: ``f32``, ``bf16x`` and one
+``CELL_PAIR_ENTRY_FIT`` per precision: ``f32``, ``bf16x`` and one
 ``bf16x_<names>`` (``MixedBody``) for each selection a launch has asked
 for (:meth:`Generated.with_mixed`; a new selection names a new source
-file, built at its first launch). The library is built from it by
+file, built at its first launch). ``_FIT``: each entry's register bound
+(the engine header's register budget) is :func:`entry_bound`'s, which a
+launch takes where its block fits 256 threads. The library is built from it by
 ``_build`` at first launch, keyed by its text and flags.
 """
 from __future__ import annotations
@@ -87,6 +89,29 @@ from repro_torch.kernels import _build
 ENGINE = pathlib.Path(__file__).resolve().parent / "csrc" \
     / "cell_pair_engine.cuh"
 GEN_DIR = _build.BUILD_DIR / "gen"
+
+#: Output floats a lane (N_RADIAL DIM + N_SCALAR) above which a generated
+#: functor keeps the wide bound (:func:`entry_bound`).
+WIDE_OUTPUTS = 16
+
+
+def entry_bound(n_out: int, prec: str) -> int:
+    """The register bound of a generated functor's entry in precision
+    ``prec`` with ``n_out`` output floats a lane, as the engine's
+    ``CELL_PAIR_ENTRY_FIT`` takes it: -1 the wide bound (1024 threads), 0
+    256 threads, 1-4 (256 threads, that many blocks an SM). Each rule is
+    the bound that timed best on an H100 80GB HBM3 (700 W) against the wide
+    one, in turns (tools/b1_ab.py; PERF.md): fp32 bodies of up to 16
+    outputs at 256 threads (0.934-0.998x: LJ with its kind hidden, the
+    Gaussian, Kob–Andersen, DSF, the width-4 body), bf16x and mixed
+    entries at (256, 4) (0.965-0.999x; at 256 threads the Gaussian's took
+    1.011x), and a wider body at the wide bound: phase 22a's 37
+    sums a lane lost more to occupancy under a larger register cap than it
+    saved in spills (80 registers 0.989x and 1.038x in bf16x, 120 1.071x
+    and 1.175x), and (256, 4) took it to 1.000x and 1.012x."""
+    if n_out > WIDE_OUTPUTS:
+        return -1
+    return 0 if prec == "f32" else 4
 
 #: The precisions of every generated functor; ``bf16x_<names>`` entries
 #: are added as launches ask for them (:meth:`Generated.with_mixed`).
@@ -213,8 +238,10 @@ class Generated(NamedTuple):
             lines.append(f"using {alias} = MixedBody<{name}<F32>, "
                          f"{name}<BF16>, {rad}u, {sca}u>;")
             bodies[prec] = alias
-        entries = [f"CELL_PAIR_ENTRY(cell_pair_{self.kind}_{prec}_d"
-                   f"{self.dim}, {bodies[prec]}, {self.width})"
+        n_out = sum(self.dim if k == "radial" else 1 for _, k in self.out)
+        entries = [f"CELL_PAIR_ENTRY_FIT(cell_pair_{self.kind}_{prec}_d"
+                   f"{self.dim}, {bodies[prec]}, {self.width}, "
+                   f"{entry_bound(n_out, prec)})"
                    for prec in self.precs]
         lines += ["", "}  // namespace", "", 'extern "C" {', *entries,
                   "}", ""]

@@ -253,11 +253,21 @@ using SPHAcc = MixedBody<SPH32<DIM>, SPH16<DIM>, 1u, 0u>;
 
 extern "C" {
 
+// Each entry's bound (the engine's register budget) is the one that timed
+// best at the main path's shapes, each in turns against the wide bound
+// (tools/b1_ab.py --fit-blocks on an H100 80GB HBM3, 700 W; PERF.md): 256
+// threads for LJ bf16x d2 (0.933x) and SPH fp32 d3 (0.938x; ptxas gives
+// it 48 registers there, 62 under the wide bound), (256, 1) for LJ fp32
+// d3 (0.937x), (256, 4) and (256, 2) for DEM fp32 and bf16x (0.953x,
+// 0.962x); the wide bound where no other gained (LJ fp32 d2, LJ bf16x
+// d3, SPH bf16x d3 and bf16x:drho, which took 1.036-1.114x with 71-74
+// registers under (256, 1-3)) or no main path times the entry.
+
 // LJ forces: DIM 2 and 3, no props, out_radial "f"; fp32 and bf16x.
-CELL_PAIR_ENTRY(cell_pair_lj_f32_d3, LJ32<3>, 0)
+CELL_PAIR_ENTRY_FIT(cell_pair_lj_f32_d3, LJ32<3>, 0, 1)
 CELL_PAIR_ENTRY(cell_pair_lj_bf16x_d3, LJ16<3>, 0)
 CELL_PAIR_ENTRY(cell_pair_lj_f32_d2, LJ32<2>, 0)
-CELL_PAIR_ENTRY(cell_pair_lj_bf16x_d2, LJ16<2>, 0)
+CELL_PAIR_ENTRY_FIT(cell_pair_lj_bf16x_d2, LJ16<2>, 0, 0)
 
 // SPH rates, 2-D: NPROP 3 (v, rho), out_radial "a", out_scalar "drho".
 //
@@ -289,7 +299,7 @@ CELL_PAIR_ENTRY(cell_pair_sph_f32_d2, SPH32<2>, 3)
 // allow), about 1,160 valid candidates staged with their Tait term, and
 // 43 home lanes walking them and evaluating ~146 in-cutoff pairs each.
 // Measured on an H100 80GB HBM3 (700 W): 3.29 ms, 12x the bound.
-CELL_PAIR_ENTRY(cell_pair_sph_f32_d3, SPH32<3>, 4)
+CELL_PAIR_ENTRY_FIT(cell_pair_sph_f32_d3, SPH32<3>, 4, 0)
 
 // SPH under bf16x (both outputs from the bf16 evaluation), bf16x:drho
 // (drho bf16, a fp32) and bf16x:a (a bf16, drho fp32), 2-D and 3-D. The
@@ -317,7 +327,7 @@ CELL_PAIR_ENTRY(cell_pair_sph_bf16x_a_d3, SPHAcc<3>, 4)
 // blocks, a fifth of them busy, each with one warp, are short of warps
 // and of work. This design: 0.423 ms there (bf16x 0.482), 4.2x the
 // bound, on the same H100.
-CELL_PAIR_ENTRY(cell_pair_dem_f32_d3, DEMNormalBody<F32>, 3)
-CELL_PAIR_ENTRY(cell_pair_dem_bf16x_d3, DEMNormalBody<BF16>, 3)
+CELL_PAIR_ENTRY_FIT(cell_pair_dem_f32_d3, DEMNormalBody<F32>, 3, 4)
+CELL_PAIR_ENTRY_FIT(cell_pair_dem_bf16x_d3, DEMNormalBody<BF16>, 3, 2)
 
 }  // extern "C"

@@ -3,7 +3,8 @@
 // The cell-pair engine for Hopper (sm_90a): everything of the B1 kernel
 // but its pair bodies. A source includes this header, defines its body
 // functors (the interface below) in an anonymous namespace and names one C
-// entry per (functor, precision, DIM) with CELL_PAIR_ENTRY:
+// entry per (functor, precision, DIM) with CELL_PAIR_ENTRY or
+// CELL_PAIR_ENTRY_FIT (the register budget, below):
 // csrc/cell_pair.cu for the hand-written LJ, SPH and DEM functors, and the
 // sources that kernels/cell_pair/codegen.py writes for a pair body traced
 // from its plain PyTorch form.
@@ -58,7 +59,21 @@
 //   * dx and r2 are computed with explicitly rounded operations
 //     (__fmul_rn/__fadd_rn, never contracted into an FMA) in the same order
 //     as the plain PyTorch version, so the cutoff and self-exclusion tests
-//     decide every pair identically on both paths.
+//     decide every pair identically on both paths;
+//   * the register budget follows the launch: every entry has the kernel
+//     bounded to 1,024 threads (WIDE_THREADS), where ptxas holds a thread
+//     to 64 registers; an entry named with CELL_PAIR_ENTRY_FIT(..., FIT)
+//     also has one bounded to 256 threads (FIT_THREADS; up to 255
+//     registers) or, FIT 1-4, to (256 threads, FIT blocks an SM), a cap of
+//     255, 128, 80 or 64 registers, which its launches take wherever the
+//     plan's block fits it (cc <= 256). ptxas allocates registers
+//     otherwise under each form, even at one cap, and each entry's bound is
+//     the one that timed best (cell_pair.cu, codegen.entry_bound; PERF.md,
+//     tools/b1_ab.py). More registers did not pay for the widest body
+//     (phase 22a's 37 sums a lane, 200-428 B spilled a thread at 64
+//     registers): at 80 and 120 registers it lost more to occupancy than
+//     it saved in spills. <entry>_attrs reports the registers, the local
+//     (spill) bytes and the bound of the instantiation a launch takes.
 //
 // What bounds the LJ form on the H100: memory. At the MD size (216,000 particles,
 // 12,167 cells, cc = 48, K = 27) a kernel needs both masks whole and the
@@ -621,8 +636,14 @@ __device__ __forceinline__ float geometry(const float* xi, const float* xj,
   return r2;
 }
 
+// The kernel's thread bounds (the register budget, above).
+constexpr int WIDE_THREADS = 1024;
+constexpr int FIT_THREADS = 256;
+
+// One block's work: the cell blockIdx.x. The kernels below differ only in
+// their __launch_bounds__.
 template <class Body, int DIM, int NPROP>
-__global__ void __launch_bounds__(1024) cell_pair_kernel(
+__device__ __forceinline__ void cell_pair_block(
     const float* __restrict__ cell_x,      // (C, cc, DIM)
     const float* __restrict__ nbr_x,       // (C, kcc, DIM)
     const bool* __restrict__ cell_mask,    // (C, cc)
@@ -799,14 +820,64 @@ __global__ void __launch_bounds__(1024) cell_pair_kernel(
     store<Body>(out_radial, out_scalar, n_slots, slot, acc_r, acc_s);
 }
 
-template <class Body, int NPROP>
+#define CELL_PAIR_KERNEL_ARGS                                              \
+  const float *__restrict__ cell_x, const float *__restrict__ nbr_x,       \
+      const bool *__restrict__ cell_mask, const bool *__restrict__ nbr_mask, \
+      const float *__restrict__ props_i, const float *__restrict__ props_j, \
+      float *__restrict__ out_radial, float *__restrict__ out_scalar, int C, \
+      int cc, int kcc, float rc2, Body body, int rep, int chunk
+#define CELL_PAIR_KERNEL_PASS                                              \
+  cell_x, nbr_x, cell_mask, nbr_mask, props_i, props_j, out_radial,        \
+      out_scalar, C, cc, kcc, rc2, body, rep, chunk
+
+// At most MAXT threads a block; ptxas picks the registers a thread within
+// 65536 / MAXT (64 at WIDE_THREADS, 255 at FIT_THREADS).
+template <class Body, int DIM, int NPROP, int MAXT>
+__global__ void __launch_bounds__(MAXT)
+    cell_pair_kernel(CELL_PAIR_KERNEL_ARGS) {
+  cell_pair_block<Body, DIM, NPROP>(CELL_PAIR_KERNEL_PASS);
+}
+
+// At most MAXT threads a block and MINB blocks of them resident on an SM:
+// at most 65536 / (MAXT MINB) registers a thread (255, 128, 80, 64 for
+// MINB 1-4 at FIT_THREADS). ptxas allocates otherwise than under MAXT
+// alone, even where the cap is the same (PERF.md).
+template <class Body, int DIM, int NPROP, int MAXT, int MINB>
+__global__ void __launch_bounds__(MAXT, MINB)
+    cell_pair_kernel_blocks(CELL_PAIR_KERNEL_ARGS) {
+  cell_pair_block<Body, DIM, NPROP>(CELL_PAIR_KERNEL_PASS);
+}
+
+// The instantiation a launch of `threads` threads takes and its bound
+// (threads, blocks; blocks 0: none given). FIT < 0: the wide kernel
+// (WIDE_THREADS) alone; FIT 0: the one bounded to FIT_THREADS, FIT 1-4:
+// to (FIT_THREADS, FIT), where the block fits it, else the wide one.
+template <class Body, int NPROP, int FIT>
+auto kernel_for(int threads, int (&bound)[2]) {
+  constexpr int DIM = Body::DIM;
+  if constexpr (FIT == 0) {
+    if (threads <= FIT_THREADS) {
+      bound[0] = FIT_THREADS, bound[1] = 0;
+      return cell_pair_kernel<Body, DIM, NPROP, FIT_THREADS>;
+    }
+  } else if constexpr (FIT > 0) {
+    if (threads <= FIT_THREADS) {
+      bound[0] = FIT_THREADS, bound[1] = FIT;
+      return cell_pair_kernel_blocks<Body, DIM, NPROP, FIT_THREADS, FIT>;
+    }
+  }
+  bound[0] = WIDE_THREADS, bound[1] = 0;
+  return cell_pair_kernel<Body, DIM, NPROP, WIDE_THREADS>;
+}
+
+template <class Body, int NPROP, int FIT>
 int launch(const void* cell_x, const void* nbr_x, const void* cell_mask,
            const void* nbr_mask, const void* props_i, const void* props_j,
            void* out_radial, void* out_scalar, int C, int cc, int kcc,
            float rc2, const float* params, void* stream) {
-  constexpr int DIM = Body::DIM;
   const Plan p = plan_for<Body, NPROP>(cc);
-  auto kern = cell_pair_kernel<Body, DIM, NPROP>;
+  int bound[2];
+  auto kern = kernel_for<Body, NPROP, FIT>(p.threads, bound);
   if (p.smem > 48 * 1024) {
     // above 48 KB only as opted-in dynamic shared memory
     cudaError_t e = cudaFuncSetAttribute(
@@ -838,6 +909,22 @@ int plan_entry(int cc, int* out) {
   return 0;
 }
 
+template <class Body, int NPROP, int FIT>
+int attrs_entry(int cc, int* out) {
+  if (cc < 1 || cc > 1024) return 1;   // cudaErrorInvalidValue
+  const Plan p = plan_for<Body, NPROP>(cc);
+  int bound[2];
+  auto kern = kernel_for<Body, NPROP, FIT>(p.threads, bound);
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, kern);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = bound[0];
+  out[3] = bound[1];
+  return 0;
+}
+
 #endif  // __CUDACC__
 
 }  // namespace
@@ -853,7 +940,13 @@ int plan_entry(int cc, int* out) {
 // functor lists) and the stream. Each returns cudaGetLastError() after the
 // launch (or the error of the shared-memory opt-in). Beside each, <entry>_plan(cc, out)
 // writes the launch geometry for a cell capacity cc: threads per block,
-// candidates per staging tile, rows per chunk, dynamic shared-memory bytes.
+// candidates per staging tile, rows per chunk, dynamic shared-memory bytes;
+// and <entry>_attrs(cc, out) the instantiation that a launch at cc takes:
+// its registers a thread, its local (spill) bytes a thread and its bound
+// (threads, blocks; 0 blocks: none given). CELL_PAIR_ENTRY_FIT(..., FIT)
+// names an entry whose launches take the kernel bounded to FIT_THREADS
+// (FIT 0) or to (FIT_THREADS, FIT blocks) (FIT 1-4) where the block fits
+// it, CELL_PAIR_ENTRY one that keeps the wide bound (FIT -1).
 #define CELL_PAIR_ARGS                                                     \
   const void *cell_x, const void *nbr_x, const void *cell_mask,            \
       const void *nbr_mask, const void *props_i, const void *props_j,      \
@@ -862,8 +955,15 @@ int plan_entry(int cc, int* out) {
 #define CELL_PAIR_PASS                                                     \
   cell_x, nbr_x, cell_mask, nbr_mask, props_i, props_j, out_radial,        \
       out_scalar, C, cc, kcc, rc2, params, stream
-#define CELL_PAIR_ENTRY(NAME, BODY, NPROP)                                 \
-  int NAME(CELL_PAIR_ARGS) { return launch<BODY, NPROP>(CELL_PAIR_PASS); } \
-  int NAME##_plan(int cc, int *out) { return plan_entry<BODY, NPROP>(cc, out); }
+#define CELL_PAIR_ENTRY_FIT(NAME, BODY, NPROP, FIT)                        \
+  int NAME(CELL_PAIR_ARGS) {                                               \
+    return launch<BODY, NPROP, FIT>(CELL_PAIR_PASS);                       \
+  }                                                                        \
+  int NAME##_plan(int cc, int *out) { return plan_entry<BODY, NPROP>(cc, out); } \
+  int NAME##_attrs(int cc, int *out) {                                     \
+    return attrs_entry<BODY, NPROP, FIT>(cc, out);                         \
+  }
+#define CELL_PAIR_ENTRY(NAME, BODY, NPROP) \
+  CELL_PAIR_ENTRY_FIT(NAME, BODY, NPROP, -1)
 
 #endif  // __CUDACC__

@@ -86,15 +86,21 @@
 //   * Cost: 24 hd tensor-core operations per visible pair (6 x 2 hd for
 //     q.k^T, 6 x 2 hd for p.v) against the function's 4 hd.
 //
-// fp16 (flash_attention_f16): the fp32 form's pipeline. The split pass
-// reads fp16; every fp16 value is exactly hi + lo, hi = bf16(x) and lo =
-// x - hi (fp16's 11-bit significand; bf16's exponent range covers fp16's
-// subnormals), so its third plane is zero. q.k^T skips the two products of
-// a third plane (four remain: every non-zero one, so the scores are the
-// fp32 function's up to the summation order) and p.v the one of v's third
-// plane (five remain). p stays on its three exact bf16 terms: split into
-// fp16 terms, fp16's 5-bit exponent would drop small weights. The output
-// is rounded to fp16. Cost: 18 hd tensor-core operations per visible pair.
+// fp16 (flash_attention_f16): the bf16 form's kernel on fp16 operands.
+//   * q, k and v come in by TMA as they are (fp16 tensor maps); there is
+//     no split pass and no scratch.
+//   * q.k^T is one fp16 wgmma (.f32.f16.f16): a product of two fp16 values
+//     (11 + 11 significand bits) is exact in fp32, so the scores are the
+//     fp32 function's up to the summation order.
+//   * p.v runs as three RS-form fp16 wgmmas on three fp16 terms of P = p .
+//     2^15: t1 = fp16(P), t2 = fp16(P - t1), t3 = fp16(P - t1 - t2). P <=
+//     32768 stays under fp16's 65504, and the scale lifts every weight that
+//     counts next to l >= 1 out of fp16's subnormals: the terms sum back
+//     to P within 2^-25, p within 2^-40 (unscaled, small weights lose up
+//     to a third of their value; ref.split_f16x3 is the same split). v is
+//     exact in fp16. The output is acc / (l . 2^15), a division by a power
+//     of two more, so exact, rounded to fp16.
+//   * Cost: 8 hd tensor-core operations per visible pair, as bf16.
 //
 // What bounds it on the H100: operations. At the prefill's shapes (B 4,
 // H 48 over K 4, Sq 2048, Sk 2176, hd 128) the visible (q, k) pairs are
@@ -124,6 +130,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -242,52 +250,72 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (m64 x n64 fp32, in registers) (+)= A (m64 x k16) . B (k16 x n64), A
-// and B from shared-memory descriptors; scale_d 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+// The 32 accumulator registers of an m64n64 wgmma: the operand list and
+// its constraints.
+#define WGMMA_D32                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define WGMMA_OUT(d)                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+
+// The 16-bit operand type T of a wgmma: bf16 (the bf16 form, and the fp32
+// form's terms) or fp16 (the fp16 form). TY is its PTX type.
+#define WGMMA_SS(TY)                                                        \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                  \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY      \
+               " " WGMMA_D32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"               \
+               : WGMMA_OUT(d)                                               \
+               : "l"(da), "l"(db), "r"(scale_d))
+#define WGMMA_RS(TY)                                                        \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                  \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY      \
+               " " WGMMA_D32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+               : WGMMA_OUT(d)                                               \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),       \
+                 "r"(scale_d))
+
+template <class T>
+__host__ __device__ constexpr bool is_f16() {
+  return std::is_same<T, __half>::value;
 }
 
-// d += A . B with A (m64 x k16 bf16) from registers, B an MN-major
+// d (m64 x n64 fp32, in registers) (+)= A (m64 x k16) . B (k16 x n64), A
+// and B of type T from shared-memory descriptors; scale_d 0 overwrites d.
+template <class T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (is_f16<T>())
+    WGMMA_SS("f16");
+  else
+    WGMMA_SS("bf16");
+}
+
+// d += A . B with A (m64 x k16 of type T) from registers, B an MN-major
 // shared-memory descriptor.
+template <class T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4],
                                          uint64_t db, int scale_d = 1) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  if constexpr (is_f16<T>())
+    WGMMA_RS("f16");
+  else
+    WGMMA_RS("bf16");
 }
 
 __device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
          static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16;
+}
+__device__ __forceinline__ uint32_t pack(__half lo, __half hi) {
+  return static_cast<uint32_t>(__half_as_ushort(lo)) |
+         static_cast<uint32_t>(__half_as_ushort(hi)) << 16;
 }
 
 // The map's dimensions 1..3 hold the logical axes ax[0..2] (0 = s,
@@ -309,6 +337,7 @@ __device__ __forceinline__ void coords(int (&c)[4], const Order& o, int col,
 // softmax on sc in place, p split into the A fragments of p.v, then p.v.
 
 // sc = q.k^T of the K tile at sk (asynchronous: one wgmma group).
+template <class T>
 __device__ __forceinline__ void issue_qk(float (&sc)[32], const uint8_t* q,
                                          const uint8_t* sk, int ksteps) {
 #pragma unroll
@@ -317,7 +346,7 @@ __device__ __forceinline__ void issue_qk(float (&sc)[32], const uint8_t* q,
   wgmma_fence();
   for (int kk = 0; kk < ksteps; ++kk) {
     const int off = (kk >> 2) * CHUNK + (kk & 3) * 32;
-    wgmma_ss(sc, desc_k(q + off), desc_k(sk + off), kk > 0);
+    wgmma_ss<T>(sc, desc_k(q + off), desc_k(sk + off), kk > 0);
   }
   wgmma_commit();
 }
@@ -374,15 +403,38 @@ __device__ __forceinline__ void split3(float x, __nv_bfloat16 (&t)[3]) {
   t[2] = __float2bfloat16_rn(__fsub_rn(rem, __bfloat162float(t[1])));
 }
 
-// p split into three bf16 terms, packed as the A fragments of the four
-// 16-key steps of p.v: pa[term][step][reg].
+// The same with fp16 terms (ref.split_f16x3 without its scale).
+__device__ __forceinline__ void split3(float x, __half (&t)[3]) {
+  t[0] = __float2half_rn(x);
+  const float rem = __fsub_rn(x, __half2float(t[0]));
+  t[1] = __float2half_rn(rem);
+  t[2] = __float2half_rn(__fsub_rn(rem, __half2float(t[1])));
+}
+
+// What p is scaled by before its split into terms of type T: 1 for bf16,
+// whose exponent range is fp32's; 2^15 for fp16 (P = p . 2^15 <= 32768),
+// so that the weights next to l >= 1 stay out of fp16's subnormals. The
+// output is divided by it again, exactly.
+template <class T>
+__host__ __device__ constexpr float p_scale() {
+  return is_f16<T>() ? 32768.0f : 1.0f;
+}
+
+// p (times p_scale<T>()) split into three terms of type T, packed as the
+// A fragments of the four 16-key steps of p.v: pa[term][step][reg].
+template <class T = __nv_bfloat16>
 __device__ __forceinline__ void split(const float (&p)[32],
                                       uint32_t (&pa)[3][4][4]) {
 #pragma unroll
   for (int r = 0; r < 32; r += 2) {
-    __nv_bfloat16 t[2][3];
-    split3(p[r], t[0]);
-    split3(p[r + 1], t[1]);
+    T t[2][3];
+    if constexpr (is_f16<T>()) {
+      split3(__fmul_rn(p[r], p_scale<T>()), t[0]);
+      split3(__fmul_rn(p[r + 1], p_scale<T>()), t[1]);
+    } else {
+      split3(p[r], t[0]);
+      split3(p[r + 1], t[1]);
+    }
 #pragma unroll
     for (int term = 0; term < 3; ++term)
       pa[term][r >> 3][(r >> 1) & 3] = pack(t[0][term], t[1][term]);
@@ -390,7 +442,7 @@ __device__ __forceinline__ void split(const float (&p)[32],
 }
 
 // acc += p . v of the V tile at sv (asynchronous: one wgmma group).
-template <int NC>
+template <class T, int NC>
 __device__ __forceinline__ void issue_pv(float (&acc)[NC][32],
                                          const uint32_t (&pa)[3][4][4],
                                          const uint8_t* sv) {
@@ -402,20 +454,32 @@ __device__ __forceinline__ void issue_pv(float (&acc)[NC][32],
       const uint64_t dv = desc_mn(sv + j * CHUNK + kk * 16 * 128);
 #pragma unroll
       for (int term = 2; term >= 0; --term)
-        wgmma_rs(acc[j], pa[term][kk], dv);
+        wgmma_rs<T>(acc[j], pa[term][kk], dv);
     }
   }
   wgmma_commit();
 }
 
-// Threads: NWG consumer warpgroups and one producer warp, of which one
-// thread issues the loads.
-template <int NC, int NWG>
+// The output's two adjacent columns of one row, from fp32.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+}
+
+// T: the operands' and output's type, __nv_bfloat16 or __half. Threads:
+// NWG consumer warpgroups and one producer warp, of which one thread
+// issues the loads.
+template <class T, int NC, int NWG>
 __global__ void __launch_bounds__(NWG * 128 + 32, 1)
     flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
-                          __nv_bfloat16* __restrict__ o, Strides so,
+                          T* __restrict__ o, Strides so,
                           Order oq, Order ok, Order ov, int rep, int Sq,
                           int Sk, int hd, int causal, int q_off,
                           float scale) {
@@ -497,12 +561,12 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
   for (int t = 0; t < my_tiles; ++t) {
     const int s = t % STAGES, ph = (t / STAGES) & 1;
     mbar_wait(k_full + s, ph);
-    issue_qk(sc, myQ, sK + s * NC * CHUNK, ksteps);
+    issue_qk<T>(sc, myQ, sK + s * NC * CHUNK, ksteps);
     wgmma_wait();
     fence_regs(sc);
     softmax(sc, m, l, corr, t * ROWS, q_off + r0, q_off + wq0, lane, Sk,
             causal, scale);
-    split(sc, pa);
+    split<T>(sc, pa);
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
 #pragma unroll
@@ -510,7 +574,7 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
       fence_regs(acc[j]);
     }
     mbar_wait(v_full + s, ph);
-    issue_pv(acc, pa, sV + s * NC * CHUNK);
+    issue_pv<T>(acc, pa, sV + s * NC * CHUNK);
     wgmma_wait();
 #pragma unroll
     for (int j = 0; j < NC; ++j) fence_regs(acc[j]);
@@ -527,17 +591,19 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
   for (int half = 0; half < 2; ++half) {
     const int qpos = r0 + 8 * half;
     if (qpos >= Sq) continue;
-    const float den = fmaxf(l[half], 1e-30f);
-    __nv_bfloat16* orow = o + b * so.b + h * so.h + qpos * so.s;
+    // acc sums P = p . p_scale<T>(): a power of two, so the product with
+    // it and the division by it are exact
+    float den = fmaxf(l[half], 1e-30f);
+    if constexpr (is_f16<T>()) den = __fmul_rn(den, p_scale<T>());
+    T* orow = o + b * so.b + h * so.h + qpos * so.s;
 #pragma unroll
     for (int j = 0; j < NC; ++j)
 #pragma unroll
       for (int g = 0; g < 8; ++g) {
         const int col = j * COLS + g * 8 + (lane & 3) * 2;
         if (col < hd)
-          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-              __floats2bfloat162_rn(acc[j][4 * g + 2 * half] / den,
-                                    acc[j][4 * g + 2 * half + 1] / den);
+          store2(orow + col, acc[j][4 * g + 2 * half] / den,
+                 acc[j][4 * g + 2 * half + 1] / den);
       }
   }
 }
@@ -564,11 +630,13 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map over the strided (B, n_heads, S, hd) view at `ptr`: hd
-// innermost, then the other three axes by stride; 64 x 64 boxes with the
-// 128-byte swizzle, out-of-bounds elements read as zeros.
+// A tensor map over the strided (B, n_heads, S, hd) view at `ptr` of
+// 16-bit elements of `type`: hd innermost, then the other three axes by
+// stride; 64 x 64 boxes with the 128-byte swizzle, out-of-bounds elements
+// read as zeros.
 CUresult make_map(CUtensorMap* map, Order* order, const void* ptr, int B,
-                  int n_heads, int S, int hd, const Strides& st) {
+                  int n_heads, int S, int hd, const Strides& st,
+                  CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const long long dims[3] = {S, n_heads, B};
   const long long strides[3] = {st.s, st.h, st.b};
   int ax[3] = {0, 1, 2};
@@ -592,7 +660,7 @@ CUresult make_map(CUtensorMap* map, Order* order, const void* ptr, int B,
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
   return encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), gdim,
+      map, type, 4, const_cast<void*>(ptr), gdim,
       gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -601,43 +669,49 @@ CUresult make_map(CUtensorMap* map, Order* order, const void* ptr, int B,
 // A refused tensor map returns kMapError + its CUresult.
 constexpr int kMapError = 10000;
 
-template <int NC, int NWG>
+template <class T, int NC, int NWG>
 int launch_nc(const void* q, const void* k, const void* v, void* o, int B,
               int H, int K, int Sq, int Sk, int hd, int causal, int q_off,
               float scale, const Strides* st, cudaStream_t stream) {
+  constexpr CUtensorMapDataType type = is_f16<T>()
+                                           ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap tq, tk, tv;
   Order oq, ok, ov;
-  CUresult r = make_map(&tq, &oq, q, B, H, Sq, hd, st[0]);
-  if (r == CUDA_SUCCESS) r = make_map(&tk, &ok, k, B, K, Sk, hd, st[1]);
-  if (r == CUDA_SUCCESS) r = make_map(&tv, &ov, v, B, K, Sk, hd, st[2]);
+  CUresult r = make_map(&tq, &oq, q, B, H, Sq, hd, st[0], type);
+  if (r == CUDA_SUCCESS)
+    r = make_map(&tk, &ok, k, B, K, Sk, hd, st[1], type);
+  if (r == CUDA_SUCCESS)
+    r = make_map(&tv, &ov, v, B, K, Sk, hd, st[2], type);
   if (r != CUDA_SUCCESS) return kMapError + static_cast<int>(r);
   const size_t smem = static_cast<size_t>(NWG + 2 * STAGES) * NC * CHUNK +
                       (1 + 3 * STAGES) * sizeof(uint64_t) + 1024;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_wgmma<NC, NWG>,
+      flash_attention_wgmma<T, NC, NWG>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + NWG * ROWS - 1) / (NWG * ROWS), H, B);
-  flash_attention_wgmma<NC, NWG><<<grid, NWG * 128 + 32, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), st[3], oq, ok, ov, H / K,
+  flash_attention_wgmma<T, NC, NWG><<<grid, NWG * 128 + 32, smem, stream>>>(
+      tq, tk, tv, static_cast<T*>(o), st[3], oq, ok, ov, H / K,
       Sq, Sk, hd, causal, q_off, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class T>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int K, int Sq, int Sk, int hd, int causal, int q_off,
            float scale, const Strides* st, cudaStream_t s) {
   if (hd <= 64)
-    return launch_nc<1, 2>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, q_off,
-                           scale, st, s);
+    return launch_nc<T, 1, 2>(q, k, v, o, B, H, K, Sq, Sk, hd, causal,
+                              q_off, scale, st, s);
   if (hd <= 128)
-    return launch_nc<2, 2>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, q_off,
-                           scale, st, s);
+    return launch_nc<T, 2, 2>(q, k, v, o, B, H, K, Sq, Sk, hd, causal,
+                              q_off, scale, st, s);
   if (hd <= 192)
-    return launch_nc<3, 1>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, q_off,
-                           scale, st, s);
-  return launch_nc<4, 1>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, q_off,
-                         scale, st, s);
+    return launch_nc<T, 3, 1>(q, k, v, o, B, H, K, Sq, Sk, hd, causal,
+                              q_off, scale, st, s);
+  return launch_nc<T, 4, 1>(q, k, v, o, B, H, K, Sq, Sk, hd, causal, q_off,
+                            scale, st, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -653,25 +727,13 @@ __device__ __forceinline__ void load8(const float* p, float (&e)[8]) {
   e[0] = lo.x, e[1] = lo.y, e[2] = lo.z, e[3] = lo.w;
   e[4] = hi.x, e[5] = hi.y, e[6] = hi.z, e[7] = hi.w;
 }
-__device__ __forceinline__ void load8(const __half* p, float (&e)[8]) {
-  const uint4 w = __ldg(reinterpret_cast<const uint4*>(p));
-  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&u[i]));
-    e[2 * i] = f.x, e[2 * i + 1] = f.y;
-  }
-}
 
-// The split pass: x (B, n, S, hd) fp32 or fp16, strided with the head
-// axis contiguous, into three contiguous bf16 planes (B, n, S, hd), plane
-// t at out + t * plane, by split3 (of an fp16 value, exact in fp32: its
-// 11-bit significand is hi + lo, two bf16 terms, and the third plane is
-// zero). One thread per 8 elements of a row; grid (ceil(S hd / 8 / 256),
-// n, B).
-template <class In>
+// The split pass: x (B, n, S, hd) fp32, strided with the head axis
+// contiguous, into three contiguous bf16 planes (B, n, S, hd), plane t at
+// out + t * plane, by split3. One thread per 8 elements of a row; grid
+// (ceil(S hd / 8 / 256), n, B).
 __global__ void __launch_bounds__(256)
-    split_planes(const In* __restrict__ x, __nv_bfloat16* __restrict__ out,
+    split_planes(const float* __restrict__ x, __nv_bfloat16* __restrict__ out,
                  int n, int S, int hd, Strides st, long long plane) {
   const int per_row = hd / 8;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -710,10 +772,8 @@ __device__ __forceinline__ int term_b(int t) {
 // sc = q.k^T of one 64-key tile from the six products of the planes at q
 // (this warpgroup's Q planes) and k (the slot's K planes), each plane NC
 // boxes, in term order: every correction over the whole depth, then
-// q1.k1 (one wgmma group). TWO: q and k are fp16, their third planes zero,
-// so the two products of a third plane are not issued (sc starts at zero,
-// so the first one issued may accumulate).
-template <int NC, bool TWO>
+// q1.k1 (one wgmma group).
+template <int NC>
 __device__ __forceinline__ void issue_qk3(float (&sc)[32], const uint8_t* q,
                                           const uint8_t* k, int ksteps) {
   constexpr int PLANE = NC * CHUNK;
@@ -724,7 +784,6 @@ __device__ __forceinline__ void issue_qk3(float (&sc)[32], const uint8_t* q,
 #pragma unroll
   for (int t = 0; t < 6; ++t) {
     const int b = term_b(t), a = term_order(t) - b;
-    if (TWO && (a == 2 || b == 2)) continue;
     for (int kk = 0; kk < ksteps; ++kk) {
       const int off = (kk >> 2) * CHUNK + (kk & 3) * 32;
       wgmma_ss(sc, desc_k(q + a * PLANE + off), desc_k(k + b * PLANE + off),
@@ -736,10 +795,8 @@ __device__ __forceinline__ void issue_qk3(float (&sc)[32], const uint8_t* q,
 
 // d = p.v over the 64 columns of box j of the slot's V planes at v, from
 // the six products of p's terms (pa) and v's planes, in term order, into
-// a fresh accumulator (one wgmma group). TWO: v is fp16, and the product
-// of its zero third plane (t = 2, after the first) is not issued; p keeps
-// its three terms.
-template <int NC, bool TWO>
+// a fresh accumulator (one wgmma group).
+template <int NC>
 __device__ __forceinline__ void issue_pv3(float (&d)[32],
                                           const uint32_t (&pa)[3][4][4],
                                           const uint8_t* v, int j) {
@@ -748,7 +805,6 @@ __device__ __forceinline__ void issue_pv3(float (&d)[32],
 #pragma unroll
   for (int t = 0; t < 6; ++t) {
     const int b = term_b(t), a = term_order(t) - b;
-    if (TWO && b == 2) continue;
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
       wgmma_rs(d, pa[a][kk], desc_mn(v + b * PLANE + j * CHUNK + kk * 16 * 128),
@@ -772,30 +828,19 @@ __device__ __forceinline__ void load_planes(uint8_t* dst,
     }
 }
 
-// The output's two adjacent columns of one row, from fp32.
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__half* p, float a, float b) {
-  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
-}
-
 // NC: 64-column boxes of hd; NWG: consumer warpgroups; SLOTS: the ring of
 // shared-memory slots, each the PLANES x NC boxes of one K or one V tile.
 // The producer fills the slots in the order K0, V0, K1, V1, ...; a
-// consumer releases a K slot as soon as its q.k^T is read. Out: the
-// operands' and output's type, float or __half (fp16 operands have zero
-// third planes, whose products are skipped).
-template <int NC, int NWG, int SLOTS, class Out>
+// consumer releases a K slot as soon as its q.k^T is read.
+template <int NC, int NWG, int SLOTS>
 __global__ void __launch_bounds__(NWG * 128 + 32, 1)
     flash_attention_split3(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
-                           Out* __restrict__ o, Strides so, Order oq,
+                           float* __restrict__ o, Strides so, Order oq,
                            Order ok, Order ov, int B, int rep, int Sq, int Sk,
                            int hd, int causal, int q_off, float scale) {
   constexpr int PLANE = NC * CHUNK, SLOT = PLANES * PLANE;
-  constexpr bool TWO = sizeof(Out) == 2;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sQ = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -866,7 +911,7 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
   for (int i = 0; i < my_items; i += 2) {
     int s = i % SLOTS;
     mbar_wait(full + s, (i / SLOTS) & 1);
-    issue_qk3<NC, TWO>(sc, myQ, sKV + s * SLOT, ksteps);
+    issue_qk3<NC>(sc, myQ, sKV + s * SLOT, ksteps);
     wgmma_wait();
     fence_regs(sc);
     mbar_arrive(empty + s);
@@ -877,7 +922,7 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
     mbar_wait(full + s, ((i + 1) / SLOTS) & 1);
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
-      issue_pv3<NC, TWO>(sc, pa, sKV + s * SLOT, j);
+      issue_pv3<NC>(sc, pa, sKV + s * SLOT, j);
       wgmma_wait();
       fence_regs(sc);
 #pragma unroll
@@ -897,7 +942,7 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
     const int qpos = r0 + 8 * half;
     if (qpos >= Sq) continue;
     const float den = fmaxf(l[half], 1e-30f);
-    Out* orow = o + b * so.b + h * so.h + qpos * so.s;
+    float* orow = o + b * so.b + h * so.h + qpos * so.s;
 #pragma unroll
     for (int j = 0; j < NC; ++j)
 #pragma unroll
@@ -912,14 +957,13 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
 
 // x's planes into `planes` (the split pass, one launch), then its tensor
 // map over them as (PLANES B, n, S, hd).
-template <class In>
 int split_and_map(CUtensorMap* map, Order* order, const void* x,
                   __nv_bfloat16* planes, int B, int n, int S, int hd,
                   const Strides& st, cudaStream_t stream) {
   const long long plane = static_cast<long long>(B) * n * S * hd;
   const dim3 grid((S * (hd / 8) + 255) / 256, n, B);
-  split_planes<In><<<grid, 256, 0, stream>>>(static_cast<const In*>(x),
-                                             planes, n, S, hd, st, plane);
+  split_planes<<<grid, 256, 0, stream>>>(static_cast<const float*>(x),
+                                         planes, n, S, hd, st, plane);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const Strides dense{static_cast<long long>(n) * S * hd,
@@ -950,7 +994,7 @@ int with_shape(int hd, F&& f) {
   return f(Shape<4, 1, 1>());  // Q 96 KB + 1 slot of 96 KB: K, V in turn
 }
 
-template <class S, class T>
+template <class S>
 int launch_split3(const void* q, const void* k, const void* v, void* o,
                   void* work, int B, int H, int K, int Sq, int Sk, int hd,
                   int causal, int q_off, float scale, const Strides* st,
@@ -960,20 +1004,20 @@ int launch_split3(const void* q, const void* k, const void* v, void* o,
   __nv_bfloat16* wv = wk + PLANES * static_cast<long long>(B) * K * Sk * hd;
   CUtensorMap tq, tk, tv;
   Order oq, ok, ov;
-  int err = split_and_map<T>(&tq, &oq, q, wq, B, H, Sq, hd, st[0], stream);
+  int err = split_and_map(&tq, &oq, q, wq, B, H, Sq, hd, st[0], stream);
   if (!err)
-    err = split_and_map<T>(&tk, &ok, k, wk, B, K, Sk, hd, st[1], stream);
+    err = split_and_map(&tk, &ok, k, wk, B, K, Sk, hd, st[1], stream);
   if (!err)
-    err = split_and_map<T>(&tv, &ov, v, wv, B, K, Sk, hd, st[2], stream);
+    err = split_and_map(&tv, &ov, v, wv, B, K, Sk, hd, st[2], stream);
   if (err) return err;
-  auto* kernel = flash_attention_split3<S::NC, S::NWG, S::SLOTS, T>;
+  auto* kernel = flash_attention_split3<S::NC, S::NWG, S::SLOTS>;
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(S::SMEM));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((Sq + S::NWG * ROWS - 1) / (S::NWG * ROWS), H, B);
   kernel<<<grid, S::THREADS, S::SMEM, stream>>>(
-      tq, tk, tv, static_cast<T*>(o), st[3], oq, ok, ov, B, H / K, Sq,
+      tq, tk, tv, static_cast<float*>(o), st[3], oq, ok, ov, B, H / K, Sq,
       Sk, hd, causal, q_off, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1016,26 +1060,7 @@ int flash_attention_f32(const void* q, const void* k, const void* v,
   Strides st[4];
   unpack(strides, st);
   return hopper::with_shape(hd, [&](auto shape) {
-    return hopper::launch_split3<decltype(shape), float>(
-        q, k, v, o, work, B, H, K, Sq, Sk, hd, causal, q_off, scale, st,
-        static_cast<cudaStream_t>(stream));
-  });
-}
-
-// fp16 (repro's kernel casts fp16 q, k and v to fp32 and writes fp16): the
-// fp32 form's pipeline on the planes of the fp16 values, each hi + lo
-// exactly with a zero third plane, so q.k^T takes four products and p.v
-// five (p keeps its three terms: fp16's 5-bit exponent would drop small
-// weights); the output rounded to fp16. Arguments as flash_attention_f32.
-int flash_attention_f16(const void* q, const void* k, const void* v,
-                        void* o, void* work, int B, int H, int K, int Sq,
-                        int Sk, int hd, int causal, int q_off, float scale,
-                        const long long* strides, void* stream) {
-  if (const int e = check_args(B, H, K, Sq, Sk, hd, q_off)) return e;
-  Strides st[4];
-  unpack(strides, st);
-  return hopper::with_shape(hd, [&](auto shape) {
-    return hopper::launch_split3<decltype(shape), __half>(
+    return hopper::launch_split3<decltype(shape)>(
         q, k, v, o, work, B, H, K, Sq, Sk, hd, causal, q_off, scale, st,
         static_cast<cudaStream_t>(stream));
   });
@@ -1055,6 +1080,8 @@ int flash_attention_f32_plan(int hd, int* out) {
   });
 }
 
+// bf16: the wgmma kernel, p on three bf16 terms. Arguments as
+// flash_attention_f32 without work.
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* o, int B, int H, int K, int Sq, int Sk,
                          int hd, int causal, int q_off, float scale,
@@ -1062,8 +1089,25 @@ int flash_attention_bf16(const void* q, const void* k, const void* v,
   if (const int e = check_args(B, H, K, Sq, Sk, hd, q_off)) return e;
   Strides st[4];
   unpack(strides, st);
-  return hopper::launch(q, k, v, o, B, H, K, Sq, Sk, hd, causal, q_off,
-                        scale, st, static_cast<cudaStream_t>(stream));
+  return hopper::launch<__nv_bfloat16>(q, k, v, o, B, H, K, Sq, Sk, hd,
+                                       causal, q_off, scale, st,
+                                       static_cast<cudaStream_t>(stream));
+}
+
+// fp16 (repro's kernel casts fp16 q, k and v to fp32 and writes fp16): the
+// same kernel on fp16 operands, q.k^T one fp16 product, p on three fp16
+// terms of p . 2^15; the output rounded to fp16. Arguments as
+// flash_attention_bf16.
+int flash_attention_f16(const void* q, const void* k, const void* v,
+                        void* o, int B, int H, int K, int Sq, int Sk, int hd,
+                        int causal, int q_off, float scale,
+                        const long long* strides, void* stream) {
+  if (const int e = check_args(B, H, K, Sq, Sk, hd, q_off)) return e;
+  Strides st[4];
+  unpack(strides, st);
+  return hopper::launch<__half>(q, k, v, o, B, H, K, Sq, Sk, hd, causal,
+                                q_off, scale, st,
+                                static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -16,11 +16,12 @@ split_terms=6)``): each product is exact, and only the dropped ones,
 under ~2⁻²⁴ of a product, and the summation order differ from fp32. At
 the prefill's shapes it takes 2.4584 ms where the SIMT kernel it
 replaced took 7.8236 (H100 80GB HBM3, 700 W; PERF.md). fp16 runs the
-fp32 form's pipeline: each fp16 value is exactly two bf16 terms
-(``ref.split_bf16x3`` leaves its third zero), so the products of the
-zero planes are skipped, p keeps its three terms, and the output is
-rounded to fp16. :func:`plan` gives the fp32 and fp16 forms' launch
-geometry for a head dim.
+bf16 form's kernel on fp16 operands, with no split pass and no scratch:
+``q·kᵀ`` is one fp16 product (exact in fp32), and ``p·v`` takes three
+fp16 terms of ``p·2¹⁵`` (``ref.split_f16x3``; the scale keeps the
+weights out of fp16's subnormals and is divided out exactly); the output
+is rounded to fp16. :func:`plan` gives the fp32 form's launch geometry
+for a head dim.
 
 Both forms compute the Pallas kernel's function: fp32 scores, the causal
 mask ``kpos <= qpos`` counted from 0 (aligned to the start, unlike
@@ -59,8 +60,8 @@ MAX_HEAD_DIM = 256
 _ENTRIES = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16",
             torch.float16: "flash_attention_f16"}
-#: The forms that split q, k and v into bf16 planes first (scratch).
-_SPLIT = (torch.float32, torch.float16)
+#: The form that splits q, k and v into bf16 planes first (scratch).
+_SPLIT = (torch.float32,)
 
 
 @functools.lru_cache(maxsize=None)
@@ -69,7 +70,7 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for dtype, name in _ENTRIES.items():
         fn = getattr(lib, name)
-        # the split forms take one more pointer after o: the planes' scratch
+        # the split form takes one more pointer after o: the planes' scratch
         n_ptr = 5 if dtype in _SPLIT else 4
         fn.argtypes = [p] * n_ptr + [i, i, i, i, i, i, i, i, f, p, p]
         fn.restype = i
@@ -79,8 +80,8 @@ def _lib() -> ctypes.CDLL:
 
 
 def plan(hd: int) -> dict:
-    """The fp32 and fp16 forms' launch plan for head dim ``hd`` (builds
-    the library): threads per block, consumer warpgroups, slots of the K/V
+    """The fp32 form's launch plan for head dim ``hd`` (builds the
+    library): threads per block, consumer warpgroups, slots of the K/V
     ring, 64-column boxes of hd and the dynamic shared memory of a block
     in bytes."""
     out = (ctypes.c_int * 5)()

@@ -93,8 +93,34 @@ def split_bf16x3(p):
     return p1, p2, p3
 
 
+#: What B5's fp16 form scales the softmax weights by before it splits them
+#: into fp16 terms (:func:`split_f16x3`): ``p·2¹⁵ <= 32768`` stays under
+#: fp16's largest value, 65504.
+F16_P_SCALE = 2.0 ** 15
+
+
+def split_f16x3(p, scale: float = F16_P_SCALE):
+    """fp32 ``p`` times ``scale`` (a power of two, so exactly) as three
+    fp16 terms ``(t1, t2, t3)``: ``t1 = fp16(P)``, ``t2 = fp16(P − t1)``,
+    ``t3 = fp16(P − t1 − t2)``, each difference exact in fp32. B5's fp16
+    form splits its fp32 softmax weights so, to run ``p·v`` as three fp16
+    tensor-core products with fp32 sums, and divides the output by
+    ``scale`` again. fp16's 5-bit exponent puts its smallest step at
+    2⁻²⁴: unscaled, a weight under ~2⁻¹⁴ falls into the subnormals and
+    loses bits; scaled by 2¹⁵, the three terms sum back to every ``p`` in
+    ``[0, 1]`` within ~2⁻⁴⁰, far under fp32's resolution next to a softmax
+    denominator >= 1."""
+    P = p.to(torch.float32) * scale
+    t1 = P.to(torch.float16)
+    rem = P - t1.to(torch.float32)
+    t2 = rem.to(torch.float16)
+    t3 = (rem - t2.to(torch.float32)).to(torch.float16)
+    return t1, t2, t3
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True, p_terms: int = 3,
-                        q_offset: int = 0, split_terms: int = 9):
+                        q_offset: int = 0, split_terms: int = 9,
+                        f16_terms: int = 0):
     """B5's own function: scores ``(q·kᵀ)·(1/√hd)`` in fp32, the causal
     mask ``kpos <= qpos`` counted from 0 (aligned to the start; query row
     ``i`` at position ``q_offset + i``), masked
@@ -112,14 +138,22 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, p_terms: int = 3,
     and ``p·v`` likewise from those of p and of v. 6, the products of
     order <= 2, is what B5's fp32 form computes; 3, those of order <= 1,
     is a control. The default, 9 (all nine products, whose sum is each
-    fp32 product exactly), is fp32 itself."""
+    fp32 product exactly), is fp32 itself.
+
+    ``f16_terms`` 3 computes the fp16 form's ``p·v``: the products of
+    the three fp16 terms of ``p·2¹⁵`` (:func:`split_f16x3`) with v, summed
+    in fp32 and divided by 2¹⁵ (its ``q·kᵀ`` is the fp32 product of fp16
+    values, exact, as here). 1 and 2 keep only the first terms (controls);
+    the default, 0, is fp32 p."""
     if p_terms not in (1, 2, 3):
         raise ValueError(f"p_terms {p_terms}: want 1, 2 or 3")
     if split_terms not in (3, 6, 9):
         raise ValueError(f"split_terms {split_terms}: want 3, 6 or 9")
-    if p_terms < 3 and split_terms < 9:
-        raise ValueError("p_terms and split_terms are two controls; give "
-                         "one")
+    if f16_terms not in (0, 1, 2, 3):
+        raise ValueError(f"f16_terms {f16_terms}: want 0, 1, 2 or 3")
+    if (p_terms < 3) + (split_terms < 9) + (f16_terms > 0) > 1:
+        raise ValueError("p_terms, split_terms and f16_terms are "
+                         "separate controls; give one")
     terms = split_terms if split_terms < 9 else None
     B, H, Sq, hd = q.shape
     s = _scores(q, k, terms).mul_(1.0 / math.sqrt(hd))
@@ -132,4 +166,9 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, p_terms: int = 3,
     den = p.sum(dim=-1, keepdim=True).clamp_min_(1e-30)
     if p_terms < 3:
         p = sum(t.to(torch.float32) for t in split_bf16x3(p)[:p_terms])
-    return (_pv(p, v, q, terms) / den.reshape(B, H, Sq, 1)).to(q.dtype)
+    if f16_terms:
+        pv = sum(_pv(t.to(torch.float32), v, q)
+                 for t in split_f16x3(p)[:f16_terms]) / F16_P_SCALE
+    else:
+        pv = _pv(p, v, q, terms)
+    return (pv / den.reshape(B, H, Sq, 1)).to(q.dtype)

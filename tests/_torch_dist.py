@@ -8,8 +8,18 @@ test's ``tmp_path`` (no port to collide with another worker), run with
 one thread each and a 60 s gloo timeout, and each calls one rank body
 here and saves what it returns (numpy arrays) as an npz. The runner waits
 for them against a deadline: when a rank fails, or the deadline passes,
-it kills every rank and fails, so a hung collective fails its test
-instead of stalling the suite.
+it kills every rank and fails with each rank's log, so a hung collective
+fails its test instead of stalling the suite. A rank logs each phase it
+reaches with its time (``_phase``), so the log tells a rank that was slow
+to start from one that hung or raised.
+
+A rank leaves with ``os._exit(0)`` once its group is closed: the
+interpreter's own exit, while objects that hold a used and destroyed
+gloo group are still referenced, now and then aborts the process
+("terminate called without an active exception", exit -6), which failed
+a test whose ranks had all finished their work (tools/gloo_exit_probe.py
+counts it: 15 of 150 four-rank launches on a loaded 8-core host, none
+with ``os._exit``).
 
 A rank body is ``body(mesh, rank, world, **args) -> {name: array}``; it
 imports neither jax nor repro. :func:`repro_reference` and
@@ -121,6 +131,16 @@ def run_ranks(body: str, world: int, tmp_path, *, timeout: float = 120.0,
     return out
 
 
+_T0 = time.monotonic()
+
+
+def _phase(rank: int, what: str) -> None:
+    """One line of a rank's log: the phase it reached, seconds since its
+    process started."""
+    print(f"rank {rank}: {what} at {time.monotonic() - _T0:.2f} s",
+          flush=True)
+
+
 def _main(argv) -> None:
     body, rank, world, d = argv[1], int(argv[2]), int(argv[3]), argv[4]
     import torch
@@ -128,17 +148,25 @@ def _main(argv) -> None:
     torch.set_num_threads(1)
     sys.path.insert(0, str(ROOT / "src"))
     d = pathlib.Path(d)
+    _phase(rank, "imported")
     dist.init_process_group("gloo", init_method=f"file://{d / 'store'}",
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=60))
+    _phase(rank, "group formed")
     from repro_torch.core import runtime as RT
     mesh = RT.make_mesh((world,), (AXIS,), device_type="cpu")
     args = json.loads((d / "args.json").read_text())
     with RT.on_mesh(mesh):
         out = globals()[body](mesh, rank, world, **args)
+    _phase(rank, f"{body} done")
     np.savez(d / f"rank{rank}.npz", **{k: np.asarray(v)
                                        for k, v in out.items()})
     dist.destroy_process_group()
+    _phase(rank, "group closed")
+    # the results are on disk and the group is gone: leave without the
+    # interpreter's exit, which can abort after a gloo group (above)
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def _np(t):

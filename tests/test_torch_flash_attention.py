@@ -1,7 +1,8 @@
 """repro_torch's flash attention (B5) on the CPU against repro's: the
 plain version against repro's Pallas kernel in interpret mode at
 tests/test_kernels.py's five shapes, the fp32 form's six split products
-(and the three-term control at large scores) against the same kernel,
+(and the three-term control at large scores) and the fp16 form's
+arithmetic (three fp16 terms of p·2¹⁵) against the same kernel,
 the start-aligned causal mask at
 Sq < Sk (the prefill's case) against the kernel and blocked_attention and
 unlike repro's end-aligned oracle, ops.mha against repro's ops.mha, and
@@ -265,11 +266,10 @@ def test_flash_attention_ref_split_terms_controls():
 
 
 def test_fp16_values_split_into_two_exact_bf16_terms():
-    """B5's fp16 form splits q, k and v as its fp32 form does
-    (``ref.split_bf16x3``, the kernel's split3): for every finite fp16
-    value (subnormals, +-65504, 0 and -0 among them) the third term is
-    zero and hi + lo is the value, bit for bit (-0's sign stays on hi:
-    -0 + 0 is +0), so the products of the zero plane can be skipped."""
+    """``ref.split_bf16x3`` (the kernel's split3) on fp16 values: for
+    every finite fp16 value (subnormals, +-65504, 0 and -0 among them) the
+    third term is zero and hi + lo is the value, bit for bit (-0's sign
+    stays on hi: -0 + 0 is +0)."""
     bits = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(torch.int16)
     x = bits.view(torch.float16)
     x = x[torch.isfinite(x)]
@@ -285,3 +285,78 @@ def test_fp16_values_split_into_two_exact_bf16_terms():
     assert torch.equal(whole[~neg0].view(torch.int32),
                        x[~neg0].float().view(torch.int32))
     assert torch.equal(hi, x.to(torch.bfloat16))
+
+
+def test_split_f16x3_sums_back_within_2_pow_minus_40():
+    """B5's fp16 form splits the fp32 softmax weights p into three fp16
+    terms of p·2¹⁵: for p from e^-120 to 1 they sum back to p within 2⁻⁴⁰
+    absolute, and P = p·2¹⁵ <= 32768 stays finite in fp16. The controls:
+    the same split unscaled, and two scaled terms, are far off (small
+    weights fall into fp16's subnormals; the third term carries the last
+    bits)."""
+    rng = np.random.default_rng(31)
+    p = np.exp(-rng.uniform(0, 120, 200_000)).astype(np.float32)
+    p = np.concatenate([p, np.float32([1.0, np.exp(np.float32(-120)),
+                                       2.0 ** -14, 2.0 ** -24, 0.5])])
+    t = torch.from_numpy(p)
+
+    def err(terms, scale):
+        back = sum(x.double() for x in terms) / scale
+        return float((back - t.double()).abs().max())
+
+    terms = TREF.split_f16x3(t)
+    assert all(x.dtype == torch.float16 for x in terms)
+    assert all(bool(torch.isfinite(x).all()) for x in terms)
+    assert float(terms[0].float().max()) == 32768.0
+    assert err(terms, TREF.F16_P_SCALE) <= 2.0 ** -40
+    assert err(terms[:2], TREF.F16_P_SCALE) > 2.0 ** -30
+    assert err(TREF.split_f16x3(t, 1.0), 1.0) > 2.0 ** -30
+
+
+def test_flash_attention_ref_f16_terms_controls():
+    """``f16_terms`` 3 (the fp16 form's p·v) is fp32 p up to the
+    summation order; 1 and 2 keep only the first fp16 terms of p·2¹⁵, the
+    first far off, the second farther than the third only by what fp32's
+    summation order hides here (the split test tells them apart); other
+    counts, and two controls at once, raise."""
+    rng = np.random.default_rng(19)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((2, 4, 40, 32), (2, 2, 48, 32), (2, 2, 48, 32)))
+    full = TREF.flash_attention_ref(q, k, v)
+    gap = {n: float((TREF.flash_attention_ref(q, k, v, f16_terms=n) - full)
+                    .abs().max()) for n in (1, 2, 3)}
+    assert gap[3] < 1e-6 < 100 * gap[3] < gap[1]
+    assert gap[3] <= gap[2] < gap[1]
+    with pytest.raises(ValueError, match="f16_terms"):
+        TREF.flash_attention_ref(q, k, v, f16_terms=4)
+    with pytest.raises(ValueError, match="one"):
+        TREF.flash_attention_ref(q, k, v, f16_terms=3, p_terms=2)
+
+
+@pytest.mark.parametrize("B,H,K,Sq,Sk,hd,causal,q_offset,block", [
+    (1, 4, 2, 128, 128, 64, True, 0, 64),
+    (2, 4, 2, 128, 128, 64, False, 0, 64),
+    (1, 4, 2, 96, 160, 128, True, 0, 32),      # ragged, Sq < Sk
+    (1, 4, 2, 40, 128, 128, True, 24, 32),     # rows at q_offset 24
+    (1, 2, 1, 64, 64, 256, True, 0, 64),       # the widest head
+    (1, 2, 1, 64, 96, 256, False, 0, 32),
+])
+def test_fp16_form_matches_repro_pallas_kernel(B, H, K, Sq, Sk, hd, causal,
+                                               q_offset, block):
+    """B5's fp16 form's arithmetic (fp32 products of the fp16 q and k,
+    exact; p·v on three fp16 terms of p·2¹⁵) against repro's Pallas
+    kernel (interpret) on fp16 inputs, within fp16's ATOL; on every row
+    from 0, so the rows at ``q_offset`` are its last ones."""
+    rng = np.random.default_rng(Sq + Sk + hd + 1)
+    q = rng.standard_normal((B, H, q_offset + Sq, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((B, K, Sk, hd)).astype(np.float32)
+            for _ in range(2))
+    js, ts = _both((q, k, v), "fp16")
+    want = j_flash(*js, causal=causal, block_q=block, block_k=block,
+                   interpret=True)[:, :, q_offset:]
+    got = TREF.flash_attention_ref(ts[0][:, :, q_offset:], ts[1], ts[2],
+                                   causal=causal, q_offset=q_offset,
+                                   f16_terms=3)
+    assert got.dtype == torch.float16
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=0,
+                               atol=ATOL["fp16"])

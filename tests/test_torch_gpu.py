@@ -458,6 +458,59 @@ def test_cuda_generated_new_ops_match_plain(card, prec):
 
 
 @pytest.mark.parametrize("prec", ["fp32", "bf16x"])
+def test_cuda_generated_register_bounds_match_plain(card, prec):
+    """Generated functors under their register bounds
+    (codegen.entry_bound): the new-op body (37 output floats) keeps the
+    wide bound, DSF (4) takes 256 threads in fp32 and (256, 4) in bf16x
+    at cell capacity 48 (64-thread blocks) and the wide bound at 300 (320
+    threads); each launch within TOL of cell_pair_torch and within its
+    bound's register cap."""
+    from repro_torch.core import cell_list as CL
+    from repro_torch.core import particles as P
+    from repro_torch.kernels.cell_pair import cell_pair as CP
+    from repro_torch.kernels.cell_pair import codegen as CG
+    n, r_cut = 1500, 0.18
+    rng = np.random.default_rng(31)
+    x = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+    props = {k: torch.from_numpy(v).cuda()
+             for k, v in new_ops_props(rng, (n,)).items()}
+    props["q"] = torch.from_numpy(rng.choice([-1.0, 1.0], n).astype(
+        np.float32)).cuda()
+    ps = P.from_positions(torch.from_numpy(x).cuda(), capacity=n + 6,
+                          props=props)
+    key_prec = "f32" if prec == "fp32" else "bf16x"
+    cases = ((NewOpsBody(k_f=60.0), ("a", "b", "k"), 48, -1),
+             (DSFBody(alpha=4.0, rc=r_cut), ("q",), 48,
+              CG.entry_bound(4, key_prec)),
+             (DSFBody(alpha=4.0, rc=r_cut), ("q",), 300, -1))
+    for body, names, cc, fit in cases:
+        out = body.out() if hasattr(body, "out") else DSF_OUT
+        cl = CL.build_cell_list(ps, box_lo=(0.0,) * 3, box_hi=(1.0,) * 3,
+                                grid_shape=CL.grid_shape_for(
+                                    (0.0,) * 3, (1.0,) * 3, r_cut),
+                                periodic=(True,) * 3, cell_cap=cc)
+        t = CP.gather_cell_tiles(ps, cl, names)
+        args = (t.cell_x, t.nbr_x, t.cell_mask, t.nbr_mask, t.props_i,
+                t.props_j)
+        kind, kp, _ = CP._kind_of(body, out, prec, 3, t.props_i)
+        a = CP.attrs(kind, kp, 3, cc)
+        want = (1024, 0) if fit < 0 else (256, fit)
+        assert (a["bound"], a["min_blocks"]) == want, (cc, a)
+        cap = 65536 // (a["bound"] * max(a["min_blocks"], 1))
+        assert a["registers"] <= min(255, cap), (cc, a)
+        n0 = CP.LAUNCHES
+        got = CP.cell_pair(*args, body=body, out=out, r_cut=r_cut,
+                           precision=prec)
+        assert CP.LAUNCHES == n0 + 1
+        ref = CP.cell_pair_torch(*args, body=body, out=out, r_cut=r_cut,
+                                 precision=prec)
+        torch.cuda.synchronize()
+        bad = {k: rel(got[k], ref[k]) for k in out
+               if not rel(got[k], ref[k]) <= TOL}
+        assert not bad, (cc, bad)
+
+
+@pytest.mark.parametrize("prec", ["fp32", "bf16x"])
 @pytest.mark.parametrize("dim", [2, 3])
 def test_cuda_lj_hand_and_generated_match_plain(card, dim, prec):
     """LJ at DIM 2 and 3 through its hand functor and, with its cuda_kind
@@ -1091,6 +1144,48 @@ def test_cuda_flash_attention_bf16_split_is_exact(card, B, H, K, Sq, Sk, hd,
         assert got < B5_SPLIT_FRAC * control, (n, got, control)
 
 
+@pytest.mark.parametrize("B,H,K,Sq,Sk,hd,causal,q_offset", [
+    (2, 8, 2, 128, 128, 64, True, 0),
+    (2, 8, 2, 150, 150, 64, False, 0),
+    (1, 8, 2, 96, 160, 128, True, 0),       # ragged, Sq < Sk
+    (2, 8, 2, 77, 300, 128, True, 37),      # rows at q_offset 37
+    (1, 4, 2, 130, 190, 256, True, 0),      # the widest head
+    (1, 4, 2, 64, 200, 256, False, 0),
+])
+def test_cuda_flash_attention_f16_form(card, B, H, K, Sq, Sk, hd, causal,
+                                       q_offset):
+    """B5's fp16 form (fp16 wgmma for q·kᵀ, p·v on three fp16 terms of
+    p·2¹⁵, no split pass): within 1e-3 of plain, the same function up to
+    the summation order, so fewer outputs differ from plain than under a
+    control that keeps one fp16 term of p; and no scratch: the call
+    allocates the output alone."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    rng = np.random.default_rng(Sq + Sk + hd + q_offset)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .cuda().half() for s in ((B, H, q_offset + Sq, hd),
+                                        (B, K, Sk, hd), (B, K, Sk, hd)))
+    rows = q[:, :, q_offset:]
+    FA.flash_attention(rows, k, v, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    n0 = FA.LAUNCHES
+    got = FA.flash_attention(rows, k, v, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == n0 + 1 and got.dtype == torch.float16
+    out_bytes = -(-got.numel() * 2 // 512) * 512
+    assert torch.cuda.max_memory_allocated() - before <= out_bytes
+    ref = flash_attention_ref(rows, k, v, causal=causal, q_offset=q_offset)
+    assert bool(torch.isfinite(got).all())
+    assert rel(got.float(), ref.float()) <= B5_F16_TOL
+    share = lambda x: float((x != ref).float().mean())
+    control = flash_attention_ref(rows, k, v, causal=causal,
+                                  q_offset=q_offset, f16_terms=1)
+    assert share(got) < B5_SPLIT_FRAC * share(control), \
+        (share(got), share(control))
+
+
 # B5's fp32 form sums six products of three exact bf16 terms of q, k, v
 # and p; a control that keeps only the three of order <= 1 is farther from
 # plain (fp32). The kernel's error stays under B5_SPLIT_FRAC of the
@@ -1173,7 +1268,7 @@ def test_cuda_mha_takes_strided_views(card):
         FA.flash_attention(q[..., :12].transpose(1, 2).contiguous(),
                            k[..., :12].transpose(1, 2).contiguous(),
                            v[..., :12].transpose(1, 2).contiguous())
-    # fp16 goes through the kernel (its fp32 form's pipeline) too
+    # fp16 goes through the kernel (the bf16 form's, on fp16 operands) too
     q16, k16, v16 = (t.transpose(1, 2).half() for t in (q, k, v))
     n0 = FA.LAUNCHES
     got16 = FA.flash_attention(q16, k16, v16)

@@ -403,8 +403,8 @@ def test_unsupported_op_raises():
 
 def test_generated_precisions_and_entries():
     """A two-output body gets f32 and bf16x entries, and a bf16x:<name>
-    entry for each selection asked for, each a CELL_PAIR_ENTRY of its
-    source; the mixed ones' MixedBody masks follow the sorted output
+    entry for each selection asked for, each a CELL_PAIR_ENTRY_FIT of its
+    source (fitted to its block's register budget); the mixed ones' MixedBody masks follow the sorted output
     order."""
     g0 = CG.generate(gauss_body, {"f": "radial", "rho": "scalar"}, 2,
                      {"q": CG.Prop(0, F32)})
@@ -415,7 +415,7 @@ def test_generated_precisions_and_entries():
     assert CG.source_file(g) != CG.source_file(g0)
     src = g.source()
     for prec in g.precs:
-        assert f"CELL_PAIR_ENTRY(cell_pair_{g.kind}_{prec}_d2," in src
+        assert f"CELL_PAIR_ENTRY_FIT(cell_pair_{g.kind}_{prec}_d2," in src
     assert f"<{g.functor}<F32>, {g.functor}<BF16>, 1u, 0u>" in src
     assert f"<{g.functor}<F32>, {g.functor}<BF16>, 0u, 1u>" in src
     assert "BF16::r(" in g.code and "Ops<BF16>::exp" in g.code
@@ -529,7 +529,7 @@ def test_five_output_source_holds_asked_entries(host):
     assert TCP.KINDS[kind].precs == g.precs
     assert TCP.KINDS[kind].widths == (4,) and TCP.KINDS[kind].width(3) == 4
     src = g.source()
-    assert src.count("CELL_PAIR_ENTRY(") == 3
+    assert src.count("CELL_PAIR_ENTRY_FIT(") == 3
     assert re.findall(r"_(bf16x_\w+)_d3,", src) == ["bf16x_dens_twist"]
     assert f"<{g.functor}<F32>, {g.functor}<BF16>, 2u, 2u>" in src
     assert CG.source_file(g) != CG.source_file(host.by_name["w4"])
