@@ -5927,9 +5927,10 @@ def new_ops_b1_phase(md, CL, CP, SIM, FB, build_s):
 def gray_scott_16bit_phase():
     """22b: B2 in bfloat16 and float16 at phase 9's 256^3 nodes: one step
     and GS_CHECK_STEPS ``ops.step`` steps against the plain step on the
-    card, bit for bit; times (the two-node form beside the one-node form,
-    run on the same fields at an odd offset, in turns, each bit-equal)
-    beside the plain ``gs_step`` and the bound;
+    card, bit for bit; times (the march beside its fallbacks, the two-node
+    form on the same fields at a 4-byte offset and the one-node form at an
+    odd one, in turns, each bit-equal) beside the plain ``gs_step`` and
+    the bound;
     then GS_STEPS steps at each of GS_PAIRS through ``ops.step`` (one
     launch a step, finite fields within phase 9's bounds; the pattern
     energy printed: at 2^-8 or 2^-11 resolution an explicit step's small
@@ -5963,30 +5964,36 @@ def gray_scott_16bit_phase():
               f"the plain step on the card bit for bit (u moved by up to "
               f"{moved:.4e})")
         del uk, vk, up, vp
-        # the one-node form beside the two-node one: the same fields at an
-        # odd element offset, where the kernel takes one node a thread
-        us, vs = (torch.empty(n_nodes + 1, dtype=dtype, device="cuda")[1:]
-                  .view(cfg.shape).copy_(t) for t in (u0, v0))
-        for f, g, r in zip("uv", SK.gray_scott_step(us, vs, **kw),
-                           SK.gray_scott_step(u0, v0, **kw)):
-            held_equal(f"{name} one-node form {f}", g, r)
-        one_ms, kernel_ms = [], []
-        for form in ("one", "two", "two", "one"):
-            a, b = (us, vs) if form == "one" else (u0, v0)
-            (one_ms if form == "one" else kernel_ms).append(time_cuda(
-                lambda: SK.gray_scott_step(a, b, **kw), iters=100))
-        one_ms, kernel_ms = min(one_ms), min(kernel_ms)
-        del us, vs
+        # the march beside its fallbacks: the same fields at a 4-byte
+        # offset (two nodes a thread) and at an odd element offset (one)
+        forms = {"march": (u0, v0)}
+        for form, off in (("two", 2), ("one", 1)):
+            forms[form] = tuple(
+                torch.empty(n_nodes + off, dtype=dtype, device="cuda")[off:]
+                .view(cfg.shape).copy_(t) for t in (u0, v0))
+            for f, g, r in zip("uv", SK.gray_scott_step(*forms[form], **kw),
+                               SK.gray_scott_step(u0, v0, **kw)):
+                held_equal(f"{name} {form}-node form {f}", g, r)
+        times = {form: [] for form in forms}
+        for _ in range(2):
+            for form in ("one", "two", "march", "march", "two", "one"):
+                a, b = forms[form]
+                times[form].append(time_cuda(
+                    lambda: SK.gray_scott_step(a, b, **kw), iters=100))
+        kernel_ms, two_ms, one_ms = (min(times[f]) for f in
+                                     ("march", "two", "one"))
+        del forms
         plain_ms = time_cuda(lambda: GS.gs_step(u0, v0, cfg), iters=10)
         n_bytes = 4 * n_nodes * u0.element_size()
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
         ops_ms = 31 * n_nodes / FP32_FLOP_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-        print(f"{name}: {kernel_ms:.4f} ms kernel (two nodes a thread; "
-              f"one node a thread {one_ms:.4f}, in turns), {plain_ms:.4f} "
-              f"ms plain gs_step, {n_bytes} B, bound {bound_ms:.4f} ms "
-              f"({bound_by}), {n_bytes / kernel_ms / 1e6:.1f} GB/s")
+        print(f"{name}: {kernel_ms:.4f} ms kernel (the march; two nodes a "
+              f"thread {two_ms:.4f}, one node {one_ms:.4f}, in turns), "
+              f"{plain_ms:.4f} ms plain gs_step, {n_bytes} B, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), "
+              f"{n_bytes / kernel_ms / 1e6:.1f} GB/s")
         SK.LAUNCHES = 0
         for F, k in GS_PAIRS:
             c = dataclasses.replace(cfg, F=F, k=k)
@@ -6019,7 +6026,8 @@ def gray_scott_16bit_phase():
             "dtype": str(dtype).split(".")[1], "launches": SK.LAUNCHES,
             "launches_per_step": SK.LAUNCHES / (len(GS_PAIRS) * GS_STEPS),
             "max_abs_err": 0.0, "ms": kernel_ms, "kernel_ms": kernel_ms,
-            "one_node_ms": one_ms, "plain_ms": plain_ms,
+            "fallback_ms": two_ms, "one_node_ms": one_ms,
+            "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
         del u0, v0
     return entries

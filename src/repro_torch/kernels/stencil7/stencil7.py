@@ -10,7 +10,9 @@ float32, bfloat16 and float16 fields, as ``repro``'s kernel computes in
 the fields' dtype; it repeats the plain version's operations in its
 order, each rounded as PyTorch rounds it on the card (in fp32, the
 result rounded to the dtype), so on the card the two agree bit for bit.
-:data:`LAUNCHES` counts kernel launches.
+16-bit fields with ``nz % 4 == 0`` at 8-byte aligned addresses take the
+march (a block marches a (y, z) tile along x planes, four nodes a thread,
+packed 16-bit arithmetic). :data:`LAUNCHES` counts kernel launches.
 """
 from __future__ import annotations
 

@@ -903,8 +903,9 @@ def test_bf16x_kernel_paths_match_plain_paths(card):
 def test_cuda_stencil7_matches_plain(card, shape):
     """B2 against its plain version on the card, bit for bit, through
     gray_scott_step and through ops.step against the app's gs_step; in
-    bf16 and fp16 too (two nodes a thread, and one where nz is odd or the
-    fields sit at an odd offset); float64 refused."""
+    bf16 and fp16 too (the march, two nodes a thread, and one where nz is
+    odd or the fields sit at an odd offset), on uniform fields and on
+    random finite bit patterns at the forms' edges; float64 refused."""
     from repro_torch.apps import gray_scott as GS
     from repro_torch.kernels.stencil7 import ops as SOPS
     from repro_torch.kernels.stencil7 import stencil7 as SK
@@ -948,6 +949,34 @@ def test_cuda_stencil7_matches_plain(card, shape):
     # float64 stays refused (the TPU kernel has no fp64)
     with pytest.raises(TypeError, match="float32"):
         SK.gray_scott_step(u.double(), v.double(), **args)
+    # the 16-bit forms' packed arithmetic on fields of random finite bit
+    # patterns (subnormal and near-overflow values, ties, overflow to inf
+    # and NaN from inf - inf), bit for bit where not NaN, NaN at the same
+    # nodes; at every form (the march where nz % 4 == 0, two nodes a
+    # thread at nz = 2 mod 4 or a 4-byte offset, one at an odd offset)
+    # and at the march's edges (nz 4 ... 260, ny 1, nx 1)
+    rng = np.random.default_rng(len(shape))
+    shapes = [shape, (2, 3, 2), (3, 5, 6), (2, 4, 10), (2, 3, 258),
+              (2, 9, 4), (3, 1, 12), (1, 7, 132), (2, 17, 260), (1, 1, 8)]
+    for dtype in (torch.bfloat16, torch.float16):
+        for s in shapes:
+            bits = [torch.from_numpy(rng.integers(-32768, 32768, size=s,
+                                                  dtype=np.int16))
+                    .cuda().view(dtype) for _ in range(2)]
+            u16, v16 = (torch.where(torch.isfinite(t), t,
+                                    torch.zeros_like(t)) for t in bits)
+            ref = gray_scott_step_ref(u16, v16, **args)
+            for off in (0, 1, 2):
+                a, b = (torch.zeros(t.numel() + off, dtype=dtype,
+                                    device="cuda")[off:].view(s).copy_(t)
+                        for t in (u16, v16))
+                got = SK.gray_scott_step(a, b, block_x=1, **args)
+                for g, r in zip(got, ref):
+                    nan = torch.isnan(r)
+                    assert torch.equal(torch.isnan(g), nan), (dtype, s, off)
+                    assert torch.equal(g.view(torch.int16)[~nan],
+                                       r.view(torch.int16)[~nan]), \
+                        (dtype, s, off)
 
 
 def test_bf16_scalar_ops_round_as_the_functors_assume(card):

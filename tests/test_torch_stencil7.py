@@ -103,3 +103,139 @@ def test_step_contract():
     TK.gray_scott_step(u, v, block_x=4, **ARGS)
     with pytest.raises(ValueError, match="3-D"):
         TK.gray_scott_step(u[0], v[0], block_x=4, **ARGS)
+
+
+# B2's 16-bit forms take the card's packed add, sub and mul (.rn) where
+# both operands are of the element type, and claim the plain version's
+# bits: PyTorch computes such an op in fp32 and rounds the result to the
+# type, which is one rounding of the exact result whenever fp32's 24 bits
+# are >= 2p + 2 (bf16 p = 8, fp16 p = 11). These tests hold that identity
+# on the CPU, for every finite value of the type against a few hundred
+# others; the card tests hold the kernel (tests/test_torch_gpu.py).
+
+# (significand bits, least normal exponent) of each type
+FORMATS = {torch.bfloat16: (8, -126), torch.float16: (11, -14)}
+# bf16 sums are exact in float64 only where the exponents differ by at
+# most 44 (53 - 8 - 1); the others are left out of the comparison
+BF16_SUM_EXPONENT_GAP = 44
+
+
+def _round_once(x, dtype):
+    """``x`` (float64, taken as exact) rounded once to ``dtype``, to
+    nearest even, as float64: np.rint on ``x`` in units of its ulp, with
+    the type's subnormals and overflow to ±inf."""
+    p, emin = FORMATS[dtype]
+    # x = 1.f 2^e (float64's exponent field; every x here is a float64
+    # normal or 0), and the type's ulp there is 2^q: the scalings by 2^-q
+    # and 2^q are built from their bits, exact. In place where it can be:
+    # fresh arrays of this size cost more in page faults than in work
+    q = x.view(np.int64) >> 52
+    q &= 0x7FF
+    q -= 1023
+    np.maximum(q, emin, out=q)
+    q -= p - 1
+    r = np.subtract(1023, q)
+    r <<= 52
+    r = x * r.view(np.float64)
+    np.rint(r, out=r)
+    q += 1023
+    q <<= 52
+    r *= q.view(np.float64)
+    big = np.abs(r) > float(torch.finfo(dtype).max)
+    r[big] = np.copysign(np.inf, r[big])
+    return r
+
+
+def _every_finite(dtype):
+    t = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    t = t.view(dtype)
+    return t[torch.isfinite(t)]
+
+
+def _samples(dtype, n=256, seed=0):
+    """±0, the least and largest subnormals, the least normal, the largest
+    finite value, powers of two spread over the exponent range with their
+    neighbours (where ties fall), then random finite values of the type,
+    ``n`` in all."""
+    p, emin = FORMATS[dtype]
+    fi = torch.finfo(dtype)
+    sub = 2.0 ** (emin - p + 1)
+    vals = [0.0, sub, fi.tiny - sub, fi.tiny, fi.max]
+    lo, hi = emin - p + 1, int(np.log2(fi.max))
+    for e in np.unique(np.linspace(lo, hi, 24).round().astype(int)):
+        vals += [2.0 ** e, 2.0 ** e * (1 + 2.0 ** (1 - p)),
+                 2.0 ** e * (1 - 2.0 ** -p)]
+    vals = torch.tensor(vals + [-x for x in vals], dtype=torch.float64)
+    vals = vals.to(dtype)
+    rng = np.random.default_rng(seed)
+    bits = torch.from_numpy(rng.integers(-32768, 32768, 4 * n,
+                                         dtype=np.int16)).view(dtype)
+    rand = bits[torch.isfinite(bits)][:n - len(vals)]
+    return torch.cat([vals, rand])
+
+
+def _exact_bits(x):
+    """The bits of float64 values (each exact in the 16-bit type)."""
+    return np.ascontiguousarray(x).view(np.int64)
+
+
+def _as_float64(bits, dtype):
+    """Values of ``dtype`` given as their int16 bits, as float64 (exact)."""
+    if dtype == torch.float16:
+        return bits.view(np.float16).astype(np.float64)
+    return (bits.astype(np.int32) << 16).view(np.float32).astype(np.float64)
+
+
+PACKED_OPS = {"add": (torch.add, np.add), "sub": (torch.sub, np.subtract),
+              "mul": (torch.mul, np.multiply)}
+
+
+@pytest.mark.parametrize("op", list(PACKED_OPS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_16bit_op_rounds_once(dtype, op):
+    """PyTorch's CPU op on two tensors of the type (fp32, then rounded, as
+    the plain version computes) equals the exact result rounded once to
+    the type, bit for bit, signs of zero and overflow included: every
+    finite value of the type against 256 others."""
+    t_op, n_op = PACKED_OPS[op]
+    a = _every_finite(dtype)
+    b = _samples(dtype)
+    a64 = a.double().numpy()
+    ea = np.frexp(a64)[1]
+    # one PyTorch op for the whole table (a pool of threads per small op
+    # stalls on a loaded CPU), compared in chunks of rows
+    got_bits = t_op(a[None, :], b[:, None]).view(torch.int16).numpy()
+    compared = 0
+    for r in range(0, len(b), 8):
+        got = _exact_bits(_as_float64(got_bits[r:r + 8], dtype))
+        b64 = b[r:r + 8].double().numpy()[:, None]
+        exact = n_op(a64[None, :], b64)
+        want = _exact_bits(_round_once(exact, dtype))
+        differ = got != want
+        if dtype == torch.bfloat16 and op != "mul":
+            eb = np.frexp(b64)[1]
+            keep = ((np.abs(ea[None, :] - eb) <= BF16_SUM_EXPONENT_GAP)
+                    | (a64[None, :] == 0) | (b64 == 0))
+            differ &= keep
+            compared += int(keep.sum())
+        else:
+            compared += differ.size
+        assert not differ.any(), (dtype, op, np.argwhere(differ)[:3])
+    assert compared > len(a) * len(b) // 4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_16bit_product_by_fp32_constant_rounds_twice(dtype):
+    """The control: a product by an fp32 constant (F = 0.03, unrounded in
+    the plain version) is not exact in fp32, and its fp32 result rounded
+    to the type differs from one rounding of the exact product for some
+    values, so B2 keeps its eight products by a constant in fp32."""
+    f32 = float(np.float32(ARGS["F"]))
+    a = _every_finite(dtype)
+    got = ARGS["F"] * a
+    assert torch.equal(got.view(torch.int16),
+                       (a.float() * f32).to(dtype).view(torch.int16))
+    once = _round_once(a.double().numpy() * f32, dtype)
+    differ = int((_exact_bits(got.double().numpy())
+                  != _exact_bits(once)).sum())
+    assert differ > 0, dtype
